@@ -1,0 +1,10 @@
+"""EPNet in PyTorch with hand-written CUDA kernels for Hopper (H100).
+
+A port of ``epnet_tpu`` (JAX), which stays beside it as the reference: the
+layout mirrors it (``ops/``, ``models/``, ``utils/``, ``csrc/``) and every
+module keeps its JAX counterpart's file name. Public functions take the JAX
+package's layouts: channels-last ``(B, N, C)`` points and NHWC images.
+
+This package imports torch and numpy only. It never imports jax, flax or
+``epnet_tpu``; ``config.py`` loads the framework-free config module by path.
+"""

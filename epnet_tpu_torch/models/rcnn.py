@@ -1,0 +1,85 @@
+"""Stage-2 RCNN refinement head.
+
+Port of ``epnet_tpu/models/rcnn.py`` (reference ``lib/net/rcnn_net.py``:
+xyz-up/merge layers :21-26, SA tower :28-42, cls/reg heads :44-91).
+Operates on (B*R, S, C) pooled canonical-frame points. The recipe's tower
+has no BN and three-layer MLPs, so its two sampled stages run the fused SA
+kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from ..config import Config
+from .layers import PointwiseConv, SharedMLP
+from .pointnet2 import SAModuleMSG
+
+
+class RCNNNet(nn.Module):
+    def __init__(self, cfg: Config, in_channels: int, device=None):
+        super().__init__()
+        if cfg.USE_IOU_BRANCH:
+            raise NotImplementedError('the IoU branch is not ported yet')
+        self.cfg = cfg
+        rc = cfg.RCNN
+        if rc.USE_RPN_FEATURES:
+            ci = rc.input_channel
+            self.xyz_up = SharedMLP(ci, rc.XYZ_UP_LAYER, bn=rc.USE_BN, device=device)
+            self.merge_down = SharedMLP(rc.XYZ_UP_LAYER[-1] + in_channels - ci,
+                                        (rc.XYZ_UP_LAYER[-1],), bn=rc.USE_BN, device=device)
+            feats = rc.XYZ_UP_LAYER[-1]
+        else:
+            feats = in_channels - 3
+        self.n_sa = len(rc.SA_CONFIG.NPOINTS)
+        for i, np_i in enumerate(rc.SA_CONFIG.NPOINTS):
+            mod = SAModuleMSG(None if np_i == -1 else np_i, (rc.SA_CONFIG.RADIUS[i],),
+                              (rc.SA_CONFIG.NSAMPLE[i],), (rc.SA_CONFIG.MLPS[i],),
+                              in_features=feats, bn=rc.USE_BN, device=device)
+            self.add_module(f'sa{i}', mod)
+            feats = mod.out_features
+        # binary -> single sigmoid logit; multi-class -> n logits (rcnn_net.py:45)
+        cls_channel = 1 if cfg.num_classes == 2 else cfg.num_classes
+        cin = feats
+        for k, f in enumerate(rc.CLS_FC):
+            self.add_module(f'cls_fc{k}', PointwiseConv(cin, f, bn=rc.USE_BN, device=device))
+            cin = f
+        self.cls_out = nn.Linear(cin, cls_channel, device=device)
+        cin = feats
+        for k, f in enumerate(rc.REG_FC):
+            self.add_module(f'reg_fc{k}', PointwiseConv(cin, f, bn=rc.USE_BN, device=device))
+            cin = f
+        self.reg_out = nn.Linear(cin, rc.reg_channel, device=device)
+
+    def init_own_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Regression weights ~ N(0, 0.001)."""
+        with torch.no_grad():
+            self.reg_out.weight.normal_(0.0, 0.001, generator=generator)
+
+    def forward(self, pts_input: torch.Tensor):
+        """:param pts_input: (B*R, S, 3 + C) canonical points + features
+        :return: dict rcnn_cls (B*R, cls), rcnn_reg (B*R, C)"""
+        rc = self.cfg.RCNN
+        xyz = pts_input[..., 0:3]
+        if rc.USE_RPN_FEATURES:
+            ci = rc.input_channel
+            merged = torch.cat([self.xyz_up(pts_input[..., 0:ci]), pts_input[..., ci:]], -1)
+            feats = self.merge_down(merged)
+        else:
+            feats = pts_input[..., 3:]
+        l_xyz, l_feats = xyz, feats
+        for i in range(self.n_sa):
+            l_xyz, l_feats, _ = getattr(self, f'sa{i}')(l_xyz, l_feats)
+        x = l_feats[:, 0, :]  # (B*R, C), the final pool
+
+        h = x
+        for k in range(len(rc.CLS_FC)):
+            h = getattr(self, f'cls_fc{k}')(h)
+        rcnn_cls = self.cls_out(h)
+        h = x
+        for k in range(len(rc.REG_FC)):
+            h = getattr(self, f'reg_fc{k}')(h)
+        return {'rcnn_cls': rcnn_cls, 'rcnn_reg': self.reg_out(h)}
