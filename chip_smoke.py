@@ -16,14 +16,30 @@ first use), then:
    structured scenes; checks shapes, finiteness and the kernels' launch
    counts (6 FPS and 2 fused-SA launches a forward);
 4. holds the same model at tiny widths on the card (kernels) against the
-   CPU (plain versions) under identical weights.
+   CPU (plain versions) under identical weights;
+5. holds the fused set-abstraction backward kernel against its plain
+   version at the train shapes of RCNN sa0/sa1 (batch 4: 256 sampled RoIs)
+   and times both;
+6. drives the train path: ``EPNet`` in TRAIN mode at the recipe's full
+   width, random weights from a seeded generator, three train steps
+   (forward, joint loss, backward, global-norm clip, AdamW under OneCycle)
+   on batch-4 labelled structured scenes after a warm-up step; checks a
+   finite loss and gradients, that the parameters moved, and 6 FPS, 2
+   fused-SA forward and 2 fused-SA backward launches a step;
+7. holds one tiny-width train step on the card against the CPU under
+   identical weights and identical sampled RoIs.
+
+Launch counts are read around each main-path phase (3 and 6) with the
+counters set to 0 just before it; the kernels line sums the two.
 
 Prints the card's name and power limit, a JSON line describing each kernel,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; without a CUDA device it exits non-zero at once.
 """
 
+import concurrent.futures
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -36,6 +52,11 @@ FPS_SHAPES = [  # (B, N, npoint) of the six sampling SA stages of one forward
 SA_SHAPES = {  # T, N, M, S, C1, C2, C3 of the RCNN tower's fused stages
     'rcnn.sa0': (100, 512, 128, 64, 128, 128, 128),
     'rcnn.sa1': (100, 128, 32, 64, 128, 128, 256)}
+TRAIN_BATCH = 4
+TRAIN_SEEDS = (0, 1, 2)  # scenes of the measured steps; seed 3 warms up
+SA_TRAIN_SHAPES = {  # the same stages in a batch-4 train step: 4 x 64 sampled RoIs
+    'rcnn.sa0': (256, 512, 128, 64, 128, 128, 128),
+    'rcnn.sa1': (256, 128, 32, 64, 128, 128, 256)}
 SA_RTOL = 1e-4
 
 
@@ -112,6 +133,47 @@ def phase_sa(dev):
         ms, plain_ms = ms + k, plain_ms + p
         rows.append({'stage': name, 'shape': [T, N, M, S, C1, C2, C3], 'ms': k,
                      'plain_ms': p, 'max_rel_err': rel_err})
+        print(f'  kernel {k:.4f} ms, plain {p:.4f} ms', flush=True)
+    return {'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms, 'per_shape': rows}
+
+
+def phase_sa_bwd(dev):
+    """The fused-SA backward kernel against its plain version at the train
+    shapes, with tied rows; each of the six outputs within SA_RTOL of the
+    plain one's max."""
+    import numpy as np
+    import torch
+    from epnet_tpu_torch.ops import sa_fused
+
+    rng = np.random.RandomState(5)
+    names = ('dy', 'do', 'dw2', 'db2', 'dw3', 'db3')
+    rows, max_err, ms, plain_ms = [], 0.0, 0.0, 0.0
+    for name, (T, N, M, S, C1, C2, C3) in SA_TRAIN_SHAPES.items():
+        def f(*shape, scale=1.0):
+            return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+        idx = torch.from_numpy(rng.randint(0, N, (T, M, S))).to(dev)
+        idx[:, :M // 4, S // 2:] = idx[:, :M // 4, :1]  # short balls padded with the first hit
+        args = (f(T, N, C1), f(T, M, C1, scale=0.1), idx, f(C1, C2, scale=C1 ** -0.5),
+                f(C2, scale=0.01), f(C2, C3, scale=C2 ** -0.5), f(C3, scale=0.01), f(T, M, C3))
+        got = sa_fused.fused_point_mlp_max_bwd_kernel(*args)
+        want = sa_fused.fused_point_mlp_max_bwd_plain(*args)
+        torch.cuda.synchronize()
+        errs = {}
+        for k, x, z in zip(names, got, want):
+            abs_err = float((x - z).abs().max())
+            errs[k] = abs_err / float(z.abs().max())
+            max_err = max(max_err, abs_err)
+        print(f'sa_fused_bwd {name} {(T, N, M, S, C1, C2, C3)}: max rel err '
+              + ', '.join(f'{k} {v:.3e}' for k, v in errs.items()), flush=True)
+        bad = {k: v for k, v in errs.items() if not v <= SA_RTOL}
+        if bad:
+            raise AssertionError(f'fused SA backward kernel off at {name}: {bad}')
+        del got, want
+        k = _time_ms(lambda: sa_fused.fused_point_mlp_max_bwd_kernel(*args), 5)
+        p = _time_ms(lambda: sa_fused.fused_point_mlp_max_bwd_plain(*args), 5)
+        ms, plain_ms = ms + k, plain_ms + p
+        rows.append({'stage': name, 'shape': [T, N, M, S, C1, C2, C3], 'ms': k,
+                     'plain_ms': p, 'max_rel_err': max(errs.values())})
         print(f'  kernel {k:.4f} ms, plain {p:.4f} ms', flush=True)
     return {'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms, 'per_shape': rows}
 
@@ -211,6 +273,128 @@ def phase_small_reference(dev):
           f'1e-3 * (1 + max|x|))', flush=True)
 
 
+def _train_batch(cfg, seed, dev):
+    from epnet_tpu_torch.train.trainer import device_batch
+    from epnet_tpu_torch.utils.testing import full_batch
+    return device_batch(full_batch(cfg, TRAIN_BATCH, seed=seed, with_labels=True), dev)
+
+
+def phase_train(dev):
+    import torch
+    from epnet_tpu_torch.config import parity_config
+    from epnet_tpu_torch.ops import fps, sa_fused
+    from epnet_tpu_torch.train.trainer import create_train_state, train_step
+
+    cfg = parity_config()
+    state = create_train_state(cfg, total_steps=100, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+    params = list(state.model.parameters())
+    print(f'EPNet TRAIN, parity recipe, {sum(p.numel() for p in params)} parameters, '
+          f'batch {TRAIN_BATCH}', flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = {seed: _train_batch(cfg, seed, dev) for seed in (3,) + TRAIN_SEEDS}
+    tb = train_step(state, batches[3], 0.1, gen)  # warm-up: cuDNN autotuning, allocator
+    torch.cuda.synchronize()
+    print(f'warm-up step: loss {float(tb["loss"]):.4f}', flush=True)
+
+    counters = (fps.furthest_point_sample_kernel, sa_fused.fused_point_mlp_max_kernel,
+                sa_fused.fused_point_mlp_max_bwd_kernel)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for seed in TRAIN_SEEDS:
+        before = [c.launches for c in counters]
+        old = [p.detach().clone() for p in params]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tb = train_step(state, batches[seed], 0.1, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        delta = [c.launches - b for c, b in zip(counters, before)]
+        loss = float(tb['loss'])
+        if not math.isfinite(loss):
+            raise AssertionError(f'train step on scene {seed}: loss {loss}')
+        bad = [n for n, p in state.model.named_parameters()
+               if p.grad is not None and not bool(torch.isfinite(p.grad).all())]
+        if bad:
+            raise AssertionError(f'train step on scene {seed}: non-finite gradients in {bad[:5]}')
+        moved = sum(not torch.equal(a, p) for a, p in zip(old, params))
+        if moved < 0.9 * len(params):
+            raise AssertionError(f'train step on scene {seed}: {moved} of {len(params)} '
+                                 f'parameters moved')
+        if delta != [6, 2, 2]:
+            raise AssertionError(f'train step on scene {seed}: kernel launches {delta}, '
+                                 f'expected [6, 2, 2]')
+        print(f'train step scene {seed}: {times[-1]:.2f} ms, loss {loss:.4f}, grad norm '
+              f'{float(tb["grad_norm"]):.3f}, rcnn fg {int(tb["rcnn_cls_fg"])}, '
+              f'{moved}/{len(params)} parameters moved, launches fps +{delta[0]} '
+              f'sa_fused +{delta[1]} sa_fused_bwd +{delta[2]}', flush=True)
+    launches = [c.launches for c in counters]
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f'train step, batch {TRAIN_BATCH}: median {statistics.median(times):.2f} ms over '
+          f'{len(times)} steps; peak memory {peak:.2f} GiB', flush=True)
+    return launches
+
+
+def phase_small_train_reference(dev):
+    """One tiny-width train step, card (kernels) vs CPU (plain versions):
+    identical weights, dropout 0 and identical sampled RoIs. The loss, the
+    RPN heads' and the RCNN's gradients within 1e-3 * (1 + max|x|); the
+    backbone's within 0.25 of each leaf's scale and 10% of their norm,
+    because batch-statistics BatchNorm amplifies summation-order roundoff
+    into ReLU flips (tests/test_torch_train_step.py says more)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from epnet_tpu_torch.models import epnet as epnet_mod
+    from epnet_tpu_torch.train.loss import joint_loss
+    from epnet_tpu_torch.utils.testing import synthetic_batch, tiny_config
+
+    cfg = tiny_config(EXACT_QUERIES=True, RPN={'DP_RATIO': 0.0})
+    cpu = epnet_mod.EPNet(cfg, 'TRAIN', generator=torch.Generator().manual_seed(1)).train()
+    card = epnet_mod.EPNet(cfg, 'TRAIN', device=dev)
+    card.load_state_dict(cpu.state_dict())
+    card.train()
+    batch = synthetic_batch(np.random.RandomState(3), cfg, batch=2, structured=True)
+    recorded, real = [], epnet_mod.proposal_target_layer
+
+    def record(*args, **kwargs):
+        recorded.append(real(*args, **kwargs))
+        return recorded[-1]
+
+    def step(model, b, layer):
+        with mock.patch.object(epnet_mod, 'proposal_target_layer', layer):
+            out = model(b, generator=torch.Generator(device=model.rcnn.cls_out.weight.device)
+                        .manual_seed(2))
+        loss, _ = joint_loss(cfg, out, b)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+    want_loss, want = step(cpu, {k: torch.from_numpy(v) for k, v in batch.items()}, record)
+    targets = type(recorded[0])(*(t.to(dev) for t in recorded[0]))
+    got_loss, got = step(card, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+                         lambda *a, **k: targets)
+    if not abs(got_loss - want_loss) <= 1e-3 * (1 + abs(want_loss)):
+        raise AssertionError(f'tiny train step, card vs CPU: loss {got_loss} vs {want_loss}')
+    gmax = max(float(g.abs().max()) for g in want.values())
+    worst_head, worst_bb, diff2, norm2 = 0.0, 0.0, 0.0, 0.0
+    for n, w in want.items():
+        err = float((got[n] - w).abs().max())
+        if n.startswith('rpn.backbone.'):
+            worst_bb = max(worst_bb, err / max(float(w.abs().max()), 1e-2 * gmax))
+            diff2 += float(((got[n] - w).double() ** 2).sum())
+            norm2 += float((w.double() ** 2).sum())
+        else:
+            worst_head = max(worst_head, err / (1e-3 * (1 + float(w.abs().max()))))
+    print(f'tiny train step, card vs CPU: loss {got_loss:.6f} vs {want_loss:.6f}; heads and '
+          f'RCNN worst {worst_head:.3f} of the bound 1e-3 * (1 + max|x|); backbone worst leaf '
+          f'{worst_bb:.4f} of its scale, {math.sqrt(diff2 / norm2):.4f} of its norm', flush=True)
+    if not (worst_head <= 1.0 and worst_bb <= 0.25 and diff2 <= 0.01 * norm2):
+        raise AssertionError('tiny train step: the card and the CPU disagree')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -231,10 +415,12 @@ def main():
     torch.cuda.set_device(dev)
 
     t0 = time.perf_counter()
-    for name in ('fps', 'sa_fused'):
-        cuda_build.load_library(name)
+    libs = ('fps', 'sa_fused', 'sa_fused_bwd')
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:  # one nvcc each, together
+        for f in [pool.submit(cuda_build.load_library, name) for name in libs]:
+            f.result()
     print(f'kernels built and loaded in {time.perf_counter() - t0:.1f} s', flush=True)
-    for name in ('fps', 'sa_fused'):
+    for name in libs:
         for line in cuda_build.build_log(name).splitlines():
             if 'registers' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}')
@@ -243,12 +429,20 @@ def main():
     sa_res = phase_sa(dev)
     fps_launches, sa_launches = phase_slice(dev)
     phase_small_reference(dev)
+    bwd_res = phase_sa_bwd(dev)
+    train_fps, train_sa, bwd_launches = phase_train(dev)
+    phase_small_train_reference(dev)
 
     kernels = [
         {'name': 'fps', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/fps.cu',
-         'replaces': 'epnet_tpu/ops/fps_pallas.py:40', 'launches': fps_launches, **fps_res},
+         'replaces': 'epnet_tpu/ops/fps_pallas.py:40', 'launches': fps_launches + train_fps,
+         **fps_res},
         {'name': 'sa_fused_fwd', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/sa_fused.cu',
-         'replaces': 'epnet_tpu/ops/sa_fused.py:83', 'launches': sa_launches, **sa_res},
+         'replaces': 'epnet_tpu/ops/sa_fused.py:83', 'launches': sa_launches + train_sa,
+         **sa_res},
+        {'name': 'sa_fused_bwd', 'route': 'cuda',
+         'source': 'epnet_tpu_torch/csrc/sa_fused_bwd.cu',
+         'replaces': 'epnet_tpu/ops/sa_fused.py:179', 'launches': bwd_launches, **bwd_res},
     ]
     for k in kernels:
         if k['launches'] <= 0:

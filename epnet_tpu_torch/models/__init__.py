@@ -1,2 +1,2 @@
 """The EPNet modules: layers, PointNet++, LI-Fusion, backbone, RPN,
-proposals, RCNN and the two-stage detector (eval forward)."""
+proposals, target assignment, RCNN and the two-stage detector."""

@@ -61,7 +61,7 @@ class PointBackbone(nn.Module):
                                        li.IMG_FEATURES_CHANNEL, device=device)
             self.out_features = li.IMG_FEATURES_CHANNEL
 
-    def forward(self, pts_input, image=None, xy=None):
+    def forward(self, pts_input, image=None, xy=None, bn_momentum: float = 0.1):
         cfg = self.cfg
         li = cfg.LI_FUSION
         n_sa = len(cfg.RPN.SA_CONFIG.NPOINTS)
@@ -75,11 +75,13 @@ class PointBackbone(nn.Module):
             l_xy, imgs = [xy_norm], [image]
 
         for i in range(n_sa):
-            li_xyz, li_feats, fps_idx = getattr(self, f'sa{i}')(l_xyz[i], l_feats[i])
+            li_xyz, li_feats, fps_idx = getattr(self, f'sa{i}')(l_xyz[i], l_feats[i],
+                                                                 bn_momentum)
             if li.ENABLED:
                 li_xy = gather_points(l_xy[i], fps_idx)
-                img_i = getattr(self, f'img_block{i}')(imgs[i])
-                li_feats = getattr(self, f'fusion{i}')(li_feats, feature_gather(img_i, li_xy))
+                img_i = getattr(self, f'img_block{i}')(imgs[i], bn_momentum)
+                li_feats = getattr(self, f'fusion{i}')(li_feats, feature_gather(img_i, li_xy),
+                                                       bn_momentum)
                 l_xy.append(li_xy)
                 imgs.append(img_i)
             l_xyz.append(li_xyz)
@@ -88,9 +90,9 @@ class PointBackbone(nn.Module):
         n_fp = len(cfg.RPN.FP_MLPS)
         for i in range(-1, -(n_fp + 1), -1):
             l_feats[i - 1] = getattr(self, f'fp{n_fp + i}')(
-                l_xyz[i - 1], l_xyz[i], l_feats[i - 1], l_feats[i])
+                l_xyz[i - 1], l_xyz[i], l_feats[i - 1], l_feats[i], bn_momentum)
 
         if li.ENABLED:
-            img_pt = self.deconv_fusion(imgs[1:], xy=xy_norm)
-            l_feats[0] = self.final_fusion(l_feats[0], img_pt)
+            img_pt = self.deconv_fusion(imgs[1:], xy=xy_norm, bn_momentum=bn_momentum)
+            l_feats[0] = self.final_fusion(l_feats[0], img_pt, bn_momentum)
         return l_xyz[0], l_feats[0]

@@ -1,13 +1,15 @@
-"""The two-stage detector, eval forward: RPN + proposals + RoI pooling +
-RCNN.
+"""The two-stage detector: RPN + proposals + (train: target assignment |
+eval: RoI pooling) + RCNN.
 
-Port of ``epnet_tpu/models/epnet.py`` in ``TEST`` mode (reference
+Port of ``epnet_tpu/models/epnet.py`` (reference
 ``lib/net/point_rcnn.py:27-75``): points and image in; ``rois``,
-``rcnn_cls`` and ``rcnn_reg`` out, with the RPN's outputs beside them.
+``rcnn_cls`` and ``rcnn_reg`` out, with the RPN's outputs beside them and,
+in training, the targets of the sampled RoIs.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -20,19 +22,26 @@ from .layers import init_parameters
 from .proposal import ProposalLayer
 from .rcnn import RCNNNet
 from .rpn import RPN
+from .target_assign import proposal_target_layer
 
 
 class EPNet(nn.Module):
-    """``EPNet(cfg, 'TEST', device=..., generator=...)``: built on ``device``
+    """``EPNet(cfg, mode, device=..., generator=...)``: built on ``device``
     and initialized like the JAX package (from ``generator`` when given).
-    Call ``.eval()`` before ``forward``: this slice has no training mode.
+    ``mode`` ('TRAIN' or 'TEST') selects the proposal budgets, as the
+    reference's ``cfg[mode]`` lookups do.
+
+    In training mode (``.train()``) the forward samples RoIs against
+    ``batch['gt_boxes3d']``, normalizes with batch statistics, applies
+    dropout and records gradients; a TEST model runs only in eval mode
+    (``.eval()``), under ``torch.no_grad()``.
     """
 
     def __init__(self, cfg: Config, mode: str = 'TEST', device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if mode != 'TEST':
-            raise NotImplementedError(f'mode {mode!r}: only the TEST forward is ported')
+        if mode not in ('TRAIN', 'TEST'):
+            raise ValueError(f'mode {mode!r}: TRAIN or TEST')
         # EXACT_QUERIES None is the JAX package's per-backend default, which
         # is exact off the TPU
         if cfg.MIXED_PRECISION or cfg.EXACT_QUERIES not in (None, True):
@@ -52,24 +61,56 @@ class EPNet(nn.Module):
         self.proposal = ProposalLayer(cfg, mode)
         init_parameters(self, generator)
 
-    @torch.no_grad()
-    def forward(self, batch: dict) -> dict:
-        """:param batch: ``pts_input`` (B, N, 3), ``img`` (B, H, W, 3) and
-        ``pts_origin_xy`` (B, N, 2) tensors on the model's device."""
-        cfg = self.cfg
-        out = self.rpn(batch['pts_input'], image=batch.get('img'),
-                       xy=batch.get('pts_origin_xy'))
-        rpn_scores_raw = out['rpn_cls'][..., 0]
-        xyz = out['backbone_xyz']
-        seg_mask = (torch.sigmoid(rpn_scores_raw) > cfg.RPN.SCORE_THRESH).to(out['rpn_reg'].dtype)
-        pts_depth = torch.linalg.norm(xyz, dim=2)
+    def train(self, mode: bool = True):
+        """A fixed RPN (``RPN.FIXED``) stays in eval mode while the RCNN
+        trains."""
+        super().train(mode)
+        if self.cfg.RPN.FIXED:
+            self.rpn.eval()
+        return self
 
-        rois, roi_scores_raw, roi_counts = self.proposal(rpn_scores_raw, out['rpn_reg'], xyz)
-        out.update(rois=rois, roi_scores_raw=roi_scores_raw, seg_result=seg_mask,
-                   roi_counts=roi_counts)
-        pts_input = pool_for_eval(cfg, rois, xyz, out['backbone_features'], seg_mask,
-                                  pts_depth)
-        out.update(self.rcnn(pts_input))
+    def forward(self, batch: dict, bn_momentum: float = 0.1,
+                generator: Optional[torch.Generator] = None) -> dict:
+        """:param batch: ``pts_input`` (B, N, 3), ``img`` (B, H, W, 3) and
+        ``pts_origin_xy`` (B, N, 2) tensors on the model's device; in
+        training also ``gt_boxes3d`` (B, G, 7), zero-padded.
+        :param bn_momentum: torch-convention BatchNorm momentum (training)
+        :param generator: draws the dropout masks and the RoI sampling
+        """
+        if self.mode == 'TEST':
+            if self.training:
+                raise RuntimeError("EPNet(cfg, 'TEST') runs in eval mode: call .eval()")
+            with torch.no_grad():
+                return self._forward(batch, bn_momentum, generator)
+        return self._forward(batch, bn_momentum, generator)
+
+    def _forward(self, batch, bn_momentum, generator):
+        cfg = self.cfg
+        fixed = torch.no_grad() if cfg.RPN.FIXED else contextlib.nullcontext()
+        with fixed:
+            out = self.rpn(batch['pts_input'], image=batch.get('img'),
+                           xy=batch.get('pts_origin_xy'), bn_momentum=bn_momentum,
+                           generator=generator)
+        # the reference samples targets and pools under torch.no_grad()
+        # (rcnn_net.py:130-135): the RCNN loss never reaches the RPN
+        with torch.no_grad():
+            rpn_scores_raw = out['rpn_cls'][..., 0].detach()
+            rpn_reg = out['rpn_reg'].detach()
+            xyz = out['backbone_xyz'].detach()
+            rpn_features = out['backbone_features'].detach()
+            seg_mask = (torch.sigmoid(rpn_scores_raw) > cfg.RPN.SCORE_THRESH).to(rpn_reg.dtype)
+            pts_depth = torch.linalg.norm(xyz, dim=2)
+            rois, roi_scores_raw, roi_counts = self.proposal(rpn_scores_raw, rpn_reg, xyz)
+            out.update(rois=rois, roi_scores_raw=roi_scores_raw, seg_result=seg_mask,
+                       roi_counts=roi_counts)
+            if self.training:
+                tgt = proposal_target_layer(rois, batch['gt_boxes3d'], xyz, rpn_features,
+                                            seg_mask, pts_depth, cfg, generator)
+                pts_input = torch.cat([tgt.sampled_pts, tgt.pts_feature], -1)
+                out.update(tgt._asdict())
+            else:
+                pts_input = pool_for_eval(cfg, rois, xyz, rpn_features, seg_mask, pts_depth)
+        out.update(self.rcnn(pts_input, bn_momentum, generator))
         return out
 
 

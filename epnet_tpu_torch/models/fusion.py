@@ -26,8 +26,8 @@ class ImageBlock(nn.Module):
                                          activation=True, device=device)
         self.Conv2dBlock_1 = Conv2dBlock(features, features, 3, 2, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.Conv2dBlock_1(self.Conv2dBlock_0(x))
+    def forward(self, x: torch.Tensor, bn_momentum: float = 0.1) -> torch.Tensor:
+        return self.Conv2dBlock_1(self.Conv2dBlock_0(x, bn_momentum))
 
 
 def feature_gather(feature_map: torch.Tensor, xy_norm: torch.Tensor) -> torch.Tensor:
@@ -48,10 +48,10 @@ class IALayer(nn.Module):
         self.Dense_3 = nn.Linear(img_channels, point_channels, bias=False, device=device)
         self.BatchNorm_0 = BatchNorm(point_channels, device=device)
 
-    def forward(self, img_feats, point_feats):
+    def forward(self, img_feats, point_feats, bn_momentum: float = 0.1):
         att = torch.sigmoid(self.Dense_2(torch.tanh(self.Dense_0(img_feats)
                                                     + self.Dense_1(point_feats))))
-        img_new = torch.relu(self.BatchNorm_0(self.Dense_3(img_feats)))
+        img_new = torch.relu(self.BatchNorm_0(self.Dense_3(img_feats), bn_momentum))
         return img_new * att
 
 
@@ -65,10 +65,10 @@ class AttenFusionConv(nn.Module):
         self.Dense_0 = nn.Linear(2 * point_channels, out_channels, bias=False, device=device)
         self.BatchNorm_0 = BatchNorm(out_channels, device=device)
 
-    def forward(self, point_feats, img_feats):
-        gated = self.IALayer_0(img_feats, point_feats)
+    def forward(self, point_feats, img_feats, bn_momentum: float = 0.1):
+        gated = self.IALayer_0(img_feats, point_feats, bn_momentum)
         x = self.Dense_0(torch.cat([point_feats, gated], -1))
-        return torch.relu(self.BatchNorm_0(x))
+        return torch.relu(self.BatchNorm_0(x, bn_momentum))
 
 
 class FusionConv(nn.Module):
@@ -81,9 +81,9 @@ class FusionConv(nn.Module):
                                  device=device)
         self.BatchNorm_0 = BatchNorm(out_channels, device=device)
 
-    def forward(self, point_feats, img_feats):
+    def forward(self, point_feats, img_feats, bn_momentum: float = 0.1):
         x = self.Dense_0(torch.cat([point_feats, img_feats], -1))
-        return torch.relu(self.BatchNorm_0(x))
+        return torch.relu(self.BatchNorm_0(x, bn_momentum))
 
 
 class DeconvFusionHead(nn.Module):
@@ -121,7 +121,7 @@ class DeconvFusionHead(nn.Module):
             with torch.no_grad():
                 getattr(self, f'deconv{i}_bias').zero_()
 
-    def forward(self, imgs, xy: torch.Tensor) -> torch.Tensor:
+    def forward(self, imgs, xy: torch.Tensor, bn_momentum: float = 0.1) -> torch.Tensor:
         """imgs: the NHWC scale maps; returns the full-resolution fused map
         sampled at ``xy`` (B, N, 2 in [-1, 1]): (B, N, F)."""
         F_ = self.features
@@ -140,5 +140,5 @@ class DeconvFusionHead(nn.Module):
             y = (x @ cw).reshape(B, h, w, k, k, F_)
             y = y.permute(0, 1, 3, 2, 4, 5).reshape(B, h * k, w * k, F_)
             total = y if total is None else total + y
-        total = torch.relu(self.image_fusion_bn(total + bias_fused))
+        total = torch.relu(self.image_fusion_bn(total + bias_fused, bn_momentum))
         return feature_gather(total, xy)

@@ -4,9 +4,11 @@ Port of ``epnet_tpu/models/layers.py``. Submodules are named after the flax
 scopes (``Dense_0``, ``BatchNorm_0``, ``Conv_0``, ``PointwiseConv_k``) so
 that ``bridge.py`` maps a flax tree onto a ``state_dict`` by renaming paths.
 
-This slice is the eval forward: ``BatchNorm`` normalizes with its running
-statistics and refuses training mode, whose batch statistics come with the
-train slice.
+``BatchNorm`` takes its torch-convention momentum per call, as the JAX
+package does, because the BN-momentum schedule changes it per epoch; every
+module that holds a BatchNorm passes ``bn_momentum`` down its ``forward``.
+In training mode it normalizes with the batch statistics and updates the
+running ones; in eval mode it uses the running statistics.
 """
 
 from __future__ import annotations
@@ -54,8 +56,12 @@ def init_parameters(module: nn.Module, generator: Optional[torch.Generator] = No
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch norm over the last axis with the JAX package's
-    arithmetic: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+    """Batch norm over the last axis with the JAX package's arithmetic
+    (``layers.py:119-143``): ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias``. In training the statistics are taken over every axis but the
+    last, with a two-pass biased variance; the running statistics then move
+    by ``momentum`` towards the mean and the unbiased variance
+    ``var * n / (n - 1)``."""
 
     def __init__(self, channels: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -72,13 +78,45 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, momentum: float = 0.1) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                'BatchNorm with batch statistics belongs to the train slice; '
-                'call .eval() on the model')
-        w = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * w + self.bias
+            red = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=red)
+            diff = x - mean
+            var = diff.square().mean(dim=red)
+            n = x.numel() // x.shape[-1]
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - momentum).add_(momentum * mean)
+                self.running_var.mul_(1.0 - momentum).add_(momentum * var * (n / max(n - 1, 1)))
+        else:
+            var = self.running_var
+            diff = x - self.running_mean
+        return diff * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+def dense_head(owner: nn.Module, prefix: str, n: int, x: torch.Tensor, p: float,
+               bn_momentum: float, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The RPN/RCNN head stacks: ``owner.<prefix>0 .. <prefix>{n-1}`` with
+    dropout of rate ``p`` after the first layer when ``p >= 0``
+    (``rpn.py:40-41``, ``rcnn.py:66-67``)."""
+    for k in range(n):
+        x = getattr(owner, f'{prefix}{k}')(x, bn_momentum)
+        if k == 0 and p >= 0:
+            x = dropout(x, p, owner.training, generator)
+    return x
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``nn.Dropout``: in training keep each element with probability
+    ``1 - p`` (mask from ``generator``) and scale the kept ones by
+    ``1 / (1 - p)``; the identity at ``p == 0`` and in eval."""
+    if not training or p == 0.0:
+        return x
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), 0.0)
 
 
 class PointwiseConv(nn.Module):
@@ -92,10 +130,10 @@ class PointwiseConv(nn.Module):
         self.BatchNorm_0 = BatchNorm(features, device=device) if bn else None
         self.activation = activation
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_momentum: float = 0.1) -> torch.Tensor:
         x = self.Dense_0(x)
         if self.BatchNorm_0 is not None:
-            x = self.BatchNorm_0(x)
+            x = self.BatchNorm_0(x, bn_momentum)
         return torch.relu(x) if self.activation else x
 
 
@@ -112,9 +150,9 @@ class SharedMLP(nn.Module):
     def layer(self, k: int) -> PointwiseConv:
         return getattr(self, f'PointwiseConv_{k}')
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_momentum: float = 0.1) -> torch.Tensor:
         for k in range(self.depth):
-            x = self.layer(k)(x)
+            x = self.layer(k)(x, bn_momentum)
         return x
 
 
@@ -138,12 +176,12 @@ class Conv2dBlock(nn.Module):
         self.BatchNorm_0 = BatchNorm(features, device=device) if bn else None
         self.activation = activation
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_momentum: float = 0.1) -> torch.Tensor:
         H, W = x.shape[1], x.shape[2]
         top, bottom = _same_pads(H, self.kernel, self.stride)
         left, right = _same_pads(W, self.kernel, self.stride)
         x = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
         x = self.Conv_0(x).permute(0, 2, 3, 1)
         if self.BatchNorm_0 is not None:
-            x = self.BatchNorm_0(x)
+            x = self.BatchNorm_0(x, bn_momentum)
         return torch.relu(x) if self.activation else x

@@ -52,9 +52,10 @@ class SAModuleMSG(nn.Module):
     def uses_fused(self, i: int) -> bool:
         return self.npoint is not None and not self.bn and self.mlp(i).depth == 3
 
-    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor] = None):
+    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor] = None,
+                bn_momentum: float = 0.1):
         if self.npoint is None:
-            return self._group_all(xyz, features)
+            return self._group_all(xyz, features, bn_momentum)
         fps_idx = furthest_point_sample(xyz, self.npoint)
         new_xyz = gather_points(xyz, fps_idx)
         outs = []
@@ -67,7 +68,7 @@ class SAModuleMSG(nn.Module):
             if features is not None:
                 gf = group_points(features, idx)
                 grouped = torch.cat([grouped, gf], -1)
-            outs.append(self.mlp(i)(grouped).amax(dim=2))  # max over samples
+            outs.append(self.mlp(i)(grouped, bn_momentum).amax(dim=2))  # max over samples
         return new_xyz, torch.cat(outs, -1), fps_idx
 
     def _fused(self, i, xyz, features, new_xyz, idx):
@@ -82,12 +83,12 @@ class SAModuleMSG(nn.Module):
         return fused_point_mlp_max(y, o, idx, l2.weight.t(), l2.bias,
                                    l3.weight.t(), l3.bias)
 
-    def _group_all(self, xyz, features):
+    def _group_all(self, xyz, features, bn_momentum):
         """Reference GroupAll (``pointnet2_utils.py:283-306``)."""
         g = xyz[:, None, :, :]
         if features is not None:
             g = torch.cat([g, features[:, None]], -1)
-        outs = [self.mlp(i)(g).amax(dim=2) for i in range(self.n_scales)]
+        outs = [self.mlp(i)(g, bn_momentum).amax(dim=2) for i in range(self.n_scales)]
         new_xyz = xyz.new_zeros((xyz.shape[0], 1, 3))
         return new_xyz, torch.cat(outs, -1), None
 
@@ -100,10 +101,10 @@ class FPModule(nn.Module):
         super().__init__()
         self.SharedMLP_0 = SharedMLP(cin, mlp, bn=bn, device=device)
 
-    def forward(self, unknown, known, unknown_feats, known_feats):
+    def forward(self, unknown, known, unknown_feats, known_feats, bn_momentum: float = 0.1):
         dist, idx = three_nn(unknown, known)
         recip = 1.0 / (dist + 1e-8)
         weight = recip / recip.sum(-1, keepdim=True)
         interp = three_interpolate(known_feats, idx, weight)  # (B, N, C2)
         x = torch.cat([interp, unknown_feats], -1) if unknown_feats is not None else interp
-        return self.SharedMLP_0(x)
+        return self.SharedMLP_0(x, bn_momentum)

@@ -4,7 +4,8 @@ Port of ``epnet_tpu/models/rcnn.py`` (reference ``lib/net/rcnn_net.py``:
 xyz-up/merge layers :21-26, SA tower :28-42, cls/reg heads :44-91).
 Operates on (B*R, S, C) pooled canonical-frame points. The recipe's tower
 has no BN and three-layer MLPs, so its two sampled stages run the fused SA
-kernel.
+kernels. Dropout (``RCNN.DP_RATIO``, applied when >= 0) follows the first
+layer of each head.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 import torch.nn as nn
 
 from ..config import Config
-from .layers import PointwiseConv, SharedMLP
+from .layers import PointwiseConv, SharedMLP, dense_head
 from .pointnet2 import SAModuleMSG
 
 
@@ -59,27 +60,26 @@ class RCNNNet(nn.Module):
         with torch.no_grad():
             self.reg_out.weight.normal_(0.0, 0.001, generator=generator)
 
-    def forward(self, pts_input: torch.Tensor):
+    def forward(self, pts_input: torch.Tensor, bn_momentum: float = 0.1,
+                generator: Optional[torch.Generator] = None):
         """:param pts_input: (B*R, S, 3 + C) canonical points + features
+        :param generator: draws the dropout masks in training
         :return: dict rcnn_cls (B*R, cls), rcnn_reg (B*R, C)"""
         rc = self.cfg.RCNN
         xyz = pts_input[..., 0:3]
         if rc.USE_RPN_FEATURES:
             ci = rc.input_channel
-            merged = torch.cat([self.xyz_up(pts_input[..., 0:ci]), pts_input[..., ci:]], -1)
-            feats = self.merge_down(merged)
+            merged = torch.cat([self.xyz_up(pts_input[..., 0:ci], bn_momentum),
+                                pts_input[..., ci:]], -1)
+            feats = self.merge_down(merged, bn_momentum)
         else:
             feats = pts_input[..., 3:]
         l_xyz, l_feats = xyz, feats
         for i in range(self.n_sa):
-            l_xyz, l_feats, _ = getattr(self, f'sa{i}')(l_xyz, l_feats)
+            l_xyz, l_feats, _ = getattr(self, f'sa{i}')(l_xyz, l_feats, bn_momentum)
         x = l_feats[:, 0, :]  # (B*R, C), the final pool
-
-        h = x
-        for k in range(len(rc.CLS_FC)):
-            h = getattr(self, f'cls_fc{k}')(h)
-        rcnn_cls = self.cls_out(h)
-        h = x
-        for k in range(len(rc.REG_FC)):
-            h = getattr(self, f'reg_fc{k}')(h)
-        return {'rcnn_cls': rcnn_cls, 'rcnn_reg': self.reg_out(h)}
+        p = rc.DP_RATIO
+        return {'rcnn_cls': self.cls_out(dense_head(self, 'cls_fc', len(rc.CLS_FC), x, p,
+                                                    bn_momentum, generator)),
+                'rcnn_reg': self.reg_out(dense_head(self, 'reg_fc', len(rc.REG_FC), x, p,
+                                                    bn_momentum, generator))}

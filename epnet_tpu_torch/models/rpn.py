@@ -1,7 +1,8 @@
 """Stage-1 RPN: two-stream backbone + per-point cls/reg heads.
 
 Port of ``epnet_tpu/models/rpn.py`` (reference ``lib/net/rpn.py``). The
-heads are per-point Dense stacks; their dropout is the identity in eval.
+heads are per-point Dense stacks with dropout (``RPN.DP_RATIO``) after the
+first layer of each; it is the identity in eval.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch.nn as nn
 
 from ..config import Config
 from .backbone import PointBackbone
-from .layers import PointwiseConv
+from .layers import PointwiseConv, dense_head
 
 
 def focal_bias(pi: float = 0.01) -> float:
@@ -47,15 +48,15 @@ class RPN(nn.Module):
                 self.cls_out.bias.fill_(focal_bias())
             self.reg_out.weight.normal_(0.0, 0.001, generator=generator)
 
-    def forward(self, pts_input, image=None, xy=None):
-        xyz, features = self.backbone(pts_input, image=image, xy=xy)
-        h = features
-        for k in range(len(self.cfg.RPN.CLS_FC)):
-            h = getattr(self, f'cls_fc{k}')(h)
-        rpn_cls = self.cls_out(h)  # (B, N, 1)
-        h = features
-        for k in range(len(self.cfg.RPN.REG_FC)):
-            h = getattr(self, f'reg_fc{k}')(h)
-        rpn_reg = self.reg_out(h)  # (B, N, C)
+    def forward(self, pts_input, image=None, xy=None, bn_momentum: float = 0.1,
+                generator: Optional[torch.Generator] = None):
+        """``generator`` draws the dropout masks in training."""
+        xyz, features = self.backbone(pts_input, image=image, xy=xy, bn_momentum=bn_momentum)
+        cfg = self.cfg
+        p = cfg.RPN.DP_RATIO
+        rpn_cls = self.cls_out(dense_head(self, 'cls_fc', len(cfg.RPN.CLS_FC), features, p,
+                                          bn_momentum, generator))  # (B, N, 1)
+        rpn_reg = self.reg_out(dense_head(self, 'reg_fc', len(cfg.RPN.REG_FC), features, p,
+                                          bn_momentum, generator))  # (B, N, C)
         return {'rpn_cls': rpn_cls, 'rpn_reg': rpn_reg,
                 'backbone_xyz': xyz, 'backbone_features': features}

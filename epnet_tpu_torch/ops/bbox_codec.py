@@ -1,8 +1,8 @@
-"""Bin-based 3D box decoding.
+"""Bin-based 3D box encoding (the regression labels) and decoding.
 
-Port of ``epnet_tpu/ops/bbox_codec.py::decode_bbox_target`` (reference
-``bbox_transform.py:25-259``). Encoding belongs to training and is not
-ported yet.
+Port of ``epnet_tpu/ops/bbox_codec.py``: ``encode_targets`` (the label
+arithmetic of the reference's ``get_reg_loss``, ``loss_utils.py:119-233``)
+and ``decode_bbox_target`` (reference ``bbox_transform.py:25-259``).
 
 Channel layout of ``pred_reg`` (C channels):
   [x_bin (n) | z_bin (n) | x_res (n)? | z_res (n)? | y_bin/res or y_offset |
@@ -13,12 +13,78 @@ with n = 2*loc_scope/loc_bin_size and H = num_head_bin.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from .boxes import rotate_points_along_y
 
 PI = math.pi
+
+
+class BinTargets(NamedTuple):
+    """Integer bin labels (int64) + normalized residual labels."""
+
+    x_bin: torch.Tensor
+    z_bin: torch.Tensor
+    x_res_norm: torch.Tensor  # residual / loc_bin_size
+    z_res_norm: torch.Tensor
+    x_res: torch.Tensor       # x_shift - bin center, used by the CE loss
+    z_res: torch.Tensor
+    y_offset: torch.Tensor
+    y_bin: torch.Tensor
+    y_res_norm: torch.Tensor
+    ry_bin: torch.Tensor
+    ry_res_norm: torch.Tensor
+    size_res_norm: torch.Tensor  # (N, 3)
+
+
+def encode_targets(reg_label: torch.Tensor, anchor_size: torch.Tensor, loc_scope: float,
+                   loc_bin_size: float, num_head_bin: int, get_y_by_bin: bool = False,
+                   loc_y_scope: float = 0.5, loc_y_bin_size: float = 0.25,
+                   get_ry_fine: bool = False) -> BinTargets:
+    """Bin/residual labels from (N, 7) offsets [dx, dy, dz, h, w, l, ry]."""
+    dx, dy, dz = reg_label[:, 0], reg_label[:, 1], reg_label[:, 2]
+    x_shift = torch.clamp(dx + loc_scope, 0.0, loc_scope * 2 - 1e-3)
+    z_shift = torch.clamp(dz + loc_scope, 0.0, loc_scope * 2 - 1e-3)
+    x_bin = torch.floor(x_shift / loc_bin_size).long()
+    z_bin = torch.floor(z_shift / loc_bin_size).long()
+    x_res = x_shift - (x_bin.to(x_shift.dtype) * loc_bin_size + loc_bin_size / 2)
+    z_res = z_shift - (z_bin.to(z_shift.dtype) * loc_bin_size + loc_bin_size / 2)
+
+    if get_y_by_bin:
+        y_shift = torch.clamp(dy + loc_y_scope, 0.0, loc_y_scope * 2 - 1e-3)
+        y_bin = torch.floor(y_shift / loc_y_bin_size).long()
+        y_res = y_shift - (y_bin.to(y_shift.dtype) * loc_y_bin_size + loc_y_bin_size / 2)
+        y_res_norm = y_res / loc_y_bin_size
+    else:
+        y_bin = torch.zeros_like(x_bin)
+        y_res_norm = torch.zeros_like(dy)
+
+    ry = reg_label[:, 6]
+    if get_ry_fine:
+        # RCNN: fold opposite headings together, bins over (0, pi/2)
+        angle_per_class = (PI / 2) / num_head_bin
+        ry_n = torch.remainder(ry, 2 * PI)
+        opposite = (ry_n > PI * 0.5) & (ry_n < PI * 1.5)
+        ry_n = torch.where(opposite, torch.remainder(ry_n + PI, 2 * PI), ry_n)
+        shift_angle = torch.remainder(ry_n + PI * 0.5, 2 * PI)
+        shift_angle = torch.clamp(shift_angle - PI * 0.25, 1e-3, PI * 0.5 - 1e-3)
+    else:
+        # RPN: bins over the full circle, bin centers at k * angle_per_class
+        angle_per_class = (2 * PI) / num_head_bin
+        heading = torch.remainder(ry, 2 * PI)
+        shift_angle = torch.remainder(heading + angle_per_class / 2, 2 * PI)
+    ry_bin = torch.floor(shift_angle / angle_per_class).long()
+    ry_res = shift_angle - (ry_bin.to(ry.dtype) * angle_per_class + angle_per_class / 2)
+
+    return BinTargets(
+        x_bin=x_bin, z_bin=z_bin,
+        x_res_norm=x_res / loc_bin_size, z_res_norm=z_res / loc_bin_size,
+        x_res=x_res, z_res=z_res,
+        y_offset=dy, y_bin=y_bin, y_res_norm=y_res_norm,
+        ry_bin=ry_bin, ry_res_norm=ry_res / (angle_per_class / 2),
+        size_res_norm=(reg_label[:, 3:6] - anchor_size) / anchor_size)
 
 
 def _pick(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:

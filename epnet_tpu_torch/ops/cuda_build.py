@@ -29,7 +29,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 _libs: dict = {}
 _logs: dict = {}
-_lock = threading.Lock()
+_locks: dict = {}
+_lock = threading.Lock()  # guards _locks; each library builds under its own lock
 
 
 def _nvcc() -> str:
@@ -59,8 +60,11 @@ def _compile(src: pathlib.Path, so: pathlib.Path) -> None:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its hash is not built yet, and load it."""
+    """Compile ``csrc/<name>.cu`` if its hash is not built yet, and load it.
+    Different libraries may build at the same time from several threads."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         src = CSRC / f'{name}.cu'

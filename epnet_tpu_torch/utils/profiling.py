@@ -1,14 +1,18 @@
-"""Where the eval forward's time goes on the card.
+"""Where the eval forward's and the train step's time goes on the card.
 
     python -m epnet_tpu_torch.utils.profiling [--requests 3] [--top 15]
+    python -m epnet_tpu_torch.utils.profiling --train [--steps 3] [--batch 4]
 
-Builds ``EPNet`` in TEST mode at the published recipe's full width
-(random weights from a seeded generator), answers batch-1 requests on
-structured scenes and prints, per request, the wall time of each stage
-(RPN, proposals, RoI pooling, RCNN), each fenced by
-``torch.cuda.synchronize()``; then one ``torch.profiler`` pass over a whole
-forward: the device's busy share of the forward's wall time and the
-kernels with the most device time. Needs a CUDA device.
+Builds ``EPNet`` at the published recipe's full width (random weights from
+a seeded generator). Eval (default): answers batch-1 requests on
+structured scenes and prints the median wall time of each stage (RPN,
+proposals, RoI pooling, RCNN). ``--train``: takes train steps on labelled
+batch-4 scenes and prints the median of each part of a step (RPN forward,
+proposals, target layer, RCNN forward, loss, backward, optimizer). Every
+stage is fenced by ``torch.cuda.synchronize()``. Then one
+``torch.profiler`` pass over a whole forward (or step): the device's busy
+share of its wall time and the kernels with the most device time. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -48,14 +52,48 @@ def stage_times(model, batch) -> dict:
     return t
 
 
-def device_breakdown(model, batch, top: int = 15):
-    """One profiled forward: (wall ms, device-busy ms, [(kernel, ms, calls)])."""
+def train_stage_times(state, batch, bn_momentum: float, generator) -> dict:
+    """Wall ms of each part of one train step (the steps of
+    ``train.trainer.train_step`` and ``EPNet.forward``, run part by part)."""
+    from ..models.target_assign import proposal_target_layer
+    from ..train.loss import joint_loss
+
+    model, cfg = state.model, state.model.cfg
+    model.train()
+    state.optimizer.zero_grad()
+    t = {}
+    out, t['rpn_forward'] = _sync_ms(lambda: model.rpn(
+        batch['pts_input'], image=batch['img'], xy=batch['pts_origin_xy'],
+        bn_momentum=bn_momentum, generator=generator))
+    with torch.no_grad():
+        scores = out['rpn_cls'][..., 0].detach()
+        xyz = out['backbone_xyz'].detach()
+        (rois, _, _), t['proposal'] = _sync_ms(lambda: model.proposal(
+            scores, out['rpn_reg'].detach(), xyz))
+        seg = (torch.sigmoid(scores) > cfg.RPN.SCORE_THRESH).to(xyz.dtype)
+        tgt, t['target'] = _sync_ms(lambda: proposal_target_layer(
+            rois, batch['gt_boxes3d'], xyz, out['backbone_features'].detach(), seg,
+            torch.linalg.norm(xyz, dim=2), cfg, generator))
+    out.update(tgt._asdict())
+    rcnn, t['rcnn_forward'] = _sync_ms(lambda: model.rcnn(
+        torch.cat([tgt.sampled_pts, tgt.pts_feature], -1), bn_momentum, generator))
+    out.update(rcnn)
+    (loss, _), t['loss'] = _sync_ms(lambda: joint_loss(cfg, out, batch))
+    _, t['backward'] = _sync_ms(loss.backward)
+    _, t['optimizer'] = _sync_ms(state.optimizer.step)
+    state.step += 1
+    return t
+
+
+def device_breakdown(fn, top: int = 15):
+    """One profiled call of ``fn``: (wall ms, device-busy ms, [(kernel, ms,
+    calls)])."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model(batch)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # device intervals, merged so overlapping kernels count once
@@ -75,9 +113,39 @@ def device_breakdown(model, batch, top: int = 15):
     return wall, busy / 1e3, rows[:top]
 
 
+def _report(per_stage, wall, busy, rows, what):
+    for k in per_stage[0]:
+        print(f'stage {k}: median {statistics.median(s[k] for s in per_stage):.3f} ms')
+    print(f'profiled {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms '
+          f'({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%')
+    for name, ms, calls in rows:
+        print(f'  {ms:9.3f} ms  {calls:6d} calls  {name[:100]}')
+
+
+def profile_train(dev, steps: int, batch_size: int, top: int):
+    from ..config import parity_config
+    from ..train.trainer import create_train_state, device_batch, train_step
+    from .testing import full_batch
+
+    cfg = parity_config()
+    state = create_train_state(cfg, total_steps=100, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = [device_batch(full_batch(cfg, batch_size, seed=s, with_labels=True), dev)
+               for s in range(steps + 1)]
+    train_step(state, batches[-1], 0.1, gen)  # warm-up
+    per_stage = [train_stage_times(state, b, 0.1, gen) for b in batches[:steps]]
+    wall, busy, rows = device_breakdown(lambda: train_step(state, batches[0], 0.1, gen), top)
+    print(f'train step, batch {batch_size}, {torch.cuda.get_device_name(0)}')
+    _report(per_stage, wall, busy, rows, 'train step')
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--requests', type=int, default=3)
+    ap.add_argument('--train', action='store_true', help='profile the train step')
+    ap.add_argument('--steps', type=int, default=3)
+    ap.add_argument('--batch', type=int, default=4)
     ap.add_argument('--top', type=int, default=15)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -89,6 +157,9 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device('cuda:0')
+    if args.train:
+        profile_train(dev, args.steps, args.batch, args.top)
+        return
     cfg = parity_config()
     model = EPNet(cfg, 'TEST', device=dev,
                   generator=torch.Generator(device=dev).manual_seed(0)).eval()
@@ -101,13 +172,8 @@ def main(argv=None):
                         'pts_origin_xy': torch.from_numpy(xy[None]).to(dev)})
     model(batches[0])  # warm-up
     per_stage = [stage_times(model, b) for b in batches]
-    for k in per_stage[0]:
-        print(f'stage {k}: median {statistics.median(s[k] for s in per_stage):.3f} ms')
-    wall, busy, rows = device_breakdown(model, batches[0], args.top)
-    print(f'profiled forward: wall {wall:.3f} ms, device busy {busy:.3f} ms '
-          f'({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%')
-    for name, ms, calls in rows:
-        print(f'  {ms:9.3f} ms  {calls:6d} calls  {name[:100]}')
+    wall, busy, rows = device_breakdown(lambda: model(batches[0]), args.top)
+    _report(per_stage, wall, busy, rows, 'forward')
 
 
 if __name__ == '__main__':

@@ -1,13 +1,34 @@
-"""Tiny configs and structured synthetic scenes (numpy only).
+"""Tiny configs, structured synthetic scenes and labelled train batches
+(numpy only).
 
-Carried over from ``epnet_tpu/utils/testing.py`` so that the port can build
-its test and smoke inputs without jax; ``tests/test_torch_config.py`` holds
-both copies to byte-identical output.
+Carried over from ``epnet_tpu/utils/testing.py`` (``tiny_config``,
+``structured_scene``, ``synthetic_batch``) and ``__graft_entry__.py``
+(``full_batch``, its ``_full_batch(with_labels=True)``) so that the port
+builds its test and smoke inputs without jax; ``tests/test_torch_config.py``
+and ``tests/test_torch_train_step.py`` hold the copies to identical output.
+The box tests come from ``epnet_tpu/data/box_np.py``, which is numpy-only
+and is loaded by path (``epnet_tpu/__init__.py`` imports jax).
 """
+
+import importlib.util
+import pathlib
+import sys
 
 import numpy as np
 
 from epnet_tpu_torch.config import Config
+
+_BOX_NP = pathlib.Path(__file__).resolve().parents[2] / 'epnet_tpu' / 'data' / 'box_np.py'
+
+
+def _box_np():
+    name = 'epnet_tpu_torch._box_np'
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, _BOX_NP)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules[name] = mod
+    return sys.modules[name]
 
 
 def tiny_config(li_fusion=True, rcnn=True, **over) -> Config:
@@ -152,3 +173,94 @@ def structured_scene(rng, n_points, n_cars=8, img_hw=(384, 1280),
     pts_xy = np.stack([np.clip(u, 0, W - 1), np.clip(v, 0, H - 1)],
                       axis=-1).astype(np.float32)
     return pts, pts_xy, gt
+
+
+IMG_H, IMG_W = 32, 64
+
+
+def synthetic_batch(rng, cfg, batch=2, with_gt=True, structured=False):
+    """Random scene at ``tiny_config`` sizes: points in front of a camera,
+    three gt cars, per-point cls/reg labels. ``structured=True`` puts
+    points on the gt car surfaces (``structured_scene``)."""
+    N = cfg.RPN.NUM_POINTS
+    G = 3
+    if structured:
+        pts_l, xy_l, gt_l = [], [], []
+        for _ in range(batch):
+            p, u, g = structured_scene(rng, N, n_cars=G, img_hw=(IMG_H, IMG_W),
+                                       z_range=(1.5, 25.0), car_z_range=(5.0, 16.0))
+            pts_l.append(p)
+            xy_l.append(u)
+            gt_l.append(g)
+        pts = np.stack(pts_l, axis=0)
+        gt = np.stack(gt_l, axis=0)
+        out = {'pts_input': pts,
+               'img': rng.rand(batch, IMG_H, IMG_W, 3).astype(np.float32),
+               'pts_origin_xy': np.stack(xy_l, axis=0)}
+        if with_gt:
+            out['gt_boxes3d'] = gt
+    else:
+        pts = np.stack([rng.uniform(-20, 20, (batch, N)), rng.uniform(-1, 2, (batch, N)),
+                        rng.uniform(1, 69, (batch, N))], axis=-1).astype(np.float32)
+        out = {'pts_input': pts,
+               'img': rng.rand(batch, IMG_H, IMG_W, 3).astype(np.float32),
+               'pts_origin_xy': np.stack([rng.uniform(0, 1279, (batch, N)),
+                                          rng.uniform(0, 383, (batch, N))],
+                                         axis=-1).astype(np.float32)}
+        if with_gt:
+            gt = np.stack([rng.uniform(-15, 15, (batch, G)), rng.uniform(0.8, 1.6, (batch, G)),
+                           rng.uniform(5, 60, (batch, G)), rng.uniform(1.4, 1.7, (batch, G)),
+                           rng.uniform(1.5, 1.7, (batch, G)), rng.uniform(3.5, 4.2, (batch, G)),
+                           rng.uniform(-np.pi, np.pi, (batch, G))], axis=-1).astype(np.float32)
+            out['gt_boxes3d'] = gt
+    if with_gt:
+        # fg if inside any gt; reg label: offsets to that gt's vertical center
+        box_np = _box_np()
+        inb = np.stack([np.stack([box_np.points_in_box3d(pts[b], g) for g in gt[b]])
+                        for b in range(batch)], axis=0)  # (B, G, N)
+        out['rpn_cls_label'] = inb.any(axis=1).astype(np.int32)
+        gsel = np.take_along_axis(gt, inb.argmax(axis=1)[..., None], axis=1)  # (B, N, 7)
+        reg = gsel.copy()
+        reg[..., 1] -= reg[..., 3] / 2
+        reg[..., 0:3] -= pts
+        out['rpn_reg_label'] = reg.astype(np.float32)
+    return out
+
+
+def full_batch(cfg, batch_size=1, seed=0, with_labels=False):
+    """Structured KITTI-like scenes at the recipe's full shapes (16384
+    points, a 384x1280 image, 8 cars). ``with_labels=True`` adds the train
+    tensors: gt boxes zero-padded to a 20-box budget, per-point cls labels
+    (1 inside a gt, -1 in the 0.2 m ring around it, 0 elsewhere) and reg
+    labels (offsets to the gt's vertical center, and its size and angle)."""
+    rng = np.random.RandomState(seed)
+    N = cfg.RPN.NUM_POINTS
+    pts, xy, gts = [], [], []
+    for _ in range(batch_size):
+        p, u, g = structured_scene(rng, N, n_cars=8, img_hw=(384, 1280))
+        pts.append(p)
+        xy.append(u)
+        gts.append(g)
+    batch = {'pts_input': np.stack(pts, axis=0),
+             'img': rng.rand(batch_size, 384, 1280, 3).astype(np.float32),
+             'pts_origin_xy': np.stack(xy, axis=0)}
+    if with_labels:
+        box_np = _box_np()
+        G = 20
+        gt_pad = np.zeros((batch_size, G, 7), np.float32)
+        cls_l = np.zeros((batch_size, N), np.int32)
+        reg_l = np.zeros((batch_size, N, 7), np.float32)
+        for b, g in enumerate(gts):
+            gt_pad[b, :g.shape[0]] = g
+            p = pts[b][:, :3]
+            ext = box_np.enlarge_box3d(g, extra_width=0.2)
+            for k in range(g.shape[0]):
+                fg = box_np.points_in_box3d(p, g[k])
+                cls_l[b][fg] = 1
+                cls_l[b][np.logical_xor(fg, box_np.points_in_box3d(p, ext[k]))] = -1
+                center = g[k][0:3].copy()
+                center[1] -= g[k][3] / 2
+                reg_l[b][fg, 0:3] = center - p[fg]
+                reg_l[b][fg, 3:7] = g[k][3:7]
+        batch.update(gt_boxes3d=gt_pad, rpn_cls_label=cls_l, rpn_reg_label=reg_l)
+    return batch

@@ -151,23 +151,32 @@ def test_cpu_dispatch_never_launches():
     tpo.furthest_point_sample(_t(xyz), npoint)
     args = [_t(a) for a in _sa_inputs(np.random.RandomState(5))]
     args[2] = args[2].long()
-    tsa.fused_point_mlp_max(*args)
+    args[3].requires_grad_(True)
+    tsa.fused_point_mlp_max(*args).sum().backward()
     assert tfps.furthest_point_sample_kernel.launches == 0
     assert tsa.fused_point_mlp_max_kernel.launches == 0
+    assert tsa.fused_point_mlp_max_bwd_kernel.launches == 0
     # the kernel wrappers refuse CPU tensors instead of falling back
     with pytest.raises(ValueError):
         tfps.furthest_point_sample_kernel(_t(xyz), npoint)
     with pytest.raises(ValueError):
         tsa.fused_point_mlp_max_kernel(*args)
+    with pytest.raises(ValueError):
+        tsa.fused_point_mlp_max_bwd_kernel(*args, torch.ones(3, 10, 48))
 
 
 def test_fused_sa_refuses_autograd():
-    """No backward is ported: a call that would record a gradient raises
-    (on the CPU too, so both devices behave alike)."""
+    """The backward is ported: a call records a gradient for every input
+    but the indices, which it refuses (they get None), on the CPU as on the
+    card; under no_grad nothing is recorded."""
     args = [_t(a) for a in _sa_inputs(np.random.RandomState(6))]
     args[2] = args[2].long()
-    args[3].requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        tsa.fused_point_mlp_max(*args)
+    for i in (0, 1, 3, 4, 5, 6):
+        args[i].requires_grad_(True)
+    out = tsa.fused_point_mlp_max(*args)
+    assert out.shape == (3, 10, 48) and out.requires_grad
+    grads = torch.autograd.grad(out.sum(), [args[i] for i in (0, 1, 3, 4, 5, 6)])
+    assert all(g.shape == args[i].shape for g, i in zip(grads, (0, 1, 3, 4, 5, 6)))
+    assert args[2].grad is None
     with torch.no_grad():
-        assert tsa.fused_point_mlp_max(*args).shape == (3, 10, 48)
+        assert not tsa.fused_point_mlp_max(*args).requires_grad
