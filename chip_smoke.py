@@ -27,10 +27,30 @@ first use), then:
    finite loss and gradients, that the parameters moved, and 6 FPS, 2
    fused-SA forward and 2 fused-SA backward launches a step;
 7. holds one tiny-width train step on the card against the CPU under
-   identical weights and identical sampled RoIs.
+   identical weights and identical sampled RoIs;
+8. holds the image tower's 3x3 conv weight-gradient kernels (D, stride 2;
+   E, stride 1) against their plain versions at five edge shapes and at
+   the seven tower shapes of a batch-4 train step (at most 1e-4 x
+   max|dw|), and at the tower shapes times the kernel, the plain version
+   and ``torch.nn.grad.conv2d_weight`` (cuDNN, no TF32) in turns;
+9. drives the train path again with both weight-gradient switches on
+   (``EPNET_PALLAS_DW=1``, ``EPNET_S1_SHIFT_DW=1``): a warm-up step and
+   three batch-4 full-width steps on scenes 0/1/2, checking 6 FPS, 2
+   fused-SA forward, 2 fused-SA backward, 4 D and 3 E launches a step,
+   each in turn with a step of the default route on the same state as
+   the yardstick of its time; then holds one step's tower conv weight
+   gradients against the default route's (same weights, batch and draws;
+   before the clip).
 
-Launch counts are read around each main-path phase (3 and 6) with the
-counters set to 0 just before it; the kernels line sums the two.
+Launch counts are read around each main-path phase (3, 6 and 9) with the
+counters set to 0 just before it; the kernels line sums them. Phases 1-7
+run with both switches off.
+
+Every kernel's ``bound_ms`` is the least time the card could take for its
+work at these shapes: the larger of its operations at the f32 peak and its
+bytes (each input read once, each output written once) at the memory rate
+(NVIDIA H100 SXM data sheet, below). ``library_ms`` is one PyTorch call
+that computes the same function, where one exists (null otherwise).
 
 Prints the card's name and power limit, a JSON line describing each kernel,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure raises
@@ -38,6 +58,7 @@ and exits non-zero; without a CUDA device it exits non-zero at once.
 """
 
 import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -58,6 +79,41 @@ SA_TRAIN_SHAPES = {  # the same stages in a batch-4 train step: 4 x 64 sampled R
     'rcnn.sa0': (256, 512, 128, 64, 128, 128, 128),
     'rcnn.sa1': (256, 128, 32, 64, 128, 128, 256)}
 SA_RTOL = 1e-4
+# the image tower's convs in a batch-4 train step of the recipe: (B, H, W, C, F)
+DW_SHAPES = {
+    'conv3x3_dw_s2': {'blk0': (4, 384, 1280, 64, 64), 'blk1': (4, 192, 640, 128, 128),
+                      'blk2': (4, 96, 320, 256, 256), 'blk3': (4, 48, 160, 512, 512)},
+    'conv3x3_dw_s1': {'blk1': (4, 192, 640, 64, 128), 'blk2': (4, 96, 320, 128, 256),
+                      'blk3': (4, 48, 160, 256, 512)}}
+# shapes off the tower's tiling, checked but not timed: partial row and
+# column tiles (C = 8, 132; F = 16, 200), odd sizes at stride 1, one pixel row
+DW_EDGE_SHAPES = [(2, 16, 64, 8, 16, 2), (2, 12, 20, 132, 200, 2), (1, 7, 9, 12, 20, 1),
+                  (3, 1, 33, 64, 64, 1), (1, 2, 2, 4, 4, 2)]
+DW_RTOL = 1e-4
+# conv2d_weight as a yardstick: it must compute the same function, but cuDNN
+# may pick reduced-multiplication algorithms whose transforms round more
+LIBRARY_RTOL = 1e-3
+# the tower's weight gradients of one whole train step, kernel route vs
+# default route: beyond the kernels' own 1e-6, the backward above the tower
+# is not bitwise reproducible (atomic adds in the point branch's gathers,
+# amplified by batch-statistics BatchNorm); two default-route runs are
+# printed beside it as the floor
+ROUTE_RTOL = 1e-3
+DW_SWITCHES = ('EPNET_PALLAS_DW', 'EPNET_S1_SHIFT_DW')
+F32_PEAK = 67e12     # FLOP/s, f32 outside the tensor cores
+MEMORY_RATE = 3.35e12  # bytes/s of HBM
+
+
+def _bound(ops, nbytes):
+    """(ms, ms) the operations and the bytes need at the card's peaks."""
+    return ops / F32_PEAK * 1e3, nbytes / MEMORY_RATE * 1e3
+
+
+def _bound_keys(op_ms, byte_ms):
+    """``bound_ms`` summed over shapes (each shape's larger term) and which
+    term sets most of it."""
+    return {'bound_ms': sum(max(o, b) for o, b in zip(op_ms, byte_ms)),
+            'bound_by': 'operations' if sum(op_ms) >= sum(byte_ms) else 'bytes'}
 
 
 def _time_ms(fn, reps):
@@ -81,8 +137,12 @@ def phase_fps(dev):
 
     scene = torch.from_numpy(structured_scene(np.random.RandomState(0), 16384)[0]).to(dev)
     rng = np.random.RandomState(1)
-    rows, max_err, ms, plain_ms = [], 0, 0.0, 0.0
+    rows, max_err, ms, plain_ms, op_ms, byte_ms = [], 0, 0.0, 0.0, [], []
     for B, N, npoint in FPS_SHAPES:
+        # npoint - 1 steps over N points: 3 sub, 3 mul, 2 add, min, argmax compare
+        o, m = _bound(10.0 * B * N * (npoint - 1), 4 * B * N * 3 + 8 * B * npoint)
+        op_ms.append(o)
+        byte_ms.append(m)
         if B == 1:
             xyz = scene[None, :N].contiguous()
         else:  # RoI-local clouds: a few metres around the box center
@@ -98,10 +158,13 @@ def phase_fps(dev):
         k = _time_ms(lambda: fps.furthest_point_sample_kernel(xyz, npoint), 10)
         p = _time_ms(lambda: fps.furthest_point_sample_plain(xyz, npoint), 2)
         ms, plain_ms = ms + k, plain_ms + p
-        rows.append({'shape': [B, N, 3], 'npoint': npoint, 'ms': k, 'plain_ms': p})
+        rows.append({'shape': [B, N, 3], 'npoint': npoint, 'ms': k, 'plain_ms': p,
+                     'bound_ms': max(op_ms[-1], byte_ms[-1])})
         print(f'fps {(B, N, 3)} -> {npoint}: picks identical; kernel {k:.4f} ms, '
-              f'plain {p:.4f} ms', flush=True)
-    return {'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms, 'per_shape': rows}
+              f'plain {p:.4f} ms, bound {max(op_ms[-1], byte_ms[-1]):.4f} ms', flush=True)
+    # no single PyTorch call samples furthest points
+    return {'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms,
+            **_bound_keys(op_ms, byte_ms), 'library_ms': None, 'per_shape': rows}
 
 
 def phase_sa(dev):
@@ -110,8 +173,15 @@ def phase_sa(dev):
     from epnet_tpu_torch.ops import sa_fused
 
     rng = np.random.RandomState(2)
-    rows, max_err, ms, plain_ms = [], 0.0, 0.0, 0.0
+    rows, max_err, ms, plain_ms, op_ms, byte_ms = [], 0.0, 0.0, 0.0, [], []
     for name, (T, N, M, S, C1, C2, C3) in SA_SHAPES.items():
+        R = T * M * S  # gathered rows
+        # two products; subtract + ReLU of layer 1, bias + ReLU of 2 and 3, the max
+        o, m = _bound(2.0 * R * (C1 * C2 + C2 * C3) + R * (2 * C1 + 2 * C2 + 3 * C3),
+                      4 * (T * N * C1 + T * M * C1 + C1 * C2 + C2 + C2 * C3 + C3 + T * M * C3)
+                      + 8 * R)
+        op_ms.append(o)
+        byte_ms.append(m)
         def f(*shape, scale=1.0):
             return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
         idx = torch.from_numpy(rng.randint(0, N, (T, M, S))).to(dev)
@@ -132,9 +202,13 @@ def phase_sa(dev):
         p = _time_ms(lambda: sa_fused.fused_point_mlp_max_plain(*args), 20)
         ms, plain_ms = ms + k, plain_ms + p
         rows.append({'stage': name, 'shape': [T, N, M, S, C1, C2, C3], 'ms': k,
-                     'plain_ms': p, 'max_rel_err': rel_err})
-        print(f'  kernel {k:.4f} ms, plain {p:.4f} ms', flush=True)
-    return {'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms, 'per_shape': rows}
+                     'plain_ms': p, 'bound_ms': max(op_ms[-1], byte_ms[-1]),
+                     'max_rel_err': rel_err})
+        print(f'  kernel {k:.4f} ms, plain {p:.4f} ms, bound {max(op_ms[-1], byte_ms[-1]):.4f} '
+              f'ms', flush=True)
+    # no single PyTorch call fuses the gather, the three layers and the max
+    return {'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms,
+            **_bound_keys(op_ms, byte_ms), 'library_ms': None, 'per_shape': rows}
 
 
 def phase_sa_bwd(dev):
@@ -147,8 +221,17 @@ def phase_sa_bwd(dev):
 
     rng = np.random.RandomState(5)
     names = ('dy', 'do', 'dw2', 'db2', 'dw3', 'db3')
-    rows, max_err, ms, plain_ms = [], 0.0, 0.0, 0.0
+    rows, max_err, ms, plain_ms, op_ms, byte_ms = [], 0.0, 0.0, 0.0, [], []
     for name, (T, N, M, S, C1, C2, C3) in SA_TRAIN_SHAPES.items():
+        R = T * M * S
+        # six products: the two recomputed layers, two weight gradients and two
+        # input gradients (the elementwise passes add ~1% and are not counted)
+        weights = C1 * C2 + C2 + C2 * C3 + C3
+        o, m = _bound(6.0 * R * (C1 * C2 + C2 * C3),
+                      4 * (T * N * C1 + T * M * C1 + weights + T * M * C3)  # inputs
+                      + 8 * R + 4 * (T * N * C1 + T * M * C1 + weights))    # idx, outputs
+        op_ms.append(o)
+        byte_ms.append(m)
         def f(*shape, scale=1.0):
             return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
         idx = torch.from_numpy(rng.randint(0, N, (T, M, S))).to(dev)
@@ -173,9 +256,13 @@ def phase_sa_bwd(dev):
         p = _time_ms(lambda: sa_fused.fused_point_mlp_max_bwd_plain(*args), 5)
         ms, plain_ms = ms + k, plain_ms + p
         rows.append({'stage': name, 'shape': [T, N, M, S, C1, C2, C3], 'ms': k,
-                     'plain_ms': p, 'max_rel_err': max(errs.values())})
-        print(f'  kernel {k:.4f} ms, plain {p:.4f} ms', flush=True)
-    return {'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms, 'per_shape': rows}
+                     'plain_ms': p, 'bound_ms': max(op_ms[-1], byte_ms[-1]),
+                     'max_rel_err': max(errs.values())})
+        print(f'  kernel {k:.4f} ms, plain {p:.4f} ms, bound {max(op_ms[-1], byte_ms[-1]):.4f} '
+              f'ms', flush=True)
+    # no single PyTorch call gives these six gradients
+    return {'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms,
+            **_bound_keys(op_ms, byte_ms), 'library_ms': None, 'per_shape': rows}
 
 
 def _request(seed, cfg, dev):
@@ -248,7 +335,7 @@ def phase_small_reference(dev):
     from epnet_tpu_torch.utils.testing import structured_scene, tiny_config
 
     cfg = tiny_config(EXACT_QUERIES=True)
-    cpu = EPNet(cfg, 'TEST', generator=torch.Generator().manual_seed(1)).eval()
+    cpu = EPNet(cfg, 'TEST', device='cpu', generator=torch.Generator().manual_seed(1)).eval()
     card = EPNet(cfg, 'TEST', device=dev).eval()
     card.load_state_dict(cpu.state_dict())
     rng = np.random.RandomState(3)
@@ -353,7 +440,8 @@ def phase_small_train_reference(dev):
     from epnet_tpu_torch.utils.testing import synthetic_batch, tiny_config
 
     cfg = tiny_config(EXACT_QUERIES=True, RPN={'DP_RATIO': 0.0})
-    cpu = epnet_mod.EPNet(cfg, 'TRAIN', generator=torch.Generator().manual_seed(1)).train()
+    cpu = epnet_mod.EPNet(cfg, 'TRAIN', device='cpu',
+                         generator=torch.Generator().manual_seed(1)).train()
     card = epnet_mod.EPNet(cfg, 'TRAIN', device=dev)
     card.load_state_dict(cpu.state_dict())
     card.train()
@@ -395,6 +483,201 @@ def phase_small_train_reference(dev):
         raise AssertionError('tiny train step: the card and the CPU disagree')
 
 
+@contextlib.contextmanager
+def dw_route(on):
+    """Both weight-gradient switches set (on) or cleared (off) for the
+    block; the environment is restored after it."""
+    saved = {k: os.environ.get(k) for k in DW_SWITCHES}
+    try:
+        for k in DW_SWITCHES:
+            if on:
+                os.environ[k] = '1'
+            else:
+                os.environ.pop(k, None)
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_conv_dw(dev):
+    """Kernels D and E against their plain versions at the tower's train
+    shapes; kernel, plain and library (``conv2d_weight`` on the padded
+    input, cuDNN without TF32) timed in turns."""
+    import torch
+    import torch.nn.functional as F
+    from epnet_tpu_torch.ops import conv2d
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for B, H, W, C, Fo, stride in DW_EDGE_SHAPES:
+        x = torch.randn(B, H, W, C, device=dev, generator=gen)
+        dy = torch.randn(B, H // stride, W // stride, Fo, device=dev, generator=gen)
+        kernel, plain = ((conv2d.dw3x3_s2_kernel, conv2d.dw3x3_s2_plain) if stride == 2
+                         else (conv2d.dw3x3_s1_kernel, conv2d.dw3x3_s1_plain))
+        want = plain(x, dy)
+        err = float((kernel(x, dy) - want).abs().max()) / float(want.abs().max())
+        if not err <= DW_RTOL:
+            raise AssertionError(f'stride {stride} kernel off by {err:.3e} of max|dw| at '
+                                 f'{(B, H, W, C, Fo)}')
+    print(f'conv3x3_dw at {len(DW_EDGE_SHAPES)} edge shapes: within {DW_RTOL} of max|dw|',
+          flush=True)
+    results = {}
+    for name, shapes in DW_SHAPES.items():
+        stride = 2 if name.endswith('s2') else 1
+        kernel, plain = ((conv2d.dw3x3_s2_kernel, conv2d.dw3x3_s2_plain) if stride == 2
+                         else (conv2d.dw3x3_s1_kernel, conv2d.dw3x3_s1_plain))
+        rows, max_err, op_ms, byte_ms = [], 0.0, [], []
+        total = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0}
+        for blk, (B, H, W, C, Fo) in shapes.items():
+            x = torch.randn(B, H, W, C, device=dev, generator=gen)
+            dy = torch.randn(B, H // stride, W // stride, Fo, device=dev, generator=gen)
+            pixels = B * (H // stride) * (W // stride)
+            o, m = _bound(2.0 * 9 * C * Fo * pixels, 4 * (B * H * W * C + pixels * Fo + 9 * C * Fo))
+            op_ms.append(o)
+            byte_ms.append(m)
+            x_nchw = x.permute(0, 3, 1, 2)
+            xp = F.pad(x_nchw, conv2d._nchw_pads(x_nchw, 3, stride))
+            dy_nchw = dy.permute(0, 3, 1, 2)
+
+            def library():
+                return torch.nn.grad.conv2d_weight(xp, (Fo, C, 3, 3), dy_nchw, stride=stride)
+
+            got, want = kernel(x, dy), plain(x, dy)
+            lib_dw = library().permute(2, 3, 1, 0)
+            again = kernel(x, dy)
+            torch.cuda.synchronize()
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            lib_err = float((lib_dw - want).abs().max())
+            print(f'{name} {blk} x {(B, H, W, C)} -> dy F {Fo}: max abs err {err:.3e} '
+                  f'({err / scale:.2e} of max|dw|); conv2d_weight {lib_err / scale:.2e}',
+                  flush=True)
+            if not err <= DW_RTOL * scale:
+                raise AssertionError(f'{name} {blk}: kernel off by {err / scale:.3e} of max|dw|')
+            if not lib_err <= LIBRARY_RTOL * scale:
+                raise AssertionError(f'{name} {blk}: conv2d_weight is not the same function')
+            if not torch.equal(got, again):
+                raise AssertionError(f'{name} {blk}: two launches differ')
+            max_err = max(max_err, err)
+            del got, want, lib_dw, again
+            fns = {'ms': (lambda: kernel(x, dy), 10), 'plain_ms': (lambda: plain(x, dy), 3),
+                   'library_ms': (library, 10)}
+            row = dict.fromkeys(fns, 0.0)
+            for key in ('ms', 'plain_ms', 'library_ms', 'library_ms', 'plain_ms', 'ms'):
+                fn, reps = fns[key]
+                row[key] += _time_ms(fn, reps) / 2
+            for key in total:
+                total[key] += row[key]
+            row.update(block=blk, shape=[B, H, W, C, Fo], bound_ms=max(o, m), max_rel_err=err / scale)
+            rows.append(row)
+            print(f'  kernel {row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, conv2d_weight '
+                  f'{row["library_ms"]:.4f} ms, bound {max(o, m):.4f} ms ({o:.4f} operations, '
+                  f'{m:.4f} bytes)', flush=True)
+            del x, dy, xp, x_nchw, dy_nchw
+        results[name] = {'max_abs_err': max_err, **total, **_bound_keys(op_ms, byte_ms),
+                         'per_shape': rows}
+    return results
+
+
+def _tower_conv_grads(model, batch, cfg, dev):
+    """The image tower's conv weight gradients of one forward and backward
+    (no optimizer step, so before the clip), with fixed draws."""
+    import torch
+    from epnet_tpu_torch.train.loss import joint_loss
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    out = model(batch, bn_momentum=0.1, generator=torch.Generator(device=dev).manual_seed(7))
+    loss, _ = joint_loss(cfg, out, batch)
+    loss.backward()
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if '.img_block' in n and n.endswith('Conv_0.weight')}
+
+
+def phase_train_dw(dev):
+    """The train path with both weight-gradient switches on, in turns with
+    the default route on the same state (step time, memory, launch counts
+    of all five kernels); then one step's tower conv weight gradients on
+    the kernel route against the default route's."""
+    import torch
+    from epnet_tpu_torch.config import parity_config
+    from epnet_tpu_torch.ops import conv2d, fps, sa_fused
+    from epnet_tpu_torch.train.trainer import create_train_state, train_step
+
+    cfg = parity_config()
+    state = create_train_state(cfg, total_steps=100, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+    params = list(state.model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = {seed: _train_batch(cfg, seed, dev) for seed in (3,) + TRAIN_SEEDS}
+    counters = (fps.furthest_point_sample_kernel, sa_fused.fused_point_mlp_max_kernel,
+                sa_fused.fused_point_mlp_max_bwd_kernel, conv2d.dw3x3_s2_kernel,
+                conv2d.dw3x3_s1_kernel)
+    for on in (True, False):  # warm-up, both routes
+        with dw_route(on):
+            train_step(state, batches[3], 0.1, gen)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    times, peaks = {True: [], False: []}, {True: 0.0, False: 0.0}
+    # in turns, so that both routes see the same process and host: on, off;
+    # off, on; on, off
+    for i, seed in enumerate(TRAIN_SEEDS):
+        for on in ((True, False) if i % 2 == 0 else (False, True)):
+            route = 'kernel' if on else 'default'
+            with dw_route(on):
+                before = [c.launches for c in counters]
+                old = [p.detach().clone() for p in params]
+                torch.cuda.reset_peak_memory_stats(dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tb = train_step(state, batches[seed], 0.1, gen)
+                torch.cuda.synchronize()
+                times[on].append((time.perf_counter() - t0) * 1e3)
+                peaks[on] = max(peaks[on], torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+            delta = [c.launches - b for c, b in zip(counters, before)]
+            loss = float(tb['loss'])
+            moved = sum(not torch.equal(a, p) for a, p in zip(old, params))
+            if not math.isfinite(loss) or moved < 0.9 * len(params):
+                raise AssertionError(f'{route}-route step on scene {seed}: loss {loss}, '
+                                     f'{moved} of {len(params)} parameters moved')
+            want = [6, 2, 2, 4, 3] if on else [6, 2, 2, 0, 0]
+            if delta != want:
+                raise AssertionError(f'{route}-route step on scene {seed}: launches {delta}, '
+                                     f'expected {want}')
+            print(f'{route}-route step scene {seed}: {times[on][-1]:.2f} ms, loss {loss:.4f}, '
+                  f'launches fps +{delta[0]} sa_fused +{delta[1]} sa_fused_bwd +{delta[2]} '
+                  f'conv3x3_dw_s2 +{delta[3]} conv3x3_dw_s1 +{delta[4]}', flush=True)
+    launches = [c.launches for c in counters]
+    for on in (True, False):
+        print(f'{"kernel" if on else "default"}-route train step, batch {TRAIN_BATCH}, in turns: '
+              f'median {statistics.median(times[on]):.2f} ms over {len(times[on])} steps; peak '
+              f'memory {peaks[on]:.2f} GiB', flush=True)
+    with dw_route(True):
+        on = _tower_conv_grads(state.model, batches[0], cfg, dev)
+    with dw_route(False):
+        off = _tower_conv_grads(state.model, batches[0], cfg, dev)
+        off2 = _tower_conv_grads(state.model, batches[0], cfg, dev)
+
+    def rel(a, b):
+        return {n: float((a[n] - g).abs().max()) / float(g.abs().max()) for n, g in b.items()}
+
+    route, floor = rel(on, off), rel(off2, off)
+    for n in off:
+        print(f'  {n}: kernel vs default route {route[n]:.2e}, default vs default '
+              f'{floor[n]:.2e} of max|dw|', flush=True)
+    print(f'tower conv weight gradients ({len(off)} convs), before the clip: kernel route vs '
+          f'default route worst {max(route.values()):.2e} of max|dw| (bound {ROUTE_RTOL}); two '
+          f'default-route runs worst {max(floor.values()):.2e}', flush=True)
+    bad = {n: v for n, v in route.items() if not v <= ROUTE_RTOL}
+    if bad:
+        raise AssertionError(f'kernel route vs default route: tower conv gradients off: {bad}')
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -415,7 +698,7 @@ def main():
     torch.cuda.set_device(dev)
 
     t0 = time.perf_counter()
-    libs = ('fps', 'sa_fused', 'sa_fused_bwd')
+    libs = ('fps', 'sa_fused', 'sa_fused_bwd', 'conv3x3_dw')
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:  # one nvcc each, together
         for f in [pool.submit(cuda_build.load_library, name) for name in libs]:
             f.result()
@@ -425,24 +708,37 @@ def main():
             if 'registers' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}')
 
-    fps_res = phase_fps(dev)
-    sa_res = phase_sa(dev)
-    fps_launches, sa_launches = phase_slice(dev)
-    phase_small_reference(dev)
-    bwd_res = phase_sa_bwd(dev)
-    train_fps, train_sa, bwd_launches = phase_train(dev)
-    phase_small_train_reference(dev)
+    with dw_route(False):
+        fps_res = phase_fps(dev)
+        sa_res = phase_sa(dev)
+        fps_launches, sa_launches = phase_slice(dev)
+        phase_small_reference(dev)
+        bwd_res = phase_sa_bwd(dev)
+        train_fps, train_sa, bwd_launches = phase_train(dev)
+        phase_small_train_reference(dev)
+    dw_res = phase_conv_dw(dev)
+    dw_fps, dw_sa, dw_bwd, s2_launches, s1_launches = phase_train_dw(dev)
 
     kernels = [
         {'name': 'fps', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/fps.cu',
-         'replaces': 'epnet_tpu/ops/fps_pallas.py:40', 'launches': fps_launches + train_fps,
-         **fps_res},
+         'replaces': 'epnet_tpu/ops/fps_pallas.py:40',
+         'launches': fps_launches + train_fps + dw_fps, **fps_res},
         {'name': 'sa_fused_fwd', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/sa_fused.cu',
-         'replaces': 'epnet_tpu/ops/sa_fused.py:83', 'launches': sa_launches + train_sa,
+         'replaces': 'epnet_tpu/ops/sa_fused.py:83', 'launches': sa_launches + train_sa + dw_sa,
          **sa_res},
         {'name': 'sa_fused_bwd', 'route': 'cuda',
          'source': 'epnet_tpu_torch/csrc/sa_fused_bwd.cu',
-         'replaces': 'epnet_tpu/ops/sa_fused.py:179', 'launches': bwd_launches, **bwd_res},
+         'replaces': 'epnet_tpu/ops/sa_fused.py:179', 'launches': bwd_launches + dw_bwd,
+         **bwd_res},
+        {'name': 'conv3x3_dw_s2', 'route': 'cuda',
+         'source': 'epnet_tpu_torch/csrc/conv3x3_dw.cu',
+         'replaces': 'epnet_tpu/ops/conv2d.py:294, tools/conv_dw_pallas_attic.py:323, '
+                     'tools/conv_dw_pallas_attic.py:166',
+         'launches': s2_launches, **dw_res['conv3x3_dw_s2']},
+        {'name': 'conv3x3_dw_s1', 'route': 'cuda',
+         'source': 'epnet_tpu_torch/csrc/conv3x3_dw.cu',
+         'replaces': 'tools/conv_dw_pallas_attic.py:258, tools/conv_dw_pallas_attic.py:67',
+         'launches': s1_launches, **dw_res['conv3x3_dw_s1']},
     ]
     for k in kernels:
         if k['launches'] <= 0:

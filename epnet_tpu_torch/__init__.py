@@ -6,5 +6,10 @@ module keeps its JAX counterpart's file name. Public functions take the JAX
 package's layouts: channels-last ``(B, N, C)`` points and NHWC images.
 
 This package imports torch and numpy only. It never imports jax, flax or
-``epnet_tpu``; ``config.py`` loads the framework-free config module by path.
+``epnet_tpu``, and reads no file of that package: what it needs of it
+(the config tree, the test scenes' box geometry) it keeps as its own copy.
+
+Its entry points (``EPNet``, ``train.trainer.create_train_state``) build
+on the CUDA device unless the caller passes another ``device``; without a
+card they raise rather than fall back to the CPU.
 """

@@ -1,44 +1,371 @@
-"""The configuration tree, shared with the JAX package.
+"""The configuration tree: frozen dataclasses, the strict YAML merge and
+dotted-path overrides.
 
-``epnet_tpu/config.py`` is framework-free (frozen dataclasses, a lazy
-``import yaml``), so this module loads that one file by path and re-exports
-it: both packages read one definition, and ``epnet_tpu/__init__.py`` (which
-imports jax) never runs.
+The port's own copy of ``epnet_tpu/config.py`` (reference
+``lib/config.py``): the same fields, defaults and merge rules, so that the
+reference's experiment files load unchanged (defaults <- ``_BASE_`` chain
+<- YAML <- overrides). ``tests/test_torch_config.py`` holds every field and
+every ``cfgs/*.yaml`` equal to the JAX package's.
 
 ``parity_config()`` builds the published recipe
 (``cfgs/LI_Fusion_with_attention_use_ce_loss.yaml``) in code, for machines
-without PyYAML; ``tests/test_torch_config.py`` holds it equal to the yaml.
+without PyYAML; the same test holds it equal to the yaml.
 """
 
 from __future__ import annotations
 
-import importlib.util
+import dataclasses
+import os
 import pathlib
-import sys
-
-_SOURCE = pathlib.Path(__file__).resolve().parents[1] / 'epnet_tpu' / 'config.py'
-_NAME = 'epnet_tpu_torch._shared_config'
+from dataclasses import dataclass, field, fields, replace
+from typing import Optional, Tuple
 
 
-def _load():
-    if _NAME in sys.modules:
-        return sys.modules[_NAME]
-    spec = importlib.util.spec_from_file_location(_NAME, _SOURCE)
-    mod = importlib.util.module_from_spec(spec)
-    # dataclasses resolve their module through sys.modules while the
-    # classes are built, so register before executing
-    sys.modules[_NAME] = mod
-    try:
-        spec.loader.exec_module(mod)
-    except BaseException:
-        del sys.modules[_NAME]
-        raise
-    return mod
+def _tup(x):
+    """Lists to tuples, recursively, so that the config stays hashable."""
+    if isinstance(x, (list, tuple)):
+        return tuple(_tup(v) for v in x)
+    return x
 
 
-_shared = _load()
-Config = _shared.Config
-load_config = _shared.load_config
+@dataclass(frozen=True)
+class LIFusionConfig:
+    """LI-Fusion (reference ``lib/config.py:36-45``)."""
+
+    ENABLED: bool = False
+    IMG_FEATURES_CHANNEL: int = 128
+    ADD_Image_Attention: bool = False
+    IMG_CHANNELS: Tuple[int, ...] = (3, 64, 128, 256, 512)
+    POINT_CHANNELS: Tuple[int, ...] = (96, 256, 512, 1024)
+    DeConv_Reduce: Tuple[int, ...] = (16, 16, 16, 16)
+    DeConv_Kernels: Tuple[int, ...] = (2, 4, 8, 16)
+    DeConv_Strides: Tuple[int, ...] = (2, 4, 8, 16)
+
+
+@dataclass(frozen=True)
+class SAConfigRPN:
+    """PointNet++ MSG set abstraction (reference ``lib/config.py:70-78``)."""
+
+    NPOINTS: Tuple[int, ...] = (4096, 1024, 256, 64)
+    RADIUS: Tuple[Tuple[float, ...], ...] = ((0.1, 0.5), (0.5, 1.0), (1.0, 2.0), (2.0, 4.0))
+    NSAMPLE: Tuple[Tuple[int, ...], ...] = ((16, 32), (16, 32), (16, 32), (16, 32))
+    MLPS: Tuple[Tuple[Tuple[int, ...], ...], ...] = (
+        ((16, 16, 32), (32, 32, 64)),
+        ((64, 64, 128), (64, 96, 128)),
+        ((128, 196, 256), (128, 196, 256)),
+        ((256, 256, 512), (256, 384, 512)),
+    )
+
+
+@dataclass(frozen=True)
+class RPNConfig:
+    """Reference ``lib/config.py:49-93``. ``SAMPLING``, ``FPS_GROUPS``,
+    ``BLOCK_*`` and ``FP_*`` are the JAX package's approximation knobs; the
+    port keeps them so that its files load, and ``EPNet`` refuses any value
+    but the exact default."""
+
+    ENABLED: bool = True
+    FIXED: bool = False
+    USE_INTENSITY: bool = True
+    USE_RGB: bool = False
+    LOC_XZ_FINE: bool = False
+    LOC_SCOPE: float = 3.0
+    LOC_BIN_SIZE: float = 0.5
+    NUM_HEAD_BIN: int = 12
+    BACKBONE: str = 'pointnet2_msg'
+    USE_BN: bool = True
+    NUM_POINTS: int = 16384
+    SAMPLING: str = 'fps'  # 'fps' (the reference) or 'random'
+    FPS_GROUPS: int = 1    # 1 = exact FPS over the whole cloud
+    BLOCK_LOCAL: bool = False
+    BLOCK_WINDOW: int = 1024
+    BLOCK_C: int = 128
+    FP_WINDOW: int = 0     # 0 = dense 3-NN interpolation
+    FP_UBLOCK: int = 256
+    SA_CONFIG: SAConfigRPN = field(default_factory=SAConfigRPN)
+    FP_MLPS: Tuple[Tuple[int, ...], ...] = ((128, 128), (256, 256), (512, 512), (512, 512))
+    CLS_FC: Tuple[int, ...] = (128,)
+    REG_FC: Tuple[int, ...] = (128,)
+    DP_RATIO: float = 0.5
+    LOSS_CLS: str = 'DiceLoss'
+    FG_WEIGHT: float = 15
+    FOCAL_ALPHA: Tuple[float, ...] = (0.25, 0.75)
+    FOCAL_GAMMA: float = 2.0
+    REG_LOSS_WEIGHT: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0)
+    LOSS_WEIGHT: Tuple[float, ...] = (1.0, 1.0)
+    NMS_TYPE: str = 'normal'  # normal | rotate
+    SCORE_THRESH: float = 0.3
+
+    @property
+    def per_loc_bin_num(self) -> int:
+        return int(self.LOC_SCOPE / self.LOC_BIN_SIZE) * 2
+
+    @property
+    def reg_channel(self) -> int:
+        # layout of reference lib/net/rpn.py:35-40
+        n = self.per_loc_bin_num
+        c = n * 4 if self.LOC_XZ_FINE else n * 2
+        return c + self.NUM_HEAD_BIN * 2 + 3 + 1  # +1 = y offset
+
+
+@dataclass(frozen=True)
+class SAConfigRCNN:
+    """Reference ``lib/config.py:130-136``."""
+
+    NPOINTS: Tuple[int, ...] = (128, 32, -1)
+    RADIUS: Tuple[float, ...] = (0.2, 0.4, 100)
+    NSAMPLE: Tuple[int, ...] = (64, 64, 64)
+    MLPS: Tuple[Tuple[int, ...], ...] = ((128, 128, 128), (128, 128, 256), (256, 256, 512))
+
+
+@dataclass(frozen=True)
+class RCNNConfig:
+    """Reference ``lib/config.py:96-158``. ``BLOCK_*`` are the JAX
+    package's windowed-SA knobs (not ported; ``EPNet`` refuses them)."""
+
+    ENABLED: bool = False
+    USE_RPN_FEATURES: bool = True
+    USE_MASK: bool = True
+    MASK_TYPE: str = 'seg'
+    USE_INTENSITY: bool = False
+    USE_DEPTH: bool = True
+    USE_SEG_SCORE: bool = False
+    ROI_SAMPLE_JIT: bool = False
+    ROI_FG_AUG_TIMES: int = 10
+    REG_AUG_METHOD: str = 'multiple'  # multiple | single | normal
+    POOL_EXTRA_WIDTH: float = 1.0
+    USE_RGB: bool = False
+    LOC_SCOPE: float = 1.5
+    LOC_BIN_SIZE: float = 0.5
+    NUM_HEAD_BIN: int = 9
+    LOC_Y_BY_BIN: bool = False
+    LOC_Y_SCOPE: float = 0.5
+    LOC_Y_BIN_SIZE: float = 0.25
+    SIZE_RES_ON_ROI: bool = False
+    USE_BN: bool = False
+    DP_RATIO: float = 0.0
+    BACKBONE: str = 'pointnet'
+    BLOCK_LOCAL: bool = False
+    BLOCK_WINDOW: int = 256
+    BLOCK_C: int = 32
+    XYZ_UP_LAYER: Tuple[int, ...] = (128, 128)
+    NUM_POINTS: int = 512
+    SA_CONFIG: SAConfigRCNN = field(default_factory=SAConfigRCNN)
+    CLS_FC: Tuple[int, ...] = (256, 256)
+    REG_FC: Tuple[int, ...] = (256, 256)
+    LOSS_CLS: str = 'BinaryCrossEntropy'
+    FOCAL_ALPHA: Tuple[float, ...] = (0.25, 0.75)
+    FOCAL_GAMMA: float = 2.0
+    CLS_WEIGHT: Tuple[float, ...] = (1.0, 1.0, 1.0)
+    CLS_FG_THRESH: float = 0.6
+    CLS_BG_THRESH: float = 0.45
+    CLS_BG_THRESH_LO: float = 0.05
+    REG_FG_THRESH: float = 0.55
+    FG_RATIO: float = 0.5
+    ROI_PER_IMAGE: int = 64
+    HARD_BG_RATIO: float = 0.6
+    IOU_LOSS_TYPE: str = 'raw'
+    IOU_ANGLE_POWER: int = 1
+    SCORE_THRESH: float = 0.3
+    NMS_THRESH: float = 0.1
+
+    @property
+    def per_loc_bin_num(self) -> int:
+        return int(self.LOC_SCOPE / self.LOC_BIN_SIZE) * 2
+
+    @property
+    def loc_y_bin_num(self) -> int:
+        return int(self.LOC_Y_SCOPE / self.LOC_Y_BIN_SIZE) * 2
+
+    @property
+    def reg_channel(self) -> int:
+        # layout of reference lib/net/rcnn_net.py:78-81
+        c = self.per_loc_bin_num * 4 + self.NUM_HEAD_BIN * 2 + 3
+        c += 1 if not self.LOC_Y_BY_BIN else self.loc_y_bin_num * 2
+        return c
+
+    @property
+    def input_channel(self) -> int:
+        # xyz + mask + depth (+ intensity); reference lib/net/rcnn_net.py:22
+        return 3 + int(self.USE_INTENSITY) + int(self.USE_MASK) + int(self.USE_DEPTH)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Reference ``lib/config.py:161-199``."""
+
+    SPLIT: str = 'train'
+    VAL_SPLIT: str = 'smallval'
+    LR: float = 0.002
+    LR_CLIP: float = 0.00001
+    LR_DECAY: float = 0.5
+    DECAY_STEP_LIST: Tuple[int, ...] = (50, 100, 150, 200, 250, 300)
+    LR_WARMUP: bool = False
+    WARMUP_MIN: float = 0.0002
+    WARMUP_EPOCH: int = 5
+    BN_MOMENTUM: float = 0.9
+    BN_DECAY: float = 0.5
+    BNM_CLIP: float = 0.01
+    BN_DECAY_STEP_LIST: Tuple[int, ...] = (50, 100, 150, 200, 250, 300)
+    OPTIMIZER: str = 'adam'
+    WEIGHT_DECAY: float = 0.0
+    MOMENTUM: float = 0.9
+    MOMS: Tuple[float, ...] = (0.95, 0.85)
+    DIV_FACTOR: float = 10.0
+    PCT_START: float = 0.4
+    GRAD_NORM_CLIP: float = 1.0
+    RPN_PRE_NMS_TOP_N: int = 12000
+    RPN_POST_NMS_TOP_N: int = 2048
+    RPN_NMS_THRESH: float = 0.85
+    RPN_DISTANCE_BASED_PROPOSE: bool = True
+    RPN_TRAIN_WEIGHT: float = 1.0
+    RCNN_TRAIN_WEIGHT: float = 1.0
+    CE_WEIGHT: float = 5.0
+    IOU_LOSS_TYPE: str = 'cls_mask_with_bin'
+    BBOX_AVG_BY_BIN: bool = True
+    RY_WITH_BIN: bool = False
+
+
+@dataclass(frozen=True)
+class TestConfig:
+    """Reference ``lib/config.py:201-209``."""
+
+    SPLIT: str = 'val'
+    RPN_PRE_NMS_TOP_N: int = 9000
+    RPN_POST_NMS_TOP_N: int = 300
+    RPN_NMS_THRESH: float = 0.7
+    RPN_DISTANCE_BASED_PROPOSE: bool = True
+    BBOX_AVG_BY_BIN: bool = True
+    RY_WITH_BIN: bool = False
+
+
+@dataclass(frozen=True)
+class Config:
+    """Top-level config; defaults of reference ``lib/config.py:8-209``.
+    ``MIXED_PRECISION`` (bf16 matmuls) and ``EXACT_QUERIES`` (True, False,
+    'residual' or None for the backend's default) are the JAX package's
+    keys; the port runs MIXED_PRECISION false with exact queries only."""
+
+    TAG: str = 'default'
+    CLASSES: str = 'Car'
+    INCLUDE_SIMILAR_TYPE: bool = False
+    AUG_DATA: bool = True
+    AUG_METHOD_LIST: Tuple[str, ...] = ('rotation', 'scaling', 'flip')
+    AUG_METHOD_PROB: Tuple[float, ...] = (0.5, 0.5, 0.5)
+    AUG_ROT_RANGE: float = 18
+    GT_AUG_ENABLED: bool = False
+    GT_EXTRA_NUM: int = 15
+    GT_AUG_RAND_NUM: bool = False
+    GT_AUG_APPLY_PROB: float = 0.75
+    GT_AUG_HARD_RATIO: float = 0.6
+    PC_REDUCE_BY_RANGE: bool = True
+    PC_AREA_SCOPE: Tuple[Tuple[float, float], ...] = ((-40, 40), (-1, 3), (0, 70.4))
+    CLS_MEAN_SIZE: Tuple[Tuple[float, ...], ...] = ((1.52, 1.63, 3.88),)
+    USE_IOU_BRANCH: bool = False
+    MIXED_PRECISION: bool = False
+    EXACT_QUERIES: Optional[bool] = None  # True | False | 'residual' | None
+    LI_FUSION: LIFusionConfig = field(default_factory=LIFusionConfig)
+    RPN: RPNConfig = field(default_factory=RPNConfig)
+    RCNN: RCNNConfig = field(default_factory=RCNNConfig)
+    TRAIN: TrainConfig = field(default_factory=TrainConfig)
+    TEST: TestConfig = field(default_factory=TestConfig)
+
+    @property
+    def num_classes(self) -> int:
+        """Including background."""
+        return 3 if self.CLASSES == 'People' else 2
+
+    def get(self, mode: str):
+        """``cfg['TRAIN']`` / ``cfg['TEST']`` lookup of the proposal layer."""
+        if mode == 'TRAIN':
+            return self.TRAIN
+        if mode in ('TEST', 'EVAL'):
+            return self.TEST
+        raise KeyError(mode)
+
+    def asdict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def merged(self, updates: dict) -> 'Config':
+        """Strictly merge a nested dict (parsed YAML) into this config, as
+        the reference's ``_merge_a_into_b`` (``lib/config.py:221-248``):
+        unknown keys raise, scalar types must match (an int may fill a
+        float)."""
+        return _merge(self, updates)
+
+    def with_overrides(self, kv_pairs) -> 'Config':
+        """Dotted-path overrides ``[('RPN.LOC_SCOPE', '3.0'), ...]``, as
+        ``cfg_from_list`` (``lib/config.py:251-270``)."""
+        from ast import literal_eval
+
+        cfg = self
+        for k, v in kv_pairs:
+            if isinstance(v, str):
+                try:
+                    v = literal_eval(v)
+                except (ValueError, SyntaxError):
+                    pass  # keep as a string
+            parts = k.split('.')
+            nested: dict = {parts[-1]: v}
+            for p in reversed(parts[:-1]):
+                nested = {p: nested}
+            cfg = cfg.merged(nested)
+        return cfg
+
+
+def _merge(node, updates: dict):
+    if not dataclasses.is_dataclass(node):
+        raise TypeError(f'cannot merge into non-dataclass {node!r}')
+    valid = {f.name: f for f in fields(node)}
+    changes = {}
+    for k, v in updates.items():
+        if k not in valid:
+            raise KeyError(f'{k} is not a valid config key')
+        old = getattr(node, k)
+        if dataclasses.is_dataclass(old):
+            if not isinstance(v, dict):
+                raise ValueError(f'config key {k} expects a mapping, got {type(v)}')
+            changes[k] = _merge(old, v)
+            continue
+        v = _tup(v)
+        if k == 'EXACT_QUERIES' and v == 'residual':  # the one tri-state key
+            changes[k] = v
+            continue
+        if old is not None and v is not None:
+            if isinstance(old, bool) != isinstance(v, bool):
+                raise ValueError(f'type mismatch for config key {k}: {type(old)} vs {type(v)}')
+            if isinstance(old, float) and isinstance(v, int):
+                v = float(v)
+            if isinstance(old, tuple) != isinstance(v, tuple):
+                raise ValueError(f'type mismatch for config key {k}: {type(old)} vs {type(v)}')
+            if not isinstance(old, tuple) and type(old) is not type(v):
+                raise ValueError(f'type mismatch for config key {k}: {type(old)} vs {type(v)}')
+        changes[k] = v
+    return replace(node, **changes)
+
+
+def load_config(yaml_file: Optional[str] = None, overrides=None) -> Config:
+    """defaults <- (optional ``_BASE_`` chain) <- YAML file <- overrides."""
+    cfg = Config()
+
+    def apply(path):
+        nonlocal cfg
+        import yaml
+
+        with open(path) as f:
+            data = yaml.safe_load(f) or {}
+        base = data.pop('_BASE_', None)
+        if base:
+            apply(os.path.join(os.path.dirname(path), base))
+        if data:
+            cfg = cfg.merged(data)
+
+    if yaml_file is not None:
+        apply(yaml_file)
+    if overrides:
+        cfg = cfg.with_overrides(overrides)
+    return cfg
+
 
 PARITY_YAML = pathlib.Path(__file__).resolve().parents[1] / 'cfgs' / \
     'LI_Fusion_with_attention_use_ce_loss.yaml'

@@ -25,11 +25,23 @@ from .rpn import RPN
 from .target_assign import proposal_target_layer
 
 
+def default_device(device=None) -> torch.device:
+    """``device`` as given; when it is None, the CUDA device. Raises when
+    there is none rather than building on the CPU: pass ``device='cpu'``
+    for that."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to build the model on the CPU")
+    return torch.device('cuda')
+
+
 class EPNet(nn.Module):
     """``EPNet(cfg, mode, device=..., generator=...)``: built on ``device``
-    and initialized like the JAX package (from ``generator`` when given).
-    ``mode`` ('TRAIN' or 'TEST') selects the proposal budgets, as the
-    reference's ``cfg[mode]`` lookups do.
+    (the CUDA device when None, see ``default_device``) and initialized like
+    the JAX package (from ``generator`` when given). ``mode`` ('TRAIN' or
+    'TEST') selects the proposal budgets, as the reference's ``cfg[mode]``
+    lookups do.
 
     In training mode (``.train()``) the forward samples RoIs against
     ``batch['gt_boxes3d']``, normalizes with batch statistics, applies
@@ -52,6 +64,7 @@ class EPNet(nn.Module):
         if cfg.RPN.BLOCK_LOCAL or cfg.RCNN.BLOCK_LOCAL or cfg.RPN.FP_WINDOW \
                 or cfg.RPN.FPS_GROUPS != 1 or cfg.RPN.SAMPLING != 'fps':
             raise NotImplementedError('the TPU approximation knobs are not ported')
+        device = default_device(device)
         self.cfg = cfg
         self.mode = mode
         in_ch = 3 + int(cfg.RPN.USE_INTENSITY)

@@ -20,6 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.conv2d import conv3x3_same, dw_kernel_available, same_pads
+
 # std of a unit normal truncated to [-2, 2] (flax's variance_scaling constant)
 _TRUNC_STD = 0.87962566103423978
 
@@ -156,16 +158,15 @@ class SharedMLP(nn.Module):
         return x
 
 
-def _same_pads(size: int, kernel: int, stride: int):
-    """TensorFlow/XLA 'SAME' padding (before, after) along one axis: for a
-    stride-2 3x3 conv on an even size that is (0, 1), not (1, 1)."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + kernel - size, 0)
-    return total // 2, total - total // 2
-
-
 class Conv2dBlock(nn.Module):
-    """NHWC KxK 'SAME' conv, no bias (+ BN) (+ ReLU), for the image stream."""
+    """NHWC KxK 'SAME' conv, no bias (+ BN) (+ ReLU), for the image stream.
+
+    Dispatch as the JAX package's (``layers.py:232-261``): a 3x3 conv whose
+    route ``ops/conv2d.dw_kernel_available`` opens goes through
+    ``conv3x3_same`` (same values; the weight gradient by kernel D or E),
+    every other one through ``nn.Conv2d``. The parameter stays at
+    ``Conv_0.weight`` (OIHW) either way. The RGB stem (3 input channels)
+    never takes the route, as in JAX."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3, stride: int = 1,
                  bn: bool = False, activation: bool = False, device=None):
@@ -177,11 +178,14 @@ class Conv2dBlock(nn.Module):
         self.activation = activation
 
     def forward(self, x: torch.Tensor, bn_momentum: float = 0.1) -> torch.Tensor:
-        H, W = x.shape[1], x.shape[2]
-        top, bottom = _same_pads(H, self.kernel, self.stride)
-        left, right = _same_pads(W, self.kernel, self.stride)
-        x = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
-        x = self.Conv_0(x).permute(0, 2, 3, 1)
+        if dw_kernel_available(x.shape, self.kernel, self.stride):
+            x = conv3x3_same(x, self.Conv_0.weight.permute(2, 3, 1, 0), self.stride)
+        else:
+            H, W = x.shape[1], x.shape[2]
+            top, bottom = same_pads(H, self.kernel, self.stride)
+            left, right = same_pads(W, self.kernel, self.stride)
+            x = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
+            x = self.Conv_0(x).permute(0, 2, 3, 1)
         if self.BatchNorm_0 is not None:
             x = self.BatchNorm_0(x, bn_momentum)
         return torch.relu(x) if self.activation else x

@@ -39,7 +39,8 @@ class TrainState:
 def create_train_state(cfg: Config, total_steps: int, device=None,
                        generator: Optional[torch.Generator] = None) -> TrainState:
     """``EPNet(cfg, 'TRAIN')`` initialized from ``generator``, in training
-    mode, with its optimizer."""
+    mode, with its optimizer; on the CUDA device unless ``device`` says
+    otherwise (raises without a card, as ``EPNet`` does)."""
     model = EPNet(cfg, 'TRAIN', device=device, generator=generator).train()
     return TrainState(model, make_optimizer(cfg, model.parameters(), total_steps))
 

@@ -1,0 +1,34 @@
+"""Host-side (numpy) box geometry for the port's labelled test scenes.
+
+The port's own copy of the two functions of ``epnet_tpu/data/box_np.py``
+that ``utils/testing.py`` needs (reference ``lib/utils/kitti_utils.py``);
+``tests/test_torch_config.py`` holds them equal to the JAX package's.
+Boxes are ``(7,) = [x, y, z, h, w, l, ry]`` in the rect-camera frame, with
+``y`` at the bottom face.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def enlarge_box3d(boxes3d: np.ndarray, extra_width: float) -> np.ndarray:
+    """(N, 7) boxes grown by ``extra_width`` on every side."""
+    out = boxes3d.copy()
+    out[:, 3:6] += extra_width * 2
+    out[:, 1] += extra_width
+    return out
+
+
+def points_in_box3d(pts: np.ndarray, box3d: np.ndarray) -> np.ndarray:
+    """(N,) bool: which of the (N, 3) points lie in the rotated box, by the
+    analytic test (the reference's ``in_hull`` on the corners, for a convex
+    box)."""
+    cx, cy, cz = box3d[0], box3d[1], box3d[2]
+    h, w, l, ry = box3d[3], box3d[4], box3d[5], box3d[6]
+    px, py, pz = pts[:, 0] - cx, pts[:, 1] - cy, pts[:, 2] - cz
+    in_y = np.abs(py + h / 2.0) <= h / 2.0
+    c, s = np.cos(ry), np.sin(ry)
+    x_rot = px * c - pz * s
+    z_rot = px * s + pz * c
+    return in_y & (np.abs(x_rot) <= l / 2.0) & (np.abs(z_rot) <= w / 2.0)

@@ -6,29 +6,13 @@ Carried over from ``epnet_tpu/utils/testing.py`` (``tiny_config``,
 (``full_batch``, its ``_full_batch(with_labels=True)``) so that the port
 builds its test and smoke inputs without jax; ``tests/test_torch_config.py``
 and ``tests/test_torch_train_step.py`` hold the copies to identical output.
-The box tests come from ``epnet_tpu/data/box_np.py``, which is numpy-only
-and is loaded by path (``epnet_tpu/__init__.py`` imports jax).
+The box tests are the port's own ``utils/box_np.py``.
 """
-
-import importlib.util
-import pathlib
-import sys
 
 import numpy as np
 
 from epnet_tpu_torch.config import Config
-
-_BOX_NP = pathlib.Path(__file__).resolve().parents[2] / 'epnet_tpu' / 'data' / 'box_np.py'
-
-
-def _box_np():
-    name = 'epnet_tpu_torch._box_np'
-    if name not in sys.modules:
-        spec = importlib.util.spec_from_file_location(name, _BOX_NP)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        sys.modules[name] = mod
-    return sys.modules[name]
+from epnet_tpu_torch.utils import box_np
 
 
 def tiny_config(li_fusion=True, rcnn=True, **over) -> Config:
@@ -215,7 +199,6 @@ def synthetic_batch(rng, cfg, batch=2, with_gt=True, structured=False):
             out['gt_boxes3d'] = gt
     if with_gt:
         # fg if inside any gt; reg label: offsets to that gt's vertical center
-        box_np = _box_np()
         inb = np.stack([np.stack([box_np.points_in_box3d(pts[b], g) for g in gt[b]])
                         for b in range(batch)], axis=0)  # (B, G, N)
         out['rpn_cls_label'] = inb.any(axis=1).astype(np.int32)
@@ -245,7 +228,6 @@ def full_batch(cfg, batch_size=1, seed=0, with_labels=False):
              'img': rng.rand(batch_size, 384, 1280, 3).astype(np.float32),
              'pts_origin_xy': np.stack(xy, axis=0)}
     if with_labels:
-        box_np = _box_np()
         G = 20
         gt_pad = np.zeros((batch_size, G, 7), np.float32)
         cls_l = np.zeros((batch_size, N), np.int32)

@@ -40,7 +40,7 @@ def outputs():
         want = to_numpy(jmodel.apply(v, batch, train=False))
     finally:
         mp.undo()
-    tmodel = TEPNet(cfg, 'TEST').eval()
+    tmodel = TEPNet(cfg, 'TEST', device='cpu').eval()
     load_flax_variables(tmodel, v['params'], v['batch_stats'])
     got = {k: x.numpy() for k, x in tmodel({k: torch.from_numpy(batch[k]) for k in INPUTS}).items()}
     return want, got, v
@@ -71,7 +71,8 @@ def test_rois_are_real_proposals(outputs):
 def test_bridge_covers_every_tensor(outputs):
     _, _, v = outputs
     arrays = flax_to_state_dict(v['params'], v['batch_stats'])
-    assert set(arrays) == set(TEPNet(tiny_config(EXACT_QUERIES=True), 'TEST').state_dict())
+    tmodel = TEPNet(tiny_config(EXACT_QUERIES=True), 'TEST', device='cpu')
+    assert set(arrays) == set(tmodel.state_dict())
 
 
 def test_bridge_rejects_unmatched_keys(outputs):
@@ -79,15 +80,15 @@ def test_bridge_rejects_unmatched_keys(outputs):
     params = dict(v['params'])
     params['stray'] = {'kernel': np.zeros((2, 2), np.float32)}
     with pytest.raises(KeyError, match='stray'):
-        load_flax_variables(TEPNet(tiny_config(), 'TEST'), params, v['batch_stats'])
+        load_flax_variables(TEPNet(tiny_config(), 'TEST', device='cpu'), params, v['batch_stats'])
 
 
 def test_seeded_init():
     """Weights come from the generator (same seed, same weights) with the
     JAX package's priors on the heads."""
     cfg = tiny_config()
-    a = TEPNet(cfg, 'TEST', generator=torch.Generator().manual_seed(3)).state_dict()
-    b = TEPNet(cfg, 'TEST', generator=torch.Generator().manual_seed(3)).state_dict()
+    a = TEPNet(cfg, 'TEST', device='cpu', generator=torch.Generator().manual_seed(3)).state_dict()
+    b = TEPNet(cfg, 'TEST', device='cpu', generator=torch.Generator().manual_seed(3)).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert torch.allclose(a['rpn.cls_out.bias'], torch.tensor([-np.log(99.0)], dtype=torch.float32))
     assert float(a['rpn.reg_out.weight'].std()) < 0.002
@@ -95,3 +96,16 @@ def test_seeded_init():
     fan_in = w.shape[1]
     assert abs(float(w.std()) / np.sqrt(2.0 / fan_in) - 1) < 0.15
     assert float(w.abs().max()) <= 2 * np.sqrt(2.0 / fan_in) / 0.87962566103423978 + 1e-6
+
+
+def test_entry_points_need_a_card_unless_told(monkeypatch):
+    """Without ``device`` the model and the train state go to the card; with
+    no card they raise instead of building on the CPU."""
+    from epnet_tpu_torch.train.trainer import create_train_state
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TEPNet(tiny_config(), 'TEST')
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_train_state(tiny_config(TRAIN={'OPTIMIZER': 'adam_onecycle'}), total_steps=10)
+    model = TEPNet(tiny_config(), 'TEST', device='cpu')
+    assert {p.device.type for p in model.parameters()} == {'cpu'}

@@ -133,7 +133,7 @@ def step():
         mp.undo()
     assert len(recorded) >= 1  # traced once per jit
 
-    model = tep.EPNet(cfg, 'TRAIN')
+    model = tep.EPNet(cfg, 'TRAIN', device='cpu')
     load_flax_variables(model, v['params'], v['batch_stats'])
     model.train()
     # the recorded targets are tracers; the same values come out of the model
@@ -234,7 +234,7 @@ def test_bridge_covers_the_train_model(step):
     shapes = jax.tree_util.tree_map(np.shape, to_numpy(v))
     assert shapes == jax.tree_util.tree_map(np.shape, to_numpy(v_test))
     assert set(flax_to_state_dict(v['params'], v['batch_stats'])) == \
-        set(tep.EPNet(cfg, 'TRAIN').state_dict())
+        set(tep.EPNet(cfg, 'TRAIN', device='cpu').state_dict())
 
 
 # ---------------------------------------------------------------------------
@@ -323,7 +323,7 @@ def test_dropout_in_the_heads():
     """Training draws RPN head masks from the generator (DP_RATIO 0.5);
     eval mode is deterministic."""
     cfg = tt.tiny_config(EXACT_QUERIES=True)
-    model = tep.EPNet(cfg, 'TRAIN', generator=torch.Generator().manual_seed(0))
+    model = tep.EPNet(cfg, 'TRAIN', device='cpu', generator=torch.Generator().manual_seed(0))
     b = {k: torch.from_numpy(x) for k, x in tt.synthetic_batch(np.random.RandomState(1), cfg,
                                                                 batch=1).items()}
     feats = torch.randn(1, cfg.RPN.NUM_POINTS, model.rpn.backbone.out_features)
@@ -343,7 +343,8 @@ def test_dropout_in_the_heads():
 
 def _port_setup(seed=0):
     cfg = tt.tiny_config(EXACT_QUERIES=True, TRAIN={'OPTIMIZER': 'adam_onecycle'})
-    state = create_train_state(cfg, total_steps=100, generator=torch.Generator().manual_seed(seed))
+    state = create_train_state(cfg, total_steps=100, device='cpu',
+                               generator=torch.Generator().manual_seed(seed))
     batch = {k: torch.from_numpy(x) for k, x in tt.synthetic_batch(
         np.random.RandomState(9), cfg, batch=2, structured=True).items()}
     return cfg, state, batch
@@ -386,6 +387,54 @@ def test_checkpoint_round_trip_and_restore_partial(tmp_path):
     wsd = warm.model.state_dict()
     assert all(torch.equal(wsd[k], sd[k]) for k in sd if k.startswith('rpn.'))
     assert all(torch.equal(wsd[k], before[k]) for k in sd if k.startswith('rcnn.'))
+
+
+def test_train_step_weight_gradient_route(monkeypatch):
+    """The same step with the two weight-gradient switches on and off, same
+    weights and batch (tower widths above 8 channels, so every tower conv
+    but the RGB stem takes the route): 4 stride-2 and 3 stride-1 plain
+    weight gradients run (the kernels' stand-ins on the CPU); every
+    gradient but the tower conv weights' is identical, and those agree
+    within 1e-5 of their max (f32 summation order)."""
+    from epnet_tpu_torch.ops import conv2d
+
+    cfg = tt.tiny_config(EXACT_QUERIES=True, TRAIN={'OPTIMIZER': 'adam_onecycle'},
+                         LI_FUSION={'IMG_CHANNELS': (3, 12, 16, 24, 32)})
+    batch = {k: torch.from_numpy(x) for k, x in tt.synthetic_batch(
+        np.random.RandomState(9), cfg, batch=2, structured=True).items()}
+    init = create_train_state(cfg, total_steps=100, device='cpu',
+                              generator=torch.Generator().manual_seed(0)).model.state_dict()
+    calls = {2: 0, 1: 0}
+    for stride, name in ((2, 'dw3x3_s2_plain'), (1, 'dw3x3_s1_plain')):
+        def counted(x, dy, _plain=getattr(conv2d, name), _s=stride):
+            calls[_s] += 1
+            return _plain(x, dy)
+        monkeypatch.setattr(conv2d, name, counted)
+    grads, losses = {}, {}
+    for on in (False, True):
+        for key in ('EPNET_PALLAS_DW', 'EPNET_S1_SHIFT_DW'):
+            if on:
+                monkeypatch.setenv(key, '1')
+            else:
+                monkeypatch.delenv(key, raising=False)
+        state = create_train_state(cfg, total_steps=100, device='cpu')
+        state.model.load_state_dict(init)
+        tb = train_step(state, batch, BN_MOMENTUM, torch.Generator().manual_seed(4))
+        losses[on] = float(tb['loss'])
+        # the optimizer reads .grad without changing it: these are before the clip
+        grads[on] = {n: p.grad for n, p in state.model.named_parameters()}
+        if not on:
+            assert calls == {2: 0, 1: 0}
+    assert calls == {2: 4, 1: 3}
+    assert losses[True] == losses[False]
+    tower = {n for n in grads[True] if '.img_block' in n and n.endswith('Conv_0.weight')}
+    assert len(tower) == 8
+    for n, g in grads[False].items():
+        if n in tower:
+            err = float((grads[True][n] - g).abs().max())
+            assert err <= 1e-5 * float(g.abs().max()), (n, err)
+        else:
+            assert torch.equal(grads[True][n], g), n
 
 
 def test_trainer_loop_logs_and_rotates(tmp_path, caplog):
