@@ -36,12 +36,20 @@ def default_device(device=None) -> torch.device:
     return torch.device('cuda')
 
 
+def use_f32_math():
+    """The recipe is f32 (``MIXED_PRECISION`` false): turn TF32 off in
+    cuDNN's convolutions, where PyTorch leaves it on by default, and in
+    cuBLAS's matmuls. ``EPNet`` calls this, so every entry point does."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 class EPNet(nn.Module):
     """``EPNet(cfg, mode, device=..., generator=...)``: built on ``device``
     (the CUDA device when None, see ``default_device``) and initialized like
     the JAX package (from ``generator`` when given). ``mode`` ('TRAIN' or
     'TEST') selects the proposal budgets, as the reference's ``cfg[mode]``
-    lookups do.
+    lookups do. Building it turns TF32 off (``use_f32_math``).
 
     In training mode (``.train()``) the forward samples RoIs against
     ``batch['gt_boxes3d']``, normalizes with batch statistics, applies
@@ -65,6 +73,7 @@ class EPNet(nn.Module):
                 or cfg.RPN.FPS_GROUPS != 1 or cfg.RPN.SAMPLING != 'fps':
             raise NotImplementedError('the TPU approximation knobs are not ported')
         device = default_device(device)
+        use_f32_math()
         self.cfg = cfg
         self.mode = mode
         in_ch = 3 + int(cfg.RPN.USE_INTENSITY)

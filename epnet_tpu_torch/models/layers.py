@@ -20,7 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.conv2d import conv3x3_same, dw_kernel_available, same_pads
+from ..ops.conv2d import conv3x3_same, conv3x3_same_available, same_pads
 
 # std of a unit normal truncated to [-2, 2] (flax's variance_scaling constant)
 _TRUNC_STD = 0.87962566103423978
@@ -161,12 +161,11 @@ class SharedMLP(nn.Module):
 class Conv2dBlock(nn.Module):
     """NHWC KxK 'SAME' conv, no bias (+ BN) (+ ReLU), for the image stream.
 
-    Dispatch as the JAX package's (``layers.py:232-261``): a 3x3 conv whose
-    route ``ops/conv2d.dw_kernel_available`` opens goes through
-    ``conv3x3_same`` (same values; the weight gradient by kernel D or E),
-    every other one through ``nn.Conv2d``. The parameter stays at
-    ``Conv_0.weight`` (OIHW) either way. The RGB stem (3 input channels)
-    never takes the route, as in JAX."""
+    Dispatch as the JAX package's (``layers.py:232-261``), by shape: a conv
+    that ``ops/conv2d.conv3x3_same_available`` admits (every 3x3 tower conv
+    but the RGB stem) goes through ``conv3x3_same`` (its weight gradient by
+    kernel D or E), the others through ``nn.Conv2d``. The parameter stays
+    at ``Conv_0.weight`` (OIHW) either way."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3, stride: int = 1,
                  bn: bool = False, activation: bool = False, device=None):
@@ -178,7 +177,8 @@ class Conv2dBlock(nn.Module):
         self.activation = activation
 
     def forward(self, x: torch.Tensor, bn_momentum: float = 0.1) -> torch.Tensor:
-        if dw_kernel_available(x.shape, self.kernel, self.stride):
+        if conv3x3_same_available(x.shape, self.Conv_0.out_channels, self.kernel,
+                                  self.stride):
             x = conv3x3_same(x, self.Conv_0.weight.permute(2, 3, 1, 0), self.stride)
         else:
             H, W = x.shape[1], x.shape[2]

@@ -7,23 +7,20 @@ HWIO weights, as the JAX package's do. ``conv3x3_same(x, w, stride)`` gives
 the values of a SAME convolution (XLA's pads: (0, 1) for stride 2 on even
 sizes) and its gradients:
 
-* the forward is ``F.conv2d`` on the padded input, the very call the
-  default route (``nn.Conv2d`` in ``models/layers.Conv2dBlock``) makes;
+* the forward is ``F.conv2d`` on the padded input;
 * dx is PyTorch's convolution backward (cuDNN on the card), as the JAX
   package leaves dx to XLA;
-* dw on the kernel route is ``dw3x3_s2`` or ``dw3x3_s1``: the kernel for a
-  CUDA tensor, the plain version for a CPU tensor, with no fallback
-  between the two. Off the route dw is PyTorch's convolution weight
-  gradient.
+* dw is ``dw3x3_s2`` or ``dw3x3_s1``: the kernel for a CUDA tensor, the
+  plain version for a CPU tensor, with no fallback between the two.
 
-The route is open when ``dw_kernel_available`` says so: the JAX package's
-switches, read in one place, off by default as there.
+``models/layers.Conv2dBlock`` sends every conv that
+``conv3x3_same_available`` admits here; there is no other weight-gradient
+route for those convs.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
 
 import torch
 import torch.nn.functional as F
@@ -31,30 +28,32 @@ import torch.nn.functional as F
 from . import cuda_build
 
 
-def dw_kernel_available(x_shape, kernel: int, stride: int) -> bool:
+def conv3x3_same_available(x_shape, features: int, kernel: int, stride: int) -> bool:
     """Whether a bias-free ``kernel`` x ``kernel`` conv of an NHWC input of
-    ``x_shape`` takes the hand-written weight gradient: the counterpart of
-    the JAX package's ``_dw_available`` (stride 2) and
-    ``conv3x3_same_available`` (stride 1).
+    ``x_shape`` to ``features`` channels goes through ``conv3x3_same``: the
+    counterpart of the JAX package's ``_dw_available`` (stride 2) and
+    ``conv3x3_same_available`` (stride 1), decided by shape alone.
 
-    * stride 2: ``EPNET_PALLAS_DW=1`` and even H and W (kernel D);
-    * stride 1: ``EPNET_S1_SHIFT_DW=1`` and more than 8 input channels, so
-      the RGB stem keeps the default route as in JAX (kernel E).
+    * 3x3, input and output channels multiples of 4 (the kernels load
+      float4s);
+    * stride 2: even H and W (kernel D);
+    * stride 1: more than 8 input channels, so the RGB stem keeps
+      ``nn.Conv2d`` as it keeps its own conv in JAX (kernel E).
 
-    The JAX conditions that only fit the TPU are dropped: a row tile that
-    divides H/2 and ``C * F <= 256 * 256`` (its 16 MB of VMEM), and the TPU
-    backend. All four stride-2 tower convs take D, blk3's 512 x 512
-    included. ``EPNET_S2_BARRIER`` and ``EPNET_S2_PHASE_BWD`` steer XLA's
-    fusion and mean nothing here; they are not read.
+    The JAX package's switches ``EPNET_PALLAS_DW`` and ``EPNET_S1_SHIFT_DW``
+    chose between two TPU routes by speed; the port has one route for these
+    convs and reads neither. Dropped as TPU-only: a row tile that divides
+    H/2 and ``C * F <= 256 * 256`` (its 16 MB of VMEM), and the TPU backend
+    check. All four stride-2 tower convs take D, blk3's 512 x 512 included.
+    ``EPNET_S2_BARRIER`` and ``EPNET_S2_PHASE_BWD`` steer XLA's fusion and
+    mean nothing here.
     """
-    if kernel != 3:
+    C = x_shape[-1]
+    if kernel != 3 or C % 4 or features % 4:
         return False
     if stride == 2:
-        return (os.environ.get('EPNET_PALLAS_DW', '0') == '1'
-                and x_shape[1] % 2 == 0 and x_shape[2] % 2 == 0)
-    if stride == 1:
-        return os.environ.get('EPNET_S1_SHIFT_DW', '0') == '1' and x_shape[-1] > 8
-    return False
+        return x_shape[1] % 2 == 0 and x_shape[2] % 2 == 0
+    return stride == 1 and C > 8
 
 
 def same_pads(size: int, kernel: int, stride: int):
@@ -219,19 +218,18 @@ def dw3x3_s1(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 
 
 class _Conv3x3Same(torch.autograd.Function):
-    """Saves the padded NCHW input, the OIHW weight and, on the kernel
-    route, the NHWC input. dx comes from the same convolution backward, on
-    the same tensors, that autograd runs for ``nn.Conv2d``, so it is the
-    same on both routes; only dw differs."""
+    """Saves the NHWC input (for dw), and the padded NCHW input and the
+    OIHW weight (for dx, the same convolution backward that autograd runs
+    for ``nn.Conv2d``)."""
 
     @staticmethod
-    def forward(ctx, x, w, stride, route):
+    def forward(ctx, x, w, stride):
         x_nchw = x.permute(0, 3, 1, 2)
         pads = _nchw_pads(x_nchw, 3, stride)
         xp = F.pad(x_nchw, pads)
         w_oihw = w.permute(3, 2, 0, 1)
-        ctx.save_for_backward(x if route else None, xp, w_oihw)
-        ctx.stride, ctx.route, ctx.pads = stride, route, pads
+        ctx.save_for_backward(x, xp, w_oihw)
+        ctx.stride, ctx.pads = stride, pads
         return F.conv2d(xp, w_oihw, None, (stride, stride)).permute(0, 2, 3, 1)
 
     @staticmethod
@@ -239,30 +237,23 @@ class _Conv3x3Same(torch.autograd.Function):
     def backward(ctx, dy):
         x, xp, w_oihw = ctx.saved_tensors
         s = ctx.stride
-        want_dx, want_dw = ctx.needs_input_grad[:2]
-        library_dw = want_dw and not ctx.route
         dx = dw = None
-        if want_dx or library_dw:
-            dxp, dw_oihw, _ = torch.ops.aten.convolution_backward(
+        if ctx.needs_input_grad[0]:
+            dxp = torch.ops.aten.convolution_backward(
                 dy.permute(0, 3, 1, 2), xp, w_oihw, None, (s, s), (0, 0), (1, 1), False,
-                (0, 0), 1, (want_dx, library_dw, False))
-            if want_dx:  # the pad's own backward: a negative pad
-                left, right, top, bottom = ctx.pads
-                dx = F.pad(dxp, (-left, -right, -top, -bottom)).permute(0, 2, 3, 1)
-            if library_dw:
-                dw = dw_oihw.permute(2, 3, 1, 0)
-        if want_dw and ctx.route:
+                (0, 0), 1, (True, False, False))[0]
+            left, right, top, bottom = ctx.pads  # the pad's own backward: a negative pad
+            dx = F.pad(dxp, (-left, -right, -top, -bottom)).permute(0, 2, 3, 1)
+        if ctx.needs_input_grad[1]:
             dw = (dw3x3_s2 if s == 2 else dw3x3_s1)(x.contiguous(), dy.contiguous())
-        return dx, dw, None, None
+        return dx, dw, None
 
 
 def conv3x3_same(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     """x (B, H, W, C), w (3, 3, C, F) -> (B, H', W', F): a SAME 3x3 conv
-    with stride 1 or 2, differentiable in both. The weight gradient takes
-    kernel D or E (the plain version on the CPU) where
-    ``dw_kernel_available`` opens the route, PyTorch's own elsewhere."""
+    with stride 1 or 2, differentiable in both. The weight gradient is
+    kernel D or E on the card, the plain version on the CPU."""
     if stride not in (1, 2) or tuple(w.shape[:3]) != (3, 3, x.shape[-1]):
         raise ValueError(f'conv3x3_same: x {tuple(x.shape)}, w {tuple(w.shape)}, '
                          f'stride {stride}')
-    route = dw_kernel_available(x.shape, 3, stride)
-    return _Conv3x3Same.apply(x, w, stride, route)
+    return _Conv3x3Same.apply(x, w, stride)

@@ -154,8 +154,6 @@ def main(argv=None):
     from ..models.epnet import EPNet
     from .testing import structured_scene
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device('cuda:0')
     if args.train:
         profile_train(dev, args.steps, args.batch, args.top)

@@ -1,16 +1,15 @@
 """The image tower's 3x3 SAME convs (``epnet_tpu_torch/ops/conv2d.py``)
 against the JAX package's ``epnet_tpu/ops/conv2d.py``, on the CPU.
 
-* ``conv3x3_same``: values, dx and dw at stride 1 and 2, on the kernel
-  route (which runs the plain weight gradients on the CPU) and off it,
-  against ``jax.vjp`` of the JAX ``conv3x3_same``.
+* ``conv3x3_same``: values, dx and dw at stride 1 and 2 (the plain weight
+  gradients on the CPU), against ``jax.vjp`` of the JAX ``conv3x3_same``.
 * The plain weight gradients against every TPU kernel they stand for, run
   in interpret mode: ``_dw_pallas`` (``_dw_kernel``) and the four kernels
   of ``tools/conv_dw_pallas_attic.py``, and against the JAX package's own
   plain ``_dw_phase_s2`` and ``_dw_shift_s1``.
-* A train-mode ``ImageBlock`` with both routes open against the JAX one
-  with its Pallas stride-2 weight gradient (interpret mode) and its
-  9-shift stride-1 weight gradient.
+* A train-mode ``ImageBlock`` against the JAX one with its Pallas
+  stride-2 weight gradient (interpret mode) and its 9-shift stride-1
+  weight gradient.
 * Kernels D and E against their plain versions on the card (``cuda``).
 
 Tolerance against JAX: at most 1e-5 x max|ref| for values and gradients
@@ -37,7 +36,6 @@ from test_torch_bridge import jax_variables, t
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 RTOL = 1e-5  # of the reference's max |value|
-SWITCHES = ('EPNET_PALLAS_DW', 'EPNET_S1_SHIFT_DW')
 
 
 def _attic():
@@ -56,14 +54,6 @@ def _close(got, want, what=''):
     assert err <= RTOL * scale, (what, err, scale)
 
 
-def _route(monkeypatch, on):
-    for name in SWITCHES:
-        if on:
-            monkeypatch.setenv(name, '1')
-        else:
-            monkeypatch.delenv(name, raising=False)
-
-
 def _inputs(seed, stride, B=2, H=16, W=64, C=12, Fo=16):
     rng = np.random.RandomState(seed)
     x = rng.randn(B, H, W, C).astype(np.float32)
@@ -72,19 +62,23 @@ def _inputs(seed, stride, B=2, H=16, W=64, C=12, Fo=16):
     return x, w, dy
 
 
-@pytest.mark.parametrize('route', ['kernel_route', 'default_route'])
+@pytest.mark.parametrize('grads', ['dx_and_dw', 'dw_only'])
 @pytest.mark.parametrize('stride', [1, 2])
-def test_conv3x3_same_matches_jax(monkeypatch, stride, route):
-    _route(monkeypatch, route == 'kernel_route')
+def test_conv3x3_same_matches_jax(stride, grads):
+    """Values and gradients; with ``dw_only`` the input needs no gradient
+    and the backward computes dw alone."""
     x, w, dy = _inputs(stride, stride)
     y_ref, pull = jax.vjp(lambda a, b: jconv.conv3x3_same(a, b, stride), x, w)
     dx_ref, dw_ref = pull(dy)
-    assert tconv.dw_kernel_available(x.shape, 3, stride) == (route == 'kernel_route')
-    xt, wt = t(x).requires_grad_(), t(w).requires_grad_()
+    assert tconv.conv3x3_same_available(x.shape, w.shape[-1], 3, stride)
+    xt, wt = t(x).requires_grad_(grads == 'dx_and_dw'), t(w).requires_grad_()
     y = tconv.conv3x3_same(xt, wt, stride)
     y.backward(t(dy))
     _close(y, y_ref, 'y')
-    _close(xt.grad, dx_ref, 'dx')
+    if grads == 'dx_and_dw':
+        _close(xt.grad, dx_ref, 'dx')
+    else:
+        assert xt.grad is None
     _close(wt.grad, dw_ref, 'dw')
 
 
@@ -125,61 +119,72 @@ def test_plain_dw_reads_the_same_pad_at_the_edges():
 
 
 def test_route_gate(monkeypatch):
-    """Off by default; each switch opens its own stride; stride 2 needs even
-    H and W; the stem (C <= 8) never takes the stride-1 kernel; only 3x3."""
-    _route(monkeypatch, False)
-    assert not tconv.dw_kernel_available((2, 16, 64, 64), 3, 2)
-    assert not tconv.dw_kernel_available((2, 16, 64, 64), 3, 1)
-    monkeypatch.setenv('EPNET_PALLAS_DW', '1')
-    assert tconv.dw_kernel_available((2, 16, 64, 512), 3, 2)  # no VMEM cap on C * F
-    assert not tconv.dw_kernel_available((2, 15, 64, 64), 3, 2)
-    assert not tconv.dw_kernel_available((2, 16, 63, 64), 3, 2)
-    assert not tconv.dw_kernel_available((2, 16, 64, 64), 3, 1)
-    assert not tconv.dw_kernel_available((2, 16, 64, 64), 5, 2)
-    monkeypatch.setenv('EPNET_S1_SHIFT_DW', '1')
-    assert tconv.dw_kernel_available((2, 15, 63, 64), 3, 1)
-    assert tconv.dw_kernel_available((2, 16, 64, 9), 3, 1)
-    assert not tconv.dw_kernel_available((2, 16, 64, 8), 3, 1)
-    assert not tconv.dw_kernel_available((2, 16, 64, 3), 3, 1)
-    monkeypatch.setenv('EPNET_PALLAS_DW', '0')
-    assert not tconv.dw_kernel_available((2, 16, 64, 64), 3, 2)
+    """By shape alone: only 3x3; channels multiples of 4; stride 2 needs
+    even H and W; the stem (C <= 8) never takes the stride-1 kernel. The
+    JAX package's switches are not read."""
+    for name in ('EPNET_PALLAS_DW', 'EPNET_S1_SHIFT_DW'):
+        monkeypatch.setenv(name, '0')
+    avail = tconv.conv3x3_same_available
+    assert avail((2, 16, 64, 512), 512, 3, 2)  # no VMEM cap on C * F
+    assert avail((2, 16, 64, 4), 4, 3, 2)
+    assert not avail((2, 15, 64, 64), 64, 3, 2)
+    assert not avail((2, 16, 63, 64), 64, 3, 2)
+    assert not avail((2, 16, 64, 64), 64, 5, 2)
+    assert not avail((2, 16, 64, 64), 64, 3, 3)
+    assert not avail((2, 16, 64, 64), 10, 3, 2)
+    assert avail((2, 15, 63, 64), 128, 3, 1)
+    assert avail((2, 16, 64, 12), 16, 3, 1)
+    assert not avail((2, 16, 64, 9), 16, 3, 1)
+    assert not avail((2, 16, 64, 8), 16, 3, 1)
+    assert not avail((2, 16, 64, 3), 64, 3, 1)
 
 
 @pytest.mark.parametrize('stride,cin', [(1, 12), (2, 12), (1, 3)])
-def test_conv2d_block_routes_alike(monkeypatch, stride, cin):
-    """On and off the route a Conv2dBlock gives identical values and dx,
-    keeps its parameter at Conv_0.weight, and its dw agrees to f32
-    summation order."""
+def test_conv2d_block_routes_alike(stride, cin):
+    """A Conv2dBlock, through ``conv3x3_same`` or (the stem) ``nn.Conv2d``,
+    against the plain autograd of ``F.conv2d`` on the padded input with the
+    same parameters: identical values, dx and BN gradients, the parameter
+    at Conv_0.weight, and dw equal to f32 summation order (bitwise for the
+    stem, which is that very call)."""
     rng = np.random.RandomState(20 + stride)
     x = rng.randn(2, 16, 24, cin).astype(np.float32)
-    g = rng.randn(2, 16 // stride, 24 // stride, 10).astype(np.float32)
-    block = tla.Conv2dBlock(cin, 10, 3, stride, bn=True, activation=True, device='cpu')
+    g = rng.randn(2, 16 // stride, 24 // stride, 12).astype(np.float32)
+    block = tla.Conv2dBlock(cin, 12, 3, stride, bn=True, activation=True, device='cpu')
     tla.init_parameters(block, torch.Generator().manual_seed(0))
     block.train()
     assert [n for n, _ in block.named_parameters()][0] == 'Conv_0.weight'
+    assert tconv.conv3x3_same_available(x.shape, 12, 3, stride) == (cin > 8)
+
+    def reference(xt):
+        xn = xt.permute(0, 3, 1, 2)
+        y = torch.nn.functional.conv2d(
+            torch.nn.functional.pad(xn, tconv._nchw_pads(xn, 3, stride)),
+            block.Conv_0.weight, None, stride).permute(0, 2, 3, 1)
+        return torch.relu(block.BatchNorm_0(y))
+
     res = {}
-    for on in (False, True):
-        _route(monkeypatch, on)
+    for name, fn in (('block', block), ('reference', reference)):
         xt = t(x).requires_grad_()
         block.zero_grad()
-        y = block(xt)
+        y = fn(xt)
         y.backward(t(g))
-        res[on] = (y.detach(), xt.grad, block.Conv_0.weight.grad.clone(),
-                   block.BatchNorm_0.weight.grad.clone())
-    assert torch.equal(res[True][0], res[False][0])
-    assert torch.equal(res[True][1], res[False][1])
-    assert torch.equal(res[True][3], res[False][3])
-    _close(res[True][2], res[False][2].numpy(), 'dw')
-    if cin <= 8 and stride == 1:  # the stem: the same default route both times
-        assert torch.equal(res[True][2], res[False][2])
+        res[name] = (y.detach(), xt.grad, block.Conv_0.weight.grad.clone(),
+                     block.BatchNorm_0.weight.grad.clone())
+    got, want = res['block'], res['reference']
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[3], want[3])
+    _close(got[2], want[2].numpy(), 'dw')
+    if cin <= 8:
+        assert torch.equal(got[2], want[2])
 
 
 def test_image_block_train_matches_jax(monkeypatch):
-    """Train mode, both routes open on both sides: JAX's stride-2 conv takes
-    its Pallas weight gradient (interpret mode), its stride-1 conv the
-    9-shift one; the port runs its plain versions. Output and the
-    gradients of both convs and of the BN."""
-    _route(monkeypatch, True)
+    """Train mode: JAX's stride-2 conv takes its Pallas weight gradient
+    (interpret mode), its stride-1 conv the 9-shift one
+    (``EPNET_S1_SHIFT_DW=1``); the port runs its plain versions. Output and
+    the gradients of both convs and of the BN."""
+    monkeypatch.setenv('EPNET_S1_SHIFT_DW', '1')
     monkeypatch.setattr(jconv, '_dw_available', lambda *a, **k: True)
     monkeypatch.setattr(jconv, '_dw_pallas', functools.partial(jconv._dw_pallas,
                                                                interpret=True))
@@ -215,12 +220,10 @@ def test_image_block_train_matches_jax(monkeypatch):
 
 def test_recipe_tower_reaches_the_route(monkeypatch):
     """The recipe's four ImageBlocks, built as the backbone builds them:
-    with both switches on, the stride-2 convs at C = F = 64, 128, 256, 512
-    and the stride-1 convs 64 -> 128, 128 -> 256, 256 -> 512 go through
-    conv3x3_same and run 4 stride-2 and 3 stride-1 weight gradients; the
-    3 -> 64 stem does not."""
+    the stride-2 convs at C = F = 64, 128, 256, 512 and the stride-1 convs
+    64 -> 128, 128 -> 256, 256 -> 512 go through conv3x3_same and run 4
+    stride-2 and 3 stride-1 weight gradients; the 3 -> 64 stem does not."""
     from epnet_tpu_torch.config import parity_config
-    _route(monkeypatch, True)
     seen, dws = [], []
     real = tconv.conv3x3_same
     monkeypatch.setattr(tla, 'conv3x3_same', lambda x, w, s: seen.append(

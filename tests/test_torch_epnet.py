@@ -109,3 +109,18 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
         create_train_state(tiny_config(TRAIN={'OPTIMIZER': 'adam_onecycle'}), total_steps=10)
     model = TEPNet(tiny_config(), 'TEST', device='cpu')
     assert {p.device.type for p in model.parameters()} == {'cpu'}
+
+
+def test_entry_points_turn_tf32_off(monkeypatch):
+    """The recipe is f32: building the model turns off the TF32 that
+    PyTorch leaves on in cuDNN (and a caller may have turned on in cuBLAS),
+    so the card's convolutions and matmuls run in f32."""
+    from epnet_tpu_torch.train.trainer import create_train_state
+    for build in (lambda: TEPNet(tiny_config(), 'TEST', device='cpu'),
+                  lambda: create_train_state(tiny_config(TRAIN={'OPTIMIZER': 'adam_onecycle'}),
+                                             total_steps=10, device='cpu')):
+        monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', True)
+        monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', True)
+        build()
+        assert torch.backends.cudnn.allow_tf32 is False
+        assert torch.backends.cuda.matmul.allow_tf32 is False

@@ -390,12 +390,13 @@ def test_checkpoint_round_trip_and_restore_partial(tmp_path):
 
 
 def test_train_step_weight_gradient_route(monkeypatch):
-    """The same step with the two weight-gradient switches on and off, same
-    weights and batch (tower widths above 8 channels, so every tower conv
-    but the RGB stem takes the route): 4 stride-2 and 3 stride-1 plain
-    weight gradients run (the kernels' stand-ins on the CPU); every
-    gradient but the tower conv weights' is identical, and those agree
-    within 1e-5 of their max (f32 summation order)."""
+    """The same step on the port's route and with the tower's weight
+    gradients taken from PyTorch's own convolution weight gradient instead,
+    same weights and batch (tower widths above 8 channels, so every tower
+    conv but the RGB stem goes through ``conv3x3_same``): the port runs 4
+    stride-2 and 3 stride-1 plain weight gradients (the kernels' stand-ins
+    on the CPU); every gradient but the tower conv weights' is identical,
+    and those agree within 1e-5 of their max (f32 summation order)."""
     from epnet_tpu_torch.ops import conv2d
 
     cfg = tt.tiny_config(EXACT_QUERIES=True, TRAIN={'OPTIMIZER': 'adam_onecycle'},
@@ -410,20 +411,29 @@ def test_train_step_weight_gradient_route(monkeypatch):
             calls[_s] += 1
             return _plain(x, dy)
         monkeypatch.setattr(conv2d, name, counted)
+
+    def library(stride):
+        def dw(x, dy):
+            xn = x.permute(0, 3, 1, 2)
+            xp = torch.nn.functional.pad(xn, conv2d._nchw_pads(xn, 3, stride))
+            return torch.nn.grad.conv2d_weight(xp, (dy.shape[-1], x.shape[-1], 3, 3),
+                                               dy.permute(0, 3, 1, 2),
+                                               stride=stride).permute(2, 3, 1, 0)
+        return dw
+
     grads, losses = {}, {}
-    for on in (False, True):
-        for key in ('EPNET_PALLAS_DW', 'EPNET_S1_SHIFT_DW'):
-            if on:
-                monkeypatch.setenv(key, '1')
-            else:
-                monkeypatch.delenv(key, raising=False)
-        state = create_train_state(cfg, total_steps=100, device='cpu')
-        state.model.load_state_dict(init)
-        tb = train_step(state, batch, BN_MOMENTUM, torch.Generator().manual_seed(4))
-        losses[on] = float(tb['loss'])
+    for port in (False, True):
+        with monkeypatch.context() as m:
+            if not port:
+                m.setattr(conv2d, 'dw3x3_s2', library(2))
+                m.setattr(conv2d, 'dw3x3_s1', library(1))
+            state = create_train_state(cfg, total_steps=100, device='cpu')
+            state.model.load_state_dict(init)
+            tb = train_step(state, batch, BN_MOMENTUM, torch.Generator().manual_seed(4))
+        losses[port] = float(tb['loss'])
         # the optimizer reads .grad without changing it: these are before the clip
-        grads[on] = {n: p.grad for n, p in state.model.named_parameters()}
-        if not on:
+        grads[port] = {n: p.grad for n, p in state.model.named_parameters()}
+        if not port:
             assert calls == {2: 0, 1: 0}
     assert calls == {2: 4, 1: 3}
     assert losses[True] == losses[False]
