@@ -14,7 +14,7 @@ first use), then:
    points, a 384x1280 image, 100 RoIs of 512 points), random weights from a
    seeded generator, answering three batch-1 requests on distinct
    structured scenes; checks shapes, finiteness and the kernels' launch
-   counts (6 FPS and 2 fused-SA launches a forward);
+   counts (6 FPS, 2 fused-SA and 4 F launches a forward);
 4. holds the same model at tiny widths on the card (kernels) against the
    CPU (plain versions) under identical weights;
 5. holds the fused set-abstraction backward kernel against its plain
@@ -25,7 +25,8 @@ first use), then:
    (forward, joint loss, backward, global-norm clip, AdamW under OneCycle)
    on batch-4 labelled structured scenes after a warm-up step; checks a
    finite loss and gradients, that the parameters moved, and 6 FPS, 2
-   fused-SA forward, 2 fused-SA backward, 4 D and 3 E launches a step;
+   fused-SA forward, 2 fused-SA backward, 4 D, 3 E and 4 F launches a
+   step;
 7. holds one tiny-width train step on the card against the CPU under
    identical weights and identical sampled RoIs;
 8. holds the image tower's 3x3 conv weight-gradient kernels (D, stride 2;
@@ -35,24 +36,41 @@ first use), then:
    and ``torch.nn.grad.conv2d_weight`` (cuDNN, no TF32) in turns;
 9. drives the train path again: a warm-up step and three batch-4
    full-width steps on scenes 0/1/2, checking 6 FPS, 2 fused-SA forward,
-   2 fused-SA backward, 4 D and 3 E launches a step, each in turn with a
-   step on the same state whose tower weight gradients come from
+   2 fused-SA backward, 4 D, 3 E and 4 F launches a step, each in turn
+   with a step on the same state whose tower weight gradients come from
    ``conv2d_weight`` instead (patched in here, the yardstick of its
    time); then holds one step's tower conv weight gradients against that
-   route's (same weights, batch and draws; before the clip).
+   route's (same weights, batch and draws; before the clip);
+10. holds the image tower's stride-2 conv forward kernel (F) against its
+   plain version at the four tower shapes of a batch-1 forward and of a
+   batch-4 batch and at five edge shapes (at most 1e-4 x max|y|, two
+   launches bitwise equal), and at the tower shapes times the kernel, the
+   plain version and ``F.conv2d`` on the padded NCHW input (cuDNN, no
+   TF32) in turns;
+11. runs the eval CLI (``epnet_tpu_torch.tools.eval.main``, joint eval,
+   batch 4, 4 loader workers) at the recipe's full width on a synthetic
+   KITTI tree of 8 scenes (370x1240 images, 30000 LiDAR points each) with
+   seeded random weights saved as a port checkpoint: the 8 result files,
+   a finite AP dict, 6 FPS, 2 fused-SA and 4 F launches a batch, and scans
+   per second over the loop, loader included; and the host time of the
+   port's PNG reader on one of its images under each row filter;
+12. runs the CLI at tiny widths on the card and on the CPU with the same
+   checkpoint: the same detections within 1e-3 x (1 + |x|), plus one unit
+   of the last printed digit, and the same recall.
 
-Launch counts are read around each main-path phase (3, 6 and 9) with the
-counters set to 0 just before it; the kernels line sums them. The script
-leaves TF32 as PyTorch sets it and checks that building the model turns
-it off, as the f32 recipe needs.
+Launch counts are read around each main-path phase (3, 6, 9 and 11) with
+the counters set to 0 just before it; the kernels line sums them. The
+script leaves TF32 as PyTorch sets it and checks that building the model
+turns it off, as the f32 recipe needs.
 
 Every kernel's ``bound_ms`` is the least time the card could take for its
 work at these shapes: the larger of its operations at the f32 peak and its
 bytes (each input read once, each output written once) at the memory rate
 (NVIDIA H100 SXM data sheet, below); for D and E the operations of the
-cheapest exact algorithm counted (``_dw_bound_ops``). ``library_ms`` is one
-PyTorch call that computes the same function, where one exists (null
-otherwise).
+cheapest exact algorithm counted (``_dw_bound_ops``), and for F the same
+count (its four stride-2 phases are the same correlations of x, now with
+the weights). ``library_ms`` is one PyTorch call that computes the same
+function, where one exists (null otherwise).
 
 Prints the card's name and power limit, a JSON line describing each kernel,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure raises
@@ -92,6 +110,19 @@ DW_SHAPES = {
 DW_EDGE_SHAPES = [(2, 16, 64, 8, 16, 2), (2, 12, 20, 132, 200, 2), (1, 7, 9, 12, 20, 1),
                   (3, 1, 33, 64, 64, 1), (1, 2, 2, 4, 4, 2)]
 DW_RTOL = 1e-4
+# the stride-2 tower convs in a batch-1 forward and a batch-4 batch: (B, H, W, C, F)
+FWD_SHAPES = {f'b{B} {blk}': (B, H, W, C, C) for B in (1, 4)
+              for blk, (H, W, C) in (('blk0', (384, 1280, 64)), ('blk1', (192, 640, 128)),
+                                     ('blk2', (96, 320, 256)), ('blk3', (48, 160, 512)))}
+# off the tower's tiling: partial tiles (C = 8, 132; F = 16, 200), a 2x2
+# image (one output pixel, every tap but one in the pad), H != W
+FWD_EDGE_SHAPES = [(2, 16, 64, 8, 16), (2, 12, 20, 132, 200), (1, 2, 2, 4, 4),
+                   (3, 10, 6, 12, 20), (1, 6, 10, 64, 64)]
+FWD_RTOL = 1e-4
+RECIPE = 'cfgs/LI_Fusion_with_attention_use_ce_loss.yaml'
+CLI_SCENES = 8
+CLI_BATCH = 4
+OUT = 'output/chip_smoke'  # scratch under the checkout (ignored by git)
 # conv2d_weight as a yardstick: it must compute the same function, but cuDNN
 # may pick reduced-multiplication algorithms whose transforms round more
 LIBRARY_RTOL = 1e-3
@@ -339,7 +370,7 @@ def phase_slice(dev):
     import torch
     from epnet_tpu_torch.config import parity_config
     from epnet_tpu_torch.models.epnet import EPNet
-    from epnet_tpu_torch.ops import fps, sa_fused
+    from epnet_tpu_torch.ops import conv2d, fps, sa_fused
 
     cfg = parity_config()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -353,7 +384,8 @@ def phase_slice(dev):
     model(requests[0])  # warm-up: cuDNN autotuning, allocator
     torch.cuda.synchronize()
 
-    counters = (fps.furthest_point_sample_kernel, sa_fused.fused_point_mlp_max_kernel)
+    counters = (fps.furthest_point_sample_kernel, sa_fused.fused_point_mlp_max_kernel,
+                conv2d.conv3x3_s2_fwd_kernel)
     for c in counters:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -375,10 +407,11 @@ def phase_slice(dev):
         for k, v in out.items():
             if v.is_floating_point() and not bool(torch.isfinite(v).all()):
                 raise AssertionError(f'request {seed}: non-finite values in {k}')
-        if delta != [6, 2]:
-            raise AssertionError(f'request {seed}: kernel launches {delta}, expected [6, 2]')
+        if delta != [6, 2, 4]:
+            raise AssertionError(f'request {seed}: kernel launches {delta}, expected [6, 2, 4]')
         print(f'request scene {seed}: {times[-1]:.2f} ms, rois {int(out["roi_counts"][0])}, '
-              f'launches fps +{delta[0]} sa_fused +{delta[1]}', flush=True)
+              f'launches fps +{delta[0]} sa_fused +{delta[1]} conv3x3_s2_fwd +{delta[2]}',
+              flush=True)
     launches = [c.launches for c in counters]
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     print(f'slice forward, batch 1: median {statistics.median(times):.2f} ms over '
@@ -426,10 +459,24 @@ def _train_batch(cfg, seed, dev):
     return device_batch(full_batch(cfg, TRAIN_BATCH, seed=seed, with_labels=True), dev)
 
 
+TRAIN_KERNELS = ('fps', 'sa_fused', 'sa_fused_bwd', 'conv3x3_dw_s2', 'conv3x3_dw_s1',
+                 'conv3x3_s2_fwd')
+
+
+def _train_counters():
+    from epnet_tpu_torch.ops import conv2d, fps, sa_fused
+    return (fps.furthest_point_sample_kernel, sa_fused.fused_point_mlp_max_kernel,
+            sa_fused.fused_point_mlp_max_bwd_kernel, conv2d.dw3x3_s2_kernel,
+            conv2d.dw3x3_s1_kernel, conv2d.conv3x3_s2_fwd_kernel)
+
+
+def _launches(delta):
+    return ' '.join(f'{n} +{d}' for n, d in zip(TRAIN_KERNELS, delta))
+
+
 def phase_train(dev):
     import torch
     from epnet_tpu_torch.config import parity_config
-    from epnet_tpu_torch.ops import conv2d, fps, sa_fused
     from epnet_tpu_torch.train.trainer import create_train_state, train_step
 
     cfg = parity_config()
@@ -446,9 +493,7 @@ def phase_train(dev):
     torch.cuda.synchronize()
     print(f'warm-up step: loss {float(tb["loss"]):.4f}', flush=True)
 
-    counters = (fps.furthest_point_sample_kernel, sa_fused.fused_point_mlp_max_kernel,
-                sa_fused.fused_point_mlp_max_bwd_kernel, conv2d.dw3x3_s2_kernel,
-                conv2d.dw3x3_s1_kernel)
+    counters = _train_counters()
     for c in counters:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -473,14 +518,12 @@ def phase_train(dev):
         if moved < 0.9 * len(params):
             raise AssertionError(f'train step on scene {seed}: {moved} of {len(params)} '
                                  f'parameters moved')
-        if delta != [6, 2, 2, 4, 3]:
+        if delta != [6, 2, 2, 4, 3, 4]:
             raise AssertionError(f'train step on scene {seed}: kernel launches {delta}, '
-                                 f'expected [6, 2, 2, 4, 3]')
+                                 f'expected [6, 2, 2, 4, 3, 4]')
         print(f'train step scene {seed}: {times[-1]:.2f} ms, loss {loss:.4f}, grad norm '
               f'{float(tb["grad_norm"]):.3f}, rcnn fg {int(tb["rcnn_cls_fg"])}, '
-              f'{moved}/{len(params)} parameters moved, launches fps +{delta[0]} '
-              f'sa_fused +{delta[1]} sa_fused_bwd +{delta[2]} conv3x3_dw_s2 +{delta[3]} '
-              f'conv3x3_dw_s1 +{delta[4]}', flush=True)
+              f'{moved}/{len(params)} parameters moved, launches {_launches(delta)}', flush=True)
     launches = [c.launches for c in counters]
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     print(f'train step, batch {TRAIN_BATCH}: median {statistics.median(times):.2f} ms over '
@@ -640,12 +683,11 @@ def _tower_conv_grads(model, batch, cfg, dev):
 
 def phase_train_dw(dev):
     """The train path in turns with the ``conv2d_weight`` route on the same
-    state (step time, memory, launch counts of all five kernels); then one
+    state (step time, memory, launch counts of all six kernels); then one
     step's tower conv weight gradients by kernels D and E against that
     route's."""
     import torch
     from epnet_tpu_torch.config import parity_config
-    from epnet_tpu_torch.ops import conv2d, fps, sa_fused
     from epnet_tpu_torch.train.trainer import create_train_state, train_step
 
     cfg = parity_config()
@@ -654,9 +696,8 @@ def phase_train_dw(dev):
     params = list(state.model.parameters())
     gen = torch.Generator(device=dev).manual_seed(1)
     batches = {seed: _train_batch(cfg, seed, dev) for seed in (3,) + TRAIN_SEEDS}
-    counters = (fps.furthest_point_sample_kernel, sa_fused.fused_point_mlp_max_kernel,
-                sa_fused.fused_point_mlp_max_bwd_kernel, conv2d.dw3x3_s2_kernel,
-                conv2d.dw3x3_s1_kernel)
+    counters = _train_counters()
+
     def route(on):
         return contextlib.nullcontext() if on else library_dw_route()
 
@@ -688,13 +729,12 @@ def phase_train_dw(dev):
             if not math.isfinite(loss) or moved < 0.9 * len(params):
                 raise AssertionError(f'{name}-route step on scene {seed}: loss {loss}, '
                                      f'{moved} of {len(params)} parameters moved')
-            want = [6, 2, 2, 4, 3] if on else [6, 2, 2, 0, 0]
+            want = [6, 2, 2, 4, 3, 4] if on else [6, 2, 2, 0, 0, 4]
             if delta != want:
                 raise AssertionError(f'{name}-route step on scene {seed}: launches {delta}, '
                                      f'expected {want}')
             print(f'{name}-route step scene {seed}: {times[on][-1]:.2f} ms, loss {loss:.4f}, '
-                  f'launches fps +{delta[0]} sa_fused +{delta[1]} sa_fused_bwd +{delta[2]} '
-                  f'conv3x3_dw_s2 +{delta[3]} conv3x3_dw_s1 +{delta[4]}', flush=True)
+                  f'launches {_launches(delta)}', flush=True)
     launches = [c.launches for c in counters]
     for on in (True, False):
         print(f'{"kernel" if on else "conv2d_weight"}-route train step, batch {TRAIN_BATCH}, '
@@ -721,6 +761,301 @@ def phase_train_dw(dev):
     return launches
 
 
+def _library_fwd_call(x, w):
+    """A call of ``F.conv2d`` (cuDNN) that gives the stride-2 SAME conv,
+    its input padded beforehand: SAME is (0, 1) here, which ``F.conv2d``'s
+    own symmetric padding cannot express."""
+    import torch.nn.functional as F
+    from epnet_tpu_torch.ops import conv2d
+
+    x_nchw = x.permute(0, 3, 1, 2)
+    xp = F.pad(x_nchw, conv2d._nchw_pads(x_nchw, 3, 2))
+    w_oihw = w.permute(3, 2, 0, 1).contiguous()
+    return lambda: F.conv2d(xp, w_oihw, None, 2)
+
+
+def phase_conv_fwd(dev):
+    """Kernel F against its plain version at the tower's stride-2 shapes of
+    a batch-1 forward and a batch-4 batch and at edge shapes; kernel, plain
+    and library (``_library_fwd_call``, cuDNN without TF32) timed in
+    turns."""
+    import torch
+    from epnet_tpu_torch.ops import conv2d
+
+    _require_f32('F.conv2d')
+    gen = torch.Generator(device=dev).manual_seed(9)
+    kernel, plain = conv2d.conv3x3_s2_fwd_kernel, conv2d.conv3x3_s2_fwd_plain
+
+    def inputs(B, H, W, C, Fo):
+        x = torch.randn(B, H, W, C, device=dev, generator=gen)
+        return x, torch.randn(3, 3, C, Fo, device=dev, generator=gen) / (3 * C ** 0.5)
+
+    for shape in FWD_EDGE_SHAPES:
+        x, w = inputs(*shape)
+        got, want = kernel(x, w), plain(x, w)
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        if not err <= FWD_RTOL or not torch.equal(kernel(x, w), got):
+            raise AssertionError(f'conv3x3_s2_fwd off by {err:.3e} of max|y| or not '
+                                 f'reproducible at {shape}')
+    print(f'conv3x3_s2_fwd at {len(FWD_EDGE_SHAPES)} edge shapes: within {FWD_RTOL} of '
+          f'max|y|, bitwise reproducible', flush=True)
+    rows, max_err, op_ms, byte_ms = [], 0.0, [], []
+    total = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0}
+    for name, (B, H, W, C, Fo) in FWD_SHAPES.items():
+        x, w = inputs(B, H, W, C, Fo)
+        pixels = B * (H // 2) * (W // 2)
+        o, m = _bound(_dw_bound_ops(C, Fo, pixels, 2),
+                      4 * (B * H * W * C + 9 * C * Fo + pixels * Fo))
+        op_ms.append(o)
+        byte_ms.append(m)
+        library = _library_fwd_call(x, w)
+        got, want, again = kernel(x, w), plain(x, w), kernel(x, w)
+        lib_y = library().permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        lib_err = float((lib_y - want).abs().max())
+        tiles, splits = conv2d.conv3x3_s2_fwd_grid(x.shape, Fo, dev)
+        print(f'conv3x3_s2_fwd {name} x {(B, H, W, C)} -> F {Fo}: {tiles * splits} blocks '
+              f'({tiles} tiles x {splits} K splits); max abs err {err:.3e} ({err / scale:.2e} '
+              f'of max|y|); F.conv2d {lib_err / scale:.2e}', flush=True)
+        if not err <= FWD_RTOL * scale:
+            raise AssertionError(f'conv3x3_s2_fwd {name}: kernel off by {err / scale:.3e}')
+        if not lib_err <= LIBRARY_RTOL * scale:
+            raise AssertionError(f'conv3x3_s2_fwd {name}: F.conv2d is not the same function')
+        if not torch.equal(got, again):
+            raise AssertionError(f'conv3x3_s2_fwd {name}: two launches differ')
+        max_err = max(max_err, err)
+        del got, want, again, lib_y
+        fns = {'ms': (lambda: kernel(x, w), 10), 'plain_ms': (lambda: plain(x, w), 3),
+               'library_ms': (library, 10)}
+        row = dict.fromkeys(fns, 0.0)
+        for key in ('ms', 'plain_ms', 'library_ms', 'library_ms', 'plain_ms', 'ms'):
+            fn, reps = fns[key]
+            row[key] += _time_ms(fn, reps) / 2
+        for key in total:
+            total[key] += row[key]
+        row.update(shape=name, dims=[B, H, W, C, Fo], blocks=tiles * splits, bound_ms=max(o, m),
+                   max_rel_err=err / scale)
+        rows.append(row)
+        print(f'  kernel {row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, F.conv2d '
+              f'{row["library_ms"]:.4f} ms, bound {max(o, m):.4f} ms ({o:.4f} operations, '
+              f'{m:.4f} bytes)', flush=True)
+        del x, w, library
+    return {'max_abs_err': max_err, **total, **_bound_keys(op_ms, byte_ms), 'per_shape': rows}
+
+
+class _TimedLoader:
+    """The CLI's loader, timed and counted: the wall time from the first
+    batch asked for to the end of the last one's processing, and the
+    kernel counters at each batch boundary. Patched in by this script."""
+
+    def __init__(self, loader, counters):
+        self.loader, self.counters = loader, counters
+        self.t0 = None
+        self.snapshots, self.times, self.scans = [], [], 0
+
+    def _snapshot(self):
+        self.snapshots.append([c.launches for c in self.counters])
+        self.times.append(time.perf_counter())
+
+    def __iter__(self):
+        self.t0 = time.perf_counter()
+        for batch in self.loader:
+            self._snapshot()
+            self.scans += len(batch['sample_id'])
+            yield batch
+        self._snapshot()
+
+
+@contextlib.contextmanager
+def timed_cli_loader(counters, record):
+    from unittest import mock
+    from epnet_tpu_torch.data import loader as loader_mod
+
+    real = loader_mod.eval_loader
+
+    def make(*args, **kwargs):
+        record.append(_TimedLoader(real(*args, **kwargs), counters))
+        return record[-1]
+
+    with mock.patch.object(loader_mod, 'eval_loader', make):
+        yield
+
+
+def _parse_results(result_dir):
+    import numpy as np
+    out = {}
+    for f in sorted(os.listdir(result_dir)):
+        with open(os.path.join(result_dir, f)) as fh:
+            rows = [line.split() for line in fh if line.strip()]
+        out[f] = ([r[0] for r in rows], np.array([[float(v) for v in r[1:]] for r in rows]))
+    return out
+
+
+def _filtered_png(path, img, kind):
+    """Write (H, W, 3) uint8 ``img`` as a PNG whose rows all use PNG filter
+    ``kind`` (1 Sub, 2 Up, 3 Average, 4 Paeth): encoding predicts from the
+    unfiltered pixels, so it is vectorized here."""
+    import struct
+    import zlib
+
+    import numpy as np
+    cur = img.reshape(img.shape[0], -1).astype(np.int32)
+    a = np.pad(cur, ((0, 0), (3, 0)))[:, :-3]   # left, 3 bytes a pixel
+    b = np.pad(cur, ((1, 0), (0, 0)))[:-1]      # up
+    c = np.pad(b, ((0, 0), (3, 0)))[:, :-3]     # up-left
+    if kind == 4:
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    else:
+        pred = {1: a, 2: b, 3: (a + b) // 2}[kind]
+    rows = np.concatenate([np.full((len(cur), 1), kind), (cur - pred) & 255], axis=1)
+
+    def chunk(tag, payload):
+        return struct.pack('>I', len(payload)) + tag + payload + \
+            struct.pack('>I', zlib.crc32(tag + payload))
+
+    with open(path, 'wb') as f:
+        f.write(b'\x89PNG\r\n\x1a\n'
+                + chunk(b'IHDR', struct.pack('>IIBBBBB', img.shape[1], img.shape[0], 8, 2, 0, 0, 0))
+                + chunk(b'IDAT', zlib.compress(rows.astype(np.uint8).tobytes()))
+                + chunk(b'IEND', b''))
+
+
+def _png_times(root):
+    """Host time of ``data/png.read_rgb`` on one 370x1240 scene image,
+    stored with filter 0 (as ``make_fake_kitti`` writes it) and with every
+    row Sub, Up, Average or Paeth; the pixels must come back unchanged."""
+    import numpy as np
+    from epnet_tpu_torch.data import png
+
+    src = os.path.join(root, 'KITTI', 'object', 'training', 'image_2', '000000.png')
+    img = png.read_rgb(src)
+    times = {}
+    for kind in (0, 1, 2, 3, 4):
+        path = src if kind == 0 else os.path.join(OUT, f'filter{kind}.png')
+        if kind:
+            _filtered_png(path, img, kind)
+        t0 = time.perf_counter()
+        got = png.read_rgb(path)
+        times[kind] = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(got, img):
+            raise AssertionError(f'PNG with filter {kind} read back wrong')
+    print(f'PNG read of one {img.shape[0]}x{img.shape[1]} image on the host, ms by row '
+          f'filter: ' + ', '.join(f'{k} {v:.1f}' for k, v in times.items()), flush=True)
+
+
+def _save_weights(cfg, dev, path_dir, seed):
+    """Seeded random weights saved as a port checkpoint (epoch 0)."""
+    import torch
+    from epnet_tpu_torch.train.trainer import create_train_state, save_checkpoint
+    state = create_train_state(cfg, total_steps=1, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(seed))
+    return save_checkpoint(path_dir, state, epoch=0)
+
+
+def phase_cli(dev):
+    """The eval CLI on the card at the recipe's full width."""
+    import shutil
+
+    import numpy as np
+    from epnet_tpu_torch.config import load_config
+    from epnet_tpu_torch.ops import conv2d, fps, sa_fused
+    from epnet_tpu_torch.tools import eval as cli
+    from epnet_tpu_torch.utils.testing import make_fake_kitti
+
+    root = os.path.join(OUT, 'kitti')
+    shutil.rmtree(OUT, ignore_errors=True)
+    t0 = time.perf_counter()
+    make_fake_kitti(root, n_samples=CLI_SCENES, n_points=30000, seed=11)
+    print(f'fake KITTI tree of {CLI_SCENES} scenes written in {time.perf_counter() - t0:.2f} s',
+          flush=True)
+    _png_times(root)
+    ckpt = _save_weights(load_config(RECIPE), dev, os.path.join(OUT, 'ckpt'), seed=0)
+    counters = (fps.furthest_point_sample_kernel, sa_fused.fused_point_mlp_max_kernel,
+                conv2d.conv3x3_s2_fwd_kernel)
+    for c in counters:
+        c.launches = 0
+    record = []
+    t0 = time.perf_counter()
+    with timed_cli_loader(counters, record):
+        ret = cli.main(['--cfg_file', RECIPE, '--data_root', root, '--ckpt', ckpt,
+                        '--batch_size', str(CLI_BATCH), '--workers', '4',
+                        '--output_dir', os.path.join(OUT, 'eval'), '--device', str(dev)])
+    wall = time.perf_counter() - t0
+    timed = record[0]
+    final_dir = os.path.join(OUT, 'eval', 'epoch_0', 'final_result', 'data')
+    files = sorted(os.listdir(final_dir))
+    if files != ['%06d.txt' % i for i in range(CLI_SCENES)]:
+        raise AssertionError(f'CLI result files: {files}')
+    ap = ret['ap']['Car']
+    if not all(math.isfinite(v) for k in ap for v in ap[k]):
+        raise AssertionError(f'CLI AP not finite: {ap}')
+    snaps = np.array(timed.snapshots)
+    # snapshot k is taken as batch k is handed out, the last one after the
+    # last batch was processed: batch k's launches lie between k and k + 1
+    per_batch = np.diff(snaps, axis=0).tolist()
+    if timed.scans != CLI_SCENES or per_batch != [[6, 2, 4]] * (CLI_SCENES // CLI_BATCH):
+        raise AssertionError(f'CLI: {timed.scans} scans, launches a batch {per_batch}')
+    loop = timed.times[-1] - timed.t0
+    dets = [len(v[0]) for v in _parse_results(final_dir).values()]
+    steps = ', '.join(f'{(b - a) * 1e3:.1f}' for a, b in zip(timed.times, timed.times[1:]))
+    print(f'eval CLI, recipe at full width, batch {CLI_BATCH}: {timed.scans} scans in '
+          f'{loop:.3f} s of loop (loader included) = {timed.scans / loop:.3f} scans/s; first '
+          f'batch handed out after {(timed.times[0] - timed.t0) * 1e3:.1f} ms (workers start), '
+          f'then each batch processed and the next received in {steps} ms; main() '
+          f'{wall:.3f} s; detections a scan {dets}; launches a batch '
+          f'fps/sa_fused/conv3x3_s2_fwd {per_batch[0]}; rcnn_recall(0.5) '
+          f'{ret["rcnn_recall(thresh=0.50)"]:.4f}, Car 3d AP {ap["3d"]}', flush=True)
+    return [int(v) for v in snaps[-1]]
+
+
+def phase_small_cli(dev):
+    """The CLI at tiny widths on the card and on the CPU, one checkpoint."""
+    import numpy as np
+    import yaml
+    from epnet_tpu_torch.tools import eval as cli
+    from epnet_tpu_torch.utils.testing import make_fake_kitti, tiny_config
+
+    cfg = tiny_config(EXACT_QUERIES=True, RCNN={'SCORE_THRESH': 0.01},
+                      TRAIN={'OPTIMIZER': 'adam_onecycle'})
+    root = os.path.join(OUT, 'kitti_tiny')
+    make_fake_kitti(root, n_samples=4, n_points=3000, seed=12)
+
+    def plain(v):
+        if isinstance(v, dict):
+            return {k: plain(x) for k, x in v.items()}
+        return [plain(x) for x in v] if isinstance(v, (tuple, list)) else v
+
+    cfg_file = os.path.join(OUT, 'tiny.yaml')
+    with open(cfg_file, 'w') as f:
+        yaml.safe_dump(plain(cfg.asdict()), f)
+    ckpt = _save_weights(cfg, 'cpu', os.path.join(OUT, 'ckpt_tiny'), seed=1)
+    rets, dets = {}, {}
+    for where in ('cpu', str(dev)):
+        out = os.path.join(OUT, f'eval_tiny_{where.replace(":", "")}')
+        rets[where] = cli.main(['--cfg_file', cfg_file, '--data_root', root, '--ckpt', ckpt,
+                                '--batch_size', '2', '--workers', '0', '--output_dir', out,
+                                '--device', where])
+        dets[where] = _parse_results(os.path.join(out, 'epoch_0', 'final_result', 'data'))
+    worst, n = 0.0, 0
+    for f, (names, want) in dets['cpu'].items():
+        got_names, got = dets[str(dev)][f]
+        if got_names != names or got.shape != want.shape or not names:
+            raise AssertionError(f'tiny CLI, card vs CPU: {f}: {len(got_names)} vs '
+                                 f'{len(names)} detections')
+        bound = 1e-3 * (1 + np.abs(want)) + 1e-4  # + one unit of the 4 printed decimals
+        worst = max(worst, float((np.abs(got - want) / bound).max()))
+        n += len(names)
+    recall = {k: v for k, v in rets['cpu'].items() if 'recall' in k}
+    if worst > 1.0 or any(rets[str(dev)][k] != v for k, v in recall.items()):
+        raise AssertionError(f'tiny CLI, card vs CPU: worst {worst:.3f} of the bound, recall '
+                             f'{recall} vs {rets[str(dev)]}')
+    print(f'tiny CLI, card vs CPU: {n} detections on 4 scenes agree (worst {worst:.3f} of '
+          f'1e-3 x (1 + |x|) + 1e-4), recall equal', flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -739,7 +1074,7 @@ def main():
     torch.cuda.set_device(dev)
 
     t0 = time.perf_counter()
-    libs = ('fps', 'sa_fused', 'sa_fused_bwd', 'conv3x3_dw')
+    libs = ('fps', 'sa_fused', 'sa_fused_bwd', 'conv3x3_dw', 'conv3x3_s2_fwd')
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:  # one nvcc each, together
         for f in [pool.submit(cuda_build.load_library, name) for name in libs]:
             f.result()
@@ -751,21 +1086,24 @@ def main():
 
     fps_res = phase_fps(dev)
     sa_res = phase_sa(dev)
-    fps_launches, sa_launches = phase_slice(dev)
+    fps_launches, sa_launches, fwd_launches = phase_slice(dev)
     phase_small_reference(dev)
     bwd_res = phase_sa_bwd(dev)
-    train_fps, train_sa, bwd_launches, train_s2, train_s1 = phase_train(dev)
+    train_fps, train_sa, bwd_launches, train_s2, train_s1, train_fwd = phase_train(dev)
     phase_small_train_reference(dev)
     dw_res = phase_conv_dw(dev)
-    dw_fps, dw_sa, dw_bwd, s2_launches, s1_launches = phase_train_dw(dev)
+    dw_fps, dw_sa, dw_bwd, s2_launches, s1_launches, dw_fwd = phase_train_dw(dev)
+    fwd_res = phase_conv_fwd(dev)
+    cli_fps, cli_sa, cli_fwd = phase_cli(dev)
+    phase_small_cli(dev)
 
     kernels = [
         {'name': 'fps', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/fps.cu',
          'replaces': 'epnet_tpu/ops/fps_pallas.py:40',
-         'launches': fps_launches + train_fps + dw_fps, **fps_res},
+         'launches': fps_launches + train_fps + dw_fps + cli_fps, **fps_res},
         {'name': 'sa_fused_fwd', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/sa_fused.cu',
-         'replaces': 'epnet_tpu/ops/sa_fused.py:83', 'launches': sa_launches + train_sa + dw_sa,
-         **sa_res},
+         'replaces': 'epnet_tpu/ops/sa_fused.py:83',
+         'launches': sa_launches + train_sa + dw_sa + cli_sa, **sa_res},
         {'name': 'sa_fused_bwd', 'route': 'cuda',
          'source': 'epnet_tpu_torch/csrc/sa_fused_bwd.cu',
          'replaces': 'epnet_tpu/ops/sa_fused.py:179', 'launches': bwd_launches + dw_bwd,
@@ -779,6 +1117,10 @@ def main():
          'source': 'epnet_tpu_torch/csrc/conv3x3_dw.cu',
          'replaces': 'tools/conv_dw_pallas_attic.py:258, tools/conv_dw_pallas_attic.py:67',
          'launches': train_s1 + s1_launches, **dw_res['conv3x3_dw_s1']},
+        {'name': 'conv3x3_s2_fwd', 'route': 'cuda',
+         'source': 'epnet_tpu_torch/csrc/conv3x3_s2_fwd.cu',
+         'replaces': 'tools/conv_fwd_attic.py:43',
+         'launches': fwd_launches + train_fwd + dw_fwd + cli_fwd, **fwd_res},
     ]
     for k in kernels:
         if k['launches'] <= 0:

@@ -1,0 +1,63 @@
+"""Raw KITTI object-detection file I/O (host side, numpy).
+
+Port of ``epnet_tpu/data/kitti_dataset.py`` (reference
+``lib/datasets/kitti_dataset.py``): velodyne ``.bin`` as (N, 4) float32
+(:69-72), images RGB, normalized with the ImageNet statistics and
+zero-padded to 384x1280 (:37-57), calib and label parsers (:74-97). Images
+are read by the port's ``data/png.py``, not PIL. The JAX package's
+``EPNET_IMG_CACHE`` (decoded pixels cached as .npy) and the road planes of
+the gt-paste augmentation are not ported.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from . import png
+from .calibration import Calibration
+from .object3d import load_label_file
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+PAD_H, PAD_W = 384, 1280
+
+
+class KittiDataset:
+    def __init__(self, root_dir: str, split: str = 'train'):
+        is_test = split == 'test'
+        self.imageset_dir = os.path.join(root_dir, 'KITTI', 'object',
+                                         'testing' if is_test else 'training')
+        split_file = os.path.join(root_dir, 'KITTI', 'ImageSets', split + '.txt')
+        with open(split_file) as f:
+            self.image_idx_list = [x.strip() for x in f.readlines() if x.strip()]
+
+        self.image_dir = os.path.join(self.imageset_dir, 'image_2')
+        self.lidar_dir = os.path.join(self.imageset_dir, 'velodyne')
+        self.calib_dir = os.path.join(self.imageset_dir, 'calib')
+        self.label_dir = os.path.join(self.imageset_dir, 'label_2')
+
+    def get_lidar(self, idx: int) -> np.ndarray:
+        path = os.path.join(self.lidar_dir, '%06d.bin' % idx)
+        return np.fromfile(path, dtype=np.float32).reshape(-1, 4)
+
+    def get_image_rgb_with_normal(self, idx: int) -> np.ndarray:
+        """(384, 1280, 3) float32, ImageNet-normalized, zero-padded (an image
+        larger than that is cropped)."""
+        raw = png.read_rgb(os.path.join(self.image_dir, '%06d.png' % idx))
+        im = raw.astype(np.float32) / 255.0
+        im = (im - IMAGENET_MEAN) / IMAGENET_STD
+        out = np.zeros((PAD_H, PAD_W, 3), np.float32)
+        out[:im.shape[0], :im.shape[1]] = im[:PAD_H, :PAD_W]
+        return out
+
+    def get_image_shape(self, idx: int):
+        h, w, _ = png.read_header(os.path.join(self.image_dir, '%06d.png' % idx))
+        return h, w, 3
+
+    def get_calib(self, idx: int) -> Calibration:
+        return Calibration(os.path.join(self.calib_dir, '%06d.txt' % idx))
+
+    def get_label(self, idx: int):
+        return load_label_file(os.path.join(self.label_dir, '%06d.txt' % idx))

@@ -1,21 +1,26 @@
-"""3x3 SAME convolutions of the image tower with a hand-written weight
-gradient: the CUDA kernels ``csrc/conv3x3_dw.cu`` (D, stride 2; E, stride
-1) and their plain PyTorch versions.
+"""3x3 SAME convolutions of the image tower with hand-written kernels: the
+stride-2 forward (kernel F, ``csrc/conv3x3_s2_fwd.cu``) and the weight
+gradients (``csrc/conv3x3_dw.cu``: D, stride 2; E, stride 1), each beside
+its plain PyTorch version.
 
-Port of ``epnet_tpu/ops/conv2d.py``. Public functions take NHWC inputs and
-HWIO weights, as the JAX package's do. ``conv3x3_same(x, w, stride)`` gives
-the values of a SAME convolution (XLA's pads: (0, 1) for stride 2 on even
+Port of ``epnet_tpu/ops/conv2d.py`` and of the stride-2 forward of
+``tools/conv_fwd_attic.py``. Public functions take NHWC inputs and HWIO
+weights, as the JAX package's do. ``conv3x3_same(x, w, stride)`` gives the
+values of a SAME convolution (XLA's pads: (0, 1) for stride 2 on even
 sizes) and its gradients:
 
-* the forward is ``F.conv2d`` on the padded input;
+* the forward is ``conv3x3_s2_fwd`` at stride 2 and ``F.conv2d`` on the
+  padded input at stride 1 (the JAX package has no Pallas stride-1
+  forward);
 * dx is PyTorch's convolution backward (cuDNN on the card), as the JAX
   package leaves dx to XLA;
-* dw is ``dw3x3_s2`` or ``dw3x3_s1``: the kernel for a CUDA tensor, the
-  plain version for a CPU tensor, with no fallback between the two.
+* dw is ``dw3x3_s2`` or ``dw3x3_s1``.
 
-``models/layers.Conv2dBlock`` sends every conv that
-``conv3x3_same_available`` admits here; there is no other weight-gradient
-route for those convs.
+Each of ``conv3x3_s2_fwd``, ``dw3x3_s2`` and ``dw3x3_s1`` runs its kernel
+for a CUDA tensor and its plain version for a CPU tensor, with no fallback
+between the two. ``models/layers.Conv2dBlock`` sends every conv that
+``conv3x3_same_available`` admits here; there is no other route for those
+convs.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ def conv3x3_same_available(x_shape, features: int, kernel: int, stride: int) -> 
 
     * 3x3, input and output channels multiples of 4 (the kernels load
       float4s);
-    * stride 2: even H and W (kernel D);
+    * stride 2: even H and W (kernels F and D);
     * stride 1: more than 8 input channels, so the RGB stem keeps
       ``nn.Conv2d`` as it keeps its own conv in JAX (kernel E).
 
@@ -106,6 +111,37 @@ def dw3x3_s2_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return torch.stack(slots).reshape(3, 3, C, F_)
 
 
+def _check_fwd(what: str, x: torch.Tensor, w: torch.Tensor):
+    if x.dim() != 4 or tuple(w.shape[:3]) != (3, 3, x.shape[-1]) or w.dim() != 4:
+        raise ValueError(f'{what}: x must be NHWC and w (3, 3, C, F), got {tuple(x.shape)} '
+                         f'and {tuple(w.shape)}')
+    if x.shape[1] % 2 or x.shape[2] % 2:
+        raise ValueError(f'{what}: stride 2 needs even H and W, got {x.shape[1]} x {x.shape[2]}')
+
+
+def conv3x3_s2_fwd_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The 3x3 SAME stride-2 conv (even H, W) as 9 strided-phase matmuls
+    summed in tap order, the plain version of kernel F: tap (d, e) adds
+    ``x[:, d::2, e::2] @ w[d, e]``. The bottom and right taps (d or e = 2)
+    of the last output row and column read the SAME pad, so their phase
+    falls one row or column short and is padded with zeros.
+
+    :param x: (B, H, W, C); w: (3, 3, C, F)
+    :return: (B, H/2, W/2, F)
+    """
+    _check_fwd('conv3x3_s2_fwd_plain', x, w)
+    B, H, W, C = x.shape
+    H2, W2 = H // 2, W // 2
+    y = None
+    for d in range(3):
+        for e in range(3):
+            xs = x[:, d::2, e::2, :]
+            xs = F.pad(xs, (0, 0, 0, W2 - xs.shape[2], 0, H2 - xs.shape[1]))
+            term = xs.reshape(-1, C) @ w[d, e]
+            y = term if y is None else y + term
+    return y.reshape(B, H2, W2, w.shape[-1])
+
+
 def dw3x3_s1_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """Weight gradient of the 3x3 SAME stride-1 conv, as 9 shifted matmuls
     over the 1-padded input (JAX ``_dw_shift_s1``):
@@ -136,23 +172,49 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-_BLOCKS_PER_SM = 2    # resident blocks of csrc/conv3x3_dw.cu (launch bounds, registers)
-_WAVES = 4            # target waves of blocks, so the last one is a small share
-_MIN_SPLIT_PIXELS = 256  # a split shorter than this costs more to reduce than it saves
+def _fwd_lib() -> ctypes.CDLL:
+    lib = cuda_build.load_library('conv3x3_s2_fwd')
+    if not getattr(lib, '_epnet_typed', False):
+        lib.epnet_conv3x3_s2_fwd_launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                                                    + [ctypes.c_void_p])
+        lib.epnet_conv3x3_s2_fwd_launch.restype = ctypes.c_int
+        lib.epnet_conv3x3_s2_fwd_tiles.argtypes = [ctypes.c_int] * 4
+        lib.epnet_conv3x3_s2_fwd_tiles.restype = ctypes.c_longlong
+        lib.epnet_conv3x3_s2_fwd_steps.argtypes = [ctypes.c_int]
+        lib.epnet_conv3x3_s2_fwd_steps.restype = ctypes.c_int
+        lib._epnet_typed = True
+    return lib
+
+
+_BLOCKS_PER_SM = 2    # resident blocks of both sources (launch bounds, registers)
+_WAVES = 4            # dw: target waves of blocks, so the last one is a small share
+_MIN_SPLIT_PIXELS = 256  # dw: a split shorter than this costs more to reduce than it saves
+_FWD_WAVES = 2        # F: waves to fill before K is split (each split adds an M x F slice)
+_MIN_SPLIT_STEPS = 16  # F: steps of K (tap, 16 channels) a split keeps at least
+
+
+def _check_cuda(what: str, **tensors):
+    """Every tensor CUDA float32, contiguous, 16-byte aligned, on one device."""
+    dev = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f'{what}: {name} must be on {dev} (CUDA), got {t.device}')
+        if t.dtype != torch.float32:
+            raise TypeError(f'{what}: {name} must be float32, got {t.dtype}')
+        if not t.is_contiguous():
+            raise ValueError(f'{what}: {name} must be contiguous')
+        if t.data_ptr() % 16:
+            raise ValueError(f'{what}: {name} must be 16-byte aligned')
+
+
+def _resident_blocks(dev) -> int:
+    return _BLOCKS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _dw_kernel(what: str, x: torch.Tensor, dy: torch.Tensor, stride: int) -> torch.Tensor:
     """Launch ``csrc/conv3x3_dw.cu`` (and its fixed-order reduction of the
     per-split slices) on the current stream; returns (3, 3, C, F) f32."""
-    for name, t in (('x', x), ('dy', dy)):
-        if not t.is_cuda or t.device != x.device:
-            raise ValueError(f'{what}: {name} must be on {x.device} (CUDA), got {t.device}')
-        if t.dtype != torch.float32:
-            raise TypeError(f'{what}: {name} must be float32, got {t.dtype}')
-        if not t.is_contiguous():
-            raise ValueError(f'{what}: {name} must be contiguous NHWC')
-        if t.data_ptr() % 16:
-            raise ValueError(f'{what}: {name} must be 16-byte aligned')
+    _check_cuda(what, x=x, dy=dy)
     _check_shapes(what, x, dy, stride)
     B, H, W, C = x.shape
     F_ = dy.shape[-1]
@@ -162,8 +224,7 @@ def _dw_kernel(what: str, x: torch.Tensor, dy: torch.Tensor, stride: int) -> tor
     dev = x.device
     tiles = lib.epnet_conv3x3_dw_tiles(C, F_)
     pixels = B * (H // stride) * (W // stride)
-    resident = _BLOCKS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, min(_WAVES * resident // tiles, pixels // _MIN_SPLIT_PIXELS))
+    splits = max(1, min(_WAVES * _resident_blocks(dev) // tiles, pixels // _MIN_SPLIT_PIXELS))
     part = torch.empty((splits, 9 * C * F_), dtype=torch.float32, device=dev)
     dw = torch.empty((3, 3, C, F_), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -197,12 +258,63 @@ def dw3x3_s1_kernel(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 dw3x3_s1_kernel.launches = 0
 
 
-def _on_device(kernel, plain, x, dy):
-    if x.is_cuda:
-        return kernel(x, dy)
-    if x.device.type == 'cpu':
-        return plain(x, dy)
-    raise ValueError(f'unsupported device {x.device}')
+def conv3x3_s2_fwd_grid(x_shape, features: int, dev) -> tuple:
+    """(tiles, splits) of kernel F for an NHWC input of ``x_shape`` on
+    ``dev``: the launch has tiles * splits blocks. K is split only when the
+    output tiles fill fewer than ``_FWD_WAVES`` waves of resident blocks,
+    and no split keeps fewer than ``_MIN_SPLIT_STEPS`` steps."""
+    B, H, W, C = x_shape
+    lib = _fwd_lib()
+    tiles = lib.epnet_conv3x3_s2_fwd_tiles(B, H, W, features)
+    steps = lib.epnet_conv3x3_s2_fwd_steps(C)
+    splits = max(1, min(_FWD_WAVES * _resident_blocks(dev) // tiles, steps // _MIN_SPLIT_STEPS))
+    return tiles, splits
+
+
+def conv3x3_s2_fwd_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Kernel F: the 3x3 SAME stride-2 conv forward on the card. x (B, H,
+    W, C) and w (3, 3, C, F) float32, contiguous, on one CUDA device; even
+    H and W; C and F multiples of 4. Raises on anything else."""
+    what = 'conv3x3_s2_fwd_kernel'
+    _check_cuda(what, x=x, w=w)
+    _check_fwd(what, x, w)
+    B, H, W, C = x.shape
+    F_ = w.shape[-1]
+    if C % 4 or F_ % 4:
+        raise ValueError(f'{what}: channels must be multiples of 4, got C {C}, F {F_}')
+    if B == 0:
+        raise ValueError(f'{what}: empty batch')
+    lib = _fwd_lib()
+    dev = x.device
+    _, splits = conv3x3_s2_fwd_grid(x.shape, F_, dev)
+    y = torch.empty((B, H // 2, W // 2, F_), dtype=torch.float32, device=dev)
+    part = (torch.empty((splits, y.numel()), dtype=torch.float32, device=dev) if splits > 1
+            else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.epnet_conv3x3_s2_fwd_launch(x.data_ptr(), w.data_ptr(),
+                                              None if part is None else part.data_ptr(),
+                                              y.data_ptr(), B, H, W, C, F_, splits, stream)
+    cuda_build.check(lib, err, f'{what} launch')
+    conv3x3_s2_fwd_kernel.launches += 1
+    return y
+
+
+conv3x3_s2_fwd_kernel.launches = 0
+
+
+def _on_device(kernel, plain, a, b):
+    if a.is_cuda:
+        return kernel(a, b)
+    if a.device.type == 'cpu':
+        return plain(a, b)
+    raise ValueError(f'unsupported device {a.device}')
+
+
+def conv3x3_s2_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, H/2, W/2, F) 3x3 SAME stride-2 conv: kernel F for CUDA tensors,
+    the plain version for CPU tensors."""
+    return _on_device(conv3x3_s2_fwd_kernel, conv3x3_s2_fwd_plain, x, w)
 
 
 def dw3x3_s2(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -218,32 +330,38 @@ def dw3x3_s1(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 
 
 class _Conv3x3Same(torch.autograd.Function):
-    """Saves the NHWC input (for dw), and the padded NCHW input and the
-    OIHW weight (for dx, the same convolution backward that autograd runs
+    """Saves the NHWC input (for dw), the HWIO weight and, at stride 1, the
+    padded NCHW input (for dx, the convolution backward that autograd runs
     for ``nn.Conv2d``)."""
 
     @staticmethod
     def forward(ctx, x, w, stride):
+        ctx.stride = stride
+        if stride == 2:
+            ctx.save_for_backward(x, w)
+            return conv3x3_s2_fwd(x.contiguous(), w.contiguous())
         x_nchw = x.permute(0, 3, 1, 2)
-        pads = _nchw_pads(x_nchw, 3, stride)
-        xp = F.pad(x_nchw, pads)
-        w_oihw = w.permute(3, 2, 0, 1)
-        ctx.save_for_backward(x, xp, w_oihw)
-        ctx.stride, ctx.pads = stride, pads
-        return F.conv2d(xp, w_oihw, None, (stride, stride)).permute(0, 2, 3, 1)
+        xp = F.pad(x_nchw, _nchw_pads(x_nchw, 3, stride))
+        ctx.save_for_backward(x, w, xp)
+        return F.conv2d(xp, w.permute(3, 2, 0, 1), None, (stride, stride)).permute(0, 2, 3, 1)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dy):
-        x, xp, w_oihw = ctx.saved_tensors
+        x, w, *saved = ctx.saved_tensors
         s = ctx.stride
         dx = dw = None
         if ctx.needs_input_grad[0]:
+            B, H, W, C = x.shape
+            left, right, top, bottom = _nchw_pads(x.permute(0, 3, 1, 2), 3, s)
+            # the stride-2 forward made no padded copy; for dx the convolution
+            # backward reads only its input's shape (as torch.nn.grad.conv2d_input)
+            xp = saved[0] if saved else x.new_empty(1).expand(B, C, H + top + bottom,
+                                                              W + left + right)
             dxp = torch.ops.aten.convolution_backward(
-                dy.permute(0, 3, 1, 2), xp, w_oihw, None, (s, s), (0, 0), (1, 1), False,
-                (0, 0), 1, (True, False, False))[0]
-            left, right, top, bottom = ctx.pads  # the pad's own backward: a negative pad
-            dx = F.pad(dxp, (-left, -right, -top, -bottom)).permute(0, 2, 3, 1)
+                dy.permute(0, 3, 1, 2), xp, w.permute(3, 2, 0, 1), None, (s, s), (0, 0),
+                (1, 1), False, (0, 0), 1, (True, False, False))[0]
+            dx = dxp[:, :, top:top + H, left:left + W].permute(0, 2, 3, 1)
         if ctx.needs_input_grad[1]:
             dw = (dw3x3_s2 if s == 2 else dw3x3_s1)(x.contiguous(), dy.contiguous())
         return dx, dw, None
@@ -251,8 +369,9 @@ class _Conv3x3Same(torch.autograd.Function):
 
 def conv3x3_same(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     """x (B, H, W, C), w (3, 3, C, F) -> (B, H', W', F): a SAME 3x3 conv
-    with stride 1 or 2, differentiable in both. The weight gradient is
-    kernel D or E on the card, the plain version on the CPU."""
+    with stride 1 or 2, differentiable in both. The stride-2 forward is
+    kernel F and the weight gradient kernel D or E on the card; on the CPU
+    their plain versions."""
     if stride not in (1, 2) or tuple(w.shape[:3]) != (3, 3, x.shape[-1]):
         raise ValueError(f'conv3x3_same: x {tuple(x.shape)}, w {tuple(w.shape)}, '
                          f'stride {stride}')

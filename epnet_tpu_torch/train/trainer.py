@@ -94,6 +94,16 @@ def load_checkpoint(path: str, state: TrainState):
     return state, int(saved['epoch'])
 
 
+def restore_variables(path: str, model: EPNet) -> int:
+    """Eval restore: the model's parameters and BatchNorm statistics from a
+    checkpoint, the optimizer state ignored. Returns the epoch. The
+    counterpart of ``epnet_tpu/train/trainer.py::restore_variables``, for
+    the port's own ``torch.save`` checkpoints."""
+    saved = torch.load(path, map_location='cpu', weights_only=True)
+    model.load_state_dict(saved['model'])
+    return int(saved['epoch'])
+
+
 def restore_partial(path: str, state: TrainState) -> TrainState:
     """Warm start: copy every tensor whose name and shape the checkpoint
     shares with the model; the rest keeps its value."""

@@ -1,8 +1,9 @@
 """Host-side (numpy) box geometry for the port's labelled test scenes.
 
-The port's own copy of the two functions of ``epnet_tpu/data/box_np.py``
-that ``utils/testing.py`` needs (reference ``lib/utils/kitti_utils.py``);
-``tests/test_torch_config.py`` holds them equal to the JAX package's.
+The port's own copy of the functions of ``epnet_tpu/data/box_np.py`` that
+the data pipeline, ``eval/kitti_common.py`` and ``utils/testing.py`` need
+(reference ``lib/utils/kitti_utils.py``); ``tests/test_torch_config.py``
+holds them equal to the JAX package's.
 Boxes are ``(7,) = [x, y, z, h, w, l, ry]`` in the rect-camera frame, with
 ``y`` at the bottom face.
 """
@@ -10,6 +11,23 @@ Boxes are ``(7,) = [x, y, z, h, w, l, ry]`` in the rect-camera frame, with
 from __future__ import annotations
 
 import numpy as np
+
+
+def boxes3d_to_corners3d(boxes3d: np.ndarray) -> np.ndarray:
+    """(N, 7) -> (N, 8, 3) corners, bottom face first (kitti_utils.py:66-103)."""
+    h, w, l = boxes3d[:, 3], boxes3d[:, 4], boxes3d[:, 5]
+    sign_x = np.array([1, 1, -1, -1, 1, 1, -1, -1], np.float32)
+    sign_z = np.array([1, -1, -1, 1, 1, -1, -1, 1], np.float32)
+    top = np.array([0, 0, 0, 0, 1, 1, 1, 1], np.float32)
+    x_c = (l / 2)[:, None] * sign_x
+    z_c = (w / 2)[:, None] * sign_z
+    y_c = -h[:, None] * top
+    ry = boxes3d[:, 6:7]
+    c, s = np.cos(ry), np.sin(ry)
+    xr = c * x_c + s * z_c
+    zr = -s * x_c + c * z_c
+    corners = np.stack([xr, y_c, zr], axis=-1)
+    return (corners + boxes3d[:, None, 0:3]).astype(np.float32)
 
 
 def enlarge_box3d(boxes3d: np.ndarray, extra_width: float) -> np.ndarray:

@@ -1,13 +1,17 @@
-"""Tiny configs, structured synthetic scenes and labelled train batches
-(numpy only).
+"""Tiny configs, structured synthetic scenes, labelled train batches and
+a synthetic on-disk KITTI tree (numpy only).
 
 Carried over from ``epnet_tpu/utils/testing.py`` (``tiny_config``,
-``structured_scene``, ``synthetic_batch``) and ``__graft_entry__.py``
-(``full_batch``, its ``_full_batch(with_labels=True)``) so that the port
-builds its test and smoke inputs without jax; ``tests/test_torch_config.py``
-and ``tests/test_torch_train_step.py`` hold the copies to identical output.
-The box tests are the port's own ``utils/box_np.py``.
+``structured_scene``, ``synthetic_batch``, ``make_fake_kitti``) and
+``__graft_entry__.py`` (``full_batch``, its ``_full_batch(with_labels=True)``)
+so that the port builds its test and smoke inputs without jax;
+``tests/test_torch_config.py``, ``tests/test_torch_train_step.py`` and
+``tests/test_torch_data.py`` hold the copies to identical output. The box
+tests are the port's own ``utils/box_np.py``; the images are written by
+``data/png.py``.
 """
+
+import os
 
 import numpy as np
 
@@ -246,3 +250,103 @@ def full_batch(cfg, batch_size=1, seed=0, with_labels=False):
                 reg_l[b][fg, 3:7] = g[k][3:7]
         batch.update(gt_boxes3d=gt_pad, rpn_cls_label=cls_l, rpn_reg_label=reg_l)
     return batch
+
+
+# rect = TR @ lidar: x_r = -y_l, y_r = -z_l, z_r = x_l
+_TR_VELO2CAM = np.array([[0, -1, 0, 0],
+                         [0, 0, -1, 0],
+                         [1, 0, 0, 0]], np.float32)
+
+
+def make_fake_kitti(root, n_samples=4, split='train', img_hw=(370, 1240),
+                    n_points=6000, seed=0, n_val=0, max_cars=3):
+    """A minimal KITTI object tree of synthetic scenes: ground points and
+    1 to ``max_cars`` cars with points on them, random RGB images, calib,
+    labels and road planes; the same files as the JAX package's
+    ``make_fake_kitti`` for the same arguments (its images are written with
+    PIL, so theirs match these pixel for pixel, not byte for byte).
+
+    With ``n_val=0`` ``val.txt`` lists the train ids; with ``n_val > 0``
+    ``n_val`` extra scenes are made and ``val.txt`` lists only those."""
+    from epnet_tpu_torch.data import png
+
+    rng = np.random.RandomState(seed)
+    h, w = img_hw
+    obj_dir = os.path.join(root, 'KITTI', 'object', 'training')
+    for sub in ('velodyne', 'image_2', 'calib', 'label_2', 'planes'):
+        os.makedirs(os.path.join(obj_dir, sub), exist_ok=True)
+    os.makedirs(os.path.join(root, 'KITTI', 'ImageSets'), exist_ok=True)
+
+    f, cu, cv = 700.0, w / 2.0, h / 2.0
+    P2 = np.array([[f, 0, cu, 44.8], [0, f, cv, 0.1], [0, 0, 1, 0.003]], np.float32)
+
+    ids = []
+    for sid in range(n_samples + n_val):
+        ids.append('%06d' % sid)
+        # ground points + a couple of cars in the frustum
+        z = rng.uniform(4, 60, n_points)
+        x = rng.uniform(-0.7, 0.7, n_points) * z * (cu / f)
+        y = rng.uniform(1.4, 1.7, n_points)  # ground plane ~1.55 below cam
+        pts_rect = np.stack([x, y, z], 1)
+
+        boxes = []
+        for _ in range(rng.randint(1, max_cars + 1)):
+            bz = rng.uniform(8, 45)
+            bx = rng.uniform(-0.4, 0.4) * bz * (cu / f)
+            ry = rng.uniform(-np.pi, np.pi)
+            hh, ww, ll = (rng.uniform(1.4, 1.7), rng.uniform(1.5, 1.7),
+                          rng.uniform(3.5, 4.3))
+            boxes.append([bx, 1.55, bz, hh, ww, ll, ry])
+            # add points on the car
+            npts = 300
+            local = np.stack([
+                rng.uniform(-ll / 2, ll / 2, npts),
+                rng.uniform(-hh, 0, npts),
+                rng.uniform(-ww / 2, ww / 2, npts)], 1)
+            c, s = np.cos(ry), np.sin(ry)
+            gx = c * local[:, 0] + s * local[:, 2] + bx
+            gz = -s * local[:, 0] + c * local[:, 2] + bz
+            gy = local[:, 1] + 1.55
+            pts_rect = np.concatenate([pts_rect, np.stack([gx, gy, gz], 1)], 0)
+
+        # rect -> lidar: the inverse of the orthonormal TR is its transpose
+        pts_lidar = pts_rect @ _TR_VELO2CAM[:, :3]
+        intensity = rng.rand(len(pts_lidar), 1).astype(np.float32)
+        np.concatenate([pts_lidar.astype(np.float32), intensity], 1).tofile(
+            os.path.join(obj_dir, 'velodyne', f'{ids[-1]}.bin'))
+
+        img = (rng.rand(h, w, 3) * 255).astype(np.uint8)
+        png.write_png(os.path.join(obj_dir, 'image_2', f'{ids[-1]}.png'), img)
+
+        with open(os.path.join(obj_dir, 'calib', f'{ids[-1]}.txt'), 'w') as fo:
+            fo.write('P0: ' + ' '.join('%.6e' % v for v in P2.reshape(-1)) + '\n')
+            fo.write('P1: ' + ' '.join('%.6e' % v for v in P2.reshape(-1)) + '\n')
+            fo.write('P2: ' + ' '.join('%.6e' % v for v in P2.reshape(-1)) + '\n')
+            fo.write('P3: ' + ' '.join('%.6e' % v for v in P2.reshape(-1)) + '\n')
+            fo.write('R0_rect: ' + ' '.join('%.6e' % v for v in np.eye(3).reshape(-1)) + '\n')
+            fo.write('Tr_velo_to_cam: '
+                     + ' '.join('%.6e' % v for v in _TR_VELO2CAM.reshape(-1)) + '\n')
+            fo.write('Tr_imu_to_velo: '
+                     + ' '.join('%.6e' % v for v in _TR_VELO2CAM.reshape(-1)) + '\n')
+
+        with open(os.path.join(obj_dir, 'label_2', f'{ids[-1]}.txt'), 'w') as fo:
+            for bx, by, bz, hh, ww, ll, ry in boxes:
+                beta = np.arctan2(bz, bx)
+                alpha = -np.sign(beta) * np.pi / 2 + beta + ry
+                u = f * bx / bz + cu
+                v = f * by / bz + cv
+                x1, y1 = max(u - 60, 0), max(v - 50, 0)
+                x2, y2 = min(u + 60, w - 1), min(v + 5, h - 1)
+                fo.write(f'Car 0.00 0 {alpha:.2f} {x1:.2f} {y1:.2f} {x2:.2f} {y2:.2f} '
+                         f'{hh:.2f} {ww:.2f} {ll:.2f} {bx:.2f} {by:.2f} {bz:.2f} {ry:.2f}\n')
+
+        with open(os.path.join(obj_dir, 'planes', f'{ids[-1]}.txt'), 'w') as fo:
+            fo.write('# Plane\nWidth 4\nHeight 1\n0 -1 0 1.55\n')
+
+    train_ids = ids[:n_samples]
+    val_ids = ids[n_samples:] if n_val else ids
+    with open(os.path.join(root, 'KITTI', 'ImageSets', split + '.txt'), 'w') as fo:
+        fo.write('\n'.join(train_ids) + '\n')
+    with open(os.path.join(root, 'KITTI', 'ImageSets', 'val.txt'), 'w') as fo:
+        fo.write('\n'.join(val_ids) + '\n')
+    return root

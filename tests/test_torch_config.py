@@ -96,6 +96,8 @@ def test_box_functions_equal(seed):
         inside = tbox.points_in_box3d(pts, box)
         np.testing.assert_array_equal(inside, jbox.points_in_box3d(pts, box))
     assert 0 < sum(tbox.points_in_box3d(pts, b).sum() for b in boxes) < len(pts)
+    got, want = tbox.boxes3d_to_corners3d(boxes), jbox.boxes3d_to_corners3d(boxes)
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
 
 
 def test_tiny_config_equal():

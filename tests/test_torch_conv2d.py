@@ -1,8 +1,12 @@
 """The image tower's 3x3 SAME convs (``epnet_tpu_torch/ops/conv2d.py``)
 against the JAX package's ``epnet_tpu/ops/conv2d.py``, on the CPU.
 
-* ``conv3x3_same``: values, dx and dw at stride 1 and 2 (the plain weight
-  gradients on the CPU), against ``jax.vjp`` of the JAX ``conv3x3_same``.
+* ``conv3x3_same``: values, dx and dw at stride 1 and 2 (the plain
+  stride-2 forward and weight gradients on the CPU), against ``jax.vjp`` of
+  the JAX ``conv3x3_same``.
+* The plain stride-2 forward against ``lax.conv_general_dilated`` (SAME,
+  stride 2) and against the TPU kernel it stands for,
+  ``tools/conv_fwd_attic.py::conv3x3_s2_fwd_pallas``, in interpret mode.
 * The plain weight gradients against every TPU kernel they stand for, run
   in interpret mode: ``_dw_pallas`` (``_dw_kernel``) and the four kernels
   of ``tools/conv_dw_pallas_attic.py``, and against the JAX package's own
@@ -10,7 +14,7 @@ against the JAX package's ``epnet_tpu/ops/conv2d.py``, on the CPU.
 * A train-mode ``ImageBlock`` against the JAX one with its Pallas
   stride-2 weight gradient (interpret mode) and its 9-shift stride-1
   weight gradient.
-* Kernels D and E against their plain versions on the card (``cuda``).
+* Kernels F, D and E against their plain versions on the card (``cuda``).
 
 Tolerance against JAX: at most 1e-5 x max|ref| for values and gradients
 (f32 on both sides; summation orders differ, ~1e-7 relative).
@@ -38,9 +42,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 RTOL = 1e-5  # of the reference's max |value|
 
 
-def _attic():
-    spec = importlib.util.spec_from_file_location(
-        'conv_dw_pallas_attic', ROOT / 'tools' / 'conv_dw_pallas_attic.py')
+def _attic(name='conv_dw_pallas_attic'):
+    spec = importlib.util.spec_from_file_location(name, ROOT / 'tools' / f'{name}.py')
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -105,6 +108,30 @@ def test_plain_dw_matches_jax_kernels(stride, name):
     _close(plain(t(x), t(dy)), want, name)
 
 
+FWD_SHAPES = [(2, 16, 64, 8, 16), (1, 8, 20, 12, 8), (1, 2, 2, 4, 4), (2, 12, 20, 132, 200)]
+
+
+@pytest.mark.parametrize('shape', FWD_SHAPES, ids=lambda s: 'x'.join(map(str, s)))
+def test_plain_fwd_matches_xla_and_the_tpu_kernel(shape):
+    """The plain stride-2 forward against XLA's SAME stride-2 convolution
+    and, where ``pick_fwd_s2_tm`` finds a row tile, against the attic's
+    Pallas kernel in interpret mode: at most 1e-5 x max|y|."""
+    B, H, W, C, Fo = shape
+    rng = np.random.RandomState(sum(shape))
+    x = rng.randn(B, H, W, C).astype(np.float32)
+    w = (rng.randn(3, 3, C, Fo) / 10).astype(np.float32)
+    got = tconv.conv3x3_s2_fwd_plain(t(x), t(w))
+    want = jax.lax.conv_general_dilated(jnp.asarray(x), jnp.asarray(w), (2, 2), 'SAME',
+                                        dimension_numbers=('NHWC', 'HWIO', 'NHWC'))
+    _close(got, want, 'xla')
+    attic = _attic('conv_fwd_attic')
+    if attic.pick_fwd_s2_tm(H, W, C, Fo) is not None:
+        _close(got, attic.conv3x3_s2_fwd_pallas(jnp.asarray(x), jnp.asarray(w), interpret=True),
+               'pallas')
+    else:
+        assert shape[1:3] == (2, 2) or C * Fo > 256 * 128  # no row tile: XLA alone
+
+
 def test_plain_dw_reads_the_same_pad_at_the_edges():
     """Stride 2 pads only the bottom and right: a one-hot dy at the last
     output row and column makes the taps d = 2 and e = 2 read zeros."""
@@ -143,9 +170,12 @@ def test_route_gate(monkeypatch):
 def test_conv2d_block_routes_alike(stride, cin):
     """A Conv2dBlock, through ``conv3x3_same`` or (the stem) ``nn.Conv2d``,
     against the plain autograd of ``F.conv2d`` on the padded input with the
-    same parameters: identical values, dx and BN gradients, the parameter
-    at Conv_0.weight, and dw equal to f32 summation order (bitwise for the
-    stem, which is that very call)."""
+    same parameters: the parameter at Conv_0.weight; at stride 1 identical
+    values, dx and BN gradients (the same ``F.conv2d`` call and convolution
+    backward); at stride 2, where the forward is ``conv3x3_s2_fwd_plain``'s
+    nine phase matmuls, values, dx and BN gradients equal to f32 summation
+    order; dw equal to f32 summation order (bitwise for the stem, which is
+    that very call)."""
     rng = np.random.RandomState(20 + stride)
     x = rng.randn(2, 16, 24, cin).astype(np.float32)
     g = rng.randn(2, 16 // stride, 24 // stride, 12).astype(np.float32)
@@ -171,9 +201,11 @@ def test_conv2d_block_routes_alike(stride, cin):
         res[name] = (y.detach(), xt.grad, block.Conv_0.weight.grad.clone(),
                      block.BatchNorm_0.weight.grad.clone())
     got, want = res['block'], res['reference']
-    assert torch.equal(got[0], want[0])
-    assert torch.equal(got[1], want[1])
-    assert torch.equal(got[3], want[3])
+    for i, what in ((0, 'y'), (1, 'dx'), (3, 'bn scale')):
+        if stride == 1:
+            assert torch.equal(got[i], want[i]), what
+        else:
+            _close(got[i], want[i].numpy(), what)
     _close(got[2], want[2].numpy(), 'dw')
     if cin <= 8:
         assert torch.equal(got[2], want[2])
@@ -222,24 +254,26 @@ def test_recipe_tower_reaches_the_route(monkeypatch):
     """The recipe's four ImageBlocks, built as the backbone builds them:
     the stride-2 convs at C = F = 64, 128, 256, 512 and the stride-1 convs
     64 -> 128, 128 -> 256, 256 -> 512 go through conv3x3_same and run 4
-    stride-2 and 3 stride-1 weight gradients; the 3 -> 64 stem does not."""
+    stride-2 forwards, 4 stride-2 and 3 stride-1 weight gradients; the
+    3 -> 64 stem does not."""
     from epnet_tpu_torch.config import parity_config
-    seen, dws = [], []
+    seen, calls = [], []
     real = tconv.conv3x3_same
     monkeypatch.setattr(tla, 'conv3x3_same', lambda x, w, s: seen.append(
         (x.shape[-1], w.shape[-1], s)) or real(x, w, s))
-    for name in ('dw3x3_s2_plain', 'dw3x3_s1_plain'):
-        monkeypatch.setattr(tconv, name, lambda x, dy, _f=getattr(tconv, name), _n=name: (
-            dws.append(_n[6:8]) or _f(x, dy)))
+    for name in ('dw3x3_s2_plain', 'dw3x3_s1_plain', 'conv3x3_s2_fwd_plain'):
+        monkeypatch.setattr(tconv, name, lambda a, b, _f=getattr(tconv, name), _n=name: (
+            calls.append(_n) or _f(a, b)))
     ch = parity_config().LI_FUSION.IMG_CHANNELS
     blocks = [tfu.ImageBlock(ch[i], ch[i + 1], device='cpu').train() for i in range(4)]
     x = torch.rand(1, 16, 32, 3)
     for blk in blocks:
         x = blk(x)
+    assert calls == ['conv3x3_s2_fwd_plain'] * 4
     x.square().sum().backward()
     assert seen == [(64, 64, 2), (64, 128, 1), (128, 128, 2), (128, 256, 1), (256, 256, 2),
                     (256, 512, 1), (512, 512, 2)]
-    assert sorted(dws) == ['s1'] * 3 + ['s2'] * 4
+    assert sorted(calls[4:]) == ['dw3x3_s1_plain'] * 3 + ['dw3x3_s2_plain'] * 4
     assert all(b.Conv2dBlock_0.Conv_0.weight.grad is not None for b in blocks)
 
 
@@ -251,11 +285,18 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_bad_shapes():
         tconv.dw3x3_s2_kernel(x, dy)
     with pytest.raises(ValueError, match='CUDA'):
         tconv.dw3x3_s1_kernel(x, torch.zeros(1, 8, 8, 4))
+    with pytest.raises(ValueError, match='CUDA'):
+        tconv.conv3x3_s2_fwd_kernel(x, torch.zeros(3, 3, 4, 4))
+    with pytest.raises(ValueError, match='even'):
+        tconv.conv3x3_s2_fwd_plain(torch.zeros(1, 8, 7, 4), torch.zeros(3, 3, 4, 4))
+    with pytest.raises(ValueError, match='3, 3, C, F'):
+        tconv.conv3x3_s2_fwd_plain(x, torch.zeros(3, 3, 8, 4))
     with pytest.raises(ValueError, match='even'):
         tconv.dw3x3_s2_plain(torch.zeros(1, 7, 8, 4), dy)
     with pytest.raises(ValueError, match='does not match'):
         tconv.dw3x3_s1_plain(x, dy)
     assert tconv.dw3x3_s2_kernel.launches == 0 and tconv.dw3x3_s1_kernel.launches == 0
+    assert tconv.conv3x3_s2_fwd_kernel.launches == 0
 
 
 @pytest.fixture
@@ -283,3 +324,19 @@ def test_kernels_match_plain_on_the_card(card, stride, shape):
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
     assert torch.equal(kernel(x, dy), got)  # fixed-order reduction: bitwise reproducible
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', FWD_SHAPES + [(1, 48, 160, 512, 512), (1, 24, 40, 64, 64)],
+                         ids=lambda s: 'x'.join(map(str, s)))
+def test_fwd_kernel_matches_plain_on_the_card(card, shape):
+    """F against its plain version: at most 1e-4 x max|y|, bitwise
+    reproducible (K splits summed in a fixed order)."""
+    B, H, W, C, Fo = shape
+    gen = torch.Generator(device=card).manual_seed(C)
+    x = torch.randn(B, H, W, C, device=card, generator=gen)
+    w = torch.randn(3, 3, C, Fo, device=card, generator=gen) / 10
+    got, want = tconv.conv3x3_s2_fwd_kernel(x, w), tconv.conv3x3_s2_fwd_plain(x, w)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert torch.equal(tconv.conv3x3_s2_fwd_kernel(x, w), got)
