@@ -56,10 +56,36 @@ first use), then:
    port's PNG reader on one of its images under each row filter;
 12. runs the CLI at tiny widths on the card and on the CPU with the same
    checkpoint: the same detections within 1e-3 x (1 + |x|), plus one unit
-   of the last printed digit, and the same recall.
+   of the last printed digit, and the same recall;
+13. holds the windowed fused SA kernels G (forward) and H (backward)
+   against their plain versions at the block-local configuration's RCNN
+   sa0 (N 512, M 128, S 64, a window of 256 rows for each of 4 tiles,
+   C 128/128/128; G at T = 100, 256 and 400, the tables of a batch-1
+   forward, a batch-4 train step and a batch-4 CLI batch; H at T = 256),
+   on window indices
+   from the port's own sorted FPS, bucket query and window starts over
+   RoIs pooled from a Morton-sorted scene, and on edge cases (mostly empty
+   balls, windows at 0 and N - W): at most 1e-4 x max|out| for G, 1e-4 of
+   each gradient's max for H; and times kernel, plain version and kernel
+   B or C on the same work (the global rows starts + idx_rel) in turns;
+14. drives the block-local configuration (the recipe with ``EXACT_QUERIES
+   residual``, ``RPN.BLOCK_LOCAL`` and ``RCNN.BLOCK_LOCAL``) at full width
+   in turns with the exact configuration, same weights and Morton-sorted
+   scenes: three batch-1 TEST forwards each (6 FPS, 1 B, 1 G and 4 F
+   launches a block-local forward), then a warm-up and three batch-4 train
+   steps each (6 FPS, 1 B, 1 G, 1 C, 1 H, 4 D, 3 E and 4 F a block-local
+   step; a finite loss; parameters that moved); medians and peak memory of
+   both;
+15. runs the eval CLI on phase 11's tree and checkpoint (saved in the exact
+   configuration) with ``--set EXACT_QUERIES residual RPN.BLOCK_LOCAL True
+   RCNN.BLOCK_LOCAL True``: the 8 result files, a finite AP dict, and 6
+   FPS, 1 B, 1 G and 4 F launches a batch;
+16. repeats phases 4 and 7 (tiny widths, card against CPU, one forward and
+   one train step) in the block-local configuration at the test widths of
+   ``utils/testing.BLOCK_LOCAL_TINY``.
 
-Launch counts are read around each main-path phase (3, 6, 9 and 11) with
-the counters set to 0 just before it; the kernels line sums them. The
+Launch counts are read around each main-path phase (3, 6, 9, 11, 14 and
+15) with the counters set to 0 just before it; the kernels line sums them. The
 script leaves TF32 as PyTorch sets it and checks that building the model
 turns it off, as the f32 recipe needs.
 
@@ -69,14 +95,18 @@ bytes (each input read once, each output written once) at the memory rate
 (NVIDIA H100 SXM data sheet, below); for D and E the operations of the
 cheapest exact algorithm counted (``_dw_bound_ops``), and for F the same
 count (its four stride-2 phases are the same correlations of x, now with
-the weights). ``library_ms`` is one PyTorch call that computes the same
-function, where one exists (null otherwise).
+the weights); for B, C, G and H each ball's distinct rows
+(``_sa_fwd_bound``), and for C and H the backward's products where this
+run's data makes them nonzero, since the max's gradient reaches only the
+rows that hold it (``_sa_bwd_bound``). ``library_ms`` is one PyTorch call that
+computes the same function, where one exists (null otherwise).
 
 Prints the card's name and power limit, a JSON line describing each kernel,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure raises
 and exits non-zero; without a CUDA device it exits non-zero at once.
 """
 
+import collections
 import concurrent.futures
 import contextlib
 import json
@@ -152,6 +182,68 @@ def _dw_bound_ops(C, Fo, pixels, stride):
     left out, so this stays a lower bound."""
     per_pixel = 36 / 16 if stride == 1 else 25 / 16 + 2 * 5 / 4 + 1
     return 2.0 * per_pixel * C * Fo * pixels
+
+
+def _distinct_rows(idx):
+    """idx (T, M, S) sorted along S, and a mask of each ball's first
+    occurrence of a row: a ball repeats rows (short balls are padded with a
+    hit), and a repeated row gives the same values, so the function needs
+    each (t, m, row) once."""
+    import torch
+
+    idx = idx.sort(dim=-1).values
+    first = torch.ones_like(idx, dtype=torch.bool)
+    first[..., 1:] = idx[..., 1:] != idx[..., :-1]
+    return idx, first
+
+
+def _sa_fwd_bound(idx, N, C1, C2, C3):
+    """(ms, ms) of the fused-SA forward over the table rows ``idx``: the
+    two products, layer 1's subtract and ReLU, the biases and ReLUs of
+    layers 2 and 3 and the max, over each ball's distinct rows."""
+    T, M, S = idx.shape
+    rows = int(_distinct_rows(idx)[1].sum())
+    weights = C1 * C2 + C2 + C2 * C3 + C3
+    return _bound(2.0 * rows * (C1 * C2 + C2 * C3) + rows * (2 * C1 + 2 * C2 + 3 * C3),
+                  4 * (T * N * C1 + T * M * C1 + weights + T * M * C3) + 8 * T * M * S)
+
+
+def _sa_bwd_bound(y, o, idx, w2, b2, w3, b3, gout):
+    """(ms, ms) of the fused-SA backward on these inputs: the recompute
+    over each ball's distinct rows (the forward's count, to find the max),
+    then the max's gradient, which reaches only the rows that hold it.
+    Layer 3's two products take 2 * C2 operations for each nonzero of dp3
+    (one per (centroid, channel), more where distinct rows tie); layer 2's
+    two take 2 * C1 * C2 a row for the rows that hold the max of at least
+    one channel. Both counts come from this data; ReLU zeros are not
+    skipped, as in the forward's count. Elementwise passes on the nonzeros:
+    tie split, mask and db3 on dp3; mask and db2 on dp2; mask, the dy and
+    do adds on dp1."""
+    import torch
+
+    T, N, C1 = y.shape
+    _, M, S = idx.shape
+    C2, C3 = w2.shape[-1], w3.shape[-1]
+    rows, first = _distinct_rows(idx)
+    nnz3 = rows2 = 0
+    for t in range(0, T, 32):  # ~0.5 GB of temporaries a chunk
+        sl = slice(t, t + 32)
+        ti = rows[sl].reshape(-1, M * S, 1)
+        g = torch.gather(y[sl], 1, ti.expand(-1, M * S, C1)).reshape(-1, M, S, C1)
+        h2 = torch.relu(torch.relu(g - o[sl, :, None, :]) @ w2 + b2)
+        p3 = h2 @ w3 + b3
+        h3 = torch.relu(p3)
+        live = ((h3 == h3.amax(dim=2, keepdim=True)) & (p3 > 0)
+                & (gout[sl, :, None, :] != 0) & first[sl, :, :, None])
+        nnz3 += int(live.sum())
+        rows2 += int(live.any(dim=-1).sum())
+    fwd_ms, _ = _sa_fwd_bound(idx, N, C1, C2, C3)
+    back = (4.0 * nnz3 * C2 + 4.0 * rows2 * C1 * C2         # products
+            + 3.0 * nnz3 + rows2 * (2 * C2 + 3 * C1))       # elementwise
+    weights = C1 * C2 + C2 + C2 * C3 + C3
+    nbytes = (4 * (T * N * C1 + T * M * C1 + weights + T * M * C3)   # inputs
+              + 8 * T * M * S + 4 * (T * N * C1 + T * M * C1 + weights))  # idx, outputs
+    return fwd_ms + _bound(back, 0)[0], _bound(0, nbytes)[1]
 
 
 def _library_dw_call(x, dy, stride):
@@ -263,17 +355,13 @@ def phase_sa(dev):
     rng = np.random.RandomState(2)
     rows, max_err, ms, plain_ms, op_ms, byte_ms = [], 0.0, 0.0, 0.0, [], []
     for name, (T, N, M, S, C1, C2, C3) in SA_SHAPES.items():
-        R = T * M * S  # gathered rows
-        # two products; subtract + ReLU of layer 1, bias + ReLU of 2 and 3, the max
-        o, m = _bound(2.0 * R * (C1 * C2 + C2 * C3) + R * (2 * C1 + 2 * C2 + 3 * C3),
-                      4 * (T * N * C1 + T * M * C1 + C1 * C2 + C2 + C2 * C3 + C3 + T * M * C3)
-                      + 8 * R)
-        op_ms.append(o)
-        byte_ms.append(m)
         def f(*shape, scale=1.0):
             return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
         idx = torch.from_numpy(rng.randint(0, N, (T, M, S))).to(dev)
         idx[:, :M // 4, S // 2:] = idx[:, :M // 4, :1]  # short balls padded with the first hit
+        o, m = _sa_fwd_bound(idx, N, C1, C2, C3)
+        op_ms.append(o)
+        byte_ms.append(m)
         args = (f(T, N, C1), f(T, M, C1, scale=0.1), idx, f(C1, C2, scale=C1 ** -0.5),
                 f(C2, scale=0.01), f(C2, C3, scale=C2 ** -0.5), f(C3, scale=0.01))
         got = sa_fused.fused_point_mlp_max_kernel(*args)
@@ -311,21 +399,15 @@ def phase_sa_bwd(dev):
     names = ('dy', 'do', 'dw2', 'db2', 'dw3', 'db3')
     rows, max_err, ms, plain_ms, op_ms, byte_ms = [], 0.0, 0.0, 0.0, [], []
     for name, (T, N, M, S, C1, C2, C3) in SA_TRAIN_SHAPES.items():
-        R = T * M * S
-        # six products: the two recomputed layers, two weight gradients and two
-        # input gradients (the elementwise passes add ~1% and are not counted)
-        weights = C1 * C2 + C2 + C2 * C3 + C3
-        o, m = _bound(6.0 * R * (C1 * C2 + C2 * C3),
-                      4 * (T * N * C1 + T * M * C1 + weights + T * M * C3)  # inputs
-                      + 8 * R + 4 * (T * N * C1 + T * M * C1 + weights))    # idx, outputs
-        op_ms.append(o)
-        byte_ms.append(m)
         def f(*shape, scale=1.0):
             return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
         idx = torch.from_numpy(rng.randint(0, N, (T, M, S))).to(dev)
         idx[:, :M // 4, S // 2:] = idx[:, :M // 4, :1]  # short balls padded with the first hit
         args = (f(T, N, C1), f(T, M, C1, scale=0.1), idx, f(C1, C2, scale=C1 ** -0.5),
                 f(C2, scale=0.01), f(C2, C3, scale=C2 ** -0.5), f(C3, scale=0.01), f(T, M, C3))
+        o, m = _sa_bwd_bound(*args)
+        op_ms.append(o)
+        byte_ms.append(m)
         got = sa_fused.fused_point_mlp_max_bwd_kernel(*args)
         want = sa_fused.fused_point_mlp_max_bwd_plain(*args)
         torch.cuda.synchronize()
@@ -351,6 +433,144 @@ def phase_sa_bwd(dev):
     # no single PyTorch call gives these six gradients
     return {'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms,
             **_bound_keys(op_ms, byte_ms), 'library_ms': None, 'per_shape': rows}
+
+
+def _pooled_rois(T, seed, dev):
+    """RCNN sa0's tables as the block-local configuration builds them: T
+    RoIs (the scene's cars and car-sized boxes around random points) pooled
+    from a Morton-sorted structured scene by the exact roipool (512 points
+    each, in scan order), in each RoI's canonical frame."""
+    import numpy as np
+    import torch
+    from epnet_tpu_torch.ops.boxes import rotate_points_along_y
+    from epnet_tpu_torch.ops.morton import morton_argsort_np
+    from epnet_tpu_torch.ops.roipool3d import roipool3d
+    from epnet_tpu_torch.utils.testing import structured_scene
+
+    rng = np.random.RandomState(seed)
+    pts, _, gt = structured_scene(rng, 16384)
+    pts = pts[morton_argsort_np(pts)]
+    boxes = np.zeros((T, 7), np.float32)
+    boxes[:len(gt)] = gt
+    centers = pts[rng.choice(len(pts), T - len(gt), replace=False)]
+    boxes[len(gt):, :3] = centers + rng.randn(T - len(gt), 3).astype(np.float32) * 0.3
+    boxes[len(gt):, 3:6] = (1.55, 1.6, 3.9)
+    boxes[len(gt):, 6] = rng.uniform(-np.pi, np.pi, T - len(gt))
+    xyz = torch.from_numpy(pts).to(dev)[None]
+    rois = torch.from_numpy(boxes).to(dev)[None]
+    pxyz, _, _, _ = roipool3d(xyz, xyz[..., :1], rois, 0.2, sampled_pt_num=512)
+    local = rotate_points_along_y(pxyz - rois[..., None, 0:3], rois[..., 6, None])
+    return local[0].contiguous()
+
+
+def _sa_win_geometry():
+    """(window, tiles a table, radius) of the block-local configuration's
+    windowed RCNN sa0."""
+    from epnet_tpu_torch.config import block_local_config, parity_config
+
+    rc = block_local_config(parity_config()).RCNN
+    return rc.BLOCK_WINDOW, rc.SA_CONFIG.NPOINTS[0] // rc.BLOCK_C, rc.SA_CONFIG.RADIUS[0]
+
+
+def _window_inputs(T, seed, dev, edge=False):
+    """idx_rel and starts of RCNN sa0 over pooled RoIs, from the port's own
+    sorted FPS, bucket query, window starts and window-relative indices;
+    ``edge``: a radius that leaves most balls empty and windows forced to
+    0 and N - W."""
+    import torch
+    from epnet_tpu_torch.ops import block_local, fps
+
+    xyz = _pooled_rois(T, seed, dev)
+    N, (W, NB, radius) = xyz.shape[1], _sa_win_geometry()
+    M, S = SA_SHAPES['rcnn.sa0'][2:4]
+    picks = fps.furthest_point_sample_kernel(xyz, M).sort(dim=-1).values
+    new_xyz = torch.gather(xyz, 1, picks[..., None].expand(T, M, 3))
+    gidx = block_local.bucket_ball_query(0.01 if edge else radius, S, xyz, new_xyz)
+    starts = block_local.window_starts(picks, N, W, M // NB)
+    if edge:
+        starts[:, 0], starts[:, -1] = 0, N - W
+    return block_local.to_window_relative(gidx, starts, W), starts
+
+
+def phase_sa_win(dev):
+    """Kernels G and H against their plain versions at the block-local
+    configuration's RCNN sa0 (G at T = 100, 256 and 400: a batch-1 forward,
+    a batch-4 train step and a batch-4 CLI batch; H at T = 256) on real
+    window indices and on edge cases; then, at T = 100 and 256, kernel,
+    plain and B (or C) on the same work, the global rows starts + idx_rel,
+    timed in turns."""
+    import numpy as np
+    import torch
+    from epnet_tpu_torch.ops import sa_fused
+
+    rng = np.random.RandomState(13)
+    W, tiles, _ = _sa_win_geometry()
+    names = ('dy', 'do', 'dw2', 'db2', 'dw3', 'db3')
+    res = {}
+    for kind, T in (('fwd', 100), ('fwd', 256), ('fwd', 400), ('bwd', 256)):
+        _, N, M, S, C1, C2, C3 = SA_SHAPES['rcnn.sa0']
+        def f(*shape, scale=1.0):
+            return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+        y, o = f(T, N, C1), f(T, M, C1, scale=0.1)
+        w = (f(C1, C2, scale=C1 ** -0.5), f(C2, scale=0.01), f(C2, C3, scale=C2 ** -0.5),
+             f(C3, scale=0.01))
+        gout = f(T, M, C3)
+        errs, real = {}, None
+        for edge in (False, True):
+            idx_rel, starts = _window_inputs(T, T + edge, dev, edge)
+            args = (y, o, idx_rel, starts, *w, W)
+            real = real or (args, starts)
+            if kind == 'fwd':
+                got = [sa_fused.fused_point_mlp_max_win_kernel(*args)]
+                want = [sa_fused.fused_point_mlp_max_win_plain(*args)]
+            else:
+                got = sa_fused.fused_point_mlp_max_win_bwd_kernel(*args, gout)
+                want = sa_fused.fused_point_mlp_max_win_bwd_plain(*args, gout)
+            torch.cuda.synchronize()
+            for k, x, z in zip(('out',) if kind == 'fwd' else names, got, want):
+                e = float((x - z).abs().max()), float(z.abs().max())
+                errs[k] = max(errs.get(k, (0.0, 1.0)), e, key=lambda v: v[0] / v[1])
+            del got, want
+        rel = {k: a / b for k, (a, b) in errs.items()}
+        name = 'G' if kind == 'fwd' else 'H'
+        print(f'{name} T={T}: real windows and edge cases (empty balls, windows at 0 and N - W): '
+              f'max rel err ' + ', '.join(f'{k} {v:.3e}' for k, v in rel.items()), flush=True)
+        bad = {k: v for k, v in rel.items() if not v <= SA_RTOL}
+        if bad:
+            raise AssertionError(f'kernel {name} off its plain version at T={T}: {bad}')
+        if kind == 'fwd' and T != 100:
+            continue  # checked at the train and CLI shapes; timed at the eval shape
+        args, starts = real  # timed on the real windows
+        rows = sa_fused.window_rows(args[2], starts)
+        if kind == 'fwd':
+            o_ms, b_ms = _sa_fwd_bound(rows, N, C1, C2, C3)
+            fns = {'ms': (lambda: sa_fused.fused_point_mlp_max_win_kernel(*args), 20),
+                   'plain_ms': (lambda: sa_fused.fused_point_mlp_max_win_plain(*args), 10),
+                   'table_kernel_ms': (lambda: sa_fused.fused_point_mlp_max_kernel(
+                       y, o, rows, *w), 20)}
+        else:
+            o_ms, b_ms = _sa_bwd_bound(y, o, rows, *w, gout)
+            fns = {'ms': (lambda: sa_fused.fused_point_mlp_max_win_bwd_kernel(*args, gout), 5),
+                   'plain_ms': (lambda: sa_fused.fused_point_mlp_max_win_bwd_plain(*args, gout),
+                                5),
+                   'table_kernel_ms': (lambda: sa_fused.fused_point_mlp_max_bwd_kernel(
+                       y, o, rows, *w, gout), 5)}
+        b_ms += _bound(0, 8 * starts.numel())[1]  # the window starts
+        row = dict.fromkeys(fns, 0.0)
+        for key in ('ms', 'plain_ms', 'table_kernel_ms', 'table_kernel_ms', 'plain_ms', 'ms'):
+            fn, reps = fns[key]
+            row[key] += _time_ms(fn, reps) / 2
+        table = 'B' if kind == 'fwd' else 'C'
+        print(f'  kernel {name} {row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, kernel '
+              f'{table} on the global rows {row["table_kernel_ms"]:.4f} ms, bound '
+              f'{max(o_ms, b_ms):.4f} ms', flush=True)
+        res[name] = {'max_abs_err': max(a for a, _ in errs.values()), 'ms': row['ms'],
+                     'plain_ms': row['plain_ms'], **_bound_keys([o_ms], [b_ms]),
+                     'library_ms': None,
+                     'per_shape': [{'stage': 'rcnn.sa0', 'shape': [T, N, M, S, C1, C2, C3],
+                                    'window': W, 'tiles': tiles, **row,
+                                    'max_rel_err': max(rel.values())}]}
+    return res
 
 
 def _request(seed, cfg, dev):
@@ -419,15 +639,17 @@ def phase_slice(dev):
     return launches
 
 
-def phase_small_reference(dev):
+def phase_small_reference(dev, over=None):
     """The tiny-width model with identical weights: card (kernels) vs CPU
-    (plain versions)."""
+    (plain versions); ``over``: the config's overrides (default the exact
+    queries). Under RPN.BLOCK_LOCAL the scenes are Morton-sorted."""
     import numpy as np
     import torch
     from epnet_tpu_torch.models.epnet import EPNet
+    from epnet_tpu_torch.ops.morton import morton_argsort_np
     from epnet_tpu_torch.utils.testing import structured_scene, tiny_config
 
-    cfg = tiny_config(EXACT_QUERIES=True)
+    cfg = tiny_config(**(over or {'EXACT_QUERIES': True}))
     cpu = EPNet(cfg, 'TEST', device='cpu', generator=torch.Generator().manual_seed(1)).eval()
     card = EPNet(cfg, 'TEST', device=dev).eval()
     card.load_state_dict(cpu.state_dict())
@@ -435,6 +657,9 @@ def phase_small_reference(dev):
     pts, xy, _ = zip(*[structured_scene(rng, cfg.RPN.NUM_POINTS, n_cars=3, img_hw=(32, 64),
                                         z_range=(1.5, 25.0), car_z_range=(5.0, 16.0))
                        for _ in range(2)])
+    if cfg.RPN.BLOCK_LOCAL:
+        perms = [morton_argsort_np(p) for p in pts]
+        pts, xy = [p[i] for p, i in zip(pts, perms)], [u[i] for u, i in zip(xy, perms)]
     batch = {'pts_input': torch.from_numpy(np.stack(pts)),
              'img': torch.from_numpy(rng.rand(2, 32, 64, 3).astype(np.float32)),
              'pts_origin_xy': torch.from_numpy(np.stack(xy))}
@@ -449,8 +674,8 @@ def phase_small_reference(dev):
             raise AssertionError(f'tiny model on the card vs CPU: {k} off by {err:.3e}')
     if not torch.equal(got['roi_counts'].cpu(), want['roi_counts']):
         raise AssertionError('tiny model on the card vs CPU: roi counts differ')
-    print(f'tiny model, card vs CPU plain path: agree (worst {worst:.3f} of the bound '
-          f'1e-3 * (1 + max|x|))', flush=True)
+    print(f'tiny model{" (block-local)" if cfg.RPN.BLOCK_LOCAL else ""}, card vs CPU plain '
+          f'path: agree (worst {worst:.3f} of the bound 1e-3 * (1 + max|x|))', flush=True)
 
 
 def _train_batch(cfg, seed, dev):
@@ -459,8 +684,8 @@ def _train_batch(cfg, seed, dev):
     return device_batch(full_batch(cfg, TRAIN_BATCH, seed=seed, with_labels=True), dev)
 
 
-TRAIN_KERNELS = ('fps', 'sa_fused', 'sa_fused_bwd', 'conv3x3_dw_s2', 'conv3x3_dw_s1',
-                 'conv3x3_s2_fwd')
+TRAIN_NAMES = ('fps', 'sa_fused_fwd', 'sa_fused_bwd', 'conv3x3_dw_s2', 'conv3x3_dw_s1',
+               'conv3x3_s2_fwd')  # the kernels a train step runs, named as in the kernels line
 
 
 def _train_counters():
@@ -471,7 +696,7 @@ def _train_counters():
 
 
 def _launches(delta):
-    return ' '.join(f'{n} +{d}' for n, d in zip(TRAIN_KERNELS, delta))
+    return ' '.join(f'{n} +{d}' for n, d in zip(TRAIN_NAMES, delta))
 
 
 def phase_train(dev):
@@ -531,7 +756,7 @@ def phase_train(dev):
     return launches
 
 
-def phase_small_train_reference(dev):
+def phase_small_train_reference(dev, over=None):
     """One tiny-width train step, card (kernels) vs CPU (plain versions):
     identical weights, dropout 0 and identical sampled RoIs. The loss, the
     RPN heads' and the RCNN's gradients within 1e-3 * (1 + max|x|); the
@@ -546,7 +771,7 @@ def phase_small_train_reference(dev):
     from epnet_tpu_torch.train.loss import joint_loss
     from epnet_tpu_torch.utils.testing import synthetic_batch, tiny_config
 
-    cfg = tiny_config(EXACT_QUERIES=True, RPN={'DP_RATIO': 0.0})
+    cfg = tiny_config(**(over or {'EXACT_QUERIES': True})).merged({'RPN': {'DP_RATIO': 0.0}})
     cpu = epnet_mod.EPNet(cfg, 'TRAIN', device='cpu',
                          generator=torch.Generator().manual_seed(1)).train()
     card = epnet_mod.EPNet(cfg, 'TRAIN', device=dev)
@@ -583,7 +808,8 @@ def phase_small_train_reference(dev):
             norm2 += float((w.double() ** 2).sum())
         else:
             worst_head = max(worst_head, err / (1e-3 * (1 + float(w.abs().max()))))
-    print(f'tiny train step, card vs CPU: loss {got_loss:.6f} vs {want_loss:.6f}; heads and '
+    print(f'tiny train step{" (block-local)" if cfg.RPN.BLOCK_LOCAL else ""}, card vs CPU: '
+          f'loss {got_loss:.6f} vs {want_loss:.6f}; heads and '
           f'RCNN worst {worst_head:.3f} of the bound 1e-3 * (1 + max|x|); backbone worst leaf '
           f'{worst_bb:.4f} of its scale, {math.sqrt(diff2 / norm2):.4f} of its norm', flush=True)
     if not (worst_head <= 1.0 and worst_bb <= 0.25 and diff2 <= 0.01 * norm2):
@@ -955,37 +1181,44 @@ def _save_weights(cfg, dev, path_dir, seed):
     return save_checkpoint(path_dir, state, epoch=0)
 
 
-def phase_cli(dev):
-    """The eval CLI on the card at the recipe's full width."""
+def phase_cli(dev, block_local=False):
+    """The eval CLI on the card at the recipe's full width; with
+    ``block_local``, on the same tree and checkpoint (saved in the exact
+    configuration) with the block-local configuration's ``--set``."""
     import shutil
 
     import numpy as np
-    from epnet_tpu_torch.config import load_config
+    from epnet_tpu_torch.config import BLOCK_LOCAL_SET, load_config
     from epnet_tpu_torch.ops import conv2d, fps, sa_fused
     from epnet_tpu_torch.tools import eval as cli
     from epnet_tpu_torch.utils.testing import make_fake_kitti
 
     root = os.path.join(OUT, 'kitti')
-    shutil.rmtree(OUT, ignore_errors=True)
-    t0 = time.perf_counter()
-    make_fake_kitti(root, n_samples=CLI_SCENES, n_points=30000, seed=11)
-    print(f'fake KITTI tree of {CLI_SCENES} scenes written in {time.perf_counter() - t0:.2f} s',
-          flush=True)
-    _png_times(root)
-    ckpt = _save_weights(load_config(RECIPE), dev, os.path.join(OUT, 'ckpt'), seed=0)
+    if block_local:
+        ckpt = os.path.join(OUT, 'ckpt', 'checkpoint_epoch_0.pth')
+    else:
+        shutil.rmtree(OUT, ignore_errors=True)
+        t0 = time.perf_counter()
+        make_fake_kitti(root, n_samples=CLI_SCENES, n_points=30000, seed=11)
+        print(f'fake KITTI tree of {CLI_SCENES} scenes written in '
+              f'{time.perf_counter() - t0:.2f} s', flush=True)
+        _png_times(root)
+        ckpt = _save_weights(load_config(RECIPE), dev, os.path.join(OUT, 'ckpt'), seed=0)
     counters = (fps.furthest_point_sample_kernel, sa_fused.fused_point_mlp_max_kernel,
-                conv2d.conv3x3_s2_fwd_kernel)
+                sa_fused.fused_point_mlp_max_win_kernel, conv2d.conv3x3_s2_fwd_kernel)
     for c in counters:
         c.launches = 0
     record = []
+    out_dir = os.path.join(OUT, 'eval_block_local' if block_local else 'eval')
     t0 = time.perf_counter()
     with timed_cli_loader(counters, record):
         ret = cli.main(['--cfg_file', RECIPE, '--data_root', root, '--ckpt', ckpt,
                         '--batch_size', str(CLI_BATCH), '--workers', '4',
-                        '--output_dir', os.path.join(OUT, 'eval'), '--device', str(dev)])
+                        '--output_dir', out_dir, '--device', str(dev)]
+                       + (['--set', *BLOCK_LOCAL_SET] if block_local else []))
     wall = time.perf_counter() - t0
     timed = record[0]
-    final_dir = os.path.join(OUT, 'eval', 'epoch_0', 'final_result', 'data')
+    final_dir = os.path.join(out_dir, 'epoch_0', 'final_result', 'data')
     files = sorted(os.listdir(final_dir))
     if files != ['%06d.txt' % i for i in range(CLI_SCENES)]:
         raise AssertionError(f'CLI result files: {files}')
@@ -996,19 +1229,135 @@ def phase_cli(dev):
     # snapshot k is taken as batch k is handed out, the last one after the
     # last batch was processed: batch k's launches lie between k and k + 1
     per_batch = np.diff(snaps, axis=0).tolist()
-    if timed.scans != CLI_SCENES or per_batch != [[6, 2, 4]] * (CLI_SCENES // CLI_BATCH):
-        raise AssertionError(f'CLI: {timed.scans} scans, launches a batch {per_batch}')
+    want = [6, 1, 1, 4] if block_local else [6, 2, 0, 4]
+    if timed.scans != CLI_SCENES or per_batch != [want] * (CLI_SCENES // CLI_BATCH):
+        raise AssertionError(f'CLI: {timed.scans} scans, launches a batch {per_batch}, '
+                             f'expected {want}')
     loop = timed.times[-1] - timed.t0
     dets = [len(v[0]) for v in _parse_results(final_dir).values()]
     steps = ', '.join(f'{(b - a) * 1e3:.1f}' for a, b in zip(timed.times, timed.times[1:]))
-    print(f'eval CLI, recipe at full width, batch {CLI_BATCH}: {timed.scans} scans in '
+    print(f'eval CLI, recipe{" --set " + " ".join(BLOCK_LOCAL_SET) if block_local else ""} at '
+          f'full width, batch {CLI_BATCH}: {timed.scans} scans in '
           f'{loop:.3f} s of loop (loader included) = {timed.scans / loop:.3f} scans/s; first '
           f'batch handed out after {(timed.times[0] - timed.t0) * 1e3:.1f} ms (workers start), '
           f'then each batch processed and the next received in {steps} ms; main() '
           f'{wall:.3f} s; detections a scan {dets}; launches a batch '
-          f'fps/sa_fused/conv3x3_s2_fwd {per_batch[0]}; rcnn_recall(0.5) '
+          f'fps/sa_fused/sa_fused_win/conv3x3_s2_fwd {per_batch[0]}; rcnn_recall(0.5) '
           f'{ret["rcnn_recall(thresh=0.50)"]:.4f}, Car 3d AP {ap["3d"]}', flush=True)
     return [int(v) for v in snaps[-1]]
+
+
+BL_KERNELS = ('fps', 'sa_fused_fwd', 'sa_fused_win_fwd', 'sa_fused_bwd', 'sa_fused_win_bwd',
+              'conv3x3_dw_s2', 'conv3x3_dw_s1', 'conv3x3_s2_fwd')
+
+
+def _bl_counters():
+    from epnet_tpu_torch.ops import conv2d, fps, sa_fused
+    return (fps.furthest_point_sample_kernel, sa_fused.fused_point_mlp_max_kernel,
+            sa_fused.fused_point_mlp_max_win_kernel, sa_fused.fused_point_mlp_max_bwd_kernel,
+            sa_fused.fused_point_mlp_max_win_bwd_kernel, conv2d.dw3x3_s2_kernel,
+            conv2d.dw3x3_s1_kernel, conv2d.conv3x3_s2_fwd_kernel)
+
+
+def phase_block_local(dev):
+    """The block-local configuration's main path at full width, in turns
+    with the exact configuration on the same weights and scenes (Morton-
+    sorted, as the loader sorts them): three batch-1 TEST forwards, then a
+    warm-up and three batch-4 train steps each."""
+    import torch
+    from epnet_tpu_torch.config import block_local_config, parity_config
+    from epnet_tpu_torch.models.epnet import EPNet
+    from epnet_tpu_torch.train.trainer import create_train_state, device_batch, train_step
+    from epnet_tpu_torch.utils.testing import full_batch
+
+    cfgs = {'block-local': block_local_config(parity_config()), 'exact': parity_config()}
+    want = {'block-local': ([6, 1, 1, 0, 0, 0, 0, 4], [6, 1, 1, 1, 1, 4, 3, 4]),
+            'exact': ([6, 2, 0, 0, 0, 0, 0, 4], [6, 2, 0, 2, 0, 4, 3, 4])}
+    counters = _bl_counters()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    models = {'exact': EPNet(cfgs['exact'], 'TEST', device=dev, generator=gen).eval()}
+    models['block-local'] = EPNet(cfgs['block-local'], 'TEST', device=dev).eval()
+    models['block-local'].load_state_dict(models['exact'].state_dict())
+    requests = {seed: device_batch(full_batch(cfgs['block-local'], 1, seed=seed), dev)
+                for seed in (0, 1, 2)}
+    for m in models.values():  # warm-up
+        m(requests[0])
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+
+    def timed(name, fn):
+        before = [c.launches for c in counters]
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        return out, ms, peak, [c.launches - b for c, b in zip(counters, before)]
+
+    times = {k: [] for k in cfgs}
+    peaks = dict.fromkeys(cfgs, 0.0)
+    for i, seed in enumerate((0, 1, 2)):
+        for name in (('block-local', 'exact') if i % 2 == 0 else ('exact', 'block-local')):
+            out, ms, peak, delta = timed(name, lambda: models[name](requests[seed]))
+            times[name].append(ms)
+            peaks[name] = max(peaks[name], peak)
+            R = cfgs[name].TEST.RPN_POST_NMS_TOP_N
+            if tuple(out['rcnn_cls'].shape) != (R, 1) or tuple(out['rois'].shape) != (1, R, 7):
+                raise AssertionError(f'{name} forward: rois {tuple(out["rois"].shape)}')
+            bad = [k for k, v in out.items()
+                   if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+            if bad or delta != want[name][0]:
+                raise AssertionError(f'{name} forward on scene {seed}: non-finite {bad}, '
+                                     f'launches {delta}, expected {want[name][0]}')
+            print(f'{name} forward scene {seed}: {ms:.2f} ms, rois {int(out["roi_counts"][0])}, '
+                  f'launches ' + ' '.join(f'{n} +{d}' for n, d in zip(BL_KERNELS, delta) if d),
+                  flush=True)
+    for name in cfgs:
+        print(f'{name} forward, batch 1, in turns: median {statistics.median(times[name]):.2f} '
+              f'ms over {len(times[name])} scenes; peak memory {peaks[name]:.2f} GiB', flush=True)
+    total = collections.Counter(dict(zip(BL_KERNELS, (c.launches for c in counters))))
+    del models
+
+    states = {name: create_train_state(cfg, total_steps=100, device=dev,
+                                       generator=torch.Generator(device=dev).manual_seed(0))
+              for name, cfg in cfgs.items()}
+    states['block-local'].model.load_state_dict(states['exact'].model.state_dict())
+    batches = {seed: device_batch(full_batch(cfgs['block-local'], TRAIN_BATCH, seed=seed,
+                                             with_labels=True), dev) for seed in (3,) + TRAIN_SEEDS}
+    gens = {name: torch.Generator(device=dev).manual_seed(1) for name in cfgs}
+    for name in cfgs:  # warm-up
+        train_step(states[name], batches[3], 0.1, gens[name])
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    times = {k: [] for k in cfgs}
+    peaks = dict.fromkeys(cfgs, 0.0)
+    for i, seed in enumerate(TRAIN_SEEDS):
+        for name in (('block-local', 'exact') if i % 2 == 0 else ('exact', 'block-local')):
+            params = list(states[name].model.parameters())
+            old = [p.detach().clone() for p in params]
+            tb, ms, peak, delta = timed(name, lambda: train_step(states[name], batches[seed], 0.1,
+                                                                 gens[name]))
+            times[name].append(ms)
+            peaks[name] = max(peaks[name], peak)
+            loss = float(tb['loss'])
+            moved = sum(not torch.equal(a, p) for a, p in zip(old, params))
+            if not math.isfinite(loss) or moved < 0.9 * len(params) or delta != want[name][1]:
+                raise AssertionError(f'{name} train step on scene {seed}: loss {loss}, {moved} of '
+                                     f'{len(params)} parameters moved, launches {delta}, '
+                                     f'expected {want[name][1]}')
+            print(f'{name} train step scene {seed}: {ms:.2f} ms, loss {loss:.4f}, rcnn fg '
+                  f'{int(tb["rcnn_cls_fg"])}, {moved}/{len(params)} parameters moved, launches '
+                  + ' '.join(f'{n} +{d}' for n, d in zip(BL_KERNELS, delta) if d), flush=True)
+    for name in cfgs:
+        print(f'{name} train step, batch {TRAIN_BATCH}, in turns: median '
+              f'{statistics.median(times[name]):.2f} ms over {len(times[name])} steps; peak '
+              f'memory {peaks[name]:.2f} GiB', flush=True)
+    total.update(dict(zip(BL_KERNELS, (c.launches for c in counters))))
+    return total
 
 
 def phase_small_cli(dev):
@@ -1062,6 +1411,7 @@ def main():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU')
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from epnet_tpu_torch.ops import cuda_build
+    from epnet_tpu_torch.utils.testing import BLOCK_LOCAL_TINY
 
     print(f'torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32 as PyTorch sets '
           f'it: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn '
@@ -1084,44 +1434,54 @@ def main():
             if 'registers' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}')
 
+    # launches on the main paths (phases 3, 6, 9, 11, 14 and 15), by kernel
+    launches = collections.Counter()
     fps_res = phase_fps(dev)
     sa_res = phase_sa(dev)
-    fps_launches, sa_launches, fwd_launches = phase_slice(dev)
+    launches.update(dict(zip(('fps', 'sa_fused_fwd', 'conv3x3_s2_fwd'), phase_slice(dev))))
     phase_small_reference(dev)
     bwd_res = phase_sa_bwd(dev)
-    train_fps, train_sa, bwd_launches, train_s2, train_s1, train_fwd = phase_train(dev)
+    launches.update(dict(zip(TRAIN_NAMES, phase_train(dev))))
     phase_small_train_reference(dev)
     dw_res = phase_conv_dw(dev)
-    dw_fps, dw_sa, dw_bwd, s2_launches, s1_launches, dw_fwd = phase_train_dw(dev)
+    launches.update(dict(zip(TRAIN_NAMES, phase_train_dw(dev))))
     fwd_res = phase_conv_fwd(dev)
-    cli_fps, cli_sa, cli_fwd = phase_cli(dev)
+    cli_names = ('fps', 'sa_fused_fwd', 'sa_fused_win_fwd', 'conv3x3_s2_fwd')
+    launches.update(dict(zip(cli_names, phase_cli(dev))))
     phase_small_cli(dev)
+    win_res = phase_sa_win(dev)
+    launches.update(phase_block_local(dev))
+    launches.update(dict(zip(cli_names, phase_cli(dev, block_local=True))))
+    phase_small_reference(dev, BLOCK_LOCAL_TINY)
+    phase_small_train_reference(dev, BLOCK_LOCAL_TINY)
 
     kernels = [
         {'name': 'fps', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/fps.cu',
-         'replaces': 'epnet_tpu/ops/fps_pallas.py:40',
-         'launches': fps_launches + train_fps + dw_fps + cli_fps, **fps_res},
+         'replaces': 'epnet_tpu/ops/fps_pallas.py:40, epnet_tpu/ops/fps_pallas.py:80', **fps_res},
         {'name': 'sa_fused_fwd', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/sa_fused.cu',
-         'replaces': 'epnet_tpu/ops/sa_fused.py:83',
-         'launches': sa_launches + train_sa + dw_sa + cli_sa, **sa_res},
+         'replaces': 'epnet_tpu/ops/sa_fused.py:83', **sa_res},
         {'name': 'sa_fused_bwd', 'route': 'cuda',
          'source': 'epnet_tpu_torch/csrc/sa_fused_bwd.cu',
-         'replaces': 'epnet_tpu/ops/sa_fused.py:179', 'launches': bwd_launches + dw_bwd,
-         **bwd_res},
+         'replaces': 'epnet_tpu/ops/sa_fused.py:179', **bwd_res},
         {'name': 'conv3x3_dw_s2', 'route': 'cuda',
          'source': 'epnet_tpu_torch/csrc/conv3x3_dw.cu',
          'replaces': 'epnet_tpu/ops/conv2d.py:294, tools/conv_dw_pallas_attic.py:323, '
-                     'tools/conv_dw_pallas_attic.py:166',
-         'launches': train_s2 + s2_launches, **dw_res['conv3x3_dw_s2']},
+                     'tools/conv_dw_pallas_attic.py:166', **dw_res['conv3x3_dw_s2']},
         {'name': 'conv3x3_dw_s1', 'route': 'cuda',
          'source': 'epnet_tpu_torch/csrc/conv3x3_dw.cu',
          'replaces': 'tools/conv_dw_pallas_attic.py:258, tools/conv_dw_pallas_attic.py:67',
-         'launches': train_s1 + s1_launches, **dw_res['conv3x3_dw_s1']},
+         **dw_res['conv3x3_dw_s1']},
         {'name': 'conv3x3_s2_fwd', 'route': 'cuda',
          'source': 'epnet_tpu_torch/csrc/conv3x3_s2_fwd.cu',
-         'replaces': 'tools/conv_fwd_attic.py:43',
-         'launches': fwd_launches + train_fwd + dw_fwd + cli_fwd, **fwd_res},
+         'replaces': 'tools/conv_fwd_attic.py:43', **fwd_res},
+        {'name': 'sa_fused_win_fwd', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/sa_fused.cu',
+         'replaces': 'epnet_tpu/ops/sa_fused.py:334', **win_res['G']},
+        {'name': 'sa_fused_win_bwd', 'route': 'cuda',
+         'source': 'epnet_tpu_torch/csrc/sa_fused_bwd.cu',
+         'replaces': 'epnet_tpu/ops/sa_fused.py:424', **win_res['H']},
     ]
+    for k in kernels:
+        k['launches'] = launches[k['name']]
     for k in kernels:
         if k['launches'] <= 0:
             raise AssertionError(f'{k["name"]} was never launched on the main path')

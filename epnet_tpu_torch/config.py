@@ -60,9 +60,10 @@ class SAConfigRPN:
 @dataclass(frozen=True)
 class RPNConfig:
     """Reference ``lib/config.py:49-93``. ``SAMPLING``, ``FPS_GROUPS``,
-    ``BLOCK_*`` and ``FP_*`` are the JAX package's approximation knobs; the
-    port keeps them so that its files load, and ``EPNet`` refuses any value
-    but the exact default."""
+    ``BLOCK_*`` and ``FP_*`` are the JAX package's approximation knobs.
+    ``BLOCK_*`` drive the block-local configuration (``BLOCK_LOCAL_SET``);
+    the port keeps the others so that its files load, and ``EPNet`` refuses
+    any value of them but the exact default."""
 
     ENABLED: bool = True
     FIXED: bool = False
@@ -120,8 +121,8 @@ class SAConfigRCNN:
 
 @dataclass(frozen=True)
 class RCNNConfig:
-    """Reference ``lib/config.py:96-158``. ``BLOCK_*`` are the JAX
-    package's windowed-SA knobs (not ported; ``EPNet`` refuses them)."""
+    """Reference ``lib/config.py:96-158``. ``BLOCK_*`` are the windowed
+    RCNN SA's knobs (the block-local configuration, ``BLOCK_LOCAL_SET``)."""
 
     ENABLED: bool = False
     USE_RPN_FEATURES: bool = True
@@ -526,6 +527,17 @@ def parity_config() -> Config:
     """The published recipe (LI-Fusion + image attention + CE loss), f32
     with exact queries, without reading the yaml."""
     return Config().merged(_PARITY)
+
+
+# The block-local configuration's three overrides, as the CLI's ``--set``
+# takes them: block-local SA/FP and windowed RCNN SA, other queries exact.
+BLOCK_LOCAL_SET = ('EXACT_QUERIES', 'residual', 'RPN.BLOCK_LOCAL', 'True',
+                   'RCNN.BLOCK_LOCAL', 'True')
+
+
+def block_local_config(cfg: Config) -> Config:
+    """``cfg`` with ``BLOCK_LOCAL_SET`` applied."""
+    return cfg.with_overrides(list(zip(BLOCK_LOCAL_SET[0::2], BLOCK_LOCAL_SET[1::2])))
 
 
 __all__ = ['Config', 'load_config', 'parity_config', 'PARITY_YAML']

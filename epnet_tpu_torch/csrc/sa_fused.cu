@@ -1,14 +1,22 @@
 // Fused set-abstraction interior on Hopper (sm_90a), f32, forward only;
-// plain C interface.
+// plain C interface. Two kernels, one template:
 //
-// Replaces the Pallas TPU kernel epnet_tpu/ops/sa_fused.py::_fwd_kernel
-// (pallas_call at :156, reached through fused_point_mlp_max):
+//   B replaces the Pallas TPU kernel epnet_tpu/ops/sa_fused.py::_fwd_kernel
+//     (pallas_call at :156, reached through fused_point_mlp_max);
+//   G replaces its windowed twin ::_fwd_kernel_win (pallas_call at :404,
+//     reached through fused_point_mlp_max_win, the block-local RCNN sa0).
 //
-//   out[t, m] = max_s relu(relu(relu(Y[t, idx[t,m,s]] - O[t,m]) W2 + b2) W3 + b3)
+// Both compute
+//
+//   out[t, m] = max_s relu(relu(relu(Y[t, row(t,m,s)] - O[t,m]) W2 + b2) W3 + b3)
 //
 // with Y = [xyz, feats] W1 + b1 over each table and O = new_xyz W1[:3]
-// computed outside (torch.matmul), as on the TPU. The plain version is
-// epnet_tpu_torch/ops/sa_fused.py::fused_point_mlp_max_plain.
+// computed outside (torch.matmul), as on the TPU. B reads row(t,m,s) =
+// idx[t,m,s]; G reads row(t,m,s) = starts[t, m / TM] + idx_rel[t,m,s], where
+// tile j = m / TM of TM = M / NB consecutive centroids shares one window of
+// W rows of Y starting at starts[t, j]. The plain versions are
+// epnet_tpu_torch/ops/sa_fused.py::fused_point_mlp_max_plain and
+// ::fused_point_mlp_max_win_plain.
 //
 // What bounds it on the H100: arithmetic. At the RCNN shapes (T=100 RoI
 // tables, M*S = 8192 or 2048 rows a table, 128-256 wide layers) the two
@@ -30,6 +38,13 @@
 // MaxDynamicSharedMemorySize attribute. No TF32 and no mma: full f32 keeps
 // the result within f32 roundoff of the plain version; tensor cores are a
 // later change.
+//
+// G is B with the window's row index (the template parameter kWin). On the
+// TPU the window cut the one-hot matmul from N to W columns; here there is
+// no one-hot, a row gather costs the same from any row of the table (a
+// 512 x 128 f32 table is 256 KB, resident in L2), and the FFMA work is the
+// same, so a design that stages each 256-row window in shared memory (128
+// KB a block, one block an SM) would save no work; G keeps B's blocks.
 
 #include <cuda_runtime.h>
 
@@ -104,12 +119,16 @@ __device__ void dense_relu_pass(const float* hin, int ldin, int cin,
   }
 }
 
+// kWin: idx holds window-relative rows, offset by starts (t, nb) of tiles
+// of m / nb centroids, each window `window` rows long (kernel G)
+template <bool kWin>
 __global__ void __launch_bounds__(kThreads)
 sa_fused_fwd_kernel(const float* __restrict__ y, const float* __restrict__ o,
-                    const int64_t* __restrict__ idx, const float* __restrict__ w2,
-                    const float* __restrict__ b2, const float* __restrict__ w3,
-                    const float* __restrict__ b3, float* __restrict__ out, int n,
-                    int m, int s, int c1, int c2, int c3, int tm) {
+                    const int64_t* __restrict__ idx, const int64_t* __restrict__ starts,
+                    const float* __restrict__ w2, const float* __restrict__ b2,
+                    const float* __restrict__ w3, const float* __restrict__ b3,
+                    float* __restrict__ out, int n, int m, int s, int c1, int c2, int c3,
+                    int tm, int nb, int window) {
   extern __shared__ float smem[];
   __shared__ int64_t row_point[kRows];  // table row gathered by each chunk row
   __shared__ int row_centroid[kRows];   // its centroid, -1 for padding rows
@@ -137,6 +156,10 @@ sa_fused_fwd_kernel(const float* __restrict__ y, const float* __restrict__ o,
       const int mm = m0 + row / s;
       if (row < rows && mm < m) {
         int64_t p = it[static_cast<size_t>(mm) * s + row % s];
+        if (kWin) {
+          p = p < 0 ? 0 : (p >= window ? window - 1 : p);  // inside the window
+          p += starts[static_cast<size_t>(t) * nb + mm / (m / nb)];
+        }
         p = p < 0 ? 0 : (p >= n ? n - 1 : p);  // keep a bad index inside the table
         row_point[tid] = p;
         row_centroid[tid] = mm;
@@ -184,6 +207,31 @@ sa_fused_fwd_kernel(const float* __restrict__ y, const float* __restrict__ o,
   }
 }
 
+template <bool kWin>
+int launch(const void* y, const void* o, const void* idx, const void* starts, const void* w2,
+           const void* b2, const void* w3, const void* b3, void* out, int t, int n, int m,
+           int s, int c1, int c2, int c3, int nb, int window, void* stream) {
+  if (t == 0 || m == 0) return 0;
+  if (n <= 0 || s <= 0 || c1 <= 0 || c2 <= 0 || c3 <= 0) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(s, c1, c2, c3);
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  const int tm = centroids_per_block(s);
+  const int blocks_m = (m + tm - 1) / tm;
+  if (blocks_m > 65535) return cudaErrorInvalidValue;
+  auto kernel = &sa_fused_fwd_kernel<kWin>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(t, blocks_m);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(y), static_cast<const float*>(o),
+      static_cast<const int64_t*>(idx), static_cast<const int64_t*>(starts),
+      static_cast<const float*>(w2), static_cast<const float*>(b2),
+      static_cast<const float*>(w3), static_cast<const float*>(b3), static_cast<float*>(out), n,
+      m, s, c1, c2, c3, tm, nb, window);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -195,28 +243,27 @@ long long epnet_sa_fused_smem_bytes(int s, int c1, int c2, int c3) {
 
 // y (t, n, c1), o (t, m, c1), idx (t, m, s) int64, w2 (c1, c2), b2 (c2),
 // w3 (c2, c3), b3 (c3), out (t, m, c3); all float32 except idx, contiguous.
-// Launches on `stream`, allocates nothing, returns cudaGetLastError().
+// Launches kernel B on `stream`, allocates nothing, returns
+// cudaGetLastError().
 int epnet_sa_fused_fwd_launch(const void* y, const void* o, const void* idx,
                               const void* w2, const void* b2, const void* w3,
                               const void* b3, void* out, int t, int n, int m,
                               int s, int c1, int c2, int c3, void* stream) {
-  if (t == 0 || m == 0) return 0;
-  if (n <= 0 || s <= 0 || c1 <= 0 || c2 <= 0 || c3 <= 0) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(s, c1, c2, c3);
-  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  const int tm = centroids_per_block(s);
-  const int blocks_m = (m + tm - 1) / tm;
-  if (blocks_m > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      sa_fused_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(t, blocks_m);
-  sa_fused_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(y), static_cast<const float*>(o),
-      static_cast<const int64_t*>(idx), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), static_cast<const float*>(w3),
-      static_cast<const float*>(b3), static_cast<float*>(out), n, m, s, c1, c2, c3, tm);
-  return cudaGetLastError();
+  return launch<false>(y, o, idx, nullptr, w2, b2, w3, b3, out, t, n, m, s, c1, c2, c3, 1, 0,
+                       stream);
+}
+
+// Kernel G: as above with idx (t, m, s) int64 window-relative rows in
+// [0, window) and starts (t, nb) int64, the first table row of the window
+// of each tile of m / nb centroids; nb must divide m, window <= n.
+int epnet_sa_fused_win_fwd_launch(const void* y, const void* o, const void* idx,
+                                  const void* starts, const void* w2, const void* b2,
+                                  const void* w3, const void* b3, void* out, int t, int n,
+                                  int m, int s, int c1, int c2, int c3, int nb, int window,
+                                  void* stream) {
+  if (nb <= 0 || m % nb != 0 || window <= 0 || window > n) return cudaErrorInvalidValue;
+  return launch<true>(y, o, idx, starts, w2, b2, w3, b3, out, t, n, m, s, c1, c2, c3, nb,
+                      window, stream);
 }
 
 const char* epnet_error_string(int err) {

@@ -1,22 +1,29 @@
 // Backward of the fused set-abstraction interior on Hopper (sm_90a), f32;
-// plain C interface.
+// plain C interface. Two kernels, one template:
 //
-// Replaces the Pallas TPU kernel epnet_tpu/ops/sa_fused.py::_bwd_kernel
-// (pallas_call at :285, reached through the custom VJP of
-// fused_point_mlp_max). For the forward
+//   C replaces the Pallas TPU kernel epnet_tpu/ops/sa_fused.py::_bwd_kernel
+//     (pallas_call at :285, reached through the custom VJP of
+//     fused_point_mlp_max);
+//   H replaces its windowed twin ::_bwd_kernel_win (pallas_call at :528,
+//     the custom VJP of fused_point_mlp_max_win).
 //
-//   out[t, m] = max_s relu(relu(relu(Y[t, idx[t,m,s]] - O[t,m]) W2 + b2) W3 + b3)
+// For the forward
 //
-// it recomputes each row (g1 = Y[idx] - O, h1, p2, h2, p3, h3) and pushes
+//   out[t, m] = max_s relu(relu(relu(Y[t, row] - O[t,m]) W2 + b2) W3 + b3)
+//
+// with row = idx[t,m,s] (C) or starts[t, m / TM] + idx_rel[t,m,s] (H: TM =
+// M / NB consecutive centroids share a window of Y, see csrc/sa_fused.cu),
+// it recomputes each row (g1 = Y[row] - O, h1, p2, h2, p3, h3) and pushes
 // gout back:
 //
 //   dh3 = [h3 == max_s h3] gout / count of tied rows   (split evenly)
 //   dp3 = [p3 > 0] dh3;  dW3 += h2^T dp3;  db3 += sum dp3;  dh2 = dp3 W3^T
 //   dp2 = [p2 > 0] dh2;  dW2 += h1^T dp2;  db2 += sum dp2;  dh1 = dp2 W2^T
-//   dp1 = [g1 > 0] dh1;  dY[t, idx] += dp1 (scatter-add);  dO[t, m] = -sum_s dp1
+//   dp1 = [g1 > 0] dh1;  dY[t, row] += dp1 (scatter-add);  dO[t, m] = -sum_s dp1
 //
-// The plain version is
-// epnet_tpu_torch/ops/sa_fused.py::fused_point_mlp_max_bwd_plain.
+// The plain versions are
+// epnet_tpu_torch/ops/sa_fused.py::fused_point_mlp_max_bwd_plain and
+// ::fused_point_mlp_max_win_bwd_plain.
 //
 // What bounds it on the H100: arithmetic. At the train shapes (T = 256 RoI
 // tables; sa0 M*S = 8192 rows a table at 128/128/128, sa1 2048 rows at
@@ -39,6 +46,12 @@
 // sums the slices in block order, so dW/db are bitwise deterministic. dY
 // is an atomicAdd into a zeroed (T, N, C1) and is deterministic only up to
 // the order of the f32 additions. dO is written directly. No TF32, no mma.
+//
+// H is C with the window's row index (template parameter kWin). The windows
+// of consecutive tiles of one RoI overlap, and the TPU kernel added each
+// tile's (W, C1) contribution into the RoI's dY in grid order; here every
+// row's contribution is an atomicAdd into the RoI's whole (N, C1) table,
+// so overlapping windows add up and nothing is overwritten.
 
 #include <cuda_runtime.h>
 
@@ -152,15 +165,18 @@ __device__ __forceinline__ void wgrad_tile(const float* A, int lda, int ca, int 
 }
 
 // one block a multiprocessor (shared memory allows no more), so the full
-// register file is there for it
+// register file is there for it. kWin: idx holds window-relative rows,
+// offset by starts (t, nb) of tiles of m / nb centroids (kernel H)
+template <bool kWin>
 __global__ void __launch_bounds__(kThreads, 1)
 sa_fused_bwd_kernel(const float* __restrict__ y, const float* __restrict__ o,
-                    const int64_t* __restrict__ idx, const float* __restrict__ w2,
+                    const int64_t* __restrict__ idx, const int64_t* __restrict__ starts,
+                    const float* __restrict__ w2,
                     const float* __restrict__ b2, const float* __restrict__ w3,
                     const float* __restrict__ b3, const float* __restrict__ gout,
                     float* __restrict__ dy, float* __restrict__ dout_o,
                     float* __restrict__ part, int n, int m, int s, int c1, int c2, int c3,
-                    int tm, int blocks_m, long long units) {
+                    int tm, int blocks_m, long long units, int nb, int window) {
   extern __shared__ float smem[];
   __shared__ int64_t row_point[kRows];  // table row gathered by each chunk row
   __shared__ int row_centroid[kRows];   // its centroid, -1 for padding rows
@@ -199,6 +215,10 @@ sa_fused_bwd_kernel(const float* __restrict__ y, const float* __restrict__ o,
       const int mm = m0 + tid / s;
       if (tid < tm * s && mm < m) {
         int64_t p = it[static_cast<size_t>(mm) * s + tid % s];
+        if (kWin) {
+          p = p < 0 ? 0 : (p >= window ? window - 1 : p);  // inside the window
+          p += starts[static_cast<size_t>(t) * nb + mm / (m / nb)];
+        }
         p = p < 0 ? 0 : (p >= n ? n - 1 : p);  // keep a bad index inside the table
         row_point[tid] = p;
         row_centroid[tid] = mm;
@@ -344,6 +364,45 @@ __global__ void sa_fused_bwd_reduce(const float* __restrict__ part, int blocks, 
   out[e] = acc;
 }
 
+template <bool kWin>
+int launch(const void* y, const void* o, const void* idx, const void* starts, const void* w2,
+           const void* b2, const void* w3, const void* b3, const void* gout, void* dy, void* d_o,
+           void* part, void* grads, int t, int n, int m, int s, int c1, int c2, int c3,
+           int blocks, int nb, int window, void* stream) {
+  if (n <= 0 || s <= 0 || s > kRows || c1 <= 0 || c2 <= 0 || c3 <= 0 || t < 0 || m < 0)
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(c1, c2, c3);
+  if (smem + kStaticSmem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  const int tm = kRows / s;
+  const int blocks_m = (m + tm - 1) / tm;
+  const long long units = static_cast<long long>(t) * blocks_m;
+  const long long size = partial_floats(c1, c2, c3);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (units > 0) {
+    if (blocks < 1 || blocks > units) return cudaErrorInvalidValue;
+    auto kernel = &sa_fused_bwd_kernel<kWin>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<blocks, kThreads, smem, st>>>(
+        static_cast<const float*>(y), static_cast<const float*>(o),
+        static_cast<const int64_t*>(idx), static_cast<const int64_t*>(starts),
+        static_cast<const float*>(w2), static_cast<const float*>(b2),
+        static_cast<const float*>(w3), static_cast<const float*>(b3),
+        static_cast<const float*>(gout), static_cast<float*>(dy), static_cast<float*>(d_o),
+        static_cast<float*>(part), n, m, s, c1, c2, c3, tm, blocks_m, units, nb, window);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  } else {
+    blocks = 0;  // no rows: the gradients of the weights are zero
+  }
+  const int threads = 256;
+  const long long grid = (size + threads - 1) / threads;
+  sa_fused_bwd_reduce<<<static_cast<unsigned>(grid), threads, 0, st>>>(
+      static_cast<const float*>(part), blocks, size, static_cast<float*>(grads));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -364,43 +423,29 @@ long long epnet_sa_fused_bwd_partial_floats(int c1, int c2, int c3) {
 // caller, d_o (t, m, c1); part (blocks, partial_floats) scratch; grads
 // (partial_floats) receives dW2 | db2 | dW3 | db3. All float32 except idx,
 // contiguous. Needs s <= 64 and 1 <= blocks <= t * ceil(m / (64 / s)).
-// Launches on `stream`, allocates nothing, returns cudaGetLastError().
+// Launches kernel C on `stream`, allocates nothing, returns
+// cudaGetLastError().
 int epnet_sa_fused_bwd_launch(const void* y, const void* o, const void* idx, const void* w2,
                               const void* b2, const void* w3, const void* b3,
                               const void* gout, void* dy, void* d_o, void* part, void* grads,
                               int t, int n, int m, int s, int c1, int c2, int c3, int blocks,
                               void* stream) {
-  if (n <= 0 || s <= 0 || s > kRows || c1 <= 0 || c2 <= 0 || c3 <= 0 || t < 0 || m < 0)
-    return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(c1, c2, c3);
-  if (smem + kStaticSmem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  const int tm = kRows / s;
-  const int blocks_m = (m + tm - 1) / tm;
-  const long long units = static_cast<long long>(t) * blocks_m;
-  const long long size = partial_floats(c1, c2, c3);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (units > 0) {
-    if (blocks < 1 || blocks > units) return cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        sa_fused_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    sa_fused_bwd_kernel<<<blocks, kThreads, smem, st>>>(
-        static_cast<const float*>(y), static_cast<const float*>(o),
-        static_cast<const int64_t*>(idx), static_cast<const float*>(w2),
-        static_cast<const float*>(b2), static_cast<const float*>(w3),
-        static_cast<const float*>(b3), static_cast<const float*>(gout), static_cast<float*>(dy),
-        static_cast<float*>(d_o), static_cast<float*>(part), n, m, s, c1, c2, c3, tm, blocks_m,
-        units);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  } else {
-    blocks = 0;  // no rows: the gradients of the weights are zero
-  }
-  const int threads = 256;
-  const long long grid = (size + threads - 1) / threads;
-  sa_fused_bwd_reduce<<<static_cast<unsigned>(grid), threads, 0, st>>>(
-      static_cast<const float*>(part), blocks, size, static_cast<float*>(grads));
-  return cudaGetLastError();
+  return launch<false>(y, o, idx, nullptr, w2, b2, w3, b3, gout, dy, d_o, part, grads, t, n, m,
+                       s, c1, c2, c3, blocks, 1, 0, stream);
+}
+
+// Kernel H: as above with idx (t, m, s) int64 window-relative rows in
+// [0, window) and starts (t, nb) int64, the first table row of the window
+// of each tile of m / nb centroids; nb must divide m, window <= n.
+int epnet_sa_fused_win_bwd_launch(const void* y, const void* o, const void* idx,
+                                  const void* starts, const void* w2, const void* b2,
+                                  const void* w3, const void* b3, const void* gout, void* dy,
+                                  void* d_o, void* part, void* grads, int t, int n, int m, int s,
+                                  int c1, int c2, int c3, int nb, int window, int blocks,
+                                  void* stream) {
+  if (nb <= 0 || m % nb != 0 || window <= 0 || window > n) return cudaErrorInvalidValue;
+  return launch<true>(y, o, idx, starts, w2, b2, w3, b3, gout, dy, d_o, part, grads, t, n, m, s,
+                      c1, c2, c3, blocks, nb, window, stream);
 }
 
 const char* epnet_error_string(int err) {

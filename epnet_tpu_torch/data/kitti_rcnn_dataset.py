@@ -10,11 +10,15 @@ Every draw of item ``index`` comes from ``RandomState(seed_for(seed,
 epoch, index))`` (``data/loader.py``): the JAX loader's per-sample reseed,
 with an explicit generator.
 
+Under ``RPN.BLOCK_LOCAL`` or ``RPN.FP_WINDOW > 0`` every per-point array of
+an item is put in Morton order (``_maybe_morton_sort``, :331-356), as the
+block-local configuration needs; the dataset reads no query policy, so it
+sorts whatever ``EXACT_QUERIES`` says, as the JAX loader does.
+
 Not ported yet (ROADMAP Queue 1, item 14), each raising
 ``NotImplementedError``: TRAIN mode (scene augmentation, gt-paste
 augmentation and its gt database, the training-sample filter), the
-LiDAR-only sample with per-point RGB, the offline RCNN samples, and the
-Morton sort of the block-local family.
+LiDAR-only sample with per-point RGB and the offline RCNN samples.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from torch.utils.data import Dataset
 
 from ..config import Config
 from ..utils import box_np
+from ..ops.morton import morton_argsort_np
 from .kitti_dataset import KittiDataset
 from .loader import seed_for
 from .object3d import objs_to_boxes3d
@@ -48,8 +53,6 @@ class KittiRCNNDataset(KittiDataset, Dataset):
             raise NotImplementedError('only the LI-Fusion RPN sample is ported; the LiDAR-only '
                                       'and offline RCNN samples are not yet (ROADMAP Queue 1, '
                                       'item 14)')
-        if cfg.RPN.BLOCK_LOCAL or cfg.RPN.FP_WINDOW > 0:
-            raise NotImplementedError('the Morton sort of the block-local family is not ported')
         if classes not in _CLASSES:
             raise ValueError(f'invalid classes {classes}')
         super().__init__(root_dir=root_dir, split=split)
@@ -126,7 +129,19 @@ class KittiRCNNDataset(KittiDataset, Dataset):
 
     def __getitem__(self, index):
         rng = np.random.RandomState(seed_for(self.seed, self.epoch, index))
-        return self.get_rpn_with_li_fusion(index, rng)
+        return self._maybe_morton_sort(self.get_rpn_with_li_fusion(index, rng))
+
+    def _maybe_morton_sort(self, info):
+        """One permutation of every per-point array into the Morton order of
+        ``pts_input``, when the model groups block-locally."""
+        if not (self.cfg.RPN.BLOCK_LOCAL or self.cfg.RPN.FP_WINDOW > 0):
+            return info
+        perm = morton_argsort_np(info['pts_input'][:, :3])
+        for k in ('pts_input', 'pts_rect', 'pts_features', 'pts_origin_xy',
+                  'rpn_cls_label', 'rpn_reg_label'):
+            if k in info and len(info[k]) == len(perm):
+                info[k] = info[k][perm]
+        return info
 
     def get_rpn_with_li_fusion(self, index, rng: np.random.RandomState):
         """(:281-409), EVAL and TEST modes: no augmentation."""

@@ -6,7 +6,9 @@ Port of ``epnet_tpu/models/backbone.py`` (reference ``Pointnet2MSG``,
 256 -> 64 points at the recipe's widths), each fused with a strided image
 block through a bilinear gather and attention fusion, 4 FP stages back to
 full resolution, and the deconv image pyramid fused into the final point
-features. Exact dense paths only.
+features. Under ``RPN.BLOCK_LOCAL`` (with a query policy that admits it)
+the stages whose shapes allow group and interpolate inside block-local
+windows over the loader's Morton-sorted cloud (``backbone.py:58-127``).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 import torch.nn as nn
 
 from ..config import Config
-from ..ops.pointops import gather_points
+from ..ops.pointops import block_local_allowed, gather_points
 from .fusion import AttenFusionConv, DeconvFusionHead, FusionConv, ImageBlock, feature_gather
 from .pointnet2 import FPModule, SAModuleMSG
 
@@ -33,9 +35,12 @@ class PointBackbone(nn.Module):
         li = cfg.LI_FUSION
         n_sa = len(sa.NPOINTS)
         level_ch = [in_channels - 3]
+        self.block_local = cfg.RPN.BLOCK_LOCAL and block_local_allowed(cfg.EXACT_QUERIES)
         for i in range(n_sa):
             mod = SAModuleMSG(sa.NPOINTS[i], sa.RADIUS[i], sa.NSAMPLE[i], sa.MLPS[i],
-                              in_features=level_ch[i], bn=cfg.RPN.USE_BN, device=device)
+                              in_features=level_ch[i], bn=cfg.RPN.USE_BN,
+                              block_local=self.block_local, block_window=cfg.RPN.BLOCK_WINDOW,
+                              block_c=cfg.RPN.BLOCK_C, device=device)
             self.add_module(f'sa{i}', mod)
             if li.ENABLED:
                 fusion = AttenFusionConv if li.ADD_Image_Attention else FusionConv
@@ -49,8 +54,11 @@ class PointBackbone(nn.Module):
         n_fp = len(cfg.RPN.FP_MLPS)
         for k in range(n_fp):
             known_ch = cfg.RPN.FP_MLPS[k + 1][-1] if k + 1 < n_fp else level_ch[n_fp]
+            # the block-local configuration's FP geometry: 256 knowns for
+            # each 512 unknowns (backbone.py:113-118)
             self.add_module(f'fp{k}', FPModule(known_ch + level_ch[k], cfg.RPN.FP_MLPS[k],
-                                               bn=cfg.RPN.USE_BN, device=device))
+                                               bn=cfg.RPN.USE_BN, block_local=self.block_local,
+                                               ublock=512, window=256, device=device))
         self.out_features = cfg.RPN.FP_MLPS[0][-1]
         if li.ENABLED:
             self.deconv_fusion = DeconvFusionHead(
@@ -68,6 +76,10 @@ class PointBackbone(nn.Module):
         xyz = pts_input[..., 0:3]
         feats = pts_input[..., 3:] if pts_input.shape[-1] > 3 else None
         l_xyz, l_feats = [xyz], [feats]
+        # each level's FPS picks, and whether the level is Morton-sorted: the
+        # loader sorts level 0 under RPN.BLOCK_LOCAL, and a level stays sorted
+        # while every SA stage below it sorts its picks (the block-local ones)
+        l_idx, sorted_ok = [None], [bool(cfg.RPN.BLOCK_LOCAL)]
         if li.ENABLED:
             # pixel coords to [-1, 1] against the fixed pad size
             xy_norm = torch.stack([xy[..., 0] / (IMG_SIZE[0] - 1.0) * 2.0 - 1.0,
@@ -75,8 +87,8 @@ class PointBackbone(nn.Module):
             l_xy, imgs = [xy_norm], [image]
 
         for i in range(n_sa):
-            li_xyz, li_feats, fps_idx = getattr(self, f'sa{i}')(l_xyz[i], l_feats[i],
-                                                                 bn_momentum)
+            sa_i = getattr(self, f'sa{i}')
+            li_xyz, li_feats, fps_idx = sa_i(l_xyz[i], l_feats[i], bn_momentum)
             if li.ENABLED:
                 li_xy = gather_points(l_xy[i], fps_idx)
                 img_i = getattr(self, f'img_block{i}')(imgs[i], bn_momentum)
@@ -86,11 +98,14 @@ class PointBackbone(nn.Module):
                 imgs.append(img_i)
             l_xyz.append(li_xyz)
             l_feats.append(li_feats)
+            l_idx.append(fps_idx)
+            sorted_ok.append(sorted_ok[i] and sa_i.uses_block_local(l_xyz[i].shape[1]))
 
         n_fp = len(cfg.RPN.FP_MLPS)
         for i in range(-1, -(n_fp + 1), -1):
             l_feats[i - 1] = getattr(self, f'fp{n_fp + i}')(
-                l_xyz[i - 1], l_xyz[i], l_feats[i - 1], l_feats[i], bn_momentum)
+                l_xyz[i - 1], l_xyz[i], l_feats[i - 1], l_feats[i], bn_momentum,
+                known_idx=l_idx[i] if sorted_ok[i] else None)
 
         if li.ENABLED:
             img_pt = self.deconv_fusion(imgs[1:], xy=xy_norm, bn_momentum=bn_momentum)

@@ -17,6 +17,7 @@ import torch.nn as nn
 
 from ..config import Config
 from ..ops.boxes import rotate_points_along_y
+from ..ops.pointops import approx_allowed
 from ..ops.roipool3d import roipool3d
 from .layers import init_parameters
 from .proposal import ProposalLayer
@@ -62,16 +63,17 @@ class EPNet(nn.Module):
         super().__init__()
         if mode not in ('TRAIN', 'TEST'):
             raise ValueError(f'mode {mode!r}: TRAIN or TEST')
-        # EXACT_QUERIES None is the JAX package's per-backend default, which
-        # is exact off the TPU
-        if cfg.MIXED_PRECISION or cfg.EXACT_QUERIES not in (None, True):
-            raise NotImplementedError('the port runs the f32 exact-query recipe '
-                                      '(MIXED_PRECISION false, EXACT_QUERIES true)')
+        unported = {'MIXED_PRECISION (bf16)': cfg.MIXED_PRECISION,
+                    'EXACT_QUERIES false (the approximate queries)':
+                        approx_allowed(cfg.EXACT_QUERIES, 'ball'),
+                    'RPN.FP_WINDOW > 0': cfg.RPN.FP_WINDOW > 0,
+                    'RPN.FPS_GROUPS != 1': cfg.RPN.FPS_GROUPS != 1,
+                    "RPN.SAMPLING 'random'": cfg.RPN.SAMPLING != 'fps'}
+        for what, on in unported.items():
+            if on:
+                raise NotImplementedError(f'{what} is not ported yet (ROADMAP Queue 1)')
         if not (cfg.RPN.ENABLED and cfg.RCNN.ENABLED):
             raise NotImplementedError('the port runs the joint RPN + RCNN model')
-        if cfg.RPN.BLOCK_LOCAL or cfg.RCNN.BLOCK_LOCAL or cfg.RPN.FP_WINDOW \
-                or cfg.RPN.FPS_GROUPS != 1 or cfg.RPN.SAMPLING != 'fps':
-            raise NotImplementedError('the TPU approximation knobs are not ported')
         device = default_device(device)
         use_f32_math()
         self.cfg = cfg

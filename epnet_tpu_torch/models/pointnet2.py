@@ -1,5 +1,5 @@
-"""PointNet++ set abstraction (MSG) and feature propagation, exact dense
-paths.
+"""PointNet++ set abstraction (MSG) and feature propagation: the exact
+dense paths and the block-local configuration's.
 
 Port of ``epnet_tpu/models/pointnet2.py`` (reference
 ``pointnet2_modules.py``: SA :19-109, FP :133-173). Stages without BN whose
@@ -8,6 +8,15 @@ fused kernel (``ops/sa_fused.py``), as the JAX package does on a TPU; the
 port's gate keeps only the conditions of the algebra (no BN, three layers,
 a sampled stage), not the TPU's lane and VMEM limits, so the fused path
 also runs at test widths.
+
+With ``block_local`` (``RPN.BLOCK_LOCAL`` / ``RCNN.BLOCK_LOCAL`` under a
+query policy that admits it, see ``ops/pointops.block_local_allowed``) a
+stage over a Morton-sorted cloud sorts its FPS picks ascending and groups
+inside block-local windows (``ops/block_local.py``) where its shapes
+allow; a single-scale fused stage over a small table (RCNN sa0) takes the
+windowed fused kernel instead; and an FP stage given ``known_idx``
+interpolates inside windows. The gates are the JAX package's
+(``pointnet2.py:42-52,120-150,375-395``).
 """
 
 from __future__ import annotations
@@ -17,9 +26,12 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
+from ..ops.block_local import (block_local_available, block_local_fp_available,
+                               block_local_group_multi, block_local_three_interp,
+                               bucket_ball_query, to_window_relative, window_starts)
 from ..ops.pointops import (ball_query, furthest_point_sample, gather_points,
                             group_points, three_interpolate, three_nn)
-from ..ops.sa_fused import fused_point_mlp_max
+from ..ops.sa_fused import fused_point_mlp_max, fused_point_mlp_max_win
 from .layers import SharedMLP
 
 
@@ -34,12 +46,16 @@ class SAModuleMSG(nn.Module):
 
     def __init__(self, npoint: Optional[int], radii: Sequence[float],
                  nsamples: Sequence[int], mlps: Sequence[Sequence[int]],
-                 in_features: int, bn: bool = True, device=None):
+                 in_features: int, bn: bool = True, block_local: bool = False,
+                 block_window: int = 1024, block_c: int = 128, device=None):
         super().__init__()
         self.npoint = npoint
         self.radii = tuple(radii)
         self.nsamples = tuple(nsamples)
         self.bn = bn
+        self.block_local = block_local
+        self.block_window = block_window
+        self.block_c = block_c
         cin = 3 + in_features
         for i, hidden in enumerate(mlps):
             self.add_module(f'SharedMLP_{i}', SharedMLP(cin, hidden, bn=bn, device=device))
@@ -52,15 +68,49 @@ class SAModuleMSG(nn.Module):
     def uses_fused(self, i: int) -> bool:
         return self.npoint is not None and not self.bn and self.mlp(i).depth == 3
 
+    def uses_block_local(self, n: int) -> bool:
+        """Block-local grouping over a cloud of ``n`` points: the SA gate of
+        ``pointnet2.py:42-52`` (``block_local`` already includes the query
+        policy); the backbone reads it to know which levels stay
+        Morton-sorted."""
+        return (bool(self.block_local) and self.npoint is not None
+                and list(self.radii) == sorted(self.radii)
+                and list(self.nsamples) == sorted(self.nsamples)
+                and block_local_available(n, self.npoint, self.block_window, self.block_c))
+
+    def uses_window(self, n: int) -> bool:
+        """The windowed fused kernel over a table of ``n`` points: JAX's
+        ``fused_sa_win_available`` without the TPU's lane and VMEM limits
+        (``pointnet2.py:127-134``, ``sa_fused.py:570-589``)."""
+        m, s, w, bc = self.npoint, self.nsamples[0], self.block_window, self.block_c
+        return (self.block_local and not self.uses_block_local(n) and self.n_scales == 1
+                and self.uses_fused(0) and n % s == 0 and w < n and w % 8 == 0
+                and m % bc == 0 and (bc * s) % 8 == 0 and (m * s) % 8 == 0)
+
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor] = None,
                 bn_momentum: float = 0.1):
         if self.npoint is None:
             return self._group_all(xyz, features, bn_momentum)
+        n = xyz.shape[1]
+        use_bl, use_win = self.uses_block_local(n), self.uses_window(n)
         fps_idx = furthest_point_sample(xyz, self.npoint)
+        if use_bl or use_win:
+            # ascending picks keep the subset Morton-sorted for the next stage
+            fps_idx = fps_idx.sort(dim=-1).values
         new_xyz = gather_points(xyz, fps_idx)
+        if use_win:
+            w = self.block_window
+            starts = window_starts(fps_idx, n, w, self.block_c)
+            idx_rel = to_window_relative(
+                bucket_ball_query(self.radii[0], self.nsamples[0], xyz, new_xyz), starts, w)
+            return new_xyz, self._fused(0, xyz, features, new_xyz, idx_rel, starts), fps_idx
+        if use_bl:
+            scale_idx = block_local_group_multi(self.radii, self.nsamples, xyz, fps_idx,
+                                                new_xyz, self.block_window, self.block_c)
+        else:
+            scale_idx = [ball_query(r, s, xyz, new_xyz) for r, s in zip(self.radii, self.nsamples)]
         outs = []
-        for i in range(self.n_scales):
-            idx = ball_query(self.radii[i], self.nsamples[i], xyz, new_xyz)
+        for i, idx in enumerate(scale_idx):
             if self.uses_fused(i):
                 outs.append(self._fused(i, xyz, features, new_xyz, idx))
                 continue
@@ -71,17 +121,20 @@ class SAModuleMSG(nn.Module):
             outs.append(self.mlp(i)(grouped, bn_momentum).amax(dim=2))  # max over samples
         return new_xyz, torch.cat(outs, -1), fps_idx
 
-    def _fused(self, i, xyz, features, new_xyz, idx):
+    def _fused(self, i, xyz, features, new_xyz, idx, starts=None):
         """Layer 1 over the table (``Y``) and the centroids (``O``), then the
-        fused gather + layers 2-3 + max (``pointnet2.py:261-289``)."""
+        fused gather + layers 2-3 + max (``pointnet2.py:261-289``); with
+        ``starts``, ``idx`` is window-relative (the windowed kernel)."""
         mlp = self.mlp(i)
         l1, l2, l3 = (mlp.layer(k).Dense_0 for k in range(3))
         table = torch.cat([xyz, features], -1) if features is not None else xyz
         w1 = l1.weight.t()
         y = torch.matmul(table, w1) + l1.bias
         o = torch.matmul(new_xyz, w1[:3])
-        return fused_point_mlp_max(y, o, idx, l2.weight.t(), l2.bias,
-                                   l3.weight.t(), l3.bias)
+        weights = (l2.weight.t(), l2.bias, l3.weight.t(), l3.bias)
+        if starts is not None:
+            return fused_point_mlp_max_win(y, o, idx, starts, *weights, self.block_window)
+        return fused_point_mlp_max(y, o, idx, *weights)
 
     def _group_all(self, xyz, features, bn_momentum):
         """Reference GroupAll (``pointnet2_utils.py:283-306``)."""
@@ -95,16 +148,33 @@ class SAModuleMSG(nn.Module):
 
 class FPModule(nn.Module):
     """Feature propagation: inverse-distance 3-NN interpolation + skip MLP
-    (``pointnet2_modules.py:133-173``)."""
+    (``pointnet2_modules.py:133-173``). With ``block_local`` and the knowns'
+    ascending positions ``known_idx`` among the unknowns, the windowed
+    interpolation of ``ops/block_local.py`` where the shapes allow
+    (``pointnet2.py:375-395``)."""
 
-    def __init__(self, cin: int, mlp: Sequence[int], bn: bool = True, device=None):
+    def __init__(self, cin: int, mlp: Sequence[int], bn: bool = True,
+                 block_local: bool = False, ublock: int = 512, window: int = 256,
+                 device=None):
         super().__init__()
         self.SharedMLP_0 = SharedMLP(cin, mlp, bn=bn, device=device)
+        self.block_local = block_local
+        self.ublock = ublock
+        self.window = window
 
-    def forward(self, unknown, known, unknown_feats, known_feats, bn_momentum: float = 0.1):
-        dist, idx = three_nn(unknown, known)
-        recip = 1.0 / (dist + 1e-8)
-        weight = recip / recip.sum(-1, keepdim=True)
-        interp = three_interpolate(known_feats, idx, weight)  # (B, N, C2)
+    def uses_block_local(self, n: int, m: int, known_idx) -> bool:
+        return (self.block_local and known_idx is not None
+                and block_local_fp_available(n, m, self.ublock, self.window))
+
+    def forward(self, unknown, known, unknown_feats, known_feats, bn_momentum: float = 0.1,
+                known_idx=None):
+        if self.uses_block_local(unknown.shape[1], known.shape[1], known_idx):
+            interp = block_local_three_interp(unknown, known, known_feats, known_idx,
+                                              self.ublock, self.window)
+        else:
+            dist, idx = three_nn(unknown, known)
+            recip = 1.0 / (dist + 1e-8)
+            weight = recip / recip.sum(-1, keepdim=True)
+            interp = three_interpolate(known_feats, idx, weight)  # (B, N, C2)
         x = torch.cat([interp, unknown_feats], -1) if unknown_feats is not None else interp
         return self.SharedMLP_0(x, bn_momentum)

@@ -4,8 +4,11 @@ Port of ``epnet_tpu/models/rcnn.py`` (reference ``lib/net/rcnn_net.py``:
 xyz-up/merge layers :21-26, SA tower :28-42, cls/reg heads :44-91).
 Operates on (B*R, S, C) pooled canonical-frame points. The recipe's tower
 has no BN and three-layer MLPs, so its two sampled stages run the fused SA
-kernels. Dropout (``RCNN.DP_RATIO``, applied when >= 0) follows the first
-layer of each head.
+kernels; under ``RCNN.BLOCK_LOCAL`` (with a query policy that admits it) a
+stage whose table is larger than its window runs the windowed fused kernel
+over the pooled points, which keep the loader's Morton order. Dropout
+(``RCNN.DP_RATIO``, applied when >= 0) follows the first layer of each
+head.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 import torch.nn as nn
 
 from ..config import Config
+from ..ops.pointops import block_local_allowed
 from .layers import PointwiseConv, SharedMLP, dense_head
 from .pointnet2 import SAModuleMSG
 
@@ -36,10 +40,12 @@ class RCNNNet(nn.Module):
         else:
             feats = in_channels - 3
         self.n_sa = len(rc.SA_CONFIG.NPOINTS)
+        block_local = rc.BLOCK_LOCAL and block_local_allowed(cfg.EXACT_QUERIES)
         for i, np_i in enumerate(rc.SA_CONFIG.NPOINTS):
             mod = SAModuleMSG(None if np_i == -1 else np_i, (rc.SA_CONFIG.RADIUS[i],),
                               (rc.SA_CONFIG.NSAMPLE[i],), (rc.SA_CONFIG.MLPS[i],),
-                              in_features=feats, bn=rc.USE_BN, device=device)
+                              in_features=feats, bn=rc.USE_BN, block_local=block_local,
+                              block_window=rc.BLOCK_WINDOW, block_c=rc.BLOCK_C, device=device)
             self.add_module(f'sa{i}', mod)
             feats = mod.out_features
         # binary -> single sigmoid logit; multi-class -> n logits (rcnn_net.py:45)

@@ -17,6 +17,32 @@ import torch
 from .fps import furthest_point_sample  # noqa: F401  (public entry point)
 
 
+def _policy(exact_queries):
+    if exact_queries not in (None, True, False, 'residual'):
+        raise ValueError(f"EXACT_QUERIES {exact_queries!r}: True, False, 'residual' or None")
+    return exact_queries
+
+
+def block_local_allowed(exact_queries) -> bool:
+    """Whether the query policy ``cfg.EXACT_QUERIES`` admits the block-local
+    paths (``pointops.py:49-55``): yes under 'residual' (block-local
+    grouping, every other query exact) and under False (the approximate
+    family); no under True, and no under None, the JAX package's
+    per-backend default, which is exact off the TPU."""
+    return _policy(exact_queries) in ('residual', False)
+
+
+def approx_allowed(exact_queries, op: str) -> bool:
+    """Whether the policy admits the approximate query of ``op`` ('ball',
+    'three_nn' or 'roipool'; ``pointops.py:108-113,133-152``): only under
+    False. 'residual' keeps every query outside the block-local paths
+    exact. The port has no approximate queries; ``EPNet`` refuses a policy
+    that admits them."""
+    if op not in ('ball', 'three_nn', 'roipool'):
+        raise ValueError(f'unknown query op {op!r}')
+    return _policy(exact_queries) is False
+
+
 def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """points (B, N, C), idx (B, M) -> (B, M, C)."""
     B, M = idx.shape

@@ -1,10 +1,13 @@
 """Fused set-abstraction interior (gather + 3-layer ReLU MLP + sample max)
 with its gradient: the CUDA kernels ``csrc/sa_fused.cu`` (forward) and
 ``csrc/sa_fused_bwd.cu`` (backward by recompute), and their plain PyTorch
-versions.
+versions, in two forms: rows by table index (kernels B and C), and rows by
+window-relative index, a window per tile of centroids (kernels G and H,
+the block-local RCNN stage).
 
 The kernels replace the Pallas TPU kernels
-``epnet_tpu/ops/sa_fused.py::_fwd_kernel`` and ``::_bwd_kernel`` (f32).
+``epnet_tpu/ops/sa_fused.py::_fwd_kernel`` and ``::_bwd_kernel`` (B, C) and
+``::_fwd_kernel_win`` and ``::_bwd_kernel_win`` (G, H), f32.
 What bounds them on the H100, and what their designs do about that, is
 written at the top of each source: the dense layers' FFMA work, with every
 intermediate kept in shared memory and registers.
@@ -14,7 +17,8 @@ caller passes ``y = [xyz, feats] @ W1 + b1`` over each table and
 ``o = new_xyz @ W1[:3]`` per centroid (``models/pointnet2.py``), as the JAX
 package does.
 
-``fused_point_mlp_max`` is differentiable in every input but ``idx``. Like
+``fused_point_mlp_max`` is differentiable in every input but ``idx`` (and
+``fused_point_mlp_max_win`` in every input but ``idx_rel`` and ``starts``). Like
 the JAX custom VJP it saves only its inputs and recomputes the rows in the
 backward, so nothing of size (T, M*S, C) is kept between the two. The
 gradient of the sample max is split evenly among tied rows. Both
@@ -96,6 +100,8 @@ def _fwd_lib() -> ctypes.CDLL:
     return _typed(cuda_build.load_library('sa_fused'), {
         'epnet_sa_fused_fwd_launch':
             ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p], ctypes.c_int),
+        'epnet_sa_fused_win_fwd_launch':
+            ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p], ctypes.c_int),
         'epnet_sa_fused_smem_bytes': ([ctypes.c_int] * 4, ctypes.c_longlong)})
 
 
@@ -103,18 +109,20 @@ def _bwd_lib() -> ctypes.CDLL:
     return _typed(cuda_build.load_library('sa_fused_bwd'), {
         'epnet_sa_fused_bwd_launch':
             ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p], ctypes.c_int),
+        'epnet_sa_fused_win_bwd_launch':
+            ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + [ctypes.c_void_p], ctypes.c_int),
         'epnet_sa_fused_bwd_smem_bytes': ([ctypes.c_int] * 3, ctypes.c_longlong),
         'epnet_sa_fused_bwd_partial_floats': ([ctypes.c_int] * 3, ctypes.c_longlong)})
 
 
 def _check_args(what: str, **tensors):
-    """Device, dtype and shape checks shared by both kernels' wrappers;
+    """Device, dtype and shape checks shared by the kernels' wrappers;
     returns (T, N, M, S, C1, C2, C3)."""
     dev = tensors['y'].device
     for name, t in tensors.items():
         if not t.is_cuda or t.device != dev:
             raise ValueError(f'{what}: {name} must be on {dev} (CUDA), got {t.device}')
-        want = torch.int64 if name == 'idx' else torch.float32
+        want = torch.int64 if name in ('idx', 'starts') else torch.float32
         if t.dtype != want:
             raise TypeError(f'{what}: {name} must be {want}, got {t.dtype}')
     y, o, idx = tensors['y'], tensors['o'], tensors['idx']
@@ -135,29 +143,49 @@ def _check_args(what: str, **tensors):
     return T, N, M, S, C1, C2, C3
 
 
+def _check_window(what: str, starts, window: int, T: int, N: int, M: int) -> int:
+    """The windowed kernels' extra checks; returns NB, the tiles a table."""
+    if starts.dim() != 2 or starts.shape[0] != T:
+        raise ValueError(f'{what}: starts must be ({T}, NB), got {tuple(starts.shape)}')
+    NB = starts.shape[1]
+    if NB <= 0 or M % NB:
+        raise ValueError(f'{what}: {NB} window tiles do not divide {M} centroids')
+    if not 0 < window <= N:
+        raise ValueError(f'{what}: window {window} must lie in [1, {N}]')
+    return NB
+
+
 def fused_point_mlp_max_kernel(y, o, idx, w2, b2, w3, b3):
     """Launch ``csrc/sa_fused.cu`` on the current stream. All tensors on one
     CUDA device, float32 (idx int64), shapes as in the plain version.
     Raises on anything the kernel does not take."""
-    T, N, M, S, C1, C2, C3 = _check_args('fused_point_mlp_max_kernel', y=y, o=o, idx=idx,
-                                         w2=w2, b2=b2, w3=w3, b3=b3)
+    dims = _check_args('fused_point_mlp_max_kernel', y=y, o=o, idx=idx, w2=w2, b2=b2, w3=w3,
+                       b3=b3)
+    return _launch_fwd(fused_point_mlp_max_kernel, 'epnet_sa_fused_fwd_launch', dims,
+                       (y, o, idx, w2, b2, w3, b3), ())
+
+
+def _launch_fwd(wrapper, entry, dims, inputs, extra):
+    """Kernel B or G (C entry point ``entry``) for ``wrapper``, whose launch
+    count it keeps: allocates the output, launches, returns it. ``extra``
+    are the ints the entry point takes after c3 (G's nb, window)."""
+    T, N, M, S, C1, C2, C3 = dims
     lib = _fwd_lib()
     smem = lib.epnet_sa_fused_smem_bytes(S, C1, C2, C3)
     if smem > _SMEM_LIMIT:
-        raise ValueError(f'fused SA kernel needs {smem} B of shared memory at '
+        raise ValueError(f'{wrapper.__name__}: needs {smem} B of shared memory at '
                          f'C1/C2/C3 = {C1}/{C2}/{C3}; the limit is {_SMEM_LIMIT}')
-    dev = y.device
-    args = [t.detach().contiguous() for t in (y, o, idx, w2, b2, w3, b3)]
+    dev = inputs[0].device
+    args = [t.detach().contiguous() for t in inputs]
     out = torch.empty((T, M, C3), dtype=torch.float32, device=dev)
     if T == 0 or M == 0:
         return out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.epnet_sa_fused_fwd_launch(*(a.data_ptr() for a in args),
-                                            out.data_ptr(), T, N, M, S, C1, C2,
-                                            C3, stream)
-    cuda_build.check(lib, err, 'fused SA kernel launch')
-    fused_point_mlp_max_kernel.launches += 1
+        err = getattr(lib, entry)(*(a.data_ptr() for a in args), out.data_ptr(),
+                                  T, N, M, S, C1, C2, C3, *extra, stream)
+    cuda_build.check(lib, err, f'{wrapper.__name__} launch')
+    wrapper.launches += 1
     return out
 
 
@@ -172,18 +200,29 @@ def fused_point_mlp_max_bwd_kernel(y, o, idx, w2, b2, w3, b3, gout):
     ``fused_point_mlp_max_bwd_plain``, on one CUDA device; S <= 64.
     Returns (dy, do, dw2, db2, dw3, db3). Raises on anything the kernel
     does not take."""
-    T, N, M, S, C1, C2, C3 = _check_args('fused_point_mlp_max_bwd_kernel', y=y, o=o,
-                                         idx=idx, w2=w2, b2=b2, w3=w3, b3=b3, gout=gout)
+    dims = _check_args('fused_point_mlp_max_bwd_kernel', y=y, o=o, idx=idx, w2=w2, b2=b2,
+                       w3=w3, b3=b3, gout=gout)
+    return _launch_bwd(fused_point_mlp_max_bwd_kernel, 'epnet_sa_fused_bwd_launch', dims,
+                       (y, o, idx, w2, b2, w3, b3, gout), ())
+
+
+def _launch_bwd(wrapper, entry, dims, inputs, extra):
+    """Kernel C or H (C entry point ``entry``) and its reduction for
+    ``wrapper``, whose launch count it keeps: allocates the outputs and the
+    per-block slices, launches, returns (dy, do, dw2, db2, dw3, db3).
+    ``extra`` are the ints the entry point takes after c3 (H's nb, window)."""
+    what = wrapper.__name__
+    T, N, M, S, C1, C2, C3 = dims
     if S > _BWD_ROWS:
-        raise ValueError(f'fused SA backward kernel takes at most {_BWD_ROWS} samples '
-                         f'a centroid, got {S}')
+        raise ValueError(f'{what}: the kernel takes at most {_BWD_ROWS} samples a centroid, '
+                         f'got {S}')
     lib = _bwd_lib()
     smem = lib.epnet_sa_fused_bwd_smem_bytes(C1, C2, C3)
     if smem + 1024 > _SMEM_LIMIT:
-        raise ValueError(f'fused SA backward kernel needs {smem} B of shared memory at '
-                         f'C1/C2/C3 = {C1}/{C2}/{C3}; the limit is {_SMEM_LIMIT}')
-    dev = y.device
-    args = [t.detach().contiguous() for t in (y, o, idx, w2, b2, w3, b3, gout)]
+        raise ValueError(f'{what}: needs {smem} B of shared memory at C1/C2/C3 = '
+                         f'{C1}/{C2}/{C3}; the limit is {_SMEM_LIMIT}')
+    dev = inputs[0].device
+    args = [t.detach().contiguous() for t in inputs]
     units = T * -(-M // (_BWD_ROWS // S))
     blocks = max(1, min(units, 2 * torch.cuda.get_device_properties(dev).multi_processor_count))
     size = lib.epnet_sa_fused_bwd_partial_floats(C1, C2, C3)
@@ -193,11 +232,11 @@ def fused_point_mlp_max_bwd_kernel(y, o, idx, w2, b2, w3, b3, gout):
     grads = torch.empty((size,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.epnet_sa_fused_bwd_launch(
+        err = getattr(lib, entry)(
             *(a.data_ptr() for a in args), dy.data_ptr(), do.data_ptr(), part.data_ptr(),
-            grads.data_ptr(), T, N, M, S, C1, C2, C3, blocks, stream)
-    cuda_build.check(lib, err, 'fused SA backward kernel launch')
-    fused_point_mlp_max_bwd_kernel.launches += 1
+            grads.data_ptr(), T, N, M, S, C1, C2, C3, *extra, blocks, stream)
+    cuda_build.check(lib, err, f'{what} launch')
+    wrapper.launches += 1
     dw2, db2, dw3, db3 = torch.split(grads, [C1 * C2, C2, C2 * C3, C3])
     return dy, do, dw2.view(C1, C2), db2, dw3.view(C2, C3), db3
 
@@ -235,3 +274,97 @@ def fused_point_mlp_max(y, o, idx, w2, b2, w3, b3):
     if y.device.type not in ('cuda', 'cpu'):
         raise ValueError(f'fused_point_mlp_max: unsupported device {y.device}')
     return _FusedPointMlpMax.apply(y, o, idx, w2, b2, w3, b3)
+
+
+# ---------------------------------------------------------------------------
+# Windowed form (kernels G and H): the rows of centroid m come from the
+# window of ``window`` table rows starting at starts[t, m // (M // NB)].
+# ---------------------------------------------------------------------------
+
+
+def window_rows(idx_rel, starts):
+    """Table rows of window-relative indices: idx_rel (T, M, S) + the start
+    of each centroid's tile, starts (T, NB) with NB dividing M."""
+    M, NB = idx_rel.shape[1], starts.shape[1]
+    return idx_rel + starts.repeat_interleave(M // NB, dim=1)[..., None]
+
+
+def fused_point_mlp_max_win_plain(y, o, idx_rel, starts, w2, b2, w3, b3, window):
+    """``fused_point_mlp_max_plain`` on the rows ``window_rows(idx_rel,
+    starts)``; idx_rel (T, M, S) int64 in [0, window), starts (T, NB)
+    int64."""
+    return fused_point_mlp_max_plain(y, o, window_rows(idx_rel, starts), w2, b2, w3, b3)
+
+
+def fused_point_mlp_max_win_bwd_plain(y, o, idx_rel, starts, w2, b2, w3, b3, window, gout):
+    """Gradients of ``fused_point_mlp_max_win_plain``: the windows of one
+    table's tiles overlap, and dy adds up every tile's rows."""
+    return fused_point_mlp_max_bwd_plain(y, o, window_rows(idx_rel, starts), w2, b2, w3, b3,
+                                         gout)
+
+
+def fused_point_mlp_max_win_kernel(y, o, idx_rel, starts, w2, b2, w3, b3, window):
+    """Launch kernel G (``csrc/sa_fused.cu``, windowed) on the current
+    stream. Tensors as in the plain version, on one CUDA device, float32
+    (idx_rel and starts int64). Raises on anything the kernel does not
+    take."""
+    what = 'fused_point_mlp_max_win_kernel'
+    dims = _check_args(what, y=y, o=o, idx=idx_rel, starts=starts, w2=w2, b2=b2, w3=w3, b3=b3)
+    NB = _check_window(what, starts, window, *dims[:3])
+    return _launch_fwd(fused_point_mlp_max_win_kernel, 'epnet_sa_fused_win_fwd_launch', dims,
+                       (y, o, idx_rel, starts, w2, b2, w3, b3), (NB, window))
+
+
+fused_point_mlp_max_win_kernel.launches = 0
+
+
+def fused_point_mlp_max_win_bwd_kernel(y, o, idx_rel, starts, w2, b2, w3, b3, window, gout):
+    """Launch kernel H (``csrc/sa_fused_bwd.cu``, windowed) and its
+    reduction on the current stream. Tensors as in
+    ``fused_point_mlp_max_win_bwd_plain``; S <= 64. Returns (dy, do, dw2,
+    db2, dw3, db3). Raises on anything the kernel does not take."""
+    what = 'fused_point_mlp_max_win_bwd_kernel'
+    dims = _check_args(what, y=y, o=o, idx=idx_rel, starts=starts, w2=w2, b2=b2, w3=w3, b3=b3,
+                       gout=gout)
+    NB = _check_window(what, starts, window, *dims[:3])
+    return _launch_bwd(fused_point_mlp_max_win_bwd_kernel, 'epnet_sa_fused_win_bwd_launch', dims,
+                       (y, o, idx_rel, starts, w2, b2, w3, b3, gout), (NB, window))
+
+
+fused_point_mlp_max_win_bwd_kernel.launches = 0
+
+
+class _FusedPointMlpMaxWin(torch.autograd.Function):
+    """Kernels G and H on CUDA, plain versions on the CPU; saves only the
+    inputs."""
+
+    @staticmethod
+    def forward(ctx, y, o, idx_rel, starts, w2, b2, w3, b3, window):
+        ctx.save_for_backward(y, o, idx_rel, starts, w2, b2, w3, b3)
+        ctx.window = window
+        if y.is_cuda:
+            return fused_point_mlp_max_win_kernel(y, o, idx_rel, starts, w2, b2, w3, b3, window)
+        return fused_point_mlp_max_win_plain(y, o, idx_rel, starts, w2, b2, w3, b3, window)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gout):
+        args = ctx.saved_tensors
+        bwd = (fused_point_mlp_max_win_bwd_kernel if gout.is_cuda
+               else fused_point_mlp_max_win_bwd_plain)
+        dy, do, dw2, db2, dw3, db3 = bwd(*args, ctx.window, gout)
+        return dy, do, None, None, dw2, db2, dw3, db3, None
+
+
+def fused_point_mlp_max_win(y, o, idx_rel, starts, w2, b2, w3, b3, window: int):
+    """(T, M, C3) fused SA interior with each tile's rows read from its
+    window, differentiable in every input but ``idx_rel`` and ``starts``:
+    kernels G and H for CUDA tensors, the plain versions for CPU tensors.
+
+    :param idx_rel: (T, M, S) int64 window-relative rows in [0, window)
+    :param starts: (T, NB) int64 first table row of each tile's window; the
+        tile of centroid m is m // (M // NB)
+    """
+    if y.device.type not in ('cuda', 'cpu'):
+        raise ValueError(f'fused_point_mlp_max_win: unsupported device {y.device}')
+    return _FusedPointMlpMaxWin.apply(y, o, idx_rel, starts, w2, b2, w3, b3, window)

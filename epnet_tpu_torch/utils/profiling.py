@@ -1,10 +1,12 @@
 """Where the eval forward's and the train step's time goes on the card.
 
-    python -m epnet_tpu_torch.utils.profiling [--requests 3] [--top 15]
-    python -m epnet_tpu_torch.utils.profiling --train [--steps 3] [--batch 4]
+    python -m epnet_tpu_torch.utils.profiling [--requests 3] [--top 15] [--block_local]
+    python -m epnet_tpu_torch.utils.profiling --train [--steps 3] [--batch 4] [--block_local]
 
 Builds ``EPNet`` at the published recipe's full width (random weights from
-a seeded generator). Eval (default): answers batch-1 requests on
+a seeded generator); ``--block_local`` adds the block-local configuration's
+overrides (``EXACT_QUERIES residual``, ``RPN.BLOCK_LOCAL``,
+``RCNN.BLOCK_LOCAL``) and Morton-sorts the scenes. Eval (default): answers batch-1 requests on
 structured scenes and prints the median wall time of each stage (RPN,
 proposals, RoI pooling, RCNN). ``--train``: takes train steps on labelled
 batch-4 scenes and prints the median of each part of a step (RPN forward,
@@ -21,7 +23,6 @@ import argparse
 import statistics
 import time
 
-import numpy as np
 import torch
 
 
@@ -122,12 +123,10 @@ def _report(per_stage, wall, busy, rows, what):
         print(f'  {ms:9.3f} ms  {calls:6d} calls  {name[:100]}')
 
 
-def profile_train(dev, steps: int, batch_size: int, top: int):
-    from ..config import parity_config
+def profile_train(dev, cfg, steps: int, batch_size: int, top: int):
     from ..train.trainer import create_train_state, device_batch, train_step
     from .testing import full_batch
 
-    cfg = parity_config()
     state = create_train_state(cfg, total_steps=100, device=dev,
                                generator=torch.Generator(device=dev).manual_seed(0))
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -147,27 +146,26 @@ def main(argv=None):
     ap.add_argument('--steps', type=int, default=3)
     ap.add_argument('--batch', type=int, default=4)
     ap.add_argument('--top', type=int, default=15)
+    ap.add_argument('--block_local', action='store_true',
+                    help='the block-local configuration of the recipe')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profiling needs a CUDA device')
-    from ..config import parity_config
+    from ..config import block_local_config, parity_config
     from ..models.epnet import EPNet
-    from .testing import structured_scene
+    from ..train.trainer import device_batch
+    from .testing import full_batch
 
     dev = torch.device('cuda:0')
+    cfg = block_local_config(parity_config()) if args.block_local else parity_config()
+    print(f'{"block-local" if args.block_local else "exact"} configuration, '
+          f'{torch.cuda.get_device_name(0)}')
     if args.train:
-        profile_train(dev, args.steps, args.batch, args.top)
+        profile_train(dev, cfg, args.steps, args.batch, args.top)
         return
-    cfg = parity_config()
     model = EPNet(cfg, 'TEST', device=dev,
                   generator=torch.Generator(device=dev).manual_seed(0)).eval()
-    batches = []
-    for seed in range(args.requests):
-        rng = np.random.RandomState(seed)
-        pts, xy, _ = structured_scene(rng, cfg.RPN.NUM_POINTS, img_hw=(384, 1280))
-        batches.append({'pts_input': torch.from_numpy(pts[None]).to(dev),
-                        'img': torch.from_numpy(rng.rand(1, 384, 1280, 3).astype(np.float32)).to(dev),
-                        'pts_origin_xy': torch.from_numpy(xy[None]).to(dev)})
+    batches = [device_batch(full_batch(cfg, 1, seed=seed), dev) for seed in range(args.requests)]
     model(batches[0])  # warm-up
     per_stage = [stage_times(model, b) for b in batches]
     wall, busy, rows = device_breakdown(lambda: model(batches[0]), args.top)

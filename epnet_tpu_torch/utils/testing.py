@@ -16,6 +16,7 @@ import os
 import numpy as np
 
 from epnet_tpu_torch.config import Config
+from epnet_tpu_torch.ops.morton import morton_argsort_np
 from epnet_tpu_torch.utils import box_np
 
 
@@ -163,13 +164,27 @@ def structured_scene(rng, n_points, n_cars=8, img_hw=(384, 1280),
     return pts, pts_xy, gt
 
 
+# The block-local configuration at test widths (``EXACT_QUERIES`` 'residual',
+# both BLOCK_LOCAL flags), each size the least that engages its gate: RPN sa0
+# groups block-locally (2048 > 1024 points, 512 centroids in blocks of 64, a
+# window of 256), fp0 interpolates in windows (512 knowns cover more than
+# one window), and RCNN sa0 runs the windowed fused kernel (128 pooled
+# points, windows of 64 for tiles of 8 centroids, 16 samples).
+BLOCK_LOCAL_TINY = {
+    'EXACT_QUERIES': 'residual',
+    'RPN': {'NUM_POINTS': 2048, 'BLOCK_LOCAL': True, 'BLOCK_WINDOW': 256, 'BLOCK_C': 64,
+            'SA_CONFIG': {'NPOINTS': (512, 128, 32, 8)}},
+    'RCNN': {'BLOCK_LOCAL': True, 'NUM_POINTS': 128, 'BLOCK_WINDOW': 64, 'BLOCK_C': 8},
+}
+
 IMG_H, IMG_W = 32, 64
 
 
 def synthetic_batch(rng, cfg, batch=2, with_gt=True, structured=False):
     """Random scene at ``tiny_config`` sizes: points in front of a camera,
     three gt cars, per-point cls/reg labels. ``structured=True`` puts
-    points on the gt car surfaces (``structured_scene``)."""
+    points on the gt car surfaces (``structured_scene``). Under
+    ``RPN.BLOCK_LOCAL`` the points and their labels are Morton-sorted."""
     N = cfg.RPN.NUM_POINTS
     G = 3
     if structured:
@@ -211,12 +226,20 @@ def synthetic_batch(rng, cfg, batch=2, with_gt=True, structured=False):
         reg[..., 1] -= reg[..., 3] / 2
         reg[..., 0:3] -= pts
         out['rpn_reg_label'] = reg.astype(np.float32)
+    if cfg.RPN.BLOCK_LOCAL:
+        # the loader's Morton sort (data/kitti_rcnn_dataset._maybe_morton_sort)
+        for b in range(batch):
+            perm = morton_argsort_np(out['pts_input'][b, :, :3])
+            for k in ('pts_input', 'pts_origin_xy', 'rpn_cls_label', 'rpn_reg_label'):
+                if k in out:
+                    out[k][b] = out[k][b][perm]
     return out
 
 
 def full_batch(cfg, batch_size=1, seed=0, with_labels=False):
     """Structured KITTI-like scenes at the recipe's full shapes (16384
-    points, a 384x1280 image, 8 cars). ``with_labels=True`` adds the train
+    points, a 384x1280 image, 8 cars), Morton-sorted under
+    ``RPN.BLOCK_LOCAL`` or ``RPN.FP_WINDOW > 0``. ``with_labels=True`` adds the train
     tensors: gt boxes zero-padded to a 20-box budget, per-point cls labels
     (1 inside a gt, -1 in the 0.2 m ring around it, 0 elsewhere) and reg
     labels (offsets to the gt's vertical center, and its size and angle)."""
@@ -225,6 +248,9 @@ def full_batch(cfg, batch_size=1, seed=0, with_labels=False):
     pts, xy, gts = [], [], []
     for _ in range(batch_size):
         p, u, g = structured_scene(rng, N, n_cars=8, img_hw=(384, 1280))
+        if cfg.RPN.BLOCK_LOCAL or cfg.RPN.FP_WINDOW > 0:  # the loader's Morton sort
+            perm = morton_argsort_np(p[:, :3])
+            p, u = p[perm], u[perm]
         pts.append(p)
         xy.append(u)
         gts.append(g)

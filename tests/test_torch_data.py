@@ -217,6 +217,3 @@ def test_unported_paths_raise(trees):
         TDataset(trees['torch'], cfg, npoints=256, split='val', mode='TRAIN')
     with pytest.raises(NotImplementedError, match='LiDAR-only'):
         TDataset(trees['torch'], tiny_config(li_fusion=False), npoints=256, split='val')
-    with pytest.raises(NotImplementedError, match='Morton'):
-        TDataset(trees['torch'], tiny_config(RPN={'BLOCK_LOCAL': True}), npoints=256,
-                 split='val')
