@@ -82,17 +82,38 @@ first use), then:
    FPS, 1 B, 1 G and 4 F launches a batch;
 16. repeats phases 4 and 7 (tiny widths, card against CPU, one forward and
    one train step) in the block-local configuration at the test widths of
-   ``utils/testing.BLOCK_LOCAL_TINY``.
+   ``utils/testing.BLOCK_LOCAL_TINY``;
+17. holds the bf16 instances against their plain versions: B-bf16 at the
+   RCNN sa0/sa1 shapes (T = 100, a batch-1 forward, timed; T = 400, the
+   tables of a batch-4 CLI batch, checked only), G-bf16 on phase 13's real
+   windows and
+   edge cases (T = 100), F-bf16 at the eight tower shapes and five edge
+   shapes; each within one bf16 unit in the last place of max|out|, two
+   launches bitwise equal; times kernel, plain version and (for F)
+   ``F.conv2d`` in bf16 on the padded input in turns;
+18. drives the bf16 TEST forward (the recipe with ``MIXED_PRECISION``) at
+   full width in turns with the f32 forward on the same weights: three
+   batch-1 requests each on scenes 0/1/2 (6 FPS, 2 B-bf16 and 4 F-bf16
+   launches a bf16 forward, no f32 B or F), medians and peak memory; then
+   one bf16 forward of the block-local configuration (1 B-bf16, 1 G-bf16);
+19. holds the tiny bf16 model on the card against the CPU, at
+   ``utils/testing.MIXED_TINY`` and at the bf16 block-local
+   ``MIXED_BLOCK_LOCAL_TINY``: backbone and RPN outputs, then the RCNN fed
+   the same pooled input, within 4 bf16 units of (1 + max|x|);
+20. runs the eval CLI on phase 11's tree and checkpoint with ``--set
+   MIXED_PRECISION True``: the 8 result files, a finite AP dict, and 6
+   FPS, 2 B-bf16 and 4 F-bf16 launches a batch.
 
-Launch counts are read around each main-path phase (3, 6, 9, 11, 14 and
-15) with the counters set to 0 just before it; the kernels line sums them. The
-script leaves TF32 as PyTorch sets it and checks that building the model
-turns it off, as the f32 recipe needs.
+Launch counts are read around each main-path phase (3, 6, 9, 11, 14, 15,
+18 and 20) with the counters set to 0 just before it; the kernels line sums
+them. The script leaves TF32 as PyTorch sets it and checks that building
+the model turns it off, as the f32 recipe needs.
 
 Every kernel's ``bound_ms`` is the least time the card could take for its
-work at these shapes: the larger of its operations at the f32 peak and its
-bytes (each input read once, each output written once) at the memory rate
-(NVIDIA H100 SXM data sheet, below); for D and E the operations of the
+work at these shapes: the larger of its operations at the f32 peak (for
+the bf16 instances, their products at the bf16 tensor-core peak, the rest
+at the f32 peak) and its bytes (each input read once, each output written
+once) at the memory rate (NVIDIA H100 SXM data sheet, below); for D and E the operations of the
 cheapest exact algorithm counted (``_dw_bound_ops``), and for F the same
 count (its four stride-2 phases are the same correlations of x, now with
 the weights); for B, C, G and H each ball's distinct rows
@@ -163,12 +184,26 @@ LIBRARY_RTOL = 1e-3
 # printed beside it as the floor
 ROUTE_RTOL = 1e-3
 F32_PEAK = 67e12     # FLOP/s, f32 outside the tensor cores
+BF16_PEAK = 989e12   # FLOP/s, bf16 products on the tensor cores (dense)
 MEMORY_RATE = 3.35e12  # bytes/s of HBM
+# the bf16 instances against their plain versions: both sum in f32, in
+# different orders, then round to bf16 once, so they may differ by one bf16
+# unit in the last place at the largest output
+BF16_ULPS = 1.0
 
 
-def _bound(ops, nbytes):
-    """(ms, ms) the operations and the bytes need at the card's peaks."""
-    return ops / F32_PEAK * 1e3, nbytes / MEMORY_RATE * 1e3
+def _bound(ops, nbytes, products=0.0):
+    """(ms, ms) the operations and the bytes need at the card's peaks:
+    ``ops`` at the f32 peak, ``products`` (bf16 multiply-adds' operations)
+    at the bf16 tensor-core peak, on their own units, so the larger of the
+    two."""
+    return (max(ops / F32_PEAK, products / BF16_PEAK) * 1e3,
+            nbytes / MEMORY_RATE * 1e3)
+
+
+def _bf16_ulp(v):
+    """One bf16 unit in the last place at magnitude ``v`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7)
 
 
 def _dw_bound_ops(C, Fo, pixels, stride):
@@ -197,14 +232,22 @@ def _distinct_rows(idx):
     return idx, first
 
 
-def _sa_fwd_bound(idx, N, C1, C2, C3):
+def _sa_fwd_bound(idx, N, C1, C2, C3, bf16=False):
     """(ms, ms) of the fused-SA forward over the table rows ``idx``: the
     two products, layer 1's subtract and ReLU, the biases and ReLUs of
-    layers 2 and 3 and the max, over each ball's distinct rows."""
+    layers 2 and 3 and the max, over each ball's distinct rows. ``bf16``:
+    the products at the bf16 tensor-core peak, the elementwise work at the
+    f32 peak, and y, o, the weights and the output in 2 bytes (the biases
+    in 4)."""
     T, M, S = idx.shape
     rows = int(_distinct_rows(idx)[1].sum())
+    products = 2.0 * rows * (C1 * C2 + C2 * C3)
+    elementwise = rows * (2 * C1 + 2 * C2 + 3 * C3)
+    if bf16:
+        return _bound(elementwise, 2 * (T * N * C1 + T * M * C1 + C1 * C2 + C2 * C3 + T * M * C3)
+                      + 4 * (C2 + C3) + 8 * T * M * S, products)
     weights = C1 * C2 + C2 + C2 * C3 + C3
-    return _bound(2.0 * rows * (C1 * C2 + C2 * C3) + rows * (2 * C1 + 2 * C2 + 3 * C3),
+    return _bound(products + elementwise,
                   4 * (T * N * C1 + T * M * C1 + weights + T * M * C3) + 8 * T * M * S)
 
 
@@ -639,20 +682,15 @@ def phase_slice(dev):
     return launches
 
 
-def phase_small_reference(dev, over=None):
-    """The tiny-width model with identical weights: card (kernels) vs CPU
-    (plain versions); ``over``: the config's overrides (default the exact
-    queries). Under RPN.BLOCK_LOCAL the scenes are Morton-sorted."""
+def _tiny_batch(cfg):
+    """Two structured scenes at tiny widths (Morton-sorted under
+    RPN.BLOCK_LOCAL, as the loader sorts them) with random images, on the
+    CPU."""
     import numpy as np
     import torch
-    from epnet_tpu_torch.models.epnet import EPNet
     from epnet_tpu_torch.ops.morton import morton_argsort_np
-    from epnet_tpu_torch.utils.testing import structured_scene, tiny_config
+    from epnet_tpu_torch.utils.testing import structured_scene
 
-    cfg = tiny_config(**(over or {'EXACT_QUERIES': True}))
-    cpu = EPNet(cfg, 'TEST', device='cpu', generator=torch.Generator().manual_seed(1)).eval()
-    card = EPNet(cfg, 'TEST', device=dev).eval()
-    card.load_state_dict(cpu.state_dict())
     rng = np.random.RandomState(3)
     pts, xy, _ = zip(*[structured_scene(rng, cfg.RPN.NUM_POINTS, n_cars=3, img_hw=(32, 64),
                                         z_range=(1.5, 25.0), car_z_range=(5.0, 16.0))
@@ -660,9 +698,24 @@ def phase_small_reference(dev, over=None):
     if cfg.RPN.BLOCK_LOCAL:
         perms = [morton_argsort_np(p) for p in pts]
         pts, xy = [p[i] for p, i in zip(pts, perms)], [u[i] for u, i in zip(xy, perms)]
-    batch = {'pts_input': torch.from_numpy(np.stack(pts)),
-             'img': torch.from_numpy(rng.rand(2, 32, 64, 3).astype(np.float32)),
-             'pts_origin_xy': torch.from_numpy(np.stack(xy))}
+    return {'pts_input': torch.from_numpy(np.stack(pts)),
+            'img': torch.from_numpy(rng.rand(2, 32, 64, 3).astype(np.float32)),
+            'pts_origin_xy': torch.from_numpy(np.stack(xy))}
+
+
+def phase_small_reference(dev, over=None):
+    """The tiny-width model with identical weights: card (kernels) vs CPU
+    (plain versions); ``over``: the config's overrides (default the exact
+    queries). Under RPN.BLOCK_LOCAL the scenes are Morton-sorted."""
+    import torch
+    from epnet_tpu_torch.models.epnet import EPNet
+    from epnet_tpu_torch.utils.testing import tiny_config
+
+    cfg = tiny_config(**(over or {'EXACT_QUERIES': True}))
+    cpu = EPNet(cfg, 'TEST', device='cpu', generator=torch.Generator().manual_seed(1)).eval()
+    card = EPNet(cfg, 'TEST', device=dev).eval()
+    card.load_state_dict(cpu.state_dict())
+    batch = _tiny_batch(cfg)
     want = cpu(batch)
     got = card({k: v.to(dev) for k, v in batch.items()})
     worst = 0.0
@@ -1000,6 +1053,163 @@ def _library_fwd_call(x, w):
     return lambda: F.conv2d(xp, w_oihw, None, 2)
 
 
+def phase_bf16_kernels(dev):
+    """The bf16 instances against their plain versions: B-bf16 at the RCNN
+    sa0/sa1 shapes (T = 100, a batch-1 forward, and T = 400, a batch-4 CLI
+    batch), G-bf16 on phase 13's real windows (T = 100)
+    and edge cases, F-bf16 at the eight tower shapes and the five edge
+    shapes; each within BF16_ULPS bf16 units of max|out|, two launches
+    bitwise equal. Kernel, plain version and (for F) ``F.conv2d`` in bf16
+    on the padded input timed in turns."""
+    import numpy as np
+    import torch
+    from epnet_tpu_torch.ops import conv2d, sa_fused
+
+    bf = torch.bfloat16
+    rng = np.random.RandomState(17)
+    res = {}
+
+    def check(name, kernel, plain, args):
+        got, again, want = kernel(*args), kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        if got.dtype != bf or want.dtype != bf:
+            raise AssertionError(f'{name}: outputs {got.dtype} / {want.dtype}, expected bf16')
+        scale = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        exact = float((got == want).float().mean())
+        if not err <= BF16_ULPS * _bf16_ulp(scale) or not torch.equal(got, again):
+            raise AssertionError(f'{name}: off by {err:.3e} at max|out| {scale:.3e} (one bf16 '
+                                 f'ulp {_bf16_ulp(scale):.3e}), or two launches differ')
+        return err, scale, exact
+
+    def timed(fns):
+        row = dict.fromkeys(fns, 0.0)
+        keys = list(fns)
+        for key in keys + keys[::-1]:
+            fn, reps = fns[key]
+            row[key] += _time_ms(fn, reps) / 2
+        return row
+
+    def sa_args(T, N, M, C1, C2, C3, r=rng):
+        def f(*shape, scale=1.0, dtype=bf):
+            return torch.from_numpy((r.randn(*shape) * scale).astype(np.float32)).to(dev, dtype)
+        return (f(T, N, C1), f(T, M, C1, scale=0.1)), (
+            f(C1, C2, scale=C1 ** -0.5), f(C2, scale=0.01, dtype=torch.float32),
+            f(C2, C3, scale=C2 ** -0.5), f(C3, scale=0.01, dtype=torch.float32))
+
+    def b_args(T, N, M, S, C1, C2, C3, r=rng):
+        (y, o), w = sa_args(T, N, M, C1, C2, C3, r)
+        idx = torch.from_numpy(r.randint(0, N, (T, M, S))).to(dev)
+        idx[:, :M // 4, S // 2:] = idx[:, :M // 4, :1]  # short balls padded with the first hit
+        return y, o, idx, w
+
+    # B-bf16
+    rows, max_err, op_ms, byte_ms = [], 0.0, [], []
+    total = {'ms': 0.0, 'plain_ms': 0.0}
+    cli_rng = np.random.RandomState(23)
+    for name, (T, N, M, S, C1, C2, C3) in SA_SHAPES.items():
+        # the CLI's tables (batch 4 x RPN_POST_NMS_TOP_N): checked, not timed
+        y, o, idx, w = b_args(4 * T, N, M, S, C1, C2, C3, cli_rng)
+        err, scale, exact = check(f'B-bf16 {name} T={4 * T}',
+                                  sa_fused.fused_point_mlp_max_bf16_kernel,
+                                  sa_fused.fused_point_mlp_max_plain, (y, o, idx, *w))
+        max_err = max(max_err, err)
+        print(f'B-bf16 {name} T={4 * T}: max abs err {err:.3e} (max|out| {scale:.3e}), '
+              f'{exact:.4f} of outputs bit-identical', flush=True)
+        del y, o, idx, w
+        y, o, idx, w = b_args(T, N, M, S, C1, C2, C3)
+        om, bm = _sa_fwd_bound(idx, N, C1, C2, C3, bf16=True)
+        op_ms.append(om)
+        byte_ms.append(bm)
+        args = (y, o, idx, *w)
+        err, scale, exact = check(f'B-bf16 {name}', sa_fused.fused_point_mlp_max_bf16_kernel,
+                                  sa_fused.fused_point_mlp_max_plain, args)
+        max_err = max(max_err, err)
+        row = timed({'ms': (lambda: sa_fused.fused_point_mlp_max_bf16_kernel(*args), 20),
+                     'plain_ms': (lambda: sa_fused.fused_point_mlp_max_plain(*args), 10)})
+        for k in total:
+            total[k] += row[k]
+        rows.append({'stage': name, 'shape': [T, N, M, S, C1, C2, C3], **row,
+                     'bound_ms': max(om, bm), 'max_abs_err': err, 'bit_identical': exact})
+        print(f'B-bf16 {name} {(T, N, M, S, C1, C2, C3)}: max abs err {err:.3e} (max|out| '
+              f'{scale:.3e}), {exact:.4f} of outputs bit-identical; kernel {row["ms"]:.4f} ms, '
+              f'plain {row["plain_ms"]:.4f} ms, bound {max(om, bm):.4f} ms', flush=True)
+    res['B'] = {'max_abs_err': max_err, **total, **_bound_keys(op_ms, byte_ms),
+                'library_ms': None, 'per_shape': rows}
+
+    # G-bf16
+    W, tiles, _ = _sa_win_geometry()
+    T, N, M, S, C1, C2, C3 = (100,) + SA_SHAPES['rcnn.sa0'][1:]
+    (y, o), w = sa_args(T, N, M, C1, C2, C3)
+    max_err, real = 0.0, None
+    for edge in (False, True):
+        idx_rel, starts = _window_inputs(T, T + edge, dev, edge)
+        args = (y, o, idx_rel, starts, *w, W)
+        real = real or args
+        err, scale, exact = check(f'G-bf16{" edge" if edge else ""}',
+                                  sa_fused.fused_point_mlp_max_win_bf16_kernel,
+                                  sa_fused.fused_point_mlp_max_win_plain, args)
+        max_err = max(max_err, err)
+        print(f'G-bf16 T={T}{" edge cases" if edge else " real windows"}: max abs err {err:.3e} '
+              f'(max|out| {scale:.3e}), {exact:.4f} of outputs bit-identical', flush=True)
+    args = real
+    grows = sa_fused.window_rows(args[2], args[3])
+    om, bm = _sa_fwd_bound(grows, N, C1, C2, C3, bf16=True)
+    bm += _bound(0, 8 * args[3].numel())[1]  # the window starts
+    row = timed({'ms': (lambda: sa_fused.fused_point_mlp_max_win_bf16_kernel(*args), 20),
+                 'plain_ms': (lambda: sa_fused.fused_point_mlp_max_win_plain(*args), 10),
+                 'table_kernel_ms': (lambda: sa_fused.fused_point_mlp_max_bf16_kernel(
+                     y, o, grows, *w), 20)})
+    print(f'  G-bf16 {row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, B-bf16 on the global '
+          f'rows {row["table_kernel_ms"]:.4f} ms, bound {max(om, bm):.4f} ms', flush=True)
+    res['G'] = {'max_abs_err': max_err, 'ms': row['ms'], 'plain_ms': row['plain_ms'],
+                **_bound_keys([om], [bm]), 'library_ms': None,
+                'per_shape': [{'stage': 'rcnn.sa0', 'shape': [T, N, M, S, C1, C2, C3],
+                               'window': W, 'tiles': tiles, **row}]}
+
+    # F-bf16
+    gen = torch.Generator(device=dev).manual_seed(19)
+
+    def conv_inputs(B, H, Wd, C, Fo):
+        x = torch.randn(B, H, Wd, C, device=dev, generator=gen).to(bf)
+        return x, (torch.randn(3, 3, C, Fo, device=dev, generator=gen) / (3 * C ** 0.5)).to(bf)
+
+    kernel, plain = conv2d.conv3x3_s2_fwd_bf16_kernel, conv2d.conv3x3_s2_fwd_plain
+    worst = 0.0
+    for shape in FWD_EDGE_SHAPES:
+        err, scale, _ = check(f'F-bf16 edge {shape}', kernel, plain, conv_inputs(*shape))
+        worst = max(worst, err / _bf16_ulp(scale))
+    print(f'F-bf16 at {len(FWD_EDGE_SHAPES)} edge shapes: within {worst:.2f} bf16 ulp of '
+          f'max|y|, bitwise reproducible', flush=True)
+    rows, max_err, op_ms, byte_ms = [], 0.0, [], []
+    total = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0}
+    for name, (B, H, Wd, C, Fo) in FWD_SHAPES.items():
+        x, wt = conv_inputs(B, H, Wd, C, Fo)
+        pixels = B * (H // 2) * (Wd // 2)
+        om, bm = _bound(0, 2 * (B * H * Wd * C + 9 * C * Fo + pixels * Fo),
+                        _dw_bound_ops(C, Fo, pixels, 2))
+        op_ms.append(om)
+        byte_ms.append(bm)
+        err, scale, exact = check(f'F-bf16 {name}', kernel, plain, (x, wt))
+        library = _library_fwd_call(x, wt)
+        lib_err = float((library().permute(0, 2, 3, 1).float() - plain(x, wt).float()).abs().max())
+        max_err = max(max_err, err)
+        row = timed({'ms': (lambda: kernel(x, wt), 10), 'plain_ms': (lambda: plain(x, wt), 3),
+                     'library_ms': (library, 10)})
+        for k in total:
+            total[k] += row[k]
+        rows.append({'shape': name, 'dims': [B, H, Wd, C, Fo], **row, 'bound_ms': max(om, bm),
+                     'max_abs_err': err, 'bit_identical': exact})
+        print(f'F-bf16 {name} x {(B, H, Wd, C)} -> F {Fo}: max abs err {err:.3e} (max|y| '
+              f'{scale:.3e}), {exact:.4f} bit-identical, F.conv2d bf16 {lib_err:.3e}; kernel '
+              f'{row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, F.conv2d '
+              f'{row["library_ms"]:.4f} ms, bound {max(om, bm):.4f} ms', flush=True)
+        del x, wt, library
+    res['F'] = {'max_abs_err': max_err, **total, **_bound_keys(op_ms, byte_ms),
+                'per_shape': rows}
+    return res
+
+
 def phase_conv_fwd(dev):
     """Kernel F against its plain version at the tower's stride-2 shapes of
     a batch-1 forward and a batch-4 batch and at edge shapes; kernel, plain
@@ -1181,20 +1391,41 @@ def _save_weights(cfg, dev, path_dir, seed):
     return save_checkpoint(path_dir, state, epoch=0)
 
 
-def phase_cli(dev, block_local=False):
-    """The eval CLI on the card at the recipe's full width; with
-    ``block_local``, on the same tree and checkpoint (saved in the exact
-    configuration) with the block-local configuration's ``--set``."""
+FWD_KERNELS = ('fps', 'sa_fused_fwd', 'sa_fused_win_fwd', 'conv3x3_s2_fwd', 'sa_fused_fwd_bf16',
+               'sa_fused_win_fwd_bf16', 'conv3x3_s2_fwd_bf16')  # a forward's, by name
+
+
+def _fwd_counters():
+    from epnet_tpu_torch.ops import conv2d, fps, sa_fused
+    return (fps.furthest_point_sample_kernel, sa_fused.fused_point_mlp_max_kernel,
+            sa_fused.fused_point_mlp_max_win_kernel, conv2d.conv3x3_s2_fwd_kernel,
+            sa_fused.fused_point_mlp_max_bf16_kernel, sa_fused.fused_point_mlp_max_win_bf16_kernel,
+            conv2d.conv3x3_s2_fwd_bf16_kernel)
+
+
+def _fwd_launches(delta):
+    return ' '.join(f'{n} +{d}' for n, d in zip(FWD_KERNELS, delta) if d)
+
+
+# the launches of one CLI batch (batch 4) or one forward, by configuration
+FWD_WANT = {'exact': [6, 2, 0, 4, 0, 0, 0], 'block-local': [6, 1, 1, 4, 0, 0, 0],
+            'bf16': [6, 0, 0, 0, 2, 0, 4], 'bf16 block-local': [6, 0, 0, 0, 1, 1, 4]}
+MIXED_SET = ('MIXED_PRECISION', 'True')
+
+
+def phase_cli(dev, mode='exact'):
+    """The eval CLI on the card at the recipe's full width; in the
+    'block-local' and 'bf16' modes on the same tree and checkpoint (saved
+    in the exact configuration) with that configuration's ``--set``."""
     import shutil
 
     import numpy as np
     from epnet_tpu_torch.config import BLOCK_LOCAL_SET, load_config
-    from epnet_tpu_torch.ops import conv2d, fps, sa_fused
     from epnet_tpu_torch.tools import eval as cli
     from epnet_tpu_torch.utils.testing import make_fake_kitti
 
     root = os.path.join(OUT, 'kitti')
-    if block_local:
+    if mode != 'exact':
         ckpt = os.path.join(OUT, 'ckpt', 'checkpoint_epoch_0.pth')
     else:
         shutil.rmtree(OUT, ignore_errors=True)
@@ -1204,18 +1435,18 @@ def phase_cli(dev, block_local=False):
               f'{time.perf_counter() - t0:.2f} s', flush=True)
         _png_times(root)
         ckpt = _save_weights(load_config(RECIPE), dev, os.path.join(OUT, 'ckpt'), seed=0)
-    counters = (fps.furthest_point_sample_kernel, sa_fused.fused_point_mlp_max_kernel,
-                sa_fused.fused_point_mlp_max_win_kernel, conv2d.conv3x3_s2_fwd_kernel)
+    sets = {'exact': (), 'block-local': BLOCK_LOCAL_SET, 'bf16': MIXED_SET}[mode]
+    counters = _fwd_counters()
     for c in counters:
         c.launches = 0
     record = []
-    out_dir = os.path.join(OUT, 'eval_block_local' if block_local else 'eval')
+    out_dir = os.path.join(OUT, 'eval' if mode == 'exact' else f'eval_{mode}')
     t0 = time.perf_counter()
     with timed_cli_loader(counters, record):
         ret = cli.main(['--cfg_file', RECIPE, '--data_root', root, '--ckpt', ckpt,
                         '--batch_size', str(CLI_BATCH), '--workers', '4',
                         '--output_dir', out_dir, '--device', str(dev)]
-                       + (['--set', *BLOCK_LOCAL_SET] if block_local else []))
+                       + (['--set', *sets] if sets else []))
     wall = time.perf_counter() - t0
     timed = record[0]
     final_dir = os.path.join(out_dir, 'epoch_0', 'final_result', 'data')
@@ -1229,22 +1460,144 @@ def phase_cli(dev, block_local=False):
     # snapshot k is taken as batch k is handed out, the last one after the
     # last batch was processed: batch k's launches lie between k and k + 1
     per_batch = np.diff(snaps, axis=0).tolist()
-    want = [6, 1, 1, 4] if block_local else [6, 2, 0, 4]
-    if timed.scans != CLI_SCENES or per_batch != [want] * (CLI_SCENES // CLI_BATCH):
+    if timed.scans != CLI_SCENES or per_batch != [FWD_WANT[mode]] * (CLI_SCENES // CLI_BATCH):
         raise AssertionError(f'CLI: {timed.scans} scans, launches a batch {per_batch}, '
-                             f'expected {want}')
+                             f'expected {FWD_WANT[mode]}')
     loop = timed.times[-1] - timed.t0
     dets = [len(v[0]) for v in _parse_results(final_dir).values()]
     steps = ', '.join(f'{(b - a) * 1e3:.1f}' for a, b in zip(timed.times, timed.times[1:]))
-    print(f'eval CLI, recipe{" --set " + " ".join(BLOCK_LOCAL_SET) if block_local else ""} at '
+    print(f'eval CLI, recipe{" --set " + " ".join(sets) if sets else ""} at '
           f'full width, batch {CLI_BATCH}: {timed.scans} scans in '
           f'{loop:.3f} s of loop (loader included) = {timed.scans / loop:.3f} scans/s; first '
           f'batch handed out after {(timed.times[0] - timed.t0) * 1e3:.1f} ms (workers start), '
           f'then each batch processed and the next received in {steps} ms; main() '
           f'{wall:.3f} s; detections a scan {dets}; launches a batch '
-          f'fps/sa_fused/sa_fused_win/conv3x3_s2_fwd {per_batch[0]}; rcnn_recall(0.5) '
+          f'{_fwd_launches(per_batch[0])}; rcnn_recall(0.5) '
           f'{ret["rcnn_recall(thresh=0.50)"]:.4f}, Car 3d AP {ap["3d"]}', flush=True)
-    return [int(v) for v in snaps[-1]]
+    return dict(zip(FWD_KERNELS, (int(v) for v in snaps[-1])))
+
+
+def phase_bf16_slice(dev):
+    """The bf16 TEST forward (the recipe with ``MIXED_PRECISION``) at full
+    width, in turns with the f32 forward on the same weights: three batch-1
+    requests each on scenes 0/1/2 (6 FPS, 2 B-bf16 and 4 F-bf16 launches a
+    bf16 forward, no f32 B or F), medians and peak memory; then one
+    batch-1 forward of the block-local configuration in bf16 (1 B-bf16, 1
+    G-bf16) on a Morton-sorted scene."""
+    import torch
+    from epnet_tpu_torch.config import block_local_config, parity_config
+    from epnet_tpu_torch.models.epnet import EPNet
+    from epnet_tpu_torch.train.trainer import device_batch
+    from epnet_tpu_torch.utils.testing import full_batch
+
+    cfgs = {'bf16': parity_config().with_overrides([MIXED_SET]), 'exact': parity_config()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    models = {'exact': EPNet(cfgs['exact'], 'TEST', device=dev, generator=gen).eval()}
+    models['bf16'] = EPNet(cfgs['bf16'], 'TEST', device=dev).eval()
+    models['bf16'].load_state_dict(models['exact'].state_dict())
+    if torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
+        raise AssertionError('the bf16 EPNet left bf16 split-K reductions in bf16')
+    requests = [_request(seed, cfgs['exact'], dev) for seed in (0, 1, 2)]
+    for m in models.values():  # warm-up
+        m(requests[0])
+    torch.cuda.synchronize()
+    counters = _fwd_counters()
+    for c in counters:
+        c.launches = 0
+    times = {k: [] for k in models}
+    peaks = dict.fromkeys(models, 0.0)
+    R = cfgs['exact'].TEST.RPN_POST_NMS_TOP_N
+    for i, batch in enumerate(requests):
+        outs = {}
+        for name in (('bf16', 'exact') if i % 2 == 0 else ('exact', 'bf16')):
+            before = [c.launches for c in counters]
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = models[name](batch)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+            delta = [c.launches - b for c, b in zip(counters, before)]
+            bad = [k for k, v in out.items()
+                   if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+            if (tuple(out['rcnn_cls'].shape) != (R, 1) or bad or out['rcnn_cls'].dtype !=
+                    torch.float32 or delta != FWD_WANT[name]):
+                raise AssertionError(f'{name} forward on scene {i}: rcnn_cls '
+                                     f'{tuple(out["rcnn_cls"].shape)} {out["rcnn_cls"].dtype}, '
+                                     f'non-finite {bad}, launches {delta}, expected '
+                                     f'{FWD_WANT[name]}')
+            outs[name] = out
+            print(f'{name} forward scene {i}: {times[name][-1]:.2f} ms, rois '
+                  f'{int(out["roi_counts"][0])}, launches {_fwd_launches(delta)}', flush=True)
+        gaps = {k: float((outs['bf16'][k] - outs['exact'][k]).abs().max()) /
+                float(outs['exact'][k].abs().max()) for k in ('backbone_features', 'rpn_cls')}
+        print(f'  bf16 vs f32 on scene {i}: ' + ', '.join(f'{k} {v:.3e} of max|x|'
+                                                          for k, v in gaps.items()), flush=True)
+    for name in models:
+        print(f'{name} forward, batch 1, in turns: median {statistics.median(times[name]):.2f} '
+              f'ms over {len(times[name])} scenes; peak memory {peaks[name]:.2f} GiB', flush=True)
+    del models
+    total = collections.Counter(dict(zip(FWD_KERNELS, (c.launches for c in counters))))
+
+    cfg = block_local_config(cfgs['bf16'])
+    model = EPNet(cfg, 'TEST', device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    batch = device_batch(full_batch(cfg, 1, seed=0), dev)
+    model.eval()(batch)  # warm-up
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = model(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    delta = [c.launches for c in counters]
+    bad = [k for k, v in out.items() if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+    if bad or delta != FWD_WANT['bf16 block-local'] or tuple(out['rcnn_cls'].shape) != (R, 1):
+        raise AssertionError(f'bf16 block-local forward: non-finite {bad}, launches {delta}, '
+                             f'expected {FWD_WANT["bf16 block-local"]}')
+    print(f'bf16 block-local forward scene 0: {ms:.2f} ms, rois {int(out["roi_counts"][0])}, '
+          f'launches {_fwd_launches(delta)}', flush=True)
+    total.update(dict(zip(FWD_KERNELS, delta)))
+    return total
+
+
+def phase_small_bf16_reference(dev, over=None):
+    """The tiny-width bf16 model on the card (kernels) against the CPU
+    (plain versions) under identical weights; ``over``: the config's
+    overrides (default ``utils/testing.MIXED_TINY``). Backbone and RPN
+    outputs, then the RCNN fed the same pooled input (the CPU's RoIs,
+    pooled on the CPU), each within 4 bf16 units of (1 + max|x|): both
+    sides round to bf16 at the same places but sum in different orders."""
+    import torch
+    from epnet_tpu_torch.models.epnet import EPNet, pool_for_eval
+    from epnet_tpu_torch.utils.testing import MIXED_TINY, tiny_config
+
+    cfg = tiny_config(**(over or MIXED_TINY))
+    name = 'block-local' if cfg.RPN.BLOCK_LOCAL else 'exact-query'
+    cpu = EPNet(cfg, 'TEST', device='cpu', generator=torch.Generator().manual_seed(1)).eval()
+    card = EPNet(cfg, 'TEST', device=dev).eval()
+    card.load_state_dict(cpu.state_dict())
+    batch = _tiny_batch(cfg)
+    want = cpu(batch)
+    got = card({k: v.to(dev) for k, v in batch.items()})
+    with torch.no_grad():
+        xyz = want['backbone_xyz']
+        pooled = pool_for_eval(cfg, want['rois'], xyz, want['backbone_features'],
+                               want['seg_result'], torch.linalg.norm(xyz, dim=2))
+        want.update(cpu.rcnn(pooled))
+        got.update(card.rcnn(pooled.to(dev)))
+    worst = 0.0
+    for k in ('backbone_features', 'rpn_cls', 'rpn_reg', 'rcnn_cls', 'rcnn_reg'):
+        err = float((got[k].cpu() - want[k]).abs().max())
+        bound = 4 * 2.0 ** -7 * (1.0 + float(want[k].abs().max()))
+        worst = max(worst, err / bound)
+        if not err <= bound:
+            raise AssertionError(f'tiny {name} bf16 model on the card vs CPU: {k} off by '
+                                 f'{err:.3e}')
+    same_rois = bool(torch.equal(got['rois'].cpu(), want['rois']))
+    print(f'tiny {name} bf16 model, card vs CPU plain path: agree (worst {worst:.3f} of the bound '
+          f'4 * 2^-7 * (1 + max|x|)); RoIs {"identical" if same_rois else "differ"}', flush=True)
 
 
 BL_KERNELS = ('fps', 'sa_fused_fwd', 'sa_fused_win_fwd', 'sa_fused_bwd', 'sa_fused_win_bwd',
@@ -1411,7 +1764,7 @@ def main():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU')
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from epnet_tpu_torch.ops import cuda_build
-    from epnet_tpu_torch.utils.testing import BLOCK_LOCAL_TINY
+    from epnet_tpu_torch.utils.testing import BLOCK_LOCAL_TINY, MIXED_BLOCK_LOCAL_TINY
 
     print(f'torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32 as PyTorch sets '
           f'it: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn '
@@ -1446,14 +1799,18 @@ def main():
     dw_res = phase_conv_dw(dev)
     launches.update(dict(zip(TRAIN_NAMES, phase_train_dw(dev))))
     fwd_res = phase_conv_fwd(dev)
-    cli_names = ('fps', 'sa_fused_fwd', 'sa_fused_win_fwd', 'conv3x3_s2_fwd')
-    launches.update(dict(zip(cli_names, phase_cli(dev))))
+    launches.update(phase_cli(dev))
     phase_small_cli(dev)
     win_res = phase_sa_win(dev)
     launches.update(phase_block_local(dev))
-    launches.update(dict(zip(cli_names, phase_cli(dev, block_local=True))))
+    launches.update(phase_cli(dev, 'block-local'))
     phase_small_reference(dev, BLOCK_LOCAL_TINY)
     phase_small_train_reference(dev, BLOCK_LOCAL_TINY)
+    bf16_res = phase_bf16_kernels(dev)
+    launches.update(phase_bf16_slice(dev))
+    phase_small_bf16_reference(dev)
+    phase_small_bf16_reference(dev, MIXED_BLOCK_LOCAL_TINY)
+    launches.update(phase_cli(dev, 'bf16'))
 
     kernels = [
         {'name': 'fps', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/fps.cu',
@@ -1479,6 +1836,16 @@ def main():
         {'name': 'sa_fused_win_bwd', 'route': 'cuda',
          'source': 'epnet_tpu_torch/csrc/sa_fused_bwd.cu',
          'replaces': 'epnet_tpu/ops/sa_fused.py:424', **win_res['H']},
+        {'name': 'sa_fused_fwd_bf16', 'route': 'cuda',
+         'source': 'epnet_tpu_torch/csrc/sa_fused.cu',
+         'replaces': 'epnet_tpu/ops/sa_fused.py:83, tools/profile_fused_onehot.py:49, '
+                     'tools/profile_fps_variants.py:118', **bf16_res['B']},
+        {'name': 'sa_fused_win_fwd_bf16', 'route': 'cuda',
+         'source': 'epnet_tpu_torch/csrc/sa_fused.cu',
+         'replaces': 'epnet_tpu/ops/sa_fused.py:334', **bf16_res['G']},
+        {'name': 'conv3x3_s2_fwd_bf16', 'route': 'cuda',
+         'source': 'epnet_tpu_torch/csrc/conv3x3_s2_fwd.cu',
+         'replaces': 'tools/conv_fwd_attic.py:43', **bf16_res['F']},
     ]
     for k in kernels:
         k['launches'] = launches[k['name']]

@@ -245,7 +245,8 @@ class Config:
     """Top-level config; defaults of reference ``lib/config.py:8-209``.
     ``MIXED_PRECISION`` (bf16 matmuls) and ``EXACT_QUERIES`` (True, False,
     'residual' or None for the backend's default) are the JAX package's
-    keys; the port runs MIXED_PRECISION false with exact queries only."""
+    keys; the port runs MIXED_PRECISION true only in TEST mode (the bf16
+    forward), and the exact and 'residual' query policies."""
 
     TAG: str = 'default'
     CLASSES: str = 'Car'

@@ -1,5 +1,5 @@
 // Forward of the image tower's 3x3 SAME stride-2 convolution on Hopper
-// (sm_90a), f32; plain C interface. Kernel F:
+// (sm_90a), in f32 and in bf16; plain C interface. Kernel F:
 //
 //   y[b, h, w, f] = sum_{d, e in 0..2, c} x[b, 2h + d, 2w + e, c] * K[d, e, c, f]
 //
@@ -11,6 +11,15 @@
 // (pallas_call at :154), which stacks the nine stride-2 phase views of a row
 // tile into one (tm * W/2, 9C) x (9C, F) MXU dot. The plain version is
 // epnet_tpu_torch/ops/conv2d.py::conv3x3_s2_fwd_plain.
+//
+// F-bf16 is the same kernel with x, K and y in bf16: the Pallas kernel takes
+// x.dtype in and out and accumulates in f32 (conv_fwd_attic.py:75-76, :167),
+// and the JAX package's MIXED_PRECISION tower runs its stride-2 convs in
+// bf16. Four bf16 values are loaded as 8 bytes and widened to f32 as they are
+// staged, the sum runs in f32 in F's fixed K order (each product of two bf16
+// values is exact in f32), and y is rounded to bf16 once, after the last step
+// or after the split reduction. Its bound is the bf16 tensor cores' (989
+// TFLOP/s), which this FFMA instance does not use.
 //
 // What bounds it on the H100: arithmetic. It is an implicit GEMM, M = B * H/2
 // * W/2 output pixels by N = F channels over K = 9C. Each of the tower's four
@@ -33,20 +42,44 @@
 // No atomics: y is bitwise reproducible. No TF32, no mma: tensor cores, TMA
 // and Winograd are later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
+// four consecutive values at p (16-byte aligned for f32, 8-byte for bf16)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
+  __nv_bfloat162 v[2] = {__floats2bfloat162_rn(a, b), __floats2bfloat162_rn(c, d)};
+  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(v);
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 constexpr int kThreads = 256;
 constexpr int kTM = 128;  // output pixels per block
 constexpr int kKc = 16;   // channels of one tap staged per step
 
-template <int TN>
+// T: the type of x and K; O: of the output (T, or f32 for a split's slice)
+template <int TN, typename T, typename O>
 __global__ void __launch_bounds__(kThreads, 2)
-conv3x3_s2_fwd_kernel(const float* __restrict__ x, const float* __restrict__ k,
-                      float* __restrict__ out, int h_in, int w_in, int c, int f, int m_total,
+conv3x3_s2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
+                      O* __restrict__ out, int h_in, int w_in, int c, int f, int m_total,
                       int m_tiles, int tiles, int splits, int c_chunks) {
   constexpr int kJ = TN / 64;                // float4 column groups of a thread: 2 or 1
   constexpr int kBCols = TN / 4;             // float4 groups in a B row
@@ -79,7 +112,7 @@ conv3x3_s2_fwd_kernel(const float* __restrict__ x, const float* __restrict__ k,
     ph = t % ho;
     pb = t / ho;
   }
-  const float* a_base = x + ((static_cast<size_t>(pb) * h_in + 2 * ph) * w_in + 2 * pw) * c;
+  const T* a_base = x + ((static_cast<size_t>(pb) * h_in + 2 * ph) * w_in + 2 * pw) * c;
   const bool row2_ok = 2 * ph + 2 < h_in;  // tap d = 2 of the last output row reads the pad
   const bool col2_ok = 2 * pw + 2 < w_in;
   // B loads: columns b_n .. b_n + 3 of K rows (tap, c0 + b_kk + kBRows * q)
@@ -96,19 +129,16 @@ conv3x3_s2_fwd_kernel(const float* __restrict__ x, const float* __restrict__ k,
     const int d = tap / 3;
     const int e = tap - 3 * d;
     const bool in = a_ok && (d < 2 || row2_ok) && (e < 2 || col2_ok);
-    const float* src = a_base + (static_cast<size_t>(d) * w_in + e) * c;
+    const T* src = a_base + (static_cast<size_t>(d) * w_in + e) * c;
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int ch = c0 + 4 * (a_g + 2 * q);
-      ra[q] = (in && ch < c) ? __ldg(reinterpret_cast<const float4*>(src + ch)) : zero;
+      ra[q] = (in && ch < c) ? load4(src + ch) : zero;
     }
 #pragma unroll
     for (int q = 0; q < kBLoads; ++q) {
       const int ch = c0 + b_kk + kBRows * q;
-      rb[q] = (b_ok && ch < c)
-                  ? __ldg(reinterpret_cast<const float4*>(
-                        k + (static_cast<size_t>(tap) * c + ch) * f + b_n))
-                  : zero;
+      rb[q] = (b_ok && ch < c) ? load4(k + (static_cast<size_t>(tap) * c + ch) * f + b_n) : zero;
     }
   };
   auto store = [&](int buf) {
@@ -164,7 +194,7 @@ conv3x3_s2_fwd_kernel(const float* __restrict__ x, const float* __restrict__ k,
     __syncthreads();
   }
 
-  float* dst = out + static_cast<size_t>(split) * m_total * f;
+  O* dst = out + static_cast<size_t>(split) * m_total * f;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int m = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
@@ -173,31 +203,71 @@ conv3x3_s2_fwd_kernel(const float* __restrict__ x, const float* __restrict__ k,
     for (int jg = 0; jg < kJ; ++jg) {
       const int n = n0 + 64 * jg + 4 * tx;
       if (n < f)
-        *reinterpret_cast<float4*>(dst + static_cast<size_t>(m) * f + n) =
-            make_float4(acc[i][4 * jg], acc[i][4 * jg + 1], acc[i][4 * jg + 2],
-                        acc[i][4 * jg + 3]);
+        store4(dst + static_cast<size_t>(m) * f + n, acc[i][4 * jg], acc[i][4 * jg + 1],
+               acc[i][4 * jg + 2], acc[i][4 * jg + 3]);
     }
   }
 }
 
-// y[e] = sum over splits s, in order, of part[s][e].
+// y[e] = sum over splits s, in order, of part[s][e] (f32), stored as T.
+template <typename T>
 __global__ void conv3x3_s2_fwd_reduce(const float* __restrict__ part, int splits,
-                                      long long size, float* __restrict__ y) {
+                                      long long size, T* __restrict__ y) {
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= size) return;
   float acc = 0.0f;
   for (int s = 0; s < splits; ++s) acc += part[static_cast<size_t>(s) * size + e];
-  y[e] = acc;
+  store1(y + e, acc);
 }
 
 inline int tile_n(int f) { return f <= 64 ? 64 : 128; }
 
-template <int TN>
-cudaError_t launch(const float* x, const float* k, float* out, int h, int w, int c, int f,
-                   int m_total, int m_tiles, int tiles, int splits, int c_chunks,
-                   cudaStream_t st) {
-  conv3x3_s2_fwd_kernel<TN><<<static_cast<unsigned>(tiles) * splits, kThreads, 0, st>>>(
+template <int TN, typename T, typename O>
+cudaError_t launch_tn(const T* x, const T* k, O* out, int h, int w, int c, int f, int m_total,
+                      int m_tiles, int tiles, int splits, int c_chunks, cudaStream_t st) {
+  conv3x3_s2_fwd_kernel<TN, T, O><<<static_cast<unsigned>(tiles) * splits, kThreads, 0, st>>>(
       x, k, out, h, w, c, f, m_total, m_tiles, tiles, splits, c_chunks);
+  return cudaGetLastError();
+}
+
+template <typename T, typename O>
+cudaError_t launch(const T* x, const T* k, O* out, int h, int w, int c, int f, int m_total,
+                   int m_tiles, int tiles, int splits, int c_chunks, cudaStream_t st) {
+  return tile_n(f) == 64
+             ? launch_tn<64>(x, k, out, h, w, c, f, m_total, m_tiles, tiles, splits, c_chunks, st)
+             : launch_tn<128>(x, k, out, h, w, c, f, m_total, m_tiles, tiles, splits, c_chunks,
+                              st);
+}
+
+// Both instances of the entry point: checks, the main kernel into y (one
+// split) or into the f32 slices of part, then the slices' reduction into y.
+template <typename T>
+int launch_all(const void* x, const void* k, void* part, void* y, int b, int h, int w, int c,
+               int f, int splits, void* stream) {
+  if (b < 1 || h < 2 || w < 2 || h % 2 || w % 2 || c <= 0 || f <= 0 || c % 4 || f % 4)
+    return cudaErrorInvalidValue;
+  const int c_chunks = (c + kKc - 1) / kKc;
+  if (splits < 1 || splits > 9 * c_chunks || (splits > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
+  const long long m = static_cast<long long>(b) * (h / 2) * (w / 2);
+  const long long tiles = ((m + kTM - 1) / kTM) * ((f + tile_n(f) - 1) / tile_n(f));
+  if (m > 0x7fffffffLL || tiles * splits > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int m_tiles = static_cast<int>((m + kTM - 1) / kTM);
+  const T* xt = static_cast<const T*>(x);
+  const T* kt = static_cast<const T*>(k);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int t = static_cast<int>(tiles);
+  const int mi = static_cast<int>(m);
+  if (splits == 1)
+    return launch(xt, kt, static_cast<T*>(y), h, w, c, f, mi, m_tiles, t, 1, c_chunks, st);
+  cudaError_t err = launch(xt, kt, static_cast<float*>(part), h, w, c, f, mi, m_tiles, t, splits,
+                           c_chunks, st);
+  if (err != cudaSuccess) return err;
+  const long long size = m * f;
+  const int threads = 256;
+  conv3x3_s2_fwd_reduce<T><<<static_cast<unsigned>((size + threads - 1) / threads), threads, 0,
+                             st>>>(static_cast<const float*>(part), splits, size,
+                                   static_cast<T*>(y));
   return cudaGetLastError();
 }
 
@@ -222,31 +292,13 @@ int epnet_conv3x3_s2_fwd_steps(int c) { return 9 * ((c + kKc - 1) / kKc); }
 // `stream`, allocates nothing, returns cudaGetLastError().
 int epnet_conv3x3_s2_fwd_launch(const void* x, const void* k, void* part, void* y, int b, int h,
                                 int w, int c, int f, int splits, void* stream) {
-  if (b < 1 || h < 2 || w < 2 || h % 2 || w % 2 || c <= 0 || f <= 0 || c % 4 || f % 4)
-    return cudaErrorInvalidValue;
-  const int c_chunks = (c + kKc - 1) / kKc;
-  if (splits < 1 || splits > 9 * c_chunks || (splits > 1 && part == nullptr))
-    return cudaErrorInvalidValue;
-  const long long m = static_cast<long long>(b) * (h / 2) * (w / 2);
-  const long long tiles = epnet_conv3x3_s2_fwd_tiles(b, h, w, f);
-  if (m > 0x7fffffffLL || tiles * splits > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const int m_tiles = static_cast<int>((m + kTM - 1) / kTM);
-  const float* xf = static_cast<const float*>(x);
-  const float* kf = static_cast<const float*>(k);
-  float* out = static_cast<float*>(splits > 1 ? part : y);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int t = static_cast<int>(tiles);
-  const int mi = static_cast<int>(m);
-  cudaError_t err =
-      tile_n(f) == 64 ? launch<64>(xf, kf, out, h, w, c, f, mi, m_tiles, t, splits, c_chunks, st)
-                      : launch<128>(xf, kf, out, h, w, c, f, mi, m_tiles, t, splits, c_chunks, st);
-  if (err != cudaSuccess || splits == 1) return err;
-  const long long size = m * f;
-  const int threads = 256;
-  conv3x3_s2_fwd_reduce<<<static_cast<unsigned>((size + threads - 1) / threads), threads, 0,
-                          st>>>(static_cast<const float*>(part), splits, size,
-                                static_cast<float*>(y));
-  return cudaGetLastError();
+  return launch_all<float>(x, k, part, y, b, h, w, c, f, splits, stream);
+}
+
+// F-bf16: as above with x, k and y bf16 (8-byte aligned); part stays f32.
+int epnet_conv3x3_s2_fwd_bf16_launch(const void* x, const void* k, void* part, void* y, int b,
+                                     int h, int w, int c, int f, int splits, void* stream) {
+  return launch_all<__nv_bfloat16>(x, k, part, y, b, h, w, c, f, splits, stream);
 }
 
 const char* epnet_error_string(int err) {

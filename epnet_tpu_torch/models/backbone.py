@@ -9,6 +9,9 @@ full resolution, and the deconv image pyramid fused into the final point
 features. Under ``RPN.BLOCK_LOCAL`` (with a query policy that admits it)
 the stages whose shapes allow group and interpolate inside block-local
 windows over the loader's Morton-sorted cloud (``backbone.py:58-127``).
+Under ``MIXED_PRECISION`` the SA, FP, image, fusion and head modules run
+in bf16 (``backbone.py:37,78-147``; the tower too: the port reads no
+``EPNET_IMG_F32``) and the features come out f32 (``:149``).
 """
 
 from __future__ import annotations
@@ -34,20 +37,22 @@ class PointBackbone(nn.Module):
         sa = cfg.RPN.SA_CONFIG
         li = cfg.LI_FUSION
         n_sa = len(sa.NPOINTS)
+        dt = torch.bfloat16 if cfg.MIXED_PRECISION else None
         level_ch = [in_channels - 3]
         self.block_local = cfg.RPN.BLOCK_LOCAL and block_local_allowed(cfg.EXACT_QUERIES)
         for i in range(n_sa):
             mod = SAModuleMSG(sa.NPOINTS[i], sa.RADIUS[i], sa.NSAMPLE[i], sa.MLPS[i],
                               in_features=level_ch[i], bn=cfg.RPN.USE_BN,
                               block_local=self.block_local, block_window=cfg.RPN.BLOCK_WINDOW,
-                              block_c=cfg.RPN.BLOCK_C, device=device)
+                              block_c=cfg.RPN.BLOCK_C, dtype=dt, device=device)
             self.add_module(f'sa{i}', mod)
             if li.ENABLED:
                 fusion = AttenFusionConv if li.ADD_Image_Attention else FusionConv
                 self.add_module(f'img_block{i}', ImageBlock(li.IMG_CHANNELS[i],
-                                                            li.IMG_CHANNELS[i + 1], device))
+                                                            li.IMG_CHANNELS[i + 1], dt, device))
                 self.add_module(f'fusion{i}', fusion(mod.out_features, li.IMG_CHANNELS[i + 1],
-                                                     li.POINT_CHANNELS[i], device=device))
+                                                     li.POINT_CHANNELS[i], dtype=dt,
+                                                     device=device))
                 level_ch.append(li.POINT_CHANNELS[i])
             else:
                 level_ch.append(mod.out_features)
@@ -58,15 +63,16 @@ class PointBackbone(nn.Module):
             # each 512 unknowns (backbone.py:113-118)
             self.add_module(f'fp{k}', FPModule(known_ch + level_ch[k], cfg.RPN.FP_MLPS[k],
                                                bn=cfg.RPN.USE_BN, block_local=self.block_local,
-                                               ublock=512, window=256, device=device))
+                                               ublock=512, window=256, dtype=dt,
+                                               device=device))
         self.out_features = cfg.RPN.FP_MLPS[0][-1]
         if li.ENABLED:
             self.deconv_fusion = DeconvFusionHead(
                 li.IMG_CHANNELS[1:n_sa + 1], li.DeConv_Reduce, li.DeConv_Kernels,
-                li.IMG_FEATURES_CHANNEL // 4, device=device)
+                li.IMG_FEATURES_CHANNEL // 4, dtype=dt, device=device)
             fusion = AttenFusionConv if li.ADD_Image_Attention else FusionConv
             self.final_fusion = fusion(self.out_features, li.IMG_FEATURES_CHANNEL // 4,
-                                       li.IMG_FEATURES_CHANNEL, device=device)
+                                       li.IMG_FEATURES_CHANNEL, dtype=dt, device=device)
             self.out_features = li.IMG_FEATURES_CHANNEL
 
     def forward(self, pts_input, image=None, xy=None, bn_momentum: float = 0.1):
@@ -110,4 +116,4 @@ class PointBackbone(nn.Module):
         if li.ENABLED:
             img_pt = self.deconv_fusion(imgs[1:], xy=xy_norm, bn_momentum=bn_momentum)
             l_feats[0] = self.final_fusion(l_feats[0], img_pt, bn_momentum)
-        return l_xyz[0], l_feats[0]
+        return l_xyz[0], l_feats[0].float()

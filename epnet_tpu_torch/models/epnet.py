@@ -45,12 +45,25 @@ def use_f32_math():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def use_bf16_math():
+    """Under ``MIXED_PRECISION``: bf16 matmuls reduce their split-K partial
+    sums in f32, as XLA accumulates bf16 products in f32
+    (``preferred_element_type`` f32); PyTorch's default lets cuBLAS reduce
+    them in bf16. ``EPNet`` calls this when the config is mixed."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 class EPNet(nn.Module):
     """``EPNet(cfg, mode, device=..., generator=...)``: built on ``device``
     (the CUDA device when None, see ``default_device``) and initialized like
     the JAX package (from ``generator`` when given). ``mode`` ('TRAIN' or
     'TEST') selects the proposal budgets, as the reference's ``cfg[mode]``
     lookups do. Building it turns TF32 off (``use_f32_math``).
+
+    ``MIXED_PRECISION`` runs in TEST mode only: the bf16 forward of the JAX
+    package (``epnet.py:114-123`` and the modules' ``dtype``), with f32
+    parameters, so ``bridge.py`` carries weights across unchanged; building
+    it also keeps bf16 matmul reductions in f32 (``use_bf16_math``).
 
     In training mode (``.train()``) the forward samples RoIs against
     ``batch['gt_boxes3d']``, normalizes with batch statistics, applies
@@ -63,7 +76,8 @@ class EPNet(nn.Module):
         super().__init__()
         if mode not in ('TRAIN', 'TEST'):
             raise ValueError(f'mode {mode!r}: TRAIN or TEST')
-        unported = {'MIXED_PRECISION (bf16)': cfg.MIXED_PRECISION,
+        unported = {'MIXED_PRECISION (bf16) in TRAIN mode (item 17, the train half)':
+                        cfg.MIXED_PRECISION and mode == 'TRAIN',
                     'EXACT_QUERIES false (the approximate queries)':
                         approx_allowed(cfg.EXACT_QUERIES, 'ball'),
                     'RPN.FP_WINDOW > 0': cfg.RPN.FP_WINDOW > 0,
@@ -76,6 +90,8 @@ class EPNet(nn.Module):
             raise NotImplementedError('the port runs the joint RPN + RCNN model')
         device = default_device(device)
         use_f32_math()
+        if cfg.MIXED_PRECISION:
+            use_bf16_math()
         self.cfg = cfg
         self.mode = mode
         in_ch = 3 + int(cfg.RPN.USE_INTENSITY)
@@ -140,15 +156,19 @@ class EPNet(nn.Module):
 
 def pool_for_eval(cfg: Config, rois, xyz, rpn_features, seg_mask, pts_depth):
     """Inference pooling + canonical transform (``rcnn_net.py:137-164``,
-    ``epnet.py:108-125``): (B*M, S, 3 + C) RoI-local points and features."""
+    ``epnet.py:108-125``): (B*M, S, 3 + C) RoI-local points and features.
+    Under ``MIXED_PRECISION`` the features are pooled in bf16 and the
+    local coordinates, transformed in f32, are cast to bf16 beside them."""
     extra = [seg_mask[..., None]]
     if cfg.RCNN.USE_DEPTH:
         extra.append((pts_depth / 70.0 - 0.5)[..., None])
     feats = torch.cat(extra + [rpn_features], -1)
+    if cfg.MIXED_PRECISION:
+        feats = feats.to(torch.bfloat16)
     pxyz, pfeats, _, _ = roipool3d(xyz, feats, rois, cfg.RCNN.POOL_EXTRA_WIDTH,
                                    sampled_pt_num=cfg.RCNN.NUM_POINTS)
     local = pxyz - rois[..., None, 0:3]
     local = rotate_points_along_y(local, rois[..., 6, None])
-    pooled = torch.cat([local, pfeats], -1)
+    pooled = torch.cat([local.to(pfeats.dtype), pfeats], -1)
     B, M, S, C = pooled.shape
     return pooled.reshape(B * M, S, C)

@@ -4,6 +4,11 @@ Port of ``epnet_tpu/models/fusion.py`` (reference ``pointnet2_msg.py``:
 BasicBlock :17-33, Fusion_Conv :35-48, IA_Layer :52-81, Atten_Fusion_Conv
 :84-104, Feature_Gather :107-120, the deconv head :170-172/:239-246).
 Channels-last throughout: NHWC images, (B, N, C) points.
+
+With ``dtype`` (bf16 under ``MIXED_PRECISION``) every Dense and conv runs
+in it as flax's ``dtype`` does (``models/layers.dense``); the attention
+gate stays f32 (``fusion.py:54-62``) and the gated image features are cast
+back to the points' dtype before the fusion conv (``:77``).
 """
 
 from __future__ import annotations
@@ -14,17 +19,17 @@ import torch
 import torch.nn as nn
 
 from ..ops.grid_sample import grid_sample_points
-from .layers import BatchNorm, Conv2dBlock, kaiming_normal_
+from .layers import BatchNorm, Conv2dBlock, dense, kaiming_normal_
 
 
 class ImageBlock(nn.Module):
     """conv3x3(s1) -> BN -> ReLU -> conv3x3(s2); halves the resolution."""
 
-    def __init__(self, cin: int, features: int, device=None):
+    def __init__(self, cin: int, features: int, dtype=None, device=None):
         super().__init__()
-        self.Conv2dBlock_0 = Conv2dBlock(cin, features, 3, 1, bn=True,
-                                         activation=True, device=device)
-        self.Conv2dBlock_1 = Conv2dBlock(features, features, 3, 2, device=device)
+        self.Conv2dBlock_0 = Conv2dBlock(cin, features, 3, 1, bn=True, activation=True,
+                                         dtype=dtype, device=device)
+        self.Conv2dBlock_1 = Conv2dBlock(features, features, 3, 2, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, bn_momentum: float = 0.1) -> torch.Tensor:
         return self.Conv2dBlock_1(self.Conv2dBlock_0(x, bn_momentum))
@@ -37,10 +42,13 @@ def feature_gather(feature_map: torch.Tensor, xy_norm: torch.Tensor) -> torch.Te
 
 
 class IALayer(nn.Module):
-    """Image attention: a per-point scalar gate on the image features."""
+    """Image attention: a per-point scalar gate on the image features. The
+    gate is f32, ``sigmoid(Dense_2(tanh(ri.f32 + rp.f32)))``, so the gated
+    features come out f32 when the rest runs in bf16."""
 
-    def __init__(self, img_channels: int, point_channels: int, device=None):
+    def __init__(self, img_channels: int, point_channels: int, dtype=None, device=None):
         super().__init__()
+        self.dtype = dtype
         rc = point_channels // 4
         self.Dense_0 = nn.Linear(img_channels, rc, device=device)
         self.Dense_1 = nn.Linear(point_channels, rc, device=device)
@@ -49,9 +57,11 @@ class IALayer(nn.Module):
         self.BatchNorm_0 = BatchNorm(point_channels, device=device)
 
     def forward(self, img_feats, point_feats, bn_momentum: float = 0.1):
-        att = torch.sigmoid(self.Dense_2(torch.tanh(self.Dense_0(img_feats)
-                                                    + self.Dense_1(point_feats))))
-        img_new = torch.relu(self.BatchNorm_0(self.Dense_3(img_feats), bn_momentum))
+        dt = self.dtype
+        ri = dense(self.Dense_0, img_feats, dt).float()
+        rp = dense(self.Dense_1, point_feats, dt).float()
+        att = torch.sigmoid(self.Dense_2(torch.tanh(ri + rp)))
+        img_new = torch.relu(self.BatchNorm_0(dense(self.Dense_3, img_feats, dt), bn_momentum))
         return img_new * att
 
 
@@ -59,15 +69,17 @@ class AttenFusionConv(nn.Module):
     """concat(point, gated image) -> 1x1 conv + BN + ReLU."""
 
     def __init__(self, point_channels: int, img_channels: int, out_channels: int,
-                 device=None):
+                 dtype=None, device=None):
         super().__init__()
-        self.IALayer_0 = IALayer(img_channels, point_channels, device=device)
+        self.dtype = dtype
+        self.IALayer_0 = IALayer(img_channels, point_channels, dtype=dtype, device=device)
         self.Dense_0 = nn.Linear(2 * point_channels, out_channels, bias=False, device=device)
         self.BatchNorm_0 = BatchNorm(out_channels, device=device)
 
     def forward(self, point_feats, img_feats, bn_momentum: float = 0.1):
         gated = self.IALayer_0(img_feats, point_feats, bn_momentum)
-        x = self.Dense_0(torch.cat([point_feats, gated], -1))
+        x = dense(self.Dense_0, torch.cat([point_feats, gated.to(point_feats.dtype)], -1),
+                  self.dtype)
         return torch.relu(self.BatchNorm_0(x, bn_momentum))
 
 
@@ -75,14 +87,15 @@ class FusionConv(nn.Module):
     """Non-attention variant: concat -> 1x1 conv + BN + ReLU."""
 
     def __init__(self, point_channels: int, img_channels: int, out_channels: int,
-                 device=None):
+                 dtype=None, device=None):
         super().__init__()
+        self.dtype = dtype
         self.Dense_0 = nn.Linear(point_channels + img_channels, out_channels, bias=False,
                                  device=device)
         self.BatchNorm_0 = BatchNorm(out_channels, device=device)
 
     def forward(self, point_feats, img_feats, bn_momentum: float = 0.1):
-        x = self.Dense_0(torch.cat([point_feats, img_feats], -1))
+        x = dense(self.Dense_0, torch.cat([point_feats, img_feats], -1), self.dtype)
         return torch.relu(self.BatchNorm_0(x, bn_momentum))
 
 
@@ -97,11 +110,21 @@ class DeconvFusionHead(nn.Module):
     ``deconv{i}_bias`` (r,), and ``fusion_kernel`` (sum r, F). A
     ``ConvTranspose2d(C, r, k, stride=k)`` weight equals
     ``deconv{i}_kernel.permute(2, 3, 0, 1)``, with no flip.
+
+    With ``dtype`` (bf16, eval) it rounds where the JAX package's eval head
+    ``deconv_bn_relu_sample_eval`` does (``deconv_sample.py:307-388``): the
+    folded weights are computed in f32 and cast (``fusion.py:150-151``),
+    each scale's product is bf16, the scales and the fused bias add up in
+    bf16, BatchNorm and ReLU run in bf16, and the bilinear sample sums its
+    bf16-weighted corners in f32 (``grid_sample``). JAX's eval head works on
+    a half-resolution layout of the same map; the values per pixel are the
+    same.
     """
 
     def __init__(self, in_channels: Sequence[int], reduce: Sequence[int],
-                 kernels: Sequence[int], features: int, device=None):
+                 kernels: Sequence[int], features: int, dtype=None, device=None):
         super().__init__()
+        self.dtype = dtype
         self.kernels = tuple(kernels)
         self.reduce = tuple(reduce)
         self.features = features
@@ -125,6 +148,7 @@ class DeconvFusionHead(nn.Module):
         """imgs: the NHWC scale maps; returns the full-resolution fused map
         sampled at ``xy`` (B, N, 2 in [-1, 1]): (B, N, F)."""
         F_ = self.features
+        dt = self.dtype or imgs[0].dtype
         total = None
         bias_fused = torch.zeros(F_, dtype=self.fusion_kernel.dtype,
                                  device=self.fusion_kernel.device)
@@ -134,11 +158,11 @@ class DeconvFusionHead(nn.Module):
             wi = self.fusion_kernel[off:off + r]
             off += r
             C = x.shape[-1]
-            cw = torch.einsum('klcr,rf->cklf', kern, wi).reshape(C, k * k * F_)
+            cw = torch.einsum('klcr,rf->cklf', kern, wi).reshape(C, k * k * F_).to(dt)
             bias_fused = bias_fused + getattr(self, f'deconv{i}_bias') @ wi
             B, h, w, _ = x.shape
-            y = (x @ cw).reshape(B, h, w, k, k, F_)
+            y = (x.to(dt) @ cw).reshape(B, h, w, k, k, F_)
             y = y.permute(0, 1, 3, 2, 4, 5).reshape(B, h * k, w * k, F_)
             total = y if total is None else total + y
-        total = torch.relu(self.image_fusion_bn(total + bias_fused, bn_momentum))
+        total = torch.relu(self.image_fusion_bn(total + bias_fused.to(dt), bn_momentum))
         return feature_gather(total, xy)

@@ -9,6 +9,12 @@ package does, because the BN-momentum schedule changes it per epoch; every
 module that holds a BatchNorm passes ``bn_momentum`` down its ``forward``.
 In training mode it normalizes with the batch statistics and updates the
 running ones; in eval mode it uses the running statistics.
+
+Mixed precision (``MIXED_PRECISION``, eval only) follows flax's ``dtype``
+as the JAX package sets it: a module built with ``dtype=torch.bfloat16``
+casts its input, weight and bias to bf16 (``dense``), parameters stay f32,
+and BatchNorm normalizes in its input's dtype. There is no
+``torch.autocast``: its op lists are not the JAX package's casts.
 """
 
 from __future__ import annotations
@@ -57,13 +63,26 @@ def init_parameters(module: nn.Module, generator: Optional[torch.Generator] = No
             own(generator)
 
 
+def dense(layer: nn.Linear, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dtype)`` with the parameters of ``layer``:
+    ``layer(x)`` when ``dtype`` is None; otherwise x, the weight and the
+    bias cast to ``dtype``, the product rounded to it, then the bias added
+    in it, the two roundings of XLA's dot and add (``layers.py:146-164``)."""
+    if dtype is None:
+        return layer(x)
+    y = x.to(dtype) @ layer.weight.to(dtype).t()
+    return y if layer.bias is None else y + layer.bias.to(dtype)
+
+
 class BatchNorm(nn.Module):
     """Batch norm over the last axis with the JAX package's arithmetic
     (``layers.py:119-143``): ``(x - mean) * (rsqrt(var + eps) * scale) +
-    bias``. In training the statistics are taken over every axis but the
-    last, with a two-pass biased variance; the running statistics then move
-    by ``momentum`` towards the mean and the unbiased variance
-    ``var * n / (n - 1)``."""
+    bias``, with the scale folded in f32 and the elementwise work in the
+    input's dtype (bf16 under mixed precision: ``diff = x - mean.bf16``,
+    then one bf16 multiply-add). In training the statistics are taken over
+    every axis but the last, with a two-pass biased variance; the running
+    statistics then move by ``momentum`` towards the mean and the unbiased
+    variance ``var * n / (n - 1)``."""
 
     def __init__(self, channels: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -92,8 +111,9 @@ class BatchNorm(nn.Module):
                 self.running_var.mul_(1.0 - momentum).add_(momentum * var * (n / max(n - 1, 1)))
         else:
             var = self.running_var
-            diff = x - self.running_mean
-        return diff * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+            diff = x - self.running_mean.to(x.dtype)
+        w = torch.rsqrt(var + self.eps) * self.weight
+        return diff * w.to(x.dtype) + self.bias.to(x.dtype)
 
 
 def dense_head(owner: nn.Module, prefix: str, n: int, x: torch.Tensor, p: float,
@@ -123,17 +143,19 @@ def dropout(x: torch.Tensor, p: float, training: bool,
 
 class PointwiseConv(nn.Module):
     """Dense over the channel (last) axis (+ BN) + ReLU: the reference's 1x1
-    Conv1d/Conv2d. The Dense has a bias only when there is no BN."""
+    Conv1d/Conv2d. The Dense has a bias only when there is no BN; it runs
+    in ``dtype`` when one is given (``dense``)."""
 
     def __init__(self, cin: int, features: int, bn: bool = True,
-                 activation: bool = True, device=None):
+                 activation: bool = True, dtype=None, device=None):
         super().__init__()
         self.Dense_0 = nn.Linear(cin, features, bias=not bn, device=device)
         self.BatchNorm_0 = BatchNorm(features, device=device) if bn else None
         self.activation = activation
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor, bn_momentum: float = 0.1) -> torch.Tensor:
-        x = self.Dense_0(x)
+        x = dense(self.Dense_0, x, self.dtype)
         if self.BatchNorm_0 is not None:
             x = self.BatchNorm_0(x, bn_momentum)
         return torch.relu(x) if self.activation else x
@@ -142,11 +164,13 @@ class PointwiseConv(nn.Module):
 class SharedMLP(nn.Module):
     """Stack of PointwiseConv blocks (``pytorch_utils.py:5-32``)."""
 
-    def __init__(self, cin: int, features: Sequence[int], bn: bool = True, device=None):
+    def __init__(self, cin: int, features: Sequence[int], bn: bool = True, dtype=None,
+                 device=None):
         super().__init__()
         self.depth = len(features)
         for k, f in enumerate(features):
-            self.add_module(f'PointwiseConv_{k}', PointwiseConv(cin, f, bn=bn, device=device))
+            self.add_module(f'PointwiseConv_{k}', PointwiseConv(cin, f, bn=bn, dtype=dtype,
+                                                                device=device))
             cin = f
 
     def layer(self, k: int) -> PointwiseConv:
@@ -164,28 +188,34 @@ class Conv2dBlock(nn.Module):
     Dispatch as the JAX package's (``layers.py:232-261``), by shape: a conv
     that ``ops/conv2d.conv3x3_same_available`` admits (every 3x3 tower conv
     but the RGB stem) goes through ``conv3x3_same`` (its weight gradient by
-    kernel D or E), the others through ``nn.Conv2d``. The parameter stays
-    at ``Conv_0.weight`` (OIHW) either way."""
+    kernel D or E), the others through ``nn.Conv2d``'s convolution. The
+    parameter stays at ``Conv_0.weight`` (OIHW) either way. With ``dtype``
+    the input and weight are cast to it and the conv runs in it
+    (``layers.py:192-199,257-261``; the stem too, at eval)."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3, stride: int = 1,
-                 bn: bool = False, activation: bool = False, device=None):
+                 bn: bool = False, activation: bool = False, dtype=None, device=None):
         super().__init__()
         self.kernel, self.stride = kernel, stride
         self.Conv_0 = nn.Conv2d(cin, features, kernel, stride=stride, padding=0,
                                 bias=False, device=device)
         self.BatchNorm_0 = BatchNorm(features, device=device) if bn else None
         self.activation = activation
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor, bn_momentum: float = 0.1) -> torch.Tensor:
+        weight = self.Conv_0.weight
+        if self.dtype is not None:
+            x, weight = x.to(self.dtype), weight.to(self.dtype)
         if conv3x3_same_available(x.shape, self.Conv_0.out_channels, self.kernel,
                                   self.stride):
-            x = conv3x3_same(x, self.Conv_0.weight.permute(2, 3, 1, 0), self.stride)
+            x = conv3x3_same(x, weight.permute(2, 3, 1, 0), self.stride)
         else:
             H, W = x.shape[1], x.shape[2]
             top, bottom = same_pads(H, self.kernel, self.stride)
             left, right = same_pads(W, self.kernel, self.stride)
             x = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
-            x = self.Conv_0(x).permute(0, 2, 3, 1)
+            x = F.conv2d(x, weight, None, self.stride).permute(0, 2, 3, 1)
         if self.BatchNorm_0 is not None:
             x = self.BatchNorm_0(x, bn_momentum)
         return torch.relu(x) if self.activation else x

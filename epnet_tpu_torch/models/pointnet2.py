@@ -17,6 +17,18 @@ allow; a single-scale fused stage over a small table (RCNN sa0) takes the
 windowed fused kernel instead; and an FP stage given ``known_idx``
 interpolates inside windows. The gates are the JAX package's
 (``pointnet2.py:42-52,120-150,375-395``).
+
+With ``dtype`` (bf16 under ``MIXED_PRECISION``) the stages cast as the JAX
+package's do: SA casts its features to bf16 before grouping
+(``pointnet2.py:169-170``) and the recentred xyz after
+(``:340-341``); the fused stages compute ``y`` and ``o`` in bf16 and pass
+bf16 ``w2``/``w3`` with f32 biases (``:271-289``); FP casts the known
+features and the interpolation weights to bf16 (``:391-403``). JAX's
+packing of bf16 feature pairs into f32 lanes (``:171-195``) is a TPU
+gather layout: the port gathers the bf16 rows. Coordinates keep their
+dtype (bf16 in the RCNN tower), and so do the ball queries' distance
+fields; FPS takes them widened to f32, as the JAX package's FPS kernel
+widens them on the TPU (``fps_pallas.py:140``).
 """
 
 from __future__ import annotations
@@ -47,9 +59,10 @@ class SAModuleMSG(nn.Module):
     def __init__(self, npoint: Optional[int], radii: Sequence[float],
                  nsamples: Sequence[int], mlps: Sequence[Sequence[int]],
                  in_features: int, bn: bool = True, block_local: bool = False,
-                 block_window: int = 1024, block_c: int = 128, device=None):
+                 block_window: int = 1024, block_c: int = 128, dtype=None, device=None):
         super().__init__()
         self.npoint = npoint
+        self.dtype = dtype
         self.radii = tuple(radii)
         self.nsamples = tuple(nsamples)
         self.bn = bn
@@ -58,7 +71,8 @@ class SAModuleMSG(nn.Module):
         self.block_c = block_c
         cin = 3 + in_features
         for i, hidden in enumerate(mlps):
-            self.add_module(f'SharedMLP_{i}', SharedMLP(cin, hidden, bn=bn, device=device))
+            self.add_module(f'SharedMLP_{i}', SharedMLP(cin, hidden, bn=bn, dtype=dtype,
+                                                        device=device))
         self.n_scales = len(mlps)
         self.out_features = sum(h[-1] for h in mlps)
 
@@ -89,11 +103,13 @@ class SAModuleMSG(nn.Module):
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor] = None,
                 bn_momentum: float = 0.1):
+        if features is not None and self.dtype is not None:
+            features = features.to(self.dtype)
         if self.npoint is None:
             return self._group_all(xyz, features, bn_momentum)
         n = xyz.shape[1]
         use_bl, use_win = self.uses_block_local(n), self.uses_window(n)
-        fps_idx = furthest_point_sample(xyz, self.npoint)
+        fps_idx = furthest_point_sample(xyz.float(), self.npoint)
         if use_bl or use_win:
             # ascending picks keep the subset Morton-sorted for the next stage
             fps_idx = fps_idx.sort(dim=-1).values
@@ -115,6 +131,8 @@ class SAModuleMSG(nn.Module):
                 outs.append(self._fused(i, xyz, features, new_xyz, idx))
                 continue
             grouped = group_points(xyz, idx) - new_xyz[:, :, None, :]
+            if self.dtype is not None:
+                grouped = grouped.to(self.dtype)
             if features is not None:
                 gf = group_points(features, idx)
                 grouped = torch.cat([grouped, gf], -1)
@@ -124,21 +142,25 @@ class SAModuleMSG(nn.Module):
     def _fused(self, i, xyz, features, new_xyz, idx, starts=None):
         """Layer 1 over the table (``Y``) and the centroids (``O``), then the
         fused gather + layers 2-3 + max (``pointnet2.py:261-289``); with
-        ``starts``, ``idx`` is window-relative (the windowed kernel)."""
+        ``starts``, ``idx`` is window-relative (the windowed kernel). In
+        bf16 the table, W1, b1, W2 and W3 are cast to bf16 and b2, b3 stay
+        f32."""
         mlp = self.mlp(i)
         l1, l2, l3 = (mlp.layer(k).Dense_0 for k in range(3))
-        table = torch.cat([xyz, features], -1) if features is not None else xyz
-        w1 = l1.weight.t()
-        y = torch.matmul(table, w1) + l1.bias
-        o = torch.matmul(new_xyz, w1[:3])
-        weights = (l2.weight.t(), l2.bias, l3.weight.t(), l3.bias)
+        cdt = self.dtype or torch.float32
+        parts = [xyz.to(cdt)] + ([features.to(cdt)] if features is not None else [])
+        table = torch.cat(parts, -1) if len(parts) > 1 else parts[0]
+        w1 = l1.weight.t().to(cdt)
+        y = torch.matmul(table, w1) + l1.bias.to(cdt)
+        o = torch.matmul(new_xyz.to(cdt), w1[:3])
+        weights = (l2.weight.t().to(cdt), l2.bias, l3.weight.t().to(cdt), l3.bias)
         if starts is not None:
             return fused_point_mlp_max_win(y, o, idx, starts, *weights, self.block_window)
         return fused_point_mlp_max(y, o, idx, *weights)
 
     def _group_all(self, xyz, features, bn_momentum):
         """Reference GroupAll (``pointnet2_utils.py:283-306``)."""
-        g = xyz[:, None, :, :]
+        g = xyz[:, None, :, :].to(self.dtype or xyz.dtype)
         if features is not None:
             g = torch.cat([g, features[:, None]], -1)
         outs = [self.mlp(i)(g, bn_momentum).amax(dim=2) for i in range(self.n_scales)]
@@ -155,9 +177,10 @@ class FPModule(nn.Module):
 
     def __init__(self, cin: int, mlp: Sequence[int], bn: bool = True,
                  block_local: bool = False, ublock: int = 512, window: int = 256,
-                 device=None):
+                 dtype=None, device=None):
         super().__init__()
-        self.SharedMLP_0 = SharedMLP(cin, mlp, bn=bn, device=device)
+        self.dtype = dtype
+        self.SharedMLP_0 = SharedMLP(cin, mlp, bn=bn, dtype=dtype, device=device)
         self.block_local = block_local
         self.ublock = ublock
         self.window = window
@@ -168,6 +191,8 @@ class FPModule(nn.Module):
 
     def forward(self, unknown, known, unknown_feats, known_feats, bn_momentum: float = 0.1,
                 known_idx=None):
+        if self.dtype is not None:
+            known_feats = known_feats.to(self.dtype)
         if self.uses_block_local(unknown.shape[1], known.shape[1], known_idx):
             interp = block_local_three_interp(unknown, known, known_feats, known_idx,
                                               self.ublock, self.window)
@@ -175,6 +200,6 @@ class FPModule(nn.Module):
             dist, idx = three_nn(unknown, known)
             recip = 1.0 / (dist + 1e-8)
             weight = recip / recip.sum(-1, keepdim=True)
-            interp = three_interpolate(known_feats, idx, weight)  # (B, N, C2)
+            interp = three_interpolate(known_feats, idx, weight.to(known_feats.dtype))
         x = torch.cat([interp, unknown_feats], -1) if unknown_feats is not None else interp
         return self.SharedMLP_0(x, bn_momentum)

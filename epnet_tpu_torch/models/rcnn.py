@@ -9,6 +9,13 @@ stage whose table is larger than its window runs the windowed fused kernel
 over the pooled points, which keep the loader's Morton order. Dropout
 (``RCNN.DP_RATIO``, applied when >= 0) follows the first layer of each
 head.
+
+Under ``MIXED_PRECISION`` ``xyz_up``, ``merge_down`` and the SA tower run
+in bf16, the final pool goes to f32 and the heads are f32
+(``rcnn.py:29-57``). The pooled input arrives in bf16 and its coordinates
+stay bf16 through the SA tower, as in the JAX package: the ball queries
+compute a bf16 distance field, and FPS widens them to f32 (see
+``SAModuleMSG``).
 """
 
 from __future__ import annotations
@@ -31,11 +38,13 @@ class RCNNNet(nn.Module):
             raise NotImplementedError('the IoU branch is not ported yet')
         self.cfg = cfg
         rc = cfg.RCNN
+        dt = torch.bfloat16 if cfg.MIXED_PRECISION else None
         if rc.USE_RPN_FEATURES:
             ci = rc.input_channel
-            self.xyz_up = SharedMLP(ci, rc.XYZ_UP_LAYER, bn=rc.USE_BN, device=device)
+            self.xyz_up = SharedMLP(ci, rc.XYZ_UP_LAYER, bn=rc.USE_BN, dtype=dt, device=device)
             self.merge_down = SharedMLP(rc.XYZ_UP_LAYER[-1] + in_channels - ci,
-                                        (rc.XYZ_UP_LAYER[-1],), bn=rc.USE_BN, device=device)
+                                        (rc.XYZ_UP_LAYER[-1],), bn=rc.USE_BN, dtype=dt,
+                                        device=device)
             feats = rc.XYZ_UP_LAYER[-1]
         else:
             feats = in_channels - 3
@@ -45,7 +54,8 @@ class RCNNNet(nn.Module):
             mod = SAModuleMSG(None if np_i == -1 else np_i, (rc.SA_CONFIG.RADIUS[i],),
                               (rc.SA_CONFIG.NSAMPLE[i],), (rc.SA_CONFIG.MLPS[i],),
                               in_features=feats, bn=rc.USE_BN, block_local=block_local,
-                              block_window=rc.BLOCK_WINDOW, block_c=rc.BLOCK_C, device=device)
+                              block_window=rc.BLOCK_WINDOW, block_c=rc.BLOCK_C, dtype=dt,
+                              device=device)
             self.add_module(f'sa{i}', mod)
             feats = mod.out_features
         # binary -> single sigmoid logit; multi-class -> n logits (rcnn_net.py:45)
@@ -83,7 +93,7 @@ class RCNNNet(nn.Module):
         l_xyz, l_feats = xyz, feats
         for i in range(self.n_sa):
             l_xyz, l_feats, _ = getattr(self, f'sa{i}')(l_xyz, l_feats, bn_momentum)
-        x = l_feats[:, 0, :]  # (B*R, C), the final pool
+        x = l_feats[:, 0, :].float()  # (B*R, C), the final pool
         p = rc.DP_RATIO
         return {'rcnn_cls': self.cls_out(dense_head(self, 'cls_fc', len(rc.CLS_FC), x, p,
                                                     bn_momentum, generator)),

@@ -24,6 +24,12 @@ the cross term (``pointops._pairwise_d2``) for the interpolation.
 Selections take the first index on ties, and searches are left-sided, as
 ``argmin`` and ``searchsorted`` are in JAX.
 
+In f32 the port's interpolation holds the f32 function, which is what the
+JAX package computes on the CPU. On a TPU JAX's weight matmul
+(``block_local.py:126-127``) runs at default precision, which truncates
+its f32 operands to bf16, so the same f32 configuration there computes a
+bf16-rounded interpolation; the port does not reproduce that.
+
 ``block_local_group_nested`` (the approx_max_k select) and
 ``block_local_window_query`` lie off the configuration's path and are not
 ported.
@@ -35,7 +41,7 @@ from typing import List, Sequence
 
 import torch
 
-from .pointops import _pairwise_d2
+from .pointops import _pairwise_d2, in_radius, sq_dist
 
 
 def block_local_fp_available(n: int, m: int, ublock: int, window: int) -> bool:
@@ -48,13 +54,6 @@ def block_local_available(n: int, m: int, window: int, block_c: int) -> bool:
     """Gate of the block-local SA grouping: clean tiling and a window
     smaller than the cloud, above 1024 points."""
     return n > window and n > 1024 and m % block_c == 0 and window % 128 == 0
-
-
-def _sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """sum((a - b)^2) over the last axis, x then y then z, as XLA's
-    ``jnp.sum(diff * diff, axis=-1)`` rounds it."""
-    d = a - b
-    return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
 
 
 def _windows(table: torch.Tensor, starts: torch.Tensor, window: int) -> torch.Tensor:
@@ -92,8 +91,8 @@ def bucket_ball_query(radius: float, nsample: int, xyz: torch.Tensor,
     T, N, _ = xyz.shape
     if N % nsample:
         raise ValueError(f'bucket_ball_query: {N} points do not tile into {nsample} buckets')
-    d2 = _sq_dist(new_xyz.detach()[:, :, None, :], xyz.detach()[:, None, :, :])  # (T, M, N)
-    keys = torch.where(d2 < radius ** 2, d2, float('inf'))
+    d2 = sq_dist(new_xyz.detach()[:, :, None, :], xyz.detach()[:, None, :, :])  # (T, M, N)
+    keys = torch.where(in_radius(d2, radius), d2, float('inf'))
     idx, valid = _bucket_select(keys, nsample)
     pad = d2.argmin(dim=-1, keepdim=True)  # the nearest point
     idx = torch.where(valid, idx, pad)
@@ -160,11 +159,11 @@ def block_local_group_multi(radii: Sequence[float], nsamples: Sequence[int],
     starts = ((pb[:, :, 0] + pb[:, :, -1]) // 2 - window // 2).clamp(0, N - window)
     wx = _windows(xyz.detach(), starts, window)                        # (B, NB, W, 3)
     cen = new_xyz.detach().reshape(B, NB, block_c, 1, 3)
-    d2 = _sq_dist(cen, wx[:, :, None])                                 # (B, NB, bc, W)
+    d2 = sq_dist(cen, wx[:, :, None])                                  # (B, NB, bc, W)
     pad = d2.argmin(dim=-1, keepdim=True)  # the window's nearest lane
     out = []
     for r, ns in zip(radii, nsamples):
-        lane, valid = _bucket_select(torch.where(d2 < float(r) * float(r), d2, float('inf')), ns)
+        lane, valid = _bucket_select(torch.where(in_radius(d2, r), d2, float('inf')), ns)
         lane = torch.where(valid, lane, pad)
         lane = torch.where(valid.any(dim=-1, keepdim=True), lane, 0)
         out.append((lane + starts[:, :, None, None]).reshape(B, M, ns))
@@ -180,7 +179,10 @@ def block_local_three_interp(unknown: torch.Tensor, known_xyz: torch.Tensor,
     |b|^2 - 2ab field, first index on ties) from the window of ``window``
     consecutive knowns centred where ``known_idx`` reaches the block's
     midpoint (left-sided search), weighted by 1 / (distance + 1e-8)
-    normalized. Differentiable in ``known_feats`` only.
+    normalized. Differentiable in ``known_feats`` only. With bf16 features
+    the weights are cast to bf16 and the three products summed in f32, the
+    sum rounded to bf16 once (JAX's weight matmul with f32 accumulation,
+    ``block_local.py:126-127``).
 
     :param unknown: (B, N, 3), N % ublock == 0; known_xyz: (B, M, 3), the
         unknowns' ascending FPS subset; known_feats: (B, M, C);
@@ -207,8 +209,10 @@ def block_local_three_interp(unknown: torch.Tensor, known_xyz: torch.Tensor,
         recips.append(1.0 / (torch.sqrt(v) + 1e-8))
         d = d.scatter(-1, i, float('inf'))
     tot = recips[0] + recips[1] + recips[2]
+    fdt = known_feats.dtype
     out = 0.0
     for i, r in zip(lanes, recips):
         rows = (i[..., 0] + starts[:, :, None]).reshape(B, N, 1)
-        out = out + torch.gather(known_feats, 1, rows.expand(B, N, C)) * (r / tot).reshape(B, N, 1)
-    return out
+        w = (r / tot).reshape(B, N, 1).to(fdt).float()
+        out = out + torch.gather(known_feats, 1, rows.expand(B, N, C)).float() * w
+    return out.to(fdt)

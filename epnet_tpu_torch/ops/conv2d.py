@@ -18,7 +18,17 @@ sizes) and its gradients:
 
 Each of ``conv3x3_s2_fwd``, ``dw3x3_s2`` and ``dw3x3_s1`` runs its kernel
 for a CUDA tensor and its plain version for a CPU tensor, with no fallback
-between the two. ``models/layers.Conv2dBlock`` sends every conv that
+between the two.
+
+In bf16 (the ``MIXED_PRECISION`` tower, ``epnet_tpu/models/layers.py:
+192-199``) the forward takes bf16 x and w and returns bf16: at stride 2
+kernel F-bf16 (f32 accumulation in F's K order, one rounding at the end,
+as the Pallas kernel's ``x.dtype`` output, ``conv_fwd_attic.py:75-76,
+167``), at stride 1 ``F.conv2d`` in bf16, as the JAX package leaves it to
+XLA's conv (``epnet_tpu/ops/conv2d.py:51,112``). The backward takes f32
+only: bf16 training is not ported.
+
+``models/layers.Conv2dBlock`` sends every conv that
 ``conv3x3_same_available`` admits here; there is no other route for those
 convs.
 """
@@ -124,12 +134,16 @@ def conv3x3_s2_fwd_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     summed in tap order, the plain version of kernel F: tap (d, e) adds
     ``x[:, d::2, e::2] @ w[d, e]``. The bottom and right taps (d or e = 2)
     of the last output row and column read the SAME pad, so their phase
-    falls one row or column short and is padded with zeros.
+    falls one row or column short and is padded with zeros. bf16 x and w
+    (F-bf16's function) are multiplied and summed in f32 and the sum is
+    rounded to bf16 once.
 
     :param x: (B, H, W, C); w: (3, 3, C, F)
-    :return: (B, H/2, W/2, F)
+    :return: (B, H/2, W/2, F) in x's dtype
     """
     _check_fwd('conv3x3_s2_fwd_plain', x, w)
+    if x.dtype == torch.bfloat16:
+        return conv3x3_s2_fwd_plain(x.float(), w.float()).to(torch.bfloat16)
     B, H, W, C = x.shape
     H2, W2 = H // 2, W // 2
     y = None
@@ -175,9 +189,9 @@ def _lib() -> ctypes.CDLL:
 def _fwd_lib() -> ctypes.CDLL:
     lib = cuda_build.load_library('conv3x3_s2_fwd')
     if not getattr(lib, '_epnet_typed', False):
-        lib.epnet_conv3x3_s2_fwd_launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                                                    + [ctypes.c_void_p])
-        lib.epnet_conv3x3_s2_fwd_launch.restype = ctypes.c_int
+        for fn in (lib.epnet_conv3x3_s2_fwd_launch, lib.epnet_conv3x3_s2_fwd_bf16_launch):
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.epnet_conv3x3_s2_fwd_tiles.argtypes = [ctypes.c_int] * 4
         lib.epnet_conv3x3_s2_fwd_tiles.restype = ctypes.c_longlong
         lib.epnet_conv3x3_s2_fwd_steps.argtypes = [ctypes.c_int]
@@ -193,18 +207,19 @@ _FWD_WAVES = 2        # F: waves to fill before K is split (each split adds an M
 _MIN_SPLIT_STEPS = 16  # F: steps of K (tap, 16 channels) a split keeps at least
 
 
-def _check_cuda(what: str, **tensors):
-    """Every tensor CUDA float32, contiguous, 16-byte aligned, on one device."""
+def _check_cuda(what: str, dtype=torch.float32, **tensors):
+    """Every tensor CUDA ``dtype``, contiguous, aligned to four elements (16
+    bytes in f32, 8 in bf16), on one device."""
     dev = next(iter(tensors.values())).device
     for name, t in tensors.items():
         if not t.is_cuda or t.device != dev:
             raise ValueError(f'{what}: {name} must be on {dev} (CUDA), got {t.device}')
-        if t.dtype != torch.float32:
-            raise TypeError(f'{what}: {name} must be float32, got {t.dtype}')
+        if t.dtype != dtype:
+            raise TypeError(f'{what}: {name} must be {dtype}, got {t.dtype}')
         if not t.is_contiguous():
             raise ValueError(f'{what}: {name} must be contiguous')
-        if t.data_ptr() % 16:
-            raise ValueError(f'{what}: {name} must be 16-byte aligned')
+        if t.data_ptr() % (4 * t.element_size()):
+            raise ValueError(f'{what}: {name} must be {4 * t.element_size()}-byte aligned')
 
 
 def _resident_blocks(dev) -> int:
@@ -275,8 +290,30 @@ def conv3x3_s2_fwd_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Kernel F: the 3x3 SAME stride-2 conv forward on the card. x (B, H,
     W, C) and w (3, 3, C, F) float32, contiguous, on one CUDA device; even
     H and W; C and F multiples of 4. Raises on anything else."""
-    what = 'conv3x3_s2_fwd_kernel'
-    _check_cuda(what, x=x, w=w)
+    y = _launch_fwd('conv3x3_s2_fwd_kernel', 'epnet_conv3x3_s2_fwd_launch', torch.float32, x, w)
+    conv3x3_s2_fwd_kernel.launches += 1
+    return y
+
+
+conv3x3_s2_fwd_kernel.launches = 0
+
+
+def conv3x3_s2_fwd_bf16_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Kernel F-bf16: as ``conv3x3_s2_fwd_kernel`` with x, w and the result
+    bf16 (f32 accumulation)."""
+    y = _launch_fwd('conv3x3_s2_fwd_bf16_kernel', 'epnet_conv3x3_s2_fwd_bf16_launch',
+                    torch.bfloat16, x, w)
+    conv3x3_s2_fwd_bf16_kernel.launches += 1
+    return y
+
+
+conv3x3_s2_fwd_bf16_kernel.launches = 0
+
+
+def _launch_fwd(what: str, entry: str, dtype, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Kernel F's C entry point ``entry`` on x and w of ``dtype``:
+    allocates the result (and the f32 split slices), launches, returns it."""
+    _check_cuda(what, dtype, x=x, w=w)
     _check_fwd(what, x, w)
     B, H, W, C = x.shape
     F_ = w.shape[-1]
@@ -287,20 +324,16 @@ def conv3x3_s2_fwd_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lib = _fwd_lib()
     dev = x.device
     _, splits = conv3x3_s2_fwd_grid(x.shape, F_, dev)
-    y = torch.empty((B, H // 2, W // 2, F_), dtype=torch.float32, device=dev)
+    y = torch.empty((B, H // 2, W // 2, F_), dtype=dtype, device=dev)
     part = (torch.empty((splits, y.numel()), dtype=torch.float32, device=dev) if splits > 1
             else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.epnet_conv3x3_s2_fwd_launch(x.data_ptr(), w.data_ptr(),
-                                              None if part is None else part.data_ptr(),
-                                              y.data_ptr(), B, H, W, C, F_, splits, stream)
+        err = getattr(lib, entry)(x.data_ptr(), w.data_ptr(),
+                                  None if part is None else part.data_ptr(),
+                                  y.data_ptr(), B, H, W, C, F_, splits, stream)
     cuda_build.check(lib, err, f'{what} launch')
-    conv3x3_s2_fwd_kernel.launches += 1
     return y
-
-
-conv3x3_s2_fwd_kernel.launches = 0
 
 
 def _on_device(kernel, plain, a, b):
@@ -312,9 +345,10 @@ def _on_device(kernel, plain, a, b):
 
 
 def conv3x3_s2_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, H/2, W/2, F) 3x3 SAME stride-2 conv: kernel F for CUDA tensors,
-    the plain version for CPU tensors."""
-    return _on_device(conv3x3_s2_fwd_kernel, conv3x3_s2_fwd_plain, x, w)
+    """(B, H/2, W/2, F) 3x3 SAME stride-2 conv: kernel F (F-bf16 for bf16
+    tensors) for CUDA tensors, the plain version for CPU tensors."""
+    kernel = conv3x3_s2_fwd_bf16_kernel if x.dtype == torch.bfloat16 else conv3x3_s2_fwd_kernel
+    return _on_device(kernel, conv3x3_s2_fwd_plain, x, w)
 
 
 def dw3x3_s2(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -349,6 +383,9 @@ class _Conv3x3Same(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dy):
         x, w, *saved = ctx.saved_tensors
+        if x.dtype != torch.float32:
+            raise NotImplementedError(f'conv3x3_same: the backward takes float32, got {x.dtype}: '
+                                      'bf16 training is not ported yet (ROADMAP Queue 1, item 17)')
         s = ctx.stride
         dx = dw = None
         if ctx.needs_input_grad[0]:
@@ -371,7 +408,10 @@ def conv3x3_same(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     """x (B, H, W, C), w (3, 3, C, F) -> (B, H', W', F): a SAME 3x3 conv
     with stride 1 or 2, differentiable in both. The stride-2 forward is
     kernel F and the weight gradient kernel D or E on the card; on the CPU
-    their plain versions."""
+    their plain versions. x and w share a dtype, f32 or bf16 (forward only,
+    F-bf16 at stride 2)."""
+    if x.dtype != w.dtype:
+        raise TypeError(f'conv3x3_same: x is {x.dtype}, w {w.dtype}')
     if stride not in (1, 2) or tuple(w.shape[:3]) != (3, 3, x.shape[-1]):
         raise ValueError(f'conv3x3_same: x {tuple(x.shape)}, w {tuple(w.shape)}, '
                          f'stride {stride}')

@@ -7,6 +7,12 @@ weights the clipped 2x2 texel window with the hat function
 ``max(0, 1 - |t|)``; every tap at least one pixel from the sample point,
 including every tap that the clipping moved, gets weight zero, which is
 exactly zero padding.
+
+No gradient reaches ``xy_norm``: the JAX custom VJP returns zero for it
+(``grid_sample.py:45-47,110``), since projected coordinates are loader
+data. A bf16 map is sampled with its hat weights cast to bf16 and the four
+products summed in f32, the sum rounded to bf16 once (the JAX einsum of
+``grid_sample.py:77-78``).
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ def grid_sample_points(feature_map: torch.Tensor, xy_norm: torch.Tensor) -> torc
     """
     B, H, W, C = feature_map.shape
     N = xy_norm.shape[1]
+    xy_norm = xy_norm.detach()
+    acc = torch.float32 if feature_map.dtype == torch.bfloat16 else feature_map.dtype
     x = (xy_norm[..., 0] + 1.0) * 0.5 * (W - 1)
     y = (xy_norm[..., 1] + 1.0) * 0.5 * (H - 1)
     xs = torch.clamp(torch.floor(x), 0, max(W - 2, 0)).long()
@@ -33,6 +41,7 @@ def grid_sample_points(feature_map: torch.Tensor, xy_norm: torch.Tensor) -> torc
         for dx in range(min(2, W)):
             wx = torch.clamp(1.0 - torch.abs(x - (xs + dx)), min=0.0)
             rows = ((ys + dy) * W + (xs + dx))[..., None].expand(B, N, C)
-            tap = torch.gather(flat, 1, rows) * (wy * wx).to(feature_map.dtype)[..., None]
+            w = (wy * wx).to(feature_map.dtype).to(acc)
+            tap = torch.gather(flat, 1, rows).to(acc) * w[..., None]
             out = tap if out is None else out + tap
-    return out
+    return out.to(feature_map.dtype)

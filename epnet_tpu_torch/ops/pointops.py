@@ -66,6 +66,22 @@ def _chunk_size(total: int, budget: int) -> int:
     return c
 
 
+def sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum((a - b)^2) over the last axis, x then y then z, as the JAX
+    package writes it (``jnp.sum(d ** 2, axis=-1)``, ``pointops.py:364``;
+    ``block_local.py:160-161``): the difference and the squares round to
+    the coordinates' dtype, and ``jnp.sum`` adds bf16 squares in f32 and
+    rounds the sum back once."""
+    dx, dy, dz = (a - b).unbind(-1)
+    return ((dx * dx).float() + (dy * dy).float() + (dz * dz).float()).to(dx.dtype)
+
+
+def in_radius(d2: torch.Tensor, radius: float) -> torch.Tensor:
+    """``d2 < radius^2``, strict like the CUDA kernel, with radius^2 rounded
+    to the dtype of ``d2`` as JAX rounds its weakly typed constant."""
+    return d2 < torch.tensor(radius * radius, dtype=d2.dtype).item()
+
+
 def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
                new_xyz: torch.Tensor,
                max_block_elems: int = 8 * 1024 * 1024) -> torch.Tensor:
@@ -74,7 +90,9 @@ def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
     empty balls return index 0 (``ball_query_gpu.cu:28-44``).
 
     The centroids are taken in chunks so the transient (B, c, N) field stays
-    within ``max_block_elems`` elements.
+    within ``max_block_elems`` elements. bf16 coordinates (the RCNN's under
+    ``MIXED_PRECISION``) give a bf16 distance field (``sq_dist``), as in
+    the JAX package.
 
     :param xyz: (B, N, 3); new_xyz: (B, M, 3)
     :return: (B, M, nsample) int64
@@ -87,10 +105,7 @@ def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
     slot = torch.arange(nsample, device=xyz.device)
 
     def block(centroids):  # (B, c, 3) -> (B, c, nsample)
-        diff = centroids[:, :, None, :] - xyz[:, None, :, :]
-        dx, dy, dz = diff.unbind(-1)
-        d2 = dx * dx + dy * dy + dz * dz  # the reference's summation order
-        mask = d2 < radius * radius  # strict <, like the CUDA kernel
+        mask = in_radius(sq_dist(centroids[:, :, None, :], xyz[:, None, :, :]), radius)
         key = torch.where(mask, iota, N)  # N == "no hit" sentinel
         idx = torch.topk(key, nsample, dim=-1, largest=False, sorted=True).values
         cnt = mask.sum(-1, keepdim=True)
@@ -157,5 +172,7 @@ def three_nn(unknown: torch.Tensor, known: torch.Tensor,
 def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
                       weight: torch.Tensor) -> torch.Tensor:
     """Weighted sum of 3 neighbour features: features (B, M, C), idx and
-    weight (B, N, 3) -> (B, N, C)."""
-    return (group_points(features, idx) * weight[..., None]).sum(2)
+    weight (B, N, 3) -> (B, N, C). With bf16 features and weights, as the
+    JAX package computes it (``pointops.py:716-729``): the products in bf16,
+    their sum in f32 (``jnp.sum`` widens bf16), rounded to bf16."""
+    return (group_points(features, idx) * weight[..., None]).float().sum(2).to(features.dtype)

@@ -4,8 +4,8 @@ Port of the exact path of ``epnet_tpu/ops/roipool3d.py`` (reference
 ``roipool3d_kernel.cu``: assign :97-120, pooled idx :123-160, gather
 :163-195): the rotated (enlarged) box test for all (B, M, N), the first
 ``sampled_pt_num`` in-box indices of each box in index order, repeated
-cyclically when a box holds fewer, and an empty flag. Features gather from
-an f32 table.
+cyclically when a box holds fewer, and an empty flag. Coordinates and
+features are gathered each in its own dtype (bf16 features stay bf16).
 """
 
 from __future__ import annotations
@@ -49,9 +49,9 @@ def roipool3d(xyz: torch.Tensor, features: torch.Tensor, boxes3d: torch.Tensor,
     idx = torch.gather(first_k, -1, sel_slot)
     idx = torch.where(empty[..., None], 0, idx.clamp(0, N - 1))
 
-    table = torch.cat([xyz, features.to(xyz.dtype)], -1)
-    flat = idx.reshape(B, M * S, 1).expand(B, M * S, table.shape[-1])
-    pooled = torch.gather(table, 1, flat).reshape(B, M, S, table.shape[-1])
-    pooled = torch.where(empty[..., None, None], 0.0, pooled)
-    return (pooled[..., :3], pooled[..., 3:].to(features.dtype),
-            empty.to(torch.int32), cnt.to(torch.int32))
+    def pool(table):
+        flat = idx.reshape(B, M * S, 1).expand(B, M * S, table.shape[-1])
+        pooled = torch.gather(table, 1, flat).reshape(B, M, S, table.shape[-1])
+        return torch.where(empty[..., None, None], 0.0, pooled)
+
+    return pool(xyz), pool(features), empty.to(torch.int32), cnt.to(torch.int32)

@@ -7,10 +7,20 @@ the block-local RCNN stage).
 
 The kernels replace the Pallas TPU kernels
 ``epnet_tpu/ops/sa_fused.py::_fwd_kernel`` and ``::_bwd_kernel`` (B, C) and
-``::_fwd_kernel_win`` and ``::_bwd_kernel_win`` (G, H), f32.
-What bounds them on the H100, and what their designs do about that, is
-written at the top of each source: the dense layers' FFMA work, with every
-intermediate kept in shared memory and registers.
+``::_fwd_kernel_win`` and ``::_bwd_kernel_win`` (G, H), f32. The forwards
+also take bf16 ``y``, ``o``, ``w2`` and ``w3`` (f32 ``b2`` and ``b3``) and
+return bf16 (B-bf16, G-bf16): the Pallas kernels' ``n_splits == 1`` branch
+(``sa_fused.py:91-93,108-116,148-149``) that the JAX package's
+``MIXED_PRECISION`` forward reaches (``models/pointnet2.py:271-289``), and
+the two profiler kernels of the same function,
+``tools/profile_fused_onehot.py::kern`` and
+``tools/profile_fps_variants.py::kernel`` (with ``w3 = w2``, ``b3 = b2``).
+In bf16 every product accumulates in f32, and h1 and h2 are rounded to
+bf16 before the next layer, where the Pallas kernels cast them; the
+backwards take f32 only. What bounds the kernels on the H100, and what
+their designs do about that, is written at the top of each source: the
+dense layers' FFMA work, with every intermediate kept in shared memory and
+registers.
 
 Layer 1 commutes with the gather when the stage has no BatchNorm, so the
 caller passes ``y = [xyz, feats] @ W1 + b1`` over each table and
@@ -39,13 +49,27 @@ def fused_point_mlp_max_plain(y, o, idx, w2, b2, w3, b3):
     """``max_s relu(relu(relu(y[idx] - o) @ w2 + b2) @ w3 + b3)`` on any
     device: gather, three matmuls with ReLU, then the max.
 
+    With bf16 ``y``, ``o``, ``w2`` and ``w3`` (``b2``, ``b3`` f32) it is the
+    Pallas kernel's bf16 function (``sa_fused.py:91-93,106-120``): h1 =
+    relu(y[idx] - o) in f32, rounded to bf16; each layer multiplies bf16
+    operands in f32 (their products are exact there) and adds its f32
+    bias; h2 is rounded to bf16 before layer 3; the max is taken in f32 and
+    the output rounded to bf16.
+
     :param y: (T, N, C1); o: (T, M, C1); idx: (T, M, S) int64
     :param w2: (C1, C2); b2: (C2,); w3: (C2, C3); b3: (C3,)
-    :return: (T, M, C3)
+    :return: (T, M, C3) in y's dtype
     """
     T, N, C1 = y.shape
     _, M, S = idx.shape
     g = torch.gather(y, 1, idx.reshape(T, M * S, 1).expand(T, M * S, C1))
+    if y.dtype == torch.bfloat16:
+        def op(t):  # an operand as bf16 holds it, in f32
+            return t.to(torch.bfloat16).float()
+        h1 = op(torch.relu(g.reshape(T, M, S, C1).float() - o.float()[:, :, None, :]))
+        h2 = op(torch.relu(h1 @ w2.float() + b2))
+        h3 = torch.relu(h2 @ w3.float() + b3)
+        return h3.amax(dim=2).to(torch.bfloat16)
     h1 = torch.relu(g.reshape(T, M, S, C1) - o[:, :, None, :])
     h2 = torch.relu(h1 @ w2 + b2)
     h3 = torch.relu(h2 @ w3 + b3)
@@ -97,11 +121,11 @@ def _typed(lib: ctypes.CDLL, fns: dict) -> ctypes.CDLL:
 
 
 def _fwd_lib() -> ctypes.CDLL:
+    fwd = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p], ctypes.c_int)
+    win = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p], ctypes.c_int)
     return _typed(cuda_build.load_library('sa_fused'), {
-        'epnet_sa_fused_fwd_launch':
-            ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p], ctypes.c_int),
-        'epnet_sa_fused_win_fwd_launch':
-            ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p], ctypes.c_int),
+        'epnet_sa_fused_fwd_launch': fwd, 'epnet_sa_fused_fwd_bf16_launch': fwd,
+        'epnet_sa_fused_win_fwd_launch': win, 'epnet_sa_fused_win_fwd_bf16_launch': win,
         'epnet_sa_fused_smem_bytes': ([ctypes.c_int] * 4, ctypes.c_longlong)})
 
 
@@ -115,14 +139,19 @@ def _bwd_lib() -> ctypes.CDLL:
         'epnet_sa_fused_bwd_partial_floats': ([ctypes.c_int] * 3, ctypes.c_longlong)})
 
 
-def _check_args(what: str, **tensors):
-    """Device, dtype and shape checks shared by the kernels' wrappers;
-    returns (T, N, M, S, C1, C2, C3)."""
+_OPERANDS = ('y', 'o', 'w2', 'w3')  # in the operand type; biases and gout stay f32
+
+
+def _check_args(what: str, dtype=torch.float32, **tensors):
+    """Device, dtype and shape checks shared by the kernels' wrappers:
+    ``y``, ``o``, ``w2`` and ``w3`` in ``dtype``, the indices int64, the
+    rest f32; returns (T, N, M, S, C1, C2, C3)."""
     dev = tensors['y'].device
     for name, t in tensors.items():
         if not t.is_cuda or t.device != dev:
             raise ValueError(f'{what}: {name} must be on {dev} (CUDA), got {t.device}')
-        want = torch.int64 if name in ('idx', 'starts') else torch.float32
+        want = (torch.int64 if name in ('idx', 'starts')
+                else dtype if name in _OPERANDS else torch.float32)
         if t.dtype != want:
             raise TypeError(f'{what}: {name} must be {want}, got {t.dtype}')
     y, o, idx = tensors['y'], tensors['o'], tensors['idx']
@@ -177,7 +206,7 @@ def _launch_fwd(wrapper, entry, dims, inputs, extra):
                          f'C1/C2/C3 = {C1}/{C2}/{C3}; the limit is {_SMEM_LIMIT}')
     dev = inputs[0].device
     args = [t.detach().contiguous() for t in inputs]
-    out = torch.empty((T, M, C3), dtype=torch.float32, device=dev)
+    out = torch.empty((T, M, C3), dtype=inputs[0].dtype, device=dev)
     if T == 0 or M == 0:
         return out
     with torch.cuda.device(dev):
@@ -190,6 +219,20 @@ def _launch_fwd(wrapper, entry, dims, inputs, extra):
 
 
 fused_point_mlp_max_kernel.launches = 0
+
+
+def fused_point_mlp_max_bf16_kernel(y, o, idx, w2, b2, w3, b3):
+    """Launch B-bf16 (``csrc/sa_fused.cu``) on the current stream: ``y``,
+    ``o``, ``w2`` and ``w3`` bf16, ``b2`` and ``b3`` float32, idx int64,
+    on one CUDA device; returns (T, M, C3) bf16. Raises on anything the
+    kernel does not take."""
+    dims = _check_args('fused_point_mlp_max_bf16_kernel', torch.bfloat16, y=y, o=o, idx=idx,
+                       w2=w2, b2=b2, w3=w3, b3=b3)
+    return _launch_fwd(fused_point_mlp_max_bf16_kernel, 'epnet_sa_fused_fwd_bf16_launch', dims,
+                       (y, o, idx, w2, b2, w3, b3), ())
+
+
+fused_point_mlp_max_bf16_kernel.launches = 0
 
 _BWD_ROWS = 64  # rows of one chunk of csrc/sa_fused_bwd.cu: a centroid must fit
 
@@ -244,6 +287,12 @@ def _launch_bwd(wrapper, entry, dims, inputs, extra):
 fused_point_mlp_max_bwd_kernel.launches = 0
 
 
+def _refuse_bf16_grad(y):
+    if y.dtype != torch.float32:
+        raise NotImplementedError(f'the fused-SA backward takes float32, got {y.dtype}: bf16 '
+                                  'training is not ported yet (ROADMAP Queue 1, item 17)')
+
+
 class _FusedPointMlpMax(torch.autograd.Function):
     """Forward and backward by kernel on CUDA, by plain version on the CPU;
     saves only the inputs."""
@@ -252,13 +301,16 @@ class _FusedPointMlpMax(torch.autograd.Function):
     def forward(ctx, y, o, idx, w2, b2, w3, b3):
         ctx.save_for_backward(y, o, idx, w2, b2, w3, b3)
         if y.is_cuda:
-            return fused_point_mlp_max_kernel(y, o, idx, w2, b2, w3, b3)
+            kernel = (fused_point_mlp_max_bf16_kernel if y.dtype == torch.bfloat16
+                      else fused_point_mlp_max_kernel)
+            return kernel(y, o, idx, w2, b2, w3, b3)
         return fused_point_mlp_max_plain(y, o, idx, w2, b2, w3, b3)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, gout):
         args = ctx.saved_tensors
+        _refuse_bf16_grad(args[0])
         if gout.is_cuda:
             grads = fused_point_mlp_max_bwd_kernel(*args, gout)
         else:
@@ -270,7 +322,8 @@ class _FusedPointMlpMax(torch.autograd.Function):
 def fused_point_mlp_max(y, o, idx, w2, b2, w3, b3):
     """(T, M, C3) fused SA interior, differentiable in every input but
     ``idx``: the CUDA kernels for CUDA tensors, the plain versions for CPU
-    tensors."""
+    tensors. f32, or bf16 ``y``, ``o``, ``w2``, ``w3`` with f32 biases
+    (forward only; B-bf16 on the card)."""
     if y.device.type not in ('cuda', 'cpu'):
         raise ValueError(f'fused_point_mlp_max: unsupported device {y.device}')
     return _FusedPointMlpMax.apply(y, o, idx, w2, b2, w3, b3)
@@ -318,6 +371,21 @@ def fused_point_mlp_max_win_kernel(y, o, idx_rel, starts, w2, b2, w3, b3, window
 fused_point_mlp_max_win_kernel.launches = 0
 
 
+def fused_point_mlp_max_win_bf16_kernel(y, o, idx_rel, starts, w2, b2, w3, b3, window):
+    """Launch G-bf16 (``csrc/sa_fused.cu``, windowed) on the current
+    stream: tensors as for ``fused_point_mlp_max_win_kernel`` but ``y``,
+    ``o``, ``w2`` and ``w3`` bf16; returns bf16."""
+    what = 'fused_point_mlp_max_win_bf16_kernel'
+    dims = _check_args(what, torch.bfloat16, y=y, o=o, idx=idx_rel, starts=starts, w2=w2, b2=b2,
+                       w3=w3, b3=b3)
+    NB = _check_window(what, starts, window, *dims[:3])
+    return _launch_fwd(fused_point_mlp_max_win_bf16_kernel, 'epnet_sa_fused_win_fwd_bf16_launch',
+                       dims, (y, o, idx_rel, starts, w2, b2, w3, b3), (NB, window))
+
+
+fused_point_mlp_max_win_bf16_kernel.launches = 0
+
+
 def fused_point_mlp_max_win_bwd_kernel(y, o, idx_rel, starts, w2, b2, w3, b3, window, gout):
     """Launch kernel H (``csrc/sa_fused_bwd.cu``, windowed) and its
     reduction on the current stream. Tensors as in
@@ -343,13 +411,16 @@ class _FusedPointMlpMaxWin(torch.autograd.Function):
         ctx.save_for_backward(y, o, idx_rel, starts, w2, b2, w3, b3)
         ctx.window = window
         if y.is_cuda:
-            return fused_point_mlp_max_win_kernel(y, o, idx_rel, starts, w2, b2, w3, b3, window)
+            kernel = (fused_point_mlp_max_win_bf16_kernel if y.dtype == torch.bfloat16
+                      else fused_point_mlp_max_win_kernel)
+            return kernel(y, o, idx_rel, starts, w2, b2, w3, b3, window)
         return fused_point_mlp_max_win_plain(y, o, idx_rel, starts, w2, b2, w3, b3, window)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, gout):
         args = ctx.saved_tensors
+        _refuse_bf16_grad(args[0])
         bwd = (fused_point_mlp_max_win_bwd_kernel if gout.is_cuda
                else fused_point_mlp_max_win_bwd_plain)
         dy, do, dw2, db2, dw3, db3 = bwd(*args, ctx.window, gout)
@@ -364,6 +435,9 @@ def fused_point_mlp_max_win(y, o, idx_rel, starts, w2, b2, w3, b3, window: int):
     :param idx_rel: (T, M, S) int64 window-relative rows in [0, window)
     :param starts: (T, NB) int64 first table row of each tile's window; the
         tile of centroid m is m // (M // NB)
+
+    f32, or bf16 ``y``, ``o``, ``w2``, ``w3`` with f32 biases (forward only;
+    G-bf16 on the card).
     """
     if y.device.type not in ('cuda', 'cpu'):
         raise ValueError(f'fused_point_mlp_max_win: unsupported device {y.device}')

@@ -1,12 +1,13 @@
 """Where the eval forward's and the train step's time goes on the card.
 
-    python -m epnet_tpu_torch.utils.profiling [--requests 3] [--top 15] [--block_local]
+    python -m epnet_tpu_torch.utils.profiling [--requests 3] [--top 15] [--block_local] [--mixed]
     python -m epnet_tpu_torch.utils.profiling --train [--steps 3] [--batch 4] [--block_local]
 
 Builds ``EPNet`` at the published recipe's full width (random weights from
 a seeded generator); ``--block_local`` adds the block-local configuration's
 overrides (``EXACT_QUERIES residual``, ``RPN.BLOCK_LOCAL``,
-``RCNN.BLOCK_LOCAL``) and Morton-sorts the scenes. Eval (default): answers batch-1 requests on
+``RCNN.BLOCK_LOCAL``) and Morton-sorts the scenes; ``--mixed`` sets
+``MIXED_PRECISION`` (the bf16 forward; eval only). Eval (default): answers batch-1 requests on
 structured scenes and prints the median wall time of each stage (RPN,
 proposals, RoI pooling, RCNN). ``--train``: takes train steps on labelled
 batch-4 scenes and prints the median of each part of a step (RPN forward,
@@ -148,7 +149,11 @@ def main(argv=None):
     ap.add_argument('--top', type=int, default=15)
     ap.add_argument('--block_local', action='store_true',
                     help='the block-local configuration of the recipe')
+    ap.add_argument('--mixed', action='store_true',
+                    help='MIXED_PRECISION: the bf16 forward (eval only)')
     args = ap.parse_args(argv)
+    if args.mixed and args.train:
+        raise SystemExit('--mixed: the bf16 train step is not ported yet')
     if not torch.cuda.is_available():
         raise SystemExit('profiling needs a CUDA device')
     from ..config import block_local_config, parity_config
@@ -158,8 +163,10 @@ def main(argv=None):
 
     dev = torch.device('cuda:0')
     cfg = block_local_config(parity_config()) if args.block_local else parity_config()
-    print(f'{"block-local" if args.block_local else "exact"} configuration, '
-          f'{torch.cuda.get_device_name(0)}')
+    if args.mixed:
+        cfg = cfg.with_overrides([('MIXED_PRECISION', 'True')])
+    print(f'{"block-local" if args.block_local else "exact"} configuration'
+          f'{", bf16" if args.mixed else ""}, {torch.cuda.get_device_name(0)}')
     if args.train:
         profile_train(dev, cfg, args.steps, args.batch, args.top)
         return

@@ -177,6 +177,14 @@ BLOCK_LOCAL_TINY = {
     'RCNN': {'BLOCK_LOCAL': True, 'NUM_POINTS': 128, 'BLOCK_WINDOW': 64, 'BLOCK_C': 8},
 }
 
+# The bf16 eval forward at test widths (``MIXED_PRECISION`` with exact
+# queries): ``EPNet(tiny_config(**MIXED_TINY), 'TEST', device='cpu')``. The
+# RCNN's fused stages (no BN, three layers) take B-bf16's function there.
+MIXED_TINY = {'EXACT_QUERIES': True, 'MIXED_PRECISION': True}
+# The bf16 eval forward in the block-local configuration: the RCNN's
+# windowed stage takes G-bf16's function.
+MIXED_BLOCK_LOCAL_TINY = {**BLOCK_LOCAL_TINY, 'MIXED_PRECISION': True}
+
 IMG_H, IMG_W = 32, 64
 
 
