@@ -29,11 +29,13 @@ first use), then:
    step;
 7. holds one tiny-width train step on the card against the CPU under
    identical weights and identical sampled RoIs;
-8. holds the image tower's 3x3 conv weight-gradient kernels (D, stride 2;
-   E, stride 1) against their plain versions at five edge shapes and at
-   the seven tower shapes of a batch-4 train step (at most 1e-4 x
-   max|dw|), and at the tower shapes times the kernel, the plain version
-   and ``torch.nn.grad.conv2d_weight`` (cuDNN, no TF32) in turns;
+8. holds the image tower's 3x3 conv weight-gradient kernels (D, stride 2,
+   f32 FFMA; E, stride 1, 3xTF32 on the tensor cores) against their plain
+   versions at five edge shapes and at the seven tower shapes of a batch-4
+   train step (at most 1e-4 x max|dw|, two launches bitwise equal), and at
+   the tower shapes times the kernel, the plain version and
+   ``torch.nn.grad.conv2d_weight`` (cuDNN, no TF32) in turns; prints E's
+   3xTF32 direct count at the TF32 peak beside its Winograd bound;
 9. drives the train path again: a warm-up step and three batch-4
    full-width steps on scenes 0/1/2, checking 6 FPS, 2 fused-SA forward,
    2 fused-SA backward, 4 D, 3 E and 4 F launches a step, each in turn
@@ -87,10 +89,11 @@ first use), then:
    RCNN sa0/sa1 shapes (T = 100, a batch-1 forward, timed; T = 400, the
    tables of a batch-4 CLI batch, checked only), G-bf16 on phase 13's real
    windows and
-   edge cases (T = 100), F-bf16 at the eight tower shapes and five edge
-   shapes; each within one bf16 unit in the last place of max|out|, two
-   launches bitwise equal; times kernel, plain version and (for F)
-   ``F.conv2d`` in bf16 on the padded input in turns;
+   edge cases (T = 100), F-bf16 (bf16 ``wgmma`` on the tensor cores) at
+   the eight tower shapes and five edge shapes; each within one bf16 unit
+   in the last place of max|out|, two launches bitwise equal; times
+   kernel, plain version and (for F) ``F.conv2d`` in bf16 on the padded
+   input in turns, and prints F-bf16's total against ``F.conv2d``'s;
 18. drives the bf16 TEST forward (the recipe with ``MIXED_PRECISION``) at
    full width in turns with the f32 forward on the same weights: three
    batch-1 requests each on scenes 0/1/2 (6 FPS, 2 B-bf16 and 4 F-bf16
@@ -99,7 +102,9 @@ first use), then:
 19. holds the tiny bf16 model on the card against the CPU, at
    ``utils/testing.MIXED_TINY`` and at the bf16 block-local
    ``MIXED_BLOCK_LOCAL_TINY``: backbone and RPN outputs, then the RCNN fed
-   the same pooled input, within 4 bf16 units of (1 + max|x|);
+   the same pooled input, within 4 bf16 units of (1 + max|x|); prints each
+   output's share of that bound, where its worst element sits, and which
+   output sets the worst;
 20. runs the eval CLI on phase 11's tree and checkpoint with ``--set
    MIXED_PRECISION True``: the 8 result files, a finite AP dict, and 6
    FPS, 2 B-bf16 and 4 F-bf16 launches a batch.
@@ -114,7 +119,9 @@ work at these shapes: the larger of its operations at the f32 peak (for
 the bf16 instances, their products at the bf16 tensor-core peak, the rest
 at the f32 peak) and its bytes (each input read once, each output written
 once) at the memory rate (NVIDIA H100 SXM data sheet, below); for D and E the operations of the
-cheapest exact algorithm counted (``_dw_bound_ops``), and for F the same
+cheapest exact algorithm counted (``_dw_bound_ops``; phase 8 also prints
+E's own design's count, three TF32 passes of the direct product at the
+TF32 tensor-core peak), and for F the same
 count (its four stride-2 phases are the same correlations of x, now with
 the weights); for B, C, G and H each ball's distinct rows
 (``_sa_fwd_bound``), and for C and H the backward's products where this
@@ -185,6 +192,7 @@ LIBRARY_RTOL = 1e-3
 ROUTE_RTOL = 1e-3
 F32_PEAK = 67e12     # FLOP/s, f32 outside the tensor cores
 BF16_PEAK = 989e12   # FLOP/s, bf16 products on the tensor cores (dense)
+TF32_PEAK = 495e12   # FLOP/s, TF32 products on the tensor cores (dense)
 MEMORY_RATE = 3.35e12  # bytes/s of HBM
 # the bf16 instances against their plain versions: both sum in f32, in
 # different orders, then round to bf16 once, so they may differ by one bf16
@@ -897,6 +905,7 @@ def phase_conv_dw(dev):
                          else (conv2d.dw3x3_s1_kernel, conv2d.dw3x3_s1_plain))
         rows, max_err, op_ms, byte_ms = [], 0.0, [], []
         total = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0}
+        tf32x3_ms = 0.0
         for blk, (B, H, W, C, Fo) in shapes.items():
             x = torch.randn(B, H, W, C, device=dev, generator=gen)
             dy = torch.randn(B, H // stride, W // stride, Fo, device=dev, generator=gen)
@@ -905,6 +914,8 @@ def phase_conv_dw(dev):
                           4 * (B * H * W * C + pixels * Fo + 9 * C * Fo))
             op_ms.append(o)
             byte_ms.append(m)
+            # E's own design: three TF32 passes of the direct count
+            tf32x3 = 3 * 2.0 * 9 * C * Fo * pixels / TF32_PEAK * 1e3 if stride == 1 else None
 
             library = _library_dw_call(x, dy, stride)
             got, want = kernel(x, dy), plain(x, dy)
@@ -935,13 +946,23 @@ def phase_conv_dw(dev):
                 total[key] += row[key]
             row.update(block=blk, shape=[B, H, W, C, Fo], bound_ms=max(o, m),
                        max_rel_err=err / scale)
+            if tf32x3 is not None:
+                row['tf32x3_bound_ms'] = tf32x3
+                tf32x3_ms += tf32x3
             rows.append(row)
             print(f'  kernel {row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, conv2d_weight '
                   f'{row["library_ms"]:.4f} ms, bound {max(o, m):.4f} ms ({o:.4f} operations, '
-                  f'{m:.4f} bytes)', flush=True)
+                  f'{m:.4f} bytes)' + ('' if tf32x3 is None else
+                                       f'; 3xTF32 direct count {tf32x3:.4f} ms'), flush=True)
             del x, dy, library
         results[name] = {'max_abs_err': max_err, **total, **_bound_keys(op_ms, byte_ms),
                          'per_shape': rows}
+        if stride == 1:
+            results[name]['tf32x3_bound_ms'] = tf32x3_ms
+            print(f'{name}: kernel {total["ms"]:.4f} ms, conv2d_weight '
+                  f'{total["library_ms"]:.4f} ms, bound {results[name]["bound_ms"]:.4f} ms '
+                  f'(Winograd at the f32 peak), 3xTF32 direct count at the TF32 peak '
+                  f'{tf32x3_ms:.4f} ms', flush=True)
     return results
 
 
@@ -1191,6 +1212,7 @@ def phase_bf16_kernels(dev):
         op_ms.append(om)
         byte_ms.append(bm)
         err, scale, exact = check(f'F-bf16 {name}', kernel, plain, (x, wt))
+        tiles, splits = conv2d.conv3x3_s2_fwd_grid(x.shape, Fo, dev, bf)
         library = _library_fwd_call(x, wt)
         lib_err = float((library().permute(0, 2, 3, 1).float() - plain(x, wt).float()).abs().max())
         max_err = max(max_err, err)
@@ -1199,14 +1221,18 @@ def phase_bf16_kernels(dev):
         for k in total:
             total[k] += row[k]
         rows.append({'shape': name, 'dims': [B, H, Wd, C, Fo], **row, 'bound_ms': max(om, bm),
-                     'max_abs_err': err, 'bit_identical': exact})
-        print(f'F-bf16 {name} x {(B, H, Wd, C)} -> F {Fo}: max abs err {err:.3e} (max|y| '
+                     'blocks': tiles * splits, 'max_abs_err': err, 'bit_identical': exact})
+        print(f'F-bf16 {name} x {(B, H, Wd, C)} -> F {Fo}: {tiles * splits} blocks ({tiles} '
+              f'tiles x {splits} K splits); max abs err {err:.3e} (max|y| '
               f'{scale:.3e}), {exact:.4f} bit-identical, F.conv2d bf16 {lib_err:.3e}; kernel '
               f'{row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, F.conv2d '
               f'{row["library_ms"]:.4f} ms, bound {max(om, bm):.4f} ms', flush=True)
         del x, wt, library
     res['F'] = {'max_abs_err': max_err, **total, **_bound_keys(op_ms, byte_ms),
                 'per_shape': rows}
+    print(f'F-bf16 at the 8 tower shapes: kernel {total["ms"]:.4f} ms, F.conv2d bf16 '
+          f'{total["library_ms"]:.4f} ms ({total["ms"] / total["library_ms"]:.2f}x), bound '
+          f'{res["F"]["bound_ms"]:.4f} ms', flush=True)
     return res
 
 
@@ -1587,17 +1613,26 @@ def phase_small_bf16_reference(dev, over=None):
                                want['seg_result'], torch.linalg.norm(xyz, dim=2))
         want.update(cpu.rcnn(pooled))
         got.update(card.rcnn(pooled.to(dev)))
-    worst = 0.0
+    ratios = {}
     for k in ('backbone_features', 'rpn_cls', 'rpn_reg', 'rcnn_cls', 'rcnn_reg'):
-        err = float((got[k].cpu() - want[k]).abs().max())
+        diff = (got[k].cpu().float() - want[k].float()).abs()
+        err = float(diff.max())
         bound = 4 * 2.0 ** -7 * (1.0 + float(want[k].abs().max()))
-        worst = max(worst, err / bound)
+        ratios[k] = err / bound
+        # where the worst element sits: its index, both values, and how many
+        # elements differ at all
+        at = tuple(int(i) for i in torch.nonzero(diff == diff.max())[0])
+        print(f'  {k} {tuple(want[k].shape)}: {ratios[k]:.4f} of the bound, worst at {at} '
+              f'(card {float(got[k].cpu()[at]):.6g}, CPU {float(want[k][at]):.6g}), '
+              f'{int((diff > 0).sum())} of {diff.numel()} elements differ', flush=True)
         if not err <= bound:
             raise AssertionError(f'tiny {name} bf16 model on the card vs CPU: {k} off by '
                                  f'{err:.3e}')
+    worst = max(ratios, key=ratios.get)
     same_rois = bool(torch.equal(got['rois'].cpu(), want['rois']))
-    print(f'tiny {name} bf16 model, card vs CPU plain path: agree (worst {worst:.3f} of the bound '
-          f'4 * 2^-7 * (1 + max|x|)); RoIs {"identical" if same_rois else "differ"}', flush=True)
+    print(f'tiny {name} bf16 model, card vs CPU plain path: agree (worst {ratios[worst]:.3f} of '
+          f'the bound 4 * 2^-7 * (1 + max|x|), set by {worst}); RoIs '
+          f'{"identical" if same_rois else "differ"}', flush=True)
 
 
 BL_KERNELS = ('fps', 'sa_fused_fwd', 'sa_fused_win_fwd', 'sa_fused_bwd', 'sa_fused_win_bwd',
@@ -1827,7 +1862,8 @@ def main():
         {'name': 'conv3x3_dw_s1', 'route': 'cuda',
          'source': 'epnet_tpu_torch/csrc/conv3x3_dw.cu',
          'replaces': 'tools/conv_dw_pallas_attic.py:258, tools/conv_dw_pallas_attic.py:67',
-         **dw_res['conv3x3_dw_s1']},
+         'design': 'wgmma m64nNk8 3xTF32 (hi/lo planes, 64-byte swizzle), cp.async ring, '
+                   'split-K in fixed order', **dw_res['conv3x3_dw_s1']},
         {'name': 'conv3x3_s2_fwd', 'route': 'cuda',
          'source': 'epnet_tpu_torch/csrc/conv3x3_s2_fwd.cu',
          'replaces': 'tools/conv_fwd_attic.py:43', **fwd_res},
@@ -1845,7 +1881,9 @@ def main():
          'replaces': 'epnet_tpu/ops/sa_fused.py:334', **bf16_res['G']},
         {'name': 'conv3x3_s2_fwd_bf16', 'route': 'cuda',
          'source': 'epnet_tpu_torch/csrc/conv3x3_s2_fwd.cu',
-         'replaces': 'tools/conv_fwd_attic.py:43', **bf16_res['F']},
+         'replaces': 'tools/conv_fwd_attic.py:43',
+         'design': 'wgmma m64nNk16 bf16 (128-byte swizzle, transposed B), cp.async 4-stage, '
+                   'split-K in fixed order', **bf16_res['F']},
     ]
     for k in kernels:
         k['launches'] = launches[k['name']]

@@ -22,9 +22,10 @@ between the two.
 
 In bf16 (the ``MIXED_PRECISION`` tower, ``epnet_tpu/models/layers.py:
 192-199``) the forward takes bf16 x and w and returns bf16: at stride 2
-kernel F-bf16 (f32 accumulation in F's K order, one rounding at the end,
-as the Pallas kernel's ``x.dtype`` output, ``conv_fwd_attic.py:75-76,
-167``), at stride 1 ``F.conv2d`` in bf16, as the JAX package leaves it to
+kernel F-bf16 (bf16 products on the tensor cores, f32 accumulation in F's
+tap-then-channel order, one rounding at the end, as the Pallas kernel's
+bf16 dot and ``x.dtype`` output, ``conv_fwd_attic.py:73-76, 167``), at
+stride 1 ``F.conv2d`` in bf16, as the JAX package leaves it to
 XLA's conv (``epnet_tpu/ops/conv2d.py:51,112``). The backward takes f32
 only: bf16 training is not ported.
 
@@ -35,7 +36,9 @@ convs.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -49,8 +52,9 @@ def conv3x3_same_available(x_shape, features: int, kernel: int, stride: int) -> 
     counterpart of the JAX package's ``_dw_available`` (stride 2) and
     ``conv3x3_same_available`` (stride 1), decided by shape alone.
 
-    * 3x3, input and output channels multiples of 4 (the kernels load
-      float4s);
+    * 3x3, input and output channels multiples of 4: the kernels copy 4
+      values (16 bytes in f32) at a time, and F-bf16 copies 8 bf16 values
+      (16 bytes) when both are multiples of 8 and 4 (8 bytes) otherwise;
     * stride 2: even H and W (kernels F and D);
     * stride 1: more than 8 input channels, so the RGB stem keeps
       ``nn.Conv2d`` as it keeps its own conv in JAX (kernel E).
@@ -194,22 +198,30 @@ def _fwd_lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.epnet_conv3x3_s2_fwd_tiles.argtypes = [ctypes.c_int] * 4
         lib.epnet_conv3x3_s2_fwd_tiles.restype = ctypes.c_longlong
-        lib.epnet_conv3x3_s2_fwd_steps.argtypes = [ctypes.c_int]
-        lib.epnet_conv3x3_s2_fwd_steps.restype = ctypes.c_int
+        lib.epnet_conv3x3_s2_fwd_bf16_blocks.argtypes = []
+        lib.epnet_conv3x3_s2_fwd_bf16_blocks.restype = ctypes.c_int
+        for fn in (lib.epnet_conv3x3_s2_fwd_steps, lib.epnet_conv3x3_s2_fwd_bf16_steps):
+            fn.argtypes = [ctypes.c_int]
+            fn.restype = ctypes.c_int
         lib._epnet_typed = True
     return lib
 
 
-_BLOCKS_PER_SM = 2    # resident blocks of both sources (launch bounds, registers)
-_WAVES = 4            # dw: target waves of blocks, so the last one is a small share
+_BLOCKS_PER_SM = 2    # resident blocks of F, D and E (launch bounds); F-bf16 reports its own
+_WAVES = 4            # D: target waves of blocks, so the last one is a small share
+_E_WAVES = 3          # E: as _WAVES, for its tensor-core tiles
 _MIN_SPLIT_PIXELS = 256  # dw: a split shorter than this costs more to reduce than it saves
 _FWD_WAVES = 2        # F: waves to fill before K is split (each split adds an M x F slice)
 _MIN_SPLIT_STEPS = 16  # F: steps of K (tap, 16 channels) a split keeps at least
+_BF16_WAVES = 1       # F-bf16: as _FWD_WAVES (its tensor-core tiles end sooner than F's)
+_BF16_MIN_SPLIT_STEPS = 4  # F-bf16: as _MIN_SPLIT_STEPS, steps of (tap, 64 channels)
 
 
 def _check_cuda(what: str, dtype=torch.float32, **tensors):
     """Every tensor CUDA ``dtype``, contiguous, aligned to four elements (16
-    bytes in f32, 8 in bf16), on one device."""
+    bytes in f32, 8 in bf16), on one device. F-bf16 copies 16 bytes where x
+    and w are 16-byte aligned (and C and F multiples of 8), else 8; the
+    kernel decides that itself, so 8-byte alignment is all it needs."""
     dev = next(iter(tensors.values())).device
     for name, t in tensors.items():
         if not t.is_cuda or t.device != dev:
@@ -239,7 +251,8 @@ def _dw_kernel(what: str, x: torch.Tensor, dy: torch.Tensor, stride: int) -> tor
     dev = x.device
     tiles = lib.epnet_conv3x3_dw_tiles(C, F_)
     pixels = B * (H // stride) * (W // stride)
-    splits = max(1, min(_WAVES * _resident_blocks(dev) // tiles, pixels // _MIN_SPLIT_PIXELS))
+    waves = _WAVES if stride == 2 else _E_WAVES
+    splits = max(1, min(waves * _resident_blocks(dev) // tiles, pixels // _MIN_SPLIT_PIXELS))
     part = torch.empty((splits, 9 * C * F_), dtype=torch.float32, device=dev)
     dw = torch.empty((3, 3, C, F_), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -263,8 +276,9 @@ dw3x3_s2_kernel.launches = 0
 
 
 def dw3x3_s1_kernel(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """Kernel E: the stride-1 weight gradient on the card. x (B, H, W, C)
-    and dy (B, H, W, F) as for ``dw3x3_s2_kernel``."""
+    """Kernel E: the stride-1 weight gradient on the card (3xTF32 on the
+    tensor cores, f32 accuracy). x (B, H, W, C) and dy (B, H, W, F) as for
+    ``dw3x3_s2_kernel``."""
     dw = _dw_kernel('dw3x3_s1_kernel', x, dy, 1)
     dw3x3_s1_kernel.launches += 1
     return dw
@@ -273,17 +287,32 @@ def dw3x3_s1_kernel(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 dw3x3_s1_kernel.launches = 0
 
 
-def conv3x3_s2_fwd_grid(x_shape, features: int, dev) -> tuple:
-    """(tiles, splits) of kernel F for an NHWC input of ``x_shape`` on
-    ``dev``: the launch has tiles * splits blocks. K is split only when the
-    output tiles fill fewer than ``_FWD_WAVES`` waves of resident blocks,
-    and no split keeps fewer than ``_MIN_SPLIT_STEPS`` steps."""
-    B, H, W, C = x_shape
+def conv3x3_s2_fwd_grid(x_shape, features: int, dev, dtype=torch.float32) -> tuple:
+    """(tiles, splits) of kernel F (F-bf16 for a bf16 ``dtype``) for an
+    NHWC input of ``x_shape`` on ``dev``: the launch has tiles * splits
+    blocks. K is split only when the output tiles fill fewer than
+    ``_FWD_WAVES`` waves of resident blocks, and no split keeps fewer than
+    ``_MIN_SPLIT_STEPS`` of the kernel's steps (``_BF16_*`` for F-bf16)."""
+    dev = torch.device(dev)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return _fwd_grid(*x_shape, features, index, dtype == torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_grid(B, H, W, C, features, index, bf16) -> tuple:
+    """``conv3x3_s2_fwd_grid`` by value, computed once a shape: the bf16
+    forward launches F-bf16 on a few shapes again and again, where a kernel
+    takes tens of microseconds and the host's time per call counts."""
     lib = _fwd_lib()
     tiles = lib.epnet_conv3x3_s2_fwd_tiles(B, H, W, features)
-    steps = lib.epnet_conv3x3_s2_fwd_steps(C)
-    splits = max(1, min(_FWD_WAVES * _resident_blocks(dev) // tiles, steps // _MIN_SPLIT_STEPS))
-    return tiles, splits
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    if bf16:
+        waves = _BF16_WAVES * lib.epnet_conv3x3_s2_fwd_bf16_blocks() * sms
+        steps = lib.epnet_conv3x3_s2_fwd_bf16_steps(C) // _BF16_MIN_SPLIT_STEPS
+    else:
+        waves = _FWD_WAVES * _BLOCKS_PER_SM * sms
+        steps = lib.epnet_conv3x3_s2_fwd_steps(C) // _MIN_SPLIT_STEPS
+    return tiles, max(1, min(waves // tiles, steps))
 
 
 def conv3x3_s2_fwd_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -300,7 +329,7 @@ conv3x3_s2_fwd_kernel.launches = 0
 
 def conv3x3_s2_fwd_bf16_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Kernel F-bf16: as ``conv3x3_s2_fwd_kernel`` with x, w and the result
-    bf16 (f32 accumulation)."""
+    bf16 (8-byte aligned), on the bf16 tensor cores with f32 accumulation."""
     y = _launch_fwd('conv3x3_s2_fwd_bf16_kernel', 'epnet_conv3x3_s2_fwd_bf16_launch',
                     torch.bfloat16, x, w)
     conv3x3_s2_fwd_bf16_kernel.launches += 1
@@ -323,11 +352,13 @@ def _launch_fwd(what: str, entry: str, dtype, x: torch.Tensor, w: torch.Tensor) 
         raise ValueError(f'{what}: empty batch')
     lib = _fwd_lib()
     dev = x.device
-    _, splits = conv3x3_s2_fwd_grid(x.shape, F_, dev)
+    _, splits = conv3x3_s2_fwd_grid(x.shape, F_, dev, dtype)
     y = torch.empty((B, H // 2, W // 2, F_), dtype=dtype, device=dev)
     part = (torch.empty((splits, y.numel()), dtype=torch.float32, device=dev) if splits > 1
             else None)
-    with torch.cuda.device(dev):
+    # the launch goes to the current device: switch only when x lies elsewhere
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, entry)(x.data_ptr(), w.data_ptr(),
                                   None if part is None else part.data_ptr(),

@@ -240,6 +240,14 @@ def test_bf16_kernels_match_plain_on_the_card():
     _within_one_ulp(tsa.fused_point_mlp_max_bf16_kernel(*cuda).cpu(),
                     tsa.fused_point_mlp_max_plain(*args).float().numpy(), 'B-bf16 kernel')
     rng = np.random.RandomState(9)
-    x, w = _bf16(rng.randn(2, 12, 20, 132)), _bf16(rng.randn(3, 3, 132, 200) / 36)
-    _within_one_ulp(tconv.conv3x3_s2_fwd_bf16_kernel(x[0].to(dev), w[0].to(dev)).cpu(),
-                    tconv.conv3x3_s2_fwd_plain(x[0], w[0]).float().numpy(), 'F-bf16 kernel')
+    # F-bf16: C % 8 == 4 (8-byte copies; C = 4 is one tap's channel tail), C =
+    # 24 (16-byte copies, a 32-channel step that is a quarter zero-fill), a
+    # batch-4 tower shape (blk2: 480 output tiles, K not split)
+    for B, H, W, C, Fo in [(2, 12, 20, 132, 200), (2, 6, 10, 4, 8), (1, 8, 12, 24, 32),
+                           (4, 96, 320, 256, 256)]:
+        x, w = (_bf16(rng.randn(B, H, W, C)),
+                _bf16(rng.randn(3, 3, C, Fo) / (3 * np.sqrt(C))))
+        got = tconv.conv3x3_s2_fwd_bf16_kernel(x[0].to(dev), w[0].to(dev))
+        assert torch.equal(tconv.conv3x3_s2_fwd_bf16_kernel(x[0].to(dev), w[0].to(dev)), got)
+        _within_one_ulp(got.cpu(), tconv.conv3x3_s2_fwd_plain(x[0], w[0]).float().numpy(),
+                        f'F-bf16 kernel {(B, H, W, C, Fo)}')

@@ -14,6 +14,8 @@ against the JAX package's ``epnet_tpu/ops/conv2d.py``, on the CPU.
 * A train-mode ``ImageBlock`` against the JAX one with its Pallas
   stride-2 weight gradient (interpret mode) and its 9-shift stride-1
   weight gradient.
+* Kernel E's 3xTF32 arithmetic (hi/lo TF32 splits, three passes summed
+  in f32) against an f64 reference and one TF32 pass.
 * Kernels F, D and E against their plain versions on the card (``cuda``).
 
 Tolerance against JAX: at most 1e-5 x max|ref| for values and gradients
@@ -299,6 +301,47 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_bad_shapes():
     assert tconv.conv3x3_s2_fwd_kernel.launches == 0
 
 
+DW_RTOL = 1e-4  # kernels D and E against their plain versions (chip_smoke.py)
+
+
+def _tf32_rna(a: torch.Tensor) -> torch.Tensor:
+    """f32 ``a`` rounded to TF32's 10 mantissa bits, to nearest with ties
+    away from zero (PTX ``cvt.rna.tf32.f32`` on finite values), on its
+    int32 view: add half of the 13 dropped bits' unit to the magnitude,
+    then clear them."""
+    return ((a.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+@pytest.mark.parametrize('shape', [(2, 12, 20, 64, 64), (1, 24, 80, 128, 256)],
+                         ids=lambda s: 'x'.join(map(str, s)))
+def test_three_pass_tf32_keeps_f32_accuracy(shape):
+    """Kernel E's arithmetic, on the CPU: each operand split as hi =
+    tf32(a), lo = tf32(a - hi), and the stride-1 weight gradient taken as
+    hi*hi + hi*lo + lo*hi, summed in f32, is within DW_RTOL / 10 of an f64
+    reference, and at least 10x closer to it than one TF32 pass. So the
+    tensor-core kernel computes the f32 function, not TF32's."""
+    one_and_half = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12])
+    assert _tf32_rna(one_and_half).tolist() == [1 + 2 ** -10, -(1 + 2 ** -10), 1.0]
+    B, H, W, C, Fo = shape
+    rng = np.random.RandomState(sum(shape))
+    x = torch.from_numpy(rng.randn(B, H, W, C).astype(np.float32))
+    dy = torch.from_numpy(rng.randn(B, H, W, Fo).astype(np.float32))
+    x_hi, dy_hi = _tf32_rna(x), _tf32_rna(dy)
+    x_lo, dy_lo = _tf32_rna(x - x_hi), _tf32_rna(dy - dy_hi)
+    for v in (x_hi, dy_hi, x_lo, dy_lo):
+        assert not (v.view(torch.int32) & 0x1fff).any()
+    plain = tconv.dw3x3_s1_plain
+    three = plain(x_hi, dy_lo) + plain(x_lo, dy_hi) + plain(x_hi, dy_hi)
+    one = plain(x_hi, dy_hi)
+    assert three.dtype == torch.float32
+    ref = plain(x.double(), dy.double())
+    scale = float(ref.abs().max())
+    err3 = float((three.double() - ref).abs().max())
+    err1 = float((one.double() - ref).abs().max())
+    assert err3 <= DW_RTOL / 10 * scale, (err3 / scale, err1 / scale)
+    assert 10 * err3 <= err1, (err3 / scale, err1 / scale)
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -307,11 +350,16 @@ def card():
     return torch.device('cuda')
 
 
+DW_CARD_SHAPES = ([(s, shape) for s in (1, 2)
+                   for shape in [(2, 16, 64, 8, 16), (1, 24, 40, 64, 64), (2, 12, 20, 132, 200),
+                                 (1, 6, 10, 512, 512)]]
+                  # E at the test widths: C = 24 (a 9C tail of 88 rows), C = 12 (C % 8 == 4)
+                  + [(1, (2, 10, 14, 24, 32)), (1, (1, 7, 9, 12, 20))])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('shape', [(2, 16, 64, 8, 16), (1, 24, 40, 64, 64),
-                                   (2, 12, 20, 132, 200), (1, 6, 10, 512, 512)],
-                         ids=lambda s: 'x'.join(map(str, s)))
-@pytest.mark.parametrize('stride', [1, 2])
+@pytest.mark.parametrize('stride,shape', DW_CARD_SHAPES,
+                         ids=lambda v: 'x'.join(map(str, v)) if isinstance(v, tuple) else str(v))
 def test_kernels_match_plain_on_the_card(card, stride, shape):
     """D and E against their plain versions: at most 1e-4 x max|dw|."""
     B, H, W, C, Fo = shape
