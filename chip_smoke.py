@@ -17,9 +17,13 @@ first use), then:
    counts (6 FPS, 2 fused-SA and 4 F launches a forward);
 4. holds the same model at tiny widths on the card (kernels) against the
    CPU (plain versions) under identical weights;
-5. holds the fused set-abstraction backward kernel against its plain
+5. holds the fused set-abstraction backward kernel (C) against its plain
    version at the train shapes of RCNN sa0/sa1 (batch 4: 256 sampled RoIs)
-   and times both;
+   on random tables with tied rows, and at sa0 on real tables (the exact
+   ball query, radius 0.2 and 64 samples, around FPS centroids of pooled
+   RoIs): at most 1e-4 of each gradient's max, dW/db of two launches
+   bitwise equal; prints the shares of distinct and live rows and how many
+   max selections differ from the plain version's, and times both;
 6. drives the train path: ``EPNet`` in TRAIN mode at the recipe's full
    width, random weights from a seeded generator, three train steps
    (forward, joint loss, backward, global-norm clip, AdamW under OneCycle)
@@ -68,8 +72,10 @@ first use), then:
    from the port's own sorted FPS, bucket query and window starts over
    RoIs pooled from a Morton-sorted scene, and on edge cases (mostly empty
    balls, windows at 0 and N - W): at most 1e-4 x max|out| for G, 1e-4 of
-   each gradient's max for H; and times kernel, plain version and kernel
-   B or C on the same work (the global rows starts + idx_rel) in turns;
+   each gradient's max for H (and H's shares of distinct and live rows and
+   its max selections differing from plain, as phase 5); and times kernel,
+   plain version and kernel B or C on the same work (the global rows
+   starts + idx_rel) in turns;
 14. drives the block-local configuration (the recipe with ``EXACT_QUERIES
    residual``, ``RPN.BLOCK_LOCAL`` and ``RCNN.BLOCK_LOCAL``) at full width
    in turns with the exact configuration, same weights and Morton-sorted
@@ -117,8 +123,13 @@ the model turns it off, as the f32 recipe needs.
 Every kernel's ``bound_ms`` is the least time the card could take for its
 work at these shapes: the larger of its operations at the f32 peak (for
 the bf16 instances, their products at the bf16 tensor-core peak, the rest
-at the f32 peak) and its bytes (each input read once, each output written
-once) at the memory rate (NVIDIA H100 SXM data sheet, below); for D and E the operations of the
+at the f32 peak; for C and H the smaller of that count and their design's
+own, which takes layer 2's two backward products in three TF32 passes at
+the TF32 tensor-core peak, beside the rest at the f32 peak, the larger of
+the two pipes' times: either is exact to f32) and its
+bytes (each
+input read once, each output written once) at the memory rate (NVIDIA
+H100 SXM data sheet, below); for D and E the operations of the
 cheapest exact algorithm counted (``_dw_bound_ops``; phase 8 also prints
 E's own design's count, three TF32 passes of the direct product at the
 TF32 tensor-core peak), and for F the same
@@ -157,6 +168,10 @@ SA_TRAIN_SHAPES = {  # the same stages in a batch-4 train step: 4 x 64 sampled R
     'rcnn.sa0': (256, 512, 128, 64, 128, 128, 128),
     'rcnn.sa1': (256, 128, 32, 64, 128, 128, 256)}
 SA_RTOL = 1e-4
+SA_BWD_DESIGN = ('each distinct row once (warp bitonic dedupe), blocks split by cost, f32 FFMA '
+                 'recompute in cuBLAS order, sparse max gradient (dW3 as gathers), dh2 and '
+                 'layer 2 over the live rows on mma.sync m16n8k8 3xTF32, dW/db on chip, '
+                 'fixed-order reduction')
 # the image tower's convs in a batch-4 train step of the recipe: (B, H, W, C, F)
 DW_SHAPES = {
     'conv3x3_dw_s2': {'blk0': (4, 384, 1280, 64, 64), 'blk1': (4, 192, 640, 128, 128),
@@ -259,24 +274,21 @@ def _sa_fwd_bound(idx, N, C1, C2, C3, bf16=False):
                   4 * (T * N * C1 + T * M * C1 + weights + T * M * C3) + 8 * T * M * S)
 
 
-def _sa_bwd_bound(y, o, idx, w2, b2, w3, b3, gout):
-    """(ms, ms) of the fused-SA backward on these inputs: the recompute
-    over each ball's distinct rows (the forward's count, to find the max),
-    then the max's gradient, which reaches only the rows that hold it.
-    Layer 3's two products take 2 * C2 operations for each nonzero of dp3
-    (one per (centroid, channel), more where distinct rows tie); layer 2's
-    two take 2 * C1 * C2 a row for the rows that hold the max of at least
-    one channel. Both counts come from this data; ReLU zeros are not
-    skipped, as in the forward's count. Elementwise passes on the nonzeros:
-    tie split, mask and db3 on dp3; mask and db2 on dp2; mask, the dy and
-    do adds on dp1."""
+def _sa_bwd_work(y, o, idx, w2, b2, w3, b3, gout):
+    """What the fused-SA backward needs on these inputs, from the plain
+    version's own arithmetic, in chunks of tables: the nonzeros of dp3
+    (one per (centroid, channel) where the max is on a row with p3 > 0,
+    more where distinct rows tie), the live rows (distinct rows holding at
+    least one of them), the distinct rows, and the plain version's max
+    selections (T, M, C3) int32 as kernels C and H report theirs: the first
+    tied table row * 128 + the tied samples, -1 where no row has p3 > 0."""
     import torch
 
     T, N, C1 = y.shape
     _, M, S = idx.shape
-    C2, C3 = w2.shape[-1], w3.shape[-1]
     rows, first = _distinct_rows(idx)
     nnz3 = rows2 = 0
+    sel = []
     for t in range(0, T, 32):  # ~0.5 GB of temporaries a chunk
         sl = slice(t, t + 32)
         ti = rows[sl].reshape(-1, M * S, 1)
@@ -284,17 +296,56 @@ def _sa_bwd_bound(y, o, idx, w2, b2, w3, b3, gout):
         h2 = torch.relu(torch.relu(g - o[sl, :, None, :]) @ w2 + b2)
         p3 = h2 @ w3 + b3
         h3 = torch.relu(p3)
-        live = ((h3 == h3.amax(dim=2, keepdim=True)) & (p3 > 0)
-                & (gout[sl, :, None, :] != 0) & first[sl, :, :, None])
+        mx = h3.amax(dim=2, keepdim=True)
+        tie = (h3 == mx) & (mx > 0)
+        live = tie & (gout[sl, :, None, :] != 0) & first[sl, :, :, None]
         nnz3 += int(live.sum())
         rows2 += int(live.any(dim=-1).sum())
+        lead = torch.where(tie, rows[sl, :, :, None], N).amin(dim=2)
+        sel.append(torch.where(mx[:, :, 0] > 0, lead * 128 + tie.sum(dim=2), -1).int())
+    return nnz3, rows2, int(first.sum()), torch.cat(sel)
+
+
+def _sa_bwd_bound(y, o, idx, w2, b2, w3, b3, gout, work=None):
+    """(ms, ms, ms) of the fused-SA backward on these inputs: operations by
+    the f32 count, operations by kernel C/H's own design, and bytes. The
+    recompute over each ball's distinct rows (the forward's count, to find
+    the max), then the max's gradient, which reaches only the rows that
+    hold it: layer 3's two products take 2 * C2 operations for each nonzero
+    of dp3; layer 2's two take 2 * C1 * C2 a row for the live rows. Both
+    counts come from this data; ReLU zeros are not skipped, as in the
+    forward's count. Elementwise passes on the nonzeros: tie split, mask
+    and db3 on dp3; mask and db2 on dp2; mask, the dy and do adds on dp1.
+    The f32 count takes every operation at the f32 peak. The design's
+    (kernels C and H) takes layer 2's two products in three TF32 passes at
+    the TF32 tensor-core peak, and the rest (the recompute, the elementwise
+    work and layer 3's gathers, dW3 and dh2) at the f32 peak; dh2 as the
+    dense product dp3 W3^T over the distinct rows in three TF32 passes
+    instead, where that is the cheaper (the kernel runs it so). The two
+    pipes run side by side, so the design's count is the larger of its two
+    parts, as in ``_bound``. Either algorithm is exact to f32, so the bound
+    is the smaller."""
+    T, N, C1 = y.shape
+    _, M, S = idx.shape
+    C2, C3 = w2.shape[-1], w3.shape[-1]
+    nnz3, rows2, distinct, _ = work or _sa_bwd_work(y, o, idx, w2, b2, w3, b3, gout)
     fwd_ms, _ = _sa_fwd_bound(idx, N, C1, C2, C3)
-    back = (4.0 * nnz3 * C2 + 4.0 * rows2 * C1 * C2         # products
-            + 3.0 * nnz3 + rows2 * (2 * C2 + 3 * C1))       # elementwise
+    layer2 = 4.0 * rows2 * C1 * C2
+    elementwise = 3.0 * nnz3 + rows2 * (2 * C2 + 3 * C1)
     weights = C1 * C2 + C2 + C2 * C3 + C3
     nbytes = (4 * (T * N * C1 + T * M * C1 + weights + T * M * C3)   # inputs
               + 8 * T * M * S + 4 * (T * N * C1 + T * M * C1 + weights))  # idx, outputs
-    return fwd_ms + _bound(back, 0)[0], _bound(0, nbytes)[1]
+    f32_ms = fwd_ms + _bound(layer2 + 4.0 * nnz3 * C2 + elementwise, 0)[0]
+    ffma_ms = fwd_ms + _bound(2.0 * nnz3 * C2 + elementwise, 0)[0]
+    tensor_ms = 3 * layer2 / TF32_PEAK * 1e3
+    dh2_gather_ms = _bound(2.0 * nnz3 * C2, 0)[0]
+    dh2_dense_ms = 3 * 2.0 * distinct * C2 * C3 / TF32_PEAK * 1e3
+    if dh2_gather_ms <= dh2_dense_ms:
+        ffma_ms += dh2_gather_ms
+    else:
+        tensor_ms += dh2_dense_ms
+    design_ms = max(ffma_ms, tensor_ms)
+    return f32_ms, design_ms, _bound(0, nbytes)[1]
 
 
 def _library_dw_call(x, dy, stride):
@@ -438,49 +489,99 @@ def phase_sa(dev):
             **_bound_keys(op_ms, byte_ms), 'library_ms': None, 'per_shape': rows}
 
 
+def _real_sa0_idx(T, seed, dev):
+    """RCNN sa0's table rows in a train step: the port's exact ball query
+    (radius 0.2, 64 samples: the recipe's RCNN.SA_CONFIG) around 128 FPS
+    centroids of T pooled RoIs."""
+    import torch
+    from epnet_tpu_torch.ops import fps, pointops
+
+    xyz = _pooled_rois(T, seed, dev)
+    M, S = SA_TRAIN_SHAPES['rcnn.sa0'][2:4]
+    centers = torch.gather(xyz, 1, fps.furthest_point_sample_kernel(xyz, M)[..., None]
+                           .expand(T, M, 3))
+    return pointops.ball_query(0.2, S, xyz, centers)
+
+
+def _check_bwd(name, got, want, sel, work, shape):
+    """Each gradient within SA_RTOL of the plain one's max; prints the
+    errors, the shares of distinct and live rows and the max selections
+    that differ from the plain version's; returns (max abs err, max rel
+    err)."""
+    T, N, M, S = shape[:4]
+    names = ('dy', 'do', 'dw2', 'db2', 'dw3', 'db3')
+    errs, max_err = {}, 0.0
+    for k, x, z in zip(names, got, want):
+        abs_err = float((x - z).abs().max())
+        errs[k] = abs_err / float(z.abs().max())
+        max_err = max(max_err, abs_err)
+    _, rows2, distinct, want_sel = work
+    differ = int((sel != want_sel).sum())
+    print(f'{name} {tuple(shape)}: max rel err '
+          + ', '.join(f'{k} {v:.3e}' for k, v in errs.items())
+          + f'; distinct rows {distinct / (T * M * S):.4f} of the samples, live rows '
+          f'{rows2 / distinct:.4f} of the distinct; max selections differing from plain: '
+          f'{differ} of {sel.numel()}', flush=True)
+    bad = {k: v for k, v in errs.items() if not v <= SA_RTOL}
+    if bad:
+        raise AssertionError(f'fused SA backward kernel off at {name}: {bad}')
+    return max_err, max(errs.values()), differ
+
+
 def phase_sa_bwd(dev):
     """The fused-SA backward kernel against its plain version at the train
-    shapes, with tied rows; each of the six outputs within SA_RTOL of the
-    plain one's max."""
+    shapes: on random tables with tied rows (sa0, sa1: timed, their sum is
+    the kernel's line) and on RCNN sa0's real tables (the exact ball query
+    over pooled RoIs: timed, reported beside); each of the six outputs within
+    SA_RTOL of the plain one's max, dW/db of two launches bitwise equal;
+    prints the shares of distinct and live rows, the max selections that
+    differ from the plain version's, and both operation counts of the bound
+    (``_sa_bwd_bound``)."""
     import numpy as np
     import torch
     from epnet_tpu_torch.ops import sa_fused
 
     rng = np.random.RandomState(5)
-    names = ('dy', 'do', 'dw2', 'db2', 'dw3', 'db3')
     rows, max_err, ms, plain_ms, op_ms, byte_ms = [], 0.0, 0.0, 0.0, [], []
-    for name, (T, N, M, S, C1, C2, C3) in SA_TRAIN_SHAPES.items():
+    cases = [(name, shape, None) for name, shape in SA_TRAIN_SHAPES.items()]
+    cases.append(('rcnn.sa0 real', SA_TRAIN_SHAPES['rcnn.sa0'], 'real'))
+    for name, (T, N, M, S, C1, C2, C3), kind in cases:
         def f(*shape, scale=1.0):
             return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
-        idx = torch.from_numpy(rng.randint(0, N, (T, M, S))).to(dev)
-        idx[:, :M // 4, S // 2:] = idx[:, :M // 4, :1]  # short balls padded with the first hit
+        if kind == 'real':
+            idx = _real_sa0_idx(T, 21, dev)
+        else:
+            idx = torch.from_numpy(rng.randint(0, N, (T, M, S))).to(dev)
+            idx[:, :M // 4, S // 2:] = idx[:, :M // 4, :1]  # short balls padded with the first hit
         args = (f(T, N, C1), f(T, M, C1, scale=0.1), idx, f(C1, C2, scale=C1 ** -0.5),
                 f(C2, scale=0.01), f(C2, C3, scale=C2 ** -0.5), f(C3, scale=0.01), f(T, M, C3))
-        o, m = _sa_bwd_bound(*args)
-        op_ms.append(o)
-        byte_ms.append(m)
-        got = sa_fused.fused_point_mlp_max_bwd_kernel(*args)
+        work = _sa_bwd_work(*args)
+        f32_ms, design_ms, b_ms = _sa_bwd_bound(*args, work=work)
+        o_ms = min(f32_ms, design_ms)
+        *got, sel = sa_fused.fused_point_mlp_max_bwd_kernel(*args, selections=True)
+        again = sa_fused.fused_point_mlp_max_bwd_kernel(*args)
         want = sa_fused.fused_point_mlp_max_bwd_plain(*args)
         torch.cuda.synchronize()
-        errs = {}
-        for k, x, z in zip(names, got, want):
-            abs_err = float((x - z).abs().max())
-            errs[k] = abs_err / float(z.abs().max())
-            max_err = max(max_err, abs_err)
-        print(f'sa_fused_bwd {name} {(T, N, M, S, C1, C2, C3)}: max rel err '
-              + ', '.join(f'{k} {v:.3e}' for k, v in errs.items()), flush=True)
-        bad = {k: v for k, v in errs.items() if not v <= SA_RTOL}
-        if bad:
-            raise AssertionError(f'fused SA backward kernel off at {name}: {bad}')
-        del got, want
+        abs_err, rel_err, differ = _check_bwd(f'sa_fused_bwd {name}', got, want, sel, work,
+                                              (T, N, M, S, C1, C2, C3))
+        if not all(torch.equal(x, z) for x, z in zip(got[2:], again[2:])):
+            raise AssertionError(f'sa_fused_bwd {name}: dW/db differ between two launches')
+        del got, want, again
         k = _time_ms(lambda: sa_fused.fused_point_mlp_max_bwd_kernel(*args), 5)
         p = _time_ms(lambda: sa_fused.fused_point_mlp_max_bwd_plain(*args), 5)
-        ms, plain_ms = ms + k, plain_ms + p
         rows.append({'stage': name, 'shape': [T, N, M, S, C1, C2, C3], 'ms': k,
-                     'plain_ms': p, 'bound_ms': max(op_ms[-1], byte_ms[-1]),
-                     'max_rel_err': max(errs.values())})
-        print(f'  kernel {k:.4f} ms, plain {p:.4f} ms, bound {max(op_ms[-1], byte_ms[-1]):.4f} '
-              f'ms', flush=True)
+                     'plain_ms': p, 'bound_ms': max(o_ms, b_ms), 'f32_count_ms': f32_ms,
+                     'design_count_ms': design_ms, 'max_rel_err': rel_err,
+                     'selections_differing': differ})
+        print(f'  kernel {k:.4f} ms, plain {p:.4f} ms, bound {max(o_ms, b_ms):.4f} ms (f32 '
+              f'count {f32_ms:.4f}, this design\'s count {design_ms:.4f}, bytes {b_ms:.4f})',
+              flush=True)
+        if kind == 'real':
+            continue  # beside the line's sum, which stays the random tables'
+        max_err = max(max_err, abs_err)
+        op_ms.append(o_ms)
+        byte_ms.append(b_ms)
+        ms, plain_ms = ms + k, plain_ms + p
     # no single PyTorch call gives these six gradients
     return {'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms,
             **_bound_keys(op_ms, byte_ms), 'library_ms': None, 'per_shape': rows}
@@ -575,8 +676,18 @@ def phase_sa_win(dev):
                 got = [sa_fused.fused_point_mlp_max_win_kernel(*args)]
                 want = [sa_fused.fused_point_mlp_max_win_plain(*args)]
             else:
-                got = sa_fused.fused_point_mlp_max_win_bwd_kernel(*args, gout)
+                *got, sel = sa_fused.fused_point_mlp_max_win_bwd_kernel(*args, gout,
+                                                                         selections=True)
                 want = sa_fused.fused_point_mlp_max_win_bwd_plain(*args, gout)
+                work = _sa_bwd_work(y, o, sa_fused.window_rows(idx_rel, starts), *w, gout)
+                _, rows2, distinct, want_sel = work
+                differ = int((sel != want_sel).sum())
+                print(f'H T={T} {"edge cases" if edge else "real windows"}: distinct rows '
+                      f'{distinct / (T * M * S):.4f} of the samples, live rows '
+                      f'{rows2 / distinct:.4f} of the distinct; max selections differing '
+                      f'from plain: {differ} of {sel.numel()}', flush=True)
+                if not edge:
+                    real_work, real_differ = work, differ
             torch.cuda.synchronize()
             for k, x, z in zip(('out',) if kind == 'fwd' else names, got, want):
                 e = float((x - z).abs().max()), float(z.abs().max())
@@ -600,7 +711,10 @@ def phase_sa_win(dev):
                    'table_kernel_ms': (lambda: sa_fused.fused_point_mlp_max_kernel(
                        y, o, rows, *w), 20)}
         else:
-            o_ms, b_ms = _sa_bwd_bound(y, o, rows, *w, gout)
+            f32_ms, design_ms, b_ms = _sa_bwd_bound(y, o, rows, *w, gout, work=real_work)
+            o_ms = min(f32_ms, design_ms)
+            print(f'  H bound: f32 count {f32_ms:.4f} ms, this design\'s count {design_ms:.4f} '
+                  f'ms', flush=True)
             fns = {'ms': (lambda: sa_fused.fused_point_mlp_max_win_bwd_kernel(*args, gout), 5),
                    'plain_ms': (lambda: sa_fused.fused_point_mlp_max_win_bwd_plain(*args, gout),
                                 5),
@@ -615,6 +729,9 @@ def phase_sa_win(dev):
         print(f'  kernel {name} {row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, kernel '
               f'{table} on the global rows {row["table_kernel_ms"]:.4f} ms, bound '
               f'{max(o_ms, b_ms):.4f} ms', flush=True)
+        if kind == 'bwd':
+            row.update(f32_count_ms=f32_ms, design_count_ms=design_ms,
+                       selections_differing=real_differ)
         res[name] = {'max_abs_err': max(a for a, _ in errs.values()), 'ms': row['ms'],
                      'plain_ms': row['plain_ms'], **_bound_keys([o_ms], [b_ms]),
                      'library_ms': None,
@@ -1854,7 +1971,7 @@ def main():
          'replaces': 'epnet_tpu/ops/sa_fused.py:83', **sa_res},
         {'name': 'sa_fused_bwd', 'route': 'cuda',
          'source': 'epnet_tpu_torch/csrc/sa_fused_bwd.cu',
-         'replaces': 'epnet_tpu/ops/sa_fused.py:179', **bwd_res},
+         'replaces': 'epnet_tpu/ops/sa_fused.py:179', 'design': SA_BWD_DESIGN, **bwd_res},
         {'name': 'conv3x3_dw_s2', 'route': 'cuda',
          'source': 'epnet_tpu_torch/csrc/conv3x3_dw.cu',
          'replaces': 'epnet_tpu/ops/conv2d.py:294, tools/conv_dw_pallas_attic.py:323, '
@@ -1871,7 +1988,8 @@ def main():
          'replaces': 'epnet_tpu/ops/sa_fused.py:334', **win_res['G']},
         {'name': 'sa_fused_win_bwd', 'route': 'cuda',
          'source': 'epnet_tpu_torch/csrc/sa_fused_bwd.cu',
-         'replaces': 'epnet_tpu/ops/sa_fused.py:424', **win_res['H']},
+         'replaces': 'epnet_tpu/ops/sa_fused.py:424', 'design': SA_BWD_DESIGN,
+         **win_res['H']},
         {'name': 'sa_fused_fwd_bf16', 'route': 'cuda',
          'source': 'epnet_tpu_torch/csrc/sa_fused.cu',
          'replaces': 'epnet_tpu/ops/sa_fused.py:83, tools/profile_fused_onehot.py:49, '

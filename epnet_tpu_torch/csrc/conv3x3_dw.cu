@@ -71,6 +71,8 @@
 #include <atomic>
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -532,22 +534,6 @@ __global__ void conv3x3_dw_reduce(const float* __restrict__ part, int splits, lo
 }
 
 inline int tile_n(int f) { return f <= 64 ? 64 : 128; }
-
-// Raises `kernel`'s dynamic shared-memory limit to `bytes` on the current
-// device, once a device (bit d of `done`: set on device d).
-// cudaFuncSetAttribute costs milliseconds of host time a call, which every
-// launch would otherwise pay.
-cudaError_t allow_smem(const void* kernel, int bytes, std::atomic<uint64_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = uint64_t{1} << (dev & 63);
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
-
 
 template <int TN>
 cudaError_t launch_s2(const float* x, const float* dy, float* part, int h, int w, int c, int f,

@@ -28,7 +28,10 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
+
+#include "common.cuh"
 
 namespace {
 
@@ -139,9 +142,10 @@ int epnet_fps_launch(const void* xyz, void* out, int b, int n, int npoint,
   int threads = 32;
   while (threads * kPointsPerThread < n) threads <<= 1;
   const size_t smem = 3u * static_cast<size_t>(n) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fps_kernel<kPointsPerThread>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static std::atomic<uint64_t> smem_set{0};  // the largest cloud's, once a device
+  const cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(fps_kernel<kPointsPerThread>),
+                 3 * kPointsPerThread * kMaxThreads * static_cast<int>(sizeof(float)), smem_set);
   if (err != cudaSuccess) return err;
   fps_kernel<kPointsPerThread><<<b, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xyz), static_cast<int64_t*>(out), n, npoint);

@@ -66,7 +66,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
+
+#include "common.cuh"
 
 namespace {
 
@@ -260,8 +263,9 @@ int launch(const void* y, const void* o, const void* idx, const void* starts, co
   const int blocks_m = (m + tm - 1) / tm;
   if (blocks_m > 65535) return cudaErrorInvalidValue;
   auto kernel = &sa_fused_fwd_kernel<kWin, T>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(kernel), kMaxSmem, smem_set, true);
   if (err != cudaSuccess) return err;
   const dim3 grid(t, blocks_m);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -1,5 +1,5 @@
 // Backward of the fused set-abstraction interior on Hopper (sm_90a), f32;
-// plain C interface. Two kernels, one template:
+// plain C interface. Two kernels, one design:
 //
 //   C replaces the Pallas TPU kernel epnet_tpu/ops/sa_fused.py::_bwd_kernel
 //     (pallas_call at :285, reached through the custom VJP of
@@ -13,10 +13,10 @@
 //
 // with row = idx[t,m,s] (C) or starts[t, m / TM] + idx_rel[t,m,s] (H: TM =
 // M / NB consecutive centroids share a window of Y, see csrc/sa_fused.cu),
-// it recomputes each row (g1 = Y[row] - O, h1, p2, h2, p3, h3) and pushes
+// it recomputes the rows (g1 = Y[row] - O, h1, p2, h2, p3, h3) and pushes
 // gout back:
 //
-//   dh3 = [h3 == max_s h3] gout / count of tied rows   (split evenly)
+//   dh3 = [h3 == max_s h3] gout / count of tied samples   (split evenly)
 //   dp3 = [p3 > 0] dh3;  dW3 += h2^T dp3;  db3 += sum dp3;  dh2 = dp3 W3^T
 //   dp2 = [p2 > 0] dh2;  dW2 += h1^T dp2;  db2 += sum dp2;  dh1 = dp2 W2^T
 //   dp1 = [g1 > 0] dh1;  dY[t, row] += dp1 (scatter-add);  dO[t, m] = -sum_s dp1
@@ -25,333 +25,859 @@
 // epnet_tpu_torch/ops/sa_fused.py::fused_point_mlp_max_bwd_plain and
 // ::fused_point_mlp_max_win_bwd_plain.
 //
-// What bounds it on the H100: arithmetic. At the train shapes (T = 256 RoI
-// tables; sa0 M*S = 8192 rows a table at 128/128/128, sa1 2048 rows at
-// 128/128/256) the recompute and the four products are ~410 + ~155 GFLOP a
-// step, while the plain composition writes and re-reads several (T, M*S, C)
-// tensors of ~1 GB each at sa0. Everything per row stays in shared memory
-// and registers; the FFMA pipes are the limit.
+// The work this function needs is much less than its dense form:
+//  - a ball repeats rows (short balls are padded with their first hit,
+//    pooled RoIs repeat points): on the real block-local windows only ~22%
+//    of the S = 64 rows of a ball are distinct. A row with multiplicity k
+//    gives k equal samples, so the recompute needs each distinct row once,
+//    and its k samples' gradients add up to k times one;
+//  - dp3 has one nonzero a (centroid, channel), ties aside, so layer 3's
+//    two backward products are 2 * C2 multiply-adds a nonzero, not dense
+//    products over the rows;
+//  - layer 2's backward reaches only the live rows: those that hold the
+//    max of at least one channel.
+// What is left are four dense products over the distinct rows at 128 x 128
+// (x 256) widths: the recompute (p2, p3) and, over the live rows, layer 2's
+// backward (dW2, dh1); ~200 GFLOP at the train shapes of RCNN sa0, against
+// ~0.1 GB of inputs and outputs: operations bound it (chip_smoke.py prints
+// the f32 count and this design's, with layer 2's backward on the TF32
+// tensor cores).
 //
-// Design: a block owns a contiguous run of units; a unit is TM = 64 / S
-// whole centroids (S <= 64), so the max, its tie count and dO of a
-// centroid are complete inside one chunk of <= 64 rows. Per chunk the block
-// gathers its rows of Y from global memory/L2, recomputes layers 2-3 with
-// the register-tiled f32 FFMA of csrc/sa_fused.cu (16 x 16 threads, 4 rows
-// x 8 columns each, 32-row weight tiles staged in shared memory), turns h3
-// into dp3 in place, and runs the three backward products the same way
-// (the transposed weights are staged transposed). dW/db do not fit in
-// shared memory beside the row tiles (48K floats at sa1), so each block
-// accumulates them in its own slice of a global buffer (read-modify-write
-// per chunk, each element owned by one thread: no atomics); a second kernel
-// sums the slices in block order, so dW/db are bitwise deterministic. dY
-// is an atomicAdd into a zeroed (T, N, C1) and is deterministic only up to
-// the order of the f32 additions. dO is written directly. No TF32, no mma.
+// Design, in three kernels and a fixed-order reduction:
 //
-// H is C with the window's row index (template parameter kWin). The windows
-// of consecutive tiles of one RoI overlap, and the TPU kernel added each
-// tile's (W, C1) contribution into the RoI's dY in grid order; here every
-// row's contribution is an atomicAdd into the RoI's whole (N, C1) table,
-// so overlapping windows add up and nothing is overwritten.
+// 1. sa_bwd_dedupe_kernel, a warp a centroid: bitonic sort of its S <= 64
+//    table rows (for H the global rows starts + idx_rel, clamped as the
+//    forward clamps them) in registers and shuffles; each distinct row once,
+//    packed as row * 128 + k with its multiplicity k, and the count.
+//    Equal rows at different indices stay apart; they tie exactly below,
+//    since nothing in a row's arithmetic depends on its slot in a tile.
+//
+// 2. sa_fused_bwd_kernel, one block an SM (~158 KB of shared memory at
+//    C3 = 128, ~225 KB at 256), each block a contiguous run of centroids
+//    holding an even share of the work (distinct rows plus a fixed cost a
+//    centroid; a prefix sum, sa_bwd_scan_kernel, and a binary search: balls
+//    differ ~60-fold in distinct rows).
+//    Widths are C1 = C2 = 128 and C3 = 128 or 256 (the RCNN stages); the
+//    wrapper zero-pads narrower ones, which leaves every gradient unchanged.
+//    A tile is up to 64 distinct rows of whole centroids (at most 32 of
+//    them), packed greedily from the counts by one warp's prefix sum. Per
+//    tile:
+//    - gather h1 = relu(Y[row] - O) (float4 rows from L2);
+//    - the recompute p2 = h1 W2 + b2 and p3 = h2 W3 + b3 in f32 FFMA (4 x 8
+//      outputs a thread, float4 operands), each sum one fmaf after another
+//      in k order from 0 and the bias added after: cuBLAS's order, so p2
+//      and p3 are bitwise the plain version's. They decide the ReLU masks
+//      and the maxima, and a product rounded otherwise (3xTF32 on the
+//      tensor cores was tried) puts a few of them on the other side at the
+//      train shapes, each moving a whole gradient share past the 1e-4 check.
+//      The weights stream from L2 in K-tiles through a 3-slot cp.async ring
+//      (W2 and W3 at C3 = 256 are 192 KB and do not fit beside the tiles);
+//      p3 goes 64 columns at a time;
+//    - for each 64-column chunk: the max over the centroid's distinct rows
+//      (four threads a column, combined by shuffles), cnt = sum of k over
+//      the tied rows, and dp3 = k * gout / cnt on the tied rows with p3 > 0,
+//      in place; a 64-bit row mask a column. dW3 and db3 as gathers over
+//      those nonzeros, 2 * C2 multiply-adds each: warp w owns dW3's columns
+//      8w.. (dW3[:, c] += d * h2[r]), one writer an element, no atomics.
+//      dh2 = dp3 W3^T accumulates in registers as a dense product on the
+//      tensor cores (three TF32 passes, as below; W3^T streamed as W2 is):
+//      as gathers it was a chain of shared-memory read-modify-writes, one a
+//      nonzero, and balls of one or two distinct rows (pooled background
+//      RoIs) make nearly every (row, channel) of a tile a nonzero;
+//    - dp2 = [h2 > 0] dh2 and db2; the live rows listed (padded to 16 with a
+//      dead row, whose dp2 is 0); dW2 += h1^T dp2 (K = the live rows) and
+//      dh1 = dp2 W2^T (M = the live rows; W2^T streamed as W2 is) on the
+//      TF32 tensor cores, mma.sync m16n8k8, in three passes: each operand
+//      split as hi = cvt.rna.tf32(a), lo = cvt.rna.tf32(a - hi), and lo*hi
+//      + hi*lo + hi*hi accumulated in f32 (one pass, 10 mantissa bits, is
+//      another function: tests/test_torch_sa_fused_bwd_design.py). These
+//      products and dh2 decide nothing, so rounding other than cuBLAS's is
+//      harmless;
+//      dW2's tile sum starts from 0 and is added to the block's in f32
+//      (the tensor cores' accumulation truncates). mma.sync, not wgmma:
+//      h1^T dp2 reduces over the rows, so both its operands are M/N-major,
+//      and TF32 wgmma takes K-major operands only; the live-row products
+//      gather their rows through an index list, and the tiles are ragged.
+//      mma.sync reads its fragments from any layout, split as loaded;
+//    - dp1 = [h1 > 0] dh1 in place of the regathered h1; dO = -sum of dp1
+//      over the centroid's live rows, written directly; dY: one atomicAdd a
+//      nonzero element of dp1 a distinct live row.
+//    dW2 stays in registers (64 a thread), dW3, db2 and db3 in shared
+//    memory, for the block's whole run; each block writes its slice once.
+//    One block of 8 warps an SM leaves little to hide latency with: the
+//    FFMA recompute and the tensor-core products each run well below their
+//    pipes' peaks (PERF.md has the split).
+//
+// 3. sa_fused_bwd_reduce sums the slices in block order, so dW/db are
+//    bitwise equal between two launches. dY is deterministic only up to the
+//    order of the f32 atomic additions; dO is written once.
+//
+// H is C with the window's row index; it differs only in the dedupe (its
+// main kernel is the same body, tagged kWin so that a trace tells the two
+// apart). The windows of consecutive tiles of one RoI overlap, and dY adds
+// every tile's rows into the RoI's whole (N, C1) table, so nothing is
+// overwritten.
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <climits>
 #include <cstdint>
+
+#include "common.cuh"
 
 namespace {
 
-constexpr int kRows = 64;       // (centroid, sample) rows per chunk
-constexpr int kThreads = 256;   // 16 x 16
-constexpr int kColPass = 128;   // output columns per pass
-constexpr int kKTile = 32;      // weight rows staged per step
-constexpr int kWtLd = kColPass + 1;
-constexpr int kStaticSmem = kRows * (sizeof(int64_t) + sizeof(int));
+constexpr int kRows = 64;      // distinct rows a tile
+constexpr int kMaxCent = 32;   // centroids a tile (one warp packs them)
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kC = 128;        // C1 = C2
+constexpr int kLd = kC + 4;    // row stride of the h1/h2 tiles: A fragments hit 32 banks
+constexpr int kChunk = 64;     // p3 columns a pass
+constexpr int kPcLd = kChunk + 4;
+constexpr int kW2Rows = 16;    // W2 rows a ring slot (two k8 steps)
+constexpr int kW2Ld = kC + 8;  // B fragments hit 32 banks
+constexpr int kW3Rows = 32;    // W3 rows a ring slot, kChunk columns
+constexpr int kW3Ld = kChunk + 8;
+constexpr int kSlot = kW3Rows * kW3Ld;  // floats a slot (>= kW2Rows * kW2Ld)
+constexpr int kStages = 3;
 constexpr int kMaxSmem = 232448;
+static_assert(kSlot >= kW2Rows * kW2Ld, "ring slot");
+static_assert(kStages * kSlot >= kRows * kPcLd, "the p3 chunk lives in the ring");
 
-inline size_t smem_bytes(int c1, int c2, int c3) {
-  const size_t floats = static_cast<size_t>(kRows) * ((c1 + 1) + (c2 + 1) + (c3 + 1)) +
-                        static_cast<size_t>(kKTile) * kWtLd;
-  return floats * sizeof(float);
+// Floats, then ints, of the dynamic shared memory.
+template <int kC3>
+struct Smem {
+  static constexpr int kTile = kRows * kLd;
+  static constexpr int kFloats = 2 * kTile + kStages * kSlot + kC3 * kC + kC + kC3;
+  static constexpr int kInts = 5 * kRows + 2 * kMaxCent + 2 + 8;
+  static constexpr int kBytes = 4 * (kFloats + kInts) + 8 * (kChunk + 1) + 8;  // + alignment
+};
+static_assert(Smem<256>::kBytes <= kMaxSmem, "shared memory");
+
+__host__ __device__ inline long long partial_floats(int c3) {
+  return static_cast<long long>(kC) * kC + kC + static_cast<long long>(kC) * c3 + c3;
 }
 
-__host__ __device__ inline long long partial_floats(int c1, int c2, int c3) {
-  return static_cast<long long>(c1) * c2 + c2 + static_cast<long long>(c2) * c3 + c3;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// acc[i][j] = sum_k hin[(ty*4 + i) * ldin + k] * B(k, c0 + tx + 16 j) over
-// k < cin, with B(k, c) = w[k * cout + c] or, kTrans, w[c * cin + k] (the
-// transpose of a (cout, cin) weight). Starts with a barrier, so the
-// caller's writes to `hin` are visible and `wt` is free.
-template <bool kTrans>
-__device__ __forceinline__ void dense_pass(const float* hin, int ldin, int cin,
-                                           const float* __restrict__ w, int cout, int c0,
-                                           float* wt, float (&acc)[4][8]) {
+// a = hi + lo + O(2^-22 a): hi and lo each rounded to TF32, nearest, ties away
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(a));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(a - __uint_as_float(hi)));
+}
+
+// A 16 x 8 TF32 fragment, split: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+// for lane 4g + t.
+struct FragA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void set(float a0, float a1, float a2, float a3) {
+    split_tf32(a0, hi[0], lo[0]);
+    split_tf32(a1, hi[1], lo[1]);
+    split_tf32(a2, hi[2], lo[2]);
+    split_tf32(a3, hi[3], lo[3]);
+  }
+};
+// An 8 x 8 TF32 fragment, split: (k = t, n = g), (t + 4, g).
+struct FragB {
+  uint32_t hi[2], lo[2];
+  __device__ __forceinline__ void set(float b0, float b1) {
+    split_tf32(b0, hi[0], lo[0]);
+    split_tf32(b1, hi[1], lo[1]);
+  }
+};
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// d += a b in three TF32 passes, the small terms first; accumulator (g, 2t),
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB& b) {
+  mma_tf32(d, a.lo, b.hi);
+  mma_tf32(d, a.hi, b.lo);
+  mma_tf32(d, a.hi, b.hi);
+}
+
+// A product over `tiles` K-tiles of weights streamed through the ring:
+// load(i, slot) issues the cp.async copies of K-tile i, compute(i, slot)
+// runs on it once every thread's copies have landed. Ends with the ring
+// free (all copies waited for, a barrier).
+template <class Load, class Compute>
+__device__ __forceinline__ void ring_product(int tiles, float* ring, Load load,
+                                             Compute compute) {
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < tiles) load(i, ring + i * kSlot);
+    cp_async_commit();
+  }
+  for (int i = 0; i < tiles; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // K-tile i is in; every thread is done with K-tile i - 1
+    const int next = i + kStages - 1;
+    if (next < tiles) load(next, ring + (next % kStages) * kSlot);
+    cp_async_commit();
+    compute(i, ring + (i % kStages) * kSlot);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// Each centroid's distinct table rows, ascending, as row * 128 + multiplicity,
+// and their count. A warp a centroid.
+template <bool kWin>
+__global__ void __launch_bounds__(kThreads)
+sa_bwd_dedupe_kernel(const int64_t* __restrict__ idx, const int64_t* __restrict__ starts,
+                     int* __restrict__ rows, int* __restrict__ counts, int cents, int n, int m,
+                     int s, int nb, int window) {
+  const int cent = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (cent >= cents) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
+  const int t = cent / m;
+  const int64_t* it = idx + static_cast<size_t>(cent) * s;
+  int key[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int e = 32 * j + lane;
+    if (e < s) {
+      int64_t p = it[e];
+      if (kWin) {
+        p = p < 0 ? 0 : (p >= window ? window - 1 : p);  // inside the window
+        p += starts[static_cast<size_t>(t) * nb + (cent % m) / (m / nb)];
+      }
+      p = p < 0 ? 0 : (p >= n ? n - 1 : p);  // keep a bad index inside the table
+      key[j] = static_cast<int>(p);
+    } else {
+      key[j] = INT_MAX;  // sorts last
+    }
+  }
+  // bitonic sort of the 64 keys, element e = 32 j + lane
+#pragma unroll
+  for (int k = 2; k <= 64; k <<= 1) {
+#pragma unroll
+    for (int d = k >> 1; d > 0; d >>= 1) {
+      int nv[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int e = 32 * j + lane;
+        const int p = d == 32 ? key[j ^ 1] : __shfl_xor_sync(0xffffffffu, key[j], d);
+        const bool keep_min = ((e & d) == 0) == ((e & k) == 0);
+        nv[j] = keep_min ? min(key[j], p) : max(key[j], p);
+      }
+      key[0] = nv[0];
+      key[1] = nv[1];
+    }
+  }
+  int prev0 = __shfl_up_sync(0xffffffffu, key[0], 1);
+  int prev1 = __shfl_up_sync(0xffffffffu, key[1], 1);
+  const int last0 = __shfl_sync(0xffffffffu, key[0], 31);
+  if (lane == 0) prev1 = last0;
+  const bool first0 = lane < s && (lane == 0 || key[0] != prev0);
+  const bool first1 = 32 + lane < s && key[1] != prev1;
+  const uint64_t f = static_cast<uint64_t>(__ballot_sync(0xffffffffu, first0)) |
+                     static_cast<uint64_t>(__ballot_sync(0xffffffffu, first1)) << 32;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (!(j ? first1 : first0)) continue;
+    const int e = 32 * j + lane;
+    const int pos = __popcll(f & ((uint64_t{1} << e) - 1));
+    const uint64_t later = e == 63 ? 0 : f & ~((uint64_t{2} << e) - 1);
+    const int end = later ? __ffsll(static_cast<long long>(later)) - 1 : s;
+    rows[static_cast<size_t>(cent) * kRows + pos] = key[j] * 128 + (end - e);
+  }
+  if (lane == 0) counts[cent] = __popcll(f);
+}
+
+// A centroid's cost in distinct rows: its max and its C3 nonzeros' dW3
+// gathers weigh about as much as 16 rows' products (timed on the H100 at
+// RCNN sa0).
+constexpr int kCentroidRows = 16;
+
+// prefix[i] = sum of counts[j] + kCentroidRows over j < i, i <= cents (one
+// block): the main kernel splits the centroids among its blocks by that
+// cost, not by their number, since balls differ ~60-fold in distinct rows
+// and neighbouring RoIs alike.
+__global__ void __launch_bounds__(1024)
+sa_bwd_scan_kernel(const int* __restrict__ counts, int* __restrict__ prefix, int cents) {
+  __shared__ int part[1024];
+  const int t = threadIdx.x;
+  const int per = (cents + 1023) / 1024;
+  const int b = min(cents, t * per);
+  const int e = min(cents, b + per);
+  int sum = 0;
+  for (int i = b; i < e; ++i) sum += counts[i] + kCentroidRows;
+  part[t] = sum;
+  __syncthreads();
+  for (int off = 1; off < 1024; off <<= 1) {
+    const int v = t >= off ? part[t - off] : 0;
+    __syncthreads();
+    part[t] += v;
+    __syncthreads();
+  }
+  int run = part[t] - sum;
+  for (int i = b; i < e; ++i) {
+    prefix[i] = run;
+    run += counts[i] + kCentroidRows;
+  }
+  if (t == 1023) prefix[cents] = part[1023];
+}
+
+// The first i <= n with prefix[i] >= v (prefix ascending).
+__device__ __forceinline__ int lower_bound(const int* prefix, int n, long long v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (prefix[mid] < v)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// h1 = relu(Y[row] - O[centroid]) for the tile's rows, 0 past them.
+__device__ __forceinline__ void gather_h1(float* buf, const float* __restrict__ y,
+                                          const float* __restrict__ o, const int* row_tab,
+                                          const int* row_slot, const int* cent_id,
+                                          int n_rows) {
+  for (int e = threadIdx.x; e < kRows * (kC / 4); e += kThreads) {
+    const int r = e >> 5;
+    const int c4 = 4 * (e & 31);
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < n_rows) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(
+          y + static_cast<size_t>(row_tab[r]) * kC + c4));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(
+          o + static_cast<size_t>(cent_id[row_slot[r]]) * kC + c4));
+      v = make_float4(fmaxf(a.x - b.x, 0.0f), fmaxf(a.y - b.y, 0.0f), fmaxf(a.z - b.z, 0.0f),
+                      fmaxf(a.w - b.w, 0.0f));
+    }
+    *reinterpret_cast<float4*>(buf + r * kLd + c4) = v;
+  }
+}
+
+// K-tile i of a (128, 128) row-major weight (W2 or W2^T) into a ring slot.
+__device__ __forceinline__ void load_w128(const float* __restrict__ w, int i, float* slot) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = (threadIdx.x >> 5) + 8 * h;
+    const int c4 = 4 * (threadIdx.x & 31);
+    cp_async16(slot + r * kW2Ld + c4, w + static_cast<size_t>(kW2Rows * i + r) * kC + c4);
+  }
+}
+
+// A = rows of `a` (row-major, kLd) given by ra/rb; B = the slot's 16 x 128
+// K-tile; 32 rows x 32 columns of this warp (m-tiles mt < active).
+template <int kMT, int kNT>
+__device__ __forceinline__ void slot_steps(float (&acc)[kMT][kNT][4], const float* a, int a_ld,
+                                           const int (&ra)[kMT], const int (&rb)[kMT],
+                                           int a_k0, const float* slot, int slot_ld, int ksteps,
+                                           int n0, int active) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < ksteps; ++kk) {
+    const int k = a_k0 + 8 * kk;
+    FragA fa[kMT];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+      if (mt < active)
+        fa[mt].set(a[ra[mt] * a_ld + k + t], a[rb[mt] * a_ld + k + t],
+                   a[ra[mt] * a_ld + k + t + 4], a[rb[mt] * a_ld + k + t + 4]);
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      FragB fb;
+      const float* b = slot + (8 * kk + t) * slot_ld + n0 + 8 * nt + g;
+      fb.set(b[0], b[4 * slot_ld]);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+        if (mt < active) mma3(acc[mt][nt], fa[mt], fb);
+    }
+  }
+}
+
+// Column of accumulator j of thread tx in an FFMA tile: four neighbours,
+// then the next 64.
+__device__ __forceinline__ int ffma_col(int tx, int j) { return 4 * tx + (j & 3) + 64 * (j >> 2); }
+
+// acc[i][j] += sum over the slot's `rows` K rows of a[4 ty + i][a_k0 + k] *
+// slot[k][ffma_col(tx, j)], one fmaf after another in k order from acc = 0:
+// the order of a cuBLAS f32 product, so the recompute is bitwise the plain
+// version's (the masks and maxima it decides must not move). float4 loads:
+// 12 for every 128 (kJ = 8) or 64 FMAs.
+template <int kJ>
+__device__ __forceinline__ void ffma_steps(float (&acc)[4][kJ], const float* a, int a_k0,
+                                           const float* slot, int slot_ld, int rows) {
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  for (int k = 0; k < rows; k += 4) {
+    float4 av[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      av[i] = *reinterpret_cast<const float4*>(a + (4 * ty + i) * kLd + a_k0 + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float bv[kJ];
+#pragma unroll
+      for (int jh = 0; jh < kJ / 4; ++jh) {
+        const float4 b = *reinterpret_cast<const float4*>(slot + (k + kk) * slot_ld + 4 * tx +
+                                                          64 * jh);
+        bv[4 * jh] = b.x;
+        bv[4 * jh + 1] = b.y;
+        bv[4 * jh + 2] = b.z;
+        bv[4 * jh + 3] = b.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float ai = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) acc[i][j] = fmaf(ai, bv[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+// kWin tags H's instance (the dedupe already turned its window rows into
+// table rows, so the body does not read it): C and H stay apart in a trace.
+template <bool kWin, int kC3>
+__global__ void __launch_bounds__(kThreads, 1)
+sa_fused_bwd_kernel(const float* __restrict__ y, const float* __restrict__ o,
+                    const int* __restrict__ drows, const int* __restrict__ counts,
+                    const float* __restrict__ w2, const float* __restrict__ w2t,
+                    const float* __restrict__ b2, const float* __restrict__ w3,
+                    const float* __restrict__ w3t, const float* __restrict__ b3,
+                    const float* __restrict__ gout, float* __restrict__ dy,
+                    float* __restrict__ dout_o, float* __restrict__ part,
+                    int* __restrict__ sel, int n, int m, int cents) {
+  using L = Smem<kC3>;
+  extern __shared__ __align__(16) float smem[];
+  float* buf_a = smem;                  // h1, then a chunk's p3 -> dp3, then dp2
+  float* buf_b = buf_a + L::kTile;      // h2, then h1 again -> dp1
+  float* ring = buf_b + L::kTile;       // weight K-tiles; the p3 chunk between products
+  float* dw3t = ring + kStages * kSlot;  // dW3 transposed, (C3, C2)
+  float* db2s = dw3t + kC3 * kC;
+  float* db3s = db2s + kC;
+  int* row_tab = reinterpret_cast<int*>(db3s + kC3);  // t * n + table row
+  int* row_mult = row_tab + kRows;
+  int* row_slot = row_mult + kRows;                   // the row's centroid in the tile
+  int* lrow = row_slot + kRows;                       // live rows, then padding
+  int* cent_id = lrow + 2 * kRows;
+  int* cent_rs = cent_id + kMaxCent;                  // first row of each centroid, + end
+  int* tile_info = cent_rs + kMaxCent + 2;            // n_cent, n_rows, n_live
+  uint64_t* colmask = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uintptr_t>(tile_info + 8 + 1) & ~uintptr_t{7});  // 8-byte aligned
+  uint64_t* live_mask = colmask + kChunk;
+
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  for (int e = tid; e < kC3 * kC + kC + kC3; e += kThreads) dw3t[e] = 0.0f;
+  float dw2[4][4][4];  // rows 64 (warp >> 2) + 16 mt, columns 32 (warp & 3) + 8 nt
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dw2[i][j][q] = 0.0f;
 
-  for (int k0 = 0; k0 < cin; k0 += kKTile) {
-    __syncthreads();
-    for (int e = tid; e < kKTile * kColPass; e += kThreads) {
-      // consecutive threads read consecutive global addresses either way
-      const int k = kTrans ? e % kKTile : e / kColPass;
-      const int c = kTrans ? e / kKTile : e % kColPass;
-      const int gk = k0 + k;
-      const int gc = c0 + c;
-      float v = 0.0f;
-      if (gk < cin && gc < cout)
-        v = kTrans ? __ldg(w + static_cast<size_t>(gc) * cin + gk)
-                   : __ldg(w + static_cast<size_t>(gk) * cout + gc);
-      wt[k * kWtLd + c] = v;
-    }
-    __syncthreads();
-    const int kn = min(kKTile, cin - k0);
-    for (int kk = 0; kk < kn; ++kk) {
-      float a[4];
-      float b[8];
+  // this block's centroids: those whose cost starts in its share of the total
+  const int* prefix = counts + cents;
+  const long long total = prefix[cents];
+  const int c_end = lower_bound(prefix, cents, total * (blockIdx.x + 1) / gridDim.x);
+  int cursor = lower_bound(prefix, cents, total * blockIdx.x / gridDim.x);
+  while (cursor < c_end) {
+    __syncthreads();  // the previous tile is done with every buffer
+    if (warp == 0) {  // pack whole centroids while their distinct rows fit
+      const int c = cursor + lane;
+      const int cnt = c < c_end ? counts[c] : kRows + 1;
+      int incl = cnt;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = hin[(ty * 4 + i) * ldin + k0 + kk];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = wt[kk * kWtLd + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-}
-
-// part[a][b] += sum_r A[r][a] * B[r][b] over the kRows rows, for the
-// 128 x 128 tile at (a0, b0) of the (ca, cb) weight gradient. Thread
-// (ty, tx) owns a = a0 + ty + 16 i, b = b0 + tx + 16 j; no other thread of
-// any block touches those elements of this block's slice.
-__device__ __forceinline__ void wgrad_tile(const float* A, int lda, int ca, int a0,
-                                           const float* B, int ldb, int cb, int b0,
-                                           float* __restrict__ part) {
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  float acc[8][8];
-  bool ok_a[8];
-  bool ok_b[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    ok_a[i] = a0 + ty + 16 * i < ca;
-    ok_b[i] = b0 + tx + 16 * i < cb;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  }
-  for (int r = 0; r < kRows; ++r) {
-    float a[8];
-    float b[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) a[i] = ok_a[i] ? A[r * lda + a0 + ty + 16 * i] : 0.0f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) b[j] = ok_b[j] ? B[r * ldb + b0 + tx + 16 * j] : 0.0f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (ok_a[i] && ok_b[j])
-        part[static_cast<size_t>(a0 + ty + 16 * i) * cb + b0 + tx + 16 * j] += acc[i][j];
-}
-
-// one block a multiprocessor (shared memory allows no more), so the full
-// register file is there for it. kWin: idx holds window-relative rows,
-// offset by starts (t, nb) of tiles of m / nb centroids (kernel H)
-template <bool kWin>
-__global__ void __launch_bounds__(kThreads, 1)
-sa_fused_bwd_kernel(const float* __restrict__ y, const float* __restrict__ o,
-                    const int64_t* __restrict__ idx, const int64_t* __restrict__ starts,
-                    const float* __restrict__ w2,
-                    const float* __restrict__ b2, const float* __restrict__ w3,
-                    const float* __restrict__ b3, const float* __restrict__ gout,
-                    float* __restrict__ dy, float* __restrict__ dout_o,
-                    float* __restrict__ part, int n, int m, int s, int c1, int c2, int c3,
-                    int tm, int blocks_m, long long units, int nb, int window) {
-  extern __shared__ float smem[];
-  __shared__ int64_t row_point[kRows];  // table row gathered by each chunk row
-  __shared__ int row_centroid[kRows];   // its centroid, -1 for padding rows
-  const int lda = c1 + 1;
-  const int ldb = c2 + 1;
-  const int ldc = c3 + 1;
-  float* ha = smem;                // h1, then dp1
-  float* hb = ha + kRows * lda;    // h2, then dp2
-  float* hc = hb + kRows * ldb;    // h3, then dp3
-  float* wt = hc + kRows * ldc;    // staged weight tile
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  float* pw2 = part + static_cast<size_t>(blockIdx.x) * partial_floats(c1, c2, c3);
-  float* pb2 = pw2 + static_cast<size_t>(c1) * c2;
-  float* pw3 = pb2 + c2;
-  float* pb3 = pw3 + static_cast<size_t>(c2) * c3;
-  for (long long e = tid; e < partial_floats(c1, c2, c3); e += kThreads) pw2[e] = 0.0f;
-
-  const long long u_begin = units * blockIdx.x / gridDim.x;
-  const long long u_end = units * (blockIdx.x + 1) / gridDim.x;
-  float acc[4][8];
-  for (long long u = u_begin; u < u_end; ++u) {
-    const int t = static_cast<int>(u / blocks_m);
-    const int m0 = static_cast<int>(u % blocks_m) * tm;
-    const float* yt = y + static_cast<size_t>(t) * n * c1;
-    const float* ot = o + static_cast<size_t>(t) * m * c1;
-    const int64_t* it = idx + static_cast<size_t>(t) * m * s;
-    const float* gt = gout + static_cast<size_t>(t) * m * c3;
-    float* dyt = dy + static_cast<size_t>(t) * n * c1;
-    float* dot = dout_o + static_cast<size_t>(t) * m * c1;
-
-    __syncthreads();  // the previous unit is done with every buffer (and the zeroing)
-    if (tid < kRows) {
-      const int mm = m0 + tid / s;
-      if (tid < tm * s && mm < m) {
-        int64_t p = it[static_cast<size_t>(mm) * s + tid % s];
-        if (kWin) {
-          p = p < 0 ? 0 : (p >= window ? window - 1 : p);  // inside the window
-          p += starts[static_cast<size_t>(t) * nb + mm / (m / nb)];
-        }
-        p = p < 0 ? 0 : (p >= n ? n - 1 : p);  // keep a bad index inside the table
-        row_point[tid] = p;
-        row_centroid[tid] = mm;
-      } else {
-        row_point[tid] = 0;
-        row_centroid[tid] = -1;
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += v;
+      }
+      const int nc = __popc(__ballot_sync(0xffffffffu, incl <= kRows));
+      if (lane < nc) {
+        cent_id[lane] = c;
+        cent_rs[lane] = incl - cnt;
+      }
+      if (lane == nc - 1) {
+        cent_rs[nc] = incl;
+        tile_info[1] = incl;
+      }
+      if (lane == 0) {
+        tile_info[0] = nc;
+        *live_mask = 0;
       }
     }
     __syncthreads();
-    for (int e = tid; e < kRows * c1; e += kThreads) {
-      const int r = e / c1;
-      const int c = e % c1;
-      const int mm = row_centroid[r];
-      ha[r * lda + c] = mm >= 0
-          ? fmaxf(yt[row_point[r] * c1 + c] - ot[static_cast<size_t>(mm) * c1 + c], 0.0f)
-          : 0.0f;
-    }
-
-    // recompute h2 = relu(h1 W2 + b2) and h3 = relu(h2 W3 + b3)
-    for (int c0 = 0; c0 < c2; c0 += kColPass) {
-      dense_pass<false>(ha, lda, c1, w2, c2, c0, wt, acc);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = c0 + tx + 16 * j;
-        if (c < c2) {
-          const float bc = __ldg(b2 + c);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) hb[(ty * 4 + i) * ldb + c] = fmaxf(acc[i][j] + bc, 0.0f);
-        }
-      }
-    }
-    for (int c0 = 0; c0 < c3; c0 += kColPass) {
-      dense_pass<false>(hb, ldb, c2, w3, c3, c0, wt, acc);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = c0 + tx + 16 * j;
-        if (c < c3) {
-          const float bc = __ldg(b3 + c);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) hc[(ty * 4 + i) * ldc + c] = fmaxf(acc[i][j] + bc, 0.0f);
-        }
+    const int n_cent = tile_info[0];
+    const int n_rows = tile_info[1];
+    for (int j = warp; j < n_cent; j += kThreads / 32) {
+      const int cent = cent_id[j];
+      const int base = cent_rs[j];
+      const int tn = (cent / m) * n;
+      for (int q = lane; q < cent_rs[j + 1] - base; q += 32) {
+        const int pk = drows[static_cast<size_t>(cent) * kRows + q];
+        row_tab[base + q] = tn + (pk >> 7);
+        row_mult[base + q] = pk & 127;
+        row_slot[base + q] = j;
       }
     }
     __syncthreads();
+    gather_h1(buf_a, y, o, row_tab, row_slot, cent_id, n_rows);
 
-    // max backward: dp3 = [p3 > 0][h3 == max] gout / ties, in place; db3
-    for (int c = tid; c < c3; c += kThreads) {
-      float db = 0.0f;
-      for (int lm = 0; lm < tm; ++lm) {
-        const int mm = m0 + lm;
-        const int r0 = lm * s;
-        if (mm >= m) {
-          for (int r = r0; r < r0 + s; ++r) hc[r * ldc + c] = 0.0f;
-          continue;
-        }
-        float mx = hc[r0 * ldc + c];
-        for (int r = r0 + 1; r < r0 + s; ++r) mx = fmaxf(mx, hc[r * ldc + c]);
-        float cnt = 0.0f;
-        for (int r = r0; r < r0 + s; ++r) cnt += hc[r * ldc + c] == mx ? 1.0f : 0.0f;
-        const float g = gt[static_cast<size_t>(mm) * c3 + c] / cnt;
-        for (int r = r0; r < r0 + s; ++r) {
-          const float v = hc[r * ldc + c];
-          const float d = (v > 0.0f && v == mx) ? g : 0.0f;
-          hc[r * ldc + c] = d;
-          db += d;
+    // p2 = h1 W2 + b2 -> h2 = relu(p2) in buf_b, in f32 FFMA: thread (ty, tx)
+    // takes rows 4 ty + i, columns ffma_col(tx, j)
+    const int tx = tid & 15;
+    const int ty = tid >> 4;
+    {
+      float acc[4][kC / 16] = {};
+      ring_product(
+          kC / kW2Rows, ring, [&](int i, float* slot) { load_w128(w2, i, slot); },
+          [&](int i, const float* slot) {
+            ffma_steps(acc, buf_a, kW2Rows * i, slot, kW2Ld, kW2Rows);
+          });
+#pragma unroll
+      for (int j = 0; j < kC / 16; ++j) {
+        const int c = ffma_col(tx, j);
+        const float bc = __ldg(b2 + c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) buf_b[(4 * ty + i) * kLd + c] = fmaxf(acc[i][j] + bc, 0.0f);
+      }
+    }
+    // layer 3, kChunk columns at a time; dh2 = dp3 W3^T accumulates in
+    // registers (warp: rows 32 (warp >> 2), columns 32 (warp & 3))
+    float dh2[2][4][4] = {};
+    const int wm = warp >> 2;
+    const int ra2[2] = {32 * wm + g, 32 * wm + 16 + g};
+    const int rb2[2] = {32 * wm + 8 + g, 32 * wm + 24 + g};
+    const int n_rows16 = (n_rows + 15) & ~15;
+    const int active2 = min(2, max(0, (n_rows16 - 32 * wm) / 16));
+    float* pc = buf_a;  // p3, then dp3, of a chunk
+    for (int c0 = 0; c0 < kC3; c0 += kChunk) {
+      {
+        // p3 = h2 W3 + b3, f32 FFMA as p2
+        float acc[4][kChunk / 16] = {};
+        ring_product(
+            kC / kW3Rows, ring,
+            [&](int i, float* slot) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int r = (tid >> 4) + 16 * h;
+                const int c4 = 4 * (tid & 15);
+                cp_async16(slot + r * kW3Ld + c4,
+                           w3 + static_cast<size_t>(kW3Rows * i + r) * kC3 + c0 + c4);
+              }
+            },
+            [&](int i, const float* slot) {
+              ffma_steps(acc, buf_b, kW3Rows * i, slot, kW3Ld, kW3Rows);
+            });
+#pragma unroll
+        for (int j = 0; j < kChunk / 16; ++j) {
+          const int c = ffma_col(tx, j);
+          const float bc = __ldg(b3 + c0 + c);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            pc[(4 * ty + i) * kPcLd + c] = 4 * ty + i < n_rows ? acc[i][j] + bc : 0.0f;
         }
       }
-      for (int r = tm * s; r < kRows; ++r) hc[r * ldc + c] = 0.0f;
-      pb3[c] += db;
-    }
-    __syncthreads();
-
-    // dW3 += h2^T dp3
-    for (int a0 = 0; a0 < c2; a0 += kColPass)
-      for (int b0 = 0; b0 < c3; b0 += kColPass) wgrad_tile(hb, ldb, c2, a0, hc, ldc, c3, b0, pw3);
-
-    // dp2 = [p2 > 0] (dp3 W3^T), in place of h2
-    for (int c0 = 0; c0 < c2; c0 += kColPass) {
-      dense_pass<true>(hc, ldc, c3, w3, c2, c0, wt, acc);
+      __syncthreads();
+      // the max: dp3 = k gout / cnt on the tied rows with p3 > 0, in place.
+      // Four threads a column: with fewer than four centroids they split
+      // each centroid's rows (r = q mod 4) and combine by shuffles, else
+      // each takes whole centroids (j = q mod 4). The same results either
+      // way: cnt is a whole number, exact in any order.
+      {
+        const int c = tid >> 2;
+        const int q = tid & 3;
+        const bool split = n_cent < 4;
+        uint64_t cbits = 0;
+        float gpre[kMaxCent / 4];  // this thread's centroids' gout, all loads in flight
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = c0 + tx + 16 * j;
-        if (c < c2) {
+        for (int jj = 0; jj < kMaxCent / 4; ++jj) {
+          const int j = split ? jj : q + 4 * jj;
+          gpre[jj] = j < n_cent ? __ldg(gout + static_cast<size_t>(cent_id[j]) * kC3 + c0 + c)
+                                : 0.0f;
+        }
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float* h = hb + (ty * 4 + i) * ldb + c;
-            *h = *h > 0.0f ? acc[i][j] : 0.0f;
+        for (int jj = 0; jj < kMaxCent / 4; ++jj) {
+          const int j = split ? jj : q + 4 * jj;
+          if (j >= n_cent) break;
+          const int rs = cent_rs[j] + (split ? q : 0);
+          const int re = cent_rs[j + 1];
+          const int step = split ? 4 : 1;
+          const float gj = gpre[jj];
+          float mx = 0.0f;   // max of h3 = relu(p3) >= 0
+          float cnt = 0.0f;  // samples at it
+          int first = kRows;
+#pragma unroll 4
+          for (int r = rs; r < re; r += step) {
+            const float v = fmaxf(pc[r * kPcLd + c], 0.0f);
+            if (v > mx) {
+              mx = v;
+              cnt = 0.0f;
+              first = r;
+            }
+            if (v == mx) cnt += static_cast<float>(row_mult[r]);
+          }
+          if (split) {
+#pragma unroll
+            for (int off = 1; off < 4; off <<= 1) {
+              const float omx = __shfl_xor_sync(0xffffffffu, mx, off);
+              const float ocnt = __shfl_xor_sync(0xffffffffu, cnt, off);
+              const int ofirst = __shfl_xor_sync(0xffffffffu, first, off);
+              if (omx > mx) {
+                mx = omx;
+                cnt = ocnt;
+                first = ofirst;
+              } else if (omx == mx) {
+                cnt += ocnt;
+                first = min(first, ofirst);
+              }
+            }
+          }
+          const float g = gj / cnt;
+          if (sel && (!split || q == 0))  // first tied row * 128 + tied samples, or -1
+            sel[static_cast<size_t>(cent_id[j]) * kC3 + c0 + c] =
+                mx > 0.0f ? (row_tab[first] - cent_id[j] / m * n) * 128 + static_cast<int>(cnt)
+                          : -1;
+#pragma unroll 4
+          for (int r = rs; r < re; r += step) {
+            const float p = pc[r * kPcLd + c];
+            const float d = (p > 0.0f && p == mx) ? static_cast<float>(row_mult[r]) * g : 0.0f;
+            pc[r * kPcLd + c] = d;
+            if (d != 0.0f) cbits |= uint64_t{1} << r;
           }
         }
-      }
-    }
-    __syncthreads();
-    for (int c = tid; c < c2; c += kThreads) {
-      float db = 0.0f;
-      for (int r = 0; r < kRows; ++r) db += hb[r * ldb + c];
-      pb2[c] += db;
-    }
-
-    // dW2 += h1^T dp2
-    for (int a0 = 0; a0 < c1; a0 += kColPass)
-      for (int b0 = 0; b0 < c2; b0 += kColPass) wgrad_tile(ha, lda, c1, a0, hb, ldb, c2, b0, pw2);
-
-    // dp1 = [g1 > 0] (dp2 W2^T), in place of h1, scattered into dY
-    for (int c0 = 0; c0 < c1; c0 += kColPass) {
-      dense_pass<true>(hb, ldb, c2, w2, c1, c0, wt, acc);
+        auto all = static_cast<unsigned long long>(cbits);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = c0 + tx + 16 * j;
-        if (c < c1) {
+        for (int off = 1; off < 4; off <<= 1) all |= __shfl_xor_sync(0xffffffffu, all, off);
+        if (q == 0) colmask[c] = all;
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) all |= __shfl_xor_sync(0xffffffffu, all, off);
+        if (lane == 0 && all) atomicOr(reinterpret_cast<unsigned long long*>(live_mask), all);
+      }
+      __syncthreads();
+      // dW3[:, c] += d h2[r] and db3[c] over the column's nonzeros, in row
+      // order, two at a time: warp w has columns 8 w .. 8 w + 7, lanes k
+      for (int ci = 0; ci < kChunk / 8; ++ci) {
+        const int c = (kChunk / 8) * warp + ci;
+        uint64_t nz = colmask[c];
+        float* col = dw3t + (c0 + c) * kC;
+        float a[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = col[lane + 32 * i];
+        float sum = 0.0f;
+        while (nz) {
+          const int r0 = __ffsll(static_cast<long long>(nz)) - 1;
+          nz &= nz - 1;
+          const int r1 = nz ? __ffsll(static_cast<long long>(nz)) - 1 : r0;
+          const float d0 = pc[r0 * kPcLd + c];
+          const float d1 = nz ? pc[r1 * kPcLd + c] : 0.0f;
+          float h0[4], h1[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            const int r = ty * 4 + i;
-            float* h = ha + r * lda + c;
-            const float d = *h > 0.0f ? acc[i][j] : 0.0f;
-            *h = d;
-            if (d != 0.0f) atomicAdd(dyt + row_point[r] * c1 + c, d);
+            h0[i] = buf_b[r0 * kLd + lane + 32 * i];
+            h1[i] = buf_b[r1 * kLd + lane + 32 * i];
+          }
+          sum += d0;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = fmaf(d0, h0[i], a[i]);
+          if (nz) {
+            nz &= nz - 1;
+            sum += d1;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a[i] = fmaf(d1, h1[i], a[i]);
           }
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) col[lane + 32 * i] = a[i];
+        if (lane == 0) db3s[c0 + c] += sum;
       }
+      // dh2 += dp3 W3^T over the chunk's columns, on the tensor cores: dp3 is
+      // sparse, but as gathers dh2 was a chain of shared-memory read-modify-
+      // writes, one a nonzero, and balls of one or two distinct rows make
+      // every (row, channel) of a tile a nonzero. W3^T's rows stream as W2's.
+      ring_product(
+          kChunk / kW2Rows, ring,
+          [&](int i, float* slot) { load_w128(w3t + static_cast<size_t>(c0) * kC, i, slot); },
+          [&](int i, const float* slot) {
+            slot_steps<2, 4>(dh2, pc, kPcLd, ra2, rb2, kW2Rows * i, slot, kW2Ld, kW2Rows / 8,
+                             32 * (warp & 3), active2);
+          });
     }
-    __syncthreads();
 
-    // dO = -sum_s dp1
-    for (int e = tid; e < tm * c1; e += kThreads) {
-      const int lm = e / c1;
-      const int c = e % c1;
-      const int mm = m0 + lm;
-      if (mm >= m) continue;
+    // dp2 = [h2 > 0] dh2 into buf_a (the last chunk is read: ring_product's
+    // barrier), every row (0 where the warp had no rows)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int c = 32 * (warp & 3) + 8 * nt + 2 * t4;
+        const int ia = ra2[mt] * kLd + c;
+        const int ib = rb2[mt] * kLd + c;
+        buf_a[ia] = buf_b[ia] > 0.0f ? dh2[mt][nt][0] : 0.0f;
+        buf_a[ia + 1] = buf_b[ia + 1] > 0.0f ? dh2[mt][nt][1] : 0.0f;
+        buf_a[ib] = buf_b[ib] > 0.0f ? dh2[mt][nt][2] : 0.0f;
+        buf_a[ib + 1] = buf_b[ib + 1] > 0.0f ? dh2[mt][nt][3] : 0.0f;
+      }
+    __syncthreads();
+    const uint64_t live = *live_mask;
+    const int n_live = __popcll(live);
+    const int n_live16 = (n_live + 15) & ~15;
+    if (tid < kC) {  // db2, rows in order
       float sum = 0.0f;
-      for (int r = lm * s; r < (lm + 1) * s; ++r) sum += ha[r * lda + c];
-      dot[static_cast<size_t>(mm) * c1 + c] = -sum;
+      for (int r = 0; r < n_rows; ++r) sum += buf_a[r * kLd + tid];
+      db2s[tid] += sum;
     }
+    if (warp == 4) {  // the live rows, padded to 16 with a dead row (dp2 = 0 there)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = 32 * j + lane;
+        if ((live >> r) & 1) lrow[__popcll(live & ((uint64_t{1} << r) - 1))] = r;
+      }
+      if (lane < n_live16 - n_live) lrow[n_live + lane] = __ffsll(static_cast<long long>(~live)) - 1;
+    }
+    gather_h1(buf_b, y, o, row_tab, row_slot, cent_id, n_rows);
+    __syncthreads();
+
+    // dW2 += h1^T dp2 over the live rows; warp: rows 64 (warp >> 2), columns 32
+    // (warp & 3), 16 at a time. The tile's sum starts from 0 on the tensor
+    // cores and is added to dw2 in f32: their f32 accumulation truncates,
+    // which over a block's whole run of rows would bias dW2 by ~1e-4.
+    {
+      const int m0 = 64 * (warp >> 2);
+#pragma unroll
+      for (int nh = 0; nh < 2; ++nh) {
+        const int n0 = 32 * (warp & 3) + 16 * nh;
+        float acc[4][2][4] = {};
+        for (int k0 = 0; k0 < n_live16; k0 += 8) {
+          const int r0 = lrow[k0 + t4];
+          const int r1 = lrow[k0 + t4 + 4];
+          FragA fa[4];
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) {
+            const int c = m0 + 16 * mt + g;
+            fa[mt].set(buf_b[r0 * kLd + c], buf_b[r0 * kLd + c + 8], buf_b[r1 * kLd + c],
+                       buf_b[r1 * kLd + c + 8]);
+          }
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            FragB fb;
+            const int c = n0 + 8 * nt + g;
+            fb.set(buf_a[r0 * kLd + c], buf_a[r1 * kLd + c]);
+#pragma unroll
+            for (int mt = 0; mt < 4; ++mt) mma3(acc[mt][nt], fa[mt], fb);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) dw2[mt][2 * nh + nt][q] += acc[mt][nt][q];
+      }
+    }
+    __syncthreads();  // h1 is read; dp1 replaces it below
+
+    // dh1 = dp2 W2^T over the live rows -> dp1 = [h1 > 0] dh1 in place of h1
+    {
+      const int i0 = 32 * (warp >> 2);
+      const int n0 = 32 * (warp & 3);
+      const int active = min(2, max(0, (n_live16 - i0) / 16));
+      float acc[2][4][4] = {};
+      int ra[2], rb[2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        ra[mt] = mt < active ? lrow[i0 + 16 * mt + g] : 0;
+        rb[mt] = mt < active ? lrow[i0 + 16 * mt + 8 + g] : 0;
+      }
+      ring_product(
+          kC / kW2Rows, ring, [&](int i, float* slot) { load_w128(w2t, i, slot); },
+          [&](int i, const float* slot) {
+            slot_steps<2, 4>(acc, buf_a, kLd, ra, rb, kW2Rows * i, slot, kW2Ld, kW2Rows / 8, n0,
+                             active);
+          });
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        if (mt >= active) continue;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int c = n0 + 8 * nt + 2 * t4;
+          float* pa = buf_b + ra[mt] * kLd + c;
+          float* pb = buf_b + rb[mt] * kLd + c;
+          pa[0] = pa[0] > 0.0f ? acc[mt][nt][0] : 0.0f;
+          pa[1] = pa[1] > 0.0f ? acc[mt][nt][1] : 0.0f;
+          pb[0] = pb[0] > 0.0f ? acc[mt][nt][2] : 0.0f;
+          pb[1] = pb[1] > 0.0f ? acc[mt][nt][3] : 0.0f;
+        }
+      }
+    }
+    __syncthreads();
+
+    // dO = -sum of dp1 over the centroid's live rows; dY += dp1 (distinct live rows)
+    for (int e = tid; e < n_cent * kC; e += kThreads) {
+      const int j = e >> 7;
+      const int c = e & (kC - 1);
+      float sum = 0.0f;
+      for (int r = cent_rs[j]; r < cent_rs[j + 1]; ++r)
+        if ((live >> r) & 1) sum += buf_b[r * kLd + c];
+      dout_o[static_cast<size_t>(cent_id[j]) * kC + c] = -sum;
+    }
+    for (int e = tid; e < n_live * kC; e += kThreads) {
+      const int r = lrow[e >> 7];
+      const int c = e & (kC - 1);
+      const float v = buf_b[r * kLd + c];
+      if (v != 0.0f) atomicAdd(dy + static_cast<size_t>(row_tab[r]) * kC + c, v);
+    }
+    cursor += n_cent;
   }
+  __syncthreads();
+
+  // this block's slice: dW2 | db2 | dW3 | db3, written once
+  float* out = part + static_cast<size_t>(blockIdx.x) * partial_floats(kC3);
+  {
+    const int m0 = 64 * (warp >> 2);
+    const int n0 = 32 * (warp & 3);
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int r = m0 + 16 * mt + g;
+        const int c = n0 + 8 * nt + 2 * t4;
+        *reinterpret_cast<float2*>(out + r * kC + c) = make_float2(dw2[mt][nt][0], dw2[mt][nt][1]);
+        *reinterpret_cast<float2*>(out + (r + 8) * kC + c) =
+            make_float2(dw2[mt][nt][2], dw2[mt][nt][3]);
+      }
+  }
+  float* out_w3 = out + kC * kC + kC;
+  for (int e = tid; e < kC; e += kThreads) out[kC * kC + e] = db2s[e];
+  for (int e = tid; e < kC * kC3; e += kThreads) {
+    const int k = e / kC3;
+    const int c = e % kC3;
+    out_w3[e] = dw3t[c * kC + k];
+  }
+  for (int e = tid; e < kC3; e += kThreads) out_w3[kC * kC3 + e] = db3s[e];
 }
 
 // out[e] = sum over blocks b, in order, of part[b][e].
@@ -364,34 +890,56 @@ __global__ void sa_fused_bwd_reduce(const float* __restrict__ part, int blocks, 
   out[e] = acc;
 }
 
+template <bool kWin, int kC3>
+cudaError_t launch_main(int blocks, cudaStream_t st, const float* y, const float* o,
+                        const int* rows, const int* counts, const float* w2, const float* w2t,
+                        const float* b2, const float* w3, const float* w3t, const float* b3,
+                        const float* gout, float* dy, float* d_o, float* part, int* sel, int n,
+                        int m, int cents) {
+  static std::atomic<uint64_t> smem_set{0};
+  const auto kernel = sa_fused_bwd_kernel<kWin, kC3>;
+  const cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(kernel), Smem<kC3>::kBytes, smem_set);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kThreads, Smem<kC3>::kBytes, st>>>(y, o, rows, counts, w2, w2t, b2, w3, w3t,
+                                                      b3, gout, dy, d_o, part, sel, n, m, cents);
+  return cudaGetLastError();
+}
+
 template <bool kWin>
 int launch(const void* y, const void* o, const void* idx, const void* starts, const void* w2,
-           const void* b2, const void* w3, const void* b3, const void* gout, void* dy, void* d_o,
-           void* part, void* grads, int t, int n, int m, int s, int c1, int c2, int c3,
-           int blocks, int nb, int window, void* stream) {
-  if (n <= 0 || s <= 0 || s > kRows || c1 <= 0 || c2 <= 0 || c3 <= 0 || t < 0 || m < 0)
+           const void* w2t, const void* b2, const void* w3, const void* w3t, const void* b3,
+           const void* gout, void* dy, void* d_o, void* rows, void* counts, void* part,
+           void* grads, void* sel, int t, int n, int m, int s, int c3, int blocks, int nb,
+           int window, void* stream) {
+  if (n <= 0 || n >= (1 << 24) || s <= 0 || s > kRows || (c3 != 128 && c3 != 256) || t < 0 ||
+      m < 0 || static_cast<long long>(t) * m > INT_MAX ||
+      static_cast<long long>(t) * n > INT_MAX)
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(c1, c2, c3);
-  if (smem + kStaticSmem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  const int tm = kRows / s;
-  const int blocks_m = (m + tm - 1) / tm;
-  const long long units = static_cast<long long>(t) * blocks_m;
-  const long long size = partial_floats(c1, c2, c3);
+  const int cents = t * m;
+  const long long size = partial_floats(c3);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (units > 0) {
-    if (blocks < 1 || blocks > units) return cudaErrorInvalidValue;
-    auto kernel = &sa_fused_bwd_kernel<kWin>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    kernel<<<blocks, kThreads, smem, st>>>(
-        static_cast<const float*>(y), static_cast<const float*>(o),
+  if (cents > 0) {
+    if (blocks < 1 || blocks > cents) return cudaErrorInvalidValue;
+    const int per = kThreads / 32;
+    sa_bwd_dedupe_kernel<kWin><<<(cents + per - 1) / per, kThreads, 0, st>>>(
         static_cast<const int64_t*>(idx), static_cast<const int64_t*>(starts),
-        static_cast<const float*>(w2), static_cast<const float*>(b2),
-        static_cast<const float*>(w3), static_cast<const float*>(b3),
-        static_cast<const float*>(gout), static_cast<float*>(dy), static_cast<float*>(d_o),
-        static_cast<float*>(part), n, m, s, c1, c2, c3, tm, blocks_m, units, nb, window);
-    err = cudaGetLastError();
+        static_cast<int*>(rows), static_cast<int*>(counts), cents, n, m, s, nb, window);
+    sa_bwd_scan_kernel<<<1, 1024, 0, st>>>(static_cast<const int*>(counts),
+                                           static_cast<int*>(counts) + cents, cents);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    auto args = [&](auto fn) {
+      return fn(blocks, st, static_cast<const float*>(y), static_cast<const float*>(o),
+                static_cast<const int*>(rows), static_cast<const int*>(counts),
+                static_cast<const float*>(w2), static_cast<const float*>(w2t),
+                static_cast<const float*>(b2), static_cast<const float*>(w3),
+                static_cast<const float*>(w3t), static_cast<const float*>(b3),
+                static_cast<const float*>(gout), static_cast<float*>(dy),
+                static_cast<float*>(d_o), static_cast<float*>(part), static_cast<int*>(sel), n,
+                m, cents);
+    };
+    err = c3 == 128 ? args(launch_main<kWin, 128>) : args(launch_main<kWin, 256>);
     if (err != cudaSuccess) return err;
   } else {
     blocks = 0;  // no rows: the gradients of the weights are zero
@@ -407,45 +955,42 @@ int launch(const void* y, const void* o, const void* idx, const void* starts, co
 
 extern "C" {
 
-// Shared memory one block needs (dynamic part); above the limit the launch
-// is refused.
-long long epnet_sa_fused_bwd_smem_bytes(int c1, int c2, int c3) {
-  return static_cast<long long>(smem_bytes(c1, c2, c3));
-}
+// Floats of one block's dW2 | db2 | dW3 | db3 slice at C1 = C2 = 128.
+long long epnet_sa_fused_bwd_partial_floats(int c3) { return partial_floats(c3); }
 
-// Floats of one block's dW2 | db2 | dW3 | db3 slice.
-long long epnet_sa_fused_bwd_partial_floats(int c1, int c2, int c3) {
-  return partial_floats(c1, c2, c3);
-}
-
-// y (t, n, c1), o (t, m, c1), idx (t, m, s) int64, w2 (c1, c2), b2 (c2),
-// w3 (c2, c3), b3 (c3), gout (t, m, c3); dy (t, n, c1) ZEROED by the
-// caller, d_o (t, m, c1); part (blocks, partial_floats) scratch; grads
-// (partial_floats) receives dW2 | db2 | dW3 | db3. All float32 except idx,
-// contiguous. Needs s <= 64 and 1 <= blocks <= t * ceil(m / (64 / s)).
-// Launches kernel C on `stream`, allocates nothing, returns
-// cudaGetLastError().
+// y (t, n, 128), o (t, m, 128), idx (t, m, s) int64, w2 (128, 128), w2t its
+// transpose, b2 (128), w3 (128, c3), w3t (c3, 128) its transpose, b3 (c3),
+// gout (t, m, c3) with c3 = 128 or 256; dy (t, n, 128) ZEROED by the
+// caller, d_o (t, m, 128); rows (t * m * 64) and counts (2 t m + 1) int32
+// scratch; part (blocks, partial_floats(c3)) scratch; grads
+// (partial_floats(c3)) receives dW2 | db2 | dW3 | db3; sel, when not null,
+// (t, m, c3) int32 receives each max selection: the first tied table row *
+// 128 + the tied samples, or -1 where p3 <= 0 on every row. All float32 but
+// the indices, contiguous, 16-byte aligned. Needs 1 <= s <= 64, n < 2^24,
+// t * n < 2^31 and 1 <= blocks <= t * m. Launches kernel C (dedupe, main, reduction) on
+// `stream`, allocates nothing, returns cudaGetLastError().
 int epnet_sa_fused_bwd_launch(const void* y, const void* o, const void* idx, const void* w2,
-                              const void* b2, const void* w3, const void* b3,
-                              const void* gout, void* dy, void* d_o, void* part, void* grads,
-                              int t, int n, int m, int s, int c1, int c2, int c3, int blocks,
-                              void* stream) {
-  return launch<false>(y, o, idx, nullptr, w2, b2, w3, b3, gout, dy, d_o, part, grads, t, n, m,
-                       s, c1, c2, c3, blocks, 1, 0, stream);
+                              const void* w2t, const void* b2, const void* w3, const void* w3t,
+                              const void* b3, const void* gout, void* dy, void* d_o, void* rows,
+                              void* counts, void* part, void* grads, void* sel, int t, int n,
+                              int m, int s, int c3, int blocks, void* stream) {
+  return launch<false>(y, o, idx, nullptr, w2, w2t, b2, w3, w3t, b3, gout, dy, d_o, rows, counts,
+                       part, grads, sel, t, n, m, s, c3, blocks, 1, 0, stream);
 }
 
 // Kernel H: as above with idx (t, m, s) int64 window-relative rows in
 // [0, window) and starts (t, nb) int64, the first table row of the window
 // of each tile of m / nb centroids; nb must divide m, window <= n.
 int epnet_sa_fused_win_bwd_launch(const void* y, const void* o, const void* idx,
-                                  const void* starts, const void* w2, const void* b2,
-                                  const void* w3, const void* b3, const void* gout, void* dy,
-                                  void* d_o, void* part, void* grads, int t, int n, int m, int s,
-                                  int c1, int c2, int c3, int nb, int window, int blocks,
-                                  void* stream) {
+                                  const void* starts, const void* w2, const void* w2t,
+                                  const void* b2, const void* w3, const void* w3t,
+                                  const void* b3, const void* gout, void* dy, void* d_o,
+                                  void* rows, void* counts, void* part, void* grads, void* sel,
+                                  int t, int n, int m, int s, int c3, int nb, int window,
+                                  int blocks, void* stream) {
   if (nb <= 0 || m % nb != 0 || window <= 0 || window > n) return cudaErrorInvalidValue;
-  return launch<true>(y, o, idx, starts, w2, b2, w3, b3, gout, dy, d_o, part, grads, t, n, m, s,
-                      c1, c2, c3, blocks, nb, window, stream);
+  return launch<true>(y, o, idx, starts, w2, w2t, b2, w3, w3t, b3, gout, dy, d_o, rows, counts,
+                      part, grads, sel, t, n, m, s, c3, blocks, nb, window, stream);
 }
 
 const char* epnet_error_string(int err) {

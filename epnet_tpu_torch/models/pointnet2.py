@@ -80,6 +80,11 @@ class SAModuleMSG(nn.Module):
         return getattr(self, f'SharedMLP_{i}')
 
     def uses_fused(self, i: int) -> bool:
+        """Scale ``i`` through the fused SA interior (kernel B or G, and C or
+        H in training). The backward takes C1, C2 <= 128 and C3 <= 256
+        (``ops.sa_fused.check_bwd_takes``); a wider scale trains only on the
+        CPU and raises in its first forward on the card that records a
+        graph."""
         return self.npoint is not None and not self.bn and self.mlp(i).depth == 3
 
     def uses_block_local(self, n: int) -> bool:

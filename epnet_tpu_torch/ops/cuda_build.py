@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by nvcc into
 its own shared library, loaded with ctypes (no PyTorch headers, so a build
 takes seconds). The build happens at first use and is keyed by a hash of
-the source and the flags, under ``build/epnet_tpu_torch/`` at the root of
+the source, the local headers it includes (``#include "x.cuh"`` from
+``csrc``) and the flags, under ``build/epnet_tpu_torch/`` at the root of
 the checkout; delete that directory to force a rebuild. ptxas's register
 and shared-memory report for each build is kept beside the library
 (``<name>-<hash>.log``, see ``build_log``).
@@ -18,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -59,6 +61,15 @@ def _compile(src: pathlib.Path, so: pathlib.Path) -> None:
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
 
 
+def _digest(src: pathlib.Path) -> str:
+    """Hash of ``src``, the ``csrc`` headers it includes (one level: the
+    headers include no local header) and the flags."""
+    text = src.read_bytes()
+    headers = re.findall(rb'^#include "([^"]+)"', text, re.M)
+    parts = [text, *((CSRC / h.decode()).read_bytes() for h in sorted(headers))]
+    return hashlib.sha256(b''.join(parts) + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its hash is not built yet, and load it.
     Different libraries may build at the same time from several threads."""
@@ -68,9 +79,7 @@ def load_library(name: str) -> ctypes.CDLL:
         if name in _libs:
             return _libs[name]
         src = CSRC / f'{name}.cu'
-        digest = hashlib.sha256(src.read_bytes()
-                                + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = BUILD_DIR / f'{name}-{digest}.so'
+        so = BUILD_DIR / f'{name}-{_digest(src)}.so'
         if not so.exists():
             _compile(src, so)
         lib = ctypes.CDLL(str(so))

@@ -19,7 +19,8 @@ In bf16 every product accumulates in f32, and h1 and h2 are rounded to
 bf16 before the next layer, where the Pallas kernels cast them; the
 backwards take f32 only. What bounds the kernels on the H100, and what
 their designs do about that, is written at the top of each source: the
-dense layers' FFMA work, with every intermediate kept in shared memory and
+dense layers' work (f32 FFMA; in the backward also three-pass TF32 on the
+tensor cores), with every intermediate kept in shared memory and
 registers.
 
 Layer 1 commutes with the gather when the stage has no BatchNorm, so the
@@ -132,11 +133,10 @@ def _fwd_lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     return _typed(cuda_build.load_library('sa_fused_bwd'), {
         'epnet_sa_fused_bwd_launch':
-            ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p], ctypes.c_int),
+            ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p], ctypes.c_int),
         'epnet_sa_fused_win_bwd_launch':
-            ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + [ctypes.c_void_p], ctypes.c_int),
-        'epnet_sa_fused_bwd_smem_bytes': ([ctypes.c_int] * 3, ctypes.c_longlong),
-        'epnet_sa_fused_bwd_partial_floats': ([ctypes.c_int] * 3, ctypes.c_longlong)})
+            ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [ctypes.c_void_p], ctypes.c_int),
+        'epnet_sa_fused_bwd_partial_floats': ([ctypes.c_int], ctypes.c_longlong)})
 
 
 _OPERANDS = ('y', 'o', 'w2', 'w3')  # in the operand type; biases and gout stay f32
@@ -234,54 +234,102 @@ def fused_point_mlp_max_bf16_kernel(y, o, idx, w2, b2, w3, b3):
 
 fused_point_mlp_max_bf16_kernel.launches = 0
 
-_BWD_ROWS = 64  # rows of one chunk of csrc/sa_fused_bwd.cu: a centroid must fit
+_BWD_ROWS = 64  # distinct rows of one tile of csrc/sa_fused_bwd.cu: a centroid must fit
+_BWD_C = 128     # the kernel's C1 and C2; C3 is 128 or 256
 
 
-def fused_point_mlp_max_bwd_kernel(y, o, idx, w2, b2, w3, b3, gout):
-    """Launch ``csrc/sa_fused_bwd.cu`` (and its fixed-order reduction of the
-    per-block dW/db slices) on the current stream. Tensors as in
-    ``fused_point_mlp_max_bwd_plain``, on one CUDA device; S <= 64.
-    Returns (dy, do, dw2, db2, dw3, db3). Raises on anything the kernel
-    does not take."""
+def fused_point_mlp_max_bwd_kernel(y, o, idx, w2, b2, w3, b3, gout, selections=False):
+    """Launch ``csrc/sa_fused_bwd.cu`` (dedupe, main kernel and the
+    fixed-order reduction of the per-block dW/db slices) on the current
+    stream. Tensors as in ``fused_point_mlp_max_bwd_plain``, on one CUDA
+    device; S <= 64, C1 and C2 <= 128, C3 <= 256. Returns (dy, do, dw2,
+    db2, dw3, db3), and with ``selections`` also the kernel's max
+    selections (T, M, C3) int32: the first tied table row * 128 + the tied
+    samples, -1 where no row has p3 > 0. Raises on anything the kernel does
+    not take."""
     dims = _check_args('fused_point_mlp_max_bwd_kernel', y=y, o=o, idx=idx, w2=w2, b2=b2,
                        w3=w3, b3=b3, gout=gout)
     return _launch_bwd(fused_point_mlp_max_bwd_kernel, 'epnet_sa_fused_bwd_launch', dims,
-                       (y, o, idx, w2, b2, w3, b3, gout), ())
+                       (y, o, idx, w2, b2, w3, b3, gout), (), selections)
 
 
-def _launch_bwd(wrapper, entry, dims, inputs, extra):
-    """Kernel C or H (C entry point ``entry``) and its reduction for
-    ``wrapper``, whose launch count it keeps: allocates the outputs and the
-    per-block slices, launches, returns (dy, do, dw2, db2, dw3, db3).
-    ``extra`` are the ints the entry point takes after c3 (H's nb, window)."""
-    what = wrapper.__name__
-    T, N, M, S, C1, C2, C3 = dims
+def check_bwd_takes(what, T, N, S, C1, C2, C3):
+    """Raise unless kernels C and H take these shapes: S <= 64, C1 and C2 <=
+    128, C3 <= 256, N < 2^24 and T * N < 2^31. The differentiable entry
+    points check it in a forward that records a graph on the card, so a
+    configuration the backward cannot take fails there, not in its first
+    backward."""
     if S > _BWD_ROWS:
         raise ValueError(f'{what}: the kernel takes at most {_BWD_ROWS} samples a centroid, '
                          f'got {S}')
+    if C1 > _BWD_C or C2 > _BWD_C or C3 > 2 * _BWD_C:
+        raise ValueError(f'{what}: the kernel takes C1, C2 <= {_BWD_C} and C3 <= '
+                         f'{2 * _BWD_C}, got {C1}/{C2}/{C3}')
+    if N >= 1 << 24 or T * N >= 1 << 31:
+        raise ValueError(f'{what}: tables of at most 2^24 - 1 rows and 2^31 - 1 rows in all, '
+                         f'got {T} x {N}')
+
+
+def _check_bwd_if_recorded(what, tensors, y, idx, w2, w3):
+    """``check_bwd_takes`` when this forward records a graph on the card."""
+    if y.is_cuda and torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        check_bwd_takes(what, y.shape[0], y.shape[1], idx.shape[-1], y.shape[-1],
+                        w2.shape[-1], w3.shape[-1])
+
+
+def _pad_to(t, *widths):
+    """``t`` zero-padded at the end of its last len(widths) dims to ``widths``
+    (itself when it has them already)."""
+    pad = []
+    for have, want in zip(reversed(t.shape[-len(widths):]), reversed(widths)):
+        pad += [0, want - have]
+    return torch.nn.functional.pad(t, pad) if any(pad) else t
+
+
+def _launch_bwd(wrapper, entry, dims, inputs, extra, selections):
+    """Kernel C or H (C entry point ``entry``) for ``wrapper``, whose launch
+    count it keeps: pads the channels to the kernel's widths with zeros
+    (which changes no gradient), allocates the outputs and scratch,
+    launches, returns (dy, do, dw2, db2, dw3, db3) at the given widths
+    (and the selections if asked). ``extra`` are the ints the entry point
+    takes after c3 (H's nb, window)."""
+    what = wrapper.__name__
+    T, N, M, S, C1, C2, C3 = dims
+    check_bwd_takes(what, T, N, S, C1, C2, C3)
+    C3P = _BWD_C if C3 <= _BWD_C else 2 * _BWD_C
     lib = _bwd_lib()
-    smem = lib.epnet_sa_fused_bwd_smem_bytes(C1, C2, C3)
-    if smem + 1024 > _SMEM_LIMIT:
-        raise ValueError(f'{what}: needs {smem} B of shared memory at C1/C2/C3 = '
-                         f'{C1}/{C2}/{C3}; the limit is {_SMEM_LIMIT}')
     dev = inputs[0].device
-    args = [t.detach().contiguous() for t in inputs]
-    units = T * -(-M // (_BWD_ROWS // S))
-    blocks = max(1, min(units, 2 * torch.cuda.get_device_properties(dev).multi_processor_count))
-    size = lib.epnet_sa_fused_bwd_partial_floats(C1, C2, C3)
-    dy = torch.zeros((T, N, C1), dtype=torch.float32, device=dev)
-    do = torch.empty((T, M, C1), dtype=torch.float32, device=dev)
+    # inputs: y, o, idx[, starts], w2, b2, w3, b3, gout
+    y, o, idx, w2, b2, w3, b3, gout = [t.detach().contiguous()
+                                       for t in inputs[:3] + inputs[-5:]]
+    starts = (inputs[3].detach().contiguous(),) if extra else ()
+    y, o = _pad_to(y, _BWD_C), _pad_to(o, _BWD_C)
+    w2, b2 = _pad_to(w2, _BWD_C, _BWD_C), _pad_to(b2, _BWD_C)
+    w3, b3, gout = _pad_to(w3, _BWD_C, C3P), _pad_to(b3, C3P), _pad_to(gout, C3P)
+    w2t, w3t = w2.t().contiguous(), w3.t().contiguous()
+    cents = T * M
+    blocks = max(1, min(cents, torch.cuda.get_device_properties(dev).multi_processor_count))
+    size = lib.epnet_sa_fused_bwd_partial_floats(C3P)
+    dy = torch.zeros((T, N, _BWD_C), dtype=torch.float32, device=dev)
+    do = torch.empty((T, M, _BWD_C), dtype=torch.float32, device=dev)
+    rows = torch.empty((max(cents, 1), _BWD_ROWS), dtype=torch.int32, device=dev)
+    counts = torch.empty((2 * cents + 1,), dtype=torch.int32, device=dev)  # and their prefix
     part = torch.empty((blocks, size), dtype=torch.float32, device=dev)
     grads = torch.empty((size,), dtype=torch.float32, device=dev)
+    sel = torch.empty((T, M, C3P), dtype=torch.int32, device=dev) if selections else None
+    args = (y, o, idx, *starts, w2, w2t, b2, w3, w3t, b3, gout)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, entry)(
-            *(a.data_ptr() for a in args), dy.data_ptr(), do.data_ptr(), part.data_ptr(),
-            grads.data_ptr(), T, N, M, S, C1, C2, C3, *extra, blocks, stream)
+            *(a.data_ptr() for a in args), dy.data_ptr(), do.data_ptr(), rows.data_ptr(),
+            counts.data_ptr(), part.data_ptr(), grads.data_ptr(),
+            sel.data_ptr() if selections else None, T, N, M, S, C3P, *extra, blocks, stream)
     cuda_build.check(lib, err, f'{what} launch')
     wrapper.launches += 1
-    dw2, db2, dw3, db3 = torch.split(grads, [C1 * C2, C2, C2 * C3, C3])
-    return dy, do, dw2.view(C1, C2), db2, dw3.view(C2, C3), db3
+    dw2, db2, dw3, db3 = torch.split(grads, [_BWD_C * _BWD_C, _BWD_C, _BWD_C * C3P, C3P])
+    out = (dy[..., :C1], do[..., :C1], dw2.view(_BWD_C, _BWD_C)[:C1, :C2], db2[:C2],
+           dw3.view(_BWD_C, C3P)[:C2, :C3], db3[:C3])
+    return out + (sel[..., :C3],) if selections else out
 
 
 fused_point_mlp_max_bwd_kernel.launches = 0
@@ -326,6 +374,7 @@ def fused_point_mlp_max(y, o, idx, w2, b2, w3, b3):
     (forward only; B-bf16 on the card)."""
     if y.device.type not in ('cuda', 'cpu'):
         raise ValueError(f'fused_point_mlp_max: unsupported device {y.device}')
+    _check_bwd_if_recorded('fused_point_mlp_max', (y, o, w2, b2, w3, b3), y, idx, w2, w3)
     return _FusedPointMlpMax.apply(y, o, idx, w2, b2, w3, b3)
 
 
@@ -386,17 +435,19 @@ def fused_point_mlp_max_win_bf16_kernel(y, o, idx_rel, starts, w2, b2, w3, b3, w
 fused_point_mlp_max_win_bf16_kernel.launches = 0
 
 
-def fused_point_mlp_max_win_bwd_kernel(y, o, idx_rel, starts, w2, b2, w3, b3, window, gout):
+def fused_point_mlp_max_win_bwd_kernel(y, o, idx_rel, starts, w2, b2, w3, b3, window, gout,
+                                       selections=False):
     """Launch kernel H (``csrc/sa_fused_bwd.cu``, windowed) and its
     reduction on the current stream. Tensors as in
     ``fused_point_mlp_max_win_bwd_plain``; S <= 64. Returns (dy, do, dw2,
-    db2, dw3, db3). Raises on anything the kernel does not take."""
+    db2, dw3, db3) (and the selections, as for kernel C). Raises on
+    anything the kernel does not take."""
     what = 'fused_point_mlp_max_win_bwd_kernel'
     dims = _check_args(what, y=y, o=o, idx=idx_rel, starts=starts, w2=w2, b2=b2, w3=w3, b3=b3,
                        gout=gout)
     NB = _check_window(what, starts, window, *dims[:3])
     return _launch_bwd(fused_point_mlp_max_win_bwd_kernel, 'epnet_sa_fused_win_bwd_launch', dims,
-                       (y, o, idx_rel, starts, w2, b2, w3, b3, gout), (NB, window))
+                       (y, o, idx_rel, starts, w2, b2, w3, b3, gout), (NB, window), selections)
 
 
 fused_point_mlp_max_win_bwd_kernel.launches = 0
@@ -441,4 +492,6 @@ def fused_point_mlp_max_win(y, o, idx_rel, starts, w2, b2, w3, b3, window: int):
     """
     if y.device.type not in ('cuda', 'cpu'):
         raise ValueError(f'fused_point_mlp_max_win: unsupported device {y.device}')
+    _check_bwd_if_recorded('fused_point_mlp_max_win', (y, o, w2, b2, w3, b3), y, idx_rel, w2,
+                           w3)
     return _FusedPointMlpMaxWin.apply(y, o, idx_rel, starts, w2, b2, w3, b3, window)
