@@ -5,10 +5,20 @@
 Builds the port's CUDA kernels from ``epnet_tpu_torch/csrc`` (nvcc, at
 first use), then:
 
-1. holds the FPS kernel against its plain PyTorch version at every FPS
-   shape of the main path (picks must be identical) and times both;
-2. holds the fused set-abstraction kernel against its plain version at the
-   RCNN sa0/sa1 shapes (at most 1e-4 relative error) and times both;
+1. holds the FPS kernel (A) against its plain PyTorch version at every FPS
+   shape of a forward, at the batch-4 RPN sa0 shape of a train step and on
+   a tie-heavy 16384-point cloud (a lattice, points duplicated across the
+   cluster's slice boundaries): picks must be identical; prints each
+   shape's configuration (blocks a cloud, a thread-block cluster above 1;
+   threads a block) and microseconds a step, times kernel and plain, and
+   at RPN sa0 and sa1 times every other configuration beside the one the
+   launcher takes;
+2. holds the fused set-abstraction kernel (B) against its plain version
+   (at most 1e-4 relative error) at the RCNN sa0/sa1 shapes on random
+   tables (timed, the kernel's line) and at sa0 on real eval tables (the
+   exact ball query around FPS centroids of 100 pooled RoIs: timed,
+   reported beside); prints the share of distinct rows and both operation
+   counts of the bound;
 3. drives the main path: ``EPNet`` in TEST mode at the full width of the
    published recipe (cfgs/LI_Fusion_with_attention_use_ce_loss.yaml: 16384
    points, a 384x1280 image, 100 RoIs of 512 points), random weights from a
@@ -172,6 +182,16 @@ SA_BWD_DESIGN = ('each distinct row once (warp bitonic dedupe), blocks split by 
                  'recompute in cuBLAS order, sparse max gradient (dW3 as gathers), dh2 and '
                  'layer 2 over the live rows on mma.sync m16n8k8 3xTF32, dW/db on chip, '
                  'fixed-order reduction')
+SA_FWD_DESIGN = ('each distinct row once (warp bitonic dedupe), blocks split by cost, tiles of '
+                 '64 distinct rows of whole centroids, layers 2-3 on mma.sync m16n8k8 3xTF32 '
+                 '(integer split, lo cut by the tensor cores) against 32-row weight K-tiles '
+                 'through a double-buffered cp.async ring, segmented max in shared memory')
+FPS_DESIGN = ('points and running distances in registers, argmax over packed (distance bits, '
+              '~index) keys by __reduce_max_sync; clouds above 4096 points on a thread-block '
+              'cluster (distributed shared memory, one cluster barrier a step), smaller ones '
+              'on one block or one warp')
+FPS_TRAIN_SHAPE = (4, 16384, 4096)  # RPN sa0 in a batch-4 train step
+FPS_SWEEP = [(1, 16384, 4096), (1, 4096, 1024)]  # shapes timed in every configuration
 # the image tower's convs in a batch-4 train step of the recipe: (B, H, W, C, F)
 DW_SHAPES = {
     'conv3x3_dw_s2': {'blk0': (4, 384, 1280, 64, 64), 'blk1': (4, 192, 640, 128, 128),
@@ -255,13 +275,15 @@ def _distinct_rows(idx):
     return idx, first
 
 
-def _sa_fwd_bound(idx, N, C1, C2, C3, bf16=False):
+def _sa_fwd_bound(idx, N, C1, C2, C3, bf16=False, tf32=False):
     """(ms, ms) of the fused-SA forward over the table rows ``idx``: the
     two products, layer 1's subtract and ReLU, the biases and ReLUs of
     layers 2 and 3 and the max, over each ball's distinct rows. ``bf16``:
     the products at the bf16 tensor-core peak, the elementwise work at the
     f32 peak, and y, o, the weights and the output in 2 bytes (the biases
-    in 4)."""
+    in 4). ``tf32``: kernel B's own count, the products in three TF32
+    passes at the TF32 tensor-core peak beside the elementwise work at the
+    f32 peak (the larger of the two pipes), f32 bytes."""
     T, M, S = idx.shape
     rows = int(_distinct_rows(idx)[1].sum())
     products = 2.0 * rows * (C1 * C2 + C2 * C3)
@@ -270,8 +292,11 @@ def _sa_fwd_bound(idx, N, C1, C2, C3, bf16=False):
         return _bound(elementwise, 2 * (T * N * C1 + T * M * C1 + C1 * C2 + C2 * C3 + T * M * C3)
                       + 4 * (C2 + C3) + 8 * T * M * S, products)
     weights = C1 * C2 + C2 + C2 * C3 + C3
-    return _bound(products + elementwise,
-                  4 * (T * N * C1 + T * M * C1 + weights + T * M * C3) + 8 * T * M * S)
+    nbytes = 4 * (T * N * C1 + T * M * C1 + weights + T * M * C3) + 8 * T * M * S
+    if tf32:
+        return (max(_bound(elementwise, 0)[0], 3 * products / TF32_PEAK * 1e3),
+                _bound(0, nbytes)[1])
+    return _bound(products + elementwise, nbytes)
 
 
 def _sa_bwd_work(y, o, idx, w2, b2, w3, b3, gout):
@@ -411,6 +436,26 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _tie_cloud():
+    """16384 points on a 16 x 32 x 32 integer lattice (many exactly equal
+    distances), 8 points at the end of every 1024-point slice replaced by
+    copies of the first 8 of the next slice (equal points on both sides of
+    a cluster's slice boundaries)."""
+    import numpy as np
+
+    g = np.stack(np.meshgrid(np.arange(16), np.arange(32), np.arange(32), indexing='ij'),
+                 -1).reshape(-1, 3).astype(np.float32)
+    for r in range(1, 16):
+        g[r * 1024 - 8:r * 1024] = g[r * 1024:r * 1024 + 8]
+    return g[None]
+
+
+def _fps_configs(n):
+    """Every configuration kernel A takes for a cloud of n points."""
+    return [(cs, th) for cs in (1, 2, 4, 8, 16) for th in (32, 64, 128, 256, 512)
+            if cs * th * 16 >= n and cs * th <= 8 * n]
+
+
 def phase_fps(dev):
     import numpy as np
     import torch
@@ -420,12 +465,17 @@ def phase_fps(dev):
     scene = torch.from_numpy(structured_scene(np.random.RandomState(0), 16384)[0]).to(dev)
     rng = np.random.RandomState(1)
     rows, max_err, ms, plain_ms, op_ms, byte_ms = [], 0, 0.0, 0.0, [], []
-    for B, N, npoint in FPS_SHAPES:
+    cases = [(shape, 'forward') for shape in FPS_SHAPES]
+    cases += [(FPS_TRAIN_SHAPE, 'train step'), ((1, 16384, 4096), 'ties')]
+    for (B, N, npoint), kind in cases:
         # npoint - 1 steps over N points: 3 sub, 3 mul, 2 add, min, argmax compare
         o, m = _bound(10.0 * B * N * (npoint - 1), 4 * B * N * 3 + 8 * B * npoint)
-        op_ms.append(o)
-        byte_ms.append(m)
-        if B == 1:
+        if kind == 'ties':
+            xyz = torch.from_numpy(_tie_cloud()).to(dev)
+        elif kind == 'train step':  # four scenes
+            xyz = torch.from_numpy(np.stack([structured_scene(np.random.RandomState(s), N)[0]
+                                             for s in range(B)])).to(dev)
+        elif B == 1:
             xyz = scene[None, :N].contiguous()
         else:  # RoI-local clouds: a few metres around the box center
             xyz = torch.from_numpy((rng.randn(B, N, 3) * 1.5).astype(np.float32)).to(dev)
@@ -434,16 +484,33 @@ def phase_fps(dev):
         torch.cuda.synchronize()
         err = int((got - want).abs().max())
         if err:
-            raise AssertionError(f'fps kernel picks differ from plain at {(B, N, npoint)}: '
-                                 f'{int((got != want).sum())} of {got.numel()}')
-        max_err = max(max_err, err)
-        k = _time_ms(lambda: fps.furthest_point_sample_kernel(xyz, npoint), 10)
+            raise AssertionError(f'fps kernel picks differ from plain at {(B, N, npoint)} '
+                                 f'({kind}): {int((got != want).sum())} of {got.numel()}')
+        cs, threads = fps.kernel_config(N)
+        k = _time_ms(lambda: fps.furthest_point_sample_kernel(xyz, npoint), 10 if N > 1024 else 200)
         p = _time_ms(lambda: fps.furthest_point_sample_plain(xyz, npoint), 2)
-        ms, plain_ms = ms + k, plain_ms + p
-        rows.append({'shape': [B, N, 3], 'npoint': npoint, 'ms': k, 'plain_ms': p,
-                     'bound_ms': max(op_ms[-1], byte_ms[-1])})
-        print(f'fps {(B, N, 3)} -> {npoint}: picks identical; kernel {k:.4f} ms, '
-              f'plain {p:.4f} ms, bound {max(op_ms[-1], byte_ms[-1]):.4f} ms', flush=True)
+        step_us = k / (npoint - 1) * 1e3
+        row = {'shape': [B, N, 3], 'npoint': npoint, 'kind': kind, 'cluster': cs,
+               'threads': threads, 'ms': k, 'us_per_step': step_us, 'plain_ms': p,
+               'bound_ms': max(o, m)}
+        print(f'fps {(B, N, 3)} -> {npoint} ({kind}): picks identical; {cs} block(s) a cloud'
+              f'{" (a cluster)" if cs > 1 else ""} of {threads} threads; kernel {k:.4f} ms, '
+              f'{step_us:.3f} us a step; plain {p:.4f} ms, bound {max(o, m):.4f} ms',
+              flush=True)
+        if kind == 'forward' and (B, N, npoint) in FPS_SWEEP:
+            others = {}
+            for cfg in _fps_configs(N):
+                others[f'{cfg[0]}x{cfg[1]}'] = _time_ms(
+                    lambda: fps.furthest_point_sample_kernel(xyz, npoint, cfg), 3)
+            row['configs_ms'] = others
+            print('  every configuration (blocks x threads: ms): '
+                  + ', '.join(f'{c} {v:.4f}' for c, v in others.items()), flush=True)
+        rows.append(row)
+        max_err = max(max_err, err)
+        if kind == 'forward':  # the line's sums: the six launches of a forward
+            op_ms.append(o)
+            byte_ms.append(m)
+            ms, plain_ms = ms + k, plain_ms + p
     # no single PyTorch call samples furthest points
     return {'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms,
             **_bound_keys(op_ms, byte_ms), 'library_ms': None, 'per_shape': rows}
@@ -456,14 +523,20 @@ def phase_sa(dev):
 
     rng = np.random.RandomState(2)
     rows, max_err, ms, plain_ms, op_ms, byte_ms = [], 0.0, 0.0, 0.0, [], []
-    for name, (T, N, M, S, C1, C2, C3) in SA_SHAPES.items():
+    cases = [(name, shape, None) for name, shape in SA_SHAPES.items()]
+    cases.append(('rcnn.sa0 real', SA_SHAPES['rcnn.sa0'], 'real'))
+    for name, (T, N, M, S, C1, C2, C3), kind in cases:
         def f(*shape, scale=1.0):
             return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
-        idx = torch.from_numpy(rng.randint(0, N, (T, M, S))).to(dev)
-        idx[:, :M // 4, S // 2:] = idx[:, :M // 4, :1]  # short balls padded with the first hit
-        o, m = _sa_fwd_bound(idx, N, C1, C2, C3)
-        op_ms.append(o)
-        byte_ms.append(m)
+        if kind == 'real':
+            idx = _real_sa0_idx(T, 22, dev)
+        else:
+            idx = torch.from_numpy(rng.randint(0, N, (T, M, S))).to(dev)
+            idx[:, :M // 4, S // 2:] = idx[:, :M // 4, :1]  # short balls padded with the first hit
+        f32_ms, m = _sa_fwd_bound(idx, N, C1, C2, C3)
+        design_ms, _ = _sa_fwd_bound(idx, N, C1, C2, C3, tf32=True)
+        o = min(f32_ms, design_ms)
+        distinct = float(_distinct_rows(idx)[1].float().mean())
         args = (f(T, N, C1), f(T, M, C1, scale=0.1), idx, f(C1, C2, scale=C1 ** -0.5),
                 f(C2, scale=0.01), f(C2, C3, scale=C2 ** -0.5), f(C3, scale=0.01))
         got = sa_fused.fused_point_mlp_max_kernel(*args)
@@ -472,18 +545,24 @@ def phase_sa(dev):
         abs_err = float((got - want).abs().max())
         rel_err = abs_err / float(want.abs().max())
         print(f'sa_fused {name} {(T, N, M, S, C1, C2, C3)}: max abs err {abs_err:.3e}, '
-              f'max rel err {rel_err:.3e}', flush=True)
+              f'max rel err {rel_err:.3e}; distinct rows {distinct:.4f} of the samples',
+              flush=True)
         if not rel_err <= SA_RTOL:
             raise AssertionError(f'fused SA kernel off by {rel_err:.3e} relative at {name}')
-        max_err = max(max_err, abs_err)
         k = _time_ms(lambda: sa_fused.fused_point_mlp_max_kernel(*args), 20)
         p = _time_ms(lambda: sa_fused.fused_point_mlp_max_plain(*args), 20)
-        ms, plain_ms = ms + k, plain_ms + p
         rows.append({'stage': name, 'shape': [T, N, M, S, C1, C2, C3], 'ms': k,
-                     'plain_ms': p, 'bound_ms': max(op_ms[-1], byte_ms[-1]),
+                     'plain_ms': p, 'bound_ms': max(o, m), 'f32_count_ms': f32_ms,
+                     'design_count_ms': design_ms, 'distinct_rows': distinct,
                      'max_rel_err': rel_err})
-        print(f'  kernel {k:.4f} ms, plain {p:.4f} ms, bound {max(op_ms[-1], byte_ms[-1]):.4f} '
-              f'ms', flush=True)
+        print(f'  kernel {k:.4f} ms, plain {p:.4f} ms, bound {max(o, m):.4f} ms (f32 count '
+              f'{f32_ms:.4f}, this design\'s count {design_ms:.4f}, bytes {m:.4f})', flush=True)
+        if kind == 'real':
+            continue  # beside the line's sum, which stays the random tables'
+        max_err = max(max_err, abs_err)
+        op_ms.append(o)
+        byte_ms.append(m)
+        ms, plain_ms = ms + k, plain_ms + p
     # no single PyTorch call fuses the gather, the three layers and the max
     return {'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms,
             **_bound_keys(op_ms, byte_ms), 'library_ms': None, 'per_shape': rows}
@@ -1966,9 +2045,10 @@ def main():
 
     kernels = [
         {'name': 'fps', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/fps.cu',
-         'replaces': 'epnet_tpu/ops/fps_pallas.py:40, epnet_tpu/ops/fps_pallas.py:80', **fps_res},
+         'replaces': 'epnet_tpu/ops/fps_pallas.py:40, epnet_tpu/ops/fps_pallas.py:80',
+         'design': FPS_DESIGN, **fps_res},
         {'name': 'sa_fused_fwd', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/sa_fused.cu',
-         'replaces': 'epnet_tpu/ops/sa_fused.py:83', **sa_res},
+         'replaces': 'epnet_tpu/ops/sa_fused.py:83', 'design': SA_FWD_DESIGN, **sa_res},
         {'name': 'sa_fused_bwd', 'route': 'cuda',
          'source': 'epnet_tpu_torch/csrc/sa_fused_bwd.cu',
          'replaces': 'epnet_tpu/ops/sa_fused.py:179', 'design': SA_BWD_DESIGN, **bwd_res},

@@ -1,5 +1,5 @@
 // Fused set-abstraction interior on Hopper (sm_90a), forward only; plain C
-// interface. Two kernels, one template, each in f32 and in bf16:
+// interface. Two kernels:
 //
 //   B replaces the Pallas TPU kernel epnet_tpu/ops/sa_fused.py::_fwd_kernel
 //     (pallas_call at :156, reached through fused_point_mlp_max);
@@ -18,6 +18,71 @@
 // epnet_tpu_torch/ops/sa_fused.py::fused_point_mlp_max_plain and
 // ::fused_point_mlp_max_win_plain.
 //
+// What bounds them on the H100: arithmetic. At the RCNN shapes (T=100 RoI
+// tables, M*S = 8192 or 2048 rows a table, 128-256 wide layers) the two
+// dense layers are 54 + 20 GFLOP a forward over every sample (fewer over
+// the distinct rows) while the kernel reads only Y, O, idx and the weights;
+// the unfused composition would also write and re-read three (T, M*S, C)
+// intermediates (~420 MB each at sa0). So the work is kept on chip.
+//
+// B, f32 (sa_fused_fwd_rows_kernel), cuts the work and moves it to the
+// tensor cores:
+//  - each distinct row once: a ball repeats rows (short balls are padded
+//    with their first hit, pooled RoIs repeat points; ~34% of RCNN sa0's
+//    samples are distinct on real tables), a repeated row gives the same
+//    values, and a duplicate cannot change a max, so no multiplicity is
+//    needed. The warp bitonic dedupe of kernels C and H
+//    (csrc/sa_common.cuh) lists each ball's distinct rows;
+//  - blocks split by cost: a prefix sum of distinct rows plus a fixed cost
+//    a centroid and a binary search give each block a contiguous run of
+//    centroids with an even share of the rows (balls differ ~60-fold); two
+//    blocks of 8 warps an SM (~100 KB of shared memory each), as many
+//    blocks as fit the card at once;
+//  - a tile is up to 64 distinct rows of whole centroids (at most 32),
+//    packed greedily by one warp's prefix sum of the counts. h1 =
+//    relu(Y[row] - O) is gathered in f32 (float4 rows from L2) into shared
+//    memory; layers 2 and 3 run on the TF32 tensor cores, mma.sync m16n8k8
+//    in three passes (lo*hi + hi*lo + hi*hi, about as accurate as f32:
+//    tests/test_torch_sa_fused_fwd_design.py), each warp 32 rows x 32
+//    columns of a 128-column pass, against 32-row K-tiles of W2 and W3
+//    streamed from L2 through a double-buffered cp.async ring and split as
+//    they are loaded (W2 and W3, 192 KB at sa1, do not fit beside two
+//    tiles, split or not). The split rounds hi and lo to nearest in
+//    integer operations (split_tf32_int): the bits of kernels C and H's
+//    cvt.rna split, without the conversions' low issue rate. With those
+//    conversions and C and H's 16-row, 3-slot ring, B took ~18% longer on
+//    the H100 (PERF.md, runs AK and AN). Cutting lo toward zero instead,
+//    as the tensor cores read an unrounded register, was faster still but
+//    moved a max downstream of B in the tiny block-local train step
+//    (chip_smoke.py phase 16) past its bound. Each product starts from 0
+//    and its bias is added after, in f32 (the tensor cores' accumulation
+//    truncates; over K = 128 that stays ~1e-6 of a value). No selection
+//    rides on B's rounding: kernel C
+//    recomputes the forward itself, in cuBLAS's order, so a max that moves
+//    within roundoff moves only B's output value;
+//  - layer 3's bias and ReLU go into shared memory a 128-column pass at a
+//    time, and each (centroid, channel) takes the max over the centroid's
+//    rows (from 0: ReLU outputs are >= 0), written straight to the output,
+//    since a centroid lies in one tile.
+// The wrapper zero-pads C1 and C2 to 128 and W3's columns to a multiple of
+// 128 (a zero column adds 0 to every sum); S <= 64 (one warp's sort).
+//
+// G and the bf16 instances (sa_fused_fwd_kernel, one template) gather every
+// (centroid, sample) row and run layers 2 and 3 as register-tiled f32 FFMA:
+// one block per (table t, TM = max(1, 64 / S) centroids). Rows (centroid,
+// sample) are processed 64 at a time: the block gathers its rows of Y
+// straight from global memory/L2 (no one-hot: that was a device of the
+// TPU's matrix unit), subtracts O and applies ReLU into shared memory; layer
+// 2 and layer 3 run as register-tiled f32 FFMA (each of 256 threads owns a
+// 4-row x 8-column tile of a 128-column pass) against 32-row tiles of
+// W2/W3 staged in shared memory; the layer-3 pass is folded into a running
+// max per (centroid, channel) kept in shared memory. ReLU outputs are >= 0,
+// so the max starts at 0. Shared memory at the widest RCNN stage (sa1:
+// 128/128/256) is 83 KB, above the 48 KB default, hence the
+// MaxDynamicSharedMemorySize attribute; the bf16 instances stage the same
+// f32 tiles. Full f32 keeps the result within f32 roundoff of the plain
+// version.
+//
 // The bf16 instances (B-bf16, G-bf16) take Y, O, W2, W3 in bf16 and b2, b3 in
 // f32 and write a bf16 output: the n_splits == 1 branch of the same two
 // Pallas kernels (sa_fused.py:91-93, 108-116), which the JAX package's
@@ -31,53 +96,32 @@
 // once on the way out (rounding is monotone, so that equals the max of the
 // rounded values). The one-hot compares of the TPU kernels, in int32, int16
 // or uint16, were a TPU layout of the gather and are not part of the
-// function; here rows are gathered by index.
+// function; here rows are gathered by index. In bf16 the bound is the
+// tensor cores' (989 TFLOP/s), which these FFMA instances do not use.
 //
-// What bounds it on the H100: arithmetic. At the RCNN shapes (T=100 RoI
-// tables, M*S = 8192 or 2048 rows a table, 128-256 wide layers) the two
-// dense layers are 54 + 20 GFLOP a forward while the kernel reads only Y, O,
-// idx and the weights; the unfused composition would also write and re-read
-// three (T, M*S, C) intermediates (~420 MB each at sa0). So the work is kept
-// on chip and the FFMA pipes are the limit. In bf16 the bound is the tensor
-// cores' (989 TFLOP/s), which these FFMA instances do not use: tensor cores
-// (mma.sync or wgmma on the bf16 operands) are a later change.
-//
-// Design: one block per (table t, TM = max(1, 64 / S) centroids). Rows
-// (centroid, sample) are processed 64 at a time: the block gathers its rows
-// of Y straight from global memory/L2 (no one-hot: that was a device of the
-// TPU's matrix unit), subtracts O and applies ReLU into shared memory; layer
-// 2 and layer 3 run as register-tiled f32 FFMA (each of 256 threads owns a
-// 4-row x 8-column tile of a 128-column pass) against 32-row tiles of
-// W2/W3 staged in shared memory; the layer-3 pass is folded into a running
-// max per (centroid, channel) kept in shared memory. ReLU outputs are >= 0,
-// so the max starts at 0. Shared memory at the widest RCNN stage (sa1:
-// 128/128/256) is 83 KB, above the 48 KB default, hence the
-// MaxDynamicSharedMemorySize attribute; the bf16 instances stage the same
-// f32 tiles. No TF32 and no mma: full f32 keeps the f32 result within f32
-// roundoff of the plain version.
-//
-// G is B with the window's row index (the template parameter kWin). On the
-// TPU the window cut the one-hot matmul from N to W columns; here there is
-// no one-hot, a row gather costs the same from any row of the table (a
-// 512 x 128 f32 table is 256 KB, resident in L2), and the FFMA work is the
-// same, so a design that stages each 256-row window in shared memory (128
-// KB a block, one block an SM) would save no work; G keeps B's blocks.
+// G is the template with the window's row index (kWin). On the TPU the
+// window cut the one-hot matmul from N to W columns; here there is no
+// one-hot, a row gather costs the same from any row of the table (a 512 x
+// 128 f32 table is 256 KB, resident in L2), and the FFMA work is the same,
+// so a design that stages each 256-row window in shared memory (128 KB a
+// block, one block an SM) would save no work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <climits>
 #include <cstdint>
 
 #include "common.cuh"
+#include "sa_common.cuh"
 
 namespace {
 
-constexpr int kRows = 64;       // (centroid, sample) rows per chunk
-constexpr int kThreads = 256;   // 16 x 16: 4 rows x 8 columns each
+// The template (G, B-bf16, G-bf16): kRows (centroid, sample) rows a chunk,
+// kThreads = 16 x 16 threads of 4 rows x 8 columns each (sa_common.cuh)
 constexpr int kColPass = 128;   // output columns per pass
 constexpr int kKTile = 32;      // weight rows staged per step
-constexpr int kMaxSmem = 232448;
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -277,6 +321,226 @@ int launch(const void* y, const void* o, const void* idx, const void* starts, co
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Kernel B (f32): each distinct row once, layers 2 and 3 in three TF32 passes.
+// ---------------------------------------------------------------------------
+
+// A centroid's fixed cost in distinct rows when the blocks split the work:
+// its share of the max and its output row (not tuned).
+constexpr int kFwdCentroidRows = 4;
+constexpr int kFK = 32;              // weight rows a K-tile: 4 k8 steps a barrier
+constexpr int kFSlot = kFK * kW2Ld;  // floats a ring slot; two slots
+constexpr int kRowsSmem = 4 * (2 * kRows * kLd + 2 * kFSlot) +
+                          4 * (2 * kRows + 2 * kMaxCent + 3);
+
+// f32 bits rounded to TF32, to nearest with ties away from zero: half of
+// the 13 dropped bits' unit added to the magnitude, then cleared. The same
+// bits as cvt.rna.tf32.f32 on finite values, in two integer operations at
+// the full rate (the conversion issues at a fraction of it).
+__device__ __forceinline__ uint32_t tf32_rna_bits(uint32_t a) {
+  return (a + 0x1000u) & 0xFFFFE000u;
+}
+// split_tf32 (sa_common.cuh) in integer operations: the same hi and lo.
+__device__ __forceinline__ void split_tf32_int(float a, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna_bits(__float_as_uint(a));
+  lo = tf32_rna_bits(__float_as_uint(a - __uint_as_float(hi)));
+}
+struct FragAI {  // FragA, split by split_tf32_int
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void set(float a0, float a1, float a2, float a3) {
+    split_tf32_int(a0, hi[0], lo[0]);
+    split_tf32_int(a1, hi[1], lo[1]);
+    split_tf32_int(a2, hi[2], lo[2]);
+    split_tf32_int(a3, hi[3], lo[3]);
+  }
+};
+struct FragBI {  // FragB, split by split_tf32_int
+  uint32_t hi[2], lo[2];
+  __device__ __forceinline__ void set(float b0, float b1) {
+    split_tf32_int(b0, hi[0], lo[0]);
+    split_tf32_int(b1, hi[1], lo[1]);
+  }
+};
+
+// buf[row][c] = relu(acc + bias[c]) for this warp's accumulators: rows
+// ra/rb of m-tiles mt < active, columns n0 + 8 nt + 2 t4 (+ 1).
+__device__ __forceinline__ void store_relu(const float (&acc)[2][4][4],
+                                           const float* __restrict__ bias, float* buf,
+                                           const int (&ra)[2], const int (&rb)[2], int n0,
+                                           int active) {
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    if (mt >= active) continue;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int c = n0 + 8 * nt + 2 * t4;
+      const float b0 = __ldg(bias + c);
+      const float b1 = __ldg(bias + c + 1);
+      float* pa = buf + ra[mt] * kLd + c;
+      float* pb = buf + rb[mt] * kLd + c;
+      pa[0] = fmaxf(acc[mt][nt][0] + b0, 0.0f);
+      pa[1] = fmaxf(acc[mt][nt][1] + b1, 0.0f);
+      pb[0] = fmaxf(acc[mt][nt][2] + b0, 0.0f);
+      pb[1] = fmaxf(acc[mt][nt][3] + b1, 0.0f);
+    }
+  }
+}
+
+// out[cent, c] = max over the centroid's distinct rows of relu(h2 W3 + b3)[c],
+// h2 = relu(h1 W2 + b2), h1 = relu(Y[row] - O[cent]), for c < c3; drows and
+// counts from sa_dedupe_kernel, counts + cents the prefix of their cost.
+__global__ void __launch_bounds__(kThreads, 2)
+sa_fused_fwd_rows_kernel(const float* __restrict__ y, const float* __restrict__ o,
+                         const int* __restrict__ drows, const int* __restrict__ counts,
+                         const float* __restrict__ w2, const float* __restrict__ b2,
+                         const float* __restrict__ w3, const float* __restrict__ b3,
+                         float* __restrict__ out, int n, int m, int cents, int c3, int c3p) {
+  extern __shared__ __align__(16) float smem[];
+  float* buf_a = smem;                 // h1, then a pass's h3
+  float* buf_b = buf_a + kRows * kLd;  // h2
+  float* ring = buf_b + kRows * kLd;   // weight K-tiles
+  int* row_tab = reinterpret_cast<int*>(ring + 2 * kFSlot);  // t * n + table row
+  int* row_slot = row_tab + kRows;  // the row's centroid in the tile
+  int* cent_id = row_slot + kRows;
+  int* cent_rs = cent_id + kMaxCent;       // first row of each centroid, + end
+  int* tile_info = cent_rs + kMaxCent + 1;  // n_cent, n_rows
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int wm = warp >> 2;        // this warp's rows 32 wm .. 32 wm + 31
+  const int n0 = 32 * (warp & 3);  // and columns n0 .. n0 + 31 of a pass
+  const int ra[2] = {32 * wm + g, 32 * wm + 16 + g};
+  const int rb[2] = {32 * wm + 8 + g, 32 * wm + 24 + g};
+
+  // this block's centroids: those whose cost starts in its share of the total
+  const int* prefix = counts + cents;
+  const long long total = prefix[cents];
+  const int c_end = lower_bound(prefix, cents, total * (blockIdx.x + 1) / gridDim.x);
+  int cursor = lower_bound(prefix, cents, total * blockIdx.x / gridDim.x);
+  while (cursor < c_end) {
+    __syncthreads();  // the previous tile is done with every buffer
+    if (warp == 0) {  // pack whole centroids while their distinct rows fit
+      const int c = cursor + lane;
+      const int cnt = c < c_end ? counts[c] : kRows + 1;
+      int incl = cnt;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += v;
+      }
+      const int nc = __popc(__ballot_sync(0xffffffffu, incl <= kRows));
+      if (lane < nc) {
+        cent_id[lane] = c;
+        cent_rs[lane] = incl - cnt;
+      }
+      if (lane == nc - 1) {
+        cent_rs[nc] = incl;
+        tile_info[1] = incl;
+      }
+      if (lane == 0) tile_info[0] = nc;
+    }
+    __syncthreads();
+    const int n_cent = tile_info[0];
+    const int n_rows = tile_info[1];
+    for (int j = warp; j < n_cent; j += kThreads / 32) {
+      const int cent = cent_id[j];
+      const int base = cent_rs[j];
+      const int tn = (cent / m) * n;
+      for (int q = lane; q < cent_rs[j + 1] - base; q += 32) {
+        row_tab[base + q] = tn + (drows[static_cast<size_t>(cent) * kRows + q] >> 7);
+        row_slot[base + q] = j;
+      }
+    }
+    __syncthreads();
+    gather_h1(buf_a, y, o, row_tab, row_slot, cent_id, n_rows);  // ring_product's barrier
+    const int active = min(2, max(0, (((n_rows + 15) & ~15) - 32 * wm) / 16));
+
+    {  // h2 = relu(h1 W2 + b2)
+      float acc[2][4][4] = {};
+      ring_product<2, kFSlot>(
+          kC / kFK, ring, [&](int i, float* slot) { load_w128<kFK>(w2, i, slot); },
+          [&](int i, const float* slot) {
+            slot_steps<2, 4, FragAI, FragBI>(acc, buf_a, kLd, ra, rb, kFK * i, slot, kW2Ld,
+                                             kFK / 8, n0, active);
+          });
+      store_relu(acc, b2, buf_b, ra, rb, n0, active);
+    }
+    for (int c0 = 0; c0 < c3p; c0 += kC) {
+      {  // h3 = relu(h2 W3 + b3) for columns c0 .. c0 + 127, over h1 in buf_a
+        float acc[2][4][4] = {};
+        ring_product<2, kFSlot>(
+            kC / kFK, ring, [&](int i, float* slot) { load_w128<kFK>(w3 + c0, i, slot, c3p); },
+            [&](int i, const float* slot) {
+              slot_steps<2, 4, FragAI, FragBI>(acc, buf_b, kLd, ra, rb, kFK * i, slot, kW2Ld,
+                                               kFK / 8, n0, active);
+            });
+        store_relu(acc, b3 + c0, buf_a, ra, rb, n0, active);
+      }
+      __syncthreads();
+      // the max over each centroid's rows: a warp takes 32 neighbouring
+      // columns of one centroid
+      for (int e = tid; e < n_cent * kC; e += kThreads) {
+        const int j = e / kC;
+        const int c = e % kC;
+        if (c0 + c >= c3) continue;
+        float mx = 0.0f;
+        for (int r = cent_rs[j]; r < cent_rs[j + 1]; ++r) mx = fmaxf(mx, buf_a[r * kLd + c]);
+        out[static_cast<size_t>(cent_id[j]) * c3 + c0 + c] = mx;
+      }
+    }
+    cursor += n_cent;
+  }
+}
+
+int launch_rows(const void* y, const void* o, const void* idx, const void* w2, const void* b2,
+                const void* w3, const void* b3, void* out, void* rows, void* counts, int t,
+                int n, int m, int s, int c3, int c3p, void* stream) {
+  if (n <= 0 || n >= (1 << 24) || s <= 0 || s > kRows || c3 <= 0 || c3p < c3 || c3p % kC ||
+      t < 0 || m < 0 || static_cast<long long>(t) * m > INT_MAX ||
+      static_cast<long long>(t) * n > INT_MAX)
+    return cudaErrorInvalidValue;
+  const int cents = t * m;
+  if (cents == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int per = kThreads / 32;
+  sa_dedupe_kernel<false><<<(cents + per - 1) / per, kThreads, 0, st>>>(
+      static_cast<const int64_t*>(idx), nullptr, static_cast<int*>(rows),
+      static_cast<int*>(counts), cents, n, m, s, 1, 0);
+  sa_scan_kernel<kFwdCentroidRows><<<1, 1024, 0, st>>>(static_cast<const int*>(counts),
+                                                       static_cast<int*>(counts) + cents, cents);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const auto kernel = sa_fused_fwd_rows_kernel;
+  static std::atomic<uint64_t> smem_set{0};
+  err = allow_smem(reinterpret_cast<const void*>(kernel), kRowsSmem, smem_set);
+  if (err != cudaSuccess) return err;
+  static std::atomic<int> resident[64];  // blocks that fit the card at once, by device
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int blocks = resident[dev & 63].load(std::memory_order_relaxed);
+  if (blocks == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kRowsSmem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;  // does not fit an SM
+    blocks = sms * per_sm;
+    resident[dev & 63].store(blocks, std::memory_order_relaxed);
+  }
+  const int grid = blocks < cents ? blocks : cents;
+  kernel<<<grid, kThreads, kRowsSmem, st>>>(
+      static_cast<const float*>(y), static_cast<const float*>(o), static_cast<const int*>(rows),
+      static_cast<const int*>(counts), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<const float*>(w3),
+      static_cast<const float*>(b3), static_cast<float*>(out), n, m, cents, c3, c3p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -286,19 +550,24 @@ long long epnet_sa_fused_smem_bytes(int s, int c1, int c2, int c3) {
   return static_cast<long long>(smem_bytes(s, c1, c2, c3));
 }
 
-// y (t, n, c1), o (t, m, c1), idx (t, m, s) int64, w2 (c1, c2), b2 (c2),
-// w3 (c2, c3), b3 (c3), out (t, m, c3); all float32 except idx, contiguous.
-// Launches kernel B on `stream`, allocates nothing, returns
-// cudaGetLastError().
-int epnet_sa_fused_fwd_launch(const void* y, const void* o, const void* idx,
-                              const void* w2, const void* b2, const void* w3,
-                              const void* b3, void* out, int t, int n, int m,
-                              int s, int c1, int c2, int c3, void* stream) {
-  return launch<false, float>(y, o, idx, nullptr, w2, b2, w3, b3, out, t, n, m, s, c1, c2, c3,
-                              1, 0, stream);
+// y (t, n, 128), o (t, m, 128), idx (t, m, s) int64, w2 (128, 128), b2
+// (128), w3 (128, c3p), b3 (c3p), out (t, m, c3); rows (t * m * 64) and
+// counts (2 t m + 1) int32 scratch. All float32 but the indices,
+// contiguous, 16-byte aligned; c3p a multiple of 128, c3 <= c3p, the
+// weights' padding zero. Needs 1 <= s <= 64, n < 2^24 and t * n < 2^31.
+// Launches kernel B (dedupe, scan, main) on `stream`, allocates nothing,
+// returns cudaGetLastError().
+int epnet_sa_fused_fwd_launch(const void* y, const void* o, const void* idx, const void* w2,
+                              const void* b2, const void* w3, const void* b3, void* out,
+                              void* rows, void* counts, int t, int n, int m, int s, int c3,
+                              int c3p, void* stream) {
+  return launch_rows(y, o, idx, w2, b2, w3, b3, out, rows, counts, t, n, m, s, c3, c3p, stream);
 }
 
-// B-bf16: as above with y, o, w2, w3 and out bf16; b2, b3 float32.
+// B-bf16: y (t, n, c1), o (t, m, c1), idx (t, m, s) int64, w2 (c1, c2), b2
+// (c2), w3 (c2, c3), b3 (c3), out (t, m, c3); y, o, w2, w3 and out bf16, b2
+// and b3 float32, contiguous. Launches on `stream`, allocates nothing,
+// returns cudaGetLastError().
 int epnet_sa_fused_fwd_bf16_launch(const void* y, const void* o, const void* idx,
                                    const void* w2, const void* b2, const void* w3,
                                    const void* b3, void* out, int t, int n, int m,
@@ -307,9 +576,10 @@ int epnet_sa_fused_fwd_bf16_launch(const void* y, const void* o, const void* idx
                                       c2, c3, 1, 0, stream);
 }
 
-// Kernel G: as above with idx (t, m, s) int64 window-relative rows in
-// [0, window) and starts (t, nb) int64, the first table row of the window
-// of each tile of m / nb centroids; nb must divide m, window <= n.
+// Kernel G: B-bf16's arguments in float32, with idx (t, m, s) int64
+// window-relative rows in [0, window) and starts (t, nb) int64, the first
+// table row of the window of each tile of m / nb centroids; nb must divide
+// m, window <= n.
 int epnet_sa_fused_win_fwd_launch(const void* y, const void* o, const void* idx,
                                   const void* starts, const void* w2, const void* b2,
                                   const void* w3, const void* b3, void* out, int t, int n,

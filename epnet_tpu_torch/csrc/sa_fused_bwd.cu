@@ -45,7 +45,7 @@
 //
 // Design, in three kernels and a fixed-order reduction:
 //
-// 1. sa_bwd_dedupe_kernel, a warp a centroid: bitonic sort of its S <= 64
+// 1. sa_dedupe_kernel (csrc/sa_common.cuh), a warp a centroid: bitonic sort of its S <= 64
 //    table rows (for H the global rows starts + idx_rel, clamped as the
 //    forward clamps them) in registers and shuffles; each distinct row once,
 //    packed as row * 128 + k with its multiplicity k, and the count.
@@ -55,7 +55,7 @@
 // 2. sa_fused_bwd_kernel, one block an SM (~158 KB of shared memory at
 //    C3 = 128, ~225 KB at 256), each block a contiguous run of centroids
 //    holding an even share of the work (distinct rows plus a fixed cost a
-//    centroid; a prefix sum, sa_bwd_scan_kernel, and a binary search: balls
+//    centroid; a prefix sum, sa_scan_kernel, and a binary search: balls
 //    differ ~60-fold in distinct rows).
 //    Widths are C1 = C2 = 128 and C3 = 128 or 256 (the RCNN stages); the
 //    wrapper zero-pads narrower ones, which leaves every gradient unchanged.
@@ -125,24 +125,15 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "sa_common.cuh"
 
 namespace {
 
-constexpr int kRows = 64;      // distinct rows a tile
-constexpr int kMaxCent = 32;   // centroids a tile (one warp packs them)
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kC = 128;        // C1 = C2
-constexpr int kLd = kC + 4;    // row stride of the h1/h2 tiles: A fragments hit 32 banks
 constexpr int kChunk = 64;     // p3 columns a pass
 constexpr int kPcLd = kChunk + 4;
-constexpr int kW2Rows = 16;    // W2 rows a ring slot (two k8 steps)
-constexpr int kW2Ld = kC + 8;  // B fragments hit 32 banks
 constexpr int kW3Rows = 32;    // W3 rows a ring slot, kChunk columns
 constexpr int kW3Ld = kChunk + 8;
-constexpr int kSlot = kW3Rows * kW3Ld;  // floats a slot (>= kW2Rows * kW2Ld)
-constexpr int kStages = 3;
-constexpr int kMaxSmem = 232448;
-static_assert(kSlot >= kW2Rows * kW2Ld, "ring slot");
+static_assert(kSlot >= kW3Rows * kW3Ld, "ring slot");
 static_assert(kStages * kSlot >= kRows * kPcLd, "the p3 chunk lives in the ring");
 
 // Floats, then ints, of the dynamic shared memory.
@@ -159,259 +150,10 @@ __host__ __device__ inline long long partial_floats(int c3) {
   return static_cast<long long>(kC) * kC + kC + static_cast<long long>(kC) * c3 + c3;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// a = hi + lo + O(2^-22 a): hi and lo each rounded to TF32, nearest, ties away
-__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(a));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(a - __uint_as_float(hi)));
-}
-
-// A 16 x 8 TF32 fragment, split: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
-// for lane 4g + t.
-struct FragA {
-  uint32_t hi[4], lo[4];
-  __device__ __forceinline__ void set(float a0, float a1, float a2, float a3) {
-    split_tf32(a0, hi[0], lo[0]);
-    split_tf32(a1, hi[1], lo[1]);
-    split_tf32(a2, hi[2], lo[2]);
-    split_tf32(a3, hi[3], lo[3]);
-  }
-};
-// An 8 x 8 TF32 fragment, split: (k = t, n = g), (t + 4, g).
-struct FragB {
-  uint32_t hi[2], lo[2];
-  __device__ __forceinline__ void set(float b0, float b1) {
-    split_tf32(b0, hi[0], lo[0]);
-    split_tf32(b1, hi[1], lo[1]);
-  }
-};
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-// d += a b in three TF32 passes, the small terms first; accumulator (g, 2t),
-// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB& b) {
-  mma_tf32(d, a.lo, b.hi);
-  mma_tf32(d, a.hi, b.lo);
-  mma_tf32(d, a.hi, b.hi);
-}
-
-// A product over `tiles` K-tiles of weights streamed through the ring:
-// load(i, slot) issues the cp.async copies of K-tile i, compute(i, slot)
-// runs on it once every thread's copies have landed. Ends with the ring
-// free (all copies waited for, a barrier).
-template <class Load, class Compute>
-__device__ __forceinline__ void ring_product(int tiles, float* ring, Load load,
-                                             Compute compute) {
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (i < tiles) load(i, ring + i * kSlot);
-    cp_async_commit();
-  }
-  for (int i = 0; i < tiles; ++i) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // K-tile i is in; every thread is done with K-tile i - 1
-    const int next = i + kStages - 1;
-    if (next < tiles) load(next, ring + (next % kStages) * kSlot);
-    cp_async_commit();
-    compute(i, ring + (i % kStages) * kSlot);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-}
-
-// Each centroid's distinct table rows, ascending, as row * 128 + multiplicity,
-// and their count. A warp a centroid.
-template <bool kWin>
-__global__ void __launch_bounds__(kThreads)
-sa_bwd_dedupe_kernel(const int64_t* __restrict__ idx, const int64_t* __restrict__ starts,
-                     int* __restrict__ rows, int* __restrict__ counts, int cents, int n, int m,
-                     int s, int nb, int window) {
-  const int cent = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (cent >= cents) return;  // the whole warp
-  const int lane = threadIdx.x & 31;
-  const int t = cent / m;
-  const int64_t* it = idx + static_cast<size_t>(cent) * s;
-  int key[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int e = 32 * j + lane;
-    if (e < s) {
-      int64_t p = it[e];
-      if (kWin) {
-        p = p < 0 ? 0 : (p >= window ? window - 1 : p);  // inside the window
-        p += starts[static_cast<size_t>(t) * nb + (cent % m) / (m / nb)];
-      }
-      p = p < 0 ? 0 : (p >= n ? n - 1 : p);  // keep a bad index inside the table
-      key[j] = static_cast<int>(p);
-    } else {
-      key[j] = INT_MAX;  // sorts last
-    }
-  }
-  // bitonic sort of the 64 keys, element e = 32 j + lane
-#pragma unroll
-  for (int k = 2; k <= 64; k <<= 1) {
-#pragma unroll
-    for (int d = k >> 1; d > 0; d >>= 1) {
-      int nv[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int e = 32 * j + lane;
-        const int p = d == 32 ? key[j ^ 1] : __shfl_xor_sync(0xffffffffu, key[j], d);
-        const bool keep_min = ((e & d) == 0) == ((e & k) == 0);
-        nv[j] = keep_min ? min(key[j], p) : max(key[j], p);
-      }
-      key[0] = nv[0];
-      key[1] = nv[1];
-    }
-  }
-  int prev0 = __shfl_up_sync(0xffffffffu, key[0], 1);
-  int prev1 = __shfl_up_sync(0xffffffffu, key[1], 1);
-  const int last0 = __shfl_sync(0xffffffffu, key[0], 31);
-  if (lane == 0) prev1 = last0;
-  const bool first0 = lane < s && (lane == 0 || key[0] != prev0);
-  const bool first1 = 32 + lane < s && key[1] != prev1;
-  const uint64_t f = static_cast<uint64_t>(__ballot_sync(0xffffffffu, first0)) |
-                     static_cast<uint64_t>(__ballot_sync(0xffffffffu, first1)) << 32;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    if (!(j ? first1 : first0)) continue;
-    const int e = 32 * j + lane;
-    const int pos = __popcll(f & ((uint64_t{1} << e) - 1));
-    const uint64_t later = e == 63 ? 0 : f & ~((uint64_t{2} << e) - 1);
-    const int end = later ? __ffsll(static_cast<long long>(later)) - 1 : s;
-    rows[static_cast<size_t>(cent) * kRows + pos] = key[j] * 128 + (end - e);
-  }
-  if (lane == 0) counts[cent] = __popcll(f);
-}
-
 // A centroid's cost in distinct rows: its max and its C3 nonzeros' dW3
 // gathers weigh about as much as 16 rows' products (timed on the H100 at
 // RCNN sa0).
 constexpr int kCentroidRows = 16;
-
-// prefix[i] = sum of counts[j] + kCentroidRows over j < i, i <= cents (one
-// block): the main kernel splits the centroids among its blocks by that
-// cost, not by their number, since balls differ ~60-fold in distinct rows
-// and neighbouring RoIs alike.
-__global__ void __launch_bounds__(1024)
-sa_bwd_scan_kernel(const int* __restrict__ counts, int* __restrict__ prefix, int cents) {
-  __shared__ int part[1024];
-  const int t = threadIdx.x;
-  const int per = (cents + 1023) / 1024;
-  const int b = min(cents, t * per);
-  const int e = min(cents, b + per);
-  int sum = 0;
-  for (int i = b; i < e; ++i) sum += counts[i] + kCentroidRows;
-  part[t] = sum;
-  __syncthreads();
-  for (int off = 1; off < 1024; off <<= 1) {
-    const int v = t >= off ? part[t - off] : 0;
-    __syncthreads();
-    part[t] += v;
-    __syncthreads();
-  }
-  int run = part[t] - sum;
-  for (int i = b; i < e; ++i) {
-    prefix[i] = run;
-    run += counts[i] + kCentroidRows;
-  }
-  if (t == 1023) prefix[cents] = part[1023];
-}
-
-// The first i <= n with prefix[i] >= v (prefix ascending).
-__device__ __forceinline__ int lower_bound(const int* prefix, int n, long long v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (prefix[mid] < v)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
-// h1 = relu(Y[row] - O[centroid]) for the tile's rows, 0 past them.
-__device__ __forceinline__ void gather_h1(float* buf, const float* __restrict__ y,
-                                          const float* __restrict__ o, const int* row_tab,
-                                          const int* row_slot, const int* cent_id,
-                                          int n_rows) {
-  for (int e = threadIdx.x; e < kRows * (kC / 4); e += kThreads) {
-    const int r = e >> 5;
-    const int c4 = 4 * (e & 31);
-    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (r < n_rows) {
-      const float4 a = __ldg(reinterpret_cast<const float4*>(
-          y + static_cast<size_t>(row_tab[r]) * kC + c4));
-      const float4 b = __ldg(reinterpret_cast<const float4*>(
-          o + static_cast<size_t>(cent_id[row_slot[r]]) * kC + c4));
-      v = make_float4(fmaxf(a.x - b.x, 0.0f), fmaxf(a.y - b.y, 0.0f), fmaxf(a.z - b.z, 0.0f),
-                      fmaxf(a.w - b.w, 0.0f));
-    }
-    *reinterpret_cast<float4*>(buf + r * kLd + c4) = v;
-  }
-}
-
-// K-tile i of a (128, 128) row-major weight (W2 or W2^T) into a ring slot.
-__device__ __forceinline__ void load_w128(const float* __restrict__ w, int i, float* slot) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = (threadIdx.x >> 5) + 8 * h;
-    const int c4 = 4 * (threadIdx.x & 31);
-    cp_async16(slot + r * kW2Ld + c4, w + static_cast<size_t>(kW2Rows * i + r) * kC + c4);
-  }
-}
-
-// A = rows of `a` (row-major, kLd) given by ra/rb; B = the slot's 16 x 128
-// K-tile; 32 rows x 32 columns of this warp (m-tiles mt < active).
-template <int kMT, int kNT>
-__device__ __forceinline__ void slot_steps(float (&acc)[kMT][kNT][4], const float* a, int a_ld,
-                                           const int (&ra)[kMT], const int (&rb)[kMT],
-                                           int a_k0, const float* slot, int slot_ld, int ksteps,
-                                           int n0, int active) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < ksteps; ++kk) {
-    const int k = a_k0 + 8 * kk;
-    FragA fa[kMT];
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-      if (mt < active)
-        fa[mt].set(a[ra[mt] * a_ld + k + t], a[rb[mt] * a_ld + k + t],
-                   a[ra[mt] * a_ld + k + t + 4], a[rb[mt] * a_ld + k + t + 4]);
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      FragB fb;
-      const float* b = slot + (8 * kk + t) * slot_ld + n0 + 8 * nt + g;
-      fb.set(b[0], b[4 * slot_ld]);
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-        if (mt < active) mma3(acc[mt][nt], fa[mt], fb);
-    }
-  }
-}
 
 // Column of accumulator j of thread tx in an FFMA tile: four neighbours,
 // then the next 64.
@@ -922,10 +664,10 @@ int launch(const void* y, const void* o, const void* idx, const void* starts, co
   if (cents > 0) {
     if (blocks < 1 || blocks > cents) return cudaErrorInvalidValue;
     const int per = kThreads / 32;
-    sa_bwd_dedupe_kernel<kWin><<<(cents + per - 1) / per, kThreads, 0, st>>>(
+    sa_dedupe_kernel<kWin><<<(cents + per - 1) / per, kThreads, 0, st>>>(
         static_cast<const int64_t*>(idx), static_cast<const int64_t*>(starts),
         static_cast<int*>(rows), static_cast<int*>(counts), cents, n, m, s, nb, window);
-    sa_bwd_scan_kernel<<<1, 1024, 0, st>>>(static_cast<const int*>(counts),
+    sa_scan_kernel<kCentroidRows><<<1, 1024, 0, st>>>(static_cast<const int*>(counts),
                                            static_cast<int*>(counts) + cents, cents);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;

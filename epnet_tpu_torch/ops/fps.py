@@ -1,12 +1,14 @@
 """Exact furthest point sampling: the CUDA kernel ``csrc/fps.cu`` and its
 plain PyTorch version.
 
-The kernel replaces the Pallas TPU kernel
-``epnet_tpu/ops/fps_pallas.py::_fps_kernel_vec``. What bounds it on the
-H100, and what its design does about that, is written at the top of
-``csrc/fps.cu``: a latency-bound chain of npoint-1 block-wide argmax steps,
-one block per cloud with the coordinates in shared memory and the running
-distances in registers.
+The kernel replaces the Pallas TPU kernels
+``epnet_tpu/ops/fps_pallas.py::_fps_kernel_vec`` and ``::_fps_kernel``.
+What bounds it on the H100, and what its design does about that, is
+written at the top of ``csrc/fps.cu``: a latency-bound chain of npoint-1
+argmax steps; a large cloud spread over a thread-block cluster, every point
+and its running distance in registers, the argmax a max over packed
+(distance, index) keys combined across the cluster through distributed
+shared memory with one cluster barrier a step.
 
 ``furthest_point_sample`` launches the kernel for a CUDA tensor and runs the
 plain version only for a CPU tensor; there is no fallback between the two.
@@ -50,15 +52,33 @@ def _lib() -> ctypes.CDLL:
                                          ctypes.c_int, ctypes.c_int,
                                          ctypes.c_int, ctypes.c_void_p]
         lib.epnet_fps_launch.restype = ctypes.c_int
+        lib.epnet_fps_launch_config.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.epnet_fps_launch_config.restype = ctypes.c_int
+        lib.epnet_fps_config.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                                         ctypes.POINTER(ctypes.c_int)]
+        lib.epnet_fps_config.restype = None
         lib.epnet_fps_max_points.argtypes = []
         lib.epnet_fps_max_points.restype = ctypes.c_int
         lib._epnet_typed = True
     return lib
 
 
-def furthest_point_sample_kernel(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+def kernel_config(n: int) -> tuple:
+    """(blocks a cloud, threads a block) that ``csrc/fps.cu`` launches for
+    clouds of ``n`` points: above one block a cloud, a thread-block
+    cluster. Chosen by the cloud's size alone."""
+    cs, threads = ctypes.c_int(), ctypes.c_int()
+    _lib().epnet_fps_config(n, ctypes.byref(cs), ctypes.byref(threads))
+    return cs.value, threads.value
+
+
+def furthest_point_sample_kernel(xyz: torch.Tensor, npoint: int, config=None) -> torch.Tensor:
     """Launch ``csrc/fps.cu`` on the current stream: (B, N, 3) float32 CUDA
-    -> (B, npoint) int64. Raises on anything the kernel does not take."""
+    -> (B, npoint) int64, in ``kernel_config(N)`` or, to measure others, in
+    ``config`` = (blocks a cloud: 1, 2, 4, 8 or 16, threads a block: 32
+    ... 512). Raises on anything the kernel does not take."""
     if not xyz.is_cuda:
         raise ValueError(f'furthest_point_sample_kernel needs a CUDA tensor, got {xyz.device}')
     if xyz.dtype != torch.float32:
@@ -78,8 +98,11 @@ def furthest_point_sample_kernel(xyz: torch.Tensor, npoint: int) -> torch.Tensor
         return out
     with torch.cuda.device(xyz.device):
         stream = torch.cuda.current_stream(xyz.device).cuda_stream
-        err = lib.epnet_fps_launch(xyz.data_ptr(), out.data_ptr(), B, N,
-                                   npoint, stream)
+        if config is None:
+            err = lib.epnet_fps_launch(xyz.data_ptr(), out.data_ptr(), B, N, npoint, stream)
+        else:
+            err = lib.epnet_fps_launch_config(xyz.data_ptr(), out.data_ptr(), B, N, npoint,
+                                              *config, stream)
     cuda_build.check(lib, err, 'fps kernel launch')
     furthest_point_sample_kernel.launches += 1
     return out

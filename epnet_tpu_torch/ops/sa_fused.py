@@ -19,9 +19,11 @@ In bf16 every product accumulates in f32, and h1 and h2 are rounded to
 bf16 before the next layer, where the Pallas kernels cast them; the
 backwards take f32 only. What bounds the kernels on the H100, and what
 their designs do about that, is written at the top of each source: the
-dense layers' work (f32 FFMA; in the backward also three-pass TF32 on the
-tensor cores), with every intermediate kept in shared memory and
-registers.
+dense layers' work, with every intermediate kept in shared memory and
+registers. B, C and H take each ball's distinct rows once and run their
+products, or those that decide nothing, in three TF32 passes on the tensor
+cores (S <= 64, C1 and C2 <= 128: ``check_rows_takes``); G and the bf16
+instances run every row in f32 FFMA.
 
 Layer 1 commutes with the gather when the stage has no BatchNorm, so the
 caller passes ``y = [xyz, feats] @ W1 + b1`` over each table and
@@ -122,10 +124,11 @@ def _typed(lib: ctypes.CDLL, fns: dict) -> ctypes.CDLL:
 
 
 def _fwd_lib() -> ctypes.CDLL:
+    rows = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p], ctypes.c_int)
     fwd = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p], ctypes.c_int)
     win = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p], ctypes.c_int)
     return _typed(cuda_build.load_library('sa_fused'), {
-        'epnet_sa_fused_fwd_launch': fwd, 'epnet_sa_fused_fwd_bf16_launch': fwd,
+        'epnet_sa_fused_fwd_launch': rows, 'epnet_sa_fused_fwd_bf16_launch': fwd,
         'epnet_sa_fused_win_fwd_launch': win, 'epnet_sa_fused_win_fwd_bf16_launch': win,
         'epnet_sa_fused_smem_bytes': ([ctypes.c_int] * 4, ctypes.c_longlong)})
 
@@ -184,18 +187,68 @@ def _check_window(what: str, starts, window: int, T: int, N: int, M: int) -> int
     return NB
 
 
+_ROWS = 64  # samples a ball of kernels B, C and H: one warp's sort of its rows
+_WIDTH = 128  # their C1 and C2, and the column pass of C3
+
+
+def check_rows_takes(what, T, N, S, C1, C2):
+    """Raise unless kernels B, C and H take these shapes: S <= 64, C1 and
+    C2 <= 128, N < 2^24 and T * N < 2^31 (a row and its table's offset in
+    int32, a row and its multiplicity in 24 + 7 bits)."""
+    if S > _ROWS:
+        raise ValueError(f'{what}: the kernel takes at most {_ROWS} samples a centroid, '
+                         f'got {S}')
+    if C1 > _WIDTH or C2 > _WIDTH:
+        raise ValueError(f'{what}: the kernel takes C1, C2 <= {_WIDTH}, got {C1}/{C2}')
+    if N >= 1 << 24 or T * N >= 1 << 31:
+        raise ValueError(f'{what}: tables of at most 2^24 - 1 rows and 2^31 - 1 rows in all, '
+                         f'got {T} x {N}')
+
+
+def fused_takes(S, C1, C2, C3):
+    """Whether a stage's widths fit the fused kernels both ways (B, and C
+    in training): S <= 64, C1 and C2 <= 128, C3 <= 256. A wider stage runs
+    unfused, the same function."""
+    return S <= _ROWS and C1 <= _WIDTH and C2 <= _WIDTH and C3 <= 2 * _WIDTH
+
+
 def fused_point_mlp_max_kernel(y, o, idx, w2, b2, w3, b3):
-    """Launch ``csrc/sa_fused.cu`` on the current stream. All tensors on one
-    CUDA device, float32 (idx int64), shapes as in the plain version.
-    Raises on anything the kernel does not take."""
-    dims = _check_args('fused_point_mlp_max_kernel', y=y, o=o, idx=idx, w2=w2, b2=b2, w3=w3,
-                       b3=b3)
-    return _launch_fwd(fused_point_mlp_max_kernel, 'epnet_sa_fused_fwd_launch', dims,
-                       (y, o, idx, w2, b2, w3, b3), ())
+    """Launch kernel B (``csrc/sa_fused.cu``: dedupe, scan and the main
+    kernel on the distinct rows) on the current stream. All tensors on one
+    CUDA device, float32 (idx int64), shapes as in the plain version;
+    S <= 64, C1 and C2 <= 128 (``check_rows_takes``). Pads C1 and C2 to 128
+    and W3's columns to a multiple of 128 with zeros, which changes no
+    output. Raises on anything the kernel does not take."""
+    what = 'fused_point_mlp_max_kernel'
+    T, N, M, S, C1, C2, C3 = _check_args(what, y=y, o=o, idx=idx, w2=w2, b2=b2, w3=w3, b3=b3)
+    check_rows_takes(what, T, N, S, C1, C2)
+    C3P = -(-C3 // _WIDTH) * _WIDTH
+    lib = _fwd_lib()
+    dev = y.device
+    y, o, idx, w2, b2, w3, b3 = [t.detach().contiguous() for t in (y, o, idx, w2, b2, w3, b3)]
+    y, o = _pad_to(y, _WIDTH), _pad_to(o, _WIDTH)
+    w2, b2 = _pad_to(w2, _WIDTH, _WIDTH), _pad_to(b2, _WIDTH)
+    w3, b3 = _pad_to(w3, _WIDTH, C3P), _pad_to(b3, C3P)
+    for name, t in (('y', y), ('o', o), ('w2', w2), ('w3', w3)):
+        if t.data_ptr() % 16:
+            raise ValueError(f'{what}: {name} must be 16-byte aligned')
+    out = torch.empty((T, M, C3), dtype=torch.float32, device=dev)
+    if T == 0 or M == 0:
+        return out
+    rows = torch.empty((T * M, _ROWS), dtype=torch.int32, device=dev)
+    counts = torch.empty((2 * T * M + 1,), dtype=torch.int32, device=dev)  # and their prefix
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.epnet_sa_fused_fwd_launch(
+            *(a.data_ptr() for a in (y, o, idx, w2, b2, w3, b3, out, rows, counts)),
+            T, N, M, S, C3, C3P, stream)
+    cuda_build.check(lib, err, f'{what} launch')
+    fused_point_mlp_max_kernel.launches += 1
+    return out
 
 
 def _launch_fwd(wrapper, entry, dims, inputs, extra):
-    """Kernel B or G (C entry point ``entry``) for ``wrapper``, whose launch
+    """B-bf16, G or G-bf16 (C entry point ``entry``) for ``wrapper``, whose launch
     count it keeps: allocates the output, launches, returns it. ``extra``
     are the ints the entry point takes after c3 (G's nb, window)."""
     T, N, M, S, C1, C2, C3 = dims
@@ -234,9 +287,6 @@ def fused_point_mlp_max_bf16_kernel(y, o, idx, w2, b2, w3, b3):
 
 fused_point_mlp_max_bf16_kernel.launches = 0
 
-_BWD_ROWS = 64  # distinct rows of one tile of csrc/sa_fused_bwd.cu: a centroid must fit
-_BWD_C = 128     # the kernel's C1 and C2; C3 is 128 or 256
-
 
 def fused_point_mlp_max_bwd_kernel(y, o, idx, w2, b2, w3, b3, gout, selections=False):
     """Launch ``csrc/sa_fused_bwd.cu`` (dedupe, main kernel and the
@@ -254,20 +304,14 @@ def fused_point_mlp_max_bwd_kernel(y, o, idx, w2, b2, w3, b3, gout, selections=F
 
 
 def check_bwd_takes(what, T, N, S, C1, C2, C3):
-    """Raise unless kernels C and H take these shapes: S <= 64, C1 and C2 <=
-    128, C3 <= 256, N < 2^24 and T * N < 2^31. The differentiable entry
-    points check it in a forward that records a graph on the card, so a
+    """Raise unless kernels C and H take these shapes: those of
+    ``check_rows_takes`` and C3 <= 256. The differentiable entry points
+    check it in a forward that records a graph on the card, so a
     configuration the backward cannot take fails there, not in its first
     backward."""
-    if S > _BWD_ROWS:
-        raise ValueError(f'{what}: the kernel takes at most {_BWD_ROWS} samples a centroid, '
-                         f'got {S}')
-    if C1 > _BWD_C or C2 > _BWD_C or C3 > 2 * _BWD_C:
-        raise ValueError(f'{what}: the kernel takes C1, C2 <= {_BWD_C} and C3 <= '
-                         f'{2 * _BWD_C}, got {C1}/{C2}/{C3}')
-    if N >= 1 << 24 or T * N >= 1 << 31:
-        raise ValueError(f'{what}: tables of at most 2^24 - 1 rows and 2^31 - 1 rows in all, '
-                         f'got {T} x {N}')
+    check_rows_takes(what, T, N, S, C1, C2)
+    if C3 > 2 * _WIDTH:
+        raise ValueError(f'{what}: the kernel takes C3 <= {2 * _WIDTH}, got {C3}')
 
 
 def _check_bwd_if_recorded(what, tensors, y, idx, w2, w3):
@@ -296,23 +340,23 @@ def _launch_bwd(wrapper, entry, dims, inputs, extra, selections):
     what = wrapper.__name__
     T, N, M, S, C1, C2, C3 = dims
     check_bwd_takes(what, T, N, S, C1, C2, C3)
-    C3P = _BWD_C if C3 <= _BWD_C else 2 * _BWD_C
+    C3P = _WIDTH if C3 <= _WIDTH else 2 * _WIDTH
     lib = _bwd_lib()
     dev = inputs[0].device
     # inputs: y, o, idx[, starts], w2, b2, w3, b3, gout
     y, o, idx, w2, b2, w3, b3, gout = [t.detach().contiguous()
                                        for t in inputs[:3] + inputs[-5:]]
     starts = (inputs[3].detach().contiguous(),) if extra else ()
-    y, o = _pad_to(y, _BWD_C), _pad_to(o, _BWD_C)
-    w2, b2 = _pad_to(w2, _BWD_C, _BWD_C), _pad_to(b2, _BWD_C)
-    w3, b3, gout = _pad_to(w3, _BWD_C, C3P), _pad_to(b3, C3P), _pad_to(gout, C3P)
+    y, o = _pad_to(y, _WIDTH), _pad_to(o, _WIDTH)
+    w2, b2 = _pad_to(w2, _WIDTH, _WIDTH), _pad_to(b2, _WIDTH)
+    w3, b3, gout = _pad_to(w3, _WIDTH, C3P), _pad_to(b3, C3P), _pad_to(gout, C3P)
     w2t, w3t = w2.t().contiguous(), w3.t().contiguous()
     cents = T * M
     blocks = max(1, min(cents, torch.cuda.get_device_properties(dev).multi_processor_count))
     size = lib.epnet_sa_fused_bwd_partial_floats(C3P)
-    dy = torch.zeros((T, N, _BWD_C), dtype=torch.float32, device=dev)
-    do = torch.empty((T, M, _BWD_C), dtype=torch.float32, device=dev)
-    rows = torch.empty((max(cents, 1), _BWD_ROWS), dtype=torch.int32, device=dev)
+    dy = torch.zeros((T, N, _WIDTH), dtype=torch.float32, device=dev)
+    do = torch.empty((T, M, _WIDTH), dtype=torch.float32, device=dev)
+    rows = torch.empty((max(cents, 1), _ROWS), dtype=torch.int32, device=dev)
     counts = torch.empty((2 * cents + 1,), dtype=torch.int32, device=dev)  # and their prefix
     part = torch.empty((blocks, size), dtype=torch.float32, device=dev)
     grads = torch.empty((size,), dtype=torch.float32, device=dev)
@@ -326,9 +370,9 @@ def _launch_bwd(wrapper, entry, dims, inputs, extra, selections):
             sel.data_ptr() if selections else None, T, N, M, S, C3P, *extra, blocks, stream)
     cuda_build.check(lib, err, f'{what} launch')
     wrapper.launches += 1
-    dw2, db2, dw3, db3 = torch.split(grads, [_BWD_C * _BWD_C, _BWD_C, _BWD_C * C3P, C3P])
-    out = (dy[..., :C1], do[..., :C1], dw2.view(_BWD_C, _BWD_C)[:C1, :C2], db2[:C2],
-           dw3.view(_BWD_C, C3P)[:C2, :C3], db3[:C3])
+    dw2, db2, dw3, db3 = torch.split(grads, [_WIDTH * _WIDTH, _WIDTH, _WIDTH * C3P, C3P])
+    out = (dy[..., :C1], do[..., :C1], dw2.view(_WIDTH, _WIDTH)[:C1, :C2], db2[:C2],
+           dw3.view(_WIDTH, C3P)[:C2, :C3], db3[:C3])
     return out + (sel[..., :C3],) if selections else out
 
 

@@ -28,3 +28,21 @@ def test_every_kernel_source_has_a_key():
     assert sources
     keys = {cuda_build._digest(s) for s in sources}
     assert len(keys) == len(sources)
+
+
+def test_fused_sa_libraries_follow_their_shared_header(tmp_path, monkeypatch):
+    """Kernels B (``sa_fused.cu``) and C/H (``sa_fused_bwd.cu``) share one
+    copy of their device helpers, ``sa_common.cuh``: a change to it changes
+    both libraries' keys, and nothing else's."""
+    names = ('sa_fused.cu', 'sa_fused_bwd.cu', 'fps.cu', 'sa_common.cuh', 'common.cuh')
+    for name in names:
+        (tmp_path / name).write_bytes((cuda_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(cuda_build, 'CSRC', tmp_path)
+    libs = ('sa_fused', 'sa_fused_bwd', 'fps')
+    before = {n: cuda_build._digest(tmp_path / f'{n}.cu') for n in libs}
+    header = tmp_path / 'sa_common.cuh'
+    header.write_text(header.read_text() + '\n// changed\n')
+    after = {n: cuda_build._digest(tmp_path / f'{n}.cu') for n in libs}
+    assert after['sa_fused'] != before['sa_fused']
+    assert after['sa_fused_bwd'] != before['sa_fused_bwd']
+    assert after['fps'] == before['fps']
