@@ -184,14 +184,14 @@ SA_BWD_DESIGN = ('each distinct row once (warp bitonic dedupe), blocks split by 
                  'fixed-order reduction')
 SA_FWD_DESIGN = ('each distinct row once (warp bitonic dedupe), blocks split by cost, tiles of '
                  '64 distinct rows of whole centroids, layers 2-3 on mma.sync m16n8k8 3xTF32 '
-                 '(integer split, lo cut by the tensor cores) against 32-row weight K-tiles '
-                 'through a double-buffered cp.async ring, segmented max in shared memory')
+                 '(hi and lo rounded to nearest in integer operations) against 32-row weight '
+                 'K-tiles through a double-buffered cp.async ring, segmented max in shared '
+                 'memory')
 FPS_DESIGN = ('points and running distances in registers, argmax over packed (distance bits, '
               '~index) keys by __reduce_max_sync; clouds above 4096 points on a thread-block '
               'cluster (distributed shared memory, one cluster barrier a step), smaller ones '
               'on one block or one warp')
 FPS_TRAIN_SHAPE = (4, 16384, 4096)  # RPN sa0 in a batch-4 train step
-FPS_SWEEP = [(1, 16384, 4096), (1, 4096, 1024)]  # shapes timed in every configuration
 # the image tower's convs in a batch-4 train step of the recipe: (B, H, W, C, F)
 DW_SHAPES = {
     'conv3x3_dw_s2': {'blk0': (4, 384, 1280, 64, 64), 'blk1': (4, 192, 640, 128, 128),
@@ -450,35 +450,39 @@ def _tie_cloud():
     return g[None]
 
 
-def _fps_configs(n):
-    """Every configuration kernel A takes for a cloud of n points."""
-    return [(cs, th) for cs in (1, 2, 4, 8, 16) for th in (32, 64, 128, 256, 512)
-            if cs * th * 16 >= n and cs * th <= 8 * n]
-
-
-def phase_fps(dev):
+def fps_cases(dev):
+    """Phase 1's inputs, [((B, N, npoint), kind, xyz)]: the six shapes of a
+    forward (a structured scene's first N points; RoI-local clouds a few
+    metres around the box center), the batch-4 RPN sa0 shape of a train step
+    (four scenes) and the tie-heavy lattice cloud."""
     import numpy as np
     import torch
-    from epnet_tpu_torch.ops import fps
     from epnet_tpu_torch.utils.testing import structured_scene
 
     scene = torch.from_numpy(structured_scene(np.random.RandomState(0), 16384)[0]).to(dev)
     rng = np.random.RandomState(1)
+    out = []
+    for B, N, npoint in FPS_SHAPES:
+        if B == 1:
+            xyz = scene[None, :N].contiguous()
+        else:
+            xyz = torch.from_numpy((rng.randn(B, N, 3) * 1.5).astype(np.float32)).to(dev)
+        out.append(((B, N, npoint), 'forward', xyz))
+    B, N, _ = FPS_TRAIN_SHAPE
+    xyz = np.stack([structured_scene(np.random.RandomState(s), N)[0] for s in range(B)])
+    out.append((FPS_TRAIN_SHAPE, 'train step', torch.from_numpy(xyz).to(dev)))
+    out.append(((1, 16384, 4096), 'ties', torch.from_numpy(_tie_cloud()).to(dev)))
+    return out
+
+
+def phase_fps(dev):
+    import torch
+    from epnet_tpu_torch.ops import fps
+
     rows, max_err, ms, plain_ms, op_ms, byte_ms = [], 0, 0.0, 0.0, [], []
-    cases = [(shape, 'forward') for shape in FPS_SHAPES]
-    cases += [(FPS_TRAIN_SHAPE, 'train step'), ((1, 16384, 4096), 'ties')]
-    for (B, N, npoint), kind in cases:
+    for (B, N, npoint), kind, xyz in fps_cases(dev):
         # npoint - 1 steps over N points: 3 sub, 3 mul, 2 add, min, argmax compare
         o, m = _bound(10.0 * B * N * (npoint - 1), 4 * B * N * 3 + 8 * B * npoint)
-        if kind == 'ties':
-            xyz = torch.from_numpy(_tie_cloud()).to(dev)
-        elif kind == 'train step':  # four scenes
-            xyz = torch.from_numpy(np.stack([structured_scene(np.random.RandomState(s), N)[0]
-                                             for s in range(B)])).to(dev)
-        elif B == 1:
-            xyz = scene[None, :N].contiguous()
-        else:  # RoI-local clouds: a few metres around the box center
-            xyz = torch.from_numpy((rng.randn(B, N, 3) * 1.5).astype(np.float32)).to(dev)
         got = fps.furthest_point_sample_kernel(xyz, npoint)
         want = fps.furthest_point_sample_plain(xyz, npoint)
         torch.cuda.synchronize()
@@ -497,14 +501,6 @@ def phase_fps(dev):
               f'{" (a cluster)" if cs > 1 else ""} of {threads} threads; kernel {k:.4f} ms, '
               f'{step_us:.3f} us a step; plain {p:.4f} ms, bound {max(o, m):.4f} ms',
               flush=True)
-        if kind == 'forward' and (B, N, npoint) in FPS_SWEEP:
-            others = {}
-            for cfg in _fps_configs(N):
-                others[f'{cfg[0]}x{cfg[1]}'] = _time_ms(
-                    lambda: fps.furthest_point_sample_kernel(xyz, npoint, cfg), 3)
-            row['configs_ms'] = others
-            print('  every configuration (blocks x threads: ms): '
-                  + ', '.join(f'{c} {v:.4f}' for c, v in others.items()), flush=True)
         rows.append(row)
         max_err = max(max_err, err)
         if kind == 'forward':  # the line's sums: the six launches of a forward
@@ -516,29 +512,46 @@ def phase_fps(dev):
             **_bound_keys(op_ms, byte_ms), 'library_ms': None, 'per_shape': rows}
 
 
-def phase_sa(dev):
+def sa_cases(dev, train=False):
+    """Phase 2's inputs (``train``: phase 5's), [(name, shape, kind, args)]:
+    random tables at SA_SHAPES (SA_TRAIN_SHAPES), short balls padded with
+    their first hit, and RCNN sa0 on real tables (``_real_sa0_idx``); args
+    y, o, idx, w2, b2, w3, b3 (and gout)."""
     import numpy as np
     import torch
-    from epnet_tpu_torch.ops import sa_fused
 
-    rng = np.random.RandomState(2)
-    rows, max_err, ms, plain_ms, op_ms, byte_ms = [], 0.0, 0.0, 0.0, [], []
-    cases = [(name, shape, None) for name, shape in SA_SHAPES.items()]
-    cases.append(('rcnn.sa0 real', SA_SHAPES['rcnn.sa0'], 'real'))
+    shapes = SA_TRAIN_SHAPES if train else SA_SHAPES
+    rng = np.random.RandomState(5 if train else 2)
+    cases = [(name, shape, None) for name, shape in shapes.items()]
+    cases.append(('rcnn.sa0 real', shapes['rcnn.sa0'], 'real'))
+    out = []
     for name, (T, N, M, S, C1, C2, C3), kind in cases:
         def f(*shape, scale=1.0):
             return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
         if kind == 'real':
-            idx = _real_sa0_idx(T, 22, dev)
+            idx = _real_sa0_idx(T, 21 if train else 22, dev)
         else:
             idx = torch.from_numpy(rng.randint(0, N, (T, M, S))).to(dev)
             idx[:, :M // 4, S // 2:] = idx[:, :M // 4, :1]  # short balls padded with the first hit
+        args = (f(T, N, C1), f(T, M, C1, scale=0.1), idx, f(C1, C2, scale=C1 ** -0.5),
+                f(C2, scale=0.01), f(C2, C3, scale=C2 ** -0.5), f(C3, scale=0.01))
+        if train:
+            args += (f(T, M, C3),)
+        out.append((name, (T, N, M, S, C1, C2, C3), kind, args))
+    return out
+
+
+def phase_sa(dev):
+    import torch
+    from epnet_tpu_torch.ops import sa_fused
+
+    rows, max_err, ms, plain_ms, op_ms, byte_ms = [], 0.0, 0.0, 0.0, [], []
+    for name, (T, N, M, S, C1, C2, C3), kind, args in sa_cases(dev):
+        idx = args[2]
         f32_ms, m = _sa_fwd_bound(idx, N, C1, C2, C3)
         design_ms, _ = _sa_fwd_bound(idx, N, C1, C2, C3, tf32=True)
         o = min(f32_ms, design_ms)
         distinct = float(_distinct_rows(idx)[1].float().mean())
-        args = (f(T, N, C1), f(T, M, C1, scale=0.1), idx, f(C1, C2, scale=C1 ** -0.5),
-                f(C2, scale=0.01), f(C2, C3, scale=C2 ** -0.5), f(C3, scale=0.01))
         got = sa_fused.fused_point_mlp_max_kernel(*args)
         want = sa_fused.fused_point_mlp_max_plain(*args)
         torch.cuda.synchronize()
@@ -616,24 +629,11 @@ def phase_sa_bwd(dev):
     prints the shares of distinct and live rows, the max selections that
     differ from the plain version's, and both operation counts of the bound
     (``_sa_bwd_bound``)."""
-    import numpy as np
     import torch
     from epnet_tpu_torch.ops import sa_fused
 
-    rng = np.random.RandomState(5)
     rows, max_err, ms, plain_ms, op_ms, byte_ms = [], 0.0, 0.0, 0.0, [], []
-    cases = [(name, shape, None) for name, shape in SA_TRAIN_SHAPES.items()]
-    cases.append(('rcnn.sa0 real', SA_TRAIN_SHAPES['rcnn.sa0'], 'real'))
-    for name, (T, N, M, S, C1, C2, C3), kind in cases:
-        def f(*shape, scale=1.0):
-            return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
-        if kind == 'real':
-            idx = _real_sa0_idx(T, 21, dev)
-        else:
-            idx = torch.from_numpy(rng.randint(0, N, (T, M, S))).to(dev)
-            idx[:, :M // 4, S // 2:] = idx[:, :M // 4, :1]  # short balls padded with the first hit
-        args = (f(T, N, C1), f(T, M, C1, scale=0.1), idx, f(C1, C2, scale=C1 ** -0.5),
-                f(C2, scale=0.01), f(C2, C3, scale=C2 ** -0.5), f(C3, scale=0.01), f(T, M, C3))
+    for name, (T, N, M, S, C1, C2, C3), kind, args in sa_cases(dev, train=True):
         work = _sa_bwd_work(*args)
         f32_ms, design_ms, b_ms = _sa_bwd_bound(*args, work=work)
         o_ms = min(f32_ms, design_ms)

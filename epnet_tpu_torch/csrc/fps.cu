@@ -206,7 +206,7 @@ fps_kernel(const float* __restrict__ xyz, int64_t* __restrict__ out, int n, int 
 
 // The configuration the launcher takes for a cloud of n points: cs blocks
 // a cluster (1: one block), threads a block. Chosen by n from the times of
-// every configuration on the H100 (PERF.md, chip_smoke.py phase 1): a step
+// every configuration on the H100 (PERF.md, run AN): a step
 // across a cluster costs ~1 us whatever its size (the exchange through
 // distributed shared memory and the cluster barrier), one block's step
 // 0.35-0.6 us at 256-4096 points, so one block takes every cloud it can
@@ -292,30 +292,21 @@ int epnet_fps_max_points() { return kMaxCluster * kMaxThreads * kMaxPpt; }
 // (1: one block a cloud) and threads a block.
 void epnet_fps_config(int n, int* cs, int* threads) { fps_config(n, *cs, *threads); }
 
-// xyz: (b, n, 3) float32, contiguous; out: (b, npoint) int64. cs blocks a
-// cloud (1, 2, 4, 8 or 16; above 1 a cluster) of `threads` threads (32,
-// 64, ..., 512), which must hold the cloud at 16 points a thread. Launches
-// on `stream`, allocates nothing, returns the launch's error.
-int epnet_fps_launch_config(const void* xyz, void* out, int b, int n, int npoint, int cs,
-                            int threads, void* stream) {
+// xyz: (b, n, 3) float32, contiguous; out: (b, npoint) int64. Launches in
+// the configuration fps_config picks for n (above one block a cloud, a
+// thread-block cluster) on `stream`, allocates nothing, returns the
+// launch's error.
+int epnet_fps_launch(const void* xyz, void* out, int b, int n, int npoint, void* stream) {
   if (b == 0 || npoint == 0) return 0;
-  if (n <= 0 || npoint > n || cs < 1 || cs > kMaxCluster || (cs & (cs - 1)) ||
-      threads < 32 || threads > kMaxThreads || (threads & (threads - 1)) ||
-      static_cast<long long>(cs) * threads * kMaxPpt < n || cs > n)
+  if (n <= 0 || npoint > n || n > kMaxCluster * kMaxThreads * kMaxPpt)
     return cudaErrorInvalidValue;
+  int cs = 1, threads = 32;
+  fps_config(n, cs, threads);
   const auto* p = static_cast<const float*>(xyz);
   auto* o = static_cast<int64_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   return cs == 1 ? launch_cfg<false>(p, o, b, n, npoint, 1, threads, st)
                  : launch_cfg<true>(p, o, b, n, npoint, cs, threads, st);
-}
-
-// The same with the configuration fps_config picks for n.
-int epnet_fps_launch(const void* xyz, void* out, int b, int n, int npoint, void* stream) {
-  if (n <= 0 || n > kMaxCluster * kMaxThreads * kMaxPpt) return cudaErrorInvalidValue;
-  int cs = 1, threads = 32;
-  fps_config(n, cs, threads);
-  return epnet_fps_launch_config(xyz, out, b, n, npoint, cs, threads, stream);
 }
 
 const char* epnet_error_string(int err) {

@@ -12,8 +12,9 @@
 // - ring_product, load_w128 and slot_steps: a product against 128-column
 //   K-tiles of a weight streamed from L2 through a 3-slot cp.async ring, on
 //   the TF32 tensor cores (mma.sync m16n8k8) in three passes: each operand
-//   split as hi = cvt.rna.tf32(a), lo = cvt.rna.tf32(a - hi), and lo*hi +
-//   hi*lo + hi*hi accumulated in f32, about as accurate as an f32 product.
+//   split as hi = tf32(a), lo = tf32(a - hi), both rounded to nearest (in
+//   integer operations: split_tf32), and lo*hi + hi*lo + hi*hi accumulated
+//   in f32, about as accurate as an f32 product.
 
 #pragma once
 
@@ -51,10 +52,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// f32 bits rounded to TF32, to nearest with ties away from zero: half of
+// the 13 dropped bits' unit added to the magnitude, then cleared. The bits
+// of cvt.rna.tf32.f32 on finite values, in two integer operations at the
+// full instruction rate (the conversion runs at a fraction of it).
+__device__ __forceinline__ uint32_t tf32_rna_bits(uint32_t a) {
+  return (a + 0x1000u) & 0xFFFFE000u;
+}
 // a = hi + lo + O(2^-22 a): hi and lo each rounded to TF32, nearest, ties away
 __device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(a));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(a - __uint_as_float(hi)));
+  hi = tf32_rna_bits(__float_as_uint(a));
+  lo = tf32_rna_bits(__float_as_uint(a - __uint_as_float(hi)));
 }
 
 // A 16 x 8 TF32 fragment, split: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
@@ -87,15 +95,14 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 }
 // d += a b in three TF32 passes, the small terms first; accumulator (g, 2t),
 // (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
-template <class FA, class FB>
-__device__ __forceinline__ void mma3(float (&d)[4], const FA& a, const FB& b) {
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB& b) {
   mma_tf32(d, a.lo, b.hi);
   mma_tf32(d, a.hi, b.lo);
   mma_tf32(d, a.hi, b.hi);
 }
 
 // A product over `tiles` K-tiles of weights streamed through a ring of
-// kNStages slots of kSlotFloats: load(i, slot) issues the cp.async copies
+// kNStages slots of kSlotFloats: load(i, slot) starts the cp.async copies
 // of K-tile i, compute(i, slot) runs on it once every thread's copies have
 // landed. Ends with the ring free (all copies waited for, a barrier).
 template <int kNStages = kStages, int kSlotFloats = kSlot, class Load, class Compute>
@@ -263,8 +270,8 @@ __device__ __forceinline__ void load_w128(const float* __restrict__ w, int i, fl
 
 // A = rows of `a` (row-major, kLd) given by ra/rb; B = the slot's K-tile
 // (ksteps x 8 rows, 128 columns); 32 rows x 32 columns of this warp (m-tiles
-// mt < active). FA and FB split the operands into their TF32 pieces.
-template <int kMT, int kNT, class FA = FragA, class FB = FragB>
+// mt < active).
+template <int kMT, int kNT>
 __device__ __forceinline__ void slot_steps(float (&acc)[kMT][kNT][4], const float* a, int a_ld,
                                            const int (&ra)[kMT], const int (&rb)[kMT],
                                            int a_k0, const float* slot, int slot_ld, int ksteps,
@@ -275,7 +282,7 @@ __device__ __forceinline__ void slot_steps(float (&acc)[kMT][kNT][4], const floa
 #pragma unroll
   for (int kk = 0; kk < ksteps; ++kk) {
     const int k = a_k0 + 8 * kk;
-    FA fa[kMT];
+    FragA fa[kMT];
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
       if (mt < active)
@@ -283,7 +290,7 @@ __device__ __forceinline__ void slot_steps(float (&acc)[kMT][kNT][4], const floa
                    a[ra[mt] * a_ld + k + t + 4], a[rb[mt] * a_ld + k + t + 4]);
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
-      FB fb;
+      FragB fb;
       const float* b = slot + (8 * kk + t) * slot_ld + n0 + 8 * nt + g;
       fb.set(b[0], b[4 * slot_ld]);
 #pragma unroll

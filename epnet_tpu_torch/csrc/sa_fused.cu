@@ -47,19 +47,18 @@
 //    columns of a 128-column pass, against 32-row K-tiles of W2 and W3
 //    streamed from L2 through a double-buffered cp.async ring and split as
 //    they are loaded (W2 and W3, 192 KB at sa1, do not fit beside two
-//    tiles, split or not). The split rounds hi and lo to nearest in
-//    integer operations (split_tf32_int): the bits of kernels C and H's
-//    cvt.rna split, without the conversions' low issue rate. With those
-//    conversions and C and H's 16-row, 3-slot ring, B took ~18% longer on
-//    the H100 (PERF.md, runs AK and AN). Cutting lo toward zero instead,
-//    as the tensor cores read an unrounded register, was faster still but
-//    moved a max downstream of B in the tiny block-local train step
-//    (chip_smoke.py phase 16) past its bound. Each product starts from 0
-//    and its bias is added after, in f32 (the tensor cores' accumulation
-//    truncates; over K = 128 that stays ~1e-6 of a value). No selection
-//    rides on B's rounding: kernel C
-//    recomputes the forward itself, in cuBLAS's order, so a max that moves
-//    within roundoff moves only B's output value;
+//    tiles, split or not). The split (split_tf32 in csrc/sa_common.cuh,
+//    C and H's too) rounds hi and lo to nearest in integer operations: the
+//    bits of cvt.rna without the conversion's low throughput. With cvt.rna
+//    and C and H's 16-row, 3-slot ring, B took ~18% longer on the H100
+//    (PERF.md, runs AK and AN). Cutting lo toward zero instead, as the
+//    tensor cores read an unrounded register, was faster still but moved a
+//    max downstream of B in the tiny block-local train step (chip_smoke.py
+//    phase 16) past its bound: B's output feeds later maxes, although
+//    kernel C's own selections recompute the forward in cuBLAS's order and
+//    do not ride on B's rounding. Each product starts from 0 and its bias
+//    is added after, in f32 (the tensor cores' accumulation truncates; over
+//    K = 128 that stays ~1e-6 of a value);
 //  - layer 3's bias and ReLU go into shared memory a 128-column pass at a
 //    time, and each (centroid, channel) takes the max over the centroid's
 //    rows (from 0: ReLU outputs are >= 0), written straight to the output,
@@ -333,35 +332,6 @@ constexpr int kFSlot = kFK * kW2Ld;  // floats a ring slot; two slots
 constexpr int kRowsSmem = 4 * (2 * kRows * kLd + 2 * kFSlot) +
                           4 * (2 * kRows + 2 * kMaxCent + 3);
 
-// f32 bits rounded to TF32, to nearest with ties away from zero: half of
-// the 13 dropped bits' unit added to the magnitude, then cleared. The same
-// bits as cvt.rna.tf32.f32 on finite values, in two integer operations at
-// the full rate (the conversion issues at a fraction of it).
-__device__ __forceinline__ uint32_t tf32_rna_bits(uint32_t a) {
-  return (a + 0x1000u) & 0xFFFFE000u;
-}
-// split_tf32 (sa_common.cuh) in integer operations: the same hi and lo.
-__device__ __forceinline__ void split_tf32_int(float a, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna_bits(__float_as_uint(a));
-  lo = tf32_rna_bits(__float_as_uint(a - __uint_as_float(hi)));
-}
-struct FragAI {  // FragA, split by split_tf32_int
-  uint32_t hi[4], lo[4];
-  __device__ __forceinline__ void set(float a0, float a1, float a2, float a3) {
-    split_tf32_int(a0, hi[0], lo[0]);
-    split_tf32_int(a1, hi[1], lo[1]);
-    split_tf32_int(a2, hi[2], lo[2]);
-    split_tf32_int(a3, hi[3], lo[3]);
-  }
-};
-struct FragBI {  // FragB, split by split_tf32_int
-  uint32_t hi[2], lo[2];
-  __device__ __forceinline__ void set(float b0, float b1) {
-    split_tf32_int(b0, hi[0], lo[0]);
-    split_tf32_int(b1, hi[1], lo[1]);
-  }
-};
-
 // buf[row][c] = relu(acc + bias[c]) for this warp's accumulators: rows
 // ra/rb of m-tiles mt < active, columns n0 + 8 nt + 2 t4 (+ 1).
 __device__ __forceinline__ void store_relu(const float (&acc)[2][4][4],
@@ -463,8 +433,8 @@ sa_fused_fwd_rows_kernel(const float* __restrict__ y, const float* __restrict__ 
       ring_product<2, kFSlot>(
           kC / kFK, ring, [&](int i, float* slot) { load_w128<kFK>(w2, i, slot); },
           [&](int i, const float* slot) {
-            slot_steps<2, 4, FragAI, FragBI>(acc, buf_a, kLd, ra, rb, kFK * i, slot, kW2Ld,
-                                             kFK / 8, n0, active);
+            slot_steps<2, 4>(acc, buf_a, kLd, ra, rb, kFK * i, slot, kW2Ld, kFK / 8, n0,
+                             active);
           });
       store_relu(acc, b2, buf_b, ra, rb, n0, active);
     }
@@ -474,8 +444,8 @@ sa_fused_fwd_rows_kernel(const float* __restrict__ y, const float* __restrict__ 
         ring_product<2, kFSlot>(
             kC / kFK, ring, [&](int i, float* slot) { load_w128<kFK>(w3 + c0, i, slot, c3p); },
             [&](int i, const float* slot) {
-              slot_steps<2, 4, FragAI, FragBI>(acc, buf_b, kLd, ra, rb, kFK * i, slot, kW2Ld,
-                                               kFK / 8, n0, active);
+              slot_steps<2, 4>(acc, buf_b, kLd, ra, rb, kFK * i, slot, kW2Ld, kFK / 8, n0,
+                               active);
             });
         store_relu(acc, b3 + c0, buf_a, ra, rb, n0, active);
       }

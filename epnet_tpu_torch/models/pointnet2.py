@@ -43,7 +43,7 @@ from ..ops.block_local import (block_local_available, block_local_fp_available,
                                bucket_ball_query, to_window_relative, window_starts)
 from ..ops.pointops import (ball_query, furthest_point_sample, gather_points,
                             group_points, three_interpolate, three_nn)
-from ..ops.sa_fused import fused_point_mlp_max, fused_point_mlp_max_win, fused_takes
+from ..ops.sa_fused import fused_point_mlp_max, fused_point_mlp_max_win
 from .layers import SharedMLP
 
 
@@ -81,13 +81,12 @@ class SAModuleMSG(nn.Module):
 
     def uses_fused(self, i: int) -> bool:
         """Scale ``i`` through the fused SA interior (kernel B or G, and C or
-        H in training): a sampled scale without BN, three layers, and widths
-        the kernels take (``ops.sa_fused.fused_takes``: S <= 64, C1 and C2
-        <= 128, C3 <= 256). A wider scale runs unfused, the same function."""
-        mlp = self.mlp(i)
-        return (self.npoint is not None and not self.bn and mlp.depth == 3
-                and fused_takes(self.nsamples[i],
-                                *(mlp.layer(k).Dense_0.weight.shape[0] for k in range(3))))
+        H in training). B, C and H take S <= 64 and C1, C2 <= 128, and C and
+        H also C3 <= 256 (``ops.sa_fused.check_rows_takes``,
+        ``check_bwd_takes``); a wider scale runs only on the CPU and raises
+        on the card: at B's launch, or in the first forward that records a
+        graph."""
+        return self.npoint is not None and not self.bn and self.mlp(i).depth == 3
 
     def uses_block_local(self, n: int) -> bool:
         """Block-local grouping over a cloud of ``n`` points: the SA gate of

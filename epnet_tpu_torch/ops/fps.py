@@ -52,10 +52,6 @@ def _lib() -> ctypes.CDLL:
                                          ctypes.c_int, ctypes.c_int,
                                          ctypes.c_int, ctypes.c_void_p]
         lib.epnet_fps_launch.restype = ctypes.c_int
-        lib.epnet_fps_launch_config.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.epnet_fps_launch_config.restype = ctypes.c_int
         lib.epnet_fps_config.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                                          ctypes.POINTER(ctypes.c_int)]
         lib.epnet_fps_config.restype = None
@@ -74,11 +70,10 @@ def kernel_config(n: int) -> tuple:
     return cs.value, threads.value
 
 
-def furthest_point_sample_kernel(xyz: torch.Tensor, npoint: int, config=None) -> torch.Tensor:
+def furthest_point_sample_kernel(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """Launch ``csrc/fps.cu`` on the current stream: (B, N, 3) float32 CUDA
-    -> (B, npoint) int64, in ``kernel_config(N)`` or, to measure others, in
-    ``config`` = (blocks a cloud: 1, 2, 4, 8 or 16, threads a block: 32
-    ... 512). Raises on anything the kernel does not take."""
+    -> (B, npoint) int64, in ``kernel_config(N)``. Raises on anything the
+    kernel does not take."""
     if not xyz.is_cuda:
         raise ValueError(f'furthest_point_sample_kernel needs a CUDA tensor, got {xyz.device}')
     if xyz.dtype != torch.float32:
@@ -98,11 +93,7 @@ def furthest_point_sample_kernel(xyz: torch.Tensor, npoint: int, config=None) ->
         return out
     with torch.cuda.device(xyz.device):
         stream = torch.cuda.current_stream(xyz.device).cuda_stream
-        if config is None:
-            err = lib.epnet_fps_launch(xyz.data_ptr(), out.data_ptr(), B, N, npoint, stream)
-        else:
-            err = lib.epnet_fps_launch_config(xyz.data_ptr(), out.data_ptr(), B, N, npoint,
-                                              *config, stream)
+        err = lib.epnet_fps_launch(xyz.data_ptr(), out.data_ptr(), B, N, npoint, stream)
     cuda_build.check(lib, err, 'fps kernel launch')
     furthest_point_sample_kernel.launches += 1
     return out

@@ -205,13 +205,6 @@ def check_rows_takes(what, T, N, S, C1, C2):
                          f'got {T} x {N}')
 
 
-def fused_takes(S, C1, C2, C3):
-    """Whether a stage's widths fit the fused kernels both ways (B, and C
-    in training): S <= 64, C1 and C2 <= 128, C3 <= 256. A wider stage runs
-    unfused, the same function."""
-    return S <= _ROWS and C1 <= _WIDTH and C2 <= _WIDTH and C3 <= 2 * _WIDTH
-
-
 def fused_point_mlp_max_kernel(y, o, idx, w2, b2, w3, b3):
     """Launch kernel B (``csrc/sa_fused.cu``: dedupe, scan and the main
     kernel on the distinct rows) on the current stream. All tensors on one

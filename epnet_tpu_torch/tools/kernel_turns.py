@@ -1,20 +1,26 @@
-"""Time the FPS kernel (A) and the fused-SA forward (B) of several
-checkouts of this repository on one card, in turns.
+"""Time the FPS kernel (A), the fused-SA forward (B) and backward (C, and
+its windowed twin H) of several checkouts of this repository on one card,
+in turns.
 
     python -m epnet_tpu_torch.tools.kernel_turns --trees <parent> . . <parent> [--out DIR]
 
-Each checkout in ``--trees`` runs in its own process, in the order given,
-with its own sources and build (``<tree>/build``), on the same inputs: the
-six FPS shapes of a forward and the batch-4 RPN sa0 shape of a train step
-(structured scenes), and B at RCNN sa0 and sa1 on random tables (short
-balls padded with their first hit) and at sa0 on real eval tables (the
-exact ball query around FPS centroids of 100 pooled RoIs). The inputs are
-made once, by this checkout, and saved to ``--out``. Each process checks
-its outputs against this checkout's plain versions (picks identical, B
-within 1e-4 of max|out|) and prints one JSON line; the last line is a table
-of milliseconds, one column a run. Comparing two versions means running
-them in turns in one call: parent, change, change, parent. Needs a CUDA
-device.
+Run from the root of this checkout. Each checkout in ``--trees`` runs in
+its own process, in the order given, with its own sources and build
+(``<tree>/build``), on the same inputs: those of ``chip_smoke.py``'s
+phases 1 (A: the six FPS shapes of a forward, the batch-4 RPN sa0 shape,
+the tie-heavy cloud), 2 (B: RCNN sa0 and sa1 on random tables, sa0 on real
+eval tables) and 5 (C: the same at the batch-4 train step's T = 256), and
+H at the block-local RCNN sa0 on real windows, T = 256. The inputs are
+made once, by this checkout's ``chip_smoke.py``, and saved to ``--out``.
+Each process checks its outputs against this checkout's plain versions
+(picks identical, B within ``chip_smoke.SA_RTOL`` of max|out|), times each
+case with ``chip_smoke._time_ms`` at phase 1's, 2's and 5's repetitions (A
+also replayed from a CUDA graph, without the host's launch time) and
+saves C's and H's six outputs; the last lines say whether each run's dO,
+dW and db are bitwise those of the first run (dY sums a row's
+contributions by f32 atomics, in no fixed order: its largest difference is
+printed), and give a table of milliseconds, one column a run. Comparing two versions means running them
+in turns in one call: parent, change, change, parent. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,106 +31,63 @@ import os
 import subprocess
 import sys
 
-FPS_CASES = [(1, 16384, 4096), (1, 4096, 1024), (1, 1024, 256), (1, 256, 64),
-             (100, 512, 128), (100, 128, 32), (4, 16384, 4096)]
-SA_CASES = {'rcnn.sa0': (100, 512, 128, 64, 128, 128, 128),
-            'rcnn.sa1': (100, 128, 32, 64, 128, 128, 256),
-            'rcnn.sa0 real': (100, 512, 128, 64, 128, 128, 128)}
-
-
-def _scene(seed, n):
-    import numpy as np
-    from epnet_tpu_torch.utils.testing import structured_scene
-
-    return structured_scene(np.random.RandomState(seed), n)[0]
-
-
-def _real_idx(T, M, S, seed, dev):
-    """The exact ball query (radius 0.2, S samples) around M FPS centroids
-    of T RoIs pooled from a structured scene (512 points each), as the
-    RCNN's sa0 sees them at eval."""
-    import numpy as np
-    import torch
-    from epnet_tpu_torch.ops import fps, pointops
-    from epnet_tpu_torch.ops.boxes import rotate_points_along_y
-    from epnet_tpu_torch.ops.roipool3d import roipool3d
-    from epnet_tpu_torch.utils.testing import structured_scene
-
-    rng = np.random.RandomState(seed)
-    pts, _, gt = structured_scene(rng, 16384)
-    boxes = np.zeros((T, 7), np.float32)
-    boxes[:len(gt)] = gt
-    centers = pts[rng.choice(len(pts), T - len(gt), replace=False)]
-    boxes[len(gt):, :3] = centers + rng.randn(T - len(gt), 3).astype(np.float32) * 0.3
-    boxes[len(gt):, 3:6] = (1.55, 1.6, 3.9)
-    boxes[len(gt):, 6] = rng.uniform(-np.pi, np.pi, T - len(gt))
-    xyz = torch.from_numpy(pts).to(dev)[None]
-    rois = torch.from_numpy(boxes).to(dev)[None]
-    pxyz, _, _, _ = roipool3d(xyz, xyz[..., :1], rois, 0.2, sampled_pt_num=512)
-    local = rotate_points_along_y(pxyz - rois[..., None, 0:3], rois[..., 6, None])[0]
-    local = local.contiguous()
-    centers = torch.gather(local, 1, fps.furthest_point_sample_plain(local, M)[..., None]
-                           .expand(T, M, 3))
-    return pointops.ball_query(0.2, S, local, centers)
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def make_inputs(path):
-    """Every case's inputs, made on the card from fixed seeds, saved."""
+    """Every case's inputs, made on the card by chip_smoke.py's input
+    functions, saved."""
     import numpy as np
     import torch
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
 
     dev = torch.device('cuda:0')
-    rng = np.random.RandomState(1)
-    fps_in = {}
-    for B, N, npoint in FPS_CASES:
-        if N == 16384:
-            xyz = np.stack([_scene(s, N) for s in range(B)])
-        elif B == 1:
-            xyz = _scene(0, 16384)[None, :N]
-        else:
-            xyz = (rng.randn(B, N, 3) * 1.5).astype(np.float32)
-        fps_in[(B, N, npoint)] = torch.from_numpy(np.ascontiguousarray(xyz))
-    sa_in = {}
-    rng = np.random.RandomState(2)
-    for name, (T, N, M, S, C1, C2, C3) in SA_CASES.items():
-        def f(*shape, scale=1.0):
-            return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32))
-        if name.endswith('real'):
-            idx = _real_idx(T, M, S, 22, dev).cpu()
-            distinct = sum(len(r.unique()) for r in idx.reshape(-1, S)) / idx.numel()
-            print(f'{name}: distinct rows {distinct:.4f} of the samples', flush=True)
-        else:
-            idx = torch.from_numpy(rng.randint(0, N, (T, M, S)))
-            idx[:, :M // 4, S // 2:] = idx[:, :M // 4, :1]
-        sa_in[name] = (f(T, N, C1), f(T, M, C1, scale=0.1), idx, f(C1, C2, scale=C1 ** -0.5),
-                       f(C2, scale=0.01), f(C2, C3, scale=C2 ** -0.5), f(C3, scale=0.01))
-    torch.save({'fps': fps_in, 'sa': sa_in}, path)
+    fps_in = [(shape, kind, xyz.cpu()) for shape, kind, xyz in cs.fps_cases(dev)]
+    sa_in = [(name, [a.cpu() for a in args]) for name, _, _, args in cs.sa_cases(dev)]
+    bwd_in = [(name, [a.cpu() for a in args])
+              for name, _, _, args in cs.sa_cases(dev, train=True)]
+    T, (_, N, M, S, C1, C2, C3) = 256, cs.SA_SHAPES['rcnn.sa0']
+    rng = np.random.RandomState(13)
+
+    def f(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32))
+
+    idx_rel, starts = cs._window_inputs(T, T, dev)
+    args = (f(T, N, C1), f(T, M, C1, scale=0.1), idx_rel.cpu(), starts.cpu(),
+            f(C1, C2, scale=C1 ** -0.5), f(C2, scale=0.01), f(C2, C3, scale=C2 ** -0.5),
+            f(C3, scale=0.01), cs._sa_win_geometry()[0], f(T, M, C3))
+    torch.save({'fps': fps_in, 'sa': sa_in, 'bwd': bwd_in, 'win_bwd': args}, path)
 
 
-def _time_ms(fn, total_ms=50.0):
-    """Mean ms of a launch over enough launches to take ~total_ms (10 to
-    1000): a kernel of tens of microseconds needs hundreds to average out
-    the launches' own jitter."""
+def _graph_ms(fn, reps):
+    """Mean ms of ``reps`` launches of ``fn`` captured in one CUDA graph and
+    replayed: the device's time with no host time between launches, which
+    a kernel of a few microseconds needs (a launch through its wrapper
+    costs the host more than that)."""
     import torch
 
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    fn()
-    start.record()
-    fn()
-    end.record()
+    fn()  # the launchers' once-a-device set-up, outside the capture
     torch.cuda.synchronize()
-    reps = int(min(1000, max(10, total_ms / max(start.elapsed_time(end), 1e-3))))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
 
-def worker(tree, inputs):
+def worker(tree, out):
     """Time this process's checkout (``tree``, first on sys.path) on the
-    saved inputs; prints one JSON line {case: ms}."""
+    saved inputs; saves its backward outputs and prints one JSON line
+    {case: ms}."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     from epnet_tpu_torch.ops import fps, sa_fused
@@ -132,24 +95,37 @@ def worker(tree, inputs):
     if not os.path.abspath(fps.__file__).startswith(os.path.abspath(tree) + os.sep):
         raise AssertionError(f'{tree}: imported {fps.__file__}')
     dev = torch.device('cuda:0')
-    saved = torch.load(inputs)
-    out = {}
-    for (B, N, npoint), xyz in saved['fps'].items():
+    saved = torch.load(os.path.join(out, 'inputs.pt'))
+    ms, grads = {}, {}
+    for (B, N, npoint), kind, xyz in saved['fps']:
         xyz = xyz.to(dev)
-        got = fps.furthest_point_sample_kernel(xyz, npoint)
-        if not torch.equal(got, fps.furthest_point_sample_plain(xyz, npoint)):
+        if not torch.equal(fps.furthest_point_sample_kernel(xyz, npoint),
+                           fps.furthest_point_sample_plain(xyz, npoint)):
             raise AssertionError(f'{tree}: fps picks differ from plain at {(B, N, npoint)}')
-        out[f'fps {B}x{N}->{npoint}'] = _time_ms(
-            lambda: fps.furthest_point_sample_kernel(xyz, npoint))
-    for name, args in saved['sa'].items():
+
+        def launch():
+            return fps.furthest_point_sample_kernel(xyz, npoint)
+        reps = 10 if N > 1024 else 200
+        ms[f'A {B}x{N}->{npoint} {kind}'] = cs._time_ms(launch, reps)
+        ms[f'A {B}x{N}->{npoint} {kind}, graph'] = _graph_ms(launch, reps)
+    for name, args in saved['sa']:
         args = [a.to(dev) for a in args]
-        got = sa_fused.fused_point_mlp_max_kernel(*args)
         want = sa_fused.fused_point_mlp_max_plain(*args)
-        err = float((got - want).abs().max() / want.abs().max())
-        if not err <= 1e-4:
+        err = float((sa_fused.fused_point_mlp_max_kernel(*args) - want).abs().max()
+                    / want.abs().max())
+        if not err <= cs.SA_RTOL:
             raise AssertionError(f'{tree}: fused SA off by {err:.3e} at {name}')
-        out[f'sa_fused {name}'] = _time_ms(lambda: sa_fused.fused_point_mlp_max_kernel(*args))
-    print(json.dumps({'tree': tree, 'ms': out}), flush=True)
+        ms[f'B {name}'] = cs._time_ms(lambda: sa_fused.fused_point_mlp_max_kernel(*args), 20)
+    bwd = [(f'C {name} T=256', sa_fused.fused_point_mlp_max_bwd_kernel, args)
+           for name, args in saved['bwd']]
+    bwd.append(('H rcnn.sa0 T=256', sa_fused.fused_point_mlp_max_win_bwd_kernel,
+                saved['win_bwd']))
+    for name, fn, args in bwd:
+        args = [a.to(dev) if torch.is_tensor(a) else a for a in args]
+        grads[name] = [g.cpu() for g in fn(*args)]
+        ms[name] = cs._time_ms(lambda: fn(*args), 5)
+    torch.save(grads, os.path.join(out, f'grads_{os.getpid()}.pt'))
+    print(json.dumps({'tree': tree, 'grads': f'grads_{os.getpid()}.pt', 'ms': ms}), flush=True)
 
 
 def main(argv=None):
@@ -158,14 +134,13 @@ def main(argv=None):
     parser.add_argument('--out', default='output/kernel_turns')
     parser.add_argument('--worker', help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
-    inputs = os.path.join(args.out, 'inputs.pt')
     if args.worker:
-        return worker(args.worker, inputs)
+        return worker(args.worker, args.out)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('kernel_turns: needs a CUDA device')
     os.makedirs(args.out, exist_ok=True)
-    make_inputs(inputs)
+    make_inputs(os.path.join(args.out, 'inputs.pt'))
     runs = []
     for tree in args.trees:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), '--trees', tree,
@@ -176,9 +151,17 @@ def main(argv=None):
             raise SystemExit(f'kernel_turns: {tree} failed ({proc.returncode})')
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
-    cases = list(runs[0]['ms'])
+    first = torch.load(os.path.join(args.out, runs[0]['grads']))
+    for r in runs[1:]:
+        for k, (dy, *rest) in torch.load(os.path.join(args.out, r['grads'])).items():
+            dy0, *rest0 = first[k]
+            differ = [n for n, a, b in zip(('dO', 'dW2', 'db2', 'dW3', 'db3'), rest, rest0)
+                      if not torch.equal(a, b)]
+            print(f'{r["tree"]} vs {runs[0]["tree"]}, {k}: dO, dW and db bitwise equal: '
+                  f'{not differ} {differ or ""}; dY differs by at most '
+                  f'{float((dy - dy0).abs().max() / dy0.abs().max()):.3e} of max|dY|')
     print('case | ' + ' | '.join(r['tree'] for r in runs))
-    for c in cases:
+    for c in runs[0]['ms']:
         print(f'{c} | ' + ' | '.join(f'{r["ms"][c]:.4f}' for r in runs))
 
 

@@ -186,24 +186,36 @@ def test_zero_padding_leaves_the_output_unchanged():
     assert not got[..., 200:].any()
 
 
-@pytest.mark.parametrize('dims, ok, gate', [
-    ((100, 512, 64, 128, 128, 128), True, True),     # RCNN sa0
-    ((100, 128, 64, 128, 128, 256), True, True),     # RCNN sa1
-    ((2, 40, 16, 32, 48, 200), True, True),          # narrower: zero-padded
-    ((2, 40, 16, 128, 128, 512), True, False),       # C3 > 256: B takes it, C does not
-    ((2, 40, 65, 128, 128, 128), False, False),      # S > 64
-    ((2, 40, 16, 256, 128, 128), False, False),      # C1 > 128
-    ((2, 40, 16, 128, 192, 128), False, False),      # C2 > 128
-    ((1, 1 << 24, 16, 128, 128, 128), False, True),  # N >= 2^24
+@pytest.mark.parametrize('dims, ok, bwd', [
+    ((100, 512, 64, 128, 128, 128), True, True),      # RCNN sa0
+    ((100, 128, 64, 128, 128, 256), True, True),      # RCNN sa1
+    ((2, 40, 16, 32, 48, 200), True, True),           # narrower: zero-padded
+    ((2, 40, 16, 128, 128, 512), True, False),        # C3 > 256: B takes it, C does not
+    ((2, 40, 65, 128, 128, 128), False, False),       # S > 64
+    ((2, 40, 16, 256, 128, 128), False, False),       # C1 > 128
+    ((2, 40, 16, 128, 192, 128), False, False),       # C2 > 128
+    ((1, 1 << 24, 16, 128, 128, 128), False, False),  # N >= 2^24
 ], ids=['sa0', 'sa1', 'narrow', 'C3', 'S', 'C1', 'C2', 'N'])
-def test_forward_shape_limits(dims, ok, gate):
-    """What kernel B takes (any C3, in 128-column passes), and the widths
-    the model's fused stages take (``fused_takes``: C3 <= 256 too, for the
-    backward)."""
+def test_forward_shape_limits(dims, ok, bwd):
+    """What kernel B takes (any C3, in 128-column passes), and what the
+    backward takes on top (``check_bwd_takes``: C3 <= 256). A stage outside
+    them raises on the card; none runs the plain version there."""
     T, N, S, C1, C2, C3 = dims
-    assert tsa.fused_takes(S, C1, C2, C3) == gate
-    if ok:
-        tsa.check_rows_takes('k', T, N, S, C1, C2)
-    else:
-        with pytest.raises(ValueError):
-            tsa.check_rows_takes('k', T, N, S, C1, C2)
+    for check, takes in ((lambda: tsa.check_rows_takes('k', T, N, S, C1, C2), ok),
+                         (lambda: tsa.check_bwd_takes('k', T, N, S, C1, C2, C3), bwd)):
+        if takes:
+            check()
+        else:
+            with pytest.raises(ValueError):
+                check()
+
+
+def test_a_wide_stage_stays_on_the_fused_path():
+    """The model routes a sampled three-layer stage without BN to the fused
+    interior whatever its widths: on the card a stage beyond B's limits
+    raises at the launch and never runs the plain version there."""
+    from epnet_tpu_torch.models.pointnet2 import SAModuleMSG
+
+    mod = SAModuleMSG(8, (0.5,), (128,), ((256, 192, 512),), in_features=0, bn=False,
+                      device='cpu')
+    assert mod.uses_fused(0)
