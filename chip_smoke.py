@@ -44,12 +44,13 @@ first use), then:
 7. holds one tiny-width train step on the card against the CPU under
    identical weights and identical sampled RoIs;
 8. holds the image tower's 3x3 conv weight-gradient kernels (D, stride 2,
-   f32 FFMA; E, stride 1, 3xTF32 on the tensor cores) against their plain
-   versions at five edge shapes and at the seven tower shapes of a batch-4
-   train step (at most 1e-4 x max|dw|, two launches bitwise equal), and at
-   the tower shapes times the kernel, the plain version and
-   ``torch.nn.grad.conv2d_weight`` (cuDNN, no TF32) in turns; prints E's
-   3xTF32 direct count at the TF32 peak beside its Winograd bound;
+   and E, stride 1: one kernel, 3xTF32 on the tensor cores) against their
+   plain versions at five edge shapes and at the seven tower shapes of a
+   batch-4 train step (at most 1e-4 x max|dw|, two launches bitwise
+   equal), and at the tower shapes times the kernel, the plain version and
+   ``torch.nn.grad.conv2d_weight`` (cuDNN, no TF32) in turns; prints each
+   shape's kernel / library ratio and the design's 3xTF32 direct count at
+   the TF32 peak beside the Winograd count at the f32 peak;
 9. drives the train path again: a warm-up step and three batch-4
    full-width steps on scenes 0/1/2, checking 6 FPS, 2 fused-SA forward,
    2 fused-SA backward, 4 D, 3 E and 4 F launches a step, each in turn
@@ -60,9 +61,10 @@ first use), then:
 10. holds the image tower's stride-2 conv forward kernel (F) against its
    plain version at the four tower shapes of a batch-1 forward and of a
    batch-4 batch and at five edge shapes (at most 1e-4 x max|y|, two
-   launches bitwise equal), and at the tower shapes times the kernel, the
-   plain version and ``F.conv2d`` on the padded NCHW input (cuDNN, no
-   TF32) in turns;
+   launches bitwise equal), and at the tower shapes times the kernel (3xTF32
+   on the tensor cores), the plain version and ``F.conv2d`` on the padded
+   NCHW input (cuDNN, no TF32) in turns; prints each shape's kernel /
+   library ratio and both counts of the bound, as phase 8;
 11. runs the eval CLI (``epnet_tpu_torch.tools.eval.main``, joint eval,
    batch 4, 4 loader workers) at the recipe's full width on a synthetic
    KITTI tree of 8 scenes (370x1240 images, 30000 LiDAR points each) with
@@ -139,12 +141,13 @@ the TF32 tensor-core peak, beside the rest at the f32 peak, the larger of
 the two pipes' times: either is exact to f32) and its
 bytes (each
 input read once, each output written once) at the memory rate (NVIDIA
-H100 SXM data sheet, below); for D and E the operations of the
-cheapest exact algorithm counted (``_dw_bound_ops``; phase 8 also prints
-E's own design's count, three TF32 passes of the direct product at the
-TF32 tensor-core peak), and for F the same
-count (its four stride-2 phases are the same correlations of x, now with
-the weights); for B, C, G and H each ball's distinct rows
+H100 SXM data sheet, below); for D, E and F the operations of the
+cheapest exact algorithm counted (``_dw_bound_ops``; for F the same count,
+its four stride-2 phases being the same correlations of x, now with the
+weights), the smaller of that count at the f32 peak and in three TF32
+passes at the TF32 tensor-core peak, either exact to f32; their design's
+own count, the direct product in three TF32 passes, is printed beside
+(``_conv_counts``); for B, C, G and H each ball's distinct rows
 (``_sa_fwd_bound``), and for C and H the backward's products where this
 run's data makes them nonzero, since the max's gradient reaches only the
 rows that hold it (``_sa_bwd_bound``). ``library_ms`` is one PyTorch call that
@@ -158,6 +161,7 @@ and exits non-zero; without a CUDA device it exits non-zero at once.
 import collections
 import concurrent.futures
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -191,6 +195,13 @@ FPS_DESIGN = ('points and running distances in registers, argmax over packed (di
               '~index) keys by __reduce_max_sync; clouds above 4096 points on a thread-block '
               'cluster (distributed shared memory, one cluster barrier a step), smaller ones '
               'on one block or one warp')
+DW_DESIGN = ('wgmma m64nNk8 3xTF32 (hi and lo rounded to nearest in integer operations), A (x '
+             'rows) split in registers, B (dy) split into hi/lo planes (64-byte swizzle), 4-step '
+             'cp.async ring, split-K in fixed order')
+FWD_DESIGN = ('wgmma m64nNk8 3xTF32 (hi and lo rounded to nearest in integer operations), A (x, '
+              'tap then 16 channels) split in registers, K split and transposed once a call into '
+              'hi/lo planes (F, 9C) that a 4-step cp.async ring copies K-major (64-byte swizzle), '
+              'split-K in fixed order')
 FPS_TRAIN_SHAPE = (4, 16384, 4096)  # RPN sa0 in a batch-4 train step
 # the image tower's convs in a batch-4 train step of the recipe: (B, H, W, C, F)
 DW_SHAPES = {
@@ -260,6 +271,35 @@ def _dw_bound_ops(C, Fo, pixels, stride):
     left out, so this stays a lower bound."""
     per_pixel = 36 / 16 if stride == 1 else 25 / 16 + 2 * 5 / 4 + 1
     return 2.0 * per_pixel * C * Fo * pixels
+
+
+def _conv_counts(C, Fo, pixels, stride, nbytes):
+    """The bound's parts for a 3x3 conv, or its weight gradient, over
+    ``pixels`` output (dy) pixels, in ms: ``f32_count_ms``, the cheapest
+    exact algorithm's operations (``_dw_bound_ops``) at the f32 peak;
+    ``tf32_count_ms``, the same operations in three TF32 passes at the TF32
+    tensor-core peak; ``design_count_ms``, kernels D, E and F's own design,
+    the direct product in three TF32 passes there; ``bytes_ms``, ``nbytes``
+    at the memory rate. Each count is exact to f32, so ``bound_ms`` takes
+    the smaller of the first two (the third is above the second), or the
+    bytes where they take longer."""
+    ops = _dw_bound_ops(C, Fo, pixels, stride)
+    counts = {'f32_count_ms': ops / F32_PEAK * 1e3,
+              'tf32_count_ms': 3 * ops / TF32_PEAK * 1e3,
+              'design_count_ms': 3 * 2.0 * 9 * C * Fo * pixels / TF32_PEAK * 1e3,
+              'bytes_ms': _bound(0, nbytes)[1]}
+    return {'bound_ms': max(min(counts['f32_count_ms'], counts['tf32_count_ms']),
+                            counts['bytes_ms']), **counts}
+
+
+def _conv_row_line(row, library):
+    """Phase 8's and 10's line for one tower shape's ``row``."""
+    return (f'  kernel {row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, {library} '
+            f'{row["library_ms"]:.4f} ms (kernel / library {row["ms"] / row["library_ms"]:.3f}), '
+            f'bound {row["bound_ms"]:.4f} ms (operations: Winograd {row["f32_count_ms"]:.4f} at '
+            f'the f32 peak, {row["tf32_count_ms"]:.4f} in three TF32 passes; this design\'s '
+            f'count, the direct product in three TF32 passes, {row["design_count_ms"]:.4f}; bytes '
+            f'{row["bytes_ms"]:.4f})')
 
 
 def _distinct_rows(idx):
@@ -1073,93 +1113,102 @@ def phase_small_train_reference(dev, over=None):
         raise AssertionError('tiny train step: the card and the CPU disagree')
 
 
+def dw_cases(dev):
+    """Phase 8's inputs, made on the card from one seed: (name, shape,
+    stride, x, dy) for the edge shapes (name ``'edge'``), then for each
+    kernel (``DW_SHAPES``' keys) its tower shapes (shape: the block)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def draw(B, H, W, C, Fo, stride):
+        return (torch.randn(B, H, W, C, device=dev, generator=gen),
+                torch.randn(B, H // stride, W // stride, Fo, device=dev, generator=gen))
+    for B, H, W, C, Fo, stride in DW_EDGE_SHAPES:
+        yield ('edge', (B, H, W, C, Fo), stride, *draw(B, H, W, C, Fo, stride))
+    for name, shapes in DW_SHAPES.items():
+        stride = 2 if name.endswith('s2') else 1
+        for blk, shape in shapes.items():
+            yield (name, blk, stride, *draw(*shape, stride))
+
+
+def dw_kernel_and_plain(stride):
+    """(kernel, plain version) of the weight gradient at ``stride``: D or E."""
+    from epnet_tpu_torch.ops import conv2d
+    return ((conv2d.dw3x3_s2_kernel, conv2d.dw3x3_s2_plain) if stride == 2
+            else (conv2d.dw3x3_s1_kernel, conv2d.dw3x3_s1_plain))
+
+
 def phase_conv_dw(dev):
     """Kernels D and E against their plain versions at the tower's train
     shapes; kernel, plain and library (``_library_dw_call``, cuDNN without
     TF32) timed in turns."""
     import torch
-    from epnet_tpu_torch.ops import conv2d
 
     _require_f32('conv2d_weight')
-    gen = torch.Generator(device=dev).manual_seed(8)
-    for B, H, W, C, Fo, stride in DW_EDGE_SHAPES:
-        x = torch.randn(B, H, W, C, device=dev, generator=gen)
-        dy = torch.randn(B, H // stride, W // stride, Fo, device=dev, generator=gen)
-        kernel, plain = ((conv2d.dw3x3_s2_kernel, conv2d.dw3x3_s2_plain) if stride == 2
-                         else (conv2d.dw3x3_s1_kernel, conv2d.dw3x3_s1_plain))
+    cases = dw_cases(dev)
+    for _, shape, stride, x, dy in itertools.islice(cases, len(DW_EDGE_SHAPES)):
+        kernel, plain = dw_kernel_and_plain(stride)
         want = plain(x, dy)
         err = float((kernel(x, dy) - want).abs().max()) / float(want.abs().max())
         if not err <= DW_RTOL:
-            raise AssertionError(f'stride {stride} kernel off by {err:.3e} of max|dw| at '
-                                 f'{(B, H, W, C, Fo)}')
+            raise AssertionError(f'stride {stride} kernel off by {err:.3e} of max|dw| at {shape}')
     print(f'conv3x3_dw at {len(DW_EDGE_SHAPES)} edge shapes: within {DW_RTOL} of max|dw|',
           flush=True)
-    results = {}
-    for name, shapes in DW_SHAPES.items():
-        stride = 2 if name.endswith('s2') else 1
-        kernel, plain = ((conv2d.dw3x3_s2_kernel, conv2d.dw3x3_s2_plain) if stride == 2
-                         else (conv2d.dw3x3_s1_kernel, conv2d.dw3x3_s1_plain))
-        rows, max_err, op_ms, byte_ms = [], 0.0, [], []
-        total = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0}
-        tf32x3_ms = 0.0
-        for blk, (B, H, W, C, Fo) in shapes.items():
-            x = torch.randn(B, H, W, C, device=dev, generator=gen)
-            dy = torch.randn(B, H // stride, W // stride, Fo, device=dev, generator=gen)
-            pixels = B * (H // stride) * (W // stride)
-            o, m = _bound(_dw_bound_ops(C, Fo, pixels, stride),
-                          4 * (B * H * W * C + pixels * Fo + 9 * C * Fo))
-            op_ms.append(o)
-            byte_ms.append(m)
-            # E's own design: three TF32 passes of the direct count
-            tf32x3 = 3 * 2.0 * 9 * C * Fo * pixels / TF32_PEAK * 1e3 if stride == 1 else None
+    rows = collections.defaultdict(list)
+    for name, blk, stride, x, dy in cases:
+        kernel, plain = dw_kernel_and_plain(stride)
+        B, H, W, C, Fo = DW_SHAPES[name][blk]
+        pixels = B * (H // stride) * (W // stride)
+        counts = _conv_counts(C, Fo, pixels, stride,
+                              4 * (B * H * W * C + pixels * Fo + 9 * C * Fo))
+        library = _library_dw_call(x, dy, stride)
+        got, want = kernel(x, dy), plain(x, dy)
+        lib_dw = library()
+        again = kernel(x, dy)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        lib_err = float((lib_dw - want).abs().max())
+        print(f'{name} {blk} x {(B, H, W, C)} -> dy F {Fo}: max abs err {err:.3e} '
+              f'({err / scale:.2e} of max|dw|); conv2d_weight {lib_err / scale:.2e}',
+              flush=True)
+        if not err <= DW_RTOL * scale:
+            raise AssertionError(f'{name} {blk}: kernel off by {err / scale:.3e} of max|dw|')
+        if not lib_err <= LIBRARY_RTOL * scale:
+            raise AssertionError(f'{name} {blk}: conv2d_weight is not the same function')
+        if not torch.equal(got, again):
+            raise AssertionError(f'{name} {blk}: two launches differ')
+        del got, want, lib_dw, again
+        fns = {'ms': (lambda: kernel(x, dy), 10), 'plain_ms': (lambda: plain(x, dy), 3),
+               'library_ms': (library, 10)}
+        row = dict.fromkeys(fns, 0.0)
+        for key in ('ms', 'plain_ms', 'library_ms', 'library_ms', 'plain_ms', 'ms'):
+            fn, reps = fns[key]
+            row[key] += _time_ms(fn, reps) / 2
+        row.update(block=blk, shape=[B, H, W, C, Fo], **counts, max_abs_err=err,
+                   max_rel_err=err / scale)
+        rows[name].append(row)
+        print(_conv_row_line(row, 'conv2d_weight'), flush=True)
+        del x, dy, library
+    return {name: _conv_totals(name, r, 'conv2d_weight') for name, r in rows.items()}
 
-            library = _library_dw_call(x, dy, stride)
-            got, want = kernel(x, dy), plain(x, dy)
-            lib_dw = library()
-            again = kernel(x, dy)
-            torch.cuda.synchronize()
-            scale = float(want.abs().max())
-            err = float((got - want).abs().max())
-            lib_err = float((lib_dw - want).abs().max())
-            print(f'{name} {blk} x {(B, H, W, C)} -> dy F {Fo}: max abs err {err:.3e} '
-                  f'({err / scale:.2e} of max|dw|); conv2d_weight {lib_err / scale:.2e}',
-                  flush=True)
-            if not err <= DW_RTOL * scale:
-                raise AssertionError(f'{name} {blk}: kernel off by {err / scale:.3e} of max|dw|')
-            if not lib_err <= LIBRARY_RTOL * scale:
-                raise AssertionError(f'{name} {blk}: conv2d_weight is not the same function')
-            if not torch.equal(got, again):
-                raise AssertionError(f'{name} {blk}: two launches differ')
-            max_err = max(max_err, err)
-            del got, want, lib_dw, again
-            fns = {'ms': (lambda: kernel(x, dy), 10), 'plain_ms': (lambda: plain(x, dy), 3),
-                   'library_ms': (library, 10)}
-            row = dict.fromkeys(fns, 0.0)
-            for key in ('ms', 'plain_ms', 'library_ms', 'library_ms', 'plain_ms', 'ms'):
-                fn, reps = fns[key]
-                row[key] += _time_ms(fn, reps) / 2
-            for key in total:
-                total[key] += row[key]
-            row.update(block=blk, shape=[B, H, W, C, Fo], bound_ms=max(o, m),
-                       max_rel_err=err / scale)
-            if tf32x3 is not None:
-                row['tf32x3_bound_ms'] = tf32x3
-                tf32x3_ms += tf32x3
-            rows.append(row)
-            print(f'  kernel {row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, conv2d_weight '
-                  f'{row["library_ms"]:.4f} ms, bound {max(o, m):.4f} ms ({o:.4f} operations, '
-                  f'{m:.4f} bytes)' + ('' if tf32x3 is None else
-                                       f'; 3xTF32 direct count {tf32x3:.4f} ms'), flush=True)
-            del x, dy, library
-        results[name] = {'max_abs_err': max_err, **total, **_bound_keys(op_ms, byte_ms),
-                         'per_shape': rows}
-        if stride == 1:
-            results[name]['tf32x3_bound_ms'] = tf32x3_ms
-            print(f'{name}: kernel {total["ms"]:.4f} ms, conv2d_weight '
-                  f'{total["library_ms"]:.4f} ms, bound {results[name]["bound_ms"]:.4f} ms '
-                  f'(Winograd at the f32 peak), 3xTF32 direct count at the TF32 peak '
-                  f'{tf32x3_ms:.4f} ms', flush=True)
-    return results
+
+def _conv_totals(name, rows, library):
+    """A conv kernel's entry of the kernels line from its tower shapes'
+    rows (``_conv_counts``): times and counts summed, ``bound_ms`` each
+    shape's, summed; prints it."""
+    counts = ('f32_count_ms', 'tf32_count_ms', 'design_count_ms')
+    res = {'max_abs_err': max(r['max_abs_err'] for r in rows),
+           **{k: sum(r[k] for r in rows) for k in ('ms', 'plain_ms', 'library_ms')},
+           **_bound_keys([min(r['f32_count_ms'], r['tf32_count_ms']) for r in rows],
+                         [r['bytes_ms'] for r in rows]),
+           **{k: sum(r[k] for r in rows) for k in counts},
+           'per_shape': rows}
+    print(f'{name}: kernel {res["ms"]:.4f} ms, {library} {res["library_ms"]:.4f} ms (kernel / '
+          f'library {res["ms"] / res["library_ms"]:.3f}), bound {res["bound_ms"]:.4f} ms '
+          f'(Winograd {res["f32_count_ms"]:.4f} at the f32 peak, {res["tf32_count_ms"]:.4f} in '
+          f'three TF32 passes; this design\'s count {res["design_count_ms"]:.4f})', flush=True)
+    return res
 
 
 def _tower_conv_grads(model, batch, cfg, dev):
@@ -1432,6 +1481,21 @@ def phase_bf16_kernels(dev):
     return res
 
 
+def fwd_cases(dev):
+    """Phase 10's inputs, made on the card from one seed: (name, shape, x,
+    w) for the edge shapes (name ``'edge'``), then for ``FWD_SHAPES``."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def draw(B, H, W, C, Fo):
+        x = torch.randn(B, H, W, C, device=dev, generator=gen)
+        return x, torch.randn(3, 3, C, Fo, device=dev, generator=gen) / (3 * C ** 0.5)
+    for shape in FWD_EDGE_SHAPES:
+        yield ('edge', shape, *draw(*shape))
+    for name, shape in FWD_SHAPES.items():
+        yield (name, shape, *draw(*shape))
+
+
 def phase_conv_fwd(dev):
     """Kernel F against its plain version at the tower's stride-2 shapes of
     a batch-1 forward and a batch-4 batch and at edge shapes; kernel, plain
@@ -1441,15 +1505,9 @@ def phase_conv_fwd(dev):
     from epnet_tpu_torch.ops import conv2d
 
     _require_f32('F.conv2d')
-    gen = torch.Generator(device=dev).manual_seed(9)
     kernel, plain = conv2d.conv3x3_s2_fwd_kernel, conv2d.conv3x3_s2_fwd_plain
-
-    def inputs(B, H, W, C, Fo):
-        x = torch.randn(B, H, W, C, device=dev, generator=gen)
-        return x, torch.randn(3, 3, C, Fo, device=dev, generator=gen) / (3 * C ** 0.5)
-
-    for shape in FWD_EDGE_SHAPES:
-        x, w = inputs(*shape)
+    cases = fwd_cases(dev)
+    for _, shape, x, w in itertools.islice(cases, len(FWD_EDGE_SHAPES)):
         got, want = kernel(x, w), plain(x, w)
         err = float((got - want).abs().max()) / float(want.abs().max())
         if not err <= FWD_RTOL or not torch.equal(kernel(x, w), got):
@@ -1457,15 +1515,10 @@ def phase_conv_fwd(dev):
                                  f'reproducible at {shape}')
     print(f'conv3x3_s2_fwd at {len(FWD_EDGE_SHAPES)} edge shapes: within {FWD_RTOL} of '
           f'max|y|, bitwise reproducible', flush=True)
-    rows, max_err, op_ms, byte_ms = [], 0.0, [], []
-    total = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0}
-    for name, (B, H, W, C, Fo) in FWD_SHAPES.items():
-        x, w = inputs(B, H, W, C, Fo)
+    rows = []
+    for name, (B, H, W, C, Fo), x, w in cases:
         pixels = B * (H // 2) * (W // 2)
-        o, m = _bound(_dw_bound_ops(C, Fo, pixels, 2),
-                      4 * (B * H * W * C + 9 * C * Fo + pixels * Fo))
-        op_ms.append(o)
-        byte_ms.append(m)
+        counts = _conv_counts(C, Fo, pixels, 2, 4 * (B * H * W * C + 9 * C * Fo + pixels * Fo))
         library = _library_fwd_call(x, w)
         got, want, again = kernel(x, w), plain(x, w), kernel(x, w)
         lib_y = library().permute(0, 2, 3, 1)
@@ -1483,7 +1536,6 @@ def phase_conv_fwd(dev):
             raise AssertionError(f'conv3x3_s2_fwd {name}: F.conv2d is not the same function')
         if not torch.equal(got, again):
             raise AssertionError(f'conv3x3_s2_fwd {name}: two launches differ')
-        max_err = max(max_err, err)
         del got, want, again, lib_y
         fns = {'ms': (lambda: kernel(x, w), 10), 'plain_ms': (lambda: plain(x, w), 3),
                'library_ms': (library, 10)}
@@ -1491,16 +1543,12 @@ def phase_conv_fwd(dev):
         for key in ('ms', 'plain_ms', 'library_ms', 'library_ms', 'plain_ms', 'ms'):
             fn, reps = fns[key]
             row[key] += _time_ms(fn, reps) / 2
-        for key in total:
-            total[key] += row[key]
-        row.update(shape=name, dims=[B, H, W, C, Fo], blocks=tiles * splits, bound_ms=max(o, m),
-                   max_rel_err=err / scale)
+        row.update(shape=name, dims=[B, H, W, C, Fo], blocks=tiles * splits, **counts,
+                   max_abs_err=err, max_rel_err=err / scale)
         rows.append(row)
-        print(f'  kernel {row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, F.conv2d '
-              f'{row["library_ms"]:.4f} ms, bound {max(o, m):.4f} ms ({o:.4f} operations, '
-              f'{m:.4f} bytes)', flush=True)
+        print(_conv_row_line(row, 'F.conv2d'), flush=True)
         del x, w, library
-    return {'max_abs_err': max_err, **total, **_bound_keys(op_ms, byte_ms), 'per_shape': rows}
+    return _conv_totals('conv3x3_s2_fwd', rows, 'F.conv2d')
 
 
 class _TimedLoader:
@@ -2055,15 +2103,16 @@ def main():
         {'name': 'conv3x3_dw_s2', 'route': 'cuda',
          'source': 'epnet_tpu_torch/csrc/conv3x3_dw.cu',
          'replaces': 'epnet_tpu/ops/conv2d.py:294, tools/conv_dw_pallas_attic.py:323, '
-                     'tools/conv_dw_pallas_attic.py:166', **dw_res['conv3x3_dw_s2']},
+                     'tools/conv_dw_pallas_attic.py:166',
+         'design': DW_DESIGN + '; stride 2: pixel (2h + d, 2w + e), SAME pads (0, 1)',
+         **dw_res['conv3x3_dw_s2']},
         {'name': 'conv3x3_dw_s1', 'route': 'cuda',
          'source': 'epnet_tpu_torch/csrc/conv3x3_dw.cu',
          'replaces': 'tools/conv_dw_pallas_attic.py:258, tools/conv_dw_pallas_attic.py:67',
-         'design': 'wgmma m64nNk8 3xTF32 (hi/lo planes, 64-byte swizzle), cp.async ring, '
-                   'split-K in fixed order', **dw_res['conv3x3_dw_s1']},
+         'design': DW_DESIGN, **dw_res['conv3x3_dw_s1']},
         {'name': 'conv3x3_s2_fwd', 'route': 'cuda',
          'source': 'epnet_tpu_torch/csrc/conv3x3_s2_fwd.cu',
-         'replaces': 'tools/conv_fwd_attic.py:43', **fwd_res},
+         'replaces': 'tools/conv_fwd_attic.py:43', 'design': FWD_DESIGN, **fwd_res},
         {'name': 'sa_fused_win_fwd', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/sa_fused.cu',
          'replaces': 'epnet_tpu/ops/sa_fused.py:334', **win_res['G']},
         {'name': 'sa_fused_win_bwd', 'route': 'cuda',

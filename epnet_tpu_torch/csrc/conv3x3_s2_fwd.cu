@@ -17,17 +17,33 @@
 // (d, e), then channel chunk. Each of the tower's four stride-2 convs is
 // 2 * M * 9C * F = 9.06 GFLOP an image against 0.04-0.16 GB of x and y.
 //
-// F (f32): arithmetic, 0.135 ms an image at the 67 TFLOP/s f32 peak by the
-// direct count, three times what the bytes need. The TPU kernel built the
-// stacked (tm * W/2, 9C) operand in VMEM; here nothing is stacked. A block
-// owns a tile of 128 output pixels by TN output channels (TN = 128, or 64
-// when F <= 64) and accumulates it in registers (16 x 16 threads, 8 x 8 or
-// 8 x 4 values each, f32 FFMA). Per step (tap, 16 channels) it stages the A
-// tile (each pixel's 16 channels of tap (d, e), read as float4s at (b, 2h +
-// d, 2w + e); the SAME pad is a bounds test) transposed into shared memory,
-// and the B tile (16 rows of K, float4 along F), double buffered with the
-// next step's global loads in flight while it computes. No TF32: the recipe
-// is f32.
+// F (f32): 9.06 GFLOP an image by the direct count, 0.135 ms at the 67
+// TFLOP/s f32 pipes (cuDNN's Winograd count, 0.076 ms, is lower). So F runs
+// on the TF32 tensor cores in three passes, as kernel E does
+// (csrc/conv3x3_dw.cu): each operand split as hi = tf32(a), lo = tf32(a -
+// hi), both rounded to nearest (split_tf32, csrc/wgmma_common.cuh), and
+// lo*hi + hi*lo + hi*hi accumulated in f32, about as accurate as an f32
+// product (the recipe is f32 with TF32 off; one TF32 pass is another
+// function). Its own bound is three direct counts at 495 TFLOP/s, 0.055 ms
+// an image. The TPU kernel built the stacked (tm * W/2, 9C) operand in
+// VMEM; here nothing is stacked. A block owns a tile of 128 output pixels
+// by TN output channels (TN = 128, or 64 when F <= 64), two warpgroups of
+// 64 pixels, and walks K in steps of one tap's 16 channels through a 4-slot
+// cp.async ring filled three steps ahead; the products are wgmma m64nNk8.
+// TF32 wgmma reads both operands K-major. A, a pixel's 16 channels of tap
+// (d, e) at (b, 2h + d, 2w + e), is K-major as NHWC holds it: the ring
+// copies it raw (a pixel's row padded to 20 floats, so that fragment reads
+// fall in 32 distinct banks) and each thread splits its own fragment into
+// registers; kernel E found that shared-memory traffic, not the tensor
+// cores, bounds this kind of kernel, so A gets no planes there. B, K[tap,
+// c, f], is N-major: a prologue kernel splits and transposes K once a call
+// into hi and lo planes (F, 9C) in global memory (2 x 9.4 MB at blk3), and
+// the ring copies the planes into the K-major 64-byte swizzled layout that
+// wgmma reads. The SAME pad (0, 1), the channel tail past C and the column
+// tail past F are the copy's zero-fill. Each block splits the next step's
+// A into a second set of registers while its wgmmas run (4-8% faster at TN
+// = 128 than splitting after them, though that instance then spills ~32
+// bytes at its 128 registers), and two blocks an SM interleave.
 //
 // F-bf16 (x, K and y bf16; the Pallas kernel takes x.dtype in and out and
 // runs one bf16 MXU dot with f32 accumulation, conv_fwd_attic.py:73-76,
@@ -63,30 +79,80 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTM = 128;  // output pixels per block
-constexpr int kKc = 16;   // F: channels of one tap staged per step
+constexpr int kKc = 16;   // F: channels of one tap a step (two k8 slices)
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// F: out is y (one split) or the split's slice of part, both f32.
+// ---- F: 3xTF32 wgmma fed by a cp.async ring ----
+
+constexpr int kFRing = 4;    // F: steps in the cp.async ring (3 at least: see the loop)
+constexpr int kFBlocks = 2;  // F: resident blocks an SM (shared memory)
+// B (channel k, output n) sits in a ring slot as hi and lo TF32 planes,
+// K-major, in 64-byte swizzled atoms: 8 rows of 64 bytes (a row is the
+// step's 16 channels of one output), the 16-byte chunk j of row r stored at
+// chunk j ^ r / 2. A (pixel m, channel k) sits raw behind them.
+constexpr int kFGroup = 512;
+
 template <int TN>
-__global__ void __launch_bounds__(kThreads, 2)
-conv3x3_s2_fwd_kernel(const float* __restrict__ x, const float* __restrict__ k,
+struct FTile {
+  static constexpr int kAStride = kKc + 4;               // floats a pixel row of raw A
+  static constexpr int kB = TN / 8 * kFGroup;            // bytes of one B plane
+  static constexpr int kStage = 2 * kB + kTM * kAStride * 4;  // B hi, B lo, raw A
+  static constexpr int kSmem = kFRing * kStage + 1024;   // + alignment
+  static_assert(kStage % kFGroup == 0, "every slot's planes start on an atom");
+};
+
+// hi and lo TF32 planes of K seen as (kdim = 9C, f), transposed: wt[0][n][k]
+// = hi, wt[1][n][k] = lo of K[k][n]. Blocks of 32 x 8 threads, 32 x 32 tiles.
+__global__ void conv3x3_s2_fwd_split_w(const float* __restrict__ k, float* __restrict__ wt,
+                                       int kdim, int f) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32;
+  const int n0 = blockIdx.y * 32;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kk = k0 + threadIdx.y + 8 * i;
+    const int n = n0 + threadIdx.x;
+    if (kk < kdim && n < f)
+      tile[threadIdx.y + 8 * i][threadIdx.x] = k[static_cast<size_t>(kk) * f + n];
+  }
+  __syncthreads();
+  const size_t plane = static_cast<size_t>(f) * kdim;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = n0 + threadIdx.y + 8 * i;
+    const int kk = k0 + threadIdx.x;
+    if (n < f && kk < kdim) {
+      float hi, lo;
+      split_tf32(tile[threadIdx.x][threadIdx.y + 8 * i], hi, lo);
+      wt[static_cast<size_t>(n) * kdim + kk] = hi;
+      wt[plane + static_cast<size_t>(n) * kdim + kk] = lo;
+    }
+  }
+}
+
+// F: out is y (one split) or the split's slice of part, both f32; wt the
+// planes of conv3x3_s2_fwd_split_w.
+template <int TN>
+__global__ void __launch_bounds__(kThreads, kFBlocks)
+conv3x3_s2_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wt,
                       float* __restrict__ out, int h_in, int w_in, int c, int f, int m_total,
                       int m_tiles, int tiles, int splits, int c_chunks) {
-  constexpr int kJ = TN / 64;                // float4 column groups of a thread: 2 or 1
-  constexpr int kBCols = TN / 4;             // float4 groups in a B row
-  constexpr int kBRows = kThreads / kBCols;  // B rows loaded in one pass: 8 or 16
-  constexpr int kBLoads = kKc / kBRows;      // 2 or 1
-  __shared__ __align__(16) float as[2][kKc][kTM];
-  __shared__ __align__(16) float bs[2][kKc][TN];
+  using G = FTile<TN>;
+  constexpr int kBPasses = TN * (kKc / 4) / kThreads;  // 16-byte copies a plane a thread: 2 or 1
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
 
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int tile = blockIdx.x % tiles;
   const int split = blockIdx.x / tiles;
   const int m0 = (tile % m_tiles) * kTM;
@@ -96,116 +162,140 @@ conv3x3_s2_fwd_kernel(const float* __restrict__ x, const float* __restrict__ k,
   const int se = static_cast<int>(static_cast<long long>(steps_total) * (split + 1) / splits);
   const int ho = h_in / 2;
   const int wo = w_in / 2;
+  const size_t kdim = 9 * static_cast<size_t>(c);
+  const size_t plane = static_cast<size_t>(f) * kdim;
 
-  // A loads: this thread's pixel a_m (fixed over K), channel groups a_g and
-  // a_g + 2 of the step's four float4 groups
-  const int a_row = tid & (kTM - 1);
-  const int a_m = m0 + a_row;
-  const bool a_ok = a_m < m_total;
-  const int a_g = tid >> 7;
-  int pb = 0, ph = 0, pw = 0;
-  if (a_ok) {
-    pw = a_m % wo;
-    const int t = a_m / wo;
-    ph = t % ho;
-    pb = t / ho;
+  // A copies: channels 4j .. 4j + 3 (j = tid & 3) of the step's 16, at pixel
+  // rows (tid >> 2) and (tid >> 2) + 64; bit 0 of a_flags[q]: the pixel
+  // exists, bit 1: tap d = 2 is inside the image, bit 2: tap e = 2 is
+  const int cj = tid & 3;
+  const float* a_base[2];
+  int a_flags[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int m = m0 + (tid >> 2) + 64 * q;
+    int pb = 0, ph = 0, pw = 0;
+    if (m < m_total) {
+      pw = m % wo;
+      const int t = m / wo;
+      ph = t % ho;
+      pb = t / ho;
+    }
+    a_base[q] = x + ((static_cast<size_t>(pb) * h_in + 2 * ph) * w_in + 2 * pw) * c + 4 * cj;
+    a_flags[q] = (m < m_total) | (2 * ph + 2 < h_in) << 1 | (2 * pw + 2 < w_in) << 2;
   }
-  const float* a_base = x + ((static_cast<size_t>(pb) * h_in + 2 * ph) * w_in + 2 * pw) * c;
-  const bool row2_ok = 2 * ph + 2 < h_in;  // tap d = 2 of the last output row reads the pad
-  const bool col2_ok = 2 * pw + 2 < w_in;
-  // B loads: columns b_n .. b_n + 3 of K rows (tap, c0 + b_kk + kBRows * q)
-  const int b_n = n0 + 4 * (tid % kBCols);
-  const bool b_ok = b_n < f;
-  const int b_kk = tid / kBCols;
+  const int a_dst = 2 * G::kB + ((tid >> 2) * G::kAStride + 4 * cj) * 4;  // bytes in a slot
+  // B copies: chunk j of plane rows n = (tid >> 2) + 64 q, at
+  // (n / 8) * 512 + (n % 8) * 64 + (j ^ (n % 8) / 2) * 16
+  const int b_n = tid >> 2;
+  const int b_dst = (b_n / 8) * kFGroup + (b_n % 8) * 64 + ((cj ^ ((b_n % 8) >> 1)) * 16);
+  const float* b_base = wt + static_cast<size_t>(n0 + b_n) * kdim + 4 * cj;
 
-  float4 ra[2];
-  float4 rb[kBLoads];
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  auto load = [&](int s) {
+  auto load = [&](int s, int slot) {
     const int tap = s / c_chunks;
     const int c0 = (s - tap * c_chunks) * kKc;
     const int d = tap / 3;
     const int e = tap - 3 * d;
-    const bool in = a_ok && (d < 2 || row2_ok) && (e < 2 || col2_ok);
-    const float* src = a_base + (static_cast<size_t>(d) * w_in + e) * c;
+    const int need = 1 | (d == 2) << 1 | (e == 2) << 2;
+    const bool ch_in = c0 + 4 * cj < c;
+    const size_t a_off = (static_cast<size_t>(d) * w_in + e) * c + c0;
+    unsigned char* st = smem + slot * G::kStage;
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
-      const int ch = c0 + 4 * (a_g + 2 * q);
-      ra[q] = (in && ch < c) ? __ldg(reinterpret_cast<const float4*>(src + ch)) : zero;
+      const bool in = ch_in && (a_flags[q] & need) == need;
+      cp_async<16>(smem_addr(st + a_dst + 64 * G::kAStride * 4 * q),
+                   in ? a_base[q] + a_off : x, in);
     }
+    const size_t b_off = static_cast<size_t>(tap) * c + c0;
 #pragma unroll
-    for (int q = 0; q < kBLoads; ++q) {
-      const int ch = c0 + b_kk + kBRows * q;
-      rb[q] = (b_ok && ch < c) ? __ldg(reinterpret_cast<const float4*>(
-                                     k + (static_cast<size_t>(tap) * c + ch) * f + b_n))
-                               : zero;
+    for (int q = 0; q < kBPasses; ++q) {
+      const bool in = ch_in && n0 + b_n + 64 * q < f;
+      const float* src = in ? b_base + static_cast<size_t>(64 * q) * kdim + b_off : wt;
+      const int dst = b_dst + 8 * kFGroup * q;  // row n + 64: 8 atoms on
+      cp_async<16>(smem_addr(st + dst), src, in);
+      cp_async<16>(smem_addr(st + G::kB + dst), in ? src + plane : wt, in);
     }
   };
-  auto store = [&](int buf) {
+
+  // A's fragments from the raw slot, split in registers: this warp's pixels
+  // row and row + 8 at channels 8 kk + t and + 4 (bank = 20 m + k mod 32: 32
+  // distinct)
+  const int wg = warp >> 2;  // warpgroup: pixels 64 wg .. 64 wg + 63 of the tile
+  const int row = 64 * wg + 16 * (warp & 3) + (lane >> 2);
+  const int t = lane & 3;
+  auto fragments = [&](const unsigned char* st, uint32_t (&ah)[kKc / 8][4],
+                       uint32_t (&al)[kKc / 8][4]) {
+    const float* ra = reinterpret_cast<const float*>(st + 2 * G::kB);
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int kk = 4 * (a_g + 2 * q);
-      as[buf][kk][a_row] = ra[q].x;
-      as[buf][kk + 1][a_row] = ra[q].y;
-      as[buf][kk + 2][a_row] = ra[q].z;
-      as[buf][kk + 3][a_row] = ra[q].w;
+    for (int kk = 0; kk < kKc / 8; ++kk) {
+      const float* p = ra + row * G::kAStride + 8 * kk + t;
+      split_tf32(p[0], ah[kk][0], al[kk][0]);
+      split_tf32(p[8 * G::kAStride], ah[kk][1], al[kk][1]);
+      split_tf32(p[4], ah[kk][2], al[kk][2]);
+      split_tf32(p[8 * G::kAStride + 4], ah[kk][3], al[kk][3]);
     }
-#pragma unroll
-    for (int q = 0; q < kBLoads; ++q)
-      *reinterpret_cast<float4*>(&bs[buf][b_kk + kBRows * q][4 * (tid % kBCols)]) = rb[q];
   };
 
-  // thread (ty, tx) owns pixels 4ty + i and 64 + 4ty + i, channels 4tx + j
-  // (and 64 + 4tx + j when TN = 128)
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  float acc[8][4 * kJ];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4 * kJ; ++j) acc[i][j] = 0.0f;
+  float acc[TN / 2];  // set by the first wgmma (scale-d 0)
+  using Frag = uint32_t[kKc / 8][4];
+  Frag ah0, al0, ah1, al1;  // A fragments of two steps: one in the wgmmas, one being split
 
-  if (sb < se) {
-    load(sb);
-    store(0);
-    __syncthreads();
+  // Step sb + i sits in slot i % kFRing, copied kFRing - 1 steps ahead into
+  // the slot of step i - 1. Step i's wgmmas run while the threads split step
+  // i + 1's A fragments into the other set of registers; the slot of step i
+  // - 1 is refilled once every warpgroup has waited for its wgmmas (the
+  // barrier in step i).
+  const int steps = se - sb;
+#pragma unroll
+  for (int i = 0; i < kFRing - 1; ++i) {
+    if (i < steps) load(sb + i, i);
+    cp_async_commit();
   }
-  for (int s = sb; s < se; ++s) {
-    const int buf = (s - sb) & 1;
-    if (s + 1 < se) load(s + 1);  // in flight while this step computes
+  cp_async_wait<kFRing - 2>();
+  fence_async_shared();
+  __syncthreads();
+  fragments(smem, ah0, al0);
+  auto step = [&](int i, const Frag& ah, const Frag& al, Frag& nh, Frag& nl) {
+    const unsigned char* st = smem + (i % kFRing) * G::kStage;
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kKc; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[buf][kk][4 * ty]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[buf][kk][64 + 4 * ty]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-      for (int jg = 0; jg < kJ; ++jg) {
-        const float4 b = *reinterpret_cast<const float4*>(&bs[buf][kk][64 * jg + 4 * tx]);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          acc[i][4 * jg] = fmaf(a[i], b.x, acc[i][4 * jg]);
-          acc[i][4 * jg + 1] = fmaf(a[i], b.y, acc[i][4 * jg + 1]);
-          acc[i][4 * jg + 2] = fmaf(a[i], b.z, acc[i][4 * jg + 2]);
-          acc[i][4 * jg + 3] = fmaf(a[i], b.w, acc[i][4 * jg + 3]);
-        }
-      }
+    for (int kk = 0; kk < kKc / 8; ++kk) {
+      const uint64_t bh = smem_desc<kSwizzle64>(st + 32 * kk, 16, kFGroup);
+      const uint64_t bl = smem_desc<kSwizzle64>(st + G::kB + 32 * kk, 16, kFGroup);
+      wgmma_tf32<TN>(acc, al[kk], bh, i > 0 || kk > 0);
+      wgmma_tf32<TN>(acc, ah[kk], bl, 1);
+      wgmma_tf32<TN>(acc, ah[kk], bh, 1);
     }
-    if (s + 1 < se) store(buf ^ 1);  // the other buffer was last read one step ago
-    __syncthreads();
+    wgmma_commit();
+    cp_async_wait<kFRing - 3>();  // step i + 1 has landed (this thread's copies)
+    fence_async_shared();
+    __syncthreads();  // every thread's; every warpgroup is done with step i - 1
+    const int next = i + kFRing - 1;
+    if (next < steps) load(sb + next, next % kFRing);
+    cp_async_commit();
+    if (i + 1 < steps) fragments(smem + ((i + 1) % kFRing) * G::kStage, nh, nl);
+    wgmma_wait<0>();
+  };
+  int i = 0;
+  for (; i + 1 < steps; i += 2) {
+    step(i, ah0, al0, ah1, al1);
+    step(i + 1, ah1, al1, ah0, al0);
   }
+  if (i < steps) step(i, ah0, al0, ah1, al1);
+  cp_async_wait<0>();
 
+  // accumulator 4j + r: pixel row (+ 8 for r >= 2), channels 8j + 2t and the next
   float* dst = out + static_cast<size_t>(split) * m_total * f;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + row + 8 * h;
     if (m >= m_total) continue;
 #pragma unroll
-    for (int jg = 0; jg < kJ; ++jg) {
-      const int n = n0 + 64 * jg + 4 * tx;
+    for (int j = 0; j < TN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * t;
       if (n < f)
-        *reinterpret_cast<float4*>(dst + static_cast<size_t>(m) * f + n) =
-            make_float4(acc[i][4 * jg], acc[i][4 * jg + 1], acc[i][4 * jg + 2],
-                        acc[i][4 * jg + 3]);
+        *reinterpret_cast<float2*>(dst + static_cast<size_t>(m) * f + n) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
   }
 }
@@ -223,49 +313,9 @@ constexpr int kStages = 4;      // F-bf16: steps in the shared-memory ring
 // of one channel.
 constexpr int kAtom = 1024;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Copies BYTES (16 or 8) from src to shared dst, or writes BYTES zeros when
-// !in (src-size 0: nothing is read; src is still a valid address).
-template <int BYTES>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool in) {
-  const int n = in ? BYTES : 0;
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// A wgmma shared-memory descriptor of 128-byte swizzled atoms at p (1024-byte
-// aligned atoms): lbo and sbo in bytes.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 | static_cast<uint64_t>(sbo >> 4) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // d (64 x N, f32) = a (64 x 16, K-major) * b (16 x N, N-major) + (acc ? d : 0),
 // bf16 operands from the shared-memory descriptors a and b; asynchronous
-__device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+__device__ __forceinline__ void wgmma_bf16_128(float (&d)[64], uint64_t a, uint64_t b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -284,7 +334,7 @@ __device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t a, uint64_t b
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(acc));
 }
-__device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+__device__ __forceinline__ void wgmma_bf16_64(float (&d)[32], uint64_t a, uint64_t b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -298,14 +348,16 @@ __device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(acc));
 }
 template <int N>
-__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);
 template <>
-__device__ __forceinline__ void wgmma<128>(float (&d)[64], uint64_t a, uint64_t b, int acc) {
-  wgmma_128(d, a, b, acc);
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t a, uint64_t b,
+                                                int acc) {
+  wgmma_bf16_128(d, a, b, acc);
 }
 template <>
-__device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  wgmma_64(d, a, b, acc);
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t a, uint64_t b,
+                                               int acc) {
+  wgmma_bf16_64(d, a, b, acc);
 }
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -427,7 +479,7 @@ conv3x3_s2_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   }
   for (int i = 0; i < steps; ++i) {
     cp_async_wait<kStages - 3>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // copies -> wgmma
+    fence_async_shared();  // copies -> wgmma
     __syncthreads();
     if (i + kStages - 2 < steps) load(sb + i + kStages - 2, (i + kStages - 2) % kStages);
     cp_async_commit();
@@ -436,8 +488,9 @@ conv3x3_s2_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma<TN>(acc, smem_desc(a_st + 32 * kk, 16, kAtom),
-                smem_desc(b_st + 2 * kAtom * kk, kBK / 8 * kAtom, kAtom), i > 0 || kk > 0);
+      wgmma_bf16<TN>(acc, smem_desc<kSwizzle128>(a_st + 32 * kk, 16, kAtom),
+                     smem_desc<kSwizzle128>(b_st + 2 * kAtom * kk, kBK / 8 * kAtom, kAtom),
+                     i > 0 || kk > 0);
     wgmma_commit();
     wgmma_wait<1>();
   }
@@ -505,10 +558,15 @@ cudaError_t reduce(const void* part, int splits, long long size, void* y, cudaSt
 }
 
 template <int TN>
-cudaError_t launch_f32(const float* x, const float* k, float* out, int h, int w, int c, int f,
+cudaError_t launch_f32(const float* x, const float* wt, float* out, int h, int w, int c, int f,
                        const Grid& g, int splits, cudaStream_t st) {
-  conv3x3_s2_fwd_kernel<TN><<<static_cast<unsigned>(g.tiles) * splits, kThreads, 0, st>>>(
-      x, k, out, h, w, c, f, g.m, g.m_tiles, g.tiles, splits, g.c_chunks);
+  const auto kernel = conv3x3_s2_fwd_kernel<TN>;
+  static std::atomic<uint64_t> smem_set{0};
+  constexpr int smem = FTile<TN>::kSmem;
+  const cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem, smem_set);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(g.tiles) * splits, kThreads, smem, st>>>(
+      x, wt, out, h, w, c, f, g.m, g.m_tiles, g.tiles, splits, g.c_chunks);
   return cudaGetLastError();
 }
 
@@ -560,29 +618,37 @@ int epnet_conv3x3_s2_fwd_bf16_blocks() { return kBBlocks; }
 int epnet_conv3x3_s2_fwd_steps(int c) { return 9 * ((c + kKc - 1) / kKc); }
 int epnet_conv3x3_s2_fwd_bf16_steps(int c) { return 9 * ((c + kBK - 1) / kBK); }
 
-// x (b, h, w, c), k (3, 3, c, f), y (b, h / 2, w / 2, f); with splits > 1,
-// part (splits, b * h/2 * w/2, f) scratch (unused, may be null, when splits
-// is 1). All float32, contiguous, 16-byte aligned. Needs b >= 1, even h and
-// w, c and f multiples of 4, 1 <= splits <= the steps of K. Launches on
-// `stream`, allocates nothing, returns cudaGetLastError().
-int epnet_conv3x3_s2_fwd_launch(const void* x, const void* k, void* part, void* y, int b, int h,
-                                int w, int c, int f, int splits, void* stream) {
+// x (b, h, w, c), k (3, 3, c, f), y (b, h / 2, w / 2, f); wt (2, f, 9c)
+// scratch for K's split planes; with splits > 1, part (splits, b * h/2 *
+// w/2, f) scratch (unused, may be null, when splits is 1). All float32,
+// contiguous, 16-byte aligned. Needs b >= 1, even h and w, c and f
+// multiples of 4, 1 <= splits <= the steps of K. Launches on `stream`,
+// allocates nothing, returns cudaGetLastError().
+int epnet_conv3x3_s2_fwd_launch(const void* x, const void* k, void* wt, void* part, void* y,
+                                int b, int h, int w, int c, int f, int splits, void* stream) {
   Grid g;
   cudaError_t err = grid_of(b, h, w, c, f, splits, part, kKc, &g);
   if (err != cudaSuccess) return err;
+  if (wt == nullptr) return cudaErrorInvalidValue;
   const float* xf = static_cast<const float*>(x);
-  const float* kf = static_cast<const float*>(k);
+  float* wtf = static_cast<float*>(wt);
   float* out = static_cast<float*>(splits == 1 ? y : part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = tile_n(f) == 64 ? launch_f32<64>(xf, kf, out, h, w, c, f, g, splits, st)
-                        : launch_f32<128>(xf, kf, out, h, w, c, f, g, splits, st);
+  const int kdim = 9 * c;
+  conv3x3_s2_fwd_split_w<<<dim3((kdim + 31) / 32, (f + 31) / 32), dim3(32, 8), 0, st>>>(
+      static_cast<const float*>(k), wtf, kdim, f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = tile_n(f) == 64 ? launch_f32<64>(xf, wtf, out, h, w, c, f, g, splits, st)
+                        : launch_f32<128>(xf, wtf, out, h, w, c, f, g, splits, st);
   if (err != cudaSuccess || splits == 1) return err;
   return reduce<float>(part, splits, static_cast<long long>(g.m) * f, y, st);
 }
 
 // F-bf16: as above with x, k and y bf16 (8-byte aligned; copies are 16
 // bytes when c and f are multiples of 8 and x and k 16-byte aligned, else
-// 8); part stays f32, its steps are epnet_conv3x3_s2_fwd_bf16_steps.
+// 8) and no wt (K is copied as it lies); part stays f32, its steps are
+// epnet_conv3x3_s2_fwd_bf16_steps.
 int epnet_conv3x3_s2_fwd_bf16_launch(const void* x, const void* k, void* part, void* y, int b,
                                      int h, int w, int c, int f, int splits, void* stream) {
   Grid g;

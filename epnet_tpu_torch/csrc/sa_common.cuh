@@ -1,8 +1,8 @@
 // Device helpers of the fused set-abstraction kernels on distinct rows: the
 // forward B (csrc/sa_fused.cu) and the backward pair C and H
 // (csrc/sa_fused_bwd.cu) include this one copy. ops/cuda_build.py keys each
-// library on the headers its source includes, so both rebuild when this
-// changes.
+// library on the headers its source includes, nested ones too, so both
+// rebuild when this or csrc/wgmma_common.cuh changes.
 //
 // - sa_dedupe_kernel: each centroid's distinct table rows, a warp bitonic
 //   sort a centroid;
@@ -13,8 +13,9 @@
 //   K-tiles of a weight streamed from L2 through a 3-slot cp.async ring, on
 //   the TF32 tensor cores (mma.sync m16n8k8) in three passes: each operand
 //   split as hi = tf32(a), lo = tf32(a - hi), both rounded to nearest (in
-//   integer operations: split_tf32), and lo*hi + hi*lo + hi*hi accumulated
-//   in f32, about as accurate as an f32 product.
+//   integer operations: split_tf32 of csrc/wgmma_common.cuh, which the conv
+//   kernels share), and lo*hi + hi*lo + hi*hi accumulated in f32, about as
+//   accurate as an f32 product.
 
 #pragma once
 
@@ -22,6 +23,8 @@
 
 #include <climits>
 #include <cstdint>
+
+#include "wgmma_common.cuh"
 
 namespace {
 
@@ -37,33 +40,6 @@ constexpr int kSlot = 32 * (64 + 8);  // floats a ring slot: a kW2Rows x kW2Ld K
 constexpr int kStages = 3;
 constexpr int kMaxSmem = 232448;
 static_assert(kSlot >= kW2Rows * kW2Ld, "ring slot");
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// f32 bits rounded to TF32, to nearest with ties away from zero: half of
-// the 13 dropped bits' unit added to the magnitude, then cleared. The bits
-// of cvt.rna.tf32.f32 on finite values, in two integer operations at the
-// full instruction rate (the conversion runs at a fraction of it).
-__device__ __forceinline__ uint32_t tf32_rna_bits(uint32_t a) {
-  return (a + 0x1000u) & 0xFFFFE000u;
-}
-// a = hi + lo + O(2^-22 a): hi and lo each rounded to TF32, nearest, ties away
-__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna_bits(__float_as_uint(a));
-  lo = tf32_rna_bits(__float_as_uint(a - __uint_as_float(hi)));
-}
 
 // A 16 x 8 TF32 fragment, split: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
 // for lane 4g + t.
@@ -264,7 +240,8 @@ __device__ __forceinline__ void load_w128(const float* __restrict__ w, int i, fl
   for (int h = 0; h < kKRows / 8; ++h) {
     const int r = (threadIdx.x >> 5) + 8 * h;
     const int c4 = 4 * (threadIdx.x & 31);
-    cp_async16(slot + r * kW2Ld + c4, w + static_cast<size_t>(kKRows * i + r) * ld + c4);
+    cp_async<16>(smem_addr(slot + r * kW2Ld + c4),
+                 w + static_cast<size_t>(kKRows * i + r) * ld + c4, true);
   }
 }
 

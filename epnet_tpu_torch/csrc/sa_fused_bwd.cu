@@ -327,8 +327,8 @@ sa_fused_bwd_kernel(const float* __restrict__ y, const float* __restrict__ o,
               for (int h = 0; h < 2; ++h) {
                 const int r = (tid >> 4) + 16 * h;
                 const int c4 = 4 * (tid & 15);
-                cp_async16(slot + r * kW3Ld + c4,
-                           w3 + static_cast<size_t>(kW3Rows * i + r) * kC3 + c0 + c4);
+                cp_async<16>(smem_addr(slot + r * kW3Ld + c4),
+                             w3 + static_cast<size_t>(kW3Rows * i + r) * kC3 + c0 + c4, true);
               }
             },
             [&](int i, const float* slot) {

@@ -18,7 +18,10 @@ sizes) and its gradients:
 
 Each of ``conv3x3_s2_fwd``, ``dw3x3_s2`` and ``dw3x3_s1`` runs its kernel
 for a CUDA tensor and its plain version for a CPU tensor, with no fallback
-between the two.
+between the two. In f32 all three kernels multiply on the TF32 tensor cores
+in three passes (each operand split into TF32 hi and lo pieces, rounded to
+nearest; lo*hi + hi*lo + hi*hi summed in f32), which keeps f32's accuracy;
+D and E are one kernel at two strides.
 
 In bf16 (the ``MIXED_PRECISION`` tower, ``epnet_tpu/models/layers.py:
 192-199``) the forward takes bf16 x and w and returns bf16: at stride 2
@@ -193,8 +196,10 @@ def _lib() -> ctypes.CDLL:
 def _fwd_lib() -> ctypes.CDLL:
     lib = cuda_build.load_library('conv3x3_s2_fwd')
     if not getattr(lib, '_epnet_typed', False):
-        for fn in (lib.epnet_conv3x3_s2_fwd_launch, lib.epnet_conv3x3_s2_fwd_bf16_launch):
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        # F takes one more scratch pointer than F-bf16: wt, K's split planes
+        for fn, pointers in ((lib.epnet_conv3x3_s2_fwd_launch, 5),
+                             (lib.epnet_conv3x3_s2_fwd_bf16_launch, 4)):
+            fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 6 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.epnet_conv3x3_s2_fwd_tiles.argtypes = [ctypes.c_int] * 4
         lib.epnet_conv3x3_s2_fwd_tiles.restype = ctypes.c_longlong
@@ -208,10 +213,9 @@ def _fwd_lib() -> ctypes.CDLL:
 
 
 _BLOCKS_PER_SM = 2    # resident blocks of F, D and E (launch bounds); F-bf16 reports its own
-_WAVES = 4            # D: target waves of blocks, so the last one is a small share
-_E_WAVES = 3          # E: as _WAVES, for its tensor-core tiles
+_DW_WAVES = 3         # D, E: target waves of blocks, so the last one is a small share
 _MIN_SPLIT_PIXELS = 256  # dw: a split shorter than this costs more to reduce than it saves
-_FWD_WAVES = 2        # F: waves to fill before K is split (each split adds an M x F slice)
+_FWD_WAVES = 1        # F: waves to fill before K is split (each split adds an M x F slice)
 _MIN_SPLIT_STEPS = 16  # F: steps of K (tap, 16 channels) a split keeps at least
 _BF16_WAVES = 1       # F-bf16: as _FWD_WAVES (its tensor-core tiles end sooner than F's)
 _BF16_MIN_SPLIT_STEPS = 4  # F-bf16: as _MIN_SPLIT_STEPS, steps of (tap, 64 channels)
@@ -251,8 +255,7 @@ def _dw_kernel(what: str, x: torch.Tensor, dy: torch.Tensor, stride: int) -> tor
     dev = x.device
     tiles = lib.epnet_conv3x3_dw_tiles(C, F_)
     pixels = B * (H // stride) * (W // stride)
-    waves = _WAVES if stride == 2 else _E_WAVES
-    splits = max(1, min(waves * _resident_blocks(dev) // tiles, pixels // _MIN_SPLIT_PIXELS))
+    splits = max(1, min(_DW_WAVES * _resident_blocks(dev) // tiles, pixels // _MIN_SPLIT_PIXELS))
     part = torch.empty((splits, 9 * C * F_), dtype=torch.float32, device=dev)
     dw = torch.empty((3, 3, C, F_), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -264,7 +267,8 @@ def _dw_kernel(what: str, x: torch.Tensor, dy: torch.Tensor, stride: int) -> tor
 
 
 def dw3x3_s2_kernel(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """Kernel D: the stride-2 weight gradient on the card. x (B, H, W, C)
+    """Kernel D: the stride-2 weight gradient on the card, kernel E's
+    3xTF32 tensor-core kernel at stride 2 (f32 accuracy). x (B, H, W, C)
     and dy (B, H/2, W/2, F) float32, contiguous, on one CUDA device; even
     H and W; C and F multiples of 4. Raises on anything else."""
     dw = _dw_kernel('dw3x3_s2_kernel', x, dy, 2)
@@ -316,9 +320,10 @@ def _fwd_grid(B, H, W, C, features, index, bf16) -> tuple:
 
 
 def conv3x3_s2_fwd_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Kernel F: the 3x3 SAME stride-2 conv forward on the card. x (B, H,
-    W, C) and w (3, 3, C, F) float32, contiguous, on one CUDA device; even
-    H and W; C and F multiples of 4. Raises on anything else."""
+    """Kernel F: the 3x3 SAME stride-2 conv forward on the card (3xTF32 on
+    the tensor cores, f32 accuracy). x (B, H, W, C) and w (3, 3, C, F)
+    float32, contiguous, on one CUDA device; even H and W; C and F
+    multiples of 4. Raises on anything else."""
     y = _launch_fwd('conv3x3_s2_fwd_kernel', 'epnet_conv3x3_s2_fwd_launch', torch.float32, x, w)
     conv3x3_s2_fwd_kernel.launches += 1
     return y
@@ -341,7 +346,8 @@ conv3x3_s2_fwd_bf16_kernel.launches = 0
 
 def _launch_fwd(what: str, entry: str, dtype, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Kernel F's C entry point ``entry`` on x and w of ``dtype``:
-    allocates the result (and the f32 split slices), launches, returns it."""
+    allocates the result (and the f32 split slices; for f32 also the (2, F,
+    9C) planes of w's TF32 split), launches, returns it."""
     _check_cuda(what, dtype, x=x, w=w)
     _check_fwd(what, x, w)
     B, H, W, C = x.shape
@@ -356,11 +362,14 @@ def _launch_fwd(what: str, entry: str, dtype, x: torch.Tensor, w: torch.Tensor) 
     y = torch.empty((B, H // 2, W // 2, F_), dtype=dtype, device=dev)
     part = (torch.empty((splits, y.numel()), dtype=torch.float32, device=dev) if splits > 1
             else None)
+    wt = (None if dtype == torch.bfloat16
+          else torch.empty((2, F_, 9 * C), dtype=torch.float32, device=dev))
     # the launch goes to the current device: switch only when x lies elsewhere
     with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
           else torch.cuda.device(dev)):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, entry)(x.data_ptr(), w.data_ptr(),
+                                  *([] if wt is None else [wt.data_ptr()]),
                                   None if part is None else part.data_ptr(),
                                   y.data_ptr(), B, H, W, C, F_, splits, stream)
     cuda_build.check(lib, err, f'{what} launch')

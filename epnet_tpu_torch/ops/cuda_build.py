@@ -4,10 +4,11 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by nvcc into
 its own shared library, loaded with ctypes (no PyTorch headers, so a build
 takes seconds). The build happens at first use and is keyed by a hash of
 the source, the local headers it includes (``#include "x.cuh"`` from
-``csrc``) and the flags, under ``build/epnet_tpu_torch/`` at the root of
-the checkout; delete that directory to force a rebuild. ptxas's register
-and shared-memory report for each build is kept beside the library
-(``<name>-<hash>.log``, see ``build_log``).
+``csrc``, nested includes too) and the flags, under
+``build/epnet_tpu_torch/`` at the root of the checkout; delete that
+directory to force a rebuild. ptxas's register and shared-memory report
+for each build is kept beside the library (``<name>-<hash>.log``, see
+``build_log``).
 
 Nothing here runs at import time, so the CPU tests import the kernel
 modules freely.
@@ -61,12 +62,23 @@ def _compile(src: pathlib.Path, so: pathlib.Path) -> None:
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
 
 
+def _local_headers(text: bytes) -> set:
+    """The ``csrc`` headers that ``text`` includes, and those they include,
+    by name."""
+    seen, todo = set(), re.findall(rb'^#include "([^"]+)"', text, re.M)
+    while todo:
+        name = todo.pop().decode()
+        if name not in seen:
+            seen.add(name)
+            todo += re.findall(rb'^#include "([^"]+)"', (CSRC / name).read_bytes(), re.M)
+    return seen
+
+
 def _digest(src: pathlib.Path) -> str:
-    """Hash of ``src``, the ``csrc`` headers it includes (one level: the
-    headers include no local header) and the flags."""
+    """Hash of ``src``, the ``csrc`` headers it includes (nested includes
+    too) and the flags."""
     text = src.read_bytes()
-    headers = re.findall(rb'^#include "([^"]+)"', text, re.M)
-    parts = [text, *((CSRC / h.decode()).read_bytes() for h in sorted(headers))]
+    parts = [text, *((CSRC / h).read_bytes() for h in sorted(_local_headers(text)))]
     return hashlib.sha256(b''.join(parts) + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
 
 

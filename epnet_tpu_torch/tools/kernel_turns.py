@@ -1,6 +1,7 @@
 """Time the FPS kernel (A), the fused-SA forward (B) and backward (C, and
-its windowed twin H) of several checkouts of this repository on one card,
-in turns.
+its windowed twin H) and the image tower's conv kernels (D and E, the
+weight gradients; F, the stride-2 forward) of several checkouts of this
+repository on one card, in turns.
 
     python -m epnet_tpu_torch.tools.kernel_turns --trees <parent> . . <parent> [--out DIR]
 
@@ -9,18 +10,24 @@ its own process, in the order given, with its own sources and build
 (``<tree>/build``), on the same inputs: those of ``chip_smoke.py``'s
 phases 1 (A: the six FPS shapes of a forward, the batch-4 RPN sa0 shape,
 the tie-heavy cloud), 2 (B: RCNN sa0 and sa1 on random tables, sa0 on real
-eval tables) and 5 (C: the same at the batch-4 train step's T = 256), and
-H at the block-local RCNN sa0 on real windows, T = 256. The inputs are
-made once, by this checkout's ``chip_smoke.py``, and saved to ``--out``.
-Each process checks its outputs against this checkout's plain versions
-(picks identical, B within ``chip_smoke.SA_RTOL`` of max|out|), times each
-case with ``chip_smoke._time_ms`` at phase 1's, 2's and 5's repetitions (A
-also replayed from a CUDA graph, without the host's launch time) and
-saves C's and H's six outputs; the last lines say whether each run's dO,
-dW and db are bitwise those of the first run (dY sums a row's
-contributions by f32 atomics, in no fixed order: its largest difference is
-printed), and give a table of milliseconds, one column a run. Comparing two versions means running them
-in turns in one call: parent, change, change, parent. Needs a CUDA device.
+eval tables) and 5 (C: the same at the batch-4 train step's T = 256), H at
+the block-local RCNN sa0 on real windows, T = 256, and phases 8 and 10 (D
+and E at ``chip_smoke.DW_SHAPES``, F at ``chip_smoke.FWD_SHAPES``). A, B,
+C and H's inputs are made once, by this checkout's ``chip_smoke.py``, and
+saved to ``--out``; the conv inputs are made in each process on the card
+by this checkout's ``chip_smoke.dw_cases`` and ``fwd_cases``, from their
+seeds. Each process checks its outputs against this checkout's plain
+versions (picks identical, B within ``chip_smoke.SA_RTOL`` of max|out|, D
+and E within ``DW_RTOL`` of max|dw|, F within ``FWD_RTOL`` of max|y|),
+times each case with
+``chip_smoke._time_ms`` at phase 1's, 2's, 5's, 8's and 10's repetitions
+(A also replayed from a CUDA graph, without the host's launch time) and
+saves C's and H's six outputs and E's dw; the last lines say whether each
+run's dO, dW and db and E's dw are bitwise those of the first run (dY sums
+a row's contributions by f32 atomics, in no fixed order: its largest
+difference is printed), and give a table of milliseconds, one column a
+run. Comparing two versions means running them in turns in one call:
+parent, change, change, parent. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -82,21 +89,49 @@ def _graph_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def worker(tree, out):
-    """Time this process's checkout (``tree``, first on sys.path) on the
-    saved inputs; saves its backward outputs and prints one JSON line
-    {case: ms}."""
-    sys.path.insert(0, ROOT)
-    import chip_smoke as cs
-    sys.path.insert(0, os.path.abspath(tree))
+def conv_worker(cs, tree, ms, outputs):
+    """D, E and F of this process's checkout on phases 8's and 10's tower
+    inputs, made here: checked against the plain versions, timed into
+    ``ms``; E's dw into ``outputs``. ``cs``: this checkout's
+    ``chip_smoke``."""
+    import torch
+
+    dev = torch.device('cuda:0')
+    cs._require_f32(tree)
+    for name, blk, stride, x, dy in cs.dw_cases(dev):
+        if name == 'edge':
+            continue
+        kernel, plain = cs.dw_kernel_and_plain(stride)
+        got, want = kernel(x, dy), plain(x, dy)
+        err = float((got - want).abs().max() / want.abs().max())
+        if not err <= cs.DW_RTOL:
+            raise AssertionError(f'{tree}: {name} off by {err:.3e} at {blk}')
+        key = f'{"D" if stride == 2 else "E"} {blk}'
+        if stride == 1:
+            outputs[key] = got.cpu()
+        del got, want
+        ms[key] = cs._time_ms(lambda: kernel(x, dy), 10)
+    from epnet_tpu_torch.ops import conv2d
+    kernel, plain = conv2d.conv3x3_s2_fwd_kernel, conv2d.conv3x3_s2_fwd_plain
+    for name, _, x, w in cs.fwd_cases(dev):
+        if name == 'edge':
+            continue
+        want = plain(x, w)
+        err = float((kernel(x, w) - want).abs().max() / want.abs().max())
+        if not err <= cs.FWD_RTOL:
+            raise AssertionError(f'{tree}: F off by {err:.3e} at {name}')
+        del want
+        ms[f'F {name}'] = cs._time_ms(lambda: kernel(x, w), 10)
+
+
+def fps_sa_worker(cs, tree, saved, ms, outputs):
+    """A, B, C and H of this process's checkout on the saved inputs:
+    checked against the plain versions, timed into ``ms``; C's and H's
+    gradients into ``outputs``."""
     import torch
     from epnet_tpu_torch.ops import fps, sa_fused
 
-    if not os.path.abspath(fps.__file__).startswith(os.path.abspath(tree) + os.sep):
-        raise AssertionError(f'{tree}: imported {fps.__file__}')
     dev = torch.device('cuda:0')
-    saved = torch.load(os.path.join(out, 'inputs.pt'))
-    ms, grads = {}, {}
     for (B, N, npoint), kind, xyz in saved['fps']:
         xyz = xyz.to(dev)
         if not torch.equal(fps.furthest_point_sample_kernel(xyz, npoint),
@@ -122,9 +157,27 @@ def worker(tree, out):
                 saved['win_bwd']))
     for name, fn, args in bwd:
         args = [a.to(dev) if torch.is_tensor(a) else a for a in args]
-        grads[name] = [g.cpu() for g in fn(*args)]
+        outputs[name] = [g.cpu() for g in fn(*args)]
         ms[name] = cs._time_ms(lambda: fn(*args), 5)
-    torch.save(grads, os.path.join(out, f'grads_{os.getpid()}.pt'))
+
+
+def worker(tree, out):
+    """Time this process's checkout (``tree``, first on sys.path) on the
+    saved or made inputs; saves C's and H's gradients and E's dw and
+    prints one JSON line {case: ms}."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs  # this checkout's, before the tree's path goes first
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    from epnet_tpu_torch.ops import fps
+
+    if not os.path.abspath(fps.__file__).startswith(os.path.abspath(tree) + os.sep):
+        raise AssertionError(f'{tree}: imported {fps.__file__}')
+    ms, outputs = {}, {}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    conv_worker(cs, tree, ms, outputs)
+    fps_sa_worker(cs, tree, torch.load(os.path.join(out, 'inputs.pt')), ms, outputs)
+    torch.save(outputs, os.path.join(out, f'grads_{os.getpid()}.pt'))
     print(json.dumps({'tree': tree, 'grads': f'grads_{os.getpid()}.pt', 'ms': ms}), flush=True)
 
 
@@ -153,8 +206,12 @@ def main(argv=None):
         print(json.dumps(runs[-1]), flush=True)
     first = torch.load(os.path.join(args.out, runs[0]['grads']))
     for r in runs[1:]:
-        for k, (dy, *rest) in torch.load(os.path.join(args.out, r['grads'])).items():
-            dy0, *rest0 = first[k]
+        for k, got in torch.load(os.path.join(args.out, r['grads'])).items():
+            if torch.is_tensor(got):  # E's dw: a fixed-order sum
+                print(f'{r["tree"]} vs {runs[0]["tree"]}, {k}: dw bitwise equal: '
+                      f'{torch.equal(got, first[k])}')
+                continue
+            (dy, *rest), (dy0, *rest0) = got, first[k]
             differ = [n for n, a, b in zip(('dO', 'dW2', 'db2', 'dW3', 'db3'), rest, rest0)
                       if not torch.equal(a, b)]
             print(f'{r["tree"]} vs {runs[0]["tree"]}, {k}: dO, dW and db bitwise equal: '

@@ -14,8 +14,9 @@ against the JAX package's ``epnet_tpu/ops/conv2d.py``, on the CPU.
 * A train-mode ``ImageBlock`` against the JAX one with its Pallas
   stride-2 weight gradient (interpret mode) and its 9-shift stride-1
   weight gradient.
-* Kernel E's 3xTF32 arithmetic (hi/lo TF32 splits, three passes summed
-  in f32) against an f64 reference and one TF32 pass.
+* The 3xTF32 arithmetic of kernels D, E and F (hi/lo TF32 splits, three
+  passes summed in f32) against an f64 reference and one TF32 pass, and
+  the integer TF32 rounding against round-to-nearest, ties away, by value.
 * Kernels F, D and E against their plain versions on the card (``cuda``).
 
 Tolerance against JAX: at most 1e-5 x max|ref| for values and gradients
@@ -312,34 +313,94 @@ def _tf32_rna(a: torch.Tensor) -> torch.Tensor:
     return ((a.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
-@pytest.mark.parametrize('shape', [(2, 12, 20, 64, 64), (1, 24, 80, 128, 256)],
-                         ids=lambda s: 'x'.join(map(str, s)))
-def test_three_pass_tf32_keeps_f32_accuracy(shape):
-    """Kernel E's arithmetic, on the CPU: each operand split as hi =
-    tf32(a), lo = tf32(a - hi), and the stride-1 weight gradient taken as
-    hi*hi + hi*lo + lo*hi, summed in f32, is within DW_RTOL / 10 of an f64
-    reference, and at least 10x closer to it than one TF32 pass. So the
-    tensor-core kernel computes the f32 function, not TF32's."""
+def _split(a: torch.Tensor):
+    hi = _tf32_rna(a)
+    lo = _tf32_rna(a - hi)
+    for v in (hi, lo):
+        assert not (v.view(torch.int32) & 0x1fff).any()
+    return hi, lo
+
+
+# (function, shape): kernel E's stride-1 weight gradient (the cases keep
+# their original ids), kernel D's stride-2 weight gradient and kernel F's
+# stride-2 forward, each as the kernel multiplies: (B, H, W, C, F)
+THREE_PASS_CASES = ([('dw_s1', s) for s in [(2, 12, 20, 64, 64), (1, 24, 80, 128, 256)]]
+                    + [('dw_s2', s) for s in [(2, 12, 20, 64, 64), (1, 24, 80, 128, 256)]]
+                    + [('fwd_s2', s) for s in [(2, 12, 20, 64, 64), (1, 24, 80, 132, 200)]])
+
+
+def _three_pass_id(case):
+    kind, shape = case
+    dims = 'x'.join(map(str, shape))
+    return dims if kind == 'dw_s1' else f'{kind}-{dims}'
+
+
+@pytest.mark.parametrize('case', THREE_PASS_CASES, ids=_three_pass_id)
+def test_three_pass_tf32_keeps_f32_accuracy(case):
+    """The arithmetic of kernels D, E and F, on the CPU: each operand split
+    as hi = tf32(a), lo = tf32(a - hi) (x and dy for the weight gradients,
+    x and w for the forward), and the product taken as hi*hi + hi*lo +
+    lo*hi, summed in f32, is within DW_RTOL / 10 (FWD_RTOL = DW_RTOL) of an
+    f64 reference, and at least 10x closer to it than one TF32 pass. So the
+    tensor-core kernels compute the f32 function, not TF32's."""
     one_and_half = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12])
     assert _tf32_rna(one_and_half).tolist() == [1 + 2 ** -10, -(1 + 2 ** -10), 1.0]
-    B, H, W, C, Fo = shape
-    rng = np.random.RandomState(sum(shape))
+    kind, (B, H, W, C, Fo) = case
+    rng = np.random.RandomState(B + H + W + C + Fo)
     x = torch.from_numpy(rng.randn(B, H, W, C).astype(np.float32))
-    dy = torch.from_numpy(rng.randn(B, H, W, Fo).astype(np.float32))
-    x_hi, dy_hi = _tf32_rna(x), _tf32_rna(dy)
-    x_lo, dy_lo = _tf32_rna(x - x_hi), _tf32_rna(dy - dy_hi)
-    for v in (x_hi, dy_hi, x_lo, dy_lo):
-        assert not (v.view(torch.int32) & 0x1fff).any()
-    plain = tconv.dw3x3_s1_plain
-    three = plain(x_hi, dy_lo) + plain(x_lo, dy_hi) + plain(x_hi, dy_hi)
-    one = plain(x_hi, dy_hi)
+    if kind == 'fwd_s2':
+        other = torch.from_numpy((rng.randn(3, 3, C, Fo) / (3 * C ** 0.5)).astype(np.float32))
+        plain = tconv.conv3x3_s2_fwd_plain
+    else:
+        stride = 2 if kind == 'dw_s2' else 1
+        other = torch.from_numpy(rng.randn(B, H // stride, W // stride, Fo).astype(np.float32))
+        plain = tconv.dw3x3_s2_plain if stride == 2 else tconv.dw3x3_s1_plain
+    (x_hi, x_lo), (o_hi, o_lo) = _split(x), _split(other)
+    three = plain(x_hi, o_lo) + plain(x_lo, o_hi) + plain(x_hi, o_hi)
+    one = plain(x_hi, o_hi)
     assert three.dtype == torch.float32
-    ref = plain(x.double(), dy.double())
+    ref = plain(x.double(), other.double())
     scale = float(ref.abs().max())
     err3 = float((three.double() - ref).abs().max())
     err1 = float((one.double() - ref).abs().max())
     assert err3 <= DW_RTOL / 10 * scale, (err3 / scale, err1 / scale)
     assert 10 * err3 <= err1, (err3 / scale, err1 / scale)
+
+
+def _tf32_rna_reference(a: np.ndarray) -> np.ndarray:
+    """f32 ``a`` rounded to 10 mantissa bits, to nearest with ties away from
+    zero, by its value in f64: the unit of the last kept bit is 2^(e - 10)
+    for a normal |a| in [2^e, 2^(e+1)) and 2^-136 below 2^-126 (the f32
+    subnormals, whose 23 stored bits keep their top 10); a result past the
+    f32 range is infinite, as cvt.rna.tf32.f32 gives it."""
+    v = a.astype(np.float64)
+    mag = np.abs(v)
+    e = np.floor(np.log2(np.where(mag > 0, mag, 1.0)))
+    unit = np.where(mag < 2.0 ** -126, 2.0 ** -136, 2.0 ** (e - 10))
+    with np.errstate(over='ignore'):
+        return np.copysign(np.floor(mag / unit + 0.5) * unit, v).astype(np.float32)
+
+
+def test_integer_tf32_rounding_is_round_to_nearest_ties_away():
+    """The kernels' split (``tf32_rna_bits`` in ``csrc/wgmma_common.cuh``,
+    mirrored by ``_tf32_rna``) gives the bits of rounding to nearest with
+    ties away from zero, cvt.rna's rounding: on ties (both signs, and one
+    that carries into the exponent), subnormals (ties among them too, and
+    the carry into the smallest normal), +-0, values near the f32 maximum
+    (which round to infinity) and random values over the whole range."""
+    bits = [0x3F801000, 0xBF801000, 0x3F803000, 0x3FFFF000, 0x3F7FF000,  # ties
+            0x00000000, 0x80000000, 0x00000001, 0x00001000, 0x80001000, 0x00003000,
+            0x007FF000, 0x007FFFFF, 0x807FF000, 0x00800000,  # zeros, subnormals
+            0x7F7FFFFF, 0xFF7FFFFF, 0x7F7FF000, 0x7F7FEFFF, 0x7F7FE000]  # near the max
+    rng = np.random.RandomState(10)
+    rand = rng.randint(0, 2 ** 32, size=100000, dtype=np.uint64).astype(np.uint32)
+    rand = rand[(rand & 0x7F800000) != 0x7F800000]  # finite
+    a = np.concatenate([np.array(bits, dtype=np.uint32), rand]).view(np.float32)
+    got = _tf32_rna(torch.from_numpy(a.copy())).numpy()
+    want = _tf32_rna_reference(a)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32)), a[
+        got.view(np.uint32) != want.view(np.uint32)][:5]
+    assert np.isinf(got[15:17]).all() and np.signbit(got[6]) and not np.signbit(got[5])
 
 
 @pytest.fixture
