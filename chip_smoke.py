@@ -103,15 +103,19 @@ first use), then:
 16. repeats phases 4 and 7 (tiny widths, card against CPU, one forward and
    one train step) in the block-local configuration at the test widths of
    ``utils/testing.BLOCK_LOCAL_TINY``;
-17. holds the bf16 instances against their plain versions: B-bf16 at the
-   RCNN sa0/sa1 shapes (T = 100, a batch-1 forward, timed; T = 400, the
-   tables of a batch-4 CLI batch, checked only), G-bf16 on phase 13's real
-   windows and
-   edge cases (T = 100), F-bf16 (bf16 ``wgmma`` on the tensor cores) at
+17. holds the bf16 instances against their plain versions: B-bf16 (bf16
+   ``wgmma`` on each ball's distinct rows) at the RCNN sa0/sa1 shapes (T =
+   100, a batch-1 forward, timed; T = 400, the tables of a batch-4 CLI
+   batch, checked only) and on phase 2's real sa0 tables in bf16 (timed,
+   beside), G-bf16 (the same kernel after the windowed dedupe) on phase
+   13's real windows and edge cases (T = 100), F-bf16 (bf16 ``wgmma``) at
    the eight tower shapes and five edge shapes; each within one bf16 unit
    in the last place of max|out|, two launches bitwise equal; times
    kernel, plain version and (for F) ``F.conv2d`` in bf16 on the padded
-   input in turns, and prints F-bf16's total against ``F.conv2d``'s;
+   input in turns, printing B-bf16's and G-bf16's design, shares of
+   bit-identical outputs and of distinct rows beside each time and F-bf16's
+   total against ``F.conv2d``'s; and checks that B-bf16 raises on a stage
+   beyond its limits (C3 = 512);
 18. drives the bf16 TEST forward (the recipe with ``MIXED_PRECISION``) at
    full width in turns with the f32 forward on the same weights: three
    batch-1 requests each on scenes 0/1/2 (6 FPS, 2 B-bf16 and 4 F-bf16
@@ -1322,11 +1326,12 @@ def _library_fwd_call(x, w):
 def phase_bf16_kernels(dev):
     """The bf16 instances against their plain versions: B-bf16 at the RCNN
     sa0/sa1 shapes (T = 100, a batch-1 forward, and T = 400, a batch-4 CLI
-    batch), G-bf16 on phase 13's real windows (T = 100)
-    and edge cases, F-bf16 at the eight tower shapes and the five edge
-    shapes; each within BF16_ULPS bf16 units of max|out|, two launches
-    bitwise equal. Kernel, plain version and (for F) ``F.conv2d`` in bf16
-    on the padded input timed in turns."""
+    batch) and on phase 2's real sa0 tables, G-bf16 on phase 13's real
+    windows (T = 100) and edge cases, F-bf16 at the eight tower shapes and
+    the five edge shapes; each within BF16_ULPS bf16 units of max|out|, two
+    launches bitwise equal; B-bf16 raises beyond its limits. Kernel, plain
+    version and (for F) ``F.conv2d`` in bf16 on the padded input timed in
+    turns."""
     import numpy as np
     import torch
     from epnet_tpu_torch.ops import conv2d, sa_fused
@@ -1369,45 +1374,73 @@ def phase_bf16_kernels(dev):
         idx[:, :M // 4, S // 2:] = idx[:, :M // 4, :1]  # short balls padded with the first hit
         return y, o, idx, w
 
-    # B-bf16
+    # B-bf16: random tables at SA_SHAPES (the line's sum), then phase 2's
+    # real sa0 tables in bf16 (beside it)
+    design = sa_fused.bf16_design()
+    print(f'B-bf16 and G-bf16: {design}', flush=True)
     rows, max_err, op_ms, byte_ms = [], 0.0, [], []
     total = {'ms': 0.0, 'plain_ms': 0.0}
     cli_rng = np.random.RandomState(23)
-    for name, (T, N, M, S, C1, C2, C3) in SA_SHAPES.items():
-        # the CLI's tables (batch 4 x RPN_POST_NMS_TOP_N): checked, not timed
-        y, o, idx, w = b_args(4 * T, N, M, S, C1, C2, C3, cli_rng)
-        err, scale, exact = check(f'B-bf16 {name} T={4 * T}',
-                                  sa_fused.fused_point_mlp_max_bf16_kernel,
-                                  sa_fused.fused_point_mlp_max_plain, (y, o, idx, *w))
-        max_err = max(max_err, err)
-        print(f'B-bf16 {name} T={4 * T}: max abs err {err:.3e} (max|out| {scale:.3e}), '
-              f'{exact:.4f} of outputs bit-identical', flush=True)
-        del y, o, idx, w
-        y, o, idx, w = b_args(T, N, M, S, C1, C2, C3)
+    real = next(args for _, _, kind, args in sa_cases(dev) if kind == 'real')
+    real = (real[0].to(bf), real[1].to(bf), real[2], real[3].to(bf), real[4], real[5].to(bf),
+            real[6])
+    cases = [(name, shape, None) for name, shape in SA_SHAPES.items()]
+    cases.append(('rcnn.sa0 real', SA_SHAPES['rcnn.sa0'], real))
+    for name, (T, N, M, S, C1, C2, C3), given in cases:
+        if given is None:
+            # the CLI's tables (batch 4 x RPN_POST_NMS_TOP_N): checked, not timed
+            y, o, idx, w = b_args(4 * T, N, M, S, C1, C2, C3, cli_rng)
+            err, scale, exact = check(f'B-bf16 {name} T={4 * T}',
+                                      sa_fused.fused_point_mlp_max_bf16_kernel,
+                                      sa_fused.fused_point_mlp_max_plain, (y, o, idx, *w))
+            max_err = max(max_err, err)
+            print(f'B-bf16 {name} T={4 * T}: max abs err {err:.3e} (max|out| {scale:.3e}), '
+                  f'{exact:.4f} of outputs bit-identical', flush=True)
+            del y, o, idx, w
+            y, o, idx, w = b_args(T, N, M, S, C1, C2, C3)
+            args = (y, o, idx, *w)
+        else:
+            args = given
+        idx = args[2]
         om, bm = _sa_fwd_bound(idx, N, C1, C2, C3, bf16=True)
-        op_ms.append(om)
-        byte_ms.append(bm)
-        args = (y, o, idx, *w)
+        distinct = float(_distinct_rows(idx)[1].float().mean())
         err, scale, exact = check(f'B-bf16 {name}', sa_fused.fused_point_mlp_max_bf16_kernel,
                                   sa_fused.fused_point_mlp_max_plain, args)
-        max_err = max(max_err, err)
         row = timed({'ms': (lambda: sa_fused.fused_point_mlp_max_bf16_kernel(*args), 20),
                      'plain_ms': (lambda: sa_fused.fused_point_mlp_max_plain(*args), 10)})
+        rows.append({'stage': name, 'shape': [T, N, M, S, C1, C2, C3], **row,
+                     'bound_ms': max(om, bm), 'max_abs_err': err, 'bit_identical': exact,
+                     'distinct_rows': distinct})
+        print(f'B-bf16 {name} {(T, N, M, S, C1, C2, C3)}: max abs err {err:.3e} (max|out| '
+              f'{scale:.3e}), {exact:.4f} of outputs bit-identical, distinct rows '
+              f'{distinct:.4f} of the samples; kernel {row["ms"]:.4f} ms, plain '
+              f'{row["plain_ms"]:.4f} ms, bound {max(om, bm):.4f} ms '
+              f'({max(om, bm) / row["ms"]:.3f} of it)', flush=True)
+        if given is not None:
+            continue  # beside the line's sum, which stays the random tables'
+        max_err = max(max_err, err)
+        op_ms.append(om)
+        byte_ms.append(bm)
         for k in total:
             total[k] += row[k]
-        rows.append({'stage': name, 'shape': [T, N, M, S, C1, C2, C3], **row,
-                     'bound_ms': max(om, bm), 'max_abs_err': err, 'bit_identical': exact})
-        print(f'B-bf16 {name} {(T, N, M, S, C1, C2, C3)}: max abs err {err:.3e} (max|out| '
-              f'{scale:.3e}), {exact:.4f} of outputs bit-identical; kernel {row["ms"]:.4f} ms, '
-              f'plain {row["plain_ms"]:.4f} ms, bound {max(om, bm):.4f} ms', flush=True)
     res['B'] = {'max_abs_err': max_err, **total, **_bound_keys(op_ms, byte_ms),
-                'library_ms': None, 'per_shape': rows}
+                'library_ms': None, 'design': design, 'per_shape': rows}
+    del real, args
+    y, o, idx, w = b_args(2, 64, 8, 16, 128, 128, 128)
+    try:
+        sa_fused.fused_point_mlp_max_bf16_kernel(y, o, idx, w[0], w[1],
+                                                 torch.zeros(128, 512, dtype=bf, device=dev),
+                                                 torch.zeros(512, device=dev))
+    except ValueError as e:
+        print(f'B-bf16 at C3 = 512 raises on the card: {e}', flush=True)
+    else:
+        raise AssertionError('B-bf16 ran a stage beyond its limits (C3 = 512)')
 
     # G-bf16
     W, tiles, _ = _sa_win_geometry()
     T, N, M, S, C1, C2, C3 = (100,) + SA_SHAPES['rcnn.sa0'][1:]
     (y, o), w = sa_args(T, N, M, C1, C2, C3)
-    max_err, real = 0.0, None
+    max_err, real, exact_real = 0.0, None, None
     for edge in (False, True):
         idx_rel, starts = _window_inputs(T, T + edge, dev, edge)
         args = (y, o, idx_rel, starts, *w, W)
@@ -1415,6 +1448,7 @@ def phase_bf16_kernels(dev):
         err, scale, exact = check(f'G-bf16{" edge" if edge else ""}',
                                   sa_fused.fused_point_mlp_max_win_bf16_kernel,
                                   sa_fused.fused_point_mlp_max_win_plain, args)
+        exact_real = exact if exact_real is None else exact_real
         max_err = max(max_err, err)
         print(f'G-bf16 T={T}{" edge cases" if edge else " real windows"}: max abs err {err:.3e} '
               f'(max|out| {scale:.3e}), {exact:.4f} of outputs bit-identical', flush=True)
@@ -1422,16 +1456,20 @@ def phase_bf16_kernels(dev):
     grows = sa_fused.window_rows(args[2], args[3])
     om, bm = _sa_fwd_bound(grows, N, C1, C2, C3, bf16=True)
     bm += _bound(0, 8 * args[3].numel())[1]  # the window starts
+    distinct = float(_distinct_rows(grows)[1].float().mean())
     row = timed({'ms': (lambda: sa_fused.fused_point_mlp_max_win_bf16_kernel(*args), 20),
                  'plain_ms': (lambda: sa_fused.fused_point_mlp_max_win_plain(*args), 10),
                  'table_kernel_ms': (lambda: sa_fused.fused_point_mlp_max_bf16_kernel(
                      y, o, grows, *w), 20)})
-    print(f'  G-bf16 {row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, B-bf16 on the global '
-          f'rows {row["table_kernel_ms"]:.4f} ms, bound {max(om, bm):.4f} ms', flush=True)
+    print(f'  G-bf16 real windows: {exact_real:.4f} of outputs bit-identical, distinct rows '
+          f'{distinct:.4f} of the samples; kernel {row["ms"]:.4f} ms, plain '
+          f'{row["plain_ms"]:.4f} ms, B-bf16 on the global rows {row["table_kernel_ms"]:.4f} '
+          f'ms, bound {max(om, bm):.4f} ms ({max(om, bm) / row["ms"]:.3f} of it)', flush=True)
     res['G'] = {'max_abs_err': max_err, 'ms': row['ms'], 'plain_ms': row['plain_ms'],
-                **_bound_keys([om], [bm]), 'library_ms': None,
+                **_bound_keys([om], [bm]), 'library_ms': None, 'design': design,
                 'per_shape': [{'stage': 'rcnn.sa0', 'shape': [T, N, M, S, C1, C2, C3],
-                               'window': W, 'tiles': tiles, **row}]}
+                               'window': W, 'tiles': tiles, 'distinct_rows': distinct,
+                               'bit_identical': exact_real, **row}]}
 
     # F-bf16
     gen = torch.Generator(device=dev).manual_seed(19)

@@ -1,12 +1,18 @@
 // Fused set-abstraction interior on Hopper (sm_90a), forward only; plain C
-// interface. Two kernels:
+// interface. Kernels:
 //
 //   B replaces the Pallas TPU kernel epnet_tpu/ops/sa_fused.py::_fwd_kernel
 //     (pallas_call at :156, reached through fused_point_mlp_max);
 //   G replaces its windowed twin ::_fwd_kernel_win (pallas_call at :404,
-//     reached through fused_point_mlp_max_win, the block-local RCNN sa0).
+//     reached through fused_point_mlp_max_win, the block-local RCNN sa0);
+//   B-bf16 and G-bf16 replace the same two Pallas kernels' bf16 branch
+//     (n_splits == 1, sa_fused.py:91-93, 108-116), which the JAX package's
+//     MIXED_PRECISION forward reaches, and the two profiler kernels of the
+//     same function, tools/profile_fused_onehot.py::kern (pallas_call at
+//     :103) and tools/profile_fps_variants.py::kernel (:143, called with W3
+//     = W2 and b3 = b2).
 //
-// Both compute
+// All compute
 //
 //   out[t, m] = max_s relu(relu(relu(Y[t, row(t,m,s)] - O[t,m]) W2 + b2) W3 + b3)
 //
@@ -66,44 +72,66 @@
 // The wrapper zero-pads C1 and C2 to 128 and W3's columns to a multiple of
 // 128 (a zero column adds 0 to every sum); S <= 64 (one warp's sort).
 //
-// G and the bf16 instances (sa_fused_fwd_kernel, one template) gather every
-// (centroid, sample) row and run layers 2 and 3 as register-tiled f32 FFMA:
-// one block per (table t, TM = max(1, 64 / S) centroids). Rows (centroid,
-// sample) are processed 64 at a time: the block gathers its rows of Y
-// straight from global memory/L2 (no one-hot: that was a device of the
-// TPU's matrix unit), subtracts O and applies ReLU into shared memory; layer
-// 2 and layer 3 run as register-tiled f32 FFMA (each of 256 threads owns a
-// 4-row x 8-column tile of a 128-column pass) against 32-row tiles of
-// W2/W3 staged in shared memory; the layer-3 pass is folded into a running
-// max per (centroid, channel) kept in shared memory. ReLU outputs are >= 0,
-// so the max starts at 0. Shared memory at the widest RCNN stage (sa1:
+// B-bf16 and G-bf16 (sa_fused_fwd_bf16_kernel, one body) take Y, O, W2, W3
+// in bf16 and b2, b3 in f32 and write a bf16 output. Their function is the
+// Pallas kernel's bf16 one: h1 = relu(Y[row] - O) in f32, rounded to bf16;
+// each layer's bf16 products summed in f32 from 0 (a product of two bf16
+// values is exact in f32), the f32 bias added after; h2 rounded to bf16
+// before layer 3; the max in f32, the output rounded once. Their bound is
+// the bf16 tensor cores' (989 TFLOP/s) over the distinct rows. The design
+// starts from B's and keeps what the bf16 types allow:
+//  - B's dedupe, cost split and tile packing (csrc/sa_common.cuh); G-bf16
+//    is the same body after sa_dedupe_kernel<true> with the window starts,
+//    since the window decides only which table rows form a ball;
+//  - W2 and W3 stay in shared memory for the block's life (32 + 64 KB at
+//    C3 = 256, bf16), copied once by cp.async into the 128-byte swizzled
+//    N-major layout that wgmma reads: a persistent block walks dozens of
+//    tiles or more, and f32 B re-streams both weights from L2 for every
+//    tile. So C3 <= 256 (C3p 128 or 256);
+//  - the products on bf16 wgmma m64n128k16 with f32 accumulators: a 64-row
+//    tile is one wgmma M. bf16 wgmma reads B N-major, so W's (K, N)
+//    row-major layout needs no transpose (TF32 would: F's prologue, csrc/
+//    conv3x3_s2_fwd.cu). h1 is gathered as 16-byte bf16 rows from L2 into
+//    the K-major swizzled A tile; layer 2's accumulators, with bias, ReLU
+//    and bf16 rounding, become layer 3's A fragments in registers (an
+//    accumulator's layout is an A fragment's), so h2 never touches shared
+//    memory;
+//  - layer 3, a 128-column pass at a time: bias, ReLU and bf16 rounding
+//    into a staging tile over h1 (dead once layer 2's wgmmas are done),
+//    then each (centroid, channel pair) takes the max over the centroid's
+//    rows in bf16, two lanes a pair, each half the rows, and writes it.
+//    Rounding is monotone, so rounding before the max gives the output
+//    that rounding after does (tests/test_torch_sa_fused_bf16_design.py),
+//    and the staging is half f32 B's;
+//  - four warpgroups a block share the weights (one block an SM: ~171 KB
+//    of shared memory, 128 registers a thread), each on its own share of
+//    the cost split with its own tiles and named barrier: while one waits
+//    for its gather from L2 or runs its epilogue on the CUDA cores,
+//    another's wgmmas run. Column halves of one tile would give each
+//    warpgroup half the products and the whole gather and max to share in
+//    lockstep; independent tiles overlap them without a producer/consumer
+//    protocol. Four ran faster than three on the H100 (PERF.md, section 6).
+// What bounds them now is latency, not the tensor cores: a tile's chain of
+// dependent steps (its counts, its rows' table indices, their Y rows from
+// L2, then the epilogues on the CUDA cores) takes several times its
+// wgmmas, and four warpgroups an SM overlap only four such chains.
+//
+// G (f32) keeps the first design, sa_fused_fwd_win_kernel: it gathers every
+// (centroid, sample) row and runs layers 2 and 3 as register-tiled f32
+// FFMA, one block per (table t, TM = max(1, 64 / S) centroids). Rows are
+// processed 64 at a time: the block gathers its rows of Y straight from
+// global memory/L2 (no one-hot: that was a device of the TPU's matrix
+// unit), subtracts O and applies ReLU into shared memory; layer 2 and
+// layer 3 run as register-tiled f32 FFMA (each of 256 threads owns a 4-row
+// x 8-column tile of a 128-column pass) against 32-row tiles of W2/W3
+// staged in shared memory; the layer-3 pass is folded into a running max
+// per (centroid, channel) kept in shared memory. ReLU outputs are >= 0, so
+// the max starts at 0. Shared memory at the widest RCNN stage (sa1:
 // 128/128/256) is 83 KB, above the 48 KB default, hence the
-// MaxDynamicSharedMemorySize attribute; the bf16 instances stage the same
-// f32 tiles. Full f32 keeps the result within f32 roundoff of the plain
-// version.
-//
-// The bf16 instances (B-bf16, G-bf16) take Y, O, W2, W3 in bf16 and b2, b3 in
-// f32 and write a bf16 output: the n_splits == 1 branch of the same two
-// Pallas kernels (sa_fused.py:91-93, 108-116), which the JAX package's
-// MIXED_PRECISION forward reaches, and the two profiler kernels with the
-// same function, tools/profile_fused_onehot.py::kern (pallas_call at :103)
-// and tools/profile_fps_variants.py::kernel (:143, called with W3 = W2 and
-// b3 = b2). Operands are widened to f32 as they are staged and every product
-// accumulates in f32 (a product of two bf16 values is exact in f32). h1 and
-// h2 are rounded to bf16 before the next product, where the Pallas kernel
-// casts them (h.astype(w.dtype)); the running max stays f32 and is rounded
-// once on the way out (rounding is monotone, so that equals the max of the
-// rounded values). The one-hot compares of the TPU kernels, in int32, int16
-// or uint16, were a TPU layout of the gather and are not part of the
-// function; here rows are gathered by index. In bf16 the bound is the
-// tensor cores' (989 TFLOP/s), which these FFMA instances do not use.
-//
-// G is the template with the window's row index (kWin). On the TPU the
-// window cut the one-hot matmul from N to W columns; here there is no
-// one-hot, a row gather costs the same from any row of the table (a 512 x
-// 128 f32 table is 256 KB, resident in L2), and the FFMA work is the same,
-// so a design that stages each 256-row window in shared memory (128 KB a
-// block, one block an SM) would save no work.
+// MaxDynamicSharedMemorySize attribute. On the TPU the window cut the
+// one-hot matmul from N to W columns; here there is no one-hot, and a row
+// gather costs the same from any row of the table (a 512 x 128 f32 table
+// is 256 KB, resident in L2).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,26 +145,34 @@
 
 namespace {
 
-// The template (G, B-bf16, G-bf16): kRows (centroid, sample) rows a chunk,
-// kThreads = 16 x 16 threads of 4 rows x 8 columns each (sa_common.cuh)
-constexpr int kColPass = 128;   // output columns per pass
-constexpr int kKTile = 32;      // weight rows staged per step
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// v as the operand type T holds it (rounded to nearest even for bf16), in f32
-template <typename T>
-__device__ __forceinline__ float operand(float v);
-template <>
-__device__ __forceinline__ float operand<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float operand<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+// Blocks of `kernel` (`threads` and `smem` bytes a block) that fit the card
+// at once, worked out once a device into `cache` (by device).
+cudaError_t resident_blocks(const void* kernel, int threads, int smem,
+                            std::atomic<int> (&cache)[64], int* blocks) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  *blocks = cache[dev & 63].load(std::memory_order_relaxed);
+  if (*blocks > 0) return cudaSuccess;
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;  // does not fit an SM
+  *blocks = sms * per_sm;
+  cache[dev & 63].store(*blocks, std::memory_order_relaxed);
+  return cudaSuccess;
 }
 
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+// ---------------------------------------------------------------------------
+// Kernel G (f32): every (centroid, sample) row, f32 FFMA.
+// ---------------------------------------------------------------------------
+
+// kRows (centroid, sample) rows a chunk, kThreads = 16 x 16 threads of 4
+// rows x 8 columns each (sa_common.cuh)
+constexpr int kColPass = 128;   // output columns per pass
+constexpr int kKTile = 32;      // weight rows staged per step
 
 __host__ __device__ inline int row_stride_a(int c1) { return (c1 > kColPass ? c1 : kColPass) + 1; }
 __host__ __device__ inline int row_stride_b(int c2) { return c2 + 1; }
@@ -150,15 +186,11 @@ inline size_t smem_bytes(int s, int c1, int c2, int c3) {
 }
 
 // hout[r][out_col0 + c - c0] = relu(sum_k hin[r][k] w[k][c] + bias[c]) for the
-// 128 columns c of the pass starting at c0 and all kRows rows, rounded to the
-// operand type R (the next layer's operand). w is of type T, widened to f32
-// as it is staged. Starts with a barrier, so the caller's writes to `hin` are
-// visible.
-template <typename T, typename R>
-__device__ void dense_relu_pass(const float* hin, int ldin, int cin,
-                                const T* __restrict__ w,
-                                const float* __restrict__ bias, int cout, int c0,
-                                float* hout, int ldout, int out_col0, float* wt) {
+// 128 columns c of the pass starting at c0 and all kRows rows. Starts with a
+// barrier, so the caller's writes to `hin` are visible.
+__device__ void dense_relu_pass(const float* hin, int ldin, int cin, const float* __restrict__ w,
+                                const float* __restrict__ bias, int cout, int c0, float* hout,
+                                int ldout, int out_col0, float* wt) {
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
@@ -173,7 +205,7 @@ __device__ void dense_relu_pass(const float* hin, int ldin, int cin,
     for (int e = tid; e < kKTile * kColPass; e += kThreads) {
       const int k = k0 + e / kColPass;
       const int c = c0 + e % kColPass;
-      wt[e] = (k < cin && c < cout) ? widen(w[static_cast<size_t>(k) * cout + c]) : 0.0f;
+      wt[e] = (k < cin && c < cout) ? w[static_cast<size_t>(k) * cout + c] : 0.0f;
     }
     __syncthreads();
     const int kn = min(kKTile, cin - k0);
@@ -197,23 +229,20 @@ __device__ void dense_relu_pass(const float* hin, int ldin, int cin,
       const float bc = __ldg(bias + c);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        hout[(ty * 4 + i) * ldout + out_col0 + tx + 16 * j] =
-            operand<R>(fmaxf(acc[i][j] + bc, 0.0f));
+        hout[(ty * 4 + i) * ldout + out_col0 + tx + 16 * j] = fmaxf(acc[i][j] + bc, 0.0f);
     }
   }
 }
 
-// kWin: idx holds window-relative rows, offset by starts (t, nb) of tiles
-// of m / nb centroids, each window `window` rows long (kernel G). T: the type
-// of y, o, w2, w3 and out (float or bf16); b2 and b3 are f32.
-template <bool kWin, typename T>
+// idx holds window-relative rows, offset by starts (t, nb) of tiles of m / nb
+// centroids, each window `window` rows long.
 __global__ void __launch_bounds__(kThreads)
-sa_fused_fwd_kernel(const T* __restrict__ y, const T* __restrict__ o,
-                    const int64_t* __restrict__ idx, const int64_t* __restrict__ starts,
-                    const T* __restrict__ w2, const float* __restrict__ b2,
-                    const T* __restrict__ w3, const float* __restrict__ b3,
-                    T* __restrict__ out, int n, int m, int s, int c1, int c2, int c3,
-                    int tm, int nb, int window) {
+sa_fused_fwd_win_kernel(const float* __restrict__ y, const float* __restrict__ o,
+                        const int64_t* __restrict__ idx, const int64_t* __restrict__ starts,
+                        const float* __restrict__ w2, const float* __restrict__ b2,
+                        const float* __restrict__ w3, const float* __restrict__ b3,
+                        float* __restrict__ out, int n, int m, int s, int c1, int c2, int c3,
+                        int tm, int nb, int window) {
   extern __shared__ float smem[];
   __shared__ int64_t row_point[kRows];  // table row gathered by each chunk row
   __shared__ int row_centroid[kRows];   // its centroid, -1 for padding rows
@@ -227,8 +256,8 @@ sa_fused_fwd_kernel(const T* __restrict__ y, const T* __restrict__ o,
   const int tid = threadIdx.x;
   const int t = blockIdx.x;
   const int m0 = blockIdx.y * tm;
-  const T* yt = y + static_cast<size_t>(t) * n * c1;
-  const T* ot = o + static_cast<size_t>(t) * m * c1;
+  const float* yt = y + static_cast<size_t>(t) * n * c1;
+  const float* ot = o + static_cast<size_t>(t) * m * c1;
   const int64_t* it = idx + static_cast<size_t>(t) * m * s;
   const int rows = tm * s;
 
@@ -241,10 +270,8 @@ sa_fused_fwd_kernel(const T* __restrict__ y, const T* __restrict__ o,
       const int mm = m0 + row / s;
       if (row < rows && mm < m) {
         int64_t p = it[static_cast<size_t>(mm) * s + row % s];
-        if (kWin) {
-          p = p < 0 ? 0 : (p >= window ? window - 1 : p);  // inside the window
-          p += starts[static_cast<size_t>(t) * nb + mm / (m / nb)];
-        }
+        p = p < 0 ? 0 : (p >= window ? window - 1 : p);  // inside the window
+        p += starts[static_cast<size_t>(t) * nb + mm / (m / nb)];
         p = p < 0 ? 0 : (p >= n ? n - 1 : p);  // keep a bad index inside the table
         row_point[tid] = p;
         row_centroid[tid] = mm;
@@ -258,21 +285,19 @@ sa_fused_fwd_kernel(const T* __restrict__ y, const T* __restrict__ o,
       const int r = e / c1;
       const int c = e % c1;
       const int mm = row_centroid[r];
-      ha[r * lda + c] = mm >= 0
-          ? operand<T>(fmaxf(widen(yt[row_point[r] * c1 + c]) -
-                                 widen(ot[static_cast<size_t>(mm) * c1 + c]),
-                             0.0f))
-          : 0.0f;
+      ha[r * lda + c] =
+          mm >= 0 ? fmaxf(yt[row_point[r] * c1 + c] - ot[static_cast<size_t>(mm) * c1 + c], 0.0f)
+                  : 0.0f;
     }
 
     for (int c0 = 0; c0 < c2; c0 += kColPass)
-      dense_relu_pass<T, T>(ha, lda, c1, w2, b2, c2, c0, hb, ldb, c0, wt);
+      dense_relu_pass(ha, lda, c1, w2, b2, c2, c0, hb, ldb, c0, wt);
 
     const int lm_lo = row0 / s;
     const int lm_hi = min((row0 + kRows - 1) / s, tm - 1);
     const int chunk_rows = min(kRows, rows - row0);
     for (int c0 = 0; c0 < c3; c0 += kColPass) {
-      dense_relu_pass<T, float>(hb, ldb, c2, w3, b3, c3, c0, ha, lda, 0, wt);
+      dense_relu_pass(hb, ldb, c2, w3, b3, c3, c0, ha, lda, 0, wt);
       __syncthreads();
       for (int e = tid; e < (lm_hi - lm_lo + 1) * kColPass; e += kThreads) {
         const int lm = lm_lo + e / kColPass;
@@ -290,14 +315,13 @@ sa_fused_fwd_kernel(const T* __restrict__ y, const T* __restrict__ o,
   __syncthreads();
   for (int e = tid; e < tm * c3; e += kThreads) {
     const int mm = m0 + e / c3;
-    if (mm < m) put(out + (static_cast<size_t>(t) * m + mm) * c3 + e % c3, omax[e]);
+    if (mm < m) out[(static_cast<size_t>(t) * m + mm) * c3 + e % c3] = omax[e];
   }
 }
 
-template <bool kWin, typename T>
-int launch(const void* y, const void* o, const void* idx, const void* starts, const void* w2,
-           const void* b2, const void* w3, const void* b3, void* out, int t, int n, int m,
-           int s, int c1, int c2, int c3, int nb, int window, void* stream) {
+int launch_win(const void* y, const void* o, const void* idx, const void* starts, const void* w2,
+               const void* b2, const void* w3, const void* b3, void* out, int t, int n, int m,
+               int s, int c1, int c2, int c3, int nb, int window, void* stream) {
   if (t == 0 || m == 0) return 0;
   if (n <= 0 || s <= 0 || c1 <= 0 || c2 <= 0 || c3 <= 0) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(s, c1, c2, c3);
@@ -305,17 +329,17 @@ int launch(const void* y, const void* o, const void* idx, const void* starts, co
   const int tm = centroids_per_block(s);
   const int blocks_m = (m + tm - 1) / tm;
   if (blocks_m > 65535) return cudaErrorInvalidValue;
-  auto kernel = &sa_fused_fwd_kernel<kWin, T>;
+  const auto kernel = sa_fused_fwd_win_kernel;
   static std::atomic<uint64_t> smem_set{0};
   const cudaError_t err =
       allow_smem(reinterpret_cast<const void*>(kernel), kMaxSmem, smem_set, true);
   if (err != cudaSuccess) return err;
   const dim3 grid(t, blocks_m);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(y), static_cast<const T*>(o),
+      static_cast<const float*>(y), static_cast<const float*>(o),
       static_cast<const int64_t*>(idx), static_cast<const int64_t*>(starts),
-      static_cast<const T*>(w2), static_cast<const float*>(b2),
-      static_cast<const T*>(w3), static_cast<const float*>(b3), static_cast<T*>(out), n,
+      static_cast<const float*>(w2), static_cast<const float*>(b2),
+      static_cast<const float*>(w3), static_cast<const float*>(b3), static_cast<float*>(out), n,
       m, s, c1, c2, c3, tm, nb, window);
   return cudaGetLastError();
 }
@@ -331,6 +355,47 @@ constexpr int kFK = 32;              // weight rows a K-tile: 4 k8 steps a barri
 constexpr int kFSlot = kFK * kW2Ld;  // floats a ring slot; two slots
 constexpr int kRowsSmem = 4 * (2 * kRows * kLd + 2 * kFSlot) +
                           4 * (2 * kRows + 2 * kMaxCent + 3);
+
+// The dedupe and the cost scan of kernels B, B-bf16 and G-bf16 on `st`.
+template <bool kWin>
+cudaError_t dedupe_and_scan(const void* idx, const void* starts, void* rows, void* counts,
+                            int cents, int n, int m, int s, int nb, int window,
+                            cudaStream_t st) {
+  const int per = kThreads / 32;
+  sa_dedupe_kernel<kWin><<<(cents + per - 1) / per, kThreads, 0, st>>>(
+      static_cast<const int64_t*>(idx), static_cast<const int64_t*>(starts),
+      static_cast<int*>(rows), static_cast<int*>(counts), cents, n, m, s, nb, window);
+  sa_scan_kernel<kFwdCentroidRows><<<1, 1024, 0, st>>>(static_cast<const int*>(counts),
+                                                       static_cast<int*>(counts) + cents, cents);
+  return cudaGetLastError();
+}
+
+// A tile of the centroids from `cursor` on (one warp: `lane` 0..31, whose
+// `cnt` is the distinct rows of centroid cursor + lane, kRows + 1 past the
+// part's end): whole centroids packed while their distinct rows fit in
+// kRows, at most kMaxCent. cent_id[j] and cent_rs[j] are centroid j's id and
+// first row, cent_rs[n_cent] the tile's rows; tile_info = (n_cent, n_rows).
+// Returns n_cent.
+__device__ __forceinline__ int pack_tile(int cnt, int cursor, int lane, int* cent_id,
+                                         int* cent_rs, int* tile_info) {
+  int incl = cnt;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+  }
+  const int nc = __popc(__ballot_sync(0xffffffffu, incl <= kRows));
+  if (lane < nc) {
+    cent_id[lane] = cursor + lane;
+    cent_rs[lane] = incl - cnt;
+  }
+  if (lane == nc - 1) {
+    cent_rs[nc] = incl;
+    tile_info[1] = incl;
+  }
+  if (lane == 0) tile_info[0] = nc;
+  return nc;
+}
 
 // buf[row][c] = relu(acc + bias[c]) for this warp's accumulators: rows
 // ra/rb of m-tiles mt < active, columns n0 + 8 nt + 2 t4 (+ 1).
@@ -392,26 +457,9 @@ sa_fused_fwd_rows_kernel(const float* __restrict__ y, const float* __restrict__ 
   int cursor = lower_bound(prefix, cents, total * blockIdx.x / gridDim.x);
   while (cursor < c_end) {
     __syncthreads();  // the previous tile is done with every buffer
-    if (warp == 0) {  // pack whole centroids while their distinct rows fit
-      const int c = cursor + lane;
-      const int cnt = c < c_end ? counts[c] : kRows + 1;
-      int incl = cnt;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int v = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += v;
-      }
-      const int nc = __popc(__ballot_sync(0xffffffffu, incl <= kRows));
-      if (lane < nc) {
-        cent_id[lane] = c;
-        cent_rs[lane] = incl - cnt;
-      }
-      if (lane == nc - 1) {
-        cent_rs[nc] = incl;
-        tile_info[1] = incl;
-      }
-      if (lane == 0) tile_info[0] = nc;
-    }
+    if (warp == 0)
+      pack_tile(cursor + lane < c_end ? counts[cursor + lane] : kRows + 1, cursor, lane,
+                cent_id, cent_rs, tile_info);
     __syncthreads();
     const int n_cent = tile_info[0];
     const int n_rows = tile_info[1];
@@ -465,43 +513,32 @@ sa_fused_fwd_rows_kernel(const float* __restrict__ y, const float* __restrict__ 
   }
 }
 
+// The shapes kernels B, B-bf16 and G-bf16 take (the wrappers check them
+// first: ops/sa_fused.py::check_rows_takes).
+bool rows_take(int t, int n, int m, int s, int c3, int c3p) {
+  return n > 0 && n < (1 << 24) && s > 0 && s <= kRows && c3 > 0 && c3p >= c3 && c3p % kC == 0 &&
+         t >= 0 && m >= 0 && static_cast<long long>(t) * m <= INT_MAX &&
+         static_cast<long long>(t) * n <= INT_MAX;
+}
+
 int launch_rows(const void* y, const void* o, const void* idx, const void* w2, const void* b2,
                 const void* w3, const void* b3, void* out, void* rows, void* counts, int t,
                 int n, int m, int s, int c3, int c3p, void* stream) {
-  if (n <= 0 || n >= (1 << 24) || s <= 0 || s > kRows || c3 <= 0 || c3p < c3 || c3p % kC ||
-      t < 0 || m < 0 || static_cast<long long>(t) * m > INT_MAX ||
-      static_cast<long long>(t) * n > INT_MAX)
-    return cudaErrorInvalidValue;
+  if (!rows_take(t, n, m, s, c3, c3p)) return cudaErrorInvalidValue;
   const int cents = t * m;
   if (cents == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int per = kThreads / 32;
-  sa_dedupe_kernel<false><<<(cents + per - 1) / per, kThreads, 0, st>>>(
-      static_cast<const int64_t*>(idx), nullptr, static_cast<int*>(rows),
-      static_cast<int*>(counts), cents, n, m, s, 1, 0);
-  sa_scan_kernel<kFwdCentroidRows><<<1, 1024, 0, st>>>(static_cast<const int*>(counts),
-                                                       static_cast<int*>(counts) + cents, cents);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = dedupe_and_scan<false>(idx, nullptr, rows, counts, cents, n, m, s, 1, 0, st);
   if (err != cudaSuccess) return err;
   const auto kernel = sa_fused_fwd_rows_kernel;
   static std::atomic<uint64_t> smem_set{0};
   err = allow_smem(reinterpret_cast<const void*>(kernel), kRowsSmem, smem_set);
   if (err != cudaSuccess) return err;
-  static std::atomic<int> resident[64];  // blocks that fit the card at once, by device
-  int dev = 0;
-  err = cudaGetDevice(&dev);
+  static std::atomic<int> resident[64];
+  int blocks = 0;
+  err = resident_blocks(reinterpret_cast<const void*>(kernel), kThreads, kRowsSmem, resident,
+                        &blocks);
   if (err != cudaSuccess) return err;
-  int blocks = resident[dev & 63].load(std::memory_order_relaxed);
-  if (blocks == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kRowsSmem);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;  // does not fit an SM
-    blocks = sms * per_sm;
-    resident[dev & 63].store(blocks, std::memory_order_relaxed);
-  }
   const int grid = blocks < cents ? blocks : cents;
   kernel<<<grid, kThreads, kRowsSmem, st>>>(
       static_cast<const float*>(y), static_cast<const float*>(o), static_cast<const int*>(rows),
@@ -511,11 +548,287 @@ int launch_rows(const void* y, const void* o, const void* idx, const void* w2, c
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// B-bf16 and G-bf16: each distinct row once, bf16 wgmma, W2 and W3 resident.
+// ---------------------------------------------------------------------------
+
+constexpr int kHGroups = 4;                  // warpgroups a block, each on its own tiles
+constexpr int kHThreads = 128 * kHGroups;
+constexpr int kHMaxC3 = 2 * kC;              // W3's columns that stay in shared memory
+constexpr int kAtom = 1024;                  // a 128-byte swizzled atom: 8 rows of 128 bytes
+constexpr int kWPanel = kC / 8 * kAtom;      // 64 columns of a weight's 128 rows: 16 KB
+constexpr int kH1Panel = kRows / 8 * kAtom;  // 64 columns of h1's 64 rows: 8 KB
+constexpr int kH3Ld = kC + 8;                // bf16 row stride of a layer-3 pass's staging
+// a warpgroup's own: h1 (two panels), then a layer-3 pass over it; the
+// tile's tables
+constexpr int kGroupBytes = kRows * kH3Ld * 2 + kAtom;
+static_assert(kRows * kH3Ld * 2 >= 2 * kH1Panel && kGroupBytes % kAtom == 0, "h1 and h3");
+static_assert((2 * kRows + 2 * kMaxCent + 3) * 4 <= kAtom, "a warpgroup's tables");
+
+// Bytes of dynamic shared memory at c3p (+ 1 KB to align the atoms):
+// W2, W3, the warpgroups' own, b2 and b3.
+constexpr int bf16_smem(int c3p) {
+  return kAtom + (2 + c3p / 64) * kWPanel + kHGroups * kGroupBytes + 4 * (kC + c3p);
+}
+static_assert(bf16_smem(kHMaxC3) <= kMaxSmem, "B-bf16's shared memory");
+
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(group + 1) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A row-major bf16 weight (kC rows, `cols` columns) into N-major 128-byte
+// swizzled panels of 64 columns by cp.async (the block's threads): element
+// (k, n) at (n / 64) kWPanel + (k / 8) 1024 + (k % 8) 128 + ((n % 64 / 8) ^
+// (k % 8)) 16 + (n % 8) 2.
+__device__ __forceinline__ void load_w_panels(unsigned char* dst,
+                                              const __nv_bfloat16* __restrict__ w, int cols) {
+  const int per_row = cols / 8;
+  for (int e = threadIdx.x; e < kC * per_row; e += blockDim.x) {
+    const int k = e / per_row;
+    const int n8 = e % per_row;
+    cp_async<16>(smem_addr(dst + (n8 / 8) * kWPanel + (k / 8) * kAtom + (k % 8) * 128 +
+                           (((n8 % 8) ^ (k % 8)) * 16)),
+                 w + static_cast<size_t>(k) * cols + 8 * n8, true);
+  }
+}
+
+// h1 = bf16(relu(Y[row] - O[centroid])) for the tile's rows, 0 past them
+// (the warpgroup's 128 threads, `gtid`), into K-major 128-byte swizzled
+// panels of 64 columns: element (r, k) at (k / 64) kH1Panel + (r / 8) 1024 +
+// (r % 8) 128 + ((k % 64 / 8) ^ (r % 8)) 16 + (k % 8) 2. Each thread's
+// loads from L2 are all issued before the first is used.
+__device__ __forceinline__ void gather_h1_bf16(unsigned char* h1,
+                                               const __nv_bfloat16* __restrict__ y,
+                                               const __nv_bfloat16* __restrict__ o,
+                                               const int* row_tab, const int* row_slot,
+                                               const int* cent_id, int n_rows, int gtid) {
+  constexpr int kPer = kRows * (kC / 8) / 128;  // 16-byte chunks a thread
+  const int k8 = gtid & 15;                     // its chunk of each of its rows
+  uint4 a[kPer], b[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int r = (gtid >> 4) + 8 * i;
+    a[i] = b[i] = make_uint4(0u, 0u, 0u, 0u);  // relu(0 - 0): the rows past the tile's
+    if (r < n_rows) {
+      a[i] = __ldg(reinterpret_cast<const uint4*>(y + static_cast<size_t>(row_tab[r]) * kC +
+                                                  8 * k8));
+      b[i] = __ldg(reinterpret_cast<const uint4*>(
+          o + static_cast<size_t>(cent_id[row_slot[r]]) * kC + 8 * k8));
+    }
+  }
+  // a bf16 pair's low half is its first element; bf16 -> f32 is a shift
+  auto h = [](uint32_t ya, uint32_t ob) {
+    return pack_bf16(fmaxf(__uint_as_float(ya << 16) - __uint_as_float(ob << 16), 0.0f),
+                     fmaxf(__uint_as_float(ya & 0xFFFF0000u) - __uint_as_float(ob & 0xFFFF0000u),
+                           0.0f));
+  };
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int r = (gtid >> 4) + 8 * i;
+    *reinterpret_cast<uint4*>(h1 + (k8 >> 3) * kH1Panel + (r >> 3) * kAtom + (r & 7) * 128 +
+                              (((k8 & 7) ^ (r & 7)) * 16)) =
+        make_uint4(h(a[i].x, b[i].x), h(a[i].y, b[i].y), h(a[i].z, b[i].z), h(a[i].w, b[i].w));
+  }
+}
+
+// B-bf16's output (G-bf16's after the windowed dedupe): out[cent, c] = max
+// over the centroid's distinct rows of bf16(relu(h2 W3 + b3))[c], h2 =
+// bf16(relu(h1 W2 + b2)), h1 = bf16(relu(Y[row] - O[cent])), for c < c3;
+// drows and counts from sa_dedupe_kernel, counts + cents the prefix of
+// their cost. w2 (128, 128), w3 (128, c3p), b2 (128), b3 (c3p), c3p <= 256.
+__global__ void __launch_bounds__(kHThreads, 1)
+sa_fused_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ y,
+                         const __nv_bfloat16* __restrict__ o, const int* __restrict__ drows,
+                         const int* __restrict__ counts, const __nv_bfloat16* __restrict__ w2,
+                         const float* __restrict__ b2, const __nv_bfloat16* __restrict__ w3,
+                         const float* __restrict__ b3, __nv_bfloat16* __restrict__ out, int n,
+                         int m, int cents, int c3, int c3p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* w2s = smem_raw + ((kAtom - (smem_addr(smem_raw) & (kAtom - 1))) & (kAtom - 1));
+  unsigned char* w3s = w2s + 2 * kWPanel;
+  unsigned char* groups = w3s + c3p / 64 * kWPanel;
+  float* b2s = reinterpret_cast<float*>(groups + kHGroups * kGroupBytes);
+  float* b3s = b2s + kC;
+
+  const int tid = threadIdx.x;
+  load_w_panels(w2s, w2, kC);
+  load_w_panels(w3s, w3, c3p);
+  cp_async_commit();
+  for (int e = tid; e < kC + c3p; e += kHThreads) b2s[e] = e < kC ? b2[e] : b3[e - kC];
+  cp_async_wait<0>();
+  fence_async_shared();  // the weights' copies -> wgmma
+  __syncthreads();
+
+  const int group = tid >> 7;
+  const int gtid = tid & 127;
+  const int lane = tid & 31;
+  const int warp = gtid >> 5;  // rows 16 warp .. 16 warp + 15 of the tile's accumulators
+  const int t2 = 2 * (lane & 3);
+  const int r0 = 16 * warp + (lane >> 2);
+  unsigned char* h1 = groups + group * kGroupBytes;
+  // h3's staging over h1: layer 2's wgmmas, the last to read h1, are done
+  // once any warp has waited for layer 3's (all four warps issue each)
+  __nv_bfloat16* h3 = reinterpret_cast<__nv_bfloat16*>(h1);
+  int* row_tab = reinterpret_cast<int*>(h1 + kRows * kH3Ld * 2);
+  int* row_slot = row_tab + kRows;  // the row's centroid in the tile
+  int* cent_id = row_slot + kRows;
+  int* cent_rs = cent_id + kMaxCent;        // first row of each centroid, + end
+  int* tile_info = cent_rs + kMaxCent + 1;  // n_cent, n_rows
+
+  // this warpgroup's centroids: those whose cost starts in its share
+  const int part = blockIdx.x * kHGroups + group;
+  const long long parts = static_cast<long long>(gridDim.x) * kHGroups;
+  const int* prefix = counts + cents;
+  const long long total = prefix[cents];
+  const int c_end = lower_bound(prefix, cents, total * (part + 1) / parts);
+  int cursor = lower_bound(prefix, cents, total * part / parts);
+  // warp 0's lanes hold the counts of the next tile's candidates, loaded while
+  // the current tile runs
+  int cnt = warp == 0 && cursor + lane < c_end ? counts[cursor + lane] : kRows + 1;
+  while (cursor < c_end) {
+    group_sync(group);  // the previous tile is done with the tables and h3
+    if (warp == 0) {
+      const int next = cursor + pack_tile(cnt, cursor, lane, cent_id, cent_rs, tile_info);
+      cnt = next + lane < c_end ? counts[next + lane] : kRows + 1;
+    }
+    group_sync(group);
+    const int n_cent = tile_info[0];
+    const int n_rows = tile_info[1];
+    for (int j = warp; j < n_cent; j += 4) {
+      const int cent = cent_id[j];
+      const int base = cent_rs[j];
+      const int tn = (cent / m) * n;
+      for (int q = lane; q < cent_rs[j + 1] - base; q += 32) {
+        row_tab[base + q] = tn + (drows[static_cast<size_t>(cent) * kRows + q] >> 7);
+        row_slot[base + q] = j;
+      }
+    }
+    group_sync(group);
+    gather_h1_bf16(h1, y, o, row_tab, row_slot, cent_id, n_rows, gtid);
+    fence_async_shared();  // h1's stores -> wgmma
+    group_sync(group);
+
+    // layer 2; accumulator i: row r0 (+ 8 when i % 4 >= 2), column 8 (i / 4)
+    // + t2 + i % 2
+    uint32_t a2[kC / 16][4];  // h2 as layer 3's A: k-slice i / 8, register i % 8 / 2
+    {
+      float acc[kC / 2];  // set by the first wgmma (scale-d 0)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kC / 16; ++kk)
+        wgmma_bf16<kC>(acc,
+                       smem_desc<kSwizzle128>(h1 + (kk >> 2) * kH1Panel + 32 * (kk & 3), 16,
+                                              kAtom),
+                       smem_desc<kSwizzle128>(w2s + 2 * kAtom * kk, kWPanel, kAtom), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < kC / 2; i += 2) {
+        const float2 b = *reinterpret_cast<const float2*>(b2s + 8 * (i >> 2) + t2);
+        a2[i >> 3][(i & 7) >> 1] =
+            pack_bf16(fmaxf(acc[i] + b.x, 0.0f), fmaxf(acc[i + 1] + b.y, 0.0f));
+      }
+    }
+    for (int c0 = 0; c0 < c3p; c0 += kC) {
+      {  // h3 = bf16(relu(h2 W3 + b3)) for columns c0 .. c0 + 127, staged
+        float acc[kC / 2];
+        wgmma_fence();  // a2's registers -> wgmma
+#pragma unroll
+        for (int kk = 0; kk < kC / 16; ++kk)
+          wgmma_bf16_rs_128(
+              acc, a2[kk],
+              smem_desc<kSwizzle128>(w3s + (c0 / 64) * kWPanel + 2 * kAtom * kk, kWPanel, kAtom),
+              kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < kC / 2; i += 2) {
+          const int c = 8 * (i >> 2) + t2;
+          const float2 b = *reinterpret_cast<const float2*>(b3s + c0 + c);
+          *reinterpret_cast<uint32_t*>(h3 + (r0 + (i & 2) * 4) * kH3Ld + c) =
+              pack_bf16(fmaxf(acc[i] + b.x, 0.0f), fmaxf(acc[i + 1] + b.y, 0.0f));
+        }
+      }
+      group_sync(group);
+      // the max over each centroid's rows: a thread takes two neighbouring
+      // columns and half the rows (four chains of maxima), its neighbour
+      // lane the other half
+      for (int e = gtid; e < n_cent * kC; e += 128) {  // every lane of a warp, as often
+        const int j = e / kC;
+        const int c = 2 * ((e % kC) >> 1);
+        const int mid = (cent_rs[j] + cent_rs[j + 1] + 1) >> 1;
+        const int end = e & 1 ? cent_rs[j + 1] : mid;
+        const __nv_bfloat16* col = h3 + c;
+        __nv_bfloat162 mx[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) mx[q] = __float2bfloat162_rn(0.0f);
+        int r = e & 1 ? mid : cent_rs[j];
+        for (; r + 3 < end; r += 4)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            mx[q] = __hmax2(mx[q],
+                            *reinterpret_cast<const __nv_bfloat162*>(col + (r + q) * kH3Ld));
+        for (; r < end; ++r)
+          mx[0] = __hmax2(mx[0], *reinterpret_cast<const __nv_bfloat162*>(col + r * kH3Ld));
+        mx[0] = __hmax2(__hmax2(mx[0], mx[1]), __hmax2(mx[2], mx[3]));
+        const uint32_t mine = *reinterpret_cast<const uint32_t*>(&mx[0]);
+        const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
+        mx[0] = __hmax2(mx[0], *reinterpret_cast<const __nv_bfloat162*>(&other));
+        if (!(e & 1) && c0 + c < c3) {
+          __nv_bfloat16* dst = out + static_cast<size_t>(cent_id[j]) * c3 + c0 + c;
+          dst[0] = mx[0].x;
+          if (c0 + c + 1 < c3) dst[1] = mx[0].y;
+        }
+      }
+      if (c0 + kC < c3p) group_sync(group);  // the next pass's staging
+    }
+    cursor += n_cent;
+  }
+}
+
+template <bool kWin>
+int launch_bf16(const void* y, const void* o, const void* idx, const void* starts, const void* w2,
+                const void* b2, const void* w3, const void* b3, void* out, void* rows,
+                void* counts, int t, int n, int m, int s, int c3, int c3p, int nb, int window,
+                void* stream) {
+  if (!rows_take(t, n, m, s, c3, c3p) || c3p > kHMaxC3) return cudaErrorInvalidValue;
+  const int cents = t * m;
+  if (cents == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      dedupe_and_scan<kWin>(idx, starts, rows, counts, cents, n, m, s, nb, window, st);
+  if (err != cudaSuccess) return err;
+  const auto kernel = sa_fused_fwd_bf16_kernel;
+  constexpr int kMost = bf16_smem(kHMaxC3);
+  static std::atomic<uint64_t> smem_set{0};
+  err = allow_smem(reinterpret_cast<const void*>(kernel), kMost, smem_set);
+  if (err != cudaSuccess) return err;
+  static std::atomic<int> resident[64];
+  int blocks = 0;
+  err = resident_blocks(reinterpret_cast<const void*>(kernel), kHThreads, kMost, resident,
+                        &blocks);
+  if (err != cudaSuccess) return err;
+  const int grid = blocks < cents ? blocks : cents;
+  kernel<<<grid, kHThreads, bf16_smem(c3p), st>>>(
+      static_cast<const __nv_bfloat16*>(y), static_cast<const __nv_bfloat16*>(o),
+      static_cast<const int*>(rows), static_cast<const int*>(counts),
+      static_cast<const __nv_bfloat16*>(w2), static_cast<const float*>(b2),
+      static_cast<const __nv_bfloat16*>(w3), static_cast<const float*>(b3),
+      static_cast<__nv_bfloat16*>(out), n, m, cents, c3, c3p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs; above 232448 bytes the launch is refused.
+// Shared memory one block of kernel G needs; above 232448 bytes the launch
+// is refused.
 long long epnet_sa_fused_smem_bytes(int s, int c1, int c2, int c3) {
   return static_cast<long long>(smem_bytes(s, c1, c2, c3));
 }
@@ -534,41 +847,51 @@ int epnet_sa_fused_fwd_launch(const void* y, const void* o, const void* idx, con
   return launch_rows(y, o, idx, w2, b2, w3, b3, out, rows, counts, t, n, m, s, c3, c3p, stream);
 }
 
-// B-bf16: y (t, n, c1), o (t, m, c1), idx (t, m, s) int64, w2 (c1, c2), b2
-// (c2), w3 (c2, c3), b3 (c3), out (t, m, c3); y, o, w2, w3 and out bf16, b2
-// and b3 float32, contiguous. Launches on `stream`, allocates nothing,
-// returns cudaGetLastError().
+// B-bf16: kernel B's arguments with y, o, w2, w3 and out bf16 (b2, b3
+// float32) and c3p 128 or 256. Launches the dedupe, the scan and
+// sa_fused_fwd_bf16_kernel on `stream`, allocates nothing, returns
+// cudaGetLastError().
 int epnet_sa_fused_fwd_bf16_launch(const void* y, const void* o, const void* idx,
                                    const void* w2, const void* b2, const void* w3,
-                                   const void* b3, void* out, int t, int n, int m,
-                                   int s, int c1, int c2, int c3, void* stream) {
-  return launch<false, __nv_bfloat16>(y, o, idx, nullptr, w2, b2, w3, b3, out, t, n, m, s, c1,
-                                      c2, c3, 1, 0, stream);
+                                   const void* b3, void* out, void* rows, void* counts, int t,
+                                   int n, int m, int s, int c3, int c3p, void* stream) {
+  return launch_bf16<false>(y, o, idx, nullptr, w2, b2, w3, b3, out, rows, counts, t, n, m, s,
+                            c3, c3p, 1, 0, stream);
 }
 
-// Kernel G: B-bf16's arguments in float32, with idx (t, m, s) int64
-// window-relative rows in [0, window) and starts (t, nb) int64, the first
-// table row of the window of each tile of m / nb centroids; nb must divide
-// m, window <= n.
+// G-bf16: B-bf16 with idx (t, m, s) int64 window-relative rows in [0,
+// window) and starts (t, nb) int64, the first table row of the window of
+// each tile of m / nb centroids; nb must divide m, window <= n.
+int epnet_sa_fused_win_fwd_bf16_launch(const void* y, const void* o, const void* idx,
+                                       const void* starts, const void* w2, const void* b2,
+                                       const void* w3, const void* b3, void* out, void* rows,
+                                       void* counts, int t, int n, int m, int s, int c3, int c3p,
+                                       int nb, int window, void* stream) {
+  if (nb <= 0 || m % nb != 0 || window <= 0 || window > n) return cudaErrorInvalidValue;
+  return launch_bf16<true>(y, o, idx, starts, w2, b2, w3, b3, out, rows, counts, t, n, m, s, c3,
+                           c3p, nb, window, stream);
+}
+
+// What B-bf16 and G-bf16 run, for the logs.
+const char* epnet_sa_fused_bf16_design() {
+  return "distinct rows; bf16 wgmma m64n128k16, layer 3's A from registers; W2, W3 resident "
+         "in shared memory; 4 warpgroups a block on their own tiles, 1 block an SM";
+}
+
+// Kernel G: y (t, n, c1), o (t, m, c1), idx (t, m, s) int64 window-relative
+// rows in [0, window), starts (t, nb) int64, the first table row of the
+// window of each tile of m / nb centroids, w2 (c1, c2), b2 (c2), w3 (c2,
+// c3), b3 (c3), out (t, m, c3); all float32 but the indices, contiguous. nb
+// must divide m, window <= n. Launches on `stream`, allocates nothing,
+// returns cudaGetLastError().
 int epnet_sa_fused_win_fwd_launch(const void* y, const void* o, const void* idx,
                                   const void* starts, const void* w2, const void* b2,
                                   const void* w3, const void* b3, void* out, int t, int n,
                                   int m, int s, int c1, int c2, int c3, int nb, int window,
                                   void* stream) {
   if (nb <= 0 || m % nb != 0 || window <= 0 || window > n) return cudaErrorInvalidValue;
-  return launch<true, float>(y, o, idx, starts, w2, b2, w3, b3, out, t, n, m, s, c1, c2, c3, nb,
-                             window, stream);
-}
-
-// G-bf16: kernel G with y, o, w2, w3 and out bf16; b2, b3 float32.
-int epnet_sa_fused_win_fwd_bf16_launch(const void* y, const void* o, const void* idx,
-                                       const void* starts, const void* w2, const void* b2,
-                                       const void* w3, const void* b3, void* out, int t, int n,
-                                       int m, int s, int c1, int c2, int c3, int nb, int window,
-                                       void* stream) {
-  if (nb <= 0 || m % nb != 0 || window <= 0 || window > n) return cudaErrorInvalidValue;
-  return launch<true, __nv_bfloat16>(y, o, idx, starts, w2, b2, w3, b3, out, t, n, m, s, c1, c2,
-                                     c3, nb, window, stream);
+  return launch_win(y, o, idx, starts, w2, b2, w3, b3, out, t, n, m, s, c1, c2, c3, nb, window,
+                    stream);
 }
 
 const char* epnet_error_string(int err) {

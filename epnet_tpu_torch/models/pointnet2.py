@@ -81,11 +81,12 @@ class SAModuleMSG(nn.Module):
 
     def uses_fused(self, i: int) -> bool:
         """Scale ``i`` through the fused SA interior (kernel B or G, and C or
-        H in training). B, C and H take S <= 64 and C1, C2 <= 128, and C and
-        H also C3 <= 256 (``ops.sa_fused.check_rows_takes``,
-        ``check_bwd_takes``); a wider scale runs only on the CPU and raises
-        on the card: at B's launch, or in the first forward that records a
-        graph."""
+        H in training; B-bf16 or G-bf16 in bf16). B, C and H take S <= 64
+        and C1, C2 <= 128, and C and H also C3 <= 256
+        (``ops.sa_fused.check_rows_takes``, ``check_bwd_takes``); B-bf16 and
+        G-bf16 take B's limits and C3 <= 256 (``check_bf16_takes``). A wider
+        scale runs only on the CPU and raises on the card: at the forward
+        kernel's launch, or in the first forward that records a graph."""
         return self.npoint is not None and not self.bn and self.mlp(i).depth == 3
 
     def uses_block_local(self, n: int) -> bool:

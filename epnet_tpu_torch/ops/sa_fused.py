@@ -22,8 +22,11 @@ their designs do about that, is written at the top of each source: the
 dense layers' work, with every intermediate kept in shared memory and
 registers. B, C and H take each ball's distinct rows once and run their
 products, or those that decide nothing, in three TF32 passes on the tensor
-cores (S <= 64, C1 and C2 <= 128: ``check_rows_takes``); G and the bf16
-instances run every row in f32 FFMA.
+cores (S <= 64, C1 and C2 <= 128: ``check_rows_takes``). B-bf16 and G-bf16
+are one kernel on the distinct rows, bf16 ``wgmma`` with W2 and W3 resident
+in shared memory: B's limits and C3 <= 256 (``check_bf16_takes``). G runs
+every row in f32 FFMA. A stage beyond a kernel's limits raises on the
+card.
 
 Layer 1 commutes with the gather when the stage has no BatchNorm, so the
 caller passes ``y = [xyz, feats] @ W1 + b1`` over each table and
@@ -125,12 +128,18 @@ def _typed(lib: ctypes.CDLL, fns: dict) -> ctypes.CDLL:
 
 def _fwd_lib() -> ctypes.CDLL:
     rows = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p], ctypes.c_int)
-    fwd = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p], ctypes.c_int)
     win = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p], ctypes.c_int)
+    win_bf16 = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p], ctypes.c_int)
     return _typed(cuda_build.load_library('sa_fused'), {
-        'epnet_sa_fused_fwd_launch': rows, 'epnet_sa_fused_fwd_bf16_launch': fwd,
-        'epnet_sa_fused_win_fwd_launch': win, 'epnet_sa_fused_win_fwd_bf16_launch': win,
+        'epnet_sa_fused_fwd_launch': rows, 'epnet_sa_fused_fwd_bf16_launch': rows,
+        'epnet_sa_fused_win_fwd_launch': win, 'epnet_sa_fused_win_fwd_bf16_launch': win_bf16,
+        'epnet_sa_fused_bf16_design': ([], ctypes.c_char_p),
         'epnet_sa_fused_smem_bytes': ([ctypes.c_int] * 4, ctypes.c_longlong)})
+
+
+def bf16_design() -> str:
+    """What B-bf16 and G-bf16 run, as the built library says (needs nvcc)."""
+    return _fwd_lib().epnet_sa_fused_bf16_design().decode()
 
 
 def _bwd_lib() -> ctypes.CDLL:
@@ -187,7 +196,7 @@ def _check_window(what: str, starts, window: int, T: int, N: int, M: int) -> int
     return NB
 
 
-_ROWS = 64  # samples a ball of kernels B, C and H: one warp's sort of its rows
+_ROWS = 64  # samples a ball of the kernels on distinct rows: one warp's sort of its rows
 _WIDTH = 128  # their C1 and C2, and the column pass of C3
 
 
@@ -205,45 +214,65 @@ def check_rows_takes(what, T, N, S, C1, C2):
                          f'got {T} x {N}')
 
 
-def fused_point_mlp_max_kernel(y, o, idx, w2, b2, w3, b3):
-    """Launch kernel B (``csrc/sa_fused.cu``: dedupe, scan and the main
-    kernel on the distinct rows) on the current stream. All tensors on one
-    CUDA device, float32 (idx int64), shapes as in the plain version;
-    S <= 64, C1 and C2 <= 128 (``check_rows_takes``). Pads C1 and C2 to 128
-    and W3's columns to a multiple of 128 with zeros, which changes no
-    output. Raises on anything the kernel does not take."""
-    what = 'fused_point_mlp_max_kernel'
-    T, N, M, S, C1, C2, C3 = _check_args(what, y=y, o=o, idx=idx, w2=w2, b2=b2, w3=w3, b3=b3)
-    check_rows_takes(what, T, N, S, C1, C2)
+def check_bf16_takes(what, T, N, S, C1, C2, C3):
+    """Raise unless B-bf16 and G-bf16 take these shapes: kernel B's
+    (``check_rows_takes``) and C3 <= 256, since W2 and W3 stay in shared
+    memory (32 + 64 KB in bf16 at C3 = 256). These are the backward's
+    limits too (``check_bwd_takes``)."""
+    check_bwd_takes(what, T, N, S, C1, C2, C3)
+
+
+def _launch_rows(wrapper, entry, dims, inputs, extra=()):
+    """Kernel B, B-bf16 or G-bf16 (C entry point ``entry``) for ``wrapper``,
+    whose launch count it keeps: pads C1 and C2 to 128 and W3's columns to a
+    multiple of 128 with zeros (which changes no output), allocates the
+    output in y's dtype and the dedupe's scratch, launches, returns (T, M,
+    C3). ``inputs``: y, o, idx, [starts,] w2, b2, w3, b3; ``extra``: the ints
+    the entry point takes after c3p (G-bf16's nb, window)."""
+    what = wrapper.__name__
+    T, N, M, S, C1, C2, C3 = dims
     C3P = -(-C3 // _WIDTH) * _WIDTH
     lib = _fwd_lib()
-    dev = y.device
-    y, o, idx, w2, b2, w3, b3 = [t.detach().contiguous() for t in (y, o, idx, w2, b2, w3, b3)]
+    dev = inputs[0].device
+    y, o, idx, *starts, w2, b2, w3, b3 = [t.detach().contiguous() for t in inputs]
     y, o = _pad_to(y, _WIDTH), _pad_to(o, _WIDTH)
     w2, b2 = _pad_to(w2, _WIDTH, _WIDTH), _pad_to(b2, _WIDTH)
     w3, b3 = _pad_to(w3, _WIDTH, C3P), _pad_to(b3, C3P)
     for name, t in (('y', y), ('o', o), ('w2', w2), ('w3', w3)):
         if t.data_ptr() % 16:
             raise ValueError(f'{what}: {name} must be 16-byte aligned')
-    out = torch.empty((T, M, C3), dtype=torch.float32, device=dev)
+    out = torch.empty((T, M, C3), dtype=y.dtype, device=dev)
     if T == 0 or M == 0:
         return out
     rows = torch.empty((T * M, _ROWS), dtype=torch.int32, device=dev)
     counts = torch.empty((2 * T * M + 1,), dtype=torch.int32, device=dev)  # and their prefix
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.epnet_sa_fused_fwd_launch(
-            *(a.data_ptr() for a in (y, o, idx, w2, b2, w3, b3, out, rows, counts)),
-            T, N, M, S, C3, C3P, stream)
+        err = getattr(lib, entry)(
+            *(a.data_ptr() for a in (y, o, idx, *starts, w2, b2, w3, b3, out, rows, counts)),
+            T, N, M, S, C3, C3P, *extra, stream)
     cuda_build.check(lib, err, f'{what} launch')
-    fused_point_mlp_max_kernel.launches += 1
+    wrapper.launches += 1
     return out
 
 
+def fused_point_mlp_max_kernel(y, o, idx, w2, b2, w3, b3):
+    """Launch kernel B (``csrc/sa_fused.cu``: dedupe, scan and the main
+    kernel on the distinct rows) on the current stream. All tensors on one
+    CUDA device, float32 (idx int64), shapes as in the plain version;
+    S <= 64, C1 and C2 <= 128 (``check_rows_takes``). Raises on anything the
+    kernel does not take."""
+    what = 'fused_point_mlp_max_kernel'
+    dims = _check_args(what, y=y, o=o, idx=idx, w2=w2, b2=b2, w3=w3, b3=b3)
+    check_rows_takes(what, *dims[:2], *dims[3:6])
+    return _launch_rows(fused_point_mlp_max_kernel, 'epnet_sa_fused_fwd_launch', dims,
+                        (y, o, idx, w2, b2, w3, b3))
+
+
 def _launch_fwd(wrapper, entry, dims, inputs, extra):
-    """B-bf16, G or G-bf16 (C entry point ``entry``) for ``wrapper``, whose launch
-    count it keeps: allocates the output, launches, returns it. ``extra``
-    are the ints the entry point takes after c3 (G's nb, window)."""
+    """Kernel G (C entry point ``entry``) for ``wrapper``, whose launch count
+    it keeps: allocates the output, launches, returns it. ``extra`` are the
+    ints the entry point takes after c3 (nb, window)."""
     T, N, M, S, C1, C2, C3 = dims
     lib = _fwd_lib()
     smem = lib.epnet_sa_fused_smem_bytes(S, C1, C2, C3)
@@ -268,14 +297,17 @@ fused_point_mlp_max_kernel.launches = 0
 
 
 def fused_point_mlp_max_bf16_kernel(y, o, idx, w2, b2, w3, b3):
-    """Launch B-bf16 (``csrc/sa_fused.cu``) on the current stream: ``y``,
-    ``o``, ``w2`` and ``w3`` bf16, ``b2`` and ``b3`` float32, idx int64,
-    on one CUDA device; returns (T, M, C3) bf16. Raises on anything the
+    """Launch B-bf16 (``csrc/sa_fused.cu``: kernel B's dedupe and scan, then
+    the bf16 ``wgmma`` kernel on the distinct rows) on the current stream:
+    ``y``, ``o``, ``w2`` and ``w3`` bf16, ``b2`` and ``b3`` float32, idx
+    int64, on one CUDA device; S <= 64, C1 and C2 <= 128, C3 <= 256
+    (``check_bf16_takes``); returns (T, M, C3) bf16. Raises on anything the
     kernel does not take."""
-    dims = _check_args('fused_point_mlp_max_bf16_kernel', torch.bfloat16, y=y, o=o, idx=idx,
-                       w2=w2, b2=b2, w3=w3, b3=b3)
-    return _launch_fwd(fused_point_mlp_max_bf16_kernel, 'epnet_sa_fused_fwd_bf16_launch', dims,
-                       (y, o, idx, w2, b2, w3, b3), ())
+    what = 'fused_point_mlp_max_bf16_kernel'
+    dims = _check_args(what, torch.bfloat16, y=y, o=o, idx=idx, w2=w2, b2=b2, w3=w3, b3=b3)
+    check_bf16_takes(what, *dims[:2], *dims[3:])
+    return _launch_rows(fused_point_mlp_max_bf16_kernel, 'epnet_sa_fused_fwd_bf16_launch', dims,
+                        (y, o, idx, w2, b2, w3, b3))
 
 
 fused_point_mlp_max_bf16_kernel.launches = 0
@@ -458,15 +490,19 @@ fused_point_mlp_max_win_kernel.launches = 0
 
 
 def fused_point_mlp_max_win_bf16_kernel(y, o, idx_rel, starts, w2, b2, w3, b3, window):
-    """Launch G-bf16 (``csrc/sa_fused.cu``, windowed) on the current
-    stream: tensors as for ``fused_point_mlp_max_win_kernel`` but ``y``,
-    ``o``, ``w2`` and ``w3`` bf16; returns bf16."""
+    """Launch G-bf16 (``csrc/sa_fused.cu``: the windowed dedupe, then
+    B-bf16's kernel on the distinct rows) on the current stream: tensors as
+    for ``fused_point_mlp_max_win_kernel`` but ``y``, ``o``, ``w2`` and
+    ``w3`` bf16, and B-bf16's limits (``check_bf16_takes``); returns bf16.
+    Raises on anything the kernel does not take."""
     what = 'fused_point_mlp_max_win_bf16_kernel'
     dims = _check_args(what, torch.bfloat16, y=y, o=o, idx=idx_rel, starts=starts, w2=w2, b2=b2,
                        w3=w3, b3=b3)
     NB = _check_window(what, starts, window, *dims[:3])
-    return _launch_fwd(fused_point_mlp_max_win_bf16_kernel, 'epnet_sa_fused_win_fwd_bf16_launch',
-                       dims, (y, o, idx_rel, starts, w2, b2, w3, b3), (NB, window))
+    check_bf16_takes(what, *dims[:2], *dims[3:])
+    return _launch_rows(fused_point_mlp_max_win_bf16_kernel,
+                        'epnet_sa_fused_win_fwd_bf16_launch', dims,
+                        (y, o, idx_rel, starts, w2, b2, w3, b3), (NB, window))
 
 
 fused_point_mlp_max_win_bf16_kernel.launches = 0

@@ -1,7 +1,7 @@
 """Time the FPS kernel (A), the fused-SA forward (B) and backward (C, and
-its windowed twin H) and the image tower's conv kernels (D and E, the
-weight gradients; F, the stride-2 forward) of several checkouts of this
-repository on one card, in turns.
+its windowed twin H), the image tower's conv kernels (D and E, the weight
+gradients; F, the stride-2 forward) and the bf16 kernels (B-bf16, G-bf16,
+F-bf16) of several checkouts of this repository on one card, in turns.
 
     python -m epnet_tpu_torch.tools.kernel_turns --trees <parent> . . <parent> [--out DIR]
 
@@ -10,24 +10,27 @@ its own process, in the order given, with its own sources and build
 (``<tree>/build``), on the same inputs: those of ``chip_smoke.py``'s
 phases 1 (A: the six FPS shapes of a forward, the batch-4 RPN sa0 shape,
 the tie-heavy cloud), 2 (B: RCNN sa0 and sa1 on random tables, sa0 on real
-eval tables) and 5 (C: the same at the batch-4 train step's T = 256), H at
-the block-local RCNN sa0 on real windows, T = 256, and phases 8 and 10 (D
-and E at ``chip_smoke.DW_SHAPES``, F at ``chip_smoke.FWD_SHAPES``). A, B,
-C and H's inputs are made once, by this checkout's ``chip_smoke.py``, and
-saved to ``--out``; the conv inputs are made in each process on the card
-by this checkout's ``chip_smoke.dw_cases`` and ``fwd_cases``, from their
-seeds. Each process checks its outputs against this checkout's plain
-versions (picks identical, B within ``chip_smoke.SA_RTOL`` of max|out|, D
-and E within ``DW_RTOL`` of max|dw|, F within ``FWD_RTOL`` of max|y|),
-times each case with
-``chip_smoke._time_ms`` at phase 1's, 2's, 5's, 8's and 10's repetitions
-(A also replayed from a CUDA graph, without the host's launch time) and
-saves C's and H's six outputs and E's dw; the last lines say whether each
-run's dO, dW and db and E's dw are bitwise those of the first run (dY sums
-a row's contributions by f32 atomics, in no fixed order: its largest
-difference is printed), and give a table of milliseconds, one column a
-run. Comparing two versions means running them in turns in one call:
-parent, change, change, parent. Needs a CUDA device.
+eval tables; B-bf16 on the same tables in bf16) and 5 (C: the same at the
+batch-4 train step's T = 256), H at the block-local RCNN sa0 on real
+windows, T = 256, G-bf16 on phase 17's real windows, T = 100, and phases 8
+and 10 (D and E at ``chip_smoke.DW_SHAPES``, F at ``chip_smoke.FWD_SHAPES``;
+F-bf16 on F's inputs in bf16). A, B, B-bf16, G-bf16, C and H's inputs are
+made once, by this checkout's ``chip_smoke.py``, and saved to ``--out``;
+the conv inputs are made in each process on the card by this checkout's
+``chip_smoke.dw_cases`` and ``fwd_cases``, from their seeds. Each process
+checks its outputs against this checkout's plain versions (picks
+identical, B within ``chip_smoke.SA_RTOL`` of max|out|, D and E within
+``DW_RTOL`` of max|dw|, F within ``FWD_RTOL`` of max|y|, the bf16 kernels
+within ``BF16_ULPS`` bf16 units of max|out|), times each case with
+``chip_smoke._time_ms`` at phase 1's, 2's, 5's, 8's, 10's and 17's
+repetitions (A also replayed from a CUDA graph, without the host's launch
+time) and saves C's and H's six outputs, E's dw and F-bf16's y; the last
+lines say whether each run's dO, dW and db, E's dw and F-bf16's y are
+bitwise those of the first run (dY sums a row's contributions by f32
+atomics, in no fixed order: its largest difference is printed), and give a
+table of milliseconds, one column a run. Comparing two versions means
+running them in turns in one call: parent, change, change, parent. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -61,10 +64,18 @@ def make_inputs(path):
         return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32))
 
     idx_rel, starts = cs._window_inputs(T, T, dev)
+    window = cs._sa_win_geometry()[0]
     args = (f(T, N, C1), f(T, M, C1, scale=0.1), idx_rel.cpu(), starts.cpu(),
             f(C1, C2, scale=C1 ** -0.5), f(C2, scale=0.01), f(C2, C3, scale=C2 ** -0.5),
-            f(C3, scale=0.01), cs._sa_win_geometry()[0], f(T, M, C3))
-    torch.save({'fps': fps_in, 'sa': sa_in, 'bwd': bwd_in, 'win_bwd': args}, path)
+            f(C3, scale=0.01), window, f(T, M, C3))
+    T = 100
+    idx_rel, starts = cs._window_inputs(T, T, dev)
+    bf = torch.bfloat16
+    win_bf16 = (f(T, N, C1).to(bf), f(T, M, C1, scale=0.1).to(bf), idx_rel.cpu(), starts.cpu(),
+                f(C1, C2, scale=C1 ** -0.5).to(bf), f(C2, scale=0.01),
+                f(C2, C3, scale=C2 ** -0.5).to(bf), f(C3, scale=0.01), window)
+    torch.save({'fps': fps_in, 'sa': sa_in, 'bwd': bwd_in, 'win_bwd': args,
+                'win_fwd_bf16': win_bf16}, path)
 
 
 def _graph_ms(fn, reps):
@@ -161,10 +172,47 @@ def fps_sa_worker(cs, tree, saved, ms, outputs):
         ms[name] = cs._time_ms(lambda: fn(*args), 5)
 
 
+def bf16_worker(cs, tree, saved, ms, outputs):
+    """B-bf16 (the saved B inputs in bf16), G-bf16 (the saved real windows)
+    and F-bf16 (phase 10's inputs, made here, in bf16) of this process's
+    checkout: checked against the plain versions, timed into ``ms``;
+    F-bf16's y into ``outputs``."""
+    import torch
+    from epnet_tpu_torch.ops import conv2d, sa_fused
+
+    dev = torch.device('cuda:0')
+    bf = torch.bfloat16
+
+    def checked(name, fn, plain, args):
+        got, want = fn(*args), plain(*args)
+        err = float((got.float() - want.float()).abs().max())
+        ulp = cs._bf16_ulp(float(want.float().abs().max()))
+        if not err <= cs.BF16_ULPS * ulp:
+            raise AssertionError(f'{tree}: {name} off by {err:.3e}, one bf16 ulp {ulp:.3e}')
+        return got
+
+    kernel, plain = sa_fused.fused_point_mlp_max_bf16_kernel, sa_fused.fused_point_mlp_max_plain
+    for name, args in saved['sa']:
+        args = [a.to(dev, bf) if i in (0, 1, 3, 5) else a.to(dev) for i, a in enumerate(args)]
+        checked(f'B-bf16 {name}', kernel, plain, args)
+        ms[f'B-bf16 {name}'] = cs._time_ms(lambda: kernel(*args), 20)
+    kernel = sa_fused.fused_point_mlp_max_win_bf16_kernel
+    args = [a.to(dev) if torch.is_tensor(a) else a for a in saved['win_fwd_bf16']]
+    checked('G-bf16', kernel, sa_fused.fused_point_mlp_max_win_plain, args)
+    ms['G-bf16 rcnn.sa0 real windows T=100'] = cs._time_ms(lambda: kernel(*args), 20)
+    kernel, plain = conv2d.conv3x3_s2_fwd_bf16_kernel, conv2d.conv3x3_s2_fwd_plain
+    for name, _, x, w in cs.fwd_cases(dev):
+        if name == 'edge':
+            continue
+        x, w = x.to(bf), w.to(bf)
+        outputs[f'F-bf16 {name}'] = checked(f'F-bf16 {name}', kernel, plain, (x, w)).cpu()
+        ms[f'F-bf16 {name}'] = cs._time_ms(lambda: kernel(x, w), 10)
+
+
 def worker(tree, out):
     """Time this process's checkout (``tree``, first on sys.path) on the
-    saved or made inputs; saves C's and H's gradients and E's dw and
-    prints one JSON line {case: ms}."""
+    saved or made inputs; saves C's and H's gradients, E's dw and F-bf16's
+    y and prints one JSON line {case: ms}."""
     sys.path.insert(0, ROOT)
     import chip_smoke as cs  # this checkout's, before the tree's path goes first
     sys.path.insert(0, os.path.abspath(tree))
@@ -176,7 +224,9 @@ def worker(tree, out):
     ms, outputs = {}, {}
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     conv_worker(cs, tree, ms, outputs)
-    fps_sa_worker(cs, tree, torch.load(os.path.join(out, 'inputs.pt')), ms, outputs)
+    saved = torch.load(os.path.join(out, 'inputs.pt'))
+    fps_sa_worker(cs, tree, saved, ms, outputs)
+    bf16_worker(cs, tree, saved, ms, outputs)
     torch.save(outputs, os.path.join(out, f'grads_{os.getpid()}.pt'))
     print(json.dumps({'tree': tree, 'grads': f'grads_{os.getpid()}.pt', 'ms': ms}), flush=True)
 
@@ -207,8 +257,8 @@ def main(argv=None):
     first = torch.load(os.path.join(args.out, runs[0]['grads']))
     for r in runs[1:]:
         for k, got in torch.load(os.path.join(args.out, r['grads'])).items():
-            if torch.is_tensor(got):  # E's dw: a fixed-order sum
-                print(f'{r["tree"]} vs {runs[0]["tree"]}, {k}: dw bitwise equal: '
+            if torch.is_tensor(got):  # E's dw, F-bf16's y: fixed-order sums
+                print(f'{r["tree"]} vs {runs[0]["tree"]}, {k}: bitwise equal: '
                       f'{torch.equal(got, first[k])}')
                 continue
             (dy, *rest), (dy0, *rest0) = got, first[k]

@@ -229,16 +229,33 @@ def test_bf16_conv_forward_through_conv3x3_same():
 @pytest.mark.cuda
 def test_bf16_kernels_match_plain_on_the_card():
     """B-bf16, G-bf16 and F-bf16 against their plain versions on the card
-    (``chip_smoke.py`` phase 17 does this at the main path's shapes)."""
+    (``chip_smoke.py`` phase 17 does this at the main path's shapes): B-bf16
+    at C3 = 256 and at narrower widths (zero-padded), G-bf16 on clipped and
+    overlapping windows; a wider bf16 stage raises."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device; chip_smoke.py runs the kernels on the card')
     dev = torch.device('cuda')
-    idx, y, o, w2, b2, w3, b3 = _sa_inputs(8, C3=256)
-    args = [y[0], o[0], torch.from_numpy(idx).long(), w2[0], torch.from_numpy(b2), w3[0],
-            torch.from_numpy(b3)]
-    cuda = [a.to(dev) for a in args]
-    _within_one_ulp(tsa.fused_point_mlp_max_bf16_kernel(*cuda).cpu(),
-                    tsa.fused_point_mlp_max_plain(*args).float().numpy(), 'B-bf16 kernel')
+    for seed, widths in ((8, dict(C3=256)), (10, dict(C1=32, C2=48, C3=200))):
+        idx, y, o, w2, b2, w3, b3 = _sa_inputs(seed, **widths)
+        args = [y[0], o[0], torch.from_numpy(idx).long(), w2[0], torch.from_numpy(b2), w3[0],
+                torch.from_numpy(b3)]
+        cuda = [a.to(dev) for a in args]
+        got = tsa.fused_point_mlp_max_bf16_kernel(*cuda)
+        assert torch.equal(tsa.fused_point_mlp_max_bf16_kernel(*cuda), got)
+        _within_one_ulp(got.cpu(), tsa.fused_point_mlp_max_plain(*args).float().numpy(),
+                        f'B-bf16 kernel {widths}')
+    idx, y, o, w2, b2, w3, b3 = _sa_inputs(11, window=32)
+    starts = torch.tensor([[0, 8, 24, 32], [32, 32, 16, 0], [8, 8, 8, 8]])
+    args = [y[0], o[0], torch.from_numpy(idx).long(), starts, w2[0], torch.from_numpy(b2),
+            w3[0], torch.from_numpy(b3)]
+    _within_one_ulp(
+        tsa.fused_point_mlp_max_win_bf16_kernel(*(a.to(dev) for a in args), 32).cpu(),
+        tsa.fused_point_mlp_max_win_plain(*args, 32).float().numpy(), 'G-bf16 kernel')
+    wide = [a.to(dev) for a in args]
+    wide[6], wide[7] = torch.zeros(128, 512, dtype=torch.bfloat16, device=dev), \
+        torch.zeros(512, device=dev)
+    with pytest.raises(ValueError, match='C3 <= 256'):
+        tsa.fused_point_mlp_max_win_bf16_kernel(*wide, 32)
     rng = np.random.RandomState(9)
     # F-bf16: C % 8 == 4 (8-byte copies; C = 4 is one tap's channel tail), C =
     # 24 (16-byte copies, a 32-channel step that is a quarter zero-fill), a
