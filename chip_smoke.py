@@ -85,9 +85,12 @@ first use), then:
    RoIs pooled from a Morton-sorted scene, and on edge cases (mostly empty
    balls, windows at 0 and N - W): at most 1e-4 x max|out| for G, 1e-4 of
    each gradient's max for H (and H's shares of distinct and live rows and
-   its max selections differing from plain, as phase 5); and times kernel,
-   plain version and kernel B or C on the same work (the global rows
-   starts + idx_rel) in turns;
+   its max selections differing from plain, as phase 5); G (kernel B's
+   main kernel after the windowed dedupe) bitwise equal to B on the same
+   work, the global rows starts + idx_rel; and times kernel, plain version
+   and kernel B or C on that work in turns (G at T = 100 and 256, H at
+   256), printing G's share of distinct rows and both operation counts of
+   its bound;
 14. drives the block-local configuration (the recipe with ``EXACT_QUERIES
    residual``, ``RPN.BLOCK_LOCAL`` and ``RCNN.BLOCK_LOCAL``) at full width
    in turns with the exact configuration, same weights and Morton-sorted
@@ -139,11 +142,11 @@ the model turns it off, as the f32 recipe needs.
 Every kernel's ``bound_ms`` is the least time the card could take for its
 work at these shapes: the larger of its operations at the f32 peak (for
 the bf16 instances, their products at the bf16 tensor-core peak, the rest
-at the f32 peak; for C and H the smaller of that count and their design's
-own, which takes layer 2's two backward products in three TF32 passes at
-the TF32 tensor-core peak, beside the rest at the f32 peak, the larger of
-the two pipes' times: either is exact to f32) and its
-bytes (each
+at the f32 peak; for B, G, C and H the smaller of that count and their
+design's own, which takes the products (for C and H layer 2's two
+backward products) in three TF32 passes at the TF32 tensor-core peak,
+beside the rest at the f32 peak, the larger of the two pipes' times:
+either is exact to f32) and its bytes (each
 input read once, each output written once) at the memory rate (NVIDIA
 H100 SXM data sheet, below); for D, E and F the operations of the
 cheapest exact algorithm counted (``_dw_bound_ops``; for F the same count,
@@ -771,9 +774,11 @@ def phase_sa_win(dev):
     """Kernels G and H against their plain versions at the block-local
     configuration's RCNN sa0 (G at T = 100, 256 and 400: a batch-1 forward,
     a batch-4 train step and a batch-4 CLI batch; H at T = 256) on real
-    window indices and on edge cases; then, at T = 100 and 256, kernel,
-    plain and B (or C) on the same work, the global rows starts + idx_rel,
-    timed in turns."""
+    window indices and on edge cases, and G bitwise against B on the same
+    work, the global rows starts + idx_rel (G is B's kernel after the
+    windowed dedupe); then G at T = 100 and 256 and H at T = 256: kernel,
+    plain and B (or C) on the same work, timed in turns. G's line is T =
+    100's (the forward's), with T = 256's beside it."""
     import numpy as np
     import torch
     from epnet_tpu_torch.ops import sa_fused
@@ -798,6 +803,15 @@ def phase_sa_win(dev):
             if kind == 'fwd':
                 got = [sa_fused.fused_point_mlp_max_win_kernel(*args)]
                 want = [sa_fused.fused_point_mlp_max_win_plain(*args)]
+                same = sa_fused.fused_point_mlp_max_kernel(
+                    y, o, sa_fused.window_rows(idx_rel, starts), *w)
+                equal = float((got[0] == same).float().mean())
+                print(f'G T={T} {"edge cases" if edge else "real windows"}: bitwise equal to B '
+                      f'on the global rows: {torch.equal(got[0], same)} ({equal:.6f} of the '
+                      f'outputs)', flush=True)
+                if not torch.equal(got[0], same):
+                    raise AssertionError(f'kernel G differs from B on the same rows at T={T}')
+                del same
             else:
                 *got, sel = sa_fused.fused_point_mlp_max_win_bwd_kernel(*args, gout,
                                                                          selections=True)
@@ -823,12 +837,17 @@ def phase_sa_win(dev):
         bad = {k: v for k, v in rel.items() if not v <= SA_RTOL}
         if bad:
             raise AssertionError(f'kernel {name} off its plain version at T={T}: {bad}')
-        if kind == 'fwd' and T != 100:
-            continue  # checked at the train and CLI shapes; timed at the eval shape
+        if kind == 'fwd' and T == 400:
+            continue  # checked at the CLI batch's shape; timed at the forward's and step's
         args, starts = real  # timed on the real windows
         rows = sa_fused.window_rows(args[2], starts)
         if kind == 'fwd':
-            o_ms, b_ms = _sa_fwd_bound(rows, N, C1, C2, C3)
+            f32_ms, b_ms = _sa_fwd_bound(rows, N, C1, C2, C3)
+            design_ms, _ = _sa_fwd_bound(rows, N, C1, C2, C3, tf32=True)
+            o_ms = min(f32_ms, design_ms)
+            distinct = float(_distinct_rows(rows)[1].float().mean())
+            print(f'  G bound: f32 count {f32_ms:.4f} ms, this design\'s count {design_ms:.4f} '
+                  f'ms; distinct rows {distinct:.4f} of the samples', flush=True)
             fns = {'ms': (lambda: sa_fused.fused_point_mlp_max_win_kernel(*args), 20),
                    'plain_ms': (lambda: sa_fused.fused_point_mlp_max_win_plain(*args), 10),
                    'table_kernel_ms': (lambda: sa_fused.fused_point_mlp_max_kernel(
@@ -849,18 +868,24 @@ def phase_sa_win(dev):
             fn, reps = fns[key]
             row[key] += _time_ms(fn, reps) / 2
         table = 'B' if kind == 'fwd' else 'C'
-        print(f'  kernel {name} {row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, kernel '
+        print(f'  T={T}: kernel {name} {row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, kernel '
               f'{table} on the global rows {row["table_kernel_ms"]:.4f} ms, bound '
               f'{max(o_ms, b_ms):.4f} ms', flush=True)
+        row.update(f32_count_ms=f32_ms, design_count_ms=design_ms, bound_ms=max(o_ms, b_ms))
         if kind == 'bwd':
-            row.update(f32_count_ms=f32_ms, design_count_ms=design_ms,
-                       selections_differing=real_differ)
+            row.update(selections_differing=real_differ)
+        else:
+            row.update(distinct_rows=distinct, bitwise_equal_to_B=True)
+        shape = {'stage': 'rcnn.sa0', 'shape': [T, N, M, S, C1, C2, C3], 'window': W,
+                 'tiles': tiles, **row, 'max_rel_err': max(rel.values())}
+        if name in res:  # G at T = 256, beside the forward's shape that sets the line
+            res[name]['per_shape'].append(shape)
+            continue
         res[name] = {'max_abs_err': max(a for a, _ in errs.values()), 'ms': row['ms'],
                      'plain_ms': row['plain_ms'], **_bound_keys([o_ms], [b_ms]),
-                     'library_ms': None,
-                     'per_shape': [{'stage': 'rcnn.sa0', 'shape': [T, N, M, S, C1, C2, C3],
-                                    'window': W, 'tiles': tiles, **row,
-                                    'max_rel_err': max(rel.values())}]}
+                     'library_ms': None, 'design_count_ms': design_ms, 'per_shape': [shape]}
+        if kind == 'fwd':
+            res[name]['distinct_rows'] = distinct
     return res
 
 
@@ -2152,7 +2177,9 @@ def main():
          'source': 'epnet_tpu_torch/csrc/conv3x3_s2_fwd.cu',
          'replaces': 'tools/conv_fwd_attic.py:43', 'design': FWD_DESIGN, **fwd_res},
         {'name': 'sa_fused_win_fwd', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/sa_fused.cu',
-         'replaces': 'epnet_tpu/ops/sa_fused.py:334', **win_res['G']},
+         'replaces': 'epnet_tpu/ops/sa_fused.py:334',
+         'design': SA_FWD_DESIGN + '; after the windowed dedupe (idx_rel clamped into the '
+                   'window, plus the tile\'s start, clamped into the table)', **win_res['G']},
         {'name': 'sa_fused_win_bwd', 'route': 'cuda',
          'source': 'epnet_tpu_torch/csrc/sa_fused_bwd.cu',
          'replaces': 'epnet_tpu/ops/sa_fused.py:424', 'design': SA_BWD_DESIGN,

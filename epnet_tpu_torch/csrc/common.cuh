@@ -12,22 +12,15 @@
 namespace {
 
 // Raises `kernel`'s dynamic shared-memory limit on the current device to
-// `bytes`, less the kernel's static shared memory when `less_static`, once a
-// device (bit d of `done`: set on device d). cudaFuncSetAttribute costs
-// milliseconds of host time a call, which every launch would otherwise pay.
-inline cudaError_t allow_smem(const void* kernel, int bytes, std::atomic<uint64_t>& done,
-                              bool less_static = false) {
+// `bytes`, once a device (bit d of `done`: set on device d).
+// cudaFuncSetAttribute costs milliseconds of host time a call, which every
+// launch would otherwise pay.
+inline cudaError_t allow_smem(const void* kernel, int bytes, std::atomic<uint64_t>& done) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const uint64_t bit = uint64_t{1} << (dev & 63);
   if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  if (less_static) {
-    cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, kernel);
-    if (err != cudaSuccess) return err;
-    bytes -= static_cast<int>(attr.sharedSizeBytes);
-  }
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
   return err;

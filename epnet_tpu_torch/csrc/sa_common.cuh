@@ -1,8 +1,8 @@
 // Device helpers of the fused set-abstraction kernels on distinct rows: the
-// forward B (csrc/sa_fused.cu) and the backward pair C and H
-// (csrc/sa_fused_bwd.cu) include this one copy. ops/cuda_build.py keys each
-// library on the headers its source includes, nested ones too, so both
-// rebuild when this or csrc/wgmma_common.cuh changes.
+// forwards B, G, B-bf16 and G-bf16 (csrc/sa_fused.cu) and the backward pair
+// C and H (csrc/sa_fused_bwd.cu) include this one copy. ops/cuda_build.py
+// keys each library on the headers its source includes, nested ones too, so
+// both rebuild when this or csrc/wgmma_common.cuh changes.
 //
 // - sa_dedupe_kernel: each centroid's distinct table rows, a warp bitonic
 //   sort a centroid;
@@ -15,7 +15,8 @@
 //   split as hi = tf32(a), lo = tf32(a - hi), both rounded to nearest (in
 //   integer operations: split_tf32 of csrc/wgmma_common.cuh, which the conv
 //   kernels share), and lo*hi + hi*lo + hi*hi accumulated in f32, about as
-//   accurate as an f32 product.
+//   accurate as an f32 product (B and G: each k8 step's sum added to the
+//   running sum on the CUDA cores, slot_steps' kStepSums).
 
 #pragma once
 
@@ -68,6 +69,16 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// d = a b, from 0 (the accumulator's input is one zero register, which
+// ptxas takes from RZ)
+__device__ __forceinline__ void mma_tf32_from0(float (&d)[4], const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.0f));
 }
 // d += a b in three TF32 passes, the small terms first; accumulator (g, 2t),
 // (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
@@ -247,8 +258,13 @@ __device__ __forceinline__ void load_w128(const float* __restrict__ w, int i, fl
 
 // A = rows of `a` (row-major, kLd) given by ra/rb; B = the slot's K-tile
 // (ksteps x 8 rows, 128 columns); 32 rows x 32 columns of this warp (m-tiles
-// mt < active).
-template <int kMT, int kNT>
+// mt < active). kStepSums (kernels B and G, whose outputs are the layer's
+// values): each k8 step's three passes summed from 0 on the tensor cores,
+// then added to acc on the CUDA cores, rounded to nearest. The tensor
+// cores' accumulation truncates, and a running sum truncated 48 times over
+// K = 128 is biased toward 0 by ~2e-6 of max|out|; per-step sums keep it
+// to ~6e-7 (PERF.md, PR 12). Otherwise the passes accumulate into acc.
+template <int kMT, int kNT, bool kStepSums = false>
 __device__ __forceinline__ void slot_steps(float (&acc)[kMT][kNT][4], const float* a, int a_ld,
                                            const int (&ra)[kMT], const int (&rb)[kMT],
                                            int a_k0, const float* slot, int slot_ld, int ksteps,
@@ -271,8 +287,19 @@ __device__ __forceinline__ void slot_steps(float (&acc)[kMT][kNT][4], const floa
       const float* b = slot + (8 * kk + t) * slot_ld + n0 + 8 * nt + g;
       fb.set(b[0], b[4 * slot_ld]);
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-        if (mt < active) mma3(acc[mt][nt], fa[mt], fb);
+      for (int mt = 0; mt < kMT; ++mt) {
+        if (mt >= active) continue;
+        if (kStepSums) {
+          float d[4];
+          mma_tf32_from0(d, fa[mt].lo, fb.hi);
+          mma_tf32(d, fa[mt].hi, fb.lo);
+          mma_tf32(d, fa[mt].hi, fb.hi);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mt][nt][q] += d[q];
+        } else {
+          mma3(acc[mt][nt], fa[mt], fb);
+        }
+      }
     }
   }
 }

@@ -31,14 +31,22 @@
 // the unfused composition would also write and re-read three (T, M*S, C)
 // intermediates (~420 MB each at sa0). So the work is kept on chip.
 //
-// B, f32 (sa_fused_fwd_rows_kernel), cuts the work and moves it to the
-// tensor cores:
+// B and G, f32 (sa_fused_fwd_rows_kernel, one body), cut the work and move
+// it to the tensor cores:
 //  - each distinct row once: a ball repeats rows (short balls are padded
 //    with their first hit, pooled RoIs repeat points; ~34% of RCNN sa0's
 //    samples are distinct on real tables), a repeated row gives the same
 //    values, and a duplicate cannot change a max, so no multiplicity is
 //    needed. The warp bitonic dedupe of kernels C and H
-//    (csrc/sa_common.cuh) lists each ball's distinct rows;
+//    (csrc/sa_common.cuh) lists each ball's distinct rows. G is B after
+//    sa_dedupe_kernel<true>, which clamps idx_rel into [0, W), adds the
+//    tile's window start and clamps into the table: the window decides
+//    only which table rows form a ball. On the TPU it narrowed the one-hot
+//    matmul from N to W columns; here there is no one-hot, and a row
+//    gather costs the same from any row (a 512 x 128 f32 table is 256 KB,
+//    resident in L2). The same distinct rows give G the same cost split,
+//    tiles and products as B on the rows starts + idx_rel, so the same
+//    output, bit for bit;
 //  - blocks split by cost: a prefix sum of distinct rows plus a fixed cost
 //    a centroid and a binary search give each block a contiguous run of
 //    centroids with an even share of the rows (balls differ ~60-fold); two
@@ -63,8 +71,15 @@
 //    phase 16) past its bound: B's output feeds later maxes, although
 //    kernel C's own selections recompute the forward in cuBLAS's order and
 //    do not ride on B's rounding. Each product starts from 0 and its bias
-//    is added after, in f32 (the tensor cores' accumulation truncates; over
-//    K = 128 that stays ~1e-6 of a value);
+//    is added after, in f32. The sums run in k8 steps: a step's three
+//    passes summed from 0 on the tensor cores, then added to the running
+//    sum on the CUDA cores, rounded to nearest (slot_steps<..., true>). The
+//    tensor cores' accumulation truncates: a running sum kept there lost
+//    ~2e-6 of max|out|, always toward 0, and that skew of G's output, fed
+//    through RCNN sa1 and sa2, moved the tiny block-local train step's gradients past
+//    phase 16's bound (1.037 of it). Per-step sums err ~6e-7 and pass
+//    phase 16 as the FFMA template did, for ~6% of B's time (PERF.md, PR
+//    12);
 //  - layer 3's bias and ReLU go into shared memory a 128-column pass at a
 //    time, and each (centroid, channel) takes the max over the centroid's
 //    rows (from 0: ReLU outputs are >= 0), written straight to the output,
@@ -82,7 +97,7 @@
 // starts from B's and keeps what the bf16 types allow:
 //  - B's dedupe, cost split and tile packing (csrc/sa_common.cuh); G-bf16
 //    is the same body after sa_dedupe_kernel<true> with the window starts,
-//    since the window decides only which table rows form a ball;
+//    as G is B's;
 //  - W2 and W3 stay in shared memory for the block's life (32 + 64 KB at
 //    C3 = 256, bf16), copied once by cp.async into the 128-byte swizzled
 //    N-major layout that wgmma reads: a persistent block walks dozens of
@@ -116,23 +131,6 @@
 // L2, then the epilogues on the CUDA cores) takes several times its
 // wgmmas, and four warpgroups an SM overlap only four such chains.
 //
-// G (f32) keeps the first design, sa_fused_fwd_win_kernel: it gathers every
-// (centroid, sample) row and runs layers 2 and 3 as register-tiled f32
-// FFMA, one block per (table t, TM = max(1, 64 / S) centroids). Rows are
-// processed 64 at a time: the block gathers its rows of Y straight from
-// global memory/L2 (no one-hot: that was a device of the TPU's matrix
-// unit), subtracts O and applies ReLU into shared memory; layer 2 and
-// layer 3 run as register-tiled f32 FFMA (each of 256 threads owns a 4-row
-// x 8-column tile of a 128-column pass) against 32-row tiles of W2/W3
-// staged in shared memory; the layer-3 pass is folded into a running max
-// per (centroid, channel) kept in shared memory. ReLU outputs are >= 0, so
-// the max starts at 0. Shared memory at the widest RCNN stage (sa1:
-// 128/128/256) is 83 KB, above the 48 KB default, hence the
-// MaxDynamicSharedMemorySize attribute. On the TPU the window cut the
-// one-hot matmul from N to W columns; here there is no one-hot, and a row
-// gather costs the same from any row of the table (a 512 x 128 f32 table
-// is 256 KB, resident in L2).
-
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -166,185 +164,6 @@ cudaError_t resident_blocks(const void* kernel, int threads, int smem,
 }
 
 // ---------------------------------------------------------------------------
-// Kernel G (f32): every (centroid, sample) row, f32 FFMA.
-// ---------------------------------------------------------------------------
-
-// kRows (centroid, sample) rows a chunk, kThreads = 16 x 16 threads of 4
-// rows x 8 columns each (sa_common.cuh)
-constexpr int kColPass = 128;   // output columns per pass
-constexpr int kKTile = 32;      // weight rows staged per step
-
-__host__ __device__ inline int row_stride_a(int c1) { return (c1 > kColPass ? c1 : kColPass) + 1; }
-__host__ __device__ inline int row_stride_b(int c2) { return c2 + 1; }
-inline int centroids_per_block(int s) { return s >= kRows ? 1 : kRows / s; }
-
-inline size_t smem_bytes(int s, int c1, int c2, int c3) {
-  const size_t floats = static_cast<size_t>(kRows) * (row_stride_a(c1) + row_stride_b(c2)) +
-                        static_cast<size_t>(kKTile) * kColPass +
-                        static_cast<size_t>(centroids_per_block(s)) * c3;
-  return floats * sizeof(float);
-}
-
-// hout[r][out_col0 + c - c0] = relu(sum_k hin[r][k] w[k][c] + bias[c]) for the
-// 128 columns c of the pass starting at c0 and all kRows rows. Starts with a
-// barrier, so the caller's writes to `hin` are visible.
-__device__ void dense_relu_pass(const float* hin, int ldin, int cin, const float* __restrict__ w,
-                                const float* __restrict__ bias, int cout, int c0, float* hout,
-                                int ldout, int out_col0, float* wt) {
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < cin; k0 += kKTile) {
-    __syncthreads();
-    for (int e = tid; e < kKTile * kColPass; e += kThreads) {
-      const int k = k0 + e / kColPass;
-      const int c = c0 + e % kColPass;
-      wt[e] = (k < cin && c < cout) ? w[static_cast<size_t>(k) * cout + c] : 0.0f;
-    }
-    __syncthreads();
-    const int kn = min(kKTile, cin - k0);
-    for (int kk = 0; kk < kn; ++kk) {
-      float a[4];
-      float b[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = hin[(ty * 4 + i) * ldin + k0 + kk];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = wt[kk * kColPass + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = c0 + tx + 16 * j;
-    if (c < cout) {
-      const float bc = __ldg(bias + c);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        hout[(ty * 4 + i) * ldout + out_col0 + tx + 16 * j] = fmaxf(acc[i][j] + bc, 0.0f);
-    }
-  }
-}
-
-// idx holds window-relative rows, offset by starts (t, nb) of tiles of m / nb
-// centroids, each window `window` rows long.
-__global__ void __launch_bounds__(kThreads)
-sa_fused_fwd_win_kernel(const float* __restrict__ y, const float* __restrict__ o,
-                        const int64_t* __restrict__ idx, const int64_t* __restrict__ starts,
-                        const float* __restrict__ w2, const float* __restrict__ b2,
-                        const float* __restrict__ w3, const float* __restrict__ b3,
-                        float* __restrict__ out, int n, int m, int s, int c1, int c2, int c3,
-                        int tm, int nb, int window) {
-  extern __shared__ float smem[];
-  __shared__ int64_t row_point[kRows];  // table row gathered by each chunk row
-  __shared__ int row_centroid[kRows];   // its centroid, -1 for padding rows
-  const int lda = row_stride_a(c1);
-  const int ldb = row_stride_b(c2);
-  float* ha = smem;                 // layer-1 rows, then a layer-3 pass
-  float* hb = ha + kRows * lda;     // layer-2 rows
-  float* wt = hb + kRows * ldb;     // staged weight tile
-  float* omax = wt + kKTile * kColPass;  // running max, tm x c3
-
-  const int tid = threadIdx.x;
-  const int t = blockIdx.x;
-  const int m0 = blockIdx.y * tm;
-  const float* yt = y + static_cast<size_t>(t) * n * c1;
-  const float* ot = o + static_cast<size_t>(t) * m * c1;
-  const int64_t* it = idx + static_cast<size_t>(t) * m * s;
-  const int rows = tm * s;
-
-  for (int e = tid; e < tm * c3; e += kThreads) omax[e] = 0.0f;
-
-  for (int row0 = 0; row0 < rows; row0 += kRows) {
-    __syncthreads();  // the previous chunk is done with ha and the row tables
-    if (tid < kRows) {
-      const int row = row0 + tid;
-      const int mm = m0 + row / s;
-      if (row < rows && mm < m) {
-        int64_t p = it[static_cast<size_t>(mm) * s + row % s];
-        p = p < 0 ? 0 : (p >= window ? window - 1 : p);  // inside the window
-        p += starts[static_cast<size_t>(t) * nb + mm / (m / nb)];
-        p = p < 0 ? 0 : (p >= n ? n - 1 : p);  // keep a bad index inside the table
-        row_point[tid] = p;
-        row_centroid[tid] = mm;
-      } else {
-        row_point[tid] = 0;
-        row_centroid[tid] = -1;
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < kRows * c1; e += kThreads) {
-      const int r = e / c1;
-      const int c = e % c1;
-      const int mm = row_centroid[r];
-      ha[r * lda + c] =
-          mm >= 0 ? fmaxf(yt[row_point[r] * c1 + c] - ot[static_cast<size_t>(mm) * c1 + c], 0.0f)
-                  : 0.0f;
-    }
-
-    for (int c0 = 0; c0 < c2; c0 += kColPass)
-      dense_relu_pass(ha, lda, c1, w2, b2, c2, c0, hb, ldb, c0, wt);
-
-    const int lm_lo = row0 / s;
-    const int lm_hi = min((row0 + kRows - 1) / s, tm - 1);
-    const int chunk_rows = min(kRows, rows - row0);
-    for (int c0 = 0; c0 < c3; c0 += kColPass) {
-      dense_relu_pass(hb, ldb, c2, w3, b3, c3, c0, ha, lda, 0, wt);
-      __syncthreads();
-      for (int e = tid; e < (lm_hi - lm_lo + 1) * kColPass; e += kThreads) {
-        const int lm = lm_lo + e / kColPass;
-        const int cc = e % kColPass;
-        const int c = c0 + cc;
-        if (c >= c3 || m0 + lm >= m) continue;
-        const int r_begin = max(lm * s - row0, 0);
-        const int r_end = min((lm + 1) * s - row0, chunk_rows);
-        float v = omax[lm * c3 + c];
-        for (int r = r_begin; r < r_end; ++r) v = fmaxf(v, ha[r * lda + cc]);
-        omax[lm * c3 + c] = v;
-      }
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < tm * c3; e += kThreads) {
-    const int mm = m0 + e / c3;
-    if (mm < m) out[(static_cast<size_t>(t) * m + mm) * c3 + e % c3] = omax[e];
-  }
-}
-
-int launch_win(const void* y, const void* o, const void* idx, const void* starts, const void* w2,
-               const void* b2, const void* w3, const void* b3, void* out, int t, int n, int m,
-               int s, int c1, int c2, int c3, int nb, int window, void* stream) {
-  if (t == 0 || m == 0) return 0;
-  if (n <= 0 || s <= 0 || c1 <= 0 || c2 <= 0 || c3 <= 0) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(s, c1, c2, c3);
-  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  const int tm = centroids_per_block(s);
-  const int blocks_m = (m + tm - 1) / tm;
-  if (blocks_m > 65535) return cudaErrorInvalidValue;
-  const auto kernel = sa_fused_fwd_win_kernel;
-  static std::atomic<uint64_t> smem_set{0};
-  const cudaError_t err =
-      allow_smem(reinterpret_cast<const void*>(kernel), kMaxSmem, smem_set, true);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(t, blocks_m);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(y), static_cast<const float*>(o),
-      static_cast<const int64_t*>(idx), static_cast<const int64_t*>(starts),
-      static_cast<const float*>(w2), static_cast<const float*>(b2),
-      static_cast<const float*>(w3), static_cast<const float*>(b3), static_cast<float*>(out), n,
-      m, s, c1, c2, c3, tm, nb, window);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
 // Kernel B (f32): each distinct row once, layers 2 and 3 in three TF32 passes.
 // ---------------------------------------------------------------------------
 
@@ -356,7 +175,7 @@ constexpr int kFSlot = kFK * kW2Ld;  // floats a ring slot; two slots
 constexpr int kRowsSmem = 4 * (2 * kRows * kLd + 2 * kFSlot) +
                           4 * (2 * kRows + 2 * kMaxCent + 3);
 
-// The dedupe and the cost scan of kernels B, B-bf16 and G-bf16 on `st`.
+// The dedupe and the cost scan of kernels B, G, B-bf16 and G-bf16 on `st`.
 template <bool kWin>
 cudaError_t dedupe_and_scan(const void* idx, const void* starts, void* rows, void* counts,
                             int cents, int n, int m, int s, int nb, int window,
@@ -481,7 +300,7 @@ sa_fused_fwd_rows_kernel(const float* __restrict__ y, const float* __restrict__ 
       ring_product<2, kFSlot>(
           kC / kFK, ring, [&](int i, float* slot) { load_w128<kFK>(w2, i, slot); },
           [&](int i, const float* slot) {
-            slot_steps<2, 4>(acc, buf_a, kLd, ra, rb, kFK * i, slot, kW2Ld, kFK / 8, n0,
+            slot_steps<2, 4, true>(acc, buf_a, kLd, ra, rb, kFK * i, slot, kW2Ld, kFK / 8, n0,
                              active);
           });
       store_relu(acc, b2, buf_b, ra, rb, n0, active);
@@ -492,7 +311,7 @@ sa_fused_fwd_rows_kernel(const float* __restrict__ y, const float* __restrict__ 
         ring_product<2, kFSlot>(
             kC / kFK, ring, [&](int i, float* slot) { load_w128<kFK>(w3 + c0, i, slot, c3p); },
             [&](int i, const float* slot) {
-              slot_steps<2, 4>(acc, buf_b, kLd, ra, rb, kFK * i, slot, kW2Ld, kFK / 8, n0,
+              slot_steps<2, 4, true>(acc, buf_b, kLd, ra, rb, kFK * i, slot, kW2Ld, kFK / 8, n0,
                                active);
             });
         store_relu(acc, b3 + c0, buf_a, ra, rb, n0, active);
@@ -513,7 +332,7 @@ sa_fused_fwd_rows_kernel(const float* __restrict__ y, const float* __restrict__ 
   }
 }
 
-// The shapes kernels B, B-bf16 and G-bf16 take (the wrappers check them
+// The shapes kernels B, G, B-bf16 and G-bf16 take (the wrappers check them
 // first: ops/sa_fused.py::check_rows_takes).
 bool rows_take(int t, int n, int m, int s, int c3, int c3p) {
   return n > 0 && n < (1 << 24) && s > 0 && s <= kRows && c3 > 0 && c3p >= c3 && c3p % kC == 0 &&
@@ -521,14 +340,17 @@ bool rows_take(int t, int n, int m, int s, int c3, int c3p) {
          static_cast<long long>(t) * n <= INT_MAX;
 }
 
-int launch_rows(const void* y, const void* o, const void* idx, const void* w2, const void* b2,
-                const void* w3, const void* b3, void* out, void* rows, void* counts, int t,
-                int n, int m, int s, int c3, int c3p, void* stream) {
+template <bool kWin>
+int launch_rows(const void* y, const void* o, const void* idx, const void* starts, const void* w2,
+                const void* b2, const void* w3, const void* b3, void* out, void* rows,
+                void* counts, int t, int n, int m, int s, int c3, int c3p, int nb, int window,
+                void* stream) {
   if (!rows_take(t, n, m, s, c3, c3p)) return cudaErrorInvalidValue;
   const int cents = t * m;
   if (cents == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dedupe_and_scan<false>(idx, nullptr, rows, counts, cents, n, m, s, 1, 0, st);
+  cudaError_t err =
+      dedupe_and_scan<kWin>(idx, starts, rows, counts, cents, n, m, s, nb, window, st);
   if (err != cudaSuccess) return err;
   const auto kernel = sa_fused_fwd_rows_kernel;
   static std::atomic<uint64_t> smem_set{0};
@@ -827,12 +649,6 @@ int launch_bf16(const void* y, const void* o, const void* idx, const void* start
 
 extern "C" {
 
-// Shared memory one block of kernel G needs; above 232448 bytes the launch
-// is refused.
-long long epnet_sa_fused_smem_bytes(int s, int c1, int c2, int c3) {
-  return static_cast<long long>(smem_bytes(s, c1, c2, c3));
-}
-
 // y (t, n, 128), o (t, m, 128), idx (t, m, s) int64, w2 (128, 128), b2
 // (128), w3 (128, c3p), b3 (c3p), out (t, m, c3); rows (t * m * 64) and
 // counts (2 t m + 1) int32 scratch. All float32 but the indices,
@@ -844,7 +660,23 @@ int epnet_sa_fused_fwd_launch(const void* y, const void* o, const void* idx, con
                               const void* b2, const void* w3, const void* b3, void* out,
                               void* rows, void* counts, int t, int n, int m, int s, int c3,
                               int c3p, void* stream) {
-  return launch_rows(y, o, idx, w2, b2, w3, b3, out, rows, counts, t, n, m, s, c3, c3p, stream);
+  return launch_rows<false>(y, o, idx, nullptr, w2, b2, w3, b3, out, rows, counts, t, n, m, s, c3,
+                            c3p, 1, 0, stream);
+}
+
+// Kernel G: kernel B's arguments with idx (t, m, s) int64 window-relative
+// rows in [0, window) and starts (t, nb) int64, the first table row of the
+// window of each tile of m / nb centroids; nb must divide m, window <= n.
+// Launches the windowed dedupe, the scan and kernel B's main kernel on
+// `stream`, allocates nothing, returns cudaGetLastError().
+int epnet_sa_fused_win_fwd_launch(const void* y, const void* o, const void* idx,
+                                  const void* starts, const void* w2, const void* b2,
+                                  const void* w3, const void* b3, void* out, void* rows,
+                                  void* counts, int t, int n, int m, int s, int c3, int c3p,
+                                  int nb, int window, void* stream) {
+  if (nb <= 0 || m % nb != 0 || window <= 0 || window > n) return cudaErrorInvalidValue;
+  return launch_rows<true>(y, o, idx, starts, w2, b2, w3, b3, out, rows, counts, t, n, m, s, c3,
+                           c3p, nb, window, stream);
 }
 
 // B-bf16: kernel B's arguments with y, o, w2, w3 and out bf16 (b2, b3
@@ -859,9 +691,7 @@ int epnet_sa_fused_fwd_bf16_launch(const void* y, const void* o, const void* idx
                             c3, c3p, 1, 0, stream);
 }
 
-// G-bf16: B-bf16 with idx (t, m, s) int64 window-relative rows in [0,
-// window) and starts (t, nb) int64, the first table row of the window of
-// each tile of m / nb centroids; nb must divide m, window <= n.
+// G-bf16: B-bf16 with G's idx, starts, nb and window.
 int epnet_sa_fused_win_fwd_bf16_launch(const void* y, const void* o, const void* idx,
                                        const void* starts, const void* w2, const void* b2,
                                        const void* w3, const void* b3, void* out, void* rows,
@@ -876,22 +706,6 @@ int epnet_sa_fused_win_fwd_bf16_launch(const void* y, const void* o, const void*
 const char* epnet_sa_fused_bf16_design() {
   return "distinct rows; bf16 wgmma m64n128k16, layer 3's A from registers; W2, W3 resident "
          "in shared memory; 4 warpgroups a block on their own tiles, 1 block an SM";
-}
-
-// Kernel G: y (t, n, c1), o (t, m, c1), idx (t, m, s) int64 window-relative
-// rows in [0, window), starts (t, nb) int64, the first table row of the
-// window of each tile of m / nb centroids, w2 (c1, c2), b2 (c2), w3 (c2,
-// c3), b3 (c3), out (t, m, c3); all float32 but the indices, contiguous. nb
-// must divide m, window <= n. Launches on `stream`, allocates nothing,
-// returns cudaGetLastError().
-int epnet_sa_fused_win_fwd_launch(const void* y, const void* o, const void* idx,
-                                  const void* starts, const void* w2, const void* b2,
-                                  const void* w3, const void* b3, void* out, int t, int n,
-                                  int m, int s, int c1, int c2, int c3, int nb, int window,
-                                  void* stream) {
-  if (nb <= 0 || m % nb != 0 || window <= 0 || window > n) return cudaErrorInvalidValue;
-  return launch_win(y, o, idx, starts, w2, b2, w3, b3, out, t, n, m, s, c1, c2, c3, nb, window,
-                    stream);
 }
 
 const char* epnet_error_string(int err) {

@@ -1,5 +1,5 @@
 // Device helpers of the tensor-core kernels: the fused set-abstraction
-// helpers (csrc/sa_common.cuh, kernels B, B-bf16, G-bf16, C and H) and the
+// helpers (csrc/sa_common.cuh, kernels B, G, B-bf16, G-bf16, C and H) and the
 // conv kernels D, E, F (csrc/conv3x3_dw.cu, csrc/conv3x3_s2_fwd.cu) and
 // F-bf16 include this one copy. ops/cuda_build.py keys each library on the
 // local headers its source includes, nested ones too, so all of them

@@ -81,7 +81,7 @@ class SAModuleMSG(nn.Module):
 
     def uses_fused(self, i: int) -> bool:
         """Scale ``i`` through the fused SA interior (kernel B or G, and C or
-        H in training; B-bf16 or G-bf16 in bf16). B, C and H take S <= 64
+        H in training; B-bf16 or G-bf16 in bf16). B, G, C and H take S <= 64
         and C1, C2 <= 128, and C and H also C3 <= 256
         (``ops.sa_fused.check_rows_takes``, ``check_bwd_takes``); B-bf16 and
         G-bf16 take B's limits and C3 <= 256 (``check_bf16_takes``). A wider

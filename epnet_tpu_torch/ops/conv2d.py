@@ -324,7 +324,8 @@ def conv3x3_s2_fwd_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     the tensor cores, f32 accuracy). x (B, H, W, C) and w (3, 3, C, F)
     float32, contiguous, on one CUDA device; even H and W; C and F
     multiples of 4. Raises on anything else."""
-    y = _launch_fwd('conv3x3_s2_fwd_kernel', 'epnet_conv3x3_s2_fwd_launch', torch.float32, x, w)
+    y = _launch_conv_fwd('conv3x3_s2_fwd_kernel', 'epnet_conv3x3_s2_fwd_launch', torch.float32,
+                         x, w)
     conv3x3_s2_fwd_kernel.launches += 1
     return y
 
@@ -335,8 +336,8 @@ conv3x3_s2_fwd_kernel.launches = 0
 def conv3x3_s2_fwd_bf16_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Kernel F-bf16: as ``conv3x3_s2_fwd_kernel`` with x, w and the result
     bf16 (8-byte aligned), on the bf16 tensor cores with f32 accumulation."""
-    y = _launch_fwd('conv3x3_s2_fwd_bf16_kernel', 'epnet_conv3x3_s2_fwd_bf16_launch',
-                    torch.bfloat16, x, w)
+    y = _launch_conv_fwd('conv3x3_s2_fwd_bf16_kernel', 'epnet_conv3x3_s2_fwd_bf16_launch',
+                         torch.bfloat16, x, w)
     conv3x3_s2_fwd_bf16_kernel.launches += 1
     return y
 
@@ -344,7 +345,8 @@ def conv3x3_s2_fwd_bf16_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor
 conv3x3_s2_fwd_bf16_kernel.launches = 0
 
 
-def _launch_fwd(what: str, entry: str, dtype, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _launch_conv_fwd(what: str, entry: str, dtype, x: torch.Tensor,
+                     w: torch.Tensor) -> torch.Tensor:
     """Kernel F's C entry point ``entry`` on x and w of ``dtype``:
     allocates the result (and the f32 split slices; for f32 also the (2, F,
     9C) planes of w's TF32 split), launches, returns it."""

@@ -20,12 +20,13 @@ bf16 before the next layer, where the Pallas kernels cast them; the
 backwards take f32 only. What bounds the kernels on the H100, and what
 their designs do about that, is written at the top of each source: the
 dense layers' work, with every intermediate kept in shared memory and
-registers. B, C and H take each ball's distinct rows once and run their
-products, or those that decide nothing, in three TF32 passes on the tensor
-cores (S <= 64, C1 and C2 <= 128: ``check_rows_takes``). B-bf16 and G-bf16
-are one kernel on the distinct rows, bf16 ``wgmma`` with W2 and W3 resident
-in shared memory: B's limits and C3 <= 256 (``check_bf16_takes``). G runs
-every row in f32 FFMA. A stage beyond a kernel's limits raises on the
+registers. B, G, C and H take each ball's distinct rows once and run
+their products, or those that decide nothing, in three TF32 passes on the
+tensor cores (S <= 64, C1 and C2 <= 128: ``check_rows_takes``); G is B's
+kernel after a dedupe that reads the rows through the windows. B-bf16 and
+G-bf16 are one kernel on the distinct rows, bf16 ``wgmma`` with W2 and W3
+resident in shared memory: B's limits and C3 <= 256
+(``check_bf16_takes``). A stage beyond a kernel's limits raises on the
 card.
 
 Layer 1 commutes with the gather when the stage has no BatchNorm, so the
@@ -114,9 +115,6 @@ def fused_point_mlp_max_bwd_plain(y, o, idx, w2, b2, w3, b3, gout):
     return dy.reshape(T, N, C1), -dp1.sum(dim=2), dw2, db2, dw3, db3
 
 
-_SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
-
-
 def _typed(lib: ctypes.CDLL, fns: dict) -> ctypes.CDLL:
     if not getattr(lib, '_epnet_typed', False):
         for name, (argtypes, restype) in fns.items():
@@ -128,13 +126,11 @@ def _typed(lib: ctypes.CDLL, fns: dict) -> ctypes.CDLL:
 
 def _fwd_lib() -> ctypes.CDLL:
     rows = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p], ctypes.c_int)
-    win = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p], ctypes.c_int)
-    win_bf16 = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p], ctypes.c_int)
+    win = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p], ctypes.c_int)
     return _typed(cuda_build.load_library('sa_fused'), {
         'epnet_sa_fused_fwd_launch': rows, 'epnet_sa_fused_fwd_bf16_launch': rows,
-        'epnet_sa_fused_win_fwd_launch': win, 'epnet_sa_fused_win_fwd_bf16_launch': win_bf16,
-        'epnet_sa_fused_bf16_design': ([], ctypes.c_char_p),
-        'epnet_sa_fused_smem_bytes': ([ctypes.c_int] * 4, ctypes.c_longlong)})
+        'epnet_sa_fused_win_fwd_launch': win, 'epnet_sa_fused_win_fwd_bf16_launch': win,
+        'epnet_sa_fused_bf16_design': ([], ctypes.c_char_p)})
 
 
 def bf16_design() -> str:
@@ -201,7 +197,7 @@ _WIDTH = 128  # their C1 and C2, and the column pass of C3
 
 
 def check_rows_takes(what, T, N, S, C1, C2):
-    """Raise unless kernels B, C and H take these shapes: S <= 64, C1 and
+    """Raise unless kernels B, G, C and H take these shapes: S <= 64, C1 and
     C2 <= 128, N < 2^24 and T * N < 2^31 (a row and its table's offset in
     int32, a row and its multiplicity in 24 + 7 bits)."""
     if S > _ROWS:
@@ -223,12 +219,12 @@ def check_bf16_takes(what, T, N, S, C1, C2, C3):
 
 
 def _launch_rows(wrapper, entry, dims, inputs, extra=()):
-    """Kernel B, B-bf16 or G-bf16 (C entry point ``entry``) for ``wrapper``,
+    """Kernel B, G, B-bf16 or G-bf16 (C entry point ``entry``) for ``wrapper``,
     whose launch count it keeps: pads C1 and C2 to 128 and W3's columns to a
     multiple of 128 with zeros (which changes no output), allocates the
     output in y's dtype and the dedupe's scratch, launches, returns (T, M,
     C3). ``inputs``: y, o, idx, [starts,] w2, b2, w3, b3; ``extra``: the ints
-    the entry point takes after c3p (G-bf16's nb, window)."""
+    the entry point takes after c3p (G's and G-bf16's nb, window)."""
     what = wrapper.__name__
     T, N, M, S, C1, C2, C3 = dims
     C3P = -(-C3 // _WIDTH) * _WIDTH
@@ -267,30 +263,6 @@ def fused_point_mlp_max_kernel(y, o, idx, w2, b2, w3, b3):
     check_rows_takes(what, *dims[:2], *dims[3:6])
     return _launch_rows(fused_point_mlp_max_kernel, 'epnet_sa_fused_fwd_launch', dims,
                         (y, o, idx, w2, b2, w3, b3))
-
-
-def _launch_fwd(wrapper, entry, dims, inputs, extra):
-    """Kernel G (C entry point ``entry``) for ``wrapper``, whose launch count
-    it keeps: allocates the output, launches, returns it. ``extra`` are the
-    ints the entry point takes after c3 (nb, window)."""
-    T, N, M, S, C1, C2, C3 = dims
-    lib = _fwd_lib()
-    smem = lib.epnet_sa_fused_smem_bytes(S, C1, C2, C3)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f'{wrapper.__name__}: needs {smem} B of shared memory at '
-                         f'C1/C2/C3 = {C1}/{C2}/{C3}; the limit is {_SMEM_LIMIT}')
-    dev = inputs[0].device
-    args = [t.detach().contiguous() for t in inputs]
-    out = torch.empty((T, M, C3), dtype=inputs[0].dtype, device=dev)
-    if T == 0 or M == 0:
-        return out
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, entry)(*(a.data_ptr() for a in args), out.data_ptr(),
-                                  T, N, M, S, C1, C2, C3, *extra, stream)
-    cuda_build.check(lib, err, f'{wrapper.__name__} launch')
-    wrapper.launches += 1
-    return out
 
 
 fused_point_mlp_max_kernel.launches = 0
@@ -475,15 +447,17 @@ def fused_point_mlp_max_win_bwd_plain(y, o, idx_rel, starts, w2, b2, w3, b3, win
 
 
 def fused_point_mlp_max_win_kernel(y, o, idx_rel, starts, w2, b2, w3, b3, window):
-    """Launch kernel G (``csrc/sa_fused.cu``, windowed) on the current
+    """Launch kernel G (``csrc/sa_fused.cu``: the windowed dedupe, then
+    kernel B's scan and main kernel on the distinct rows) on the current
     stream. Tensors as in the plain version, on one CUDA device, float32
-    (idx_rel and starts int64). Raises on anything the kernel does not
-    take."""
+    (idx_rel and starts int64); kernel B's limits (``check_rows_takes``).
+    Raises on anything the kernel does not take."""
     what = 'fused_point_mlp_max_win_kernel'
     dims = _check_args(what, y=y, o=o, idx=idx_rel, starts=starts, w2=w2, b2=b2, w3=w3, b3=b3)
     NB = _check_window(what, starts, window, *dims[:3])
-    return _launch_fwd(fused_point_mlp_max_win_kernel, 'epnet_sa_fused_win_fwd_launch', dims,
-                       (y, o, idx_rel, starts, w2, b2, w3, b3), (NB, window))
+    check_rows_takes(what, *dims[:2], *dims[3:6])
+    return _launch_rows(fused_point_mlp_max_win_kernel, 'epnet_sa_fused_win_fwd_launch', dims,
+                        (y, o, idx_rel, starts, w2, b2, w3, b3), (NB, window))
 
 
 fused_point_mlp_max_win_kernel.launches = 0

@@ -1,7 +1,8 @@
-"""Time the FPS kernel (A), the fused-SA forward (B) and backward (C, and
-its windowed twin H), the image tower's conv kernels (D and E, the weight
-gradients; F, the stride-2 forward) and the bf16 kernels (B-bf16, G-bf16,
-F-bf16) of several checkouts of this repository on one card, in turns.
+"""Time the FPS kernel (A), the fused-SA forward (B, and its windowed twin
+G) and backward (C, and its windowed twin H), the image tower's conv
+kernels (D and E, the weight gradients; F, the stride-2 forward) and the
+bf16 kernels (B-bf16, G-bf16, F-bf16) of several checkouts of this
+repository on one card, in turns.
 
     python -m epnet_tpu_torch.tools.kernel_turns --trees <parent> . . <parent> [--out DIR]
 
@@ -11,15 +12,18 @@ its own process, in the order given, with its own sources and build
 phases 1 (A: the six FPS shapes of a forward, the batch-4 RPN sa0 shape,
 the tie-heavy cloud), 2 (B: RCNN sa0 and sa1 on random tables, sa0 on real
 eval tables; B-bf16 on the same tables in bf16) and 5 (C: the same at the
-batch-4 train step's T = 256), H at the block-local RCNN sa0 on real
-windows, T = 256, G-bf16 on phase 17's real windows, T = 100, and phases 8
+batch-4 train step's T = 256), G and H at the block-local RCNN sa0 on real
+windows (G at T = 100 and 256, H at 256), G-bf16 on phase 17's real
+windows, T = 100, and phases 8
 and 10 (D and E at ``chip_smoke.DW_SHAPES``, F at ``chip_smoke.FWD_SHAPES``;
 F-bf16 on F's inputs in bf16). A, B, B-bf16, G-bf16, C and H's inputs are
-made once, by this checkout's ``chip_smoke.py``, and saved to ``--out``;
+made once, by this checkout's ``chip_smoke.py``, and saved to ``--out``
+(G, G-bf16 and H through the wrappers' Python signatures, which the
+checkouts share);
 the conv inputs are made in each process on the card by this checkout's
 ``chip_smoke.dw_cases`` and ``fwd_cases``, from their seeds. Each process
 checks its outputs against this checkout's plain versions (picks
-identical, B within ``chip_smoke.SA_RTOL`` of max|out|, D and E within
+identical, B and G within ``chip_smoke.SA_RTOL`` of max|out|, D and E within
 ``DW_RTOL`` of max|dw|, F within ``FWD_RTOL`` of max|y|, the bf16 kernels
 within ``BF16_ULPS`` bf16 units of max|out|), times each case with
 ``chip_smoke._time_ms`` at phase 1's, 2's, 5's, 8's, 10's and 17's
@@ -74,8 +78,12 @@ def make_inputs(path):
     win_bf16 = (f(T, N, C1).to(bf), f(T, M, C1, scale=0.1).to(bf), idx_rel.cpu(), starts.cpu(),
                 f(C1, C2, scale=C1 ** -0.5).to(bf), f(C2, scale=0.01),
                 f(C2, C3, scale=C2 ** -0.5).to(bf), f(C3, scale=0.01), window)
+    win_fwd = [(256, args[:9]),
+               (T, (f(T, N, C1), f(T, M, C1, scale=0.1), idx_rel.cpu(), starts.cpu(),
+                    f(C1, C2, scale=C1 ** -0.5), f(C2, scale=0.01), f(C2, C3, scale=C2 ** -0.5),
+                    f(C3, scale=0.01), window))]
     torch.save({'fps': fps_in, 'sa': sa_in, 'bwd': bwd_in, 'win_bwd': args,
-                'win_fwd_bf16': win_bf16}, path)
+                'win_fwd_bf16': win_bf16, 'win_fwd': win_fwd}, path)
 
 
 def _graph_ms(fn, reps):
@@ -136,7 +144,7 @@ def conv_worker(cs, tree, ms, outputs):
 
 
 def fps_sa_worker(cs, tree, saved, ms, outputs):
-    """A, B, C and H of this process's checkout on the saved inputs:
+    """A, B, G, C and H of this process's checkout on the saved inputs:
     checked against the plain versions, timed into ``ms``; C's and H's
     gradients into ``outputs``."""
     import torch
@@ -162,6 +170,16 @@ def fps_sa_worker(cs, tree, saved, ms, outputs):
         if not err <= cs.SA_RTOL:
             raise AssertionError(f'{tree}: fused SA off by {err:.3e} at {name}')
         ms[f'B {name}'] = cs._time_ms(lambda: sa_fused.fused_point_mlp_max_kernel(*args), 20)
+    for T, args in saved['win_fwd']:
+        args = [a.to(dev) if torch.is_tensor(a) else a for a in args]
+        want = sa_fused.fused_point_mlp_max_win_plain(*args)
+        err = float((sa_fused.fused_point_mlp_max_win_kernel(*args) - want).abs().max()
+                    / want.abs().max())
+        if not err <= cs.SA_RTOL:
+            raise AssertionError(f'{tree}: G off by {err:.3e} at T={T}')
+        del want
+        ms[f'G rcnn.sa0 real windows T={T}'] = cs._time_ms(
+            lambda: sa_fused.fused_point_mlp_max_win_kernel(*args), 20)
     bwd = [(f'C {name} T=256', sa_fused.fused_point_mlp_max_bwd_kernel, args)
            for name, args in saved['bwd']]
     bwd.append(('H rcnn.sa0 T=256', sa_fused.fused_point_mlp_max_win_bwd_kernel,

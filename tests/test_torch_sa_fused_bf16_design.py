@@ -221,8 +221,8 @@ def _wrappers_without_a_card(monkeypatch):
                          ids=['C3', 'C1', 'C2'])
 def test_a_wide_bf16_stage_raises_before_any_launch(monkeypatch, widths):
     """A bf16 stage beyond the limits raises in the wrapper, before the
-    library; nothing runs the FFMA template or the plain version on the
-    card. At the limits the wrapper goes on to the library (here a stub)."""
+    library; nothing runs an f32 kernel or the plain version on the card.
+    At the limits the wrapper goes on to the library (here a stub)."""
     _wrappers_without_a_card(monkeypatch)
     C1, C2, C3 = widths
     y, o = torch.zeros(2, 40, C1, dtype=BF), torch.zeros(2, 8, C1, dtype=BF)

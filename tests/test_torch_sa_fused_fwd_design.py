@@ -9,8 +9,9 @@ the blocks' contiguous runs of centroids from a prefix sum of their cost
 packed greedily while their rows fit in 64 (at most 32 centroids, one
 warp's lanes); per tile h1 = relu(Y[row] - O) in f32, layers 2 and 3 in
 three TF32 passes (hi = tf32(a), lo = tf32(a - hi), both rounded to
-nearest; lo*hi + hi*lo + hi*hi summed in f32, the sum from 0 and the bias
-after), ReLU, and the max over each centroid's rows from 0.
+nearest; each k8 step's lo*hi + hi*lo + hi*hi summed in f32 from 0, then
+added to the running sum in k order, the bias after), ReLU, and the max
+over each centroid's rows from 0.
 
 It is held against ``fused_point_mlp_max_plain`` (f32) within 1e-5 of the
 output's max, and against the plain version in f64: its error there stays
@@ -28,7 +29,7 @@ import torch
 
 from epnet_tpu_torch.ops import sa_fused as tsa
 from test_torch_sa_fused_bwd import SHAPES, _inputs, _torch
-from test_torch_sa_fused_bwd_design import _mm
+from test_torch_sa_fused_bwd_design import _tf32_rna
 
 PLAIN_RTOL = 1e-5  # of the output's max, against the f32 plain version
 F64_SLACK = 1e-6   # of the output's max, beyond 2x the f32 plain version's error
@@ -67,28 +68,52 @@ def tiles(counts, start, end):
     return out
 
 
+def _mm_steps(a, b, passes):
+    """a @ b as kernels B and G sum it: each k8 step's TF32 products (three
+    passes, lo*hi + hi*lo + hi*hi, or one, hi*hi) summed from 0, then
+    added to the running f32 sum in k order. Every step of every row in one
+    elementwise product, so a row's result does not depend on its
+    position."""
+    R, K = a.shape
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+
+    def steps(x, w):  # (R, K / 8, N): each k8 step's products, summed
+        return (x.reshape(R, K // 8, 8, 1) * w.reshape(1, K // 8, 8, -1)).sum(2)
+
+    step = steps(ah, bh)
+    if passes == 3:
+        al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+        step = (steps(al, bh) + steps(ah, bl)) + step
+    acc = step[:, 0]
+    for k in range(1, K // 8):
+        acc = acc + step[:, k]
+    return acc
+
+
 def design_fwd(y, o, idx, w2, b2, w3, b3, passes=3, blocks=7):
     """Kernel B's output on the table rows ``idx``, and the work split:
-    (out, the tiles of each block, the share of distinct rows)."""
+    (out, the tiles of each block, the share of distinct rows). A row's
+    values do not depend on its tile, so the rows of all tiles, in order,
+    run through the layers in chunks; each centroid's max is taken over its
+    rows, which lie in one tile."""
     T, N, C1 = y.shape
     _, M, S = idx.shape
     C3 = w3.shape[1]
     rows = distinct_rows(idx)
     counts = [len(r) for r in rows]
-    yt, ot = y.reshape(T * N, C1), o.reshape(T * M, C1)
+    split = [tiles(counts, start, end) for start, end in block_runs(counts, blocks)]
+    covered = [c for block in split for tile in block for c in tile]
+    cent = torch.tensor([c for c in covered for _ in rows[c]])
+    trow = torch.from_numpy(np.concatenate([rows[c] for c in covered])) + (cent // M) * N
+    h1 = torch.relu(y.reshape(T * N, C1)[trow] - o.reshape(T * M, C1)[cent])
+    h3 = []
+    for h in h1.split(256):
+        h2 = torch.relu(_mm_steps(h, w2, passes) + b2)
+        h3.append(torch.relu(_mm_steps(h2, w3, passes) + b3))
+    mx = torch.zeros(T * M, C3).scatter_reduce(0, cent[:, None].expand(-1, C3), torch.cat(h3),
+                                               'amax')
     out = torch.full((T * M, C3), float('nan'))
-    split = []
-    for start, end in block_runs(counts, blocks):
-        split.append(tiles(counts, start, end))
-        for tile in split[-1]:
-            cent = torch.tensor([c for c in tile for _ in rows[c]])
-            trow = torch.from_numpy(np.concatenate([rows[c] for c in tile])) + (cent // M) * N
-            h1 = torch.relu(yt[trow] - ot[cent])
-            h2 = torch.relu(_mm(h1, w2, passes) + b2)
-            h3 = torch.relu(_mm(h2, w3, passes) + b3)
-            mx = torch.zeros(T * M, C3).scatter_reduce(0, cent[:, None].expand(-1, C3), h3,
-                                                       'amax')
-            out[tile] = mx[tile]
+    out[covered] = mx[covered]
     return out.reshape(T, M, C3), split, sum(counts) / (T * M * S)
 
 

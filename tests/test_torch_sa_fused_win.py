@@ -134,7 +134,9 @@ def test_kernels_refuse_cpu_tensors():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
-    """On the card: kernels G and H against the plain versions."""
+    """On the card: kernels G and H against the plain versions, and G bit
+    for bit kernel B on the global rows (G is B after the windowed
+    dedupe)."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
     args, gout, W = _inputs(9, **SHAPES[1])
@@ -144,6 +146,9 @@ def test_kernels_match_plain_on_card():
     got = tsa.fused_point_mlp_max_win_kernel(*targs, W)
     want = tsa.fused_point_mlp_max_win_plain(*targs, W)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    y, o, idx, starts, w2, b2, w3, b3 = targs
+    assert torch.equal(got, tsa.fused_point_mlp_max_kernel(y, o, tsa.window_rows(idx, starts),
+                                                           w2, b2, w3, b3))
     got = tsa.fused_point_mlp_max_win_bwd_kernel(*targs, W, g)
     want = tsa.fused_point_mlp_max_win_bwd_plain(*targs, W, g)
     for x, z, name in zip(got, want, NAMES):
