@@ -132,17 +132,47 @@ first use), then:
    output sets the worst;
 20. runs the eval CLI on phase 11's tree and checkpoint with ``--set
    MIXED_PRECISION True``: the 8 result files, a finite AP dict, and 6
-   FPS, 2 B-bf16 and 4 F-bf16 launches a batch.
+   FPS, 2 B-bf16 and 4 F-bf16 launches a batch;
+21. holds the bf16 backward kernels against their plain versions: C-bf16
+   (kernel C's design on bf16 operands) at the train shapes of RCNN
+   sa0/sa1 on random tables with ties (timed, the line's sum) and on phase
+   5's real sa0 tables (timed, beside), H-bf16 on phase 13's real windows at
+   T = 256 (timed beside C-bf16 on the same rows) and edge cases, D-bf16
+   and E-bf16 (bf16 ``wgmma``, both operands MN-major) at the five edge
+   shapes and the seven tower shapes: every output cast to its input's
+   dtype within BF16_ULPS bf16 units of max|.|, the f32 sums of dW2, dW3,
+   db2, db3 within SA_RTOL and of dw within DW_RTOL; dY and dO, whose
+   terms are roundings of recomputed sums, element by element within the
+   bound that such a rounding's flip sets (``_sa_bwd_bf16_flip_bounds``)
+   plus SA_RTOL of max|.|;
+   dW/db of two launches bitwise equal; times the kernel, the plain version
+   and (D, E) ``conv2d_weight`` in bf16 in turns;
+22. drives the bf16 train step (the recipe with ``MIXED_PRECISION``) at
+   full width in turns with the f32 step from the same initial weights:
+   a warm-up and three batch-4 steps each (6 FPS, 2 B-bf16, 2 C-bf16, 4
+   D-bf16, 3 E-bf16 and 4 F-bf16 launches a bf16 step, no f32 B, C, D, E
+   or F), then the same in the block-local configuration (1 B-bf16, 1
+   G-bf16, 1 C-bf16, 1 H-bf16 a bf16 step); finite losses and f32
+   gradients, parameters that moved, medians and peak memory;
+23. holds one tiny bf16 train step on the card against the CPU, at
+   ``utils/testing.MIXED_TRAIN_TINY`` and ``MIXED_BLOCK_LOCAL_TRAIN_TINY``,
+   within the CPU's own bf16-vs-f32 gap of the same step (the loss, the
+   RPN outputs, the heads' and the RCNN's worst leaf, the backbone's norm).
 
 Launch counts are read around each main-path phase (3, 6, 9, 11, 14, 15,
-18 and 20) with the counters set to 0 just before it; the kernels line sums
-them. The script leaves TF32 as PyTorch sets it and checks that building
+18, 20 and 22) with the counters set to 0 just before it; the kernels line
+sums them. The script leaves TF32 as PyTorch sets it and checks that building
 the model turns it off, as the f32 recipe needs.
 
 Every kernel's ``bound_ms`` is the least time the card could take for its
 work at these shapes: the larger of its operations at the f32 peak (for
 the bf16 instances, their products at the bf16 tensor-core peak, the rest
-at the f32 peak; for B, G, C and H the smaller of that count and their
+at the f32 peak: for C-bf16 and H-bf16 the recompute's products too, whose
+operands are bf16-valued, while their design's count, the recompute as
+FFMA at the f32 peak, is printed beside as ``design_count_ms``; for
+D-bf16 and E-bf16 the direct product at the bf16 peak, since bf16
+Winograd transforms are not exact; for B, G, C and H the smaller of that
+count and their
 design's own, which takes the products (for C and H layer 2's two
 backward products) in three TF32 passes at the TF32 tensor-core peak,
 beside the rest at the f32 peak, the larger of the two pipes' times:
@@ -209,6 +239,14 @@ FWD_DESIGN = ('wgmma m64nNk8 3xTF32 (hi and lo rounded to nearest in integer ope
               'tap then 16 channels) split in registers, K split and transposed once a call into '
               'hi/lo planes (F, 9C) that a 4-step cp.async ring copies K-major (64-byte swizzle), '
               'split-K in fixed order')
+SA_BWD_BF16_DESIGN = ('kernel C\'s design on bf16 y, o, W2, W3 (widened to f32 in the ring): '
+                      'f32 FFMA recompute in cuBLAS order with h1, h2 rounded to bf16, one '
+                      'sample\'s gradient a distinct row with the multiplicity applied where '
+                      'samples add, dh2, dh1 on mma.sync m16n8k16 bf16, dW2 in two exact bf16 '
+                      'pieces of k h1, dp1 rounded before the dY atomics')
+DW_BF16_DESIGN = ('wgmma m64nNk16 bf16, A (x rows) M-major and B (dy) N-major copied by cp.async '
+                  'into 128-byte swizzled atoms, 4-stage ring two ahead, split-K f32 in fixed '
+                  'order')
 FPS_TRAIN_SHAPE = (4, 16384, 4096)  # RPN sa0 in a batch-4 train step
 # the image tower's convs in a batch-4 train step of the recipe: (B, H, W, C, F)
 DW_SHAPES = {
@@ -2100,13 +2138,484 @@ def phase_small_cli(dev):
           f'1e-3 x (1 + |x|) + 1e-4), recall equal', flush=True)
 
 
+def _sa_bwd_bf16_bound(y, o, idx, w2, b2, w3, b3, gout, work):
+    """(ms, ms, ms) of C-bf16's (H-bf16's) work on these inputs: operations,
+    this design's count of them, and bytes. The function's products (the
+    recompute over each ball's distinct rows, the forward's count; layer
+    2's two backward products over the live rows, dW2 in its two exact
+    bf16 pieces; dW3 and dh2 on dp3's nonzeros, as ``_sa_bwd_bound`` counts
+    them) all take bf16-valued operands summed in f32, so the bound counts
+    them at the bf16 tensor-core peak and the elementwise work at the f32
+    peak, the larger of the two pipes. The design runs the recompute as
+    f32 FFMA (the maxima and ReLU masks must be the plain version's), so
+    its count takes the recompute's products at the f32 peak instead.
+    Bytes: the bf16 y, o, weights, gout, dy, do and dW, the f32 biases and
+    db, and the indices."""
+    T, N, C1 = y.shape
+    _, M, S = idx.shape
+    C2, C3 = w2.shape[-1], w3.shape[-1]
+    nnz3, rows2, distinct, _ = work
+    rows = int(_distinct_rows(idx)[1].sum())
+    recompute = 2.0 * rows * (C1 * C2 + C2 * C3)
+    elementwise = (rows * (2 * C1 + 2 * C2 + 3 * C3) + 3.0 * nnz3
+                   + rows2 * (2 * C2 + 3 * C1))
+    products = 2.0 * rows2 * C1 * C2 * 3 + 4.0 * nnz3 * C2  # dh1, dW2 in two pieces; dW3, dh2
+    bf16_in = T * N * C1 + T * M * C1 + C1 * C2 + C2 * C3 + T * M * C3
+    nbytes = 2 * (2 * bf16_in - T * M * C3) + 8 * (C2 + C3) + 8 * T * M * S
+    return (_bound(elementwise, 0, recompute + products)[0],
+            _bound(recompute + elementwise, 0, products)[0], _bound(0, nbytes)[1])
+
+
+# dY and dO against the plain bf16 backward, element by element: each term
+# of dY is bf16(dp1) and each term of dO the f32 dp1 = (bf16(dp2) W2^T)
+# masked, where dp1 and dp2 are recomputed sums. Another summation order
+# moves such a sum by f32 roundoff and so may flip its rounding to the
+# neighbouring bf16 value, one unit in the last place, at most 2^-7 of the
+# value. A flip of bf16(dp2)_j moves dp1_c by at most 2^-7 |bf16(dp2)_j|
+# |W2_cj|; bf16(dp1) may then flip too. So |err dO| <= k 2^-7 sum_s P1_s
+# and |err dY| <= k 2^-7 sum_s (|bf16(dp1_s)| + P1_s), with P1 = |bf16(dp2)|
+# |W2|^T masked as dp1 and k = 1 + 2^-6 for the products' own f32 roundoff,
+# plus SA_RTOL of max|.| for the f32 sums' order.
+SA_FLIP_K = 1.0 + 2.0 ** -6
+
+
+def _sa_bwd_bf16_flip_bounds(y, o, idx, w2, b2, w3, b3, gout):
+    """The elementwise bounds on |err dY| (T, N, C1) and |err dO| (T, M,
+    C1) above, from the plain bf16 backward's own arithmetic, in chunks of
+    tables (before the SA_RTOL floor)."""
+    import torch
+
+    def r(t):
+        return t.to(torch.bfloat16).float()
+    T, N, C1 = y.shape
+    _, M, S = idx.shape
+    w2f, w3f = w2.float(), w3.float()
+    dy = torch.zeros(T, N, C1, device=y.device)
+    do = torch.empty(T, M, C1, device=y.device)
+    for t in range(0, T, 32):  # ~0.5 GB of temporaries a chunk
+        sl = slice(t, t + 32)
+        n = y[sl].shape[0]
+        g = torch.gather(y[sl].float(), 1, idx[sl].reshape(n, M * S, 1).expand(-1, -1, C1))
+        g1 = g.reshape(n, M, S, C1) - o[sl].float()[:, :, None, :]
+        h1 = r(torch.relu(g1))
+        p2 = h1 @ w2f + b2
+        p3 = r(torch.relu(p2)) @ w3f + b3
+        h3 = torch.relu(p3)
+        ties = (h3 == h3.amax(dim=2, keepdim=True)).float()
+        dp3c = r(torch.where(p3 > 0, ties * (gout[sl, :, None, :] / ties.sum(dim=2,
+                                                                              keepdim=True)), 0.0))
+        dp2c = r(torch.where(p2 > 0, dp3c @ w3f.t(), 0.0))
+        live = g1 > 0
+        p1 = torch.where(live, dp2c.abs() @ w2f.abs().t(), 0.0)
+        dp1c = r(torch.where(live, dp2c @ w2f.t(), 0.0))
+        do[sl] = SA_FLIP_K * 2.0 ** -7 * p1.sum(dim=2)
+        dy[sl].scatter_add_(1, idx[sl].reshape(n, M * S, 1).expand(-1, -1, C1),
+                            (SA_FLIP_K * 2.0 ** -7 * (dp1c.abs() + p1)).reshape(n, M * S, C1))
+    return dy, do
+
+
+def _check_bwd_bf16(name, got, want, inputs, idx, gout):
+    """C-bf16 or H-bf16 against its plain version: the outputs cast as the
+    custom VJP casts them within BF16_ULPS bf16 units of max|.|; the f32
+    sums dW2, db2, dW3 and db3 within SA_RTOL of their max (their terms
+    are the same on both sides up to f32 roundoff, and dW2's the rare flip
+    of bf16(dp2) within it); dY and dO, whose terms are roundings of
+    recomputed sums, element by element within the flip bounds
+    (``_sa_bwd_bf16_flip_bounds``) plus SA_RTOL of max|.|. Returns (the
+    largest error in ulps after the cast, each output's relative error
+    before it, dY's and dO's worst share of their bounds). ``inputs``: y,
+    o, w2, b2, w3, b3; ``idx`` the table rows."""
+    from epnet_tpu_torch.ops import sa_fused
+
+    names = ('dy', 'do', 'dw2', 'db2', 'dw3', 'db3')
+    rel = {k: float((x - z).abs().max()) / float(z.abs().max())
+           for k, x, z in zip(names, got, want)}
+    ulps = {}
+    for k, x, z in zip(names, sa_fused.cast_grads(got, *inputs),
+                       sa_fused.cast_grads(want, *inputs)):
+        scale = float(z.float().abs().max())
+        ulps[k] = float((x.float() - z.float()).abs().max()) / _bf16_ulp(scale)
+    y, o, w2, b2, w3, b3 = inputs
+    flips = {}
+    for k, x, z, b in zip(('dy', 'do'), got, want,
+                          _sa_bwd_bf16_flip_bounds(y, o, idx, w2, b2, w3, b3, gout)):
+        flips[k] = float(((x - z).abs() / (b + SA_RTOL * float(z.abs().max()))).max())
+    print(f'{name}: after the cast (bf16 ulps of max|.|) '
+          + ', '.join(f'{k} {v:.3f}' for k, v in ulps.items())
+          + '; f32 sums, max rel err ' + ', '.join(f'{k} {v:.2e}' for k, v in rel.items())
+          + '; dy, do elementwise: worst ' + ', '.join(f'{v:.3f}' for v in flips.values())
+          + ' of the flip bound', flush=True)
+    bad = {k: v for k, v in ulps.items() if not v <= BF16_ULPS}
+    bad.update({k: rel[k] for k in ('dw2', 'db2', 'dw3', 'db3') if not rel[k] <= SA_RTOL})
+    bad.update({f'{k} flips': v for k, v in flips.items() if not v <= 1.0})
+    if bad:
+        raise AssertionError(f'{name} off its plain version: {bad}')
+    return max(ulps.values()), rel, flips
+
+
+def phase_bf16_bwd_kernels(dev):
+    """C-bf16 at SA_TRAIN_SHAPES on random tables with ties (timed; the
+    line's sum) and on phase 5's real sa0 tables (timed, beside); H-bf16
+    on phase 13's real windows at T = 256 (timed) and edge cases; D-bf16
+    and E-bf16 at DW_EDGE_SHAPES and DW_SHAPES (timed beside
+    ``conv2d_weight`` in bf16); each against its plain version
+    (``_check_bwd_bf16``; the weight gradients' f32 sums within DW_RTOL
+    of max|dw| and their bf16 cast within BF16_ULPS), dW/db of two
+    launches bitwise equal."""
+    import torch
+    from epnet_tpu_torch.ops import conv2d, sa_fused
+
+    bf = torch.bfloat16
+    res = {}
+
+    def timed(fns):
+        row = dict.fromkeys(fns, 0.0)
+        keys = list(fns)
+        for key in keys + keys[::-1]:
+            fn, reps = fns[key]
+            row[key] += _time_ms(fn, reps) / 2
+        return row
+
+    def to_bf16(args):
+        y, o, idx, w2, b2, w3, b3, gout = args
+        return (y.to(bf), o.to(bf), idx, w2.to(bf), b2, w3.to(bf), b3,
+                gout.to(bf).float())  # gout: a bf16 cotangent, widened as the VJP widens it
+
+    rows, max_err, ms, plain_ms, op_ms, byte_ms = [], 0.0, 0.0, 0.0, [], []
+    design_sum = 0.0
+    for name, (T, N, M, S, C1, C2, C3), kind, args in sa_cases(dev, train=True):
+        args = to_bf16(args)
+        work = _sa_bwd_work(*[a.float() if a.dtype == bf else a for a in args])
+        o_ms, design_ms, b_ms = _sa_bwd_bf16_bound(*args, work=work)
+        got = sa_fused.fused_point_mlp_max_bwd_bf16_kernel(*args)
+        again = sa_fused.fused_point_mlp_max_bwd_bf16_kernel(*args)
+        want = sa_fused.fused_point_mlp_max_bwd_plain(*args)
+        torch.cuda.synchronize()
+        ulps, rel, flips = _check_bwd_bf16(f'C-bf16 {name} {(T, N, M, S, C1, C2, C3)}', got,
+                                           want, args[:2] + args[3:7], args[2], args[7])
+        if not all(torch.equal(x, z) for x, z in zip(got[2:], again[2:])):
+            raise AssertionError(f'C-bf16 {name}: dW/db differ between two launches')
+        abs_err = max(float((x - z).abs().max()) for x, z in zip(got, want))
+        del got, want, again
+        row = timed({'ms': (lambda: sa_fused.fused_point_mlp_max_bwd_bf16_kernel(*args), 5),
+                     'plain_ms': (lambda: sa_fused.fused_point_mlp_max_bwd_plain(*args), 3)})
+        _, rows2, distinct, _ = work
+        rows.append({'stage': name, 'shape': [T, N, M, S, C1, C2, C3], **row,
+                     'bound_ms': max(o_ms, b_ms), 'design_count_ms': design_ms,
+                     'max_ulps_after_cast': ulps, 'max_rel_err_f32': rel,
+                     'flip_bound_share': flips, 'distinct_rows': distinct / (T * M * S),
+                     'live_rows': rows2 / distinct})
+        print(f'  kernel {row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, bound '
+              f'{max(o_ms, b_ms):.4f} ms (operations {o_ms:.4f}, bytes {b_ms:.4f}; this '
+              f'design\'s count, the recompute as FFMA, {design_ms:.4f}); distinct rows '
+              f'{distinct / (T * M * S):.4f} of the samples, live rows '
+              f'{rows2 / distinct:.4f} of the distinct', flush=True)
+        if kind == 'real':
+            continue  # beside the line's sum, which stays the random tables'
+        max_err = max(max_err, abs_err)
+        op_ms.append(o_ms)
+        byte_ms.append(b_ms)
+        design_sum = design_sum + max(design_ms, b_ms)
+        ms, plain_ms = ms + row['ms'], plain_ms + row['plain_ms']
+    res['C'] = {'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms,
+                **_bound_keys(op_ms, byte_ms), 'design_count_ms': design_sum,
+                'library_ms': None, 'per_shape': rows}
+
+    # H-bf16 on the real windows of a batch-4 train step, and edge cases
+    W, tiles, _ = _sa_win_geometry()
+    T, N, M, S, C1, C2, C3 = (256,) + SA_SHAPES['rcnn.sa0'][1:]
+    gen = torch.Generator(device=dev).manual_seed(29)
+
+    def f(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen) * scale)
+    y, o = f(T, N, C1).to(bf), f(T, M, C1, scale=0.1).to(bf)
+    w = (f(C1, C2, scale=C1 ** -0.5).to(bf), f(C2, scale=0.01),
+         f(C2, C3, scale=C2 ** -0.5).to(bf), f(C3, scale=0.01))
+    gout = f(T, M, C3).to(bf).float()
+    max_err, real = 0.0, None
+    for edge in (False, True):
+        idx_rel, starts = _window_inputs(T, T + edge, dev, edge)
+        args = (y, o, idx_rel, starts, *w, W, gout)
+        real = real or args
+        got = sa_fused.fused_point_mlp_max_win_bwd_bf16_kernel(*args)
+        again = sa_fused.fused_point_mlp_max_win_bwd_bf16_kernel(*args)
+        want = sa_fused.fused_point_mlp_max_win_bwd_plain(*args)
+        torch.cuda.synchronize()
+        ulps, rel, flips = _check_bwd_bf16(
+            f'H-bf16 T={T} {"edge cases" if edge else "real windows"}', got, want, (y, o, *w),
+            sa_fused.window_rows(idx_rel, starts), gout)
+        if not all(torch.equal(x, z) for x, z in zip(got[2:], again[2:])):
+            raise AssertionError('H-bf16: dW/db differ between two launches')
+        max_err = max(max_err, max(float((x - z).abs().max()) for x, z in zip(got, want)))
+        if not edge:
+            real_ulps, real_rel, real_flips = ulps, rel, flips
+        del got, want, again
+    args = real
+    grows = sa_fused.window_rows(args[2], args[3])
+    work = _sa_bwd_work(y.float(), o.float(), grows, w[0].float(), w[1], w[2].float(), w[3],
+                        gout)
+    o_ms, design_ms, b_ms = _sa_bwd_bf16_bound(y, o, grows, *w, gout, work=work)
+    b_ms += _bound(0, 8 * args[3].numel())[1]  # the window starts
+    row = timed({'ms': (lambda: sa_fused.fused_point_mlp_max_win_bwd_bf16_kernel(*args), 5),
+                 'plain_ms': (lambda: sa_fused.fused_point_mlp_max_win_bwd_plain(*args), 3),
+                 'table_kernel_ms': (lambda: sa_fused.fused_point_mlp_max_bwd_bf16_kernel(
+                     y, o, grows, *w, gout), 5)})
+    _, rows2, distinct, _ = work
+    print(f'  H-bf16 T={T}: kernel {row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, C-bf16 '
+          f'on the global rows {row["table_kernel_ms"]:.4f} ms, bound {max(o_ms, b_ms):.4f} ms '
+          f'(operations {o_ms:.4f}, bytes {b_ms:.4f}; this design\'s count, the recompute as '
+          f'FFMA, {design_ms:.4f}); distinct rows '
+          f'{distinct / (T * M * S):.4f} of the samples, live rows {rows2 / distinct:.4f} of the '
+          f'distinct', flush=True)
+    res['H'] = {'max_abs_err': max_err, 'ms': row['ms'], 'plain_ms': row['plain_ms'],
+                **_bound_keys([o_ms], [b_ms]), 'design_count_ms': max(design_ms, b_ms),
+                'library_ms': None,
+                'per_shape': [{'stage': 'rcnn.sa0', 'shape': [T, N, M, S, C1, C2, C3],
+                               'window': W, 'tiles': tiles, **row, 'bound_ms': max(o_ms, b_ms),
+                               'design_count_ms': design_ms, 'max_ulps_after_cast': real_ulps,
+                               'max_rel_err_f32': real_rel, 'flip_bound_share': real_flips}]}
+
+    # D-bf16 and E-bf16
+    kernels = {2: (conv2d.dw3x3_s2_bf16_kernel, conv2d.dw3x3_s2_plain),
+               1: (conv2d.dw3x3_s1_bf16_kernel, conv2d.dw3x3_s1_plain)}
+
+    def check_dw(what, stride, x, dy):
+        kernel, plain = kernels[stride]
+        got, again, want = kernel(x, dy), kernel(x, dy), plain(x, dy)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        ulps = float((got.to(bf).float() - want.to(bf).float()).abs().max()) / _bf16_ulp(scale)
+        if not (err <= DW_RTOL * scale and ulps <= BF16_ULPS and torch.equal(got, again)):
+            raise AssertionError(f'{what}: f32 sum off by {err / scale:.3e} of max|dw|, '
+                                 f'{ulps:.3f} bf16 ulps after the cast, or two launches differ')
+        return err, err / scale, ulps
+
+    worst = 0.0
+    for _, shape, stride, x, dy in itertools.islice(dw_cases(dev), len(DW_EDGE_SHAPES)):
+        _, rel, _ = check_dw(f'dw bf16 edge {shape} stride {stride}', stride, x.to(bf), dy.to(bf))
+        worst = max(worst, rel)
+    print(f'D-bf16 / E-bf16 at {len(DW_EDGE_SHAPES)} edge shapes: within {worst:.2e} of max|dw| '
+          f'(f32 sums), bitwise reproducible', flush=True)
+    rows = collections.defaultdict(list)
+    for name, blk, stride, x, dy in itertools.islice(dw_cases(dev), len(DW_EDGE_SHAPES), None):
+        x, dy = x.to(bf), dy.to(bf)
+        kernel, plain = kernels[stride]
+        B, H, Wd, C, Fo = DW_SHAPES[name][blk]
+        pixels = B * (H // stride) * (Wd // stride)
+        om, bm = _bound(0, 2 * (B * H * Wd * C + pixels * Fo + 9 * C * Fo),
+                        2.0 * 9 * C * Fo * pixels)
+        err, rel, ulps = check_dw(f'{name}_bf16 {blk}', stride, x, dy)
+        library = _library_dw_call(x, dy, stride)
+        lib_rel = float((library().float() - plain(x, dy)).abs().max()) / float(
+            plain(x, dy).abs().max())
+        row = timed({'ms': (lambda: kernel(x, dy), 10), 'plain_ms': (lambda: plain(x, dy), 3),
+                     'library_ms': (library, 10)})
+        row.update(block=blk, shape=[B, H, Wd, C, Fo], bound_ms=max(om, bm), ops_ms=om,
+                   bytes_ms=bm, max_abs_err=err, max_rel_err=rel, ulps_after_cast=ulps)
+        rows[name].append(row)
+        print(f'{name}_bf16 {blk} x {(B, H, Wd, C)} -> dy F {Fo}: f32 sum {rel:.2e} of max|dw|, '
+              f'{ulps:.3f} bf16 ulps after the cast; conv2d_weight bf16 {lib_rel:.2e}; kernel '
+              f'{row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, conv2d_weight bf16 '
+              f'{row["library_ms"]:.4f} ms (kernel / library {row["ms"] / row["library_ms"]:.3f}), '
+              f'bound {max(om, bm):.4f} ms (bf16 products {om:.4f}, bytes {bm:.4f})', flush=True)
+        del x, dy, library
+    for name, r in rows.items():
+        tot = {k: sum(v[k] for v in r) for k in ('ms', 'plain_ms', 'library_ms')}
+        res[name] = {'max_abs_err': max(v['max_abs_err'] for v in r), **tot,
+                     **_bound_keys([v['ops_ms'] for v in r], [v['bytes_ms'] for v in r]),
+                     'per_shape': r}
+        print(f'{name}_bf16: kernel {tot["ms"]:.4f} ms, conv2d_weight bf16 '
+              f'{tot["library_ms"]:.4f} ms (kernel / library {tot["ms"] / tot["library_ms"]:.3f}), '
+              f'bound {res[name]["bound_ms"]:.4f} ms', flush=True)
+    return res
+
+
+BF16_TRAIN_KERNELS = ('fps', 'sa_fused_fwd_bf16', 'sa_fused_win_fwd_bf16', 'sa_fused_bwd_bf16',
+                      'sa_fused_win_bwd_bf16', 'conv3x3_dw_s2_bf16', 'conv3x3_dw_s1_bf16',
+                      'conv3x3_s2_fwd_bf16', 'sa_fused_fwd', 'sa_fused_bwd', 'conv3x3_dw_s2',
+                      'conv3x3_dw_s1', 'conv3x3_s2_fwd')  # a bf16 or f32 step's, by name
+# the launches of one train step, by configuration
+BF16_TRAIN_WANT = {'bf16': [6, 2, 0, 2, 0, 4, 3, 4, 0, 0, 0, 0, 0],
+                   'bf16 block-local': [6, 1, 1, 1, 1, 4, 3, 4, 0, 0, 0, 0, 0],
+                   'f32': [6, 0, 0, 0, 0, 0, 0, 0, 2, 2, 4, 3, 4],
+                   'f32 block-local': None}
+
+
+def _bf16_train_counters():
+    from epnet_tpu_torch.ops import conv2d, fps, sa_fused
+    return (fps.furthest_point_sample_kernel, sa_fused.fused_point_mlp_max_bf16_kernel,
+            sa_fused.fused_point_mlp_max_win_bf16_kernel,
+            sa_fused.fused_point_mlp_max_bwd_bf16_kernel,
+            sa_fused.fused_point_mlp_max_win_bwd_bf16_kernel, conv2d.dw3x3_s2_bf16_kernel,
+            conv2d.dw3x3_s1_bf16_kernel, conv2d.conv3x3_s2_fwd_bf16_kernel,
+            sa_fused.fused_point_mlp_max_kernel, sa_fused.fused_point_mlp_max_bwd_kernel,
+            conv2d.dw3x3_s2_kernel, conv2d.dw3x3_s1_kernel, conv2d.conv3x3_s2_fwd_kernel)
+
+
+def phase_bf16_train(dev):
+    """The bf16 train step (the recipe with ``MIXED_PRECISION``) at full
+    width, in turns with the f32 step on the same initial weights: a
+    warm-up, then three batch-4 steps each on scenes 0/1/2 (6 FPS, 2
+    B-bf16, 2 C-bf16, 4 D-bf16, 3 E-bf16 and 4 F-bf16 launches a bf16
+    step, no f32 B, C, D, E or F), medians and peak memory; then the same
+    for the block-local configuration in bf16 (1 B-bf16, 1 G-bf16, 1
+    C-bf16, 1 H-bf16 a step) on Morton-sorted scenes. Each step: a finite
+    loss and gradients, f32 parameters that moved."""
+    import torch
+    from epnet_tpu_torch.config import block_local_config, parity_config
+    from epnet_tpu_torch.train.trainer import create_train_state, train_step
+
+    counters = _bf16_train_counters()
+    total = collections.Counter()
+    for layout in ('exact', 'block-local'):
+        cfgs = {'f32': parity_config(), 'bf16': parity_config().with_overrides([MIXED_SET])}
+        if layout == 'block-local':
+            cfgs = {k: block_local_config(c) for k, c in cfgs.items()}
+        states = {k: create_train_state(c, total_steps=100, device=dev,
+                                        generator=torch.Generator(device=dev).manual_seed(0))
+                  for k, c in cfgs.items()}
+        states['bf16'].model.load_state_dict(states['f32'].model.state_dict())
+        if torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
+            raise AssertionError('the bf16 EPNet left bf16 split-K reductions in bf16')
+        gen = torch.Generator(device=dev).manual_seed(1)
+        batches = {seed: _train_batch(cfgs['f32'], seed, dev) for seed in (3,) + TRAIN_SEEDS}
+        for k in ('bf16', 'f32'):  # warm-up
+            train_step(states[k], batches[3], 0.1, gen)
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        times, peaks = {k: [] for k in states}, dict.fromkeys(states, 0.0)
+        for i, seed in enumerate(TRAIN_SEEDS):
+            for k in (('bf16', 'f32') if i % 2 == 0 else ('f32', 'bf16')):
+                name = k if layout == 'exact' else f'{k} block-local'
+                params = list(states[k].model.parameters())
+                old = [p.detach().clone() for p in params]
+                before = [c.launches for c in counters]
+                torch.cuda.reset_peak_memory_stats(dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tb = train_step(states[k], batches[seed], 0.1, gen)
+                torch.cuda.synchronize()
+                times[k].append((time.perf_counter() - t0) * 1e3)
+                peaks[k] = max(peaks[k], torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+                delta = [c.launches - b for c, b in zip(counters, before)]
+                loss = float(tb['loss'])
+                moved = sum(not torch.equal(a, p) for a, p in zip(old, params))
+                bad = [n for n, p in states[k].model.named_parameters()
+                       if p.grad is not None and (p.grad.dtype != torch.float32
+                                                  or not bool(torch.isfinite(p.grad).all()))]
+                want = BF16_TRAIN_WANT[name]
+                if (not math.isfinite(loss) or bad or moved < 0.9 * len(params)
+                        or (want is not None and delta != want)):
+                    raise AssertionError(f'{name} train step on scene {seed}: loss {loss}, '
+                                         f'bad gradients {bad[:5]}, {moved} of {len(params)} '
+                                         f'parameters moved, launches {delta}, expected {want}')
+                if k == 'bf16':
+                    total.update(dict(zip(BF16_TRAIN_KERNELS, delta)))
+                print(f'{name} train step scene {seed}: {times[k][-1]:.2f} ms, loss {loss:.4f} '
+                      f'(rpn {float(tb["rpn_loss"]):.4f}, rcnn {float(tb["rcnn_loss"]):.4f}), '
+                      f'grad norm {float(tb["grad_norm"]):.3f}, launches '
+                      + ' '.join(f'{n} +{d}' for n, d in zip(BF16_TRAIN_KERNELS, delta) if d),
+                      flush=True)
+        for k in states:
+            print(f'{layout} {k} train step, batch {TRAIN_BATCH}, in turns: median '
+                  f'{statistics.median(times[k]):.2f} ms over {len(times[k])} steps; peak '
+                  f'memory {peaks[k]:.2f} GiB', flush=True)
+        del states, batches
+    return total
+
+
+def phase_small_bf16_train_reference(dev, over=None):
+    """One tiny-width bf16 train step, card (kernels) vs CPU (plain
+    versions), identical weights, dropout 0 and identical sampled RoIs
+    (``utils/testing.MIXED_TRAIN_TINY``, or ``over``). Batch-statistics
+    BatchNorm makes the bf16 backbone chaotic (a value rounded to the
+    neighbouring bf16 number moves ReLU inputs across 0:
+    tests/test_torch_bf16_train.py measures JAX's own spread), so the card
+    is held within the CPU's own bf16 rounding effect: the same step on the
+    CPU in f32, same weights and RoIs. Each of the loss, the RPN outputs,
+    the RPN heads' and the RCNN's worst gradient leaf and the backbone
+    gradient's norm share: card vs CPU at most CPU bf16 vs CPU f32."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from epnet_tpu_torch.models import epnet as epnet_mod
+    from epnet_tpu_torch.train.loss import joint_loss
+    from epnet_tpu_torch.utils.testing import MIXED_TRAIN_TINY, synthetic_batch, tiny_config
+
+    cfg = tiny_config(**(over or MIXED_TRAIN_TINY))
+    cfg32 = cfg.merged({'MIXED_PRECISION': False})
+    cpu = epnet_mod.EPNet(cfg, 'TRAIN', device='cpu',
+                          generator=torch.Generator().manual_seed(1)).train()
+    card = epnet_mod.EPNet(cfg, 'TRAIN', device=dev)
+    cpu32 = epnet_mod.EPNet(cfg32, 'TRAIN', device='cpu')
+    for m in (card, cpu32):
+        m.load_state_dict(cpu.state_dict())
+        m.train()
+    batch = synthetic_batch(np.random.RandomState(3), cfg, batch=2, structured=True)
+    recorded, real = [], epnet_mod.proposal_target_layer
+
+    def record(*args, **kwargs):
+        recorded.append(real(*args, **kwargs))
+        return recorded[-1]
+
+    def step(model, c, b, layer):
+        with mock.patch.object(epnet_mod, 'proposal_target_layer', layer):
+            out = model(b, generator=torch.Generator(device=model.rcnn.cls_out.weight.device)
+                        .manual_seed(2))
+        loss, _ = joint_loss(c, out, b)
+        loss.backward()
+        return {'loss': float(loss.detach()),
+                **{k: out[k].detach().float().cpu() for k in ('rpn_cls', 'rpn_reg')},
+                'grads': {n: p.grad.detach().cpu() for n, p in model.named_parameters()}}
+
+    want = step(cpu, cfg, {k: torch.from_numpy(v) for k, v in batch.items()}, record)
+    targets = recorded[0]
+    on_card = type(targets)(*(t.to(dev) for t in targets))
+    f32 = type(targets)(*(t.float() if t.dtype == torch.bfloat16 else t for t in targets))
+    got = step(card, cfg, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+               lambda *a, **k: on_card)
+    ref32 = step(cpu32, cfg32, {k: torch.from_numpy(v) for k, v in batch.items()},
+                 lambda *a, **k: f32)
+
+    def gaps(a, b):
+        g = b['grads']
+        gmax = max(float(x.abs().max()) for x in g.values())
+        err = {n: float((a['grads'][n] - x).abs().max()) / max(float(x.abs().max()),
+                                                               1e-2 * gmax)
+               for n, x in g.items()}
+        bb = [n for n in g if n.startswith('rpn.backbone.')]
+        diff2 = sum(float(((a['grads'][n] - g[n]).double() ** 2).sum()) for n in bb)
+        norm2 = sum(float((g[n].double() ** 2).sum()) for n in bb)
+        return {'loss': abs(a['loss'] - b['loss']) / abs(b['loss']),
+                **{k: float((a[k] - b[k]).abs().max()) / float(b[k].abs().max())
+                   for k in ('rpn_cls', 'rpn_reg')},
+                'rpn_heads': max(err[n] for n in g if n.startswith('rpn.') and n not in bb),
+                'rcnn': max(err[n] for n in g if n.startswith('rcnn.')),
+                'backbone_norm': math.sqrt(diff2 / norm2)}
+
+    card_gap, bf16_gap = gaps(got, want), gaps(want, ref32)
+    name = 'block-local' if cfg.RPN.BLOCK_LOCAL else 'exact'
+    print(f'tiny {name} bf16 train step, card vs CPU: '
+          + ', '.join(f'{k} {v:.3e}' for k, v in card_gap.items())
+          + '; CPU bf16 vs CPU f32: ' + ', '.join(f'{k} {v:.3e}' for k, v in bf16_gap.items()),
+          flush=True)
+    bad = {k: (v, bf16_gap[k]) for k, v in card_gap.items() if not v <= bf16_gap[k]}
+    if bad:
+        raise AssertionError(f'tiny {name} bf16 train step: the card and the CPU disagree '
+                             f'beyond bf16 rounding: {bad}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU')
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from epnet_tpu_torch.ops import cuda_build
-    from epnet_tpu_torch.utils.testing import BLOCK_LOCAL_TINY, MIXED_BLOCK_LOCAL_TINY
+    from epnet_tpu_torch.utils.testing import (BLOCK_LOCAL_TINY, MIXED_BLOCK_LOCAL_TINY,
+                                               MIXED_BLOCK_LOCAL_TRAIN_TINY)
 
     print(f'torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32 as PyTorch sets '
           f'it: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn '
@@ -2153,6 +2662,10 @@ def main():
     phase_small_bf16_reference(dev)
     phase_small_bf16_reference(dev, MIXED_BLOCK_LOCAL_TINY)
     launches.update(phase_cli(dev, 'bf16'))
+    bf16_bwd_res = phase_bf16_bwd_kernels(dev)
+    launches.update(phase_bf16_train(dev))
+    phase_small_bf16_train_reference(dev)
+    phase_small_bf16_train_reference(dev, MIXED_BLOCK_LOCAL_TRAIN_TINY)
 
     kernels = [
         {'name': 'fps', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/fps.cu',
@@ -2196,6 +2709,23 @@ def main():
          'replaces': 'tools/conv_fwd_attic.py:43',
          'design': 'wgmma m64nNk16 bf16 (128-byte swizzle, transposed B), cp.async 4-stage, '
                    'split-K in fixed order', **bf16_res['F']},
+        {'name': 'sa_fused_bwd_bf16', 'route': 'cuda',
+         'source': 'epnet_tpu_torch/csrc/sa_fused_bwd.cu',
+         'replaces': 'epnet_tpu/ops/sa_fused.py:179', 'design': SA_BWD_BF16_DESIGN,
+         **bf16_bwd_res['C']},
+        {'name': 'sa_fused_win_bwd_bf16', 'route': 'cuda',
+         'source': 'epnet_tpu_torch/csrc/sa_fused_bwd.cu',
+         'replaces': 'epnet_tpu/ops/sa_fused.py:424', 'design': SA_BWD_BF16_DESIGN,
+         **bf16_bwd_res['H']},
+        {'name': 'conv3x3_dw_s2_bf16', 'route': 'cuda',
+         'source': 'epnet_tpu_torch/csrc/conv3x3_dw.cu',
+         'replaces': 'epnet_tpu/ops/conv2d.py:294, tools/conv_dw_pallas_attic.py:323, '
+                     'tools/conv_dw_pallas_attic.py:166',
+         'design': DW_BF16_DESIGN + '; stride 2', **bf16_bwd_res['conv3x3_dw_s2']},
+        {'name': 'conv3x3_dw_s1_bf16', 'route': 'cuda',
+         'source': 'epnet_tpu_torch/csrc/conv3x3_dw.cu',
+         'replaces': 'tools/conv_dw_pallas_attic.py:258, tools/conv_dw_pallas_attic.py:67',
+         'design': DW_BF16_DESIGN, **bf16_bwd_res['conv3x3_dw_s1']},
     ]
     for k in kernels:
         k['launches'] = launches[k['name']]

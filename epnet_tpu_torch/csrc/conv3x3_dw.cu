@@ -1,5 +1,6 @@
 // Weight gradient of the image tower's 3x3 SAME convolutions on Hopper
-// (sm_90a), f32; plain C interface. One kernel at two strides:
+// (sm_90a), f32 and bf16; plain C interface. One kernel at two strides, and
+// its bf16 instance (D-bf16, E-bf16; see the end of this comment):
 //
 //   D (stride 2, even H and W; SAME pads (0, 1)):
 //     dw[d, e, c, f] = sum_{b,h,w} x[b, 2h + d, 2w + e, c] * dy[b, h, w, f]
@@ -63,7 +64,28 @@
 // the tensor cores, bounds this design on the H100: keeping A out of shared
 // memory is what brought E level with conv2d_weight. The SAME pad, the
 // image edges and the ends of the split are the copy's zero-fill.
+//
+// D-bf16 and E-bf16 (conv3x3_dw_bf16_kernel) take bf16 x and dy, the
+// MIXED_PRECISION tower's, as the Pallas kernels take them (conv2d.py:
+// 316-318 dots bf16 operands into f32; conv_dw_pallas_attic.py:232-233
+// keeps its scratch in x's and dy's dtype) and as XLA's bf16 weight
+// gradient does on the JAX package's default route: products of bf16
+// operands summed in f32, the sum written f32 (the caller rounds it to w's
+// dtype once, conv2d.py:191). Its 36.2 / 72.5 GFLOP a conv take 0.04 / 0.07
+// ms on the 989 TFLOP/s bf16 tensor cores, against 0.1-0.3 GB of x and dy:
+// bytes bound it. One bf16 pass (wgmma m64nNk16) replaces the three TF32
+// passes, and bf16 wgmma reads both operands from shared memory in either
+// major order: A (row m = tap and channel, pixel k) is M-major and B (pixel
+// k, column n) N-major, each stored as the copy writes it, pixel rows of 64
+// values in 128-byte swizzled atoms, so nothing is split or moved between
+// the copy and the product. A group of V = 8 channels (16 bytes; V = 4, 8
+// bytes, when C or F is not a multiple of 8) lies in one tap because V
+// divides C. A step is 32 pixels (two k16 slices) in a 4-stage cp.async
+// ring, two ahead, as F-bf16's (csrc/conv3x3_s2_fwd.cu). Split-K and the
+// fixed-order reduction are the f32 kernel's, so dw is bitwise
+// reproducible.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -290,6 +312,157 @@ conv3x3_dw_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   }
 }
 
+// ---- D-bf16 and E-bf16: bf16 wgmma, both operands MN-major in shared memory ----
+
+constexpr int kBK = 32;      // pixels a step (two k16 slices)
+constexpr int kBStages = 4;  // steps in the ring, copied two ahead
+constexpr int kAtom = 1024;  // a 128-byte swizzled atom: 8 pixel rows of 64 values
+// element (k, m) of a 64-value-wide operand (A: m a tile row, B: n a
+// column) at (m / 64) * kChunkBytes + (k / 8) * kAtom + (k % 8) * 128 +
+// ((m % 64 / 8) ^ (k % 8)) * 16 + (m % 8) * 2
+constexpr int kChunkBytes = kBK / 8 * kAtom;
+
+template <int TN>
+struct BTile {
+  static constexpr int kAStage = kTM / 64 * kChunkBytes;  // 8 KB
+  static constexpr int kBStage = TN / 64 * kChunkBytes;   // 8 or 4 KB
+  static constexpr int kSmem = kBStages * (kAStage + kBStage) + 1024;  // + alignment
+};
+
+__device__ __forceinline__ int swz(int k, int m) {
+  return (m / 64) * kChunkBytes + (k / 8) * kAtom + (k % 8) * 128 + ((m % 64 / 8) ^ (k % 8)) * 16 +
+         (m % 8) * 2;
+}
+
+// D-bf16 (S = 2) and E-bf16 (S = 1); V bf16 values a copy (8: 16 bytes, 4: 8).
+template <int S, int TN, int V>
+__global__ void __launch_bounds__(kThreads, kEBlocks)
+conv3x3_dw_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
+                       float* __restrict__ part, int h_in, int w_in, int c, int f,
+                       long long k_total, int m_tiles, int tiles, int splits) {
+  using G = BTile<TN>;
+  constexpr int kPad = S == 1 ? 1 : 0;
+  constexpr int kAGroups = kTM / V;              // copies a pixel row of A: 16 or 32
+  constexpr int kARows = kThreads / kAGroups;    // pixel rows a pass: 16 or 8
+  constexpr int kAPasses = kBK / kARows;         // 2 or 4
+  constexpr int kBGroups = TN / V;               // copies a pixel row of B
+  constexpr int kBRows = kThreads / kBGroups;
+  constexpr int kBPasses = kBK / kBRows;
+  static_assert(kAPasses * kARows == kBK && kBPasses * kBRows == kBK, "copies");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* as = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* bs = as + kBStages * G::kAStage;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int tile = blockIdx.x % tiles;
+  const int split = blockIdx.x / tiles;
+  const int m0 = (tile % m_tiles) * kTM;
+  const int n0 = (tile / m_tiles) * TN;
+  const int m_total = 9 * c;
+  const int ho = h_in / S;
+  const int wo = w_in / S;
+  const long long kb = k_total * split / splits;
+  const long long ke = k_total * (split + 1) / splits;
+
+  // A copies: tile rows a_m .. a_m + V - 1 (one tap, V channels) at pixels
+  // kb + step + a_kk + kARows q
+  const int a_col = V * (tid % kAGroups);
+  const int a_m = m0 + a_col;
+  const bool a_ok = a_m < m_total;
+  const int tap = a_ok ? a_m / c : 0;
+  const int a_c = a_m - tap * c;
+  const int a_dh = tap / 3 - kPad;
+  const int a_dw = tap % 3 - kPad;
+  const int a_kk = tid / kAGroups;
+  int pb[kAPasses], ph[kAPasses], pw[kAPasses];
+#pragma unroll
+  for (int q = 0; q < kAPasses; ++q) {
+    const long long k = kb + a_kk + kARows * q;
+    pw[q] = static_cast<int>(k % wo);
+    const long long t = k / wo;
+    ph[q] = static_cast<int>(t % ho);
+    pb[q] = static_cast<int>(t / ho);
+  }
+  // B copies: columns b_n .. b_n + V - 1 of dy at pixels kb + step + b_kk + kBRows q
+  const int b_col = V * (tid % kBGroups);
+  const bool b_ok = n0 + b_col < f;
+  const int b_kk = tid / kBGroups;
+
+  auto load = [&](long long k0, int stage) {
+    unsigned char* ad = as + stage * G::kAStage;
+#pragma unroll
+    for (int q = 0; q < kAPasses; ++q) {
+      const int kr = a_kk + kARows * q;
+      const int hh = S * ph[q] + a_dh;
+      const int ww = S * pw[q] + a_dw;
+      const bool in = a_ok && k0 + kr < ke && hh >= 0 && hh < h_in && ww >= 0 && ww < w_in;
+      cp_async<2 * V>(smem_addr(ad + swz(kr, a_col)),
+                      in ? x + ((static_cast<size_t>(pb[q]) * h_in + hh) * w_in + ww) * c + a_c
+                         : x,
+                      in);
+      advance(pb[q], ph[q], pw[q], kBK, ho, wo);
+    }
+    unsigned char* bd = bs + stage * G::kBStage;
+#pragma unroll
+    for (int q = 0; q < kBPasses; ++q) {
+      const int kr = b_kk + kBRows * q;
+      const long long k = k0 + kr;
+      const bool in = b_ok && k < ke;
+      cp_async<2 * V>(smem_addr(bd + swz(kr, b_col)),
+                      in ? dy + static_cast<size_t>(k) * f + n0 + b_col : dy, in);
+    }
+  };
+
+  const int wg = warp >> 2;  // warpgroup: tile rows 64 wg .. 64 wg + 63
+  float acc[TN / 2];         // set by the first wgmma (scale-d 0)
+  const long long steps = (ke - kb + kBK - 1) / kBK;
+#pragma unroll
+  for (int i = 0; i < kBStages - 2; ++i) {
+    if (i < steps) load(kb + static_cast<long long>(i) * kBK, i);
+    cp_async_commit();
+  }
+  for (long long i = 0; i < steps; ++i) {
+    cp_async_wait<kBStages - 3>();
+    fence_async_shared();  // copies -> wgmma
+    __syncthreads();
+    const long long next = i + kBStages - 2;  // into the stage of step i - 2, whose wgmmas are done
+    if (next < steps) load(kb + next * kBK, static_cast<int>(next % kBStages));
+    cp_async_commit();
+    const unsigned char* a_st = as + (i % kBStages) * G::kAStage + wg * kChunkBytes;
+    const unsigned char* b_st = bs + (i % kBStages) * G::kBStage;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_bf16_mn<TN>(acc, smem_desc<kSwizzle128>(a_st + 2 * kAtom * kk, kChunkBytes, kAtom),
+                        smem_desc<kSwizzle128>(b_st + 2 * kAtom * kk, kChunkBytes, kAtom),
+                        i > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+  cp_async_wait<0>();
+
+  // accumulator 4j + r: row (+ 8 for r >= 2), columns 8j + 2t, 8j + 2t + 1
+  float* out = part + static_cast<size_t>(split) * m_total * f;
+  const int row = 64 * wg + 16 * (warp & 3) + (lane >> 2);
+  const int t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + row + 8 * h;
+    if (m >= m_total) continue;
+#pragma unroll
+    for (int j = 0; j < TN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * t;
+      if (n < f)
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(m) * f + n) =
+            steps > 0 ? make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1])
+                      : make_float2(0.0f, 0.0f);
+    }
+  }
+}
+
 // dw[e] = sum over splits s, in order, of part[s][e].
 __global__ void conv3x3_dw_reduce(const float* __restrict__ part, int splits, long long size,
                                   float* __restrict__ dw) {
@@ -320,6 +493,29 @@ cudaError_t launch_s(const float* x, const float* dy, float* part, int h, int w,
                      long long k, int m_tiles, int tiles, int splits, cudaStream_t st) {
   return tile_n(f) == 64 ? launch<S, 64>(x, dy, part, h, w, c, f, k, m_tiles, tiles, splits, st)
                          : launch<S, 128>(x, dy, part, h, w, c, f, k, m_tiles, tiles, splits, st);
+}
+
+template <int S, int TN, int V>
+cudaError_t launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* dy, float* part, int h,
+                        int w, int c, int f, long long k, int m_tiles, int tiles, int splits,
+                        cudaStream_t st) {
+  const auto kernel = conv3x3_dw_bf16_kernel<S, TN, V>;
+  static std::atomic<uint64_t> smem_set{0};
+  constexpr int smem = BTile<TN>::kSmem;
+  const cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem, smem_set);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(tiles) * splits, kThreads, smem, st>>>(
+      x, dy, part, h, w, c, f, k, m_tiles, tiles, splits);
+  return cudaGetLastError();
+}
+
+template <int S, int V>
+cudaError_t launch_bf16_s(const __nv_bfloat16* x, const __nv_bfloat16* dy, float* part, int h,
+                          int w, int c, int f, long long k, int m_tiles, int tiles, int splits,
+                          cudaStream_t st) {
+  return tile_n(f) == 64
+             ? launch_bf16<S, 64, V>(x, dy, part, h, w, c, f, k, m_tiles, tiles, splits, st)
+             : launch_bf16<S, 128, V>(x, dy, part, h, w, c, f, k, m_tiles, tiles, splits, st);
 }
 
 }  // namespace
@@ -356,6 +552,41 @@ int epnet_conv3x3_dw_launch(const void* x, const void* dy, void* part, void* dw,
   const cudaError_t err =
       stride == 2 ? launch_s<2>(xf, dyf, pf, h, w, c, f, k, m_tiles, t, splits, st)
                   : launch_s<1>(xf, dyf, pf, h, w, c, f, k, m_tiles, t, splits, st);
+  if (err != cudaSuccess) return err;
+  const long long size = 9LL * c * f;
+  const int threads = 256;
+  conv3x3_dw_reduce<<<static_cast<unsigned>((size + threads - 1) / threads), threads, 0, st>>>(
+      pf, splits, size, static_cast<float*>(dw));
+  return cudaGetLastError();
+}
+
+// D-bf16 / E-bf16: as above with x and dy bf16 (8-byte aligned; 16-byte
+// copies where x and dy are 16-byte aligned and c and f multiples of 8), part
+// and dw float32: dw receives the f32 sums.
+int epnet_conv3x3_dw_bf16_launch(const void* x, const void* dy, void* part, void* dw, int b,
+                                 int h, int w, int c, int f, int stride, int splits,
+                                 void* stream) {
+  if (b < 0 || h <= 0 || w <= 0 || c <= 0 || f <= 0 || c % 4 || f % 4 || splits < 1)
+    return cudaErrorInvalidValue;
+  if (stride != 1 && (stride != 2 || h % 2 || w % 2)) return cudaErrorInvalidValue;
+  const long long k = static_cast<long long>(b) * (h / stride) * (w / stride);
+  const int m_tiles = (9 * c + kTM - 1) / kTM;
+  const long long tiles = epnet_conv3x3_dw_tiles(c, f);
+  if (tiles * splits > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* dyb = static_cast<const __nv_bfloat16*>(dy);
+  float* pf = static_cast<float*>(part);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int t = static_cast<int>(tiles);
+  const bool wide = c % 8 == 0 && f % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(dy) % 16 == 0;
+  cudaError_t err;
+  if (stride == 2)
+    err = wide ? launch_bf16_s<2, 8>(xb, dyb, pf, h, w, c, f, k, m_tiles, t, splits, st)
+               : launch_bf16_s<2, 4>(xb, dyb, pf, h, w, c, f, k, m_tiles, t, splits, st);
+  else
+    err = wide ? launch_bf16_s<1, 8>(xb, dyb, pf, h, w, c, f, k, m_tiles, t, splits, st)
+               : launch_bf16_s<1, 4>(xb, dyb, pf, h, w, c, f, k, m_tiles, t, splits, st);
   if (err != cudaSuccess) return err;
   const long long size = 9LL * c * f;
   const int threads = 256;

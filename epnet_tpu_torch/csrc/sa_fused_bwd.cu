@@ -1,11 +1,15 @@
-// Backward of the fused set-abstraction interior on Hopper (sm_90a), f32;
-// plain C interface. Two kernels, one design:
+// Backward of the fused set-abstraction interior on Hopper (sm_90a), f32
+// and bf16; plain C interface. Four kernels, one design:
 //
 //   C replaces the Pallas TPU kernel epnet_tpu/ops/sa_fused.py::_bwd_kernel
 //     (pallas_call at :285, reached through the custom VJP of
 //     fused_point_mlp_max);
 //   H replaces its windowed twin ::_bwd_kernel_win (pallas_call at :528,
-//     the custom VJP of fused_point_mlp_max_win).
+//     the custom VJP of fused_point_mlp_max_win);
+//   C-bf16 and H-bf16 replace the same two kernels on bf16 Y, O, W2 and W3
+//     (their n_splits == 1 branch, sa_fused.py:194-196, :240-242, :438-440,
+//     :479), the backward of the MIXED_PRECISION train step (see "bf16"
+//     below).
 //
 // For the forward
 //
@@ -112,17 +116,40 @@
 //    bitwise equal between two launches. dY is deterministic only up to the
 //    order of the f32 atomic additions; dO is written once.
 //
+// bf16 (C-bf16, H-bf16: the same body with TIn = __nv_bfloat16). The Pallas
+// kernel's bf16 function works sample by sample and rounds to bf16 at five
+// places: h1 and h2 before each product, dp3 and dp2 before the products
+// that take them (dW3, dh2; dW2, dh1), and dp1 before the scatter into dY;
+// db, dO and every product's sum stay f32. Rounding is not linear, so a
+// distinct row's k equal samples cannot be folded into one before it: this
+// instance keeps one sample's gradient on every distinct row (dp3 = gout /
+// cnt on a tied row) and multiplies by k where samples add up: dW3 gathers
+// k * bf16(dp3) (exact in f32: 8 + 7 significant bits), db3 and db2 sum k
+// * dp, dO sums k * dp1 and dY adds k * bf16(dp1). dW2 = sum_r k_r h1_r^T
+// bf16(dp2_r): k * h1 has up to 15 significant bits, so the A operand is
+// split exactly into two bf16 pieces (hi = bf16(k h1), lo = k h1 - hi) and
+// takes two bf16 passes; dh2 and dh1 take one. The recompute is the f32
+// kernel's FFMA on bf16 values (products exact in f32) with h1 and h2
+// rounded where the plain version rounds, so the maxima and masks are
+// bitwise the plain version's. Layer 2's backward and dh2 run on the bf16
+// tensor cores, mma.sync m16n8k16 with f32 accumulation, one pass where the
+// f32 instance takes three TF32 passes. Y and O are gathered from bf16 and
+// the bf16 weights are widened to f32 as they enter the ring (plain loads,
+// not cp.async: the ring's layout and products are the f32 kernel's).
+//
 // H is C with the window's row index; it differs only in the dedupe (its
 // main kernel is the same body, tagged kWin so that a trace tells the two
 // apart). The windows of consecutive tiles of one RoI overlap, and dY adds
 // every tile's rows into the RoI's whole (N, C1) table, so nothing is
 // overwritten.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 #include "sa_common.cuh"
@@ -196,18 +223,129 @@ __device__ __forceinline__ void ffma_steps(float (&acc)[4][kJ], const float* a, 
   }
 }
 
+// ---- the bf16 instance's pieces ----
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+// two values rounded to bf16, to nearest even, `lo` in the low half: a
+// register of an mma.sync bf16 fragment
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+// v = hi + lo exactly when v has at most 16 significant bits (k * a bf16
+// value, k <= 127): hi = bf16(v), lo = bf16(v - hi), two values a register
+__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  const float h0 = round_bf16(v0), h1 = round_bf16(v1);
+  hi = pack_bf16(h0, h1);
+  lo = pack_bf16(v0 - h0, v1 - h1);
+}
+// d += a b, m16n8k16, bf16 operands, f32 accumulator (the TF32 fragments'
+// accumulator layout); a: (g, 2t .. 2t + 1), (g + 8, 2t ..), (g, 2t + 8 ..),
+// (g + 8, 2t + 8 ..); b: (k = 2t .. 2t + 1, n = g), (2t + 8 .., g)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four consecutive values as f32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// h1 = relu(Y[row] - O[centroid]) for the tile's rows, 0 past them; from
+// bf16 Y and O, rounded to bf16 (the value its products take).
+__device__ __forceinline__ void gather_h1(float* buf, const bf16* __restrict__ y,
+                                          const bf16* __restrict__ o, const int* row_tab,
+                                          const int* row_slot, const int* cent_id, int n_rows) {
+  for (int e = threadIdx.x; e < kRows * (kC / 4); e += kThreads) {
+    const int r = e >> 5;
+    const int c4 = 4 * (e & 31);
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < n_rows) {
+      const float4 a = load4(y + static_cast<size_t>(row_tab[r]) * kC + c4);
+      const float4 b = load4(o + static_cast<size_t>(cent_id[row_slot[r]]) * kC + c4);
+      v = make_float4(round_bf16(fmaxf(a.x - b.x, 0.0f)), round_bf16(fmaxf(a.y - b.y, 0.0f)),
+                      round_bf16(fmaxf(a.z - b.z, 0.0f)), round_bf16(fmaxf(a.w - b.w, 0.0f)));
+    }
+    *reinterpret_cast<float4*>(buf + r * kLd + c4) = v;
+  }
+}
+
+// load_w128 for a bf16 weight: the K-tile widened to f32 into the slot by
+// plain loads and stores (ring_product's barriers order them as its
+// cp.async copies).
+template <int kKRows = kW2Rows>
+__device__ __forceinline__ void load_w128(const bf16* __restrict__ w, int i, float* slot,
+                                          int ld = kC) {
+#pragma unroll
+  for (int h = 0; h < kKRows / 8; ++h) {
+    const int r = (threadIdx.x >> 5) + 8 * h;
+    const int c4 = 4 * (threadIdx.x & 31);
+    *reinterpret_cast<float4*>(slot + r * kW2Ld + c4) =
+        load4(w + static_cast<size_t>(kKRows * i + r) * ld + c4);
+  }
+}
+
+// slot_steps' one bf16 pass over a 16-row K-tile: A = rows ra/rb of `a`
+// (f32, rounded to bf16 here), B = the slot (bf16 values in f32).
+template <int kMT, int kNT>
+__device__ __forceinline__ void slot_step_bf16(float (&acc)[kMT][kNT][4], const float* a,
+                                               int a_ld, const int (&ra)[kMT],
+                                               const int (&rb)[kMT], int a_k0, const float* slot,
+                                               int slot_ld, int n0, int active) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t2 = 2 * (lane & 3);
+  uint32_t fa[kMT][4] = {};
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+    if (mt < active) {
+      const float* pa = a + ra[mt] * a_ld + a_k0 + t2;
+      const float* pb = a + rb[mt] * a_ld + a_k0 + t2;
+      fa[mt][0] = pack_bf16(pa[0], pa[1]);
+      fa[mt][1] = pack_bf16(pb[0], pb[1]);
+      fa[mt][2] = pack_bf16(pa[8], pa[9]);
+      fa[mt][3] = pack_bf16(pb[8], pb[9]);
+    }
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const float* b = slot + t2 * slot_ld + n0 + 8 * nt + g;
+    const uint32_t fb[2] = {pack_bf16(b[0], b[slot_ld]),
+                            pack_bf16(b[8 * slot_ld], b[9 * slot_ld])};
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+      if (mt < active) mma_bf16(acc[mt][nt], fa[mt], fb);
+  }
+}
+
 // kWin tags H's instance (the dedupe already turned its window rows into
 // table rows, so the body does not read it): C and H stay apart in a trace.
-template <bool kWin, int kC3>
+// TIn: the type of Y, O and the weights (float: C, H; bf16: C-bf16, H-bf16).
+template <bool kWin, int kC3, typename TIn>
 __global__ void __launch_bounds__(kThreads, 1)
-sa_fused_bwd_kernel(const float* __restrict__ y, const float* __restrict__ o,
+sa_fused_bwd_kernel(const TIn* __restrict__ y, const TIn* __restrict__ o,
                     const int* __restrict__ drows, const int* __restrict__ counts,
-                    const float* __restrict__ w2, const float* __restrict__ w2t,
-                    const float* __restrict__ b2, const float* __restrict__ w3,
-                    const float* __restrict__ w3t, const float* __restrict__ b3,
+                    const TIn* __restrict__ w2, const TIn* __restrict__ w2t,
+                    const float* __restrict__ b2, const TIn* __restrict__ w3,
+                    const TIn* __restrict__ w3t, const float* __restrict__ b3,
                     const float* __restrict__ gout, float* __restrict__ dy,
                     float* __restrict__ dout_o, float* __restrict__ part,
                     int* __restrict__ sel, int n, int m, int cents) {
+  constexpr bool kBf = std::is_same_v<TIn, bf16>;
   using L = Smem<kC3>;
   extern __shared__ __align__(16) float smem[];
   float* buf_a = smem;                  // h1, then a chunk's p3 -> dp3, then dp2
@@ -304,7 +442,10 @@ sa_fused_bwd_kernel(const float* __restrict__ y, const float* __restrict__ o,
         const int c = ffma_col(tx, j);
         const float bc = __ldg(b2 + c);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) buf_b[(4 * ty + i) * kLd + c] = fmaxf(acc[i][j] + bc, 0.0f);
+        for (int i = 0; i < 4; ++i) {
+          const float h2 = fmaxf(acc[i][j] + bc, 0.0f);
+          buf_b[(4 * ty + i) * kLd + c] = kBf ? round_bf16(h2) : h2;
+        }
       }
     }
     // layer 3, kChunk columns at a time; dh2 = dp3 W3^T accumulates in
@@ -327,8 +468,11 @@ sa_fused_bwd_kernel(const float* __restrict__ y, const float* __restrict__ o,
               for (int h = 0; h < 2; ++h) {
                 const int r = (tid >> 4) + 16 * h;
                 const int c4 = 4 * (tid & 15);
-                cp_async<16>(smem_addr(slot + r * kW3Ld + c4),
-                             w3 + static_cast<size_t>(kW3Rows * i + r) * kC3 + c0 + c4, true);
+                const TIn* src = w3 + static_cast<size_t>(kW3Rows * i + r) * kC3 + c0 + c4;
+                if constexpr (kBf)
+                  *reinterpret_cast<float4*>(slot + r * kW3Ld + c4) = load4(src);
+                else
+                  cp_async<16>(smem_addr(slot + r * kW3Ld + c4), src, true);
               }
             },
             [&](int i, const float* slot) {
@@ -406,7 +550,9 @@ sa_fused_bwd_kernel(const float* __restrict__ y, const float* __restrict__ o,
 #pragma unroll 4
           for (int r = rs; r < re; r += step) {
             const float p = pc[r * kPcLd + c];
-            const float d = (p > 0.0f && p == mx) ? static_cast<float>(row_mult[r]) * g : 0.0f;
+            // bf16: one sample's share (the multiplicity joins where samples add)
+            const float d =
+                (p > 0.0f && p == mx) ? (kBf ? g : static_cast<float>(row_mult[r]) * g) : 0.0f;
             pc[r * kPcLd + c] = d;
             if (d != 0.0f) cbits |= uint64_t{1} << r;
           }
@@ -434,20 +580,28 @@ sa_fused_bwd_kernel(const float* __restrict__ y, const float* __restrict__ o,
           const int r0 = __ffsll(static_cast<long long>(nz)) - 1;
           nz &= nz - 1;
           const int r1 = nz ? __ffsll(static_cast<long long>(nz)) - 1 : r0;
-          const float d0 = pc[r0 * kPcLd + c];
-          const float d1 = nz ? pc[r1 * kPcLd + c] : 0.0f;
+          float d0 = pc[r0 * kPcLd + c];
+          float d1 = nz ? pc[r1 * kPcLd + c] : 0.0f;
+          if constexpr (kBf) {  // k * dp3 for db3, k * bf16(dp3) for dW3
+            const float k0 = static_cast<float>(row_mult[r0]);
+            const float k1 = static_cast<float>(row_mult[r1]);
+            sum += k0 * d0;
+            if (nz) sum += k1 * d1;
+            d0 = k0 * round_bf16(d0);
+            d1 = k1 * round_bf16(d1);
+          }
           float h0[4], h1[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             h0[i] = buf_b[r0 * kLd + lane + 32 * i];
             h1[i] = buf_b[r1 * kLd + lane + 32 * i];
           }
-          sum += d0;
+          if constexpr (!kBf) sum += d0;
 #pragma unroll
           for (int i = 0; i < 4; ++i) a[i] = fmaf(d0, h0[i], a[i]);
           if (nz) {
             nz &= nz - 1;
-            sum += d1;
+            if constexpr (!kBf) sum += d1;
 #pragma unroll
             for (int i = 0; i < 4; ++i) a[i] = fmaf(d1, h1[i], a[i]);
           }
@@ -464,8 +618,12 @@ sa_fused_bwd_kernel(const float* __restrict__ y, const float* __restrict__ o,
           kChunk / kW2Rows, ring,
           [&](int i, float* slot) { load_w128(w3t + static_cast<size_t>(c0) * kC, i, slot); },
           [&](int i, const float* slot) {
-            slot_steps<2, 4>(dh2, pc, kPcLd, ra2, rb2, kW2Rows * i, slot, kW2Ld, kW2Rows / 8,
-                             32 * (warp & 3), active2);
+            if constexpr (kBf)
+              slot_step_bf16<2, 4>(dh2, pc, kPcLd, ra2, rb2, kW2Rows * i, slot, kW2Ld,
+                                   32 * (warp & 3), active2);
+            else
+              slot_steps<2, 4>(dh2, pc, kPcLd, ra2, rb2, kW2Rows * i, slot, kW2Ld, kW2Rows / 8,
+                               32 * (warp & 3), active2);
           });
     }
 
@@ -489,7 +647,8 @@ sa_fused_bwd_kernel(const float* __restrict__ y, const float* __restrict__ o,
     const int n_live16 = (n_live + 15) & ~15;
     if (tid < kC) {  // db2, rows in order
       float sum = 0.0f;
-      for (int r = 0; r < n_rows; ++r) sum += buf_a[r * kLd + tid];
+      for (int r = 0; r < n_rows; ++r)
+        sum += kBf ? static_cast<float>(row_mult[r]) * buf_a[r * kLd + tid] : buf_a[r * kLd + tid];
       db2s[tid] += sum;
     }
     if (warp == 4) {  // the live rows, padded to 16 with a dead row (dp2 = 0 there)
@@ -507,29 +666,65 @@ sa_fused_bwd_kernel(const float* __restrict__ y, const float* __restrict__ o,
     // (warp & 3), 16 at a time. The tile's sum starts from 0 on the tensor
     // cores and is added to dw2 in f32: their f32 accumulation truncates,
     // which over a block's whole run of rows would bias dW2 by ~1e-4.
+    // bf16: k h1 (split in two exact bf16 pieces) against bf16(dp2), k16 steps.
     {
       const int m0 = 64 * (warp >> 2);
 #pragma unroll
       for (int nh = 0; nh < 2; ++nh) {
         const int n0 = 32 * (warp & 3) + 16 * nh;
         float acc[4][2][4] = {};
-        for (int k0 = 0; k0 < n_live16; k0 += 8) {
-          const int r0 = lrow[k0 + t4];
-          const int r1 = lrow[k0 + t4 + 4];
-          FragA fa[4];
+        if constexpr (kBf) {
+          for (int k0 = 0; k0 < n_live16; k0 += 16) {
+            const int r0 = lrow[k0 + 2 * t4], r1 = lrow[k0 + 2 * t4 + 1];
+            const int r2 = lrow[k0 + 2 * t4 + 8], r3 = lrow[k0 + 2 * t4 + 9];
+            const float k0m = static_cast<float>(row_mult[r0]);
+            const float k1m = static_cast<float>(row_mult[r1]);
+            const float k2m = static_cast<float>(row_mult[r2]);
+            const float k3m = static_cast<float>(row_mult[r3]);
+            uint32_t ah[4][4], al[4][4];
 #pragma unroll
-          for (int mt = 0; mt < 4; ++mt) {
-            const int c = m0 + 16 * mt + g;
-            fa[mt].set(buf_b[r0 * kLd + c], buf_b[r0 * kLd + c + 8], buf_b[r1 * kLd + c],
-                       buf_b[r1 * kLd + c + 8]);
+            for (int mt = 0; mt < 4; ++mt) {
+              const int c = m0 + 16 * mt + g;
+              split_bf16(k0m * buf_b[r0 * kLd + c], k1m * buf_b[r1 * kLd + c], ah[mt][0],
+                         al[mt][0]);
+              split_bf16(k0m * buf_b[r0 * kLd + c + 8], k1m * buf_b[r1 * kLd + c + 8],
+                         ah[mt][1], al[mt][1]);
+              split_bf16(k2m * buf_b[r2 * kLd + c], k3m * buf_b[r3 * kLd + c], ah[mt][2],
+                         al[mt][2]);
+              split_bf16(k2m * buf_b[r2 * kLd + c + 8], k3m * buf_b[r3 * kLd + c + 8],
+                         ah[mt][3], al[mt][3]);
+            }
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              const int c = n0 + 8 * nt + g;
+              const uint32_t fb[2] = {pack_bf16(buf_a[r0 * kLd + c], buf_a[r1 * kLd + c]),
+                                      pack_bf16(buf_a[r2 * kLd + c], buf_a[r3 * kLd + c])};
+#pragma unroll
+              for (int mt = 0; mt < 4; ++mt) {
+                mma_bf16(acc[mt][nt], ah[mt], fb);
+                mma_bf16(acc[mt][nt], al[mt], fb);
+              }
+            }
           }
+        } else {
+          for (int k0 = 0; k0 < n_live16; k0 += 8) {
+            const int r0 = lrow[k0 + t4];
+            const int r1 = lrow[k0 + t4 + 4];
+            FragA fa[4];
 #pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            FragB fb;
-            const int c = n0 + 8 * nt + g;
-            fb.set(buf_a[r0 * kLd + c], buf_a[r1 * kLd + c]);
+            for (int mt = 0; mt < 4; ++mt) {
+              const int c = m0 + 16 * mt + g;
+              fa[mt].set(buf_b[r0 * kLd + c], buf_b[r0 * kLd + c + 8], buf_b[r1 * kLd + c],
+                         buf_b[r1 * kLd + c + 8]);
+            }
 #pragma unroll
-            for (int mt = 0; mt < 4; ++mt) mma3(acc[mt][nt], fa[mt], fb);
+            for (int nt = 0; nt < 2; ++nt) {
+              FragB fb;
+              const int c = n0 + 8 * nt + g;
+              fb.set(buf_a[r0 * kLd + c], buf_a[r1 * kLd + c]);
+#pragma unroll
+              for (int mt = 0; mt < 4; ++mt) mma3(acc[mt][nt], fa[mt], fb);
+            }
           }
         }
 #pragma unroll
@@ -557,8 +752,11 @@ sa_fused_bwd_kernel(const float* __restrict__ y, const float* __restrict__ o,
       ring_product(
           kC / kW2Rows, ring, [&](int i, float* slot) { load_w128(w2t, i, slot); },
           [&](int i, const float* slot) {
-            slot_steps<2, 4>(acc, buf_a, kLd, ra, rb, kW2Rows * i, slot, kW2Ld, kW2Rows / 8, n0,
-                             active);
+            if constexpr (kBf)
+              slot_step_bf16<2, 4>(acc, buf_a, kLd, ra, rb, kW2Rows * i, slot, kW2Ld, n0, active);
+            else
+              slot_steps<2, 4>(acc, buf_a, kLd, ra, rb, kW2Rows * i, slot, kW2Ld, kW2Rows / 8, n0,
+                               active);
           });
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
@@ -577,19 +775,22 @@ sa_fused_bwd_kernel(const float* __restrict__ y, const float* __restrict__ o,
     }
     __syncthreads();
 
-    // dO = -sum of dp1 over the centroid's live rows; dY += dp1 (distinct live rows)
+    // dO = -sum of dp1 over the centroid's live rows; dY += dp1 (distinct live
+    // rows); bf16: -sum of k dp1, and k bf16(dp1)
     for (int e = tid; e < n_cent * kC; e += kThreads) {
       const int j = e >> 7;
       const int c = e & (kC - 1);
       float sum = 0.0f;
       for (int r = cent_rs[j]; r < cent_rs[j + 1]; ++r)
-        if ((live >> r) & 1) sum += buf_b[r * kLd + c];
+        if ((live >> r) & 1)
+          sum += kBf ? static_cast<float>(row_mult[r]) * buf_b[r * kLd + c] : buf_b[r * kLd + c];
       dout_o[static_cast<size_t>(cent_id[j]) * kC + c] = -sum;
     }
     for (int e = tid; e < n_live * kC; e += kThreads) {
       const int r = lrow[e >> 7];
       const int c = e & (kC - 1);
-      const float v = buf_b[r * kLd + c];
+      float v = buf_b[r * kLd + c];
+      if constexpr (kBf) v = static_cast<float>(row_mult[r]) * round_bf16(v);
       if (v != 0.0f) atomicAdd(dy + static_cast<size_t>(row_tab[r]) * kC + c, v);
     }
     cursor += n_cent;
@@ -632,14 +833,13 @@ __global__ void sa_fused_bwd_reduce(const float* __restrict__ part, int blocks, 
   out[e] = acc;
 }
 
-template <bool kWin, int kC3>
-cudaError_t launch_main(int blocks, cudaStream_t st, const float* y, const float* o,
-                        const int* rows, const int* counts, const float* w2, const float* w2t,
-                        const float* b2, const float* w3, const float* w3t, const float* b3,
-                        const float* gout, float* dy, float* d_o, float* part, int* sel, int n,
-                        int m, int cents) {
+template <bool kWin, int kC3, typename TIn>
+cudaError_t launch_main(int blocks, cudaStream_t st, const TIn* y, const TIn* o, const int* rows,
+                        const int* counts, const TIn* w2, const TIn* w2t, const float* b2,
+                        const TIn* w3, const TIn* w3t, const float* b3, const float* gout,
+                        float* dy, float* d_o, float* part, int* sel, int n, int m, int cents) {
   static std::atomic<uint64_t> smem_set{0};
-  const auto kernel = sa_fused_bwd_kernel<kWin, kC3>;
+  const auto kernel = sa_fused_bwd_kernel<kWin, kC3, TIn>;
   const cudaError_t err =
       allow_smem(reinterpret_cast<const void*>(kernel), Smem<kC3>::kBytes, smem_set);
   if (err != cudaSuccess) return err;
@@ -648,7 +848,7 @@ cudaError_t launch_main(int blocks, cudaStream_t st, const float* y, const float
   return cudaGetLastError();
 }
 
-template <bool kWin>
+template <bool kWin, typename TIn>
 int launch(const void* y, const void* o, const void* idx, const void* starts, const void* w2,
            const void* w2t, const void* b2, const void* w3, const void* w3t, const void* b3,
            const void* gout, void* dy, void* d_o, void* rows, void* counts, void* part,
@@ -672,16 +872,16 @@ int launch(const void* y, const void* o, const void* idx, const void* starts, co
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     auto args = [&](auto fn) {
-      return fn(blocks, st, static_cast<const float*>(y), static_cast<const float*>(o),
+      return fn(blocks, st, static_cast<const TIn*>(y), static_cast<const TIn*>(o),
                 static_cast<const int*>(rows), static_cast<const int*>(counts),
-                static_cast<const float*>(w2), static_cast<const float*>(w2t),
-                static_cast<const float*>(b2), static_cast<const float*>(w3),
-                static_cast<const float*>(w3t), static_cast<const float*>(b3),
+                static_cast<const TIn*>(w2), static_cast<const TIn*>(w2t),
+                static_cast<const float*>(b2), static_cast<const TIn*>(w3),
+                static_cast<const TIn*>(w3t), static_cast<const float*>(b3),
                 static_cast<const float*>(gout), static_cast<float*>(dy),
                 static_cast<float*>(d_o), static_cast<float*>(part), static_cast<int*>(sel), n,
                 m, cents);
     };
-    err = c3 == 128 ? args(launch_main<kWin, 128>) : args(launch_main<kWin, 256>);
+    err = c3 == 128 ? args(launch_main<kWin, 128, TIn>) : args(launch_main<kWin, 256, TIn>);
     if (err != cudaSuccess) return err;
   } else {
     blocks = 0;  // no rows: the gradients of the weights are zero
@@ -716,8 +916,8 @@ int epnet_sa_fused_bwd_launch(const void* y, const void* o, const void* idx, con
                               const void* b3, const void* gout, void* dy, void* d_o, void* rows,
                               void* counts, void* part, void* grads, void* sel, int t, int n,
                               int m, int s, int c3, int blocks, void* stream) {
-  return launch<false>(y, o, idx, nullptr, w2, w2t, b2, w3, w3t, b3, gout, dy, d_o, rows, counts,
-                       part, grads, sel, t, n, m, s, c3, blocks, 1, 0, stream);
+  return launch<false, float>(y, o, idx, nullptr, w2, w2t, b2, w3, w3t, b3, gout, dy, d_o, rows,
+                              counts, part, grads, sel, t, n, m, s, c3, blocks, 1, 0, stream);
 }
 
 // Kernel H: as above with idx (t, m, s) int64 window-relative rows in
@@ -731,8 +931,36 @@ int epnet_sa_fused_win_bwd_launch(const void* y, const void* o, const void* idx,
                                   int t, int n, int m, int s, int c3, int nb, int window,
                                   int blocks, void* stream) {
   if (nb <= 0 || m % nb != 0 || window <= 0 || window > n) return cudaErrorInvalidValue;
-  return launch<true>(y, o, idx, starts, w2, w2t, b2, w3, w3t, b3, gout, dy, d_o, rows, counts,
-                      part, grads, sel, t, n, m, s, c3, blocks, nb, window, stream);
+  return launch<true, float>(y, o, idx, starts, w2, w2t, b2, w3, w3t, b3, gout, dy, d_o, rows,
+                             counts, part, grads, sel, t, n, m, s, c3, blocks, nb, window,
+                             stream);
+}
+
+// C-bf16: as kernel C with y, o, w2, w2t, w3 and w3t bf16 (8-byte aligned),
+// the biases, gout and every output f32: dy, d_o and grads receive the f32
+// sums that the caller casts (dy and d_o to y's and o's dtype, dW to w's).
+int epnet_sa_fused_bwd_bf16_launch(const void* y, const void* o, const void* idx, const void* w2,
+                                   const void* w2t, const void* b2, const void* w3,
+                                   const void* w3t, const void* b3, const void* gout, void* dy,
+                                   void* d_o, void* rows, void* counts, void* part, void* grads,
+                                   void* sel, int t, int n, int m, int s, int c3, int blocks,
+                                   void* stream) {
+  return launch<false, bf16>(y, o, idx, nullptr, w2, w2t, b2, w3, w3t, b3, gout, dy, d_o, rows,
+                             counts, part, grads, sel, t, n, m, s, c3, blocks, 1, 0, stream);
+}
+
+// H-bf16: kernel H's arguments with C-bf16's types.
+int epnet_sa_fused_win_bwd_bf16_launch(const void* y, const void* o, const void* idx,
+                                       const void* starts, const void* w2, const void* w2t,
+                                       const void* b2, const void* w3, const void* w3t,
+                                       const void* b3, const void* gout, void* dy, void* d_o,
+                                       void* rows, void* counts, void* part, void* grads,
+                                       void* sel, int t, int n, int m, int s, int c3, int nb,
+                                       int window, int blocks, void* stream) {
+  if (nb <= 0 || m % nb != 0 || window <= 0 || window > n) return cudaErrorInvalidValue;
+  return launch<true, bf16>(y, o, idx, starts, w2, w2t, b2, w3, w3t, b3, gout, dy, d_o, rows,
+                            counts, part, grads, sel, t, n, m, s, c3, blocks, nb, window,
+                            stream);
 }
 
 const char* epnet_error_string(int err) {

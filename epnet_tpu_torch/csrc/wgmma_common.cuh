@@ -14,8 +14,8 @@
 //   and B K-major in shared memory (TF32 wgmma reads both operands K-major
 //   only), and the bf16 products m64nNk16 with B N-major in shared memory
 //   (16-bit types read either major) and A K-major in shared memory
-//   (F-bf16, B-bf16, G-bf16) or in registers (B-bf16, G-bf16: layer 3 reads
-//   layer 2's accumulators).
+//   (F-bf16, B-bf16, G-bf16), M-major in shared memory (D-bf16, E-bf16) or
+//   in registers (B-bf16, G-bf16: layer 3 reads layer 2's accumulators).
 
 #pragma once
 
@@ -189,6 +189,55 @@ template <>
 __device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t a, uint64_t b,
                                                int acc) {
   wgmma_bf16_64(d, a, b, acc);
+}
+
+// d (64 x N, f32) = a (64 x 16, M-major) * b (16 x N, N-major) + (acc ? d :
+// 0), bf16 operands from the shared-memory descriptors a and b (both
+// transposed: D-bf16 and E-bf16, whose operands are a pixel's channels and a
+// pixel's dy row); asynchronous
+__device__ __forceinline__ void wgmma_bf16_mn_128(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+__device__ __forceinline__ void wgmma_bf16_mn_64(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_mn(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);
+template <>
+__device__ __forceinline__ void wgmma_bf16_mn<128>(float (&d)[64], uint64_t a, uint64_t b,
+                                                   int acc) {
+  wgmma_bf16_mn_128(d, a, b, acc);
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16_mn<64>(float (&d)[32], uint64_t a, uint64_t b,
+                                                  int acc) {
+  wgmma_bf16_mn_64(d, a, b, acc);
 }
 
 // d (64 x 128, f32) = a (64 x 16) * b (16 x 128, N-major) + (acc ? d : 0),

@@ -60,10 +60,11 @@ class EPNet(nn.Module):
     'TEST') selects the proposal budgets, as the reference's ``cfg[mode]``
     lookups do. Building it turns TF32 off (``use_f32_math``).
 
-    ``MIXED_PRECISION`` runs in TEST mode only: the bf16 forward of the JAX
-    package (``epnet.py:114-123`` and the modules' ``dtype``), with f32
-    parameters, so ``bridge.py`` carries weights across unchanged; building
-    it also keeps bf16 matmul reductions in f32 (``use_bf16_math``).
+    ``MIXED_PRECISION`` runs the bf16 forward and train step of the JAX
+    package (``epnet.py:74-79,114-123`` and the modules' ``dtype``), with
+    f32 parameters, so ``bridge.py`` carries weights across unchanged and
+    the gradients reach f32 through the casts; building it also keeps bf16
+    matmul reductions in f32 (``use_bf16_math``).
 
     In training mode (``.train()``) the forward samples RoIs against
     ``batch['gt_boxes3d']``, normalizes with batch statistics, applies
@@ -76,9 +77,7 @@ class EPNet(nn.Module):
         super().__init__()
         if mode not in ('TRAIN', 'TEST'):
             raise ValueError(f'mode {mode!r}: TRAIN or TEST')
-        unported = {'MIXED_PRECISION (bf16) in TRAIN mode (item 17, the train half)':
-                        cfg.MIXED_PRECISION and mode == 'TRAIN',
-                    'EXACT_QUERIES false (the approximate queries)':
+        unported = {'EXACT_QUERIES false (the approximate queries)':
                         approx_allowed(cfg.EXACT_QUERIES, 'ball'),
                     'RPN.FP_WINDOW > 0': cfg.RPN.FP_WINDOW > 0,
                     'RPN.FPS_GROUPS != 1': cfg.RPN.FPS_GROUPS != 1,
@@ -146,7 +145,8 @@ class EPNet(nn.Module):
             if self.training:
                 tgt = proposal_target_layer(rois, batch['gt_boxes3d'], xyz, rpn_features,
                                             seg_mask, pts_depth, cfg, generator)
-                pts_input = torch.cat([tgt.sampled_pts, tgt.pts_feature], -1)
+                pts_input = torch.cat([tgt.sampled_pts.to(tgt.pts_feature.dtype),
+                                       tgt.pts_feature], -1)
                 out.update(tgt._asdict())
             else:
                 pts_input = pool_for_eval(cfg, rois, xyz, rpn_features, seg_mask, pts_depth)

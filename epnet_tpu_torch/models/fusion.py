@@ -18,7 +18,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from ..ops.grid_sample import grid_sample_points
+from ..ops.grid_sample import grid_sample_points, grid_sample_points_bwd, grid_sample_points_plain
 from .layers import BatchNorm, Conv2dBlock, dense, kaiming_normal_
 
 
@@ -111,14 +111,17 @@ class DeconvFusionHead(nn.Module):
     ``ConvTranspose2d(C, r, k, stride=k)`` weight equals
     ``deconv{i}_kernel.permute(2, 3, 0, 1)``, with no flip.
 
-    With ``dtype`` (bf16, eval) it rounds where the JAX package's eval head
-    ``deconv_bn_relu_sample_eval`` does (``deconv_sample.py:307-388``): the
+    With ``dtype`` (bf16) it rounds where the JAX package's heads do
+    (``deconv_sample.py:185-213`` in training, ``:307-388`` at eval): the
     folded weights are computed in f32 and cast (``fusion.py:150-151``),
     each scale's product is bf16, the scales and the fused bias add up in
     bf16, BatchNorm and ReLU run in bf16, and the bilinear sample sums its
-    bf16-weighted corners in f32 (``grid_sample``). JAX's eval head works on
-    a half-resolution layout of the same map; the values per pixel are the
-    same.
+    bf16-weighted corners in f32 (``grid_sample``). JAX's heads work on a
+    half-resolution layout of the same map; the values per pixel are the
+    same. In training the head is ``DeconvBnReluSample``, whose backward is
+    the JAX custom VJP's (``deconv_sample.py:216-304``), with its casts in
+    bf16, as the JAX package trains through it in f32 and in bf16
+    (``fusion.py:159-180``).
     """
 
     def __init__(self, in_channels: Sequence[int], reduce: Sequence[int],
@@ -149,7 +152,7 @@ class DeconvFusionHead(nn.Module):
         sampled at ``xy`` (B, N, 2 in [-1, 1]): (B, N, F)."""
         F_ = self.features
         dt = self.dtype or imgs[0].dtype
-        total = None
+        cws = []
         bias_fused = torch.zeros(F_, dtype=self.fusion_kernel.dtype,
                                  device=self.fusion_kernel.device)
         off = 0
@@ -157,12 +160,95 @@ class DeconvFusionHead(nn.Module):
             kern = getattr(self, f'deconv{i}_kernel')
             wi = self.fusion_kernel[off:off + r]
             off += r
-            C = x.shape[-1]
-            cw = torch.einsum('klcr,rf->cklf', kern, wi).reshape(C, k * k * F_).to(dt)
+            cws.append(torch.einsum('klcr,rf->cklf', kern, wi).reshape(x.shape[-1], k * k * F_)
+                       .to(dt))
             bias_fused = bias_fused + getattr(self, f'deconv{i}_bias') @ wi
-            B, h, w, _ = x.shape
-            y = (x.to(dt) @ cw).reshape(B, h, w, k, k, F_)
-            y = y.permute(0, 1, 3, 2, 4, 5).reshape(B, h * k, w * k, F_)
-            total = y if total is None else total + y
-        total = torch.relu(self.image_fusion_bn(total + bias_fused.to(dt), bn_momentum))
-        return feature_gather(total, xy)
+        xs = [x.to(dt) for x in imgs]
+        bn = self.image_fusion_bn
+        if self.training:
+            pts, mean, unbiased = DeconvBnReluSample.apply(
+                self.kernels, bn.eps, xy.detach(), bias_fused, bn.weight, bn.bias, *xs, *cws)
+            bn.track(mean, unbiased, bn_momentum)
+            return pts
+        total = deconv_maps(xs, cws, self.kernels, F_) + bias_fused.to(dt)
+        return feature_gather(torch.relu(bn(total, bn_momentum)), xy)
+
+
+def deconv_maps(xs, cws, kernels, features: int) -> torch.Tensor:
+    """The head's pre-bias map at full resolution, in the maps' dtype: each
+    scale's per-pixel product with its folded weight, depth-to-space, the
+    scales added in order."""
+    total = None
+    for x, cw, k in zip(xs, cws, kernels):
+        B, h, w, _ = x.shape
+        y = (x @ cw).reshape(B, h, w, k, k, features)
+        y = y.permute(0, 1, 3, 2, 4, 5).reshape(B, h * k, w * k, features)
+        total = y if total is None else total + y
+    return total
+
+
+class DeconvBnReluSample(torch.autograd.Function):
+    """The JAX package's training head ``deconv_bn_relu_sample``
+    (``ops/deconv_sample.py:161-304``) on the full-resolution map (its
+    half-resolution layout holds the same values).
+
+    ``apply(kernels, eps, xy, bias_fused, scale, bias, *xs, *cws)`` returns
+    (the sampled points (B, N, F) in the maps' dtype, the batch mean, the
+    unbiased batch variance), the statistics in f32 and not differentiated.
+    The forward rounds as ``_fwd`` (``:185-213``): the pre-BN map in the
+    maps' dtype, the mean and the variance of its centred values in f32,
+    ``diff * w_fold + bias`` and the ReLU in the maps' dtype, the bilinear
+    sample of ``grid_sample``. The backward is ``_bwd``'s (``:216-304``):
+    the ReLU's mask and the normalised map recomputed in f32 from the saved
+    pre-BN map, the output gradient scattered in f32 with f32 hat weights,
+    BatchNorm's closed-form gradient in f32 and cast to the maps' dtype
+    (``:281``), each scale's input gradient a product in that dtype
+    (``:292``), its folded weight's an f32 product cast to the weight's
+    dtype (``:293-295``), the fused bias's the f32 sum of the cast map
+    gradient, and the BN scale's and bias's the f32 sums S2 and S1."""
+
+    @staticmethod
+    def forward(ctx, kernels, eps, xy, bias_fused, scale, bias, *maps):
+        n = len(kernels)
+        xs, cws = maps[:n], maps[n:]
+        F_ = scale.shape[0]
+        dt = xs[0].dtype
+        ph = deconv_maps(xs, cws, kernels, F_) + bias_fused.to(dt)
+        red = (0, 1, 2)
+        mean = ph.float().mean(dim=red)
+        diff = ph - mean.to(dt)
+        var = diff.float().square().mean(dim=red)
+        count = ph.numel() // F_
+        unbiased = var * (count / max(count - 1, 1))
+        w_fold = (torch.rsqrt(var + eps) * scale).to(dt)
+        pts = grid_sample_points_plain(torch.relu(diff * w_fold + bias.to(dt)), xy)
+        ctx.save_for_backward(xy, scale, bias, mean, var, ph, *xs, *cws)
+        ctx.kernels, ctx.eps = kernels, eps
+        ctx.mark_non_differentiable(mean, unbiased)
+        return pts, mean, unbiased
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g, _mean, _unbiased):
+        xy, scale, bias, mean, var, ph, *maps = ctx.saved_tensors
+        kernels = ctx.kernels
+        n = len(kernels)
+        xs, cws = maps[:n], maps[n:]
+        B, H, W, F_ = ph.shape
+        count = B * H * W
+        inv = torch.rsqrt(var + ctx.eps)
+        gs = scale * inv
+        xhat = (ph.float() - mean) * inv
+        dpost = grid_sample_points_bwd(g, xy, H, W) * ((xhat * scale + bias) > 0)
+        s1 = dpost.sum(dim=(0, 1, 2))
+        s2 = (dpost * xhat).sum(dim=(0, 1, 2))
+        dph = (dpost * gs + (-gs * (s1 / count)) + (-gs * (s2 / count)) * xhat).to(ph.dtype)
+        dbias_fused = dph.float().sum(dim=(0, 1, 2))
+        dxs, dcws = [], []
+        for x, cw, k in zip(xs, cws, kernels):
+            _, h, w, C = x.shape
+            dy = dph.reshape(B, h, k, w, k, F_).permute(0, 1, 3, 2, 4, 5).reshape(B, h, w, -1)
+            dxs.append(dy @ cw.t())
+            dcws.append((x.float().reshape(-1, C).t() @ dy.float().reshape(-1, k * k * F_))
+                        .to(cw.dtype))
+        return (None, None, None, dbias_fused, s2, s1, *dxs, *dcws)

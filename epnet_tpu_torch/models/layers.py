@@ -10,11 +10,13 @@ module that holds a BatchNorm passes ``bn_momentum`` down its ``forward``.
 In training mode it normalizes with the batch statistics and updates the
 running ones; in eval mode it uses the running statistics.
 
-Mixed precision (``MIXED_PRECISION``, eval only) follows flax's ``dtype``
-as the JAX package sets it: a module built with ``dtype=torch.bfloat16``
-casts its input, weight and bias to bf16 (``dense``), parameters stay f32,
-and BatchNorm normalizes in its input's dtype. There is no
-``torch.autocast``: its op lists are not the JAX package's casts.
+Mixed precision (``MIXED_PRECISION``) follows flax's ``dtype`` as the JAX
+package sets it: a module built with ``dtype=torch.bfloat16`` casts its
+input, weight and bias to bf16 (``dense``), parameters stay f32, and
+BatchNorm normalizes in its input's dtype with its statistics in f32.
+Gradients come back to the f32 parameters through the casts, as flax's do.
+There is no ``torch.autocast``: its op lists are not the JAX package's
+casts.
 """
 
 from __future__ import annotations
@@ -80,9 +82,10 @@ class BatchNorm(nn.Module):
     bias``, with the scale folded in f32 and the elementwise work in the
     input's dtype (bf16 under mixed precision: ``diff = x - mean.bf16``,
     then one bf16 multiply-add). In training the statistics are taken over
-    every axis but the last, with a two-pass biased variance; the running
-    statistics then move by ``momentum`` towards the mean and the unbiased
-    variance ``var * n / (n - 1)``."""
+    every axis but the last in f32 (``:121,126-127``): the mean of x widened
+    to f32, and a two-pass biased variance over the f32 squares of ``diff``;
+    the running statistics then move by ``momentum`` towards the mean and
+    the unbiased variance ``var * n / (n - 1)`` (``track``)."""
 
     def __init__(self, channels: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -99,16 +102,21 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
+    def track(self, mean: torch.Tensor, unbiased: torch.Tensor, momentum: float) -> None:
+        """Move the running statistics by ``momentum`` towards the batch's
+        f32 mean and unbiased variance."""
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - momentum).add_(momentum * mean)
+            self.running_var.mul_(1.0 - momentum).add_(momentum * unbiased)
+
     def forward(self, x: torch.Tensor, momentum: float = 0.1) -> torch.Tensor:
         if self.training:
             red = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=red)
-            diff = x - mean
-            var = diff.square().mean(dim=red)
+            mean = x.float().mean(dim=red)
+            diff = x - mean.to(x.dtype)
+            var = diff.float().square().mean(dim=red)
             n = x.numel() // x.shape[-1]
-            with torch.no_grad():
-                self.running_mean.mul_(1.0 - momentum).add_(momentum * mean)
-                self.running_var.mul_(1.0 - momentum).add_(momentum * var * (n / max(n - 1, 1)))
+            self.track(mean, var * (n / max(n - 1, 1)), momentum)
         else:
             var = self.running_var
             diff = x - self.running_mean.to(x.dtype)
@@ -182,6 +190,19 @@ class SharedMLP(nn.Module):
         return x
 
 
+def im2col_conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``conv3x3_s1_im2col`` (``ops/conv2d.py:226-250``):
+    a 3x3 SAME stride-1 conv of x (B, H, W, C) with w (3, 3, C, F) as the
+    (B*H*W, 9C) patches, taps (d, e) then channels, times w as (9C, F), in
+    x's dtype (a bf16 product summed in f32 and rounded once; the caller's
+    model keeps bf16 split-K reductions in f32, ``use_bf16_math``). Its
+    weight gradient is the product's, patches^T dy."""
+    B, H, W, C = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    u = torch.cat([xp[:, d:d + H, e:e + W, :] for d in range(3) for e in range(3)], -1)
+    return (u.reshape(B * H * W, 9 * C) @ w.reshape(9 * C, -1)).reshape(B, H, W, -1)
+
+
 class Conv2dBlock(nn.Module):
     """NHWC KxK 'SAME' conv, no bias (+ BN) (+ ReLU), for the image stream.
 
@@ -191,7 +212,17 @@ class Conv2dBlock(nn.Module):
     kernel D or E), the others through ``nn.Conv2d``'s convolution. The
     parameter stays at ``Conv_0.weight`` (OIHW) either way. With ``dtype``
     the input and weight are cast to it and the conv runs in it
-    (``layers.py:192-199,257-261``; the stem too, at eval)."""
+    (``layers.py:192-199,257-261``). In training under ``dtype`` the RGB
+    stem (3x3, stride 1, at most 8 channels) is the JAX package's
+    ``_ConvStem`` (``conv3x3_s1_im2col``), an im2col and one product
+    (``im2col_conv3x3``), which rounds each output's f32 sum once as JAX's
+    product does. JAX takes that route in f32 too
+    (``stem_im2col_available``), for the TPU's sake (the weight gradient
+    one MXU contraction); in f32 the two routes are one function up to
+    summation order, so the f32 train step keeps the convolution, whose
+    weight gradient is one cuDNN call (and whose card-vs-CPU parity the
+    im2col route loosened, PERF.md §6). Eval stays the convolution in both
+    dtypes, as JAX's does."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3, stride: int = 1,
                  bn: bool = False, activation: bool = False, dtype=None, device=None):
@@ -207,8 +238,11 @@ class Conv2dBlock(nn.Module):
         weight = self.Conv_0.weight
         if self.dtype is not None:
             x, weight = x.to(self.dtype), weight.to(self.dtype)
-        if conv3x3_same_available(x.shape, self.Conv_0.out_channels, self.kernel,
-                                  self.stride):
+        if (self.training and self.dtype is not None and self.kernel == 3 and self.stride == 1
+                and x.shape[-1] <= 8):
+            x = im2col_conv3x3(x, weight.permute(2, 3, 1, 0))
+        elif conv3x3_same_available(x.shape, self.Conv_0.out_channels, self.kernel,
+                                    self.stride):
             x = conv3x3_same(x, weight.permute(2, 3, 1, 0), self.stride)
         else:
             H, W = x.shape[1], x.shape[2]

@@ -297,11 +297,13 @@ def proposal_target_layer(rois, gt_boxes3d, rpn_xyz, rpn_features, seg_mask, pts
     if cfg.RCNN.USE_DEPTH:
         extra.append((pts_depth / 70.0 - 0.5)[..., None])
     feats = torch.cat(extra + [rpn_features], -1)
+    if cfg.MIXED_PRECISION:  # pooled in bf16, as at eval (target_assign.py:276-280)
+        feats = feats.to(torch.bfloat16)
     sampled_pts, sampled_feats, empty_flag, _ = roipool3d(
         rpn_xyz, feats, batch_rois, cfg.RCNN.POOL_EXTRA_WIDTH, sampled_pt_num=S)
     # the exact pool repeats points cyclically, as the reference's mask_score
-    # (proposal_target_layer.py:43) expects
-    mask_score = sampled_feats[..., 0].sum(-1) / S
+    # (proposal_target_layer.py:43) expects; the seg channel read in f32 (:289)
+    mask_score = sampled_feats[..., 0].float().sum(-1) / S
 
     if cfg.AUG_DATA:
         sampled_pts, batch_rois, batch_gt = per_roi_augmentation(

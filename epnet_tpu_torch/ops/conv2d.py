@@ -29,8 +29,12 @@ kernel F-bf16 (bf16 products on the tensor cores, f32 accumulation in F's
 tap-then-channel order, one rounding at the end, as the Pallas kernel's
 bf16 dot and ``x.dtype`` output, ``conv_fwd_attic.py:73-76, 167``), at
 stride 1 ``F.conv2d`` in bf16, as the JAX package leaves it to
-XLA's conv (``epnet_tpu/ops/conv2d.py:51,112``). The backward takes f32
-only: bf16 training is not ported.
+XLA's conv (``epnet_tpu/ops/conv2d.py:51,112``). The backward's dx is
+PyTorch's convolution backward in bf16, and dw the weight-gradient
+kernel's bf16 instance (D-bf16, E-bf16: bf16 products on the tensor cores
+summed in f32), its f32 sum rounded to w's dtype once, as the Pallas
+kernel's f32 output is cast (``conv2d.py:191``) and as XLA's bf16 weight
+gradient rounds it on the JAX package's default route (``:209-212``).
 
 ``models/layers.Conv2dBlock`` sends every conv that
 ``conv3x3_same_available`` admits here; there is no other route for those
@@ -110,12 +114,15 @@ def dw3x3_s2_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     strided-phase matmuls (JAX ``_dw_phase_s2``): slot (d, e) is
     ``x[:, d::2, e::2]^T dy``. The bottom and right taps (d or e = 2) of the
     last output row and column read the SAME pad, so their phase falls one
-    row or column short and is padded with zeros.
+    row or column short and is padded with zeros. bf16 x and dy (D-bf16's
+    function) are multiplied and summed in f32 (their products are exact
+    there).
 
     :param x: (B, H, W, C); dy: (B, H/2, W/2, F)
-    :return: (3, 3, C, F)
+    :return: (3, 3, C, F) float32
     """
     _check_shapes('dw3x3_s2_plain', x, dy, 2)
+    x, dy = x.float(), dy.float()
     C, F_ = x.shape[-1], dy.shape[-1]
     H2, W2 = dy.shape[1], dy.shape[2]
     dyf = dy.reshape(-1, F_)
@@ -166,12 +173,14 @@ def conv3x3_s2_fwd_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def dw3x3_s1_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """Weight gradient of the 3x3 SAME stride-1 conv, as 9 shifted matmuls
     over the 1-padded input (JAX ``_dw_shift_s1``):
-    ``dw[d, e] = sum_{h,w} xpad[h + d, w + e]^T dy[h, w]``.
+    ``dw[d, e] = sum_{h,w} xpad[h + d, w + e]^T dy[h, w]``; bf16 x and dy
+    (E-bf16's function) as in ``dw3x3_s2_plain``.
 
     :param x: (B, H, W, C); dy: (B, H, W, F)
-    :return: (3, 3, C, F)
+    :return: (3, 3, C, F) float32
     """
     _check_shapes('dw3x3_s1_plain', x, dy, 1)
+    x, dy = x.float(), dy.float()
     _, H, W, C = x.shape
     F_ = dy.shape[-1]
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
@@ -184,9 +193,9 @@ def dw3x3_s1_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load_library('conv3x3_dw')
     if not getattr(lib, '_epnet_typed', False):
-        lib.epnet_conv3x3_dw_launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                                                + [ctypes.c_void_p])
-        lib.epnet_conv3x3_dw_launch.restype = ctypes.c_int
+        for fn in (lib.epnet_conv3x3_dw_launch, lib.epnet_conv3x3_dw_bf16_launch):
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.epnet_conv3x3_dw_tiles.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.epnet_conv3x3_dw_tiles.restype = ctypes.c_longlong
         lib._epnet_typed = True
@@ -242,10 +251,12 @@ def _resident_blocks(dev) -> int:
     return _BLOCKS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _dw_kernel(what: str, x: torch.Tensor, dy: torch.Tensor, stride: int) -> torch.Tensor:
+def _dw_kernel(what: str, x: torch.Tensor, dy: torch.Tensor, stride: int,
+               dtype=torch.float32) -> torch.Tensor:
     """Launch ``csrc/conv3x3_dw.cu`` (and its fixed-order reduction of the
-    per-split slices) on the current stream; returns (3, 3, C, F) f32."""
-    _check_cuda(what, x=x, dy=dy)
+    per-split slices) on the current stream, the bf16 instance for a bf16
+    ``dtype``; returns (3, 3, C, F) f32."""
+    _check_cuda(what, dtype, x=x, dy=dy)
     _check_shapes(what, x, dy, stride)
     B, H, W, C = x.shape
     F_ = dy.shape[-1]
@@ -260,8 +271,10 @@ def _dw_kernel(what: str, x: torch.Tensor, dy: torch.Tensor, stride: int) -> tor
     dw = torch.empty((3, 3, C, F_), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.epnet_conv3x3_dw_launch(x.data_ptr(), dy.data_ptr(), part.data_ptr(),
-                                          dw.data_ptr(), B, H, W, C, F_, stride, splits, stream)
+        launch = (lib.epnet_conv3x3_dw_bf16_launch if dtype == torch.bfloat16
+                  else lib.epnet_conv3x3_dw_launch)
+        err = launch(x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), B, H, W, C, F_,
+                     stride, splits, stream)
     cuda_build.check(lib, err, f'{what} launch')
     return dw
 
@@ -289,6 +302,28 @@ def dw3x3_s1_kernel(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 
 
 dw3x3_s1_kernel.launches = 0
+
+
+def dw3x3_s2_bf16_kernel(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Kernel D-bf16: ``dw3x3_s2_kernel`` on bf16 x and dy (8-byte
+    aligned), bf16 products on the tensor cores summed in f32; returns the
+    (3, 3, C, F) f32 sum."""
+    dw = _dw_kernel('dw3x3_s2_bf16_kernel', x, dy, 2, torch.bfloat16)
+    dw3x3_s2_bf16_kernel.launches += 1
+    return dw
+
+
+dw3x3_s2_bf16_kernel.launches = 0
+
+
+def dw3x3_s1_bf16_kernel(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Kernel E-bf16: ``dw3x3_s1_kernel`` on bf16 x and dy, as D-bf16."""
+    dw = _dw_kernel('dw3x3_s1_bf16_kernel', x, dy, 1, torch.bfloat16)
+    dw3x3_s1_bf16_kernel.launches += 1
+    return dw
+
+
+dw3x3_s1_bf16_kernel.launches = 0
 
 
 def conv3x3_s2_fwd_grid(x_shape, features: int, dev, dtype=torch.float32) -> tuple:
@@ -394,15 +429,17 @@ def conv3x3_s2_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def dw3x3_s2(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """(3, 3, C, F) stride-2 weight gradient: kernel D for CUDA tensors,
-    the plain version for CPU tensors."""
-    return _on_device(dw3x3_s2_kernel, dw3x3_s2_plain, x, dy)
+    """(3, 3, C, F) f32 stride-2 weight gradient: kernel D (D-bf16 for bf16
+    tensors) for CUDA tensors, the plain version for CPU tensors."""
+    kernel = dw3x3_s2_bf16_kernel if x.dtype == torch.bfloat16 else dw3x3_s2_kernel
+    return _on_device(kernel, dw3x3_s2_plain, x, dy)
 
 
 def dw3x3_s1(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """(3, 3, C, F) stride-1 weight gradient: kernel E for CUDA tensors,
-    the plain version for CPU tensors."""
-    return _on_device(dw3x3_s1_kernel, dw3x3_s1_plain, x, dy)
+    """(3, 3, C, F) f32 stride-1 weight gradient: kernel E (E-bf16 for bf16
+    tensors) for CUDA tensors, the plain version for CPU tensors."""
+    kernel = dw3x3_s1_bf16_kernel if x.dtype == torch.bfloat16 else dw3x3_s1_kernel
+    return _on_device(kernel, dw3x3_s1_plain, x, dy)
 
 
 class _Conv3x3Same(torch.autograd.Function):
@@ -425,9 +462,6 @@ class _Conv3x3Same(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dy):
         x, w, *saved = ctx.saved_tensors
-        if x.dtype != torch.float32:
-            raise NotImplementedError(f'conv3x3_same: the backward takes float32, got {x.dtype}: '
-                                      'bf16 training is not ported yet (ROADMAP Queue 1, item 17)')
         s = ctx.stride
         dx = dw = None
         if ctx.needs_input_grad[0]:
@@ -442,7 +476,7 @@ class _Conv3x3Same(torch.autograd.Function):
                 (1, 1), False, (0, 0), 1, (True, False, False))[0]
             dx = dxp[:, :, top:top + H, left:left + W].permute(0, 2, 3, 1)
         if ctx.needs_input_grad[1]:
-            dw = (dw3x3_s2 if s == 2 else dw3x3_s1)(x.contiguous(), dy.contiguous())
+            dw = (dw3x3_s2 if s == 2 else dw3x3_s1)(x.contiguous(), dy.contiguous()).to(w.dtype)
         return dx, dw, None
 
 
@@ -450,8 +484,8 @@ def conv3x3_same(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     """x (B, H, W, C), w (3, 3, C, F) -> (B, H', W', F): a SAME 3x3 conv
     with stride 1 or 2, differentiable in both. The stride-2 forward is
     kernel F and the weight gradient kernel D or E on the card; on the CPU
-    their plain versions. x and w share a dtype, f32 or bf16 (forward only,
-    F-bf16 at stride 2)."""
+    their plain versions. x and w share a dtype, f32 or bf16 (F-bf16 at
+    stride 2, D-bf16 and E-bf16 for dw)."""
     if x.dtype != w.dtype:
         raise TypeError(f'conv3x3_same: x is {x.dtype}, w {w.dtype}')
     if stride not in (1, 2) or tuple(w.shape[:3]) != (3, 3, x.shape[-1]):

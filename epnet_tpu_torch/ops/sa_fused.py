@@ -7,17 +7,21 @@ the block-local RCNN stage).
 
 The kernels replace the Pallas TPU kernels
 ``epnet_tpu/ops/sa_fused.py::_fwd_kernel`` and ``::_bwd_kernel`` (B, C) and
-``::_fwd_kernel_win`` and ``::_bwd_kernel_win`` (G, H), f32. The forwards
-also take bf16 ``y``, ``o``, ``w2`` and ``w3`` (f32 ``b2`` and ``b3``) and
-return bf16 (B-bf16, G-bf16): the Pallas kernels' ``n_splits == 1`` branch
-(``sa_fused.py:91-93,108-116,148-149``) that the JAX package's
-``MIXED_PRECISION`` forward reaches (``models/pointnet2.py:271-289``), and
+``::_fwd_kernel_win`` and ``::_bwd_kernel_win`` (G, H), f32. All four also
+take bf16 ``y``, ``o``, ``w2`` and ``w3`` (f32 ``b2`` and ``b3``): the Pallas
+kernels' ``n_splits == 1`` branch (``sa_fused.py:91-93,108-116,148-149``;
+the backwards' ``:194-196,207-243,438-440,479``) that the JAX package's
+``MIXED_PRECISION`` forward and train step reach
+(``models/pointnet2.py:271-289``): B-bf16, G-bf16 (returning bf16) and
+C-bf16, H-bf16 (returning the f32 sums, which the custom VJP casts to the
+inputs' dtypes, ``:306-319``: ``cast_grads``). The forward also replaces
 the two profiler kernels of the same function,
 ``tools/profile_fused_onehot.py::kern`` and
 ``tools/profile_fps_variants.py::kernel`` (with ``w3 = w2``, ``b3 = b2``).
 In bf16 every product accumulates in f32, and h1 and h2 are rounded to
 bf16 before the next layer, where the Pallas kernels cast them; the
-backwards take f32 only. What bounds the kernels on the H100, and what
+backward also rounds dp3 and dp2 before their products and dp1 before
+the scatter, sample by sample. What bounds the kernels on the H100, and what
 their designs do about that, is written at the top of each source: the
 dense layers' work, with every intermediate kept in shared memory and
 registers. B, G, C and H take each ball's distinct rows once and run
@@ -88,9 +92,19 @@ def fused_point_mlp_max_bwd_plain(y, o, idx, w2, b2, w3, b3, gout):
     gather, the three layers, the max gradient split evenly among tied rows,
     the two layers back, and an ``index_add_`` for the scatter into ``y``.
 
-    :param gout: (T, M, C3) gradient of the output
-    :return: dy (T, N, C1), do (T, M, C1), dw2, db2, dw3, db3
+    With bf16 ``y``, ``o``, ``w2`` and ``w3`` it is C-bf16's function, the
+    Pallas kernel's ``n_splits == 1`` branch (``sa_fused.py:194-243``),
+    sample by sample: the recompute rounds as the bf16 forward (h1, h2); dp3
+    and dp2 are rounded to bf16 for the products that take them (dW3, dh2;
+    dW2, dh1) and dp1 before the scatter into dy; every product sums in
+    f32, and db, do and dy's sums stay f32.
+
+    :param gout: (T, M, C3) float32 gradient of the output
+    :return: the f32 sums dy (T, N, C1), do (T, M, C1), dw2, db2, dw3, db3
+        (``cast_grads`` gives them the inputs' dtypes)
     """
+    if y.dtype == torch.bfloat16:
+        return _bwd_bf16_plain(y, o, idx, w2, b2, w3, b3, gout)
     T, N, C1 = y.shape
     _, M, S = idx.shape
     C2, C3 = w2.shape[-1], w3.shape[-1]
@@ -113,6 +127,43 @@ def fused_point_mlp_max_bwd_plain(y, o, idx, w2, b2, w3, b3, gout):
     rows = (idx + N * torch.arange(T, device=idx.device)[:, None, None]).reshape(-1)
     dy = torch.zeros_like(y).reshape(T * N, C1).index_add_(0, rows, dp1.reshape(-1, C1))
     return dy.reshape(T, N, C1), -dp1.sum(dim=2), dw2, db2, dw3, db3
+
+
+def _bwd_bf16_plain(y, o, idx, w2, b2, w3, b3, gout):
+    """``fused_point_mlp_max_bwd_plain`` on bf16 operands."""
+    def r(t):  # rounded to bf16, held in f32
+        return t.to(torch.bfloat16).float()
+    T, N, C1 = y.shape
+    _, M, S = idx.shape
+    C2, C3 = w2.shape[-1], w3.shape[-1]
+    w2f, w3f = w2.float(), w3.float()
+    g = torch.gather(y.float(), 1, idx.reshape(T, M * S, 1).expand(T, M * S, C1))
+    g1 = g.reshape(T, M, S, C1) - o.float()[:, :, None, :]
+    h1 = r(torch.relu(g1))
+    p2 = h1 @ w2f + b2
+    h2 = r(torch.relu(p2))
+    p3 = h2 @ w3f + b3
+    h3 = torch.relu(p3)
+    ties = (h3 == h3.amax(dim=2, keepdim=True)).float()
+    dp3 = torch.where(p3 > 0, ties * (gout[:, :, None, :] / ties.sum(dim=2, keepdim=True)), 0.0)
+    dp3c = r(dp3)
+    dw3 = h2.reshape(-1, C2).t() @ dp3c.reshape(-1, C3)
+    dp2 = torch.where(p2 > 0, dp3c @ w3f.t(), 0.0)
+    dp2c = r(dp2)
+    dw2 = h1.reshape(-1, C1).t() @ dp2c.reshape(-1, C2)
+    dp1 = torch.where(g1 > 0, dp2c @ w2f.t(), 0.0)
+    rows = (idx + N * torch.arange(T, device=idx.device)[:, None, None]).reshape(-1)
+    dy = torch.zeros((T * N, C1), dtype=torch.float32, device=y.device).index_add_(
+        0, rows, r(dp1).reshape(-1, C1))
+    return (dy.reshape(T, N, C1), -dp1.sum(dim=2), dw2, dp2.sum(dim=(0, 1, 2)), dw3,
+            dp3.sum(dim=(0, 1, 2)))
+
+
+def cast_grads(grads, y, o, w2, b2, w3, b3):
+    """The backward's f32 sums (dy, do, dw2, db2, dw3, db3) cast to the
+    dtypes of y, o, w2, b2, w3 and b3, as the custom VJP casts them
+    (``sa_fused.py:306-319``); a no-op in f32."""
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (y, o, w2, b2, w3, b3)))
 
 
 def _typed(lib: ctypes.CDLL, fns: dict) -> ctypes.CDLL:
@@ -139,11 +190,11 @@ def bf16_design() -> str:
 
 
 def _bwd_lib() -> ctypes.CDLL:
+    rows = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p], ctypes.c_int)
+    win = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [ctypes.c_void_p], ctypes.c_int)
     return _typed(cuda_build.load_library('sa_fused_bwd'), {
-        'epnet_sa_fused_bwd_launch':
-            ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p], ctypes.c_int),
-        'epnet_sa_fused_win_bwd_launch':
-            ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [ctypes.c_void_p], ctypes.c_int),
+        'epnet_sa_fused_bwd_launch': rows, 'epnet_sa_fused_bwd_bf16_launch': rows,
+        'epnet_sa_fused_win_bwd_launch': win, 'epnet_sa_fused_win_bwd_bf16_launch': win,
         'epnet_sa_fused_bwd_partial_floats': ([ctypes.c_int], ctypes.c_longlong)})
 
 
@@ -300,6 +351,25 @@ def fused_point_mlp_max_bwd_kernel(y, o, idx, w2, b2, w3, b3, gout, selections=F
                        (y, o, idx, w2, b2, w3, b3, gout), (), selections)
 
 
+fused_point_mlp_max_bwd_kernel.launches = 0
+
+
+def fused_point_mlp_max_bwd_bf16_kernel(y, o, idx, w2, b2, w3, b3, gout, selections=False):
+    """Launch C-bf16 (``csrc/sa_fused_bwd.cu``, kernel C's design on bf16
+    operands) on the current stream: ``y``, ``o``, ``w2`` and ``w3`` bf16,
+    ``b2``, ``b3`` and ``gout`` float32, idx int64, on one CUDA device;
+    kernel C's limits. Returns the f32 sums (dy, do, dw2, db2, dw3, db3) of
+    ``fused_point_mlp_max_bwd_plain``'s bf16 function (and the selections,
+    as kernel C). Raises on anything the kernel does not take."""
+    dims = _check_args('fused_point_mlp_max_bwd_bf16_kernel', torch.bfloat16, y=y, o=o, idx=idx,
+                       w2=w2, b2=b2, w3=w3, b3=b3, gout=gout)
+    return _launch_bwd(fused_point_mlp_max_bwd_bf16_kernel, 'epnet_sa_fused_bwd_bf16_launch',
+                       dims, (y, o, idx, w2, b2, w3, b3, gout), (), selections)
+
+
+fused_point_mlp_max_bwd_bf16_kernel.launches = 0
+
+
 def check_bwd_takes(what, T, N, S, C1, C2, C3):
     """Raise unless kernels C and H take these shapes: those of
     ``check_rows_takes`` and C3 <= 256. The differentiable entry points
@@ -348,6 +418,9 @@ def _launch_bwd(wrapper, entry, dims, inputs, extra, selections):
     w2, b2 = _pad_to(w2, _WIDTH, _WIDTH), _pad_to(b2, _WIDTH)
     w3, b3, gout = _pad_to(w3, _WIDTH, C3P), _pad_to(b3, C3P), _pad_to(gout, C3P)
     w2t, w3t = w2.t().contiguous(), w3.t().contiguous()
+    for name, t in (('y', y), ('o', o), ('w2', w2), ('w3', w3), ('w2t', w2t), ('w3t', w3t)):
+        if t.data_ptr() % 16:
+            raise ValueError(f'{what}: {name} must be 16-byte aligned')
     cents = T * M
     blocks = max(1, min(cents, torch.cuda.get_device_properties(dev).multi_processor_count))
     size = lib.epnet_sa_fused_bwd_partial_floats(C3P)
@@ -373,15 +446,6 @@ def _launch_bwd(wrapper, entry, dims, inputs, extra, selections):
     return out + (sel[..., :C3],) if selections else out
 
 
-fused_point_mlp_max_bwd_kernel.launches = 0
-
-
-def _refuse_bf16_grad(y):
-    if y.dtype != torch.float32:
-        raise NotImplementedError(f'the fused-SA backward takes float32, got {y.dtype}: bf16 '
-                                  'training is not ported yet (ROADMAP Queue 1, item 17)')
-
-
 class _FusedPointMlpMax(torch.autograd.Function):
     """Forward and backward by kernel on CUDA, by plain version on the CPU;
     saves only the inputs."""
@@ -398,13 +462,15 @@ class _FusedPointMlpMax(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, gout):
-        args = ctx.saved_tensors
-        _refuse_bf16_grad(args[0])
+        y, o, idx, w2, b2, w3, b3 = args = ctx.saved_tensors
+        gout = gout.float()
         if gout.is_cuda:
-            grads = fused_point_mlp_max_bwd_kernel(*args, gout)
+            kernel = (fused_point_mlp_max_bwd_bf16_kernel if y.dtype == torch.bfloat16
+                      else fused_point_mlp_max_bwd_kernel)
+            grads = kernel(*args, gout)
         else:
             grads = fused_point_mlp_max_bwd_plain(*args, gout)
-        dy, do, dw2, db2, dw3, db3 = grads
+        dy, do, dw2, db2, dw3, db3 = cast_grads(grads, y, o, w2, b2, w3, b3)
         return dy, do, None, dw2, db2, dw3, db3
 
 
@@ -412,7 +478,7 @@ def fused_point_mlp_max(y, o, idx, w2, b2, w3, b3):
     """(T, M, C3) fused SA interior, differentiable in every input but
     ``idx``: the CUDA kernels for CUDA tensors, the plain versions for CPU
     tensors. f32, or bf16 ``y``, ``o``, ``w2``, ``w3`` with f32 biases
-    (forward only; B-bf16 on the card)."""
+    (B-bf16 and C-bf16 on the card)."""
     if y.device.type not in ('cuda', 'cpu'):
         raise ValueError(f'fused_point_mlp_max: unsupported device {y.device}')
     _check_bwd_if_recorded('fused_point_mlp_max', (y, o, w2, b2, w3, b3), y, idx, w2, w3)
@@ -440,8 +506,9 @@ def fused_point_mlp_max_win_plain(y, o, idx_rel, starts, w2, b2, w3, b3, window)
 
 
 def fused_point_mlp_max_win_bwd_plain(y, o, idx_rel, starts, w2, b2, w3, b3, window, gout):
-    """Gradients of ``fused_point_mlp_max_win_plain``: the windows of one
-    table's tiles overlap, and dy adds up every tile's rows."""
+    """Gradients of ``fused_point_mlp_max_win_plain`` (the f32 sums, in bf16
+    H-bf16's function, as ``fused_point_mlp_max_bwd_plain``): the windows of
+    one table's tiles overlap, and dy adds up every tile's rows."""
     return fused_point_mlp_max_bwd_plain(y, o, window_rows(idx_rel, starts), w2, b2, w3, b3,
                                          gout)
 
@@ -500,6 +567,24 @@ def fused_point_mlp_max_win_bwd_kernel(y, o, idx_rel, starts, w2, b2, w3, b3, wi
 fused_point_mlp_max_win_bwd_kernel.launches = 0
 
 
+def fused_point_mlp_max_win_bwd_bf16_kernel(y, o, idx_rel, starts, w2, b2, w3, b3, window, gout,
+                                            selections=False):
+    """Launch H-bf16 (``csrc/sa_fused_bwd.cu``, windowed, bf16 operands) on
+    the current stream: tensors as for ``fused_point_mlp_max_win_bwd_kernel``
+    with ``y``, ``o``, ``w2`` and ``w3`` bf16; returns the f32 sums, as
+    C-bf16. Raises on anything the kernel does not take."""
+    what = 'fused_point_mlp_max_win_bwd_bf16_kernel'
+    dims = _check_args(what, torch.bfloat16, y=y, o=o, idx=idx_rel, starts=starts, w2=w2, b2=b2,
+                       w3=w3, b3=b3, gout=gout)
+    NB = _check_window(what, starts, window, *dims[:3])
+    return _launch_bwd(fused_point_mlp_max_win_bwd_bf16_kernel,
+                       'epnet_sa_fused_win_bwd_bf16_launch', dims,
+                       (y, o, idx_rel, starts, w2, b2, w3, b3, gout), (NB, window), selections)
+
+
+fused_point_mlp_max_win_bwd_bf16_kernel.launches = 0
+
+
 class _FusedPointMlpMaxWin(torch.autograd.Function):
     """Kernels G and H on CUDA, plain versions on the CPU; saves only the
     inputs."""
@@ -517,11 +602,15 @@ class _FusedPointMlpMaxWin(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, gout):
-        args = ctx.saved_tensors
-        _refuse_bf16_grad(args[0])
-        bwd = (fused_point_mlp_max_win_bwd_kernel if gout.is_cuda
-               else fused_point_mlp_max_win_bwd_plain)
-        dy, do, dw2, db2, dw3, db3 = bwd(*args, ctx.window, gout)
+        y, o, idx_rel, starts, w2, b2, w3, b3 = args = ctx.saved_tensors
+        if not gout.is_cuda:
+            bwd = fused_point_mlp_max_win_bwd_plain
+        elif y.dtype == torch.bfloat16:
+            bwd = fused_point_mlp_max_win_bwd_bf16_kernel
+        else:
+            bwd = fused_point_mlp_max_win_bwd_kernel
+        grads = bwd(*args, ctx.window, gout.float())
+        dy, do, dw2, db2, dw3, db3 = cast_grads(grads, y, o, w2, b2, w3, b3)
         return dy, do, None, None, dw2, db2, dw3, db3, None
 
 
@@ -534,8 +623,8 @@ def fused_point_mlp_max_win(y, o, idx_rel, starts, w2, b2, w3, b3, window: int):
     :param starts: (T, NB) int64 first table row of each tile's window; the
         tile of centroid m is m // (M // NB)
 
-    f32, or bf16 ``y``, ``o``, ``w2``, ``w3`` with f32 biases (forward only;
-    G-bf16 on the card).
+    f32, or bf16 ``y``, ``o``, ``w2``, ``w3`` with f32 biases (G-bf16 and
+    H-bf16 on the card).
     """
     if y.device.type not in ('cuda', 'cpu'):
         raise ValueError(f'fused_point_mlp_max_win: unsupported device {y.device}')

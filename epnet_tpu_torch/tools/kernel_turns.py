@@ -1,8 +1,8 @@
 """Time the FPS kernel (A), the fused-SA forward (B, and its windowed twin
 G) and backward (C, and its windowed twin H), the image tower's conv
 kernels (D and E, the weight gradients; F, the stride-2 forward) and the
-bf16 kernels (B-bf16, G-bf16, F-bf16) of several checkouts of this
-repository on one card, in turns.
+bf16 kernels (B-bf16, G-bf16, F-bf16; C-bf16, H-bf16, D-bf16, E-bf16) of
+several checkouts of this repository on one card, in turns.
 
     python -m epnet_tpu_torch.tools.kernel_turns --trees <parent> . . <parent> [--out DIR]
 
@@ -16,7 +16,10 @@ batch-4 train step's T = 256), G and H at the block-local RCNN sa0 on real
 windows (G at T = 100 and 256, H at 256), G-bf16 on phase 17's real
 windows, T = 100, and phases 8
 and 10 (D and E at ``chip_smoke.DW_SHAPES``, F at ``chip_smoke.FWD_SHAPES``;
-F-bf16 on F's inputs in bf16). A, B, B-bf16, G-bf16, C and H's inputs are
+F-bf16 on F's inputs in bf16), and the bf16 backward kernels on the same
+inputs in bf16 (C-bf16 on C's, H-bf16 on H's, D-bf16 and E-bf16 on D's and
+E's; a checkout that has not these kernels skips them). A, B, B-bf16,
+G-bf16, C and H's inputs are
 made once, by this checkout's ``chip_smoke.py``, and saved to ``--out``
 (G, G-bf16 and H through the wrappers' Python signatures, which the
 checkouts share);
@@ -227,6 +230,68 @@ def bf16_worker(cs, tree, saved, ms, outputs):
         ms[f'F-bf16 {name}'] = cs._time_ms(lambda: kernel(x, w), 10)
 
 
+def bf16_bwd_worker(cs, tree, saved, ms, outputs):
+    """C-bf16 and H-bf16 (the saved C and H inputs in bf16), D-bf16 and
+    E-bf16 (phase 8's inputs, made here, in bf16) of this process's
+    checkout, where it has them: checked against the plain versions (the
+    six outputs cast to the inputs' dtypes within ``BF16_ULPS`` bf16 units
+    of max|.|, the weight gradients' f32 sums within ``DW_RTOL``), timed
+    into ``ms``; C-bf16's and H-bf16's f32 sums and E-bf16's dw into
+    ``outputs``."""
+    import torch
+    from epnet_tpu_torch.ops import conv2d, sa_fused
+
+    if not hasattr(sa_fused, 'fused_point_mlp_max_bwd_bf16_kernel'):
+        print(f'{tree}: no bf16 backward kernels', file=sys.stderr)
+        return
+    dev = torch.device('cuda:0')
+    bf = torch.bfloat16
+
+    def bf16_args(args, operands):
+        args = [a.to(dev) if torch.is_tensor(a) else a for a in args]
+        args = [a.to(bf) if i in operands else a for i, a in enumerate(args)]
+        args[-1] = args[-1].to(bf).float()  # gout, a bf16 cotangent widened
+        return args
+
+    def checked(name, fn, plain, args, inputs):
+        got, want = fn(*args), plain(*args)
+        for k, x, z in zip(('dy', 'do', 'dw2', 'db2', 'dw3', 'db3'),
+                           sa_fused.cast_grads(got, *inputs), sa_fused.cast_grads(want, *inputs)):
+            err = float((x.float() - z.float()).abs().max())
+            ulp = cs._bf16_ulp(float(z.float().abs().max()))
+            if not err <= cs.BF16_ULPS * ulp:
+                raise AssertionError(f'{tree}: {name} {k} off by {err:.3e}, one bf16 ulp {ulp:.3e}')
+        return [g.cpu() for g in got]
+
+    kernel, plain = sa_fused.fused_point_mlp_max_bwd_bf16_kernel, sa_fused.fused_point_mlp_max_bwd_plain
+    for name, args in saved['bwd']:
+        args = bf16_args(args, (0, 1, 3, 5))
+        key = f'C-bf16 {name} T=256'
+        outputs[key] = checked(key, kernel, plain, args, args[:2] + args[3:7])
+        ms[key] = cs._time_ms(lambda: kernel(*args), 5)
+    kernel = sa_fused.fused_point_mlp_max_win_bwd_bf16_kernel
+    args = bf16_args(saved['win_bwd'], (0, 1, 4, 6))
+    key = 'H-bf16 rcnn.sa0 T=256'
+    outputs[key] = checked(key, kernel, sa_fused.fused_point_mlp_max_win_bwd_plain, args,
+                           args[:2] + args[4:8])
+    ms[key] = cs._time_ms(lambda: kernel(*args), 5)
+    for name, blk, stride, x, dy in cs.dw_cases(dev):
+        if name == 'edge':
+            continue
+        x, dy = x.to(bf), dy.to(bf)
+        kernel = conv2d.dw3x3_s2_bf16_kernel if stride == 2 else conv2d.dw3x3_s1_bf16_kernel
+        plain = conv2d.dw3x3_s2_plain if stride == 2 else conv2d.dw3x3_s1_plain
+        got, want = kernel(x, dy), plain(x, dy)
+        err = float((got - want).abs().max() / want.abs().max())
+        if not err <= cs.DW_RTOL:
+            raise AssertionError(f'{tree}: {name} bf16 off by {err:.3e} at {blk}')
+        key = f'{"D" if stride == 2 else "E"}-bf16 {blk}'
+        if stride == 1:
+            outputs[key] = got.cpu()
+        del got, want
+        ms[key] = cs._time_ms(lambda: kernel(x, dy), 10)
+
+
 def worker(tree, out):
     """Time this process's checkout (``tree``, first on sys.path) on the
     saved or made inputs; saves C's and H's gradients, E's dw and F-bf16's
@@ -245,6 +310,7 @@ def worker(tree, out):
     saved = torch.load(os.path.join(out, 'inputs.pt'))
     fps_sa_worker(cs, tree, saved, ms, outputs)
     bf16_worker(cs, tree, saved, ms, outputs)
+    bf16_bwd_worker(cs, tree, saved, ms, outputs)
     torch.save(outputs, os.path.join(out, f'grads_{os.getpid()}.pt'))
     print(json.dumps({'tree': tree, 'grads': f'grads_{os.getpid()}.pt', 'ms': ms}), flush=True)
 
@@ -275,6 +341,8 @@ def main(argv=None):
     first = torch.load(os.path.join(args.out, runs[0]['grads']))
     for r in runs[1:]:
         for k, got in torch.load(os.path.join(args.out, r['grads'])).items():
+            if k not in first:
+                continue  # a kernel the first checkout has not
             if torch.is_tensor(got):  # E's dw, F-bf16's y: fixed-order sums
                 print(f'{r["tree"]} vs {runs[0]["tree"]}, {k}: bitwise equal: '
                       f'{torch.equal(got, first[k])}')
@@ -286,8 +354,10 @@ def main(argv=None):
                   f'{not differ} {differ or ""}; dY differs by at most '
                   f'{float((dy - dy0).abs().max() / dy0.abs().max()):.3e} of max|dY|')
     print('case | ' + ' | '.join(r['tree'] for r in runs))
-    for c in runs[0]['ms']:
-        print(f'{c} | ' + ' | '.join(f'{r["ms"][c]:.4f}' for r in runs))
+    cases = list(dict.fromkeys(c for r in runs for c in r['ms']))
+    for c in cases:
+        print(f'{c} | ' + ' | '.join(f'{r["ms"][c]:.4f}' if c in r['ms'] else '-'
+                                     for r in runs))
 
 
 if __name__ == '__main__':

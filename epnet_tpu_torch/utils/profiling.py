@@ -2,12 +2,14 @@
 
     python -m epnet_tpu_torch.utils.profiling [--requests 3] [--top 15] [--block_local] [--mixed]
     python -m epnet_tpu_torch.utils.profiling --train [--steps 3] [--batch 4] [--block_local]
+        [--mixed]
 
 Builds ``EPNet`` at the published recipe's full width (random weights from
 a seeded generator); ``--block_local`` adds the block-local configuration's
 overrides (``EXACT_QUERIES residual``, ``RPN.BLOCK_LOCAL``,
 ``RCNN.BLOCK_LOCAL``) and Morton-sorts the scenes; ``--mixed`` sets
-``MIXED_PRECISION`` (the bf16 forward; eval only). Eval (default): answers batch-1 requests on
+``MIXED_PRECISION`` (the bf16 forward, or with ``--train`` the bf16 train
+step). Eval (default): answers batch-1 requests on
 structured scenes and prints the median wall time of each stage (RPN,
 proposals, RoI pooling, RCNN). ``--train``: takes train steps on labelled
 batch-4 scenes and prints the median of each part of a step (RPN forward,
@@ -78,7 +80,8 @@ def train_stage_times(state, batch, bn_momentum: float, generator) -> dict:
             torch.linalg.norm(xyz, dim=2), cfg, generator))
     out.update(tgt._asdict())
     rcnn, t['rcnn_forward'] = _sync_ms(lambda: model.rcnn(
-        torch.cat([tgt.sampled_pts, tgt.pts_feature], -1), bn_momentum, generator))
+        torch.cat([tgt.sampled_pts.to(tgt.pts_feature.dtype), tgt.pts_feature], -1),
+        bn_momentum, generator))
     out.update(rcnn)
     (loss, _), t['loss'] = _sync_ms(lambda: joint_loss(cfg, out, batch))
     _, t['backward'] = _sync_ms(loss.backward)
@@ -150,10 +153,8 @@ def main(argv=None):
     ap.add_argument('--block_local', action='store_true',
                     help='the block-local configuration of the recipe')
     ap.add_argument('--mixed', action='store_true',
-                    help='MIXED_PRECISION: the bf16 forward (eval only)')
+                    help='MIXED_PRECISION: the bf16 forward (with --train, the bf16 train step)')
     args = ap.parse_args(argv)
-    if args.mixed and args.train:
-        raise SystemExit('--mixed: the bf16 train step is not ported yet')
     if not torch.cuda.is_available():
         raise SystemExit('profiling needs a CUDA device')
     from ..config import block_local_config, parity_config

@@ -184,6 +184,18 @@ MIXED_TINY = {'EXACT_QUERIES': True, 'MIXED_PRECISION': True}
 # The bf16 eval forward in the block-local configuration: the RCNN's
 # windowed stage takes G-bf16's function.
 MIXED_BLOCK_LOCAL_TINY = {**BLOCK_LOCAL_TINY, 'MIXED_PRECISION': True}
+# The bf16 train step at test widths, exact and block-local:
+# ``EPNet(tiny_config(**MIXED_TRAIN_TINY), 'TRAIN', device='cpu')``; the
+# RPN's dropout off (the parity tests draw no masks) and the recipe's
+# optimizer. Its RCNN's fused stages take C-bf16's function in the
+# backward (H-bf16's at the windowed stage), and the tower D-bf16's and
+# E-bf16's: its first block's 12 channels put every stride-1 conv but the
+# RGB stem on ``conv3x3_same`` (more than 8 input channels).
+_TRAIN = {'RPN': {'DP_RATIO': 0.0}, 'TRAIN': {'OPTIMIZER': 'adam_onecycle'},
+          'LI_FUSION': {'IMG_CHANNELS': (3, 12, 16, 24, 32)}}
+MIXED_TRAIN_TINY = {**MIXED_TINY, **_TRAIN}
+MIXED_BLOCK_LOCAL_TRAIN_TINY = {**MIXED_BLOCK_LOCAL_TINY, **_TRAIN,
+                                'RPN': {**BLOCK_LOCAL_TINY['RPN'], **_TRAIN['RPN']}}
 
 IMG_H, IMG_W = 32, 64
 

@@ -179,12 +179,18 @@ def test_bf16_plain_rounds_where_the_kernel_does():
 
 
 def test_bf16_backward_is_refused():
+    """No longer refused: the bf16 forward's backward is C-bf16's function
+    (the plain bf16 backward, cast as the custom VJP casts;
+    ``test_torch_bf16_bwd.py`` holds it to JAX)."""
     idx, y, o, w2, b2, w3, b3 = _sa_inputs(5, T=1)
     y0 = y[0].clone().requires_grad_()
-    out = tsa.fused_point_mlp_max(y0, o[0], torch.from_numpy(idx).long(), w2[0],
-                                  torch.from_numpy(b2), w3[0], torch.from_numpy(b3))
-    with pytest.raises(NotImplementedError, match='item 17'):
-        out.float().sum().backward()
+    args = (o[0], torch.from_numpy(idx).long(), w2[0], torch.from_numpy(b2), w3[0],
+            torch.from_numpy(b3))
+    out = tsa.fused_point_mlp_max(y0, *args)
+    out.float().sum().backward()
+    want = tsa.fused_point_mlp_max_bwd_plain(y[0], *args, torch.ones(out.shape))
+    assert y0.grad.dtype == torch.bfloat16
+    assert torch.equal(y0.grad, want[0].to(torch.bfloat16))
 
 
 CONV_SHAPES = [(1, 8, 20, 12, 8), (1, 4, 10, 4, 4), (2, 12, 20, 132, 200)]
@@ -211,7 +217,9 @@ def test_f_bf16_plain_matches_the_tpu_kernel(shape):
 def test_bf16_conv_forward_through_conv3x3_same():
     """``conv3x3_same`` in bf16: stride 2 is F-bf16's plain version, stride
     1 ``F.conv2d`` in bf16 (XLA's conv in the JAX package), both within one
-    ulp of XLA's bf16 convolution; the backward is refused."""
+    ulp of XLA's bf16 convolution; the backward's weight gradient is
+    D-bf16's function, its f32 sum cast to bf16 (``test_torch_bf16_bwd.py``
+    holds both gradients to XLA's)."""
     rng = np.random.RandomState(7)
     x, w = _bf16(rng.randn(2, 8, 12, 16)), _bf16(rng.randn(3, 3, 16, 8) / 12)
     for stride in (1, 2):
@@ -221,9 +229,11 @@ def test_bf16_conv_forward_through_conv3x3_same():
         got = tconv.conv3x3_same(x[0], w[0], stride)
         assert got.dtype == torch.bfloat16
         _within_one_ulp(got, want, f'conv3x3_same bf16 stride {stride}')
-    xg = x[0].clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match='item 17'):
-        tconv.conv3x3_same(xg, w[0], 2).float().sum().backward()
+    wg = w[0].clone().requires_grad_()
+    y = tconv.conv3x3_same(x[0], wg, 2)
+    y.float().sum().backward()
+    assert wg.grad.dtype == torch.bfloat16
+    assert torch.equal(wg.grad, tconv.dw3x3_s2_plain(x[0], torch.ones_like(y)).to(torch.bfloat16))
 
 
 @pytest.mark.cuda

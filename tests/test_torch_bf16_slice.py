@@ -429,16 +429,17 @@ def test_block_local_float_outputs(block_local_outputs, key):
 
 
 def test_mixed_precision_is_the_test_forward_only():
-    """TRAIN raises naming item 17; building the TEST model keeps bf16
-    split-K reductions in f32 (``use_bf16_math``)."""
+    """No longer the TEST forward only: TRAIN builds too (the bf16 train
+    step, ``test_torch_bf16_train.py``), and building either model keeps
+    bf16 split-K reductions in f32 (``use_bf16_math``)."""
     cfg = tiny_config(**MIXED_TINY)
-    with pytest.raises(NotImplementedError, match='item 17'):
-        tep.EPNet(cfg, 'TRAIN', device='cpu')
     old = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     try:
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
-        tep.EPNet(cfg, 'TEST', device='cpu')
-        assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is False
+        for mode in ('TRAIN', 'TEST'):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+            model = tep.EPNet(cfg, mode, device='cpu')
+            assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is False
+            assert model.mode == mode and model.rcnn.sa0.dtype == TBF
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = old
 

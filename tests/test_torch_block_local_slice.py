@@ -384,13 +384,10 @@ def test_block_local_flags_need_the_residual_policy(exact_queries):
 
 @pytest.mark.parametrize('over,what', [
     ({'EXACT_QUERIES': False}, 'EXACT_QUERIES false'),
-    ({'MIXED_PRECISION': True}, 'MIXED_PRECISION'),
     ({'RPN': {'FP_WINDOW': 512}}, 'FP_WINDOW'),
     ({'RPN': {'FPS_GROUPS': 8}}, 'FPS_GROUPS'),
     ({'RPN': {'SAMPLING': 'random'}}, 'SAMPLING'),
 ])
 def test_unported_knobs_raise(over, what):
-    # bf16 is ported for the TEST forward only: its TRAIN mode still raises
-    mode = 'TRAIN' if 'MIXED_PRECISION' in over else 'TEST'
     with pytest.raises(NotImplementedError, match=what):
-        tep.EPNet(tiny_config(EXACT_QUERIES=True).merged(over), mode, device='cpu')
+        tep.EPNet(tiny_config(EXACT_QUERIES=True).merged(over), 'TEST', device='cpu')
