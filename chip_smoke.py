@@ -138,8 +138,10 @@ first use), then:
    sa0/sa1 on random tables with ties (timed, the line's sum) and on phase
    5's real sa0 tables (timed, beside), H-bf16 on phase 13's real windows at
    T = 256 (timed beside C-bf16 on the same rows) and edge cases, D-bf16
-   and E-bf16 (bf16 ``wgmma``, both operands MN-major) at the five edge
-   shapes and the seven tower shapes: every output cast to its input's
+   and E-bf16 (a TMA ring, bf16 ``wgmma`` m64n192k16 on shifted
+   descriptors; the bytes their design and the first bf16 design bring
+   into shared memory printed beside) at the five edge shapes and the seven tower
+   shapes: every output cast to its input's
    dtype within BF16_ULPS bf16 units of max|.|, the f32 sums of dW2, dW3,
    db2, db3 within SA_RTOL and of dw within DW_RTOL; dY and dO, whose
    terms are roundings of recomputed sums, element by element within the
@@ -244,9 +246,13 @@ SA_BWD_BF16_DESIGN = ('kernel C\'s design on bf16 y, o, W2, W3 (widened to f32 i
                       'sample\'s gradient a distinct row with the multiplicity applied where '
                       'samples add, dh2, dh1 on mma.sync m16n8k16 bf16, dW2 in two exact bf16 '
                       'pieces of k h1, dp1 rounded before the dY atomics')
-DW_BF16_DESIGN = ('wgmma m64nNk16 bf16, A (x rows) M-major and B (dy) N-major copied by cp.async '
-                  'into 128-byte swizzled atoms, 4-stage ring two ahead, split-K f32 in fixed '
-                  'order')
+DW_BF16_DESIGN = ('a block of 64 channels by 64 dy columns in all nine taps, one SM: a producer '
+                  'warp fills a TMA ring (128-byte swizzle, zero fill at the pad and edges) of '
+                  'stages of 4 x 16 output pixels, three consumer warpgroups (tap column e) run '
+                  'wgmma m64n192k16 bf16 (A = dy M-major, B = three taps d N-major) on '
+                  'descriptors shifted by a row of x for each tap d and by a pixel for each tap '
+                  'e in one shared x box (stride 2: x as pixel pairs, even and odd columns), '
+                  'split-K to one wave, f32 partials summed in fixed order')
 FPS_TRAIN_SHAPE = (4, 16384, 4096)  # RPN sa0 in a batch-4 train step
 # the image tower's convs in a batch-4 train step of the recipe: (B, H, W, C, F)
 DW_SHAPES = {
@@ -303,6 +309,28 @@ def _bound(ops, nbytes, products=0.0):
 def _bf16_ulp(v):
     """One bf16 unit in the last place at magnitude ``v`` (8 significant bits)."""
     return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+def _dw_bf16_smem_bytes(B, H, W, C, Fo, stride):
+    """Bytes that D-bf16/E-bf16 bring into shared memory for one conv
+    (what each SM takes in, summed over blocks), and the first bf16
+    design's (128 x TN im2col tiles by cp.async): (this, first).
+    This design: a stage of 4 x 16 output pixels loads, for each tile, the
+    x rows its three taps d read (6 at stride 1, 9 at stride 2) in one box
+    of 24 columns (stride 1) or in boxes of 17 even and 16 odd pixel pairs
+    (stride 2), and 4 rows of 16 dy columns, 64 channels each; the first
+    read 9C x values a pixel for every column tile and F dy values for
+    every row tile of 128 (x rows and dy columns outside the image or the
+    tile were zero-filled, not read). x and dy are bf16."""
+    from epnet_tpu_torch.ops import conv2d
+    tiles, _, stages = conv2d.dw_bf16_grid((B, H, W, C), Fo, stride, 1)
+    row = 64 * 2  # a pixel's 64 bf16 values
+    x_box = 6 * 24 * row if stride == 1 else 9 * (17 + 16) * row
+    this = tiles * stages * (x_box + 4 * 16 * row)
+    pixels = B * (H // stride) * (W // stride)
+    tn = 64 if Fo <= 64 else 128
+    first = pixels * 2 * (-(-Fo // tn) * 9 * C + -(-9 * C // 128) * Fo)
+    return this, first
 
 
 def _dw_bound_ops(C, Fo, pixels, stride):
@@ -2258,7 +2286,9 @@ def phase_bf16_bwd_kernels(dev):
     line's sum) and on phase 5's real sa0 tables (timed, beside); H-bf16
     on phase 13's real windows at T = 256 (timed) and edge cases; D-bf16
     and E-bf16 at DW_EDGE_SHAPES and DW_SHAPES (timed beside
-    ``conv2d_weight`` in bf16); each against its plain version
+    ``conv2d_weight`` in bf16, with the bytes their design and the first
+    bf16 design bring into shared memory, ``_dw_bf16_smem_bytes``); each
+    against its plain version
     (``_check_bwd_bf16``; the weight gradients' f32 sums within DW_RTOL
     of max|dw| and their bf16 cast within BF16_ULPS), dW/db of two
     launches bitwise equal."""
@@ -2406,19 +2436,23 @@ def phase_bf16_bwd_kernels(dev):
         om, bm = _bound(0, 2 * (B * H * Wd * C + pixels * Fo + 9 * C * Fo),
                         2.0 * 9 * C * Fo * pixels)
         err, rel, ulps = check_dw(f'{name}_bf16 {blk}', stride, x, dy)
+        smem_in, first_in = _dw_bf16_smem_bytes(B, H, Wd, C, Fo, stride)
         library = _library_dw_call(x, dy, stride)
         lib_rel = float((library().float() - plain(x, dy)).abs().max()) / float(
             plain(x, dy).abs().max())
         row = timed({'ms': (lambda: kernel(x, dy), 10), 'plain_ms': (lambda: plain(x, dy), 3),
                      'library_ms': (library, 10)})
         row.update(block=blk, shape=[B, H, Wd, C, Fo], bound_ms=max(om, bm), ops_ms=om,
-                   bytes_ms=bm, max_abs_err=err, max_rel_err=rel, ulps_after_cast=ulps)
+                   bytes_ms=bm, max_abs_err=err, max_rel_err=rel, ulps_after_cast=ulps,
+                   smem_in_bytes=smem_in, first_design_smem_in_bytes=first_in)
         rows[name].append(row)
         print(f'{name}_bf16 {blk} x {(B, H, Wd, C)} -> dy F {Fo}: f32 sum {rel:.2e} of max|dw|, '
               f'{ulps:.3f} bf16 ulps after the cast; conv2d_weight bf16 {lib_rel:.2e}; kernel '
               f'{row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, conv2d_weight bf16 '
               f'{row["library_ms"]:.4f} ms (kernel / library {row["ms"] / row["library_ms"]:.3f}), '
-              f'bound {max(om, bm):.4f} ms (bf16 products {om:.4f}, bytes {bm:.4f})', flush=True)
+              f'bound {max(om, bm):.4f} ms (bf16 products {om:.4f}, HBM bytes {bm:.4f}); into '
+              f'shared memory {smem_in / 1e6:.1f} MB, the first design\'s {first_in / 1e6:.1f} MB '
+              f'({first_in / smem_in:.2f}x), {smem_in / row["ms"] / 1e9:.2f} TB/s', flush=True)
         del x, dy, library
     for name, r in rows.items():
         tot = {k: sum(v[k] for v in r) for k in ('ms', 'plain_ms', 'library_ms')}

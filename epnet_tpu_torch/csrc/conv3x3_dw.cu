@@ -1,6 +1,6 @@
 // Weight gradient of the image tower's 3x3 SAME convolutions on Hopper
 // (sm_90a), f32 and bf16; plain C interface. One kernel at two strides, and
-// its bf16 instance (D-bf16, E-bf16; see the end of this comment):
+// a bf16 kernel at two strides (D-bf16, E-bf16; see the end of this comment):
 //
 //   D (stride 2, even H and W; SAME pads (0, 1)):
 //     dw[d, e, c, f] = sum_{b,h,w} x[b, 2h + d, 2w + e, c] * dy[b, h, w, f]
@@ -71,21 +71,47 @@
 // keeps its scratch in x's and dy's dtype) and as XLA's bf16 weight
 // gradient does on the JAX package's default route: products of bf16
 // operands summed in f32, the sum written f32 (the caller rounds it to w's
-// dtype once, conv2d.py:191). Its 36.2 / 72.5 GFLOP a conv take 0.04 / 0.07
-// ms on the 989 TFLOP/s bf16 tensor cores, against 0.1-0.3 GB of x and dy:
-// bytes bound it. One bf16 pass (wgmma m64nNk16) replaces the three TF32
-// passes, and bf16 wgmma reads both operands from shared memory in either
-// major order: A (row m = tap and channel, pixel k) is M-major and B (pixel
-// k, column n) N-major, each stored as the copy writes it, pixel rows of 64
-// values in 128-byte swizzled atoms, so nothing is split or moved between
-// the copy and the product. A group of V = 8 channels (16 bytes; V = 4, 8
-// bytes, when C or F is not a multiple of 8) lies in one tap because V
-// divides C. A step is 32 pixels (two k16 slices) in a 4-stage cp.async
-// ring, two ahead, as F-bf16's (csrc/conv3x3_s2_fwd.cu). Split-K and the
-// fixed-order reduction are the f32 kernel's, so dw is bitwise
-// reproducible.
+// dtype once, conv2d.py:191). They replace the same TPU kernels as D and E,
+// run on bf16: conv2d.py::_dw_kernel (:346) and the attic's :363, :220 at
+// stride 2, :306, :113 at stride 1.
+//
+// What bounds them. Their 36.2 / 72.5 GFLOP a conv take 0.037 / 0.073 ms
+// on the 989 TFLOP/s bf16 tensor cores, and their x and dy 0.04-0.09 ms of
+// HBM time; what a block brings into shared memory is far more. An im2col
+// tile (rows m = tap and channel) reads x again for every tap and every
+// column tile, and dy again for every row tile: the first bf16 design (128
+// x 128 tiles, per-thread cp.async) moved 0.57-1.2 GB a conv into shared
+// memory, and its copies alone took 65-78% of its time; its split-K
+// partials (23-52 MB) took 0.007-0.025 ms more to reduce.
+//
+// The design. A block owns 64 channels of x by 64 columns of dy in all nine
+// taps, a 576 x 64 tile, and fills an SM: one producer warp keeps a ring of
+// stages filled by TMA (cp.async.bulk.tensor, 128-byte swizzle, out of
+// bounds read as zeros: the SAME pad and the image edges), three consumer
+// warpgroups wait on the ring's mbarriers, and warpgroup e (tap column e)
+// runs wgmma m64n192k16 with A = dy (64 columns, M-major) and B = three taps
+// d of 64 channels (N-major). A stage is 4 output rows by 16 columns; its x
+// box holds the rows all three taps d read, so tap d is a descriptor that
+// starts d rows of x later (the N chunks of B lie one x row apart), and, in
+// the box shared by tap columns that read shifted pixels, tap e is a
+// descriptor that starts e pixels later: the swizzle follows the rows'
+// shared-memory addresses, so any row can start an operand. At stride 1 one
+// box of 24 columns serves e = 0, 1, 2; at stride 2 x is read as pixel
+// pairs (channels 2C), and box A (the even columns, 17 pairs) serves e = 0
+// and 2, box B (the odd columns) e = 1. A stage brings 26 KB (E) or 45 KB
+// (D) for 2.4 M products: 0.011 and 0.020 bytes a product, against the
+// first design's 0.031-0.047; 0.35-0.41 GB a conv, 1.6-2.9x fewer (phase
+// 21 of chip_smoke.py prints both). What bounds it now (PERF.md):
+// E's products, which alone run at 88% of the bf16 peak, and the ring's
+// writes that share shared memory with them; D's stages, which arrive at
+// the rate an SM takes in (about 28 bytes a cycle), and at blk0 the HBM.
+// Multicasting x to a cluster of two blocks halved the L2's reads of x but
+// not an SM's intake, and gained under 2%. K is split only as far as one
+// wave of blocks fills the card: at most one tile of partial sums an SM
+// (19.5 MB at 132 SMs), summed in split order by conv3x3_dw_reduce, so dw
+// is bitwise reproducible.
 
-#include <cuda_bf16.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -312,153 +338,189 @@ conv3x3_dw_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   }
 }
 
-// ---- D-bf16 and E-bf16: bf16 wgmma, both operands MN-major in shared memory ----
+// ---- D-bf16 and E-bf16: TMA ring, one producer warp, bf16 wgmma m64n192k16 ----
 
-constexpr int kBK = 32;      // pixels a step (two k16 slices)
-constexpr int kBStages = 4;  // steps in the ring, copied two ahead
-constexpr int kAtom = 1024;  // a 128-byte swizzled atom: 8 pixel rows of 64 values
-// element (k, m) of a 64-value-wide operand (A: m a tile row, B: n a
-// column) at (m / 64) * kChunkBytes + (k / 8) * kAtom + (k % 8) * 128 +
-// ((m % 64 / 8) ^ (k % 8)) * 16 + (m % 8) * 2
-constexpr int kChunkBytes = kBK / 8 * kAtom;
+constexpr int kChunk = 64;     // channels of x, and columns of dy, a box row (128 bytes)
+constexpr int kRows = 4;       // output rows a stage
+constexpr int kCols = 16;      // output columns a stage: every tower width is a multiple
+constexpr int kDyPitch = kCols * kChunk * 2;  // a dy box row: 16 pixels, two 128-byte atoms
+constexpr int kTaps = 3;       // consumer warpgroups: tap column e
+constexpr int kTmaThreads = kTaps * 128 + 32;  // + the producer warp
 
-template <int TN>
-struct BTile {
-  static constexpr int kAStage = kTM / 64 * kChunkBytes;  // 8 KB
-  static constexpr int kBStage = TN / 64 * kChunkBytes;   // 8 or 4 KB
-  static constexpr int kSmem = kBStages * (kAStage + kBStage) + 1024;  // + alignment
+// Stage: x box(es), then the dy box, each at a multiple of 1024 bytes. S =
+// 1: one x box from w0 - 1, whose first 18 columns all three tap columns
+// read, shifted by e pixels; it loads 24, so that its rows of x start on
+// 1024-byte atoms (with 18 the products ran slower, for fewer bytes). S = 2
+// (x as pixel pairs): box A, the even columns
+// (channels c of pairs w0 .. w0 + 16), which taps e = 0 and 2 read (shifted
+// by 0 and 1 pair), and box B, the odd columns (channels C + c, 16 pairs),
+// tap e = 1's. The rows of a box are its pixels, 128 bytes each, swizzled by
+// their shared-memory address (as wgmma reads them), so a shifted operand
+// is a descriptor that starts one or two rows later.
+template <int S>
+struct TmaTile {
+  // x rows a box: output rows h0 .. h0 + 3 read x rows S h + d - P, d = 0 .. 2
+  static constexpr int kXRows = S == 1 ? kRows + 2 : 2 * kRows + 1;
+  static constexpr int kXCols = S == 1 ? kCols + 8 : kCols + 1;  // box A
+  static constexpr int kXPitch = kXCols * kChunk * 2;
+  static constexpr int kXBoxA = (kXRows * kXPitch + 1023) / 1024 * 1024;
+  static constexpr int kXBoxB = S == 1 ? 0 : kXRows * kDyPitch;
+  static constexpr int kDyBox = kRows * kDyPitch;
+  static constexpr int kStage = kXBoxA + kXBoxB + kDyBox;  // E 26,624, D 47,104 bytes
+  // bytes a stage's boxes bring (box A's alignment padding is not loaded)
+  static constexpr int kLoad = kXRows * kXPitch + kXBoxB + kDyBox;
+  static constexpr int kStages = S == 1 ? 8 : 4;
+  static constexpr int kSmem = kStages * kStage + 1024 + 2 * kStages * 8;  // + alignment, barriers
 };
 
-__device__ __forceinline__ int swz(int k, int m) {
-  return (m / 64) * kChunkBytes + (k / 8) * kAtom + (k % 8) * 128 + ((m % 64 / 8) ^ (k % 8)) * 16 +
-         (m % 8) * 2;
+// A descriptor of rows of 64 bf16 values (128-byte swizzled) at p, which
+// need not start an atom: 8 rows a k-group (1024 bytes apart), 64-value
+// chunks of N (or M) lbo bytes apart. The swizzle follows the rows'
+// addresses, so the base offset stays 0 (one set to p's row in its atom
+// read the wrong rows).
+__device__ __forceinline__ uint64_t desc_rows(const void* p, uint32_t lbo) {
+  return smem_desc<kSwizzle128>(p, lbo, 1024);
 }
 
-// D-bf16 (S = 2) and E-bf16 (S = 1); V bf16 values a copy (8: 16 bytes, 4: 8).
-template <int S, int TN, int V>
-__global__ void __launch_bounds__(kThreads, kEBlocks)
-conv3x3_dw_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
-                       float* __restrict__ part, int h_in, int w_in, int c, int f,
-                       long long k_total, int m_tiles, int tiles, int splits) {
-  using G = BTile<TN>;
-  constexpr int kPad = S == 1 ? 1 : 0;
-  constexpr int kAGroups = kTM / V;              // copies a pixel row of A: 16 or 32
-  constexpr int kARows = kThreads / kAGroups;    // pixel rows a pass: 16 or 8
-  constexpr int kAPasses = kBK / kARows;         // 2 or 4
-  constexpr int kBGroups = TN / V;               // copies a pixel row of B
-  constexpr int kBRows = kThreads / kBGroups;
-  constexpr int kBPasses = kBK / kBRows;
-  static_assert(kAPasses * kARows == kBK && kBPasses * kBRows == kBK, "copies");
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* as = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* bs = as + kBStages * G::kAStage;
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Waits until the phase of the given parity has completed. A lost arrival
+// traps (a launch error) rather than hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == (1u << 26)) __trap();
+  }
+}
+// A 4-d box of `map` at coordinates (c0, c1, c2, c3), innermost first, into
+// shared memory at dst; its bytes complete the transaction of barrier bar.
+// Coordinates outside the tensor read as zeros.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+// D-bf16 (S = 2) and E-bf16 (S = 1). Block (split, tile): tile = (channel
+// chunk, dy column chunk), 64 x 64 of each of the nine taps; warpgroup e
+// owns tap column e, a (64 dy columns) x (3 taps d, 64 channels) product.
+// xmap and xmap_b (box B, S = 2 only): x as (C, W, H, B) at S = 1, as (2C,
+// W / 2, H, B) at S = 2 (pixel pairs: tap e = 0, 1 is channel e C + c of
+// pair w, e = 2 channel c of pair w + 1); dymap: dy as (F, Wo, Ho, B). All
+// 128-byte swizzled boxes.
+template <int S>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+conv3x3_dw_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap xmap_b,
+                       const __grid_constant__ CUtensorMap dymap, float* __restrict__ part,
+                       int c, int f, int ho, int wo, int batch, int tiles, int splits) {
+  using G = TmaTile<S>;
+  constexpr int kPad = S == 1 ? 1 : 0;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t full0 = smem_addr(smem + G::kStages * G::kStage);  // kStages full, then empty
+  const uint32_t empty0 = full0 + 8 * G::kStages;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const int tile = blockIdx.x % tiles;
   const int split = blockIdx.x / tiles;
-  const int m0 = (tile % m_tiles) * kTM;
-  const int n0 = (tile / m_tiles) * TN;
-  const int m_total = 9 * c;
-  const int ho = h_in / S;
-  const int wo = w_in / S;
-  const long long kb = k_total * split / splits;
-  const long long ke = k_total * (split + 1) / splits;
+  const int f_chunks = (f + kChunk - 1) / kChunk;
+  const int f0 = (tile % f_chunks) * kChunk;
+  const int c0 = (tile / f_chunks) * kChunk;
+  // K: stage (b, column block, row block), row blocks fastest: a box's last
+  // rows are the next stage's first, still in L2
+  const int col_blocks = (wo + kCols - 1) / kCols;
+  const int row_blocks = (ho + kRows - 1) / kRows;
+  const long long stages = static_cast<long long>(batch) * row_blocks * col_blocks;
+  const long long kb = stages * split / splits;
+  const int steps = static_cast<int>(stages * (split + 1) / splits - kb);
 
-  // A copies: tile rows a_m .. a_m + V - 1 (one tap, V channels) at pixels
-  // kb + step + a_kk + kARows q
-  const int a_col = V * (tid % kAGroups);
-  const int a_m = m0 + a_col;
-  const bool a_ok = a_m < m_total;
-  const int tap = a_ok ? a_m / c : 0;
-  const int a_c = a_m - tap * c;
-  const int a_dh = tap / 3 - kPad;
-  const int a_dw = tap % 3 - kPad;
-  const int a_kk = tid / kAGroups;
-  int pb[kAPasses], ph[kAPasses], pw[kAPasses];
-#pragma unroll
-  for (int q = 0; q < kAPasses; ++q) {
-    const long long k = kb + a_kk + kARows * q;
-    pw[q] = static_cast<int>(k % wo);
-    const long long t = k / wo;
-    ph[q] = static_cast<int>(t % ho);
-    pb[q] = static_cast<int>(t / ho);
-  }
-  // B copies: columns b_n .. b_n + V - 1 of dy at pixels kb + step + b_kk + kBRows q
-  const int b_col = V * (tid % kBGroups);
-  const bool b_ok = n0 + b_col < f;
-  const int b_kk = tid / kBGroups;
-
-  auto load = [&](long long k0, int stage) {
-    unsigned char* ad = as + stage * G::kAStage;
-#pragma unroll
-    for (int q = 0; q < kAPasses; ++q) {
-      const int kr = a_kk + kARows * q;
-      const int hh = S * ph[q] + a_dh;
-      const int ww = S * pw[q] + a_dw;
-      const bool in = a_ok && k0 + kr < ke && hh >= 0 && hh < h_in && ww >= 0 && ww < w_in;
-      cp_async<2 * V>(smem_addr(ad + swz(kr, a_col)),
-                      in ? x + ((static_cast<size_t>(pb[q]) * h_in + hh) * w_in + ww) * c + a_c
-                         : x,
-                      in);
-      advance(pb[q], ph[q], pw[q], kBK, ho, wo);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);                // the producer's arrival and the bytes
+      mbar_init(empty0 + 8 * s, kTaps * 4);      // every consumer warp
     }
-    unsigned char* bd = bs + stage * G::kBStage;
-#pragma unroll
-    for (int q = 0; q < kBPasses; ++q) {
-      const int kr = b_kk + kBRows * q;
-      const long long k = k0 + kr;
-      const bool in = b_ok && k < ke;
-      cp_async<2 * V>(smem_addr(bd + swz(kr, b_col)),
-                      in ? dy + static_cast<size_t>(k) * f + n0 + b_col : dy, in);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kTaps * 4) {  // producer
+    if (lane == 0) {
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % G::kStages;
+        if (i >= G::kStages) mbar_wait(empty0 + 8 * s, (i / G::kStages - 1) & 1);
+        const uint32_t full = full0 + 8 * s;
+        mbar_expect_tx(full, G::kLoad);
+        const long long t = kb + i;
+        const int h0 = static_cast<int>(t % row_blocks) * kRows;
+        const int w0 = static_cast<int>(t / row_blocks % col_blocks) * kCols;
+        const int b = static_cast<int>(t / (static_cast<long long>(col_blocks) * row_blocks));
+        const uint32_t st = smem_addr(smem + s * G::kStage);
+        tma_load_4d(st, &xmap, full, c0, w0 - kPad, S * h0 - kPad, b);
+        if (S == 2) tma_load_4d(st + G::kXBoxA, &xmap_b, full, c + c0, w0, S * h0, b);
+        tma_load_4d(st + G::kXBoxA + G::kXBoxB, &dymap, full, f0, w0, h0, b);
+      }
     }
-  };
+  } else {
+    // consumers: warpgroup e, this warp's rows 16 (warp & 3) .. + 15 of the
+    // 64 dy columns. Tap column e's x rows: box A shifted by e pixels (S =
+    // 1) or e / 2 pairs (S = 2, e even), box B (S = 2, e = 1).
+    const int e = warp >> 2;
+    float acc[96];  // set by the first wgmma (scale-d 0)
+    const int x_off = S == 1 ? e * 128 : (e == 1 ? G::kXBoxA : (e / 2) * 128);
+    const int x_pitch = S == 2 && e == 1 ? kDyPitch : G::kXPitch;
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % G::kStages;
+      mbar_wait(full0 + 8 * s, (i / G::kStages) & 1);
+      const unsigned char* st = smem + s * G::kStage;
+      const unsigned char* xs = st + x_off;
+      const unsigned char* dys = st + G::kXBoxA + G::kXBoxB;
+      wgmma_fence();
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)  // k16: output row r's 16 pixels
+        wgmma_bf16_mn_192(acc, desc_rows(dys + r * kDyPitch, kDyPitch),
+                          desc_rows(xs + S * r * x_pitch, x_pitch), i > 0 || r > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // step i - 1's products are done with its stage
+      if (i > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((i - 1) % G::kStages));
+    }
+    wgmma_wait<0>();
 
-  const int wg = warp >> 2;  // warpgroup: tile rows 64 wg .. 64 wg + 63
-  float acc[TN / 2];         // set by the first wgmma (scale-d 0)
-  const long long steps = (ke - kb + kBK - 1) / kBK;
+    // accumulator 4j + r: dy column 16 (warp & 3) + g (+ 8 for r >= 2), tap d
+    // = j / 8, channel 8 (j % 8) + 2t (+ 1 for odd r), for lane 4g + t
+    float* out = part + static_cast<size_t>(split) * 9 * c * f;
+    const int g = lane >> 2;
+    const int t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < kBStages - 2; ++i) {
-    if (i < steps) load(kb + static_cast<long long>(i) * kBK, i);
-    cp_async_commit();
-  }
-  for (long long i = 0; i < steps; ++i) {
-    cp_async_wait<kBStages - 3>();
-    fence_async_shared();  // copies -> wgmma
-    __syncthreads();
-    const long long next = i + kBStages - 2;  // into the stage of step i - 2, whose wgmmas are done
-    if (next < steps) load(kb + next * kBK, static_cast<int>(next % kBStages));
-    cp_async_commit();
-    const unsigned char* a_st = as + (i % kBStages) * G::kAStage + wg * kChunkBytes;
-    const unsigned char* b_st = bs + (i % kBStages) * G::kBStage;
-    wgmma_fence();
+    for (int j = 0; j < 24; ++j) {
+      const int cc = c0 + 8 * (j % 8) + 2 * t;
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_bf16_mn<TN>(acc, smem_desc<kSwizzle128>(a_st + 2 * kAtom * kk, kChunkBytes, kAtom),
-                        smem_desc<kSwizzle128>(b_st + 2 * kAtom * kk, kChunkBytes, kAtom),
-                        i > 0 || kk > 0);
-    wgmma_commit();
-    wgmma_wait<1>();
-  }
-  wgmma_wait<0>();
-  cp_async_wait<0>();
-
-  // accumulator 4j + r: row (+ 8 for r >= 2), columns 8j + 2t, 8j + 2t + 1
-  float* out = part + static_cast<size_t>(split) * m_total * f;
-  const int row = 64 * wg + 16 * (warp & 3) + (lane >> 2);
-  const int t = lane & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int m = m0 + row + 8 * h;
-    if (m >= m_total) continue;
-#pragma unroll
-    for (int j = 0; j < TN / 8; ++j) {
-      const int n = n0 + 8 * j + 2 * t;
-      if (n < f)
-        *reinterpret_cast<float2*>(out + static_cast<size_t>(m) * f + n) =
-            steps > 0 ? make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1])
-                      : make_float2(0.0f, 0.0f);
+      for (int r = 0; r < 4; ++r) {
+        const int ff = f0 + 16 * (warp & 3) + g + 8 * (r >> 1);
+        const int ch = cc + (r & 1);
+        if (ch < c && ff < f)
+          out[(static_cast<size_t>((j / 8) * 3 + e) * c + ch) * f + ff] =
+              steps > 0 ? acc[4 * j + r] : 0.0f;
+      }
     }
   }
 }
@@ -495,27 +557,69 @@ cudaError_t launch_s(const float* x, const float* dy, float* part, int h, int w,
                          : launch<S, 128>(x, dy, part, h, w, c, f, k, m_tiles, tiles, splits, st);
 }
 
-template <int S, int TN, int V>
-cudaError_t launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* dy, float* part, int h,
-                        int w, int c, int f, long long k, int m_tiles, int tiles, int splits,
-                        cudaStream_t st) {
-  const auto kernel = conv3x3_dw_bf16_kernel<S, TN, V>;
-  static std::atomic<uint64_t> smem_set{0};
-  constexpr int smem = BTile<TN>::kSmem;
-  const cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem, smem_set);
-  if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(tiles) * splits, kThreads, smem, st>>>(
-      x, dy, part, h, w, c, f, k, m_tiles, tiles, splits);
-  return cudaGetLastError();
+// cuTensorMapEncodeTiled from the driver, found once through the runtime
+// (so the library links no libcuda of its own); null if absent.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                  : nullptr;
+  }();
+  return fn;
 }
 
-template <int S, int V>
-cudaError_t launch_bf16_s(const __nv_bfloat16* x, const __nv_bfloat16* dy, float* part, int h,
-                          int w, int c, int f, long long k, int m_tiles, int tiles, int splits,
-                          cudaStream_t st) {
-  return tile_n(f) == 64
-             ? launch_bf16<S, 64, V>(x, dy, part, h, w, c, f, k, m_tiles, tiles, splits, st)
-             : launch_bf16<S, 128, V>(x, dy, part, h, w, c, f, k, m_tiles, tiles, splits, st);
+// A map of the bf16 tensor at p with dims (innermost first) and byte strides
+// of dims 1 .. 3, read in boxes of 64 x cols x rows x 1 into 128-byte
+// swizzled rows; outside the tensor reads zeros.
+bool encode_box(CUtensorMap* map, const void* p, const cuuint64_t (&dims)[4],
+                const cuuint64_t (&strides)[3], cuuint32_t cols, cuuint32_t rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t box[4] = {kChunk, cols, rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int S>
+cudaError_t launch_bf16(const void* x, const void* dy, float* part, int b, int h, int w, int c,
+                        int f, int splits, cudaStream_t st) {
+  using G = TmaTile<S>;
+  using U = cuuint64_t;
+  const U v = 2;  // bytes a value
+  const U ho = h / S, wo = w / S;
+  CUtensorMap xmap, xmap_b, dymap;
+  const U xdims[4] = {U(S) * c, U(w) / S, U(h), U(b)};
+  const U xstrides[3] = {U(S) * c * v, U(w) * c * v, U(h) * w * c * v};
+  const U dydims[4] = {U(f), wo, ho, U(b)};
+  const U dystrides[3] = {f * v, wo * f * v, ho * wo * f * v};
+  if (!encode_box(&xmap, x, xdims, xstrides, G::kXCols, G::kXRows) ||
+      !encode_box(&dymap, dy, dydims, dystrides, kCols, kRows))
+    return cudaErrorInvalidValue;
+  xmap_b = xmap;  // box B: stride 2 only
+  if (S == 2 && !encode_box(&xmap_b, x, xdims, xstrides, kCols, G::kXRows))
+    return cudaErrorInvalidValue;
+  const auto kernel = conv3x3_dw_bf16_kernel<S>;
+  static std::atomic<uint64_t> smem_set{0};
+  const cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), G::kSmem, smem_set);
+  if (err != cudaSuccess) return err;
+  const int tiles = ((c + kChunk - 1) / kChunk) * ((f + kChunk - 1) / kChunk);
+  kernel<<<static_cast<unsigned>(tiles) * splits, kTmaThreads, G::kSmem, st>>>(
+      xmap, xmap_b, dymap, part, c, f, static_cast<int>(ho), static_cast<int>(wo), b, tiles,
+      splits);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -560,33 +664,27 @@ int epnet_conv3x3_dw_launch(const void* x, const void* dy, void* part, void* dw,
   return cudaGetLastError();
 }
 
-// D-bf16 / E-bf16: as above with x and dy bf16 (8-byte aligned; 16-byte
-// copies where x and dy are 16-byte aligned and c and f multiples of 8), part
-// and dw float32: dw receives the f32 sums.
+// D-bf16 / E-bf16: x (b, h, w, c) and dy (b, h / stride, w / stride, f)
+// bf16, 16-byte aligned, c and f multiples of 8 (TMA's 16-byte strides);
+// part (splits, 9c, f) scratch and dw (3, 3, c, f) float32: dw receives the
+// f32 sums. The grid is (c / 64) (f / 64) tiles (rounded up) times splits;
+// split s takes the s-th of splits equal runs of the b (h / stride / 4) (w /
+// stride / 16) stages (rounded up). Launches on `stream`, allocates nothing,
+// returns the first CUDA error.
 int epnet_conv3x3_dw_bf16_launch(const void* x, const void* dy, void* part, void* dw, int b,
                                  int h, int w, int c, int f, int stride, int splits,
                                  void* stream) {
-  if (b < 0 || h <= 0 || w <= 0 || c <= 0 || f <= 0 || c % 4 || f % 4 || splits < 1)
+  if (b < 0 || h <= 0 || w <= 0 || c <= 0 || f <= 0 || c % 8 || f % 8 || splits < 1)
     return cudaErrorInvalidValue;
   if (stride != 1 && (stride != 2 || h % 2 || w % 2)) return cudaErrorInvalidValue;
-  const long long k = static_cast<long long>(b) * (h / stride) * (w / stride);
-  const int m_tiles = (9 * c + kTM - 1) / kTM;
-  const long long tiles = epnet_conv3x3_dw_tiles(c, f);
+  if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(dy) % 16)
+    return cudaErrorInvalidValue;
+  const long long tiles = 1LL * ((c + kChunk - 1) / kChunk) * ((f + kChunk - 1) / kChunk);
   if (tiles * splits > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* dyb = static_cast<const __nv_bfloat16*>(dy);
   float* pf = static_cast<float*>(part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int t = static_cast<int>(tiles);
-  const bool wide = c % 8 == 0 && f % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(dy) % 16 == 0;
-  cudaError_t err;
-  if (stride == 2)
-    err = wide ? launch_bf16_s<2, 8>(xb, dyb, pf, h, w, c, f, k, m_tiles, t, splits, st)
-               : launch_bf16_s<2, 4>(xb, dyb, pf, h, w, c, f, k, m_tiles, t, splits, st);
-  else
-    err = wide ? launch_bf16_s<1, 8>(xb, dyb, pf, h, w, c, f, k, m_tiles, t, splits, st)
-               : launch_bf16_s<1, 4>(xb, dyb, pf, h, w, c, f, k, m_tiles, t, splits, st);
+  const cudaError_t err = stride == 2 ? launch_bf16<2>(x, dy, pf, b, h, w, c, f, splits, st)
+                                      : launch_bf16<1>(x, dy, pf, b, h, w, c, f, splits, st);
   if (err != cudaSuccess) return err;
   const long long size = 9LL * c * f;
   const int threads = 256;

@@ -224,6 +224,8 @@ def _fwd_lib() -> ctypes.CDLL:
 _BLOCKS_PER_SM = 2    # resident blocks of F, D and E (launch bounds); F-bf16 reports its own
 _DW_WAVES = 3         # D, E: target waves of blocks, so the last one is a small share
 _MIN_SPLIT_PIXELS = 256  # dw: a split shorter than this costs more to reduce than it saves
+_DW_BF16_CHUNK = 64   # D-bf16, E-bf16: channels of x and of dy a block owns (a 128-byte row)
+_DW_BF16_ROWS, _DW_BF16_COLS = 4, 16  # output rows and columns a stage of their ring
 _FWD_WAVES = 1        # F: waves to fill before K is split (each split adds an M x F slice)
 _MIN_SPLIT_STEPS = 16  # F: steps of K (tap, 16 channels) a split keeps at least
 _BF16_WAVES = 1       # F-bf16: as _FWD_WAVES (its tensor-core tiles end sooner than F's)
@@ -251,12 +253,11 @@ def _resident_blocks(dev) -> int:
     return _BLOCKS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _dw_kernel(what: str, x: torch.Tensor, dy: torch.Tensor, stride: int,
-               dtype=torch.float32) -> torch.Tensor:
-    """Launch ``csrc/conv3x3_dw.cu`` (and its fixed-order reduction of the
-    per-split slices) on the current stream, the bf16 instance for a bf16
-    ``dtype``; returns (3, 3, C, F) f32."""
-    _check_cuda(what, dtype, x=x, dy=dy)
+def _dw_kernel(what: str, x: torch.Tensor, dy: torch.Tensor, stride: int) -> torch.Tensor:
+    """Launch ``csrc/conv3x3_dw.cu``'s f32 kernel (D, E) and its fixed-order
+    reduction of the per-split slices on the current stream; returns (3,
+    3, C, F) f32."""
+    _check_cuda(what, x=x, dy=dy)
     _check_shapes(what, x, dy, stride)
     B, H, W, C = x.shape
     F_ = dy.shape[-1]
@@ -271,12 +272,64 @@ def _dw_kernel(what: str, x: torch.Tensor, dy: torch.Tensor, stride: int,
     dw = torch.empty((3, 3, C, F_), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        launch = (lib.epnet_conv3x3_dw_bf16_launch if dtype == torch.bfloat16
-                  else lib.epnet_conv3x3_dw_launch)
-        err = launch(x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), B, H, W, C, F_,
-                     stride, splits, stream)
+        err = lib.epnet_conv3x3_dw_launch(x.data_ptr(), dy.data_ptr(), part.data_ptr(),
+                                          dw.data_ptr(), B, H, W, C, F_, stride, splits, stream)
     cuda_build.check(lib, err, f'{what} launch')
     return dw
+
+
+def dw_bf16_grid(x_shape, features: int, stride: int, sms: int) -> tuple:
+    """(tiles, splits, stages) of D-bf16/E-bf16 for an NHWC input of
+    ``x_shape`` and ``features`` dy channels on a card of ``sms`` SMs: a
+    pure function of the shape and that count. A block owns a tile, 64
+    channels of x by 64 columns of dy in all nine taps (147,456 bytes of
+    f32 sums), and fills an SM. K, the output pixels, runs in stages of 4
+    rows by 16 columns of one image (rounded up); split s of ``splits``
+    takes stages ``stages * s // splits`` up to ``stages * (s + 1) //
+    splits``. K is split only as far as one wave of blocks fills the card,
+    so the partial sums, ``splits`` (9C, F) f32 slices, never exceed
+    ``sms`` tiles (19.5 MB at 132, within the 50 MB L2)."""
+    B, H, W, C = x_shape
+    tiles = -(-C // _DW_BF16_CHUNK) * -(-features // _DW_BF16_CHUNK)
+    stages = B * -(-(H // stride) // _DW_BF16_ROWS) * -(-(W // stride) // _DW_BF16_COLS)
+    return tiles, max(1, min(sms // tiles, stages)), stages
+
+
+def _tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as D-bf16/E-bf16's tensor maps take it: channels a multiple of
+    8 (zero-padded: TMA strides are multiples of 16 bytes) and 16-byte
+    aligned (copied otherwise)."""
+    n = t.shape[-1]
+    if n % 8:
+        return F.pad(t, (0, -n % 8))
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _dw_bf16_kernel(what: str, x: torch.Tensor, dy: torch.Tensor, stride: int) -> torch.Tensor:
+    """Launch D-bf16/E-bf16 (``csrc/conv3x3_dw.cu``) and the fixed-order
+    reduction of its per-split slices on the current stream, on x and dy
+    padded by ``_tma_operand``; returns (3, 3, C, F) f32."""
+    _check_cuda(what, torch.bfloat16, x=x, dy=dy)
+    _check_shapes(what, x, dy, stride)
+    B, H, W, C = x.shape
+    F_ = dy.shape[-1]
+    if C % 4 or F_ % 4:
+        raise ValueError(f'{what}: channels must be multiples of 4, got C {C}, F {F_}')
+    xp, dyp = _tma_operand(x), _tma_operand(dy)
+    C8, F8 = xp.shape[-1], dyp.shape[-1]
+    lib = _lib()
+    dev = x.device
+    _, splits, _ = dw_bf16_grid(xp.shape, F8, stride,
+                                torch.cuda.get_device_properties(dev).multi_processor_count)
+    part = torch.empty((splits, 9 * C8 * F8), dtype=torch.float32, device=dev)
+    dw = torch.empty((3, 3, C8, F8), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.epnet_conv3x3_dw_bf16_launch(xp.data_ptr(), dyp.data_ptr(), part.data_ptr(),
+                                               dw.data_ptr(), B, H, W, C8, F8, stride, splits,
+                                               stream)
+    cuda_build.check(lib, err, f'{what} launch')
+    return dw if (C8, F8) == (C, F_) else dw[:, :, :C, :F_].contiguous()
 
 
 def dw3x3_s2_kernel(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -305,10 +358,10 @@ dw3x3_s1_kernel.launches = 0
 
 
 def dw3x3_s2_bf16_kernel(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """Kernel D-bf16: ``dw3x3_s2_kernel`` on bf16 x and dy (8-byte
-    aligned), bf16 products on the tensor cores summed in f32; returns the
-    (3, 3, C, F) f32 sum."""
-    dw = _dw_kernel('dw3x3_s2_bf16_kernel', x, dy, 2, torch.bfloat16)
+    """Kernel D-bf16: the stride-2 weight gradient of bf16 x and dy (8-byte
+    aligned; even H and W; C and F multiples of 4), bf16 products on the
+    tensor cores summed in f32; returns the (3, 3, C, F) f32 sum."""
+    dw = _dw_bf16_kernel('dw3x3_s2_bf16_kernel', x, dy, 2)
     dw3x3_s2_bf16_kernel.launches += 1
     return dw
 
@@ -317,8 +370,9 @@ dw3x3_s2_bf16_kernel.launches = 0
 
 
 def dw3x3_s1_bf16_kernel(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """Kernel E-bf16: ``dw3x3_s1_kernel`` on bf16 x and dy, as D-bf16."""
-    dw = _dw_kernel('dw3x3_s1_bf16_kernel', x, dy, 1, torch.bfloat16)
+    """Kernel E-bf16: the stride-1 weight gradient of bf16 x and dy, as
+    D-bf16."""
+    dw = _dw_bf16_kernel('dw3x3_s1_bf16_kernel', x, dy, 1)
     dw3x3_s1_bf16_kernel.launches += 1
     return dw
 

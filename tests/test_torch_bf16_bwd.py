@@ -326,7 +326,8 @@ def test_h_bf16_kernel_matches_plain_on_the_card(card):
                                           (1, (1, 7, 9, 12, 20)), (1, (3, 1, 33, 64, 64))])
 def test_dw_bf16_kernels_match_plain_on_the_card(card, stride, shape):
     """D-bf16 and E-bf16: the f32 sum within 1e-4 of max|dw|, two launches
-    bitwise equal (C = 12 and 132: 8-byte copies)."""
+    bitwise equal (C = 12 and 132, F = 20: zero-padded to multiples of 8 for
+    the tensor maps)."""
     B, H, W, C, Fo = shape
     x, dy = _dw_inputs(sum(shape), stride, B, H, W, C, Fo)
     x, dy = x[1].to(card), dy[1].to(card)
