@@ -9,6 +9,9 @@
 // - sa_scan_kernel and lower_bound: blocks split the centroids by cost
 //   (distinct rows plus a fixed cost a centroid), not by their number;
 // - gather_h1: h1 = relu(Y[row] - O) for a tile of up to 64 distinct rows;
+//   gather_h1_bf16 the same from bf16 Y and O into a swizzled bf16 tile that
+//   wgmma reads, and load_w_panels a bf16 weight into the swizzled panels
+//   that wgmma reads (B-bf16, G-bf16, C-bf16, H-bf16);
 // - ring_product, load_w128 and slot_steps: a product against 128-column
 //   K-tiles of a weight streamed from L2 through a 3-slot cp.async ring, on
 //   the TF32 tensor cores (mma.sync m16n8k8) in three passes: each operand
@@ -20,6 +23,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -41,6 +45,17 @@ constexpr int kSlot = 32 * (64 + 8);  // floats a ring slot: a kW2Rows x kW2Ld K
 constexpr int kStages = 3;
 constexpr int kMaxSmem = 232448;
 static_assert(kSlot >= kW2Rows * kW2Ld, "ring slot");
+constexpr int kAtom = 1024;                  // a 128-byte swizzled atom: 8 rows of 128 bytes
+constexpr int kWPanel = kC / 8 * kAtom;      // 64 columns of a weight's 128 rows: 16 KB
+constexpr int kH1Panel = kRows / 8 * kAtom;  // 64 columns of a 64-row tile: 8 KB
+
+// Byte offset of element (row, col) in 128-byte swizzled panels of 64 bf16
+// columns, `panel` bytes apart: the K-major tiles (row a tile row, col a
+// channel) and the N-major weights (row k, col n) that wgmma reads.
+__device__ __forceinline__ int swz_off(int row, int col, int panel) {
+  return (col >> 6) * panel + (row >> 3) * kAtom + (row & 7) * 128 +
+         ((((col & 63) >> 3) ^ (row & 7)) << 4) + ((col & 7) << 1);
+}
 
 // A 16 x 8 TF32 fragment, split: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
 // for lane 4g + t.
@@ -218,6 +233,68 @@ __device__ __forceinline__ int lower_bound(const int* prefix, int n, long long v
       hi = mid;
   }
   return lo;
+}
+
+// two values rounded to bf16, to nearest even, `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A row-major bf16 weight (kC rows, `cols` columns) into N-major 128-byte
+// swizzled panels of 64 columns by cp.async (the block's threads): element
+// (k, n) at (n / 64) kWPanel + (k / 8) 1024 + (k % 8) 128 + ((n % 64 / 8) ^
+// (k % 8)) 16 + (n % 8) 2.
+__device__ __forceinline__ void load_w_panels(unsigned char* dst,
+                                              const __nv_bfloat16* __restrict__ w, int cols) {
+  const int per_row = cols / 8;
+  for (int e = threadIdx.x; e < kC * per_row; e += blockDim.x) {
+    const int k = e / per_row;
+    const int n8 = e % per_row;
+    cp_async<16>(smem_addr(dst + (n8 / 8) * kWPanel + (k / 8) * kAtom + (k % 8) * 128 +
+                           (((n8 % 8) ^ (k % 8)) * 16)),
+                 w + static_cast<size_t>(k) * cols + 8 * n8, true);
+  }
+}
+
+// h1 = bf16(relu(Y[row] - O[centroid])) for the tile's rows, 0 past them
+// (kN threads, `gtid` 0 .. kN - 1), into K-major 128-byte swizzled
+// panels of 64 columns: element (r, k) at (k / 64) kH1Panel + (r / 8) 1024 +
+// (r % 8) 128 + ((k % 64 / 8) ^ (r % 8)) 16 + (k % 8) 2. Each thread's
+// loads from L2 are all issued before the first is used.
+template <int kN>
+__device__ __forceinline__ void gather_h1_bf16(unsigned char* h1,
+                                               const __nv_bfloat16* __restrict__ y,
+                                               const __nv_bfloat16* __restrict__ o,
+                                               const int* row_tab, const int* row_slot,
+                                               const int* cent_id, int n_rows, int gtid) {
+  constexpr int kPer = kRows * (kC / 8) / kN;   // 16-byte chunks a thread
+  const int k8 = gtid & 15;                     // its chunk of each of its rows
+  uint4 a[kPer], b[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int r = (gtid >> 4) + (kN / 16) * i;
+    a[i] = b[i] = make_uint4(0u, 0u, 0u, 0u);  // relu(0 - 0): the rows past the tile's
+    if (r < n_rows) {
+      a[i] = __ldg(reinterpret_cast<const uint4*>(y + static_cast<size_t>(row_tab[r]) * kC +
+                                                  8 * k8));
+      b[i] = __ldg(reinterpret_cast<const uint4*>(
+          o + static_cast<size_t>(cent_id[row_slot[r]]) * kC + 8 * k8));
+    }
+  }
+  // a bf16 pair's low half is its first element; bf16 -> f32 is a shift
+  auto h = [](uint32_t ya, uint32_t ob) {
+    return pack_bf16(fmaxf(__uint_as_float(ya << 16) - __uint_as_float(ob << 16), 0.0f),
+                     fmaxf(__uint_as_float(ya & 0xFFFF0000u) - __uint_as_float(ob & 0xFFFF0000u),
+                           0.0f));
+  };
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int r = (gtid >> 4) + (kN / 16) * i;
+    *reinterpret_cast<uint4*>(h1 + (k8 >> 3) * kH1Panel + (r >> 3) * kAtom + (r & 7) * 128 +
+                              (((k8 & 7) ^ (r & 7)) * 16)) =
+        make_uint4(h(a[i].x, b[i].x), h(a[i].y, b[i].y), h(a[i].z, b[i].z), h(a[i].w, b[i].w));
+  }
 }
 
 // h1 = relu(Y[row] - O[centroid]) for the tile's rows, 0 past them.

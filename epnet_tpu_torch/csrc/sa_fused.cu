@@ -377,9 +377,6 @@ int launch_rows(const void* y, const void* o, const void* idx, const void* start
 constexpr int kHGroups = 4;                  // warpgroups a block, each on its own tiles
 constexpr int kHThreads = 128 * kHGroups;
 constexpr int kHMaxC3 = 2 * kC;              // W3's columns that stay in shared memory
-constexpr int kAtom = 1024;                  // a 128-byte swizzled atom: 8 rows of 128 bytes
-constexpr int kWPanel = kC / 8 * kAtom;      // 64 columns of a weight's 128 rows: 16 KB
-constexpr int kH1Panel = kRows / 8 * kAtom;  // 64 columns of h1's 64 rows: 8 KB
 constexpr int kH3Ld = kC + 8;                // bf16 row stride of a layer-3 pass's staging
 // a warpgroup's own: h1 (two panels), then a layer-3 pass over it; the
 // tile's tables
@@ -396,66 +393,6 @@ static_assert(bf16_smem(kHMaxC3) <= kMaxSmem, "B-bf16's shared memory");
 
 __device__ __forceinline__ void group_sync(int group) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(group + 1) : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// A row-major bf16 weight (kC rows, `cols` columns) into N-major 128-byte
-// swizzled panels of 64 columns by cp.async (the block's threads): element
-// (k, n) at (n / 64) kWPanel + (k / 8) 1024 + (k % 8) 128 + ((n % 64 / 8) ^
-// (k % 8)) 16 + (n % 8) 2.
-__device__ __forceinline__ void load_w_panels(unsigned char* dst,
-                                              const __nv_bfloat16* __restrict__ w, int cols) {
-  const int per_row = cols / 8;
-  for (int e = threadIdx.x; e < kC * per_row; e += blockDim.x) {
-    const int k = e / per_row;
-    const int n8 = e % per_row;
-    cp_async<16>(smem_addr(dst + (n8 / 8) * kWPanel + (k / 8) * kAtom + (k % 8) * 128 +
-                           (((n8 % 8) ^ (k % 8)) * 16)),
-                 w + static_cast<size_t>(k) * cols + 8 * n8, true);
-  }
-}
-
-// h1 = bf16(relu(Y[row] - O[centroid])) for the tile's rows, 0 past them
-// (the warpgroup's 128 threads, `gtid`), into K-major 128-byte swizzled
-// panels of 64 columns: element (r, k) at (k / 64) kH1Panel + (r / 8) 1024 +
-// (r % 8) 128 + ((k % 64 / 8) ^ (r % 8)) 16 + (k % 8) 2. Each thread's
-// loads from L2 are all issued before the first is used.
-__device__ __forceinline__ void gather_h1_bf16(unsigned char* h1,
-                                               const __nv_bfloat16* __restrict__ y,
-                                               const __nv_bfloat16* __restrict__ o,
-                                               const int* row_tab, const int* row_slot,
-                                               const int* cent_id, int n_rows, int gtid) {
-  constexpr int kPer = kRows * (kC / 8) / 128;  // 16-byte chunks a thread
-  const int k8 = gtid & 15;                     // its chunk of each of its rows
-  uint4 a[kPer], b[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int r = (gtid >> 4) + 8 * i;
-    a[i] = b[i] = make_uint4(0u, 0u, 0u, 0u);  // relu(0 - 0): the rows past the tile's
-    if (r < n_rows) {
-      a[i] = __ldg(reinterpret_cast<const uint4*>(y + static_cast<size_t>(row_tab[r]) * kC +
-                                                  8 * k8));
-      b[i] = __ldg(reinterpret_cast<const uint4*>(
-          o + static_cast<size_t>(cent_id[row_slot[r]]) * kC + 8 * k8));
-    }
-  }
-  // a bf16 pair's low half is its first element; bf16 -> f32 is a shift
-  auto h = [](uint32_t ya, uint32_t ob) {
-    return pack_bf16(fmaxf(__uint_as_float(ya << 16) - __uint_as_float(ob << 16), 0.0f),
-                     fmaxf(__uint_as_float(ya & 0xFFFF0000u) - __uint_as_float(ob & 0xFFFF0000u),
-                           0.0f));
-  };
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int r = (gtid >> 4) + 8 * i;
-    *reinterpret_cast<uint4*>(h1 + (k8 >> 3) * kH1Panel + (r >> 3) * kAtom + (r & 7) * 128 +
-                              (((k8 & 7) ^ (r & 7)) * 16)) =
-        make_uint4(h(a[i].x, b[i].x), h(a[i].y, b[i].y), h(a[i].z, b[i].z), h(a[i].w, b[i].w));
-  }
 }
 
 // B-bf16's output (G-bf16's after the windowed dedupe): out[cent, c] = max
@@ -531,7 +468,7 @@ sa_fused_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ y,
       }
     }
     group_sync(group);
-    gather_h1_bf16(h1, y, o, row_tab, row_slot, cent_id, n_rows, gtid);
+    gather_h1_bf16<128>(h1, y, o, row_tab, row_slot, cent_id, n_rows, gtid);
     fence_async_shared();  // h1's stores -> wgmma
     group_sync(group);
 

@@ -16,7 +16,8 @@
 //   (16-bit types read either major) and A K-major in shared memory
 //   (F-bf16, B-bf16, G-bf16), M-major in shared memory (D-bf16, E-bf16:
 //   m64n192k16, B N-major too) or in registers (B-bf16, G-bf16: layer 3
-//   reads layer 2's accumulators).
+//   reads layer 2's accumulators), and m64n64k16 with either major on
+//   either side (C-bf16, H-bf16).
 
 #pragma once
 
@@ -166,19 +167,27 @@ __device__ __forceinline__ void wgmma_bf16_128(float (&d)[64], uint64_t a, uint6
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(acc));
 }
-__device__ __forceinline__ void wgmma_bf16_64(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+
+// d (64 x 64, f32) = a (64 x 16) * b (16 x 64) + (acc ? d : 0), bf16 operands
+// from the shared-memory descriptors a and b, a K-major (kTA = 0) or M-major
+// (1), b K-major (kTB = 0) or N-major (1); asynchronous (F-bf16 at N = 64:
+// <0, 1>; C-bf16, H-bf16: the recompute reads W N-major, dh2 and dh1 the
+// same W as K-major B, dW2 and dW3 their tiles as M-major A)
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t a, uint64_t b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
+      : "l"(a), "l"(b), "r"(acc), "n"(kTA), "n"(kTB));
 }
+
 template <int N>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);
 template <>
@@ -189,7 +198,7 @@ __device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t a, uint
 template <>
 __device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t a, uint64_t b,
                                                int acc) {
-  wgmma_bf16_64(d, a, b, acc);
+  wgmma_bf16_n64<0, 1>(d, a, b, acc);
 }
 
 // d (64 x 192, f32) = a (64 x 16, M-major) * b (16 x 192, N-major) + (acc ? d :

@@ -30,8 +30,11 @@ tensor cores (S <= 64, C1 and C2 <= 128: ``check_rows_takes``); G is B's
 kernel after a dedupe that reads the rows through the windows. B-bf16 and
 G-bf16 are one kernel on the distinct rows, bf16 ``wgmma`` with W2 and W3
 resident in shared memory: B's limits and C3 <= 256
-(``check_bf16_takes``). A stage beyond a kernel's limits raises on the
-card.
+(``check_bf16_takes``). C-bf16 and H-bf16 are one kernel too, with the
+recompute on bf16 ``wgmma`` and every rounding, mask and max it decides
+certified against a bound on the tensor cores' error (the few uncertain
+ones summed again in the plain version's order). A stage beyond a
+kernel's limits raises on the card.
 
 Layer 1 commutes with the gather when the stage has no BatchNorm, so the
 caller passes ``y = [xyz, feats] @ W1 + b1`` over each table and
@@ -190,12 +193,17 @@ def bf16_design() -> str:
 
 
 def _bwd_lib() -> ctypes.CDLL:
-    rows = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p], ctypes.c_int)
-    win = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [ctypes.c_void_p], ctypes.c_int)
+    def entry(pointers, ints):
+        return ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p],
+                ctypes.c_int)
     return _typed(cuda_build.load_library('sa_fused_bwd'), {
-        'epnet_sa_fused_bwd_launch': rows, 'epnet_sa_fused_bwd_bf16_launch': rows,
-        'epnet_sa_fused_win_bwd_launch': win, 'epnet_sa_fused_win_bwd_bf16_launch': win,
-        'epnet_sa_fused_bwd_partial_floats': ([ctypes.c_int], ctypes.c_longlong)})
+        'epnet_sa_fused_bwd_launch': entry(17, 6), 'epnet_sa_fused_bwd_bf16_launch': entry(16, 6),
+        'epnet_sa_fused_win_bwd_launch': entry(18, 8),
+        'epnet_sa_fused_win_bwd_bf16_launch': entry(17, 8),
+        'epnet_sa_wgmma_sum_probe': entry(3, 1),
+        'epnet_sa_fused_bwd_bf16_gamma': ([ctypes.c_int], ctypes.c_float),
+        'epnet_sa_fused_bwd_partial_floats': ([ctypes.c_int], ctypes.c_longlong),
+        'epnet_sa_fused_bwd_counts_ints': ([ctypes.c_int, ctypes.c_int], ctypes.c_longlong)})
 
 
 _OPERANDS = ('y', 'o', 'w2', 'w3')  # in the operand type; biases and gout stay f32
@@ -355,12 +363,16 @@ fused_point_mlp_max_bwd_kernel.launches = 0
 
 
 def fused_point_mlp_max_bwd_bf16_kernel(y, o, idx, w2, b2, w3, b3, gout, selections=False):
-    """Launch C-bf16 (``csrc/sa_fused_bwd.cu``, kernel C's design on bf16
-    operands) on the current stream: ``y``, ``o``, ``w2`` and ``w3`` bf16,
-    ``b2``, ``b3`` and ``gout`` float32, idx int64, on one CUDA device;
-    kernel C's limits. Returns the f32 sums (dy, do, dw2, db2, dw3, db3) of
-    ``fused_point_mlp_max_bwd_plain``'s bf16 function (and the selections,
-    as kernel C). Raises on anything the kernel does not take."""
+    """Launch C-bf16 (``csrc/sa_fused_bwd.cu``: kernel C's dedupe and scan,
+    then the bf16 ``wgmma`` kernel with certified maxima and masks) on the
+    current stream: ``y``, ``o``, ``w2`` and ``w3`` bf16, ``b2``, ``b3`` and
+    ``gout`` float32, idx int64, on one CUDA device; kernel C's limits.
+    Returns the f32 sums (dy, do, dw2, db2, dw3, db3) of
+    ``fused_point_mlp_max_bwd_plain``'s bf16 function; with ``selections``
+    also the kernel's diagnostics: the selections, as kernel C, and a (2,)
+    int64 tensor, the h2 elements and the maxima whose certificate failed,
+    each then summed exactly. Raises on anything the kernel does not
+    take."""
     dims = _check_args('fused_point_mlp_max_bwd_bf16_kernel', torch.bfloat16, y=y, o=o, idx=idx,
                        w2=w2, b2=b2, w3=w3, b3=b3, gout=gout)
     return _launch_bwd(fused_point_mlp_max_bwd_bf16_kernel, 'epnet_sa_fused_bwd_bf16_launch',
@@ -398,12 +410,15 @@ def _pad_to(t, *widths):
 
 
 def _launch_bwd(wrapper, entry, dims, inputs, extra, selections):
-    """Kernel C or H (C entry point ``entry``) for ``wrapper``, whose launch
-    count it keeps: pads the channels to the kernel's widths with zeros
-    (which changes no gradient), allocates the outputs and scratch,
-    launches, returns (dy, do, dw2, db2, dw3, db3) at the given widths
-    (and the selections if asked). ``extra`` are the ints the entry point
-    takes after c3 (H's nb, window)."""
+    """Kernel C, H, C-bf16 or H-bf16 (C entry point ``entry``) for
+    ``wrapper``, whose launch count it keeps: pads the channels to the
+    kernel's widths with zeros (which changes no gradient), allocates the
+    outputs and scratch, launches, returns (dy, do, dw2, db2, dw3, db3) at
+    the given widths (and, with ``selections``, the selections and the
+    bf16 kernels' flagged counts). ``extra`` are the ints the entry point
+    takes after c3 (H's nb, window). The f32 kernels stream W2, W3 and
+    their transposes; the bf16 ones read W2 and W3 both ways from shared
+    memory."""
     what = wrapper.__name__
     T, N, M, S, C1, C2, C3 = dims
     check_bwd_takes(what, T, N, S, C1, C2, C3)
@@ -417,8 +432,14 @@ def _launch_bwd(wrapper, entry, dims, inputs, extra, selections):
     y, o = _pad_to(y, _WIDTH), _pad_to(o, _WIDTH)
     w2, b2 = _pad_to(w2, _WIDTH, _WIDTH), _pad_to(b2, _WIDTH)
     w3, b3, gout = _pad_to(w3, _WIDTH, C3P), _pad_to(b3, C3P), _pad_to(gout, C3P)
-    w2t, w3t = w2.t().contiguous(), w3.t().contiguous()
-    for name, t in (('y', y), ('o', o), ('w2', w2), ('w3', w3), ('w2t', w2t), ('w3t', w3t)):
+    bf16 = y.dtype == torch.bfloat16
+    aligned = {'y': y, 'o': o, 'w2': w2, 'w3': w3}
+    if bf16:
+        weights = (w2, b2, w3, b3)
+    else:
+        aligned.update(w2t=w2.t().contiguous(), w3t=w3.t().contiguous())
+        weights = (w2, aligned['w2t'], b2, w3, aligned['w3t'], b3)
+    for name, t in aligned.items():
         if t.data_ptr() % 16:
             raise ValueError(f'{what}: {name} must be 16-byte aligned')
     cents = T * M
@@ -427,23 +448,28 @@ def _launch_bwd(wrapper, entry, dims, inputs, extra, selections):
     dy = torch.zeros((T, N, _WIDTH), dtype=torch.float32, device=dev)
     do = torch.empty((T, M, _WIDTH), dtype=torch.float32, device=dev)
     rows = torch.empty((max(cents, 1), _ROWS), dtype=torch.int32, device=dev)
-    counts = torch.empty((2 * cents + 1,), dtype=torch.int32, device=dev)  # and their prefix
+    # the counts and their prefix (bf16: and the tiles' records)
+    counts = torch.empty((lib.epnet_sa_fused_bwd_counts_ints(cents, int(bf16)),),
+                         dtype=torch.int32, device=dev)
     part = torch.empty((blocks, size), dtype=torch.float32, device=dev)
     grads = torch.empty((size,), dtype=torch.float32, device=dev)
     sel = torch.empty((T, M, C3P), dtype=torch.int32, device=dev) if selections else None
-    args = (y, o, idx, *starts, w2, w2t, b2, w3, w3t, b3, gout)
+    stats = torch.zeros((2,), dtype=torch.int64, device=dev) if selections and bf16 else None
+    args = (y, o, idx, *starts, *weights, gout)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, entry)(
             *(a.data_ptr() for a in args), dy.data_ptr(), do.data_ptr(), rows.data_ptr(),
             counts.data_ptr(), part.data_ptr(), grads.data_ptr(),
-            sel.data_ptr() if selections else None, T, N, M, S, C3P, *extra, blocks, stream)
+            sel.data_ptr() if selections else None,
+            *((stats.data_ptr() if selections else None,) if bf16 else ()),
+            T, N, M, S, C3P, *extra, blocks, stream)
     cuda_build.check(lib, err, f'{what} launch')
     wrapper.launches += 1
     dw2, db2, dw3, db3 = torch.split(grads, [_WIDTH * _WIDTH, _WIDTH, _WIDTH * C3P, C3P])
     out = (dy[..., :C1], do[..., :C1], dw2.view(_WIDTH, _WIDTH)[:C1, :C2], db2[:C2],
            dw3.view(_WIDTH, C3P)[:C2, :C3], db3[:C3])
-    return out + (sel[..., :C3],) if selections else out
+    return out + ((sel[..., :C3],) if selections else ()) + ((stats,) if stats is not None else ())
 
 
 class _FusedPointMlpMax(torch.autograd.Function):
@@ -569,10 +595,12 @@ fused_point_mlp_max_win_bwd_kernel.launches = 0
 
 def fused_point_mlp_max_win_bwd_bf16_kernel(y, o, idx_rel, starts, w2, b2, w3, b3, window, gout,
                                             selections=False):
-    """Launch H-bf16 (``csrc/sa_fused_bwd.cu``, windowed, bf16 operands) on
-    the current stream: tensors as for ``fused_point_mlp_max_win_bwd_kernel``
-    with ``y``, ``o``, ``w2`` and ``w3`` bf16; returns the f32 sums, as
-    C-bf16. Raises on anything the kernel does not take."""
+    """Launch H-bf16 (``csrc/sa_fused_bwd.cu``: the windowed dedupe, then
+    C-bf16's kernel) on the current stream: tensors as for
+    ``fused_point_mlp_max_win_bwd_kernel`` with ``y``, ``o``, ``w2`` and
+    ``w3`` bf16; returns the f32 sums (and, with ``selections``, the
+    selections and the flagged counts), as C-bf16. Raises on anything the
+    kernel does not take."""
     what = 'fused_point_mlp_max_win_bwd_bf16_kernel'
     dims = _check_args(what, torch.bfloat16, y=y, o=o, idx=idx_rel, starts=starts, w2=w2, b2=b2,
                        w3=w3, b3=b3, gout=gout)
@@ -583,6 +611,26 @@ def fused_point_mlp_max_win_bwd_bf16_kernel(y, o, idx_rel, starts, w2, b2, w3, b
 
 
 fused_point_mlp_max_win_bwd_bf16_kernel.launches = 0
+
+
+def wgmma_sum_probe(a, w):
+    """(sums, gamma_tc): the (T, 64, 64) f32 sums a @ w of bf16 a (T, 64,
+    128) and w (128, 64) on the card, summed as C-bf16's recompute sums p2
+    (``csrc/sa_fused_bwd.cu``, ``sa_wgmma_sum_probe``), and the gamma_tc
+    with which the kernel's certificate bounds their error (its
+    ``kGammaTc``): the probe of the tensor cores' accumulation. Not a path
+    of the model."""
+    if not (a.is_cuda and w.is_cuda and a.dtype == w.dtype == torch.bfloat16
+            and a.dim() == 3 and a.shape[1:] == (_ROWS, _WIDTH) and w.shape == (_WIDTH, 64)):
+        raise ValueError('wgmma_sum_probe: bf16 CUDA a (T, 64, 128) and w (128, 64)')
+    lib = _bwd_lib()
+    a, w = a.contiguous(), w.contiguous()
+    out = torch.empty((a.shape[0], _ROWS, 64), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = lib.epnet_sa_wgmma_sum_probe(a.data_ptr(), w.data_ptr(), out.data_ptr(), a.shape[0],
+                                           torch.cuda.current_stream(a.device).cuda_stream)
+    cuda_build.check(lib, err, 'wgmma_sum_probe launch')
+    return out, lib.epnet_sa_fused_bwd_bf16_gamma(0)
 
 
 class _FusedPointMlpMaxWin(torch.autograd.Function):

@@ -37,7 +37,9 @@ dw and F-bf16's y are bitwise those of the first run (dY sums a row's
 contributions by f32 atomics, in no fixed order: its largest difference is
 printed; D-bf16's and E-bf16's dw, whose summation order is their
 design's, print their largest difference in units of ``DW_RTOL`` of
-max|dw| beside), and give a table of milliseconds, one column a run. Comparing two versions means
+max|dw| beside, and C-bf16's and H-bf16's dO, dW and db theirs in units of
+``SA_RTOL`` of max|.|), and give a table of milliseconds, one column a
+run. Comparing two versions means
 running them in turns in one call: parent, change, change, parent. Needs a
 CUDA device.
 """
@@ -358,6 +360,15 @@ def main(argv=None):
                       f'{torch.equal(got, first[k])}')
                 continue
             (dy, *rest), (dy0, *rest0) = got, first[k]
+            if '-bf16' in k:  # C-bf16, H-bf16: each design sums in its own order
+                dist = {n: float((a - b).abs().max() / b.abs().max()) / cs.SA_RTOL
+                        for n, a, b in zip(('dO', 'dW2', 'db2', 'dW3', 'db3'), rest, rest0)}
+                print(f'{r["tree"]} vs {runs[0]["tree"]}, {k}: bitwise equal: '
+                      f'{all(torch.equal(a, b) for a, b in zip(got, first[k]))}; max difference '
+                      + ', '.join(f'{n} {v:.4f}' for n, v in dist.items())
+                      + ' SA_RTOL of max|.|; dY '
+                      f'{float((dy - dy0).abs().max() / dy0.abs().max()):.3e} of max|dY|')
+                continue
             differ = [n for n, a, b in zip(('dO', 'dW2', 'db2', 'dW3', 'db3'), rest, rest0)
                       if not torch.equal(a, b)]
             print(f'{r["tree"]} vs {runs[0]["tree"]}, {k}: dO, dW and db bitwise equal: '
