@@ -168,11 +168,24 @@ first use), then:
 23. holds one tiny bf16 train step on the card against the CPU, at
    ``utils/testing.MIXED_TRAIN_TINY`` and ``MIXED_BLOCK_LOCAL_TRAIN_TINY``,
    within the CPU's own bf16-vs-f32 gap of the same step (the loss, the
-   RPN outputs, the heads' and the RCNN's worst leaf, the backbone's norm).
+   RPN outputs, the heads' and the RCNN's worst leaf, the backbone's norm);
+24. runs the train CLI (``epnet_tpu_torch.tools.train.main``) at the
+   recipe's full width (f32, batch 4, 2 loader workers) on a synthetic
+   KITTI tree of 20 training and 4 val scenes (370x1240 images, 14000
+   LiDAR points each): ``rcnn_online`` for 2 epochs, a ``--ckpt`` resume
+   for a third with ``--train_with_eval``, ``rpn`` for 1 epoch, ``rcnn``
+   warm-started from it by ``--rpn_ckpt`` for 1 epoch, and 1 epoch with
+   ``--set MIXED_PRECISION True``: finite losses, each step's launches (6
+   FPS, 2 B, 2 C, 4 D, 3 E and 4 F a joint step; 4 FPS, 4 D, 3 E, 4 F an
+   RPN step; 6 FPS, 2 B, 2 C, 4 F a fixed-RPN step; the bf16 instances in
+   bf16), ``train/*`` and ``val/*`` scalars, checkpoint epochs 0-2, the
+   resume at the saved epoch + 1 and step count, and the fixed RPN moved
+   by AdamW's decay alone; prints steps/s, each pass's time to its first
+   batch and the wall times.
 
 Launch counts are read around each main-path phase (3, 6, 9, 11, 14, 15,
-18, 20 and 22) with the counters set to 0 just before it; the kernels line
-sums them. The script leaves TF32 as PyTorch sets it and checks that building
+18, 20, 22 and 24) with the counters set to 0 just before it; the kernels
+line sums them. The script leaves TF32 as PyTorch sets it and checks that building
 the model turns it off, as the f32 recipe needs.
 
 Every kernel's ``bound_ms`` is the least time the card could take for its
@@ -2797,6 +2810,215 @@ def phase_small_bf16_train_reference(dev, over=None):
                              f'beyond bf16 rounding: {bad}')
 
 
+# the train CLI (phase 24): a tree of 20 training and 4 val scenes at the
+# pin's 14000 points, batch 4, so 5 steps an epoch and step 10 (the first
+# scalars) in a run's second epoch. The RPN run trains 100 steps first: a
+# random RPN's proposals overlap no car, so the RCNN would be sampled no
+# foreground RoI; the later runs start from it by --rpn_ckpt
+TRAIN_CLI_SCENES, TRAIN_CLI_VAL, TRAIN_CLI_POINTS = 20, 4, 14000
+TRAIN_CLI_RPN_EPOCHS = 20
+TRAIN_CLI_KERNELS = ('fps', 'sa_fused_fwd', 'sa_fused_bwd', 'conv3x3_dw_s2', 'conv3x3_dw_s1',
+                     'conv3x3_s2_fwd', 'sa_fused_fwd_bf16', 'sa_fused_bwd_bf16',
+                     'conv3x3_dw_s2_bf16', 'conv3x3_dw_s1_bf16', 'conv3x3_s2_fwd_bf16')
+# a step's RCNN RoIs: labelled foreground and background, and regressed
+RCNN_ROI_COUNTS = ('rcnn_cls_fg', 'rcnn_cls_bg', 'rcnn_reg_fg')
+# the launches of one batch-4 train step by run: the RPN alone has 4 FPS
+# stages and no RCNN; the fixed RPN runs no backward, so no D or E
+TRAIN_CLI_WANT = {'rcnn_online': [6, 2, 2, 4, 3, 4, 0, 0, 0, 0, 0],
+                  'resume': [6, 2, 2, 4, 3, 4, 0, 0, 0, 0, 0],
+                  'rpn': [4, 0, 0, 4, 3, 4, 0, 0, 0, 0, 0],
+                  'rcnn': [6, 2, 2, 0, 0, 4, 0, 0, 0, 0, 0],
+                  'bf16': [6, 0, 0, 0, 0, 0, 2, 2, 4, 3, 4]}
+
+
+class _TimedPasses:
+    """The train loader, noting when each pass is asked for. Patched in by
+    this script."""
+
+    def __init__(self, loader, starts):
+        self.loader, self.starts = loader, starts
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        self.starts.append(time.perf_counter())
+        return iter(self.loader)
+
+
+def _train_cli_counters():
+    from epnet_tpu_torch.ops import conv2d, fps, sa_fused
+    return (fps.furthest_point_sample_kernel, sa_fused.fused_point_mlp_max_kernel,
+            sa_fused.fused_point_mlp_max_bwd_kernel, conv2d.dw3x3_s2_kernel,
+            conv2d.dw3x3_s1_kernel, conv2d.conv3x3_s2_fwd_kernel,
+            sa_fused.fused_point_mlp_max_bf16_kernel, sa_fused.fused_point_mlp_max_bwd_bf16_kernel,
+            conv2d.dw3x3_s2_bf16_kernel, conv2d.dw3x3_s1_bf16_kernel,
+            conv2d.conv3x3_s2_fwd_bf16_kernel)
+
+
+def phase_train_cli(dev):
+    """The train CLI (``epnet_tpu_torch.tools.train.main``) on the card at
+    the recipe's full width (f32; 16384 points, batch 4, 2 loader workers)
+    on a synthetic tree of 20 training and 4 val scenes: ``rpn`` for 20
+    epochs (100 steps); from its RPN by ``--rpn_ckpt``, ``rcnn_online`` for
+    2 epochs; a ``--ckpt`` resume of its last checkpoint for a third epoch
+    with ``--train_with_eval``; ``rcnn`` for 1 epoch; one epoch with ``--set
+    MIXED_PRECISION True``. Checks finite losses, each step's launches,
+    that every RCNN step was sampled labelled RoIs and at least half of a
+    run's steps foreground ones (``rcnn_cls_fg``, ``rcnn_reg_fg``),
+    ``train/*`` and ``val/*`` in ``scalars.jsonl``, checkpoint epochs 0, 1,
+    2 (JAX's numbering at the default interval), the resume at the saved
+    epoch + 1 and step count, and under ``rcnn`` the RPN's parameters moved
+    by AdamW's decay alone (its BN statistics unchanged); prints steps/s,
+    the time to each pass's first batch and each run's and the phase's
+    wall time."""
+    import shutil
+    from unittest import mock
+
+    import torch
+    from epnet_tpu_torch.tools import train as cli
+    from epnet_tpu_torch.train import trainer as trainer_mod
+    from epnet_tpu_torch.train.schedules import one_cycle_lr
+    from epnet_tpu_torch.utils.testing import make_fake_kitti
+
+    t_phase = time.perf_counter()
+    work = os.path.join(OUT, 'train_cli')
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, 'kitti')
+    t0 = time.perf_counter()
+    make_fake_kitti(root, n_samples=TRAIN_CLI_SCENES, n_val=TRAIN_CLI_VAL,
+                    n_points=TRAIN_CLI_POINTS, seed=12, max_cars=4)
+    print(f'train CLI: fake KITTI tree of {TRAIN_CLI_SCENES} + {TRAIN_CLI_VAL} scenes written '
+          f'in {time.perf_counter() - t0:.2f} s', flush=True)
+    counters = _train_cli_counters()
+    for c in counters:
+        c.launches = 0
+    real_step, real_train = trainer_mod.train_step, trainer_mod.Trainer.train
+    base = ['--cfg_file', RECIPE, '--data_root', root, '--batch_size', str(TRAIN_BATCH),
+            '--workers', '2', '--device', str(dev)]
+
+    def run(name, out, extra):
+        rec = {'steps': [], 'starts': []}
+
+        def step(state, batch, bnm, gen):
+            before = [c.launches for c in counters]
+            t_start = time.perf_counter()
+            tb = real_step(state, batch, bnm, gen)
+            loss = float(tb['loss'])  # waits for the step
+            rec['steps'].append((t_start, time.perf_counter(), loss,
+                                 [c.launches - b for c, b in zip(counters, before)],
+                                 [int(tb[k]) for k in RCNN_ROI_COUNTS if k in tb]))
+            return tb
+
+        def train(self, start_epoch, n_epochs, loader, **kwargs):
+            rec['start'] = (start_epoch, self.state.step)
+            return real_train(self, start_epoch, n_epochs, _TimedPasses(loader, rec['starts']),
+                              **kwargs)
+
+        t_run = time.perf_counter()
+        with mock.patch.object(trainer_mod, 'train_step', step), \
+                mock.patch.object(trainer_mod.Trainer, 'train', train):
+            rec['state'] = cli.main(base + ['--output_dir', out] + extra)
+        rec['wall'] = time.perf_counter() - t_run
+        steps = rec['steps']
+        losses = [s[2] for s in steps]
+        bad = [i for i, s in enumerate(steps) if s[3] != TRAIN_CLI_WANT[name]]
+        if not steps or not all(math.isfinite(v) for v in losses) or bad:
+            raise AssertionError(f'train CLI {name}: losses {losses}, launches '
+                                 f'{[s[3] for s in steps]}, expected {TRAIN_CLI_WANT[name]}')
+        rois = [s[4] for s in steps]  # (cls fg, cls bg, reg fg) a step
+        if name != 'rpn' and (not all(r[0] + r[1] > 0 for r in rois)
+                              or 2 * sum(r[0] > 0 and r[2] > 0 for r in rois) < len(rois)):
+            raise AssertionError(f'train CLI {name}: the RCNN was sampled (fg, bg, reg fg) '
+                                 f'RoIs {rois}: unlabelled, or foreground in under half the '
+                                 f'steps')
+        # a pass's first batch waits for its workers to start and draw it
+        firsts = [min(s[0] for s in steps if s[0] >= p) - p for p in rec['starts']]
+        busy = sum(s[1] - s[0] for s in steps)
+        loop = steps[-1][1] - rec['starts'][0]
+        print(f'train CLI {name}: {len(steps)} steps, {len(steps) / busy:.3f} steps/s in the '
+              f'steps, {len(steps) / loop:.3f} steps/s over the loop (loader and checkpoints '
+              f'included); first batch of each pass after '
+              + ', '.join(f'{f:.2f}' for f in firsts) + ' s; step ms '
+              + ', '.join(f'{(s[1] - s[0]) * 1e3:.1f}' for s in steps)
+              + f'; losses {", ".join(f"{v:.4f}" for v in losses)}'
+              + ('' if name == 'rpn' else '; RCNN RoIs (fg, bg, reg fg) '
+                 + ' '.join(f'({a},{b},{c})' for a, b, c in rois))
+              + f'; main() {rec["wall"]:.2f} s', flush=True)
+        return rec
+
+    rpn_out = os.path.join(work, 'rpn')
+    run('rpn', rpn_out, ['--epochs', str(TRAIN_CLI_RPN_EPOCHS), '--train_mode', 'rpn'])
+    rpn_ckpt = os.path.join(rpn_out, 'ckpt', f'checkpoint_epoch_{TRAIN_CLI_RPN_EPOCHS - 1}.pth')
+    warm_start = ['--rpn_ckpt', rpn_ckpt]
+
+    joint_out = os.path.join(work, 'rcnn_online')
+    ckpt_dir = os.path.join(joint_out, 'ckpt')
+    run('rcnn_online', joint_out, ['--epochs', '2'] + warm_start)
+    resume = run('resume', joint_out, [
+        '--epochs', '3', '--ckpt', os.path.join(ckpt_dir, 'checkpoint_epoch_1.pth'),
+        '--train_with_eval', '--set', 'TRAIN.VAL_SPLIT', 'val'])
+    steps_per_epoch = TRAIN_CLI_SCENES // TRAIN_BATCH
+    if resume['start'] != (2, 2 * steps_per_epoch) or resume['state'].step != 3 * steps_per_epoch:
+        raise AssertionError(f'train CLI resume: started at (epoch, step) {resume["start"]}, '
+                             f'ended at step {resume["state"].step}')
+    ckpts = sorted(os.listdir(ckpt_dir))
+    if ckpts != [f'checkpoint_epoch_{e}.pth' for e in range(3)]:
+        raise AssertionError(f'train CLI checkpoints: {ckpts}')
+    with open(os.path.join(joint_out, 'tensorboard', 'scalars.jsonl')) as f:
+        scalars = [json.loads(line) for line in f]
+    tags = collections.Counter(r['tag'].split('/')[0] for r in scalars)
+    val = {r['tag']: r['value'] for r in scalars if r['tag'].startswith('val/')}
+    if (not tags['train'] or not tags['val'] or set(tags) != {'train', 'val'}
+            or not all(math.isfinite(r['value']) for r in scalars)):
+        raise AssertionError(f'train CLI scalars: {tags}')
+    print(f'train CLI scalars: {dict(tags)} records; val at epoch 2: rpn_iou '
+          f'{val["val/rpn_iou"]:.4f}, rcnn_recall(0.5) {val["val/rcnn_recall(thresh=0.50)"]:.4f}',
+          flush=True)
+
+    rcnn = run('rcnn', os.path.join(work, 'rcnn'),
+               ['--epochs', '1', '--train_mode', 'rcnn'] + warm_start)
+    warm = torch.load(rpn_ckpt, map_location=dev, weights_only=True)['model']
+    cfg = rcnn['state'].model.cfg
+    lr = one_cycle_lr(steps_per_epoch, cfg.TRAIN.LR, cfg.TRAIN.DIV_FACTOR, cfg.TRAIN.PCT_START)
+    factor = math.prod(1 - lr(t) * cfg.TRAIN.WEIGHT_DECAY for t in range(steps_per_epoch))
+    params = {n for n, _ in rcnn['state'].model.named_parameters()}
+    # each step takes lr_t * WEIGHT_DECAY * p off p, a few f32 units in
+    # the last place of p: held element by element within the roundings,
+    # and as the least-squares shrink of all of them, where they average out
+    worst, num, den = 0.0, 0.0, 0.0
+    for k, x in rcnn['state'].model.state_dict().items():
+        if not k.startswith('rpn.'):
+            continue
+        if k not in params:
+            if not torch.equal(x, warm[k]):
+                raise AssertionError(f'train CLI rcnn: the fixed RPN\'s {k} changed')
+            continue
+        w = warm[k].double()
+        worst = max(worst, float((x - warm[k] * factor).abs().max())
+                    / max(float(warm[k].abs().max()), 1e-30))
+        num += float((w * (w - x.double())).sum())
+        den += float((w * w).sum())
+    shrink = num / den
+    if not (worst <= 1e-6 and abs(shrink / (1 - factor) - 1) <= 0.05):
+        raise AssertionError(f'train CLI rcnn: the fixed RPN moved beyond the decay: worst '
+                             f'{worst:.3e} of a tensor\'s max, shrink {shrink:.4e} against '
+                             f'{1 - factor:.4e}')
+    print(f'train CLI rcnn: the fixed RPN moved by the decay alone: shrink {shrink:.4e} '
+          f'against 1 - prod(1 - lr_t WEIGHT_DECAY) = {1 - factor:.4e} over {steps_per_epoch} '
+          f'steps, worst element {worst:.2e} of its tensor\'s max from it; BN statistics '
+          f'unchanged', flush=True)
+
+    run('bf16', os.path.join(work, 'bf16'), ['--epochs', '1'] + warm_start + ['--set', *MIXED_SET])
+    snaps = [c.launches for c in counters]
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                          capture_output=True, text=True, check=True, timeout=60).stdout
+    print(f'train CLI phase on {card.strip().splitlines()[0]}: '
+          f'{time.perf_counter() - t_phase:.1f} s wall; launches '
+          + ' '.join(f'{n} +{d}' for n, d in zip(TRAIN_CLI_KERNELS, snaps) if d), flush=True)
+    return dict(zip(TRAIN_CLI_KERNELS, snaps))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2827,7 +3049,7 @@ def main():
             if 'registers' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}')
 
-    # launches on the main paths (phases 3, 6, 9, 11, 14 and 15), by kernel
+    # launches on the main paths (phases 3, 6, 9, 11, 14, 15, 18, 20, 22 and 24), by kernel
     launches = collections.Counter()
     fps_res = phase_fps(dev)
     sa_res = phase_sa(dev)
@@ -2855,6 +3077,7 @@ def main():
     launches.update(phase_bf16_train(dev))
     phase_small_bf16_train_reference(dev)
     phase_small_bf16_train_reference(dev, MIXED_BLOCK_LOCAL_TRAIN_TINY)
+    launches.update(phase_train_cli(dev))
 
     kernels = [
         {'name': 'fps', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/fps.cu',

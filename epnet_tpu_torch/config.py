@@ -524,6 +524,24 @@ _PARITY = {
 }
 
 
+def save_config(cfg: Config, logger=None, pre: str = 'cfg') -> None:
+    """Dump every key, as the reference's ``save_config_to_file``
+    (``lib/config.py``; JAX ``save_config``), through ``logger.info`` or
+    ``print``."""
+    emit = logger.info if logger is not None else print
+
+    def rec(node, prefix):
+        for f in fields(node):
+            val = getattr(node, f.name)
+            if dataclasses.is_dataclass(val):
+                emit(f'\n{prefix}.{f.name} = edict()')
+                rec(val, f'{prefix}.{f.name}')
+            else:
+                emit(f'{prefix}.{f.name}: {val}')
+
+    rec(cfg, pre)
+
+
 def parity_config() -> Config:
     """The published recipe (LI-Fusion + image attention + CE loss), f32
     with exact queries, without reading the yaml."""
@@ -541,4 +559,4 @@ def block_local_config(cfg: Config) -> Config:
     return cfg.with_overrides(list(zip(BLOCK_LOCAL_SET[0::2], BLOCK_LOCAL_SET[1::2])))
 
 
-__all__ = ['Config', 'load_config', 'parity_config', 'PARITY_YAML']
+__all__ = ['Config', 'load_config', 'save_config', 'parity_config', 'PARITY_YAML']

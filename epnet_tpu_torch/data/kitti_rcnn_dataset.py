@@ -1,24 +1,34 @@
-"""KITTI samples for joint (RPN + RCNN) evaluation with LI-Fusion.
+"""KITTI samples for joint (RPN + RCNN) training and evaluation with
+LI-Fusion.
 
-Port of the EVAL and TEST paths of ``epnet_tpu/data/kitti_rcnn_dataset.py``
-(reference ``lib/datasets/kitti_rcnn_dataset.py``): the LI-Fusion sample
-(:281-409) with its depth-stratified point choice, the per-point RPN labels
-(:546-576, the analytic rotated-box test in place of Delaunay ``in_hull``)
-and the fixed-shape collate (gt boxes zero-padded to ``max_gt``).
+Port of ``epnet_tpu/data/kitti_rcnn_dataset.py`` (reference
+``lib/datasets/kitti_rcnn_dataset.py``): the LI-Fusion sample (:281-409)
+with its depth-stratified point choice, in TRAIN, EVAL and TEST mode; in
+TRAIN mode the training-sample filter (frames with an object of the
+classes, :131-147), the class and range filter of the objects
+(filtrate_objects :185-206, with the similar types Van and
+Person_sitting) and the global scene augmentation (rotation, scaling,
+flip, :698-755); the per-point RPN labels (:546-576, the analytic
+rotated-box test in place of Delaunay ``in_hull``), absent under
+``RPN.FIXED``; and the fixed-shape collate (gt boxes zero-padded to
+``max_gt``).
 
 Every draw of item ``index`` comes from ``RandomState(seed_for(seed,
-epoch, index))`` (``data/loader.py``): the JAX loader's per-sample reseed,
-with an explicit generator.
+epoch, index))`` (``data/loader.py``), in the order of the JAX package's
+global ``np.random`` calls: the point choice, then ``rand(3)``, then the
+rotation angle, then the scale. That is the JAX loader's per-sample
+reseed, with an explicit generator, so the items are the JAX package's
+bit for bit.
 
 Under ``RPN.BLOCK_LOCAL`` or ``RPN.FP_WINDOW > 0`` every per-point array of
 an item is put in Morton order (``_maybe_morton_sort``, :331-356), as the
 block-local configuration needs; the dataset reads no query policy, so it
 sorts whatever ``EXACT_QUERIES`` says, as the JAX loader does.
 
-Not ported yet (ROADMAP Queue 1, item 14), each raising
-``NotImplementedError``: TRAIN mode (scene augmentation, gt-paste
-augmentation and its gt database, the training-sample filter), the
-LiDAR-only sample with per-point RGB and the offline RCNN samples.
+Not ported yet (ROADMAP Queue 1, item 14b), each raising: the LiDAR-only
+sample with per-point RGB and its gt-paste augmentation (gt database, road
+planes), the aug-scene samples (ids from 10000) and the offline RCNN
+samples.
 """
 
 from __future__ import annotations
@@ -34,25 +44,37 @@ from .loader import seed_for
 from .object3d import objs_to_boxes3d
 
 MAX_GT_DEFAULT = 50
+NOT_PORTED = 'not ported yet (ROADMAP Queue 1, item 14b)'
 _CLASSES = {'Car': ('Background', 'Car'), 'People': ('Background', 'Pedestrian', 'Cyclist'),
             'Pedestrian': ('Background', 'Pedestrian'), 'Cyclist': ('Background', 'Cyclist')}
 
 
+def _refuse_aug_scene(sample_id: int) -> None:
+    """Ids from 10000 are aug-scene frames, whose pasted points have no
+    image pixels: LI-Fusion cannot use them (the reference asserts so at
+    :294)."""
+    if sample_id >= 10000:
+        raise ValueError(f'aug-scene sample {sample_id} cannot be used with LI fusion; '
+                         f'disable LI_FUSION for the train_aug split')
+
+
 class KittiRCNNDataset(KittiDataset, Dataset):
     """``dataset[i]`` is one scene's dict of numpy arrays (``sample_id`` an
-    int). ``seed`` and ``epoch`` fix its draws; ``epoch`` 1 is the JAX
-    loader's first pass."""
+    int; in TRAIN mode with ``AUG_DATA`` also ``aug_method``, the list of
+    augmentations applied, as the JAX package records it). ``seed`` and
+    ``epoch`` fix its draws (``dataset[(epoch, i)]`` names the pass);
+    ``epoch`` 1 is the JAX loader's first pass.
+    In TRAIN mode only the frames with an object of the classes are
+    listed."""
 
     def __init__(self, root_dir: str, cfg: Config, npoints: int = 16384, split: str = 'val',
                  classes: str = 'Car', mode: str = 'EVAL', max_gt: int = MAX_GT_DEFAULT,
-                 seed: int = 0, epoch: int = 1):
-        if mode not in ('EVAL', 'TEST'):
-            raise NotImplementedError(f'mode {mode!r}: the TRAIN-mode data pipeline is not '
-                                      'ported yet (ROADMAP Queue 1, item 14); EVAL or TEST')
+                 seed: int = 0, epoch: int = 1, logger=None):
+        if mode not in ('TRAIN', 'EVAL', 'TEST'):
+            raise ValueError(f'mode {mode!r}: TRAIN, EVAL or TEST')
         if not (cfg.LI_FUSION.ENABLED and cfg.RPN.ENABLED):
             raise NotImplementedError('only the LI-Fusion RPN sample is ported; the LiDAR-only '
-                                      'and offline RCNN samples are not yet (ROADMAP Queue 1, '
-                                      'item 14)')
+                                      f'and offline RCNN samples are {NOT_PORTED}')
         if classes not in _CLASSES:
             raise ValueError(f'invalid classes {classes}')
         super().__init__(root_dir=root_dir, split=split)
@@ -63,12 +85,43 @@ class KittiRCNNDataset(KittiDataset, Dataset):
         self.max_gt = max_gt
         self.seed = seed
         self.epoch = epoch
-        self.sample_id_list = [int(s) for s in self.image_idx_list]
+        self.logger = logger
+        if mode == 'TRAIN':
+            self.sample_id_list = self._filter_training_samples()
+        else:
+            self.sample_id_list = [int(s) for s in self.image_idx_list]
+
+    def _filter_training_samples(self):
+        """The frames with at least one object left by ``filtrate_objects``
+        (preprocess_rpn_training_data :131-147)."""
+        keep = [int(s) for s in self.image_idx_list
+                if self.filtrate_objects(self.get_label(int(s)))]
+        if self.logger:
+            self.logger.info('filtered %d / %d samples', len(keep), len(self.image_idx_list))
+        return keep
+
+    def get_label(self, idx: int):
+        _refuse_aug_scene(idx)
+        return super().get_label(idx)
 
     def filtrate_objects(self, obj_list):
-        """The objects of the dataset's classes (filtrate_objects :185-206;
-        its similar types and range filter apply in TRAIN mode only)."""
-        return [obj for obj in obj_list if obj.cls_type in self.classes]
+        """The objects of the dataset's classes (filtrate_objects :185-206);
+        in TRAIN mode also the similar types (Van for Car, Person_sitting
+        for Pedestrian) under ``INCLUDE_SIMILAR_TYPE``, and only objects
+        inside ``PC_AREA_SCOPE`` under ``PC_REDUCE_BY_RANGE``."""
+        whitelist = list(self.classes)
+        train = self.mode == 'TRAIN'
+        if train and self.cfg.INCLUDE_SIMILAR_TYPE:
+            if 'Car' in whitelist:
+                whitelist.append('Van')
+            if 'Pedestrian' in whitelist:
+                whitelist.append('Person_sitting')
+        return [obj for obj in obj_list if obj.cls_type in whitelist
+                and not (train and self.cfg.PC_REDUCE_BY_RANGE and not self._in_pc_range(obj.pos))]
+
+    def _in_pc_range(self, xyz) -> bool:
+        r = self.cfg.PC_AREA_SCOPE
+        return all(r[i][0] <= xyz[i] <= r[i][1] for i in range(3))
 
     def get_valid_flag(self, pts_rect, pts_img, pts_depth, img_shape):
         """In-image and in-range mask (get_valid_flag :229-251)."""
@@ -124,11 +177,48 @@ class KittiRCNNDataset(KittiDataset, Dataset):
             reg_label[fg, 3:7] = gt_boxes3d[k][3:7]
         return cls_label, reg_label
 
+    def data_augmentation(self, pts_rect, gt_boxes3d, gt_alpha, rng: np.random.RandomState):
+        """Global scene augmentation (:698-755): rotation about y (each
+        box's ry restored from its alpha and the new viewing angle),
+        scaling, horizontal flip; each taken when its draw of ``rand(3)``
+        falls below its ``AUG_METHOD_PROB``. Returns the points, the boxes
+        and the list of what was applied."""
+        cfg = self.cfg
+        aug_list = cfg.AUG_METHOD_LIST
+        enable = 1 - rng.rand(3)
+        method = []
+        if 'rotation' in aug_list and enable[0] < cfg.AUG_METHOD_PROB[0]:
+            angle = rng.uniform(-np.pi / cfg.AUG_ROT_RANGE, np.pi / cfg.AUG_ROT_RANGE)
+            pts_rect = box_np.rotate_pc_along_y(pts_rect, angle)
+            gt_boxes3d = box_np.rotate_pc_along_y(gt_boxes3d, angle)
+            beta = np.arctan2(gt_boxes3d[:, 2], gt_boxes3d[:, 0])
+            gt_boxes3d[:, 6] = np.sign(beta) * np.pi / 2 + gt_alpha - beta
+            method.append(['rotation', angle])
+        if 'scaling' in aug_list and enable[1] < cfg.AUG_METHOD_PROB[1]:
+            scale = rng.uniform(0.95, 1.05)
+            pts_rect = pts_rect * scale
+            gt_boxes3d = gt_boxes3d.copy()
+            gt_boxes3d[:, 0:6] *= scale
+            method.append(['scaling', scale])
+        if 'flip' in aug_list and enable[2] < cfg.AUG_METHOD_PROB[2]:
+            pts_rect = pts_rect.copy()
+            gt_boxes3d = gt_boxes3d.copy()
+            pts_rect[:, 0] = -pts_rect[:, 0]
+            gt_boxes3d[:, 0] = -gt_boxes3d[:, 0]
+            gt_boxes3d[:, 6] = np.sign(gt_boxes3d[:, 6]) * np.pi - gt_boxes3d[:, 6]
+            method.append('flip')
+        return pts_rect, gt_boxes3d, method
+
     def __len__(self):
         return len(self.sample_id_list)
 
     def __getitem__(self, index):
-        rng = np.random.RandomState(seed_for(self.seed, self.epoch, index))
+        """Item ``index`` as drawn in pass ``self.epoch``, or, given a pair
+        ``(epoch, index)`` (the train loader's), as drawn in that pass."""
+        epoch = self.epoch
+        if isinstance(index, tuple):
+            epoch, index = index
+        rng = np.random.RandomState(seed_for(self.seed, epoch, index))
         return self._maybe_morton_sort(self.get_rpn_with_li_fusion(index, rng))
 
     def _maybe_morton_sort(self, info):
@@ -144,12 +234,10 @@ class KittiRCNNDataset(KittiDataset, Dataset):
         return info
 
     def get_rpn_with_li_fusion(self, index, rng: np.random.RandomState):
-        """(:281-409), EVAL and TEST modes: no augmentation."""
+        """(:281-409): the augmentation in TRAIN mode only."""
         cfg = self.cfg
         sample_id = int(self.sample_id_list[index])
-        if sample_id >= 10000:
-            raise ValueError(f'aug-scene sample {sample_id} cannot be used with LI fusion; '
-                             f'disable LI_FUSION for the train_aug split')
+        _refuse_aug_scene(sample_id)
         calib = self.get_calib(sample_id)
         img = self.get_image_rgb_with_normal(sample_id)
         img_shape = self.get_image_shape(sample_id)
@@ -167,18 +255,25 @@ class KittiRCNNDataset(KittiDataset, Dataset):
         ret_pts_rect = pts_rect[choice].astype(np.float32)
         ret_pts_intensity = (pts_intensity[choice] - 0.5).astype(np.float32)
         pts_features = ret_pts_intensity.reshape(-1, 1)
-        info = {'sample_id': sample_id, 'img': img, 'pts_origin_xy': pts_origin_xy[choice],
-                'pts_input': np.concatenate([ret_pts_rect, pts_features], axis=1)
-                if cfg.RPN.USE_INTENSITY else ret_pts_rect,
-                'pts_rect': ret_pts_rect, 'pts_features': pts_features}
+        info = {'sample_id': sample_id, 'img': img, 'pts_origin_xy': pts_origin_xy[choice]}
+        pts = ret_pts_rect
+        if self.mode != 'TEST':
+            gt_obj_list = self.filtrate_objects(self.get_label(sample_id))
+            gt_boxes3d = objs_to_boxes3d(gt_obj_list)
+            if cfg.AUG_DATA and self.mode == 'TRAIN':
+                gt_alpha = np.array([o.alpha for o in gt_obj_list], np.float32)
+                pts, gt_boxes3d, info['aug_method'] = self.data_augmentation(
+                    ret_pts_rect.copy(), gt_boxes3d.copy(), gt_alpha, rng)
+        info['pts_input'] = np.concatenate([pts, pts_features], axis=1) \
+            if cfg.RPN.USE_INTENSITY else pts
+        info['pts_rect'] = pts
+        info['pts_features'] = pts_features
         if self.mode == 'TEST':
             return info
-
-        gt_boxes3d = objs_to_boxes3d(self.filtrate_objects(self.get_label(sample_id)))
         info['gt_boxes3d'] = gt_boxes3d
         if not cfg.RPN.FIXED:
             info['rpn_cls_label'], info['rpn_reg_label'] = \
-                self.generate_rpn_training_labels(ret_pts_rect, gt_boxes3d)
+                self.generate_rpn_training_labels(pts, gt_boxes3d)
         return info
 
     def collate_batch(self, batch):

@@ -66,6 +66,15 @@ class EPNet(nn.Module):
     the gradients reach f32 through the casts; building it also keeps bf16
     matmul reductions in f32 (``use_bf16_math``).
 
+    The train modes of ``tools/train.py`` (``apply_train_mode``): the
+    joint model (``rcnn_online``); the RPN alone (``rpn``: ``RCNN.ENABLED``
+    false, the forward returns the RPN's outputs, as
+    ``epnet_tpu/models/epnet.py:40-49``); the RCNN on a fixed RPN
+    (``rcnn``: ``RPN.FIXED``, the RPN in eval mode and under
+    ``torch.no_grad()``, its parameters left trainable so that AdamW still
+    decays them, as optax does on their zero gradients). Without the RPN
+    (``rcnn_offline``) it raises.
+
     In training mode (``.train()``) the forward samples RoIs against
     ``batch['gt_boxes3d']``, normalizes with batch statistics, applies
     dropout and records gradients; a TEST model runs only in eval mode
@@ -85,8 +94,10 @@ class EPNet(nn.Module):
         for what, on in unported.items():
             if on:
                 raise NotImplementedError(f'{what} is not ported yet (ROADMAP Queue 1)')
-        if not (cfg.RPN.ENABLED and cfg.RCNN.ENABLED):
-            raise NotImplementedError('the port runs the joint RPN + RCNN model')
+        if not cfg.RPN.ENABLED:
+            raise NotImplementedError('RPN.ENABLED false (the offline RCNN, train mode '
+                                      'rcnn_offline) is not ported yet (ROADMAP Queue 1, '
+                                      'item 14b)')
         device = default_device(device)
         use_f32_math()
         if cfg.MIXED_PRECISION:
@@ -95,9 +106,10 @@ class EPNet(nn.Module):
         self.mode = mode
         in_ch = 3 + int(cfg.RPN.USE_INTENSITY)
         self.rpn = RPN(cfg, in_ch, device=device)
-        rcnn_in = 3 + 1 + int(cfg.RCNN.USE_DEPTH) + self.rpn.backbone.out_features
-        self.rcnn = RCNNNet(cfg, rcnn_in, device=device)
-        self.proposal = ProposalLayer(cfg, mode)
+        if cfg.RCNN.ENABLED:
+            rcnn_in = 3 + 1 + int(cfg.RCNN.USE_DEPTH) + self.rpn.backbone.out_features
+            self.rcnn = RCNNNet(cfg, rcnn_in, device=device)
+            self.proposal = ProposalLayer(cfg, mode)
         init_parameters(self, generator)
 
     def train(self, mode: bool = True):
@@ -130,6 +142,8 @@ class EPNet(nn.Module):
             out = self.rpn(batch['pts_input'], image=batch.get('img'),
                            xy=batch.get('pts_origin_xy'), bn_momentum=bn_momentum,
                            generator=generator)
+        if not cfg.RCNN.ENABLED:
+            return out
         # the reference samples targets and pools under torch.no_grad()
         # (rcnn_net.py:130-135): the RCNN loss never reaches the RPN
         with torch.no_grad():

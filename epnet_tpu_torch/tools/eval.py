@@ -12,7 +12,7 @@ initialized from seed 0 and, with ``--ckpt``, restored from a checkpoint of
 the port's trainer. It runs on the CUDA device, and raises without one,
 unless ``--device`` names another.
 
-Not ported yet (ROADMAP Queue 1, item 14), each raising: ``--eval_mode
+Not ported yet (ROADMAP Queue 1, item 14b), each raising: ``--eval_mode
 rpn`` and ``rcnn_offline`` and ``--eval_all`` (the checkpoint-polling
 daemon, with its ``--ckpt_dir``). ``main(argv)`` runs in-process and
 returns the result dict.
@@ -21,13 +21,14 @@ returns the result dict.
 from __future__ import annotations
 
 import argparse
-import logging
 import os
 from typing import Dict, Optional, Sequence
 
 import torch
 
-NOT_PORTED = 'not ported yet (ROADMAP Queue 1, item 14)'
+from . import cli_logger
+
+NOT_PORTED = 'not ported yet (ROADMAP Queue 1, item 14b)'
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -48,16 +49,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help='torch device; default the CUDA device (raises without one)')
     p.add_argument('--set', dest='set_cfgs', default=None, nargs=argparse.REMAINDER)
     return p.parse_args(argv)
-
-
-def make_logger(log_file: str) -> logging.Logger:
-    logger = logging.getLogger('epnet_tpu_torch.eval')
-    logger.setLevel(logging.INFO)
-    fmt = logging.Formatter('%(asctime)s  %(levelname)5s  %(message)s')
-    for h in (logging.StreamHandler(), logging.FileHandler(log_file)):
-        h.setFormatter(fmt)
-        logger.addHandler(h)
-    return logger
 
 
 def eval_one(cfg, args, ckpt_path: Optional[str], device, logger) -> Dict:
@@ -104,14 +95,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
 
     out = args.output_dir or 'output/eval'
     os.makedirs(out, exist_ok=True)
-    logger = make_logger(os.path.join(out, 'eval.log'))
-    try:
+    with cli_logger('epnet_tpu_torch.eval', os.path.join(out, 'eval.log')) as logger:
         ret = eval_one(cfg, args, args.ckpt, device, logger)
         logger.info('done: %s', {k: v for k, v in ret.items() if not isinstance(v, str)})
-    finally:
-        for h in list(logger.handlers):
-            logger.removeHandler(h)
-            h.close()
     return ret
 
 

@@ -1,0 +1,225 @@
+"""Training CLI of the port.
+
+    python -m epnet_tpu_torch.tools.train --cfg_file cfgs/<recipe>.yaml \\
+        --data_root <root> [--train_mode rcnn_online|rpn|rcnn] [--ckpt <ckpt>]
+        [--rpn_ckpt <ckpt>] [--train_with_eval] [--device cpu] [--set KEY VALUE ...]
+
+Counterpart of ``tools/train.py`` (reference ``train_rcnn.py``: argparse
+:23-53, mode matrix :163-181, logger and config dump :187-206, trainer
+launch :251-276), laid out like the port's ``tools/eval.py``. It trains
+the recipe's ``EPNet`` from a KITTI tree: the ``KittiRCNNDataset`` in
+TRAIN mode through the shuffled ``train_loader``, the port's ``Trainer``
+with checkpoints ``<output_dir>/ckpt/checkpoint_epoch_<n>.pth``, the
+``train/*`` scalars in ``<output_dir>/tensorboard/scalars.jsonl``, the log
+``train.log`` with the config dump, and a source backup
+``source.tar.gz``. It runs on the CUDA device, and raises without one,
+unless ``--device`` names another.
+
+* ``--train_mode``: ``rcnn_online`` trains RPN and RCNN together; ``rpn``
+  the RPN alone; ``rcnn`` the RCNN on a fixed RPN, usually warm-started
+  from an ``rpn`` run's checkpoint by ``--rpn_ckpt`` (every tensor the
+  checkpoint shares with the model by name and shape).
+* ``--ckpt`` resumes from a checkpoint of the same mode: the model, the
+  optimizer and its step count, at the saved epoch + 1. The loader starts
+  again at its first pass, so the run draws pass 1's augmentation again,
+  as the JAX CLI does.
+* ``--train_with_eval`` runs the joint eval on ``TRAIN.VAL_SPLIT`` at each
+  checkpoint epoch into ``<output_dir>/eval_epoch_<n>``, with ``val/*``
+  scalars; it needs the RCNN, so not under ``--train_mode rpn``.
+
+Not ported yet, each raising ``NotImplementedError``: ``--train_mode
+rcnn_offline``, ``--gt_database`` and ``--rcnn_training_{roi,feature}_dir``
+(ROADMAP Queue 1, item 14b); ``--steps_per_call`` above 1 and
+``--n_devices`` above 1 (item 15). ``main(argv)`` runs in-process and
+returns the final ``TrainState``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import tarfile
+from typing import Optional, Sequence
+
+import torch
+
+from . import cli_logger
+
+NOT_PORTED_14B = 'not ported yet (ROADMAP Queue 1, item 14b)'
+NOT_PORTED_15 = 'not ported yet (ROADMAP Queue 1, item 15)'
+SOURCE_DIRS = ('epnet_tpu_torch', 'cfgs', 'tools')
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description='EPNet training (PyTorch port)')
+    p.add_argument('--cfg_file', type=str, default='cfgs/LI_Fusion_with_attention_use_ce_loss.yaml')
+    p.add_argument('--train_mode', type=str, default='rcnn_online',
+                   choices=['rpn', 'rcnn', 'rcnn_online', 'rcnn_offline'])
+    p.add_argument('--batch_size', type=int, default=4)
+    p.add_argument('--epochs', type=int, default=50)
+    p.add_argument('--workers', type=int, default=8)
+    p.add_argument('--ckpt_save_interval', type=int, default=5)
+    p.add_argument('--steps_per_call', type=int, default=1)
+    p.add_argument('--output_dir', type=str, default=None)
+    p.add_argument('--data_root', type=str, default='data')
+    p.add_argument('--ckpt', type=str, default=None, help='resume checkpoint')
+    p.add_argument('--rpn_ckpt', type=str, default=None,
+                   help='warm-start rpn weights (partial restore)')
+    p.add_argument('--gt_database', type=str, default=None)
+    p.add_argument('--rcnn_training_roi_dir', type=str, default=None)
+    p.add_argument('--rcnn_training_feature_dir', type=str, default=None)
+    p.add_argument('--train_with_eval', action='store_true')
+    p.add_argument('--n_devices', type=int, default=None)
+    p.add_argument('--max_gt', type=int, default=50)
+    p.add_argument('--seed', type=int, default=0,
+                   help='seeds the model init, the loader shuffle and the draws of training')
+    p.add_argument('--device', type=str, default=None,
+                   help='torch device; default the CUDA device (raises without one)')
+    p.add_argument('--set', dest='set_cfgs', default=None, nargs=argparse.REMAINDER)
+    return p.parse_args(argv)
+
+
+def apply_train_mode(cfg, mode: str):
+    """Mode -> RPN/RCNN enabled/fixed flags (train_rcnn.py:163-181)."""
+    if mode == 'rpn':
+        return cfg.merged({'RPN': {'ENABLED': True, 'FIXED': False}, 'RCNN': {'ENABLED': False}})
+    if mode == 'rcnn':
+        return cfg.merged({'RPN': {'ENABLED': True, 'FIXED': True}, 'RCNN': {'ENABLED': True}})
+    if mode == 'rcnn_online':
+        return cfg.merged({'RPN': {'ENABLED': True, 'FIXED': False}, 'RCNN': {'ENABLED': True}})
+    if mode == 'rcnn_offline':
+        return cfg.merged({'RPN': {'ENABLED': False}, 'RCNN': {'ENABLED': True}})
+    raise ValueError(mode)
+
+
+def refuse_unported(args: argparse.Namespace) -> None:
+    if args.train_mode == 'rcnn_offline':
+        raise NotImplementedError(f'--train_mode rcnn_offline: {NOT_PORTED_14B}')
+    for flag in ('gt_database', 'rcnn_training_roi_dir', 'rcnn_training_feature_dir'):
+        if getattr(args, flag) is not None:
+            raise NotImplementedError(f'--{flag}: {NOT_PORTED_14B}')
+    if args.steps_per_call != 1:
+        raise NotImplementedError(f'--steps_per_call {args.steps_per_call}: {NOT_PORTED_15}')
+    if args.n_devices not in (None, 1):
+        raise NotImplementedError(f'--n_devices {args.n_devices}: {NOT_PORTED_15}')
+    if args.train_with_eval and args.train_mode == 'rpn':
+        raise NotImplementedError(f'--train_with_eval under --train_mode rpn: the RPN eval '
+                                  f'(--eval_mode rpn) is {NOT_PORTED_14B}')
+
+
+def backup_source(out_dir: str) -> None:
+    """The port's sources, configs and tools as ``source.tar.gz``
+    (train_rcnn.py:200-206)."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    with tarfile.open(os.path.join(out_dir, 'source.tar.gz'), 'w:gz') as tar:
+        for sub in SOURCE_DIRS:
+            path = os.path.join(root, sub)
+            if os.path.isdir(path):
+                tar.add(path, arcname=sub,
+                        filter=lambda ti: None if '__pycache__' in ti.name else ti)
+
+
+def make_eval_fn(cfg, args, out_dir: str, device, logger, tb):
+    """The joint eval of ``--train_with_eval``: the validation loader and
+    ``eval_fn(state, loader, epoch)``. A TRAIN model keeps 512 proposals
+    and a TEST model 100, so the eval runs a TEST model, built once, into
+    which each call copies the train model's state."""
+    from ..data.kitti_rcnn_dataset import KittiRCNNDataset
+    from ..data.loader import eval_loader
+    from ..eval.detect import evaluate_joint
+    from ..models.epnet import EPNet
+
+    val_ds = KittiRCNNDataset(args.data_root, cfg, npoints=cfg.RPN.NUM_POINTS,
+                              split=cfg.TRAIN.VAL_SPLIT, classes=cfg.CLASSES, mode='EVAL',
+                              max_gt=args.max_gt, logger=logger)
+    test_model = EPNet(cfg, 'TEST', device=device).eval()
+
+    def eval_fn(state, loader, epoch):
+        test_model.load_state_dict(state.model.state_dict())
+        ret = evaluate_joint(cfg, test_model, val_ds, loader,
+                             os.path.join(out_dir, f'eval_epoch_{epoch}'), logger=logger,
+                             run_ap=True)
+        for k, v in ret.items():
+            if isinstance(v, (int, float)):
+                tb.scalar(f'val/{k}', v, epoch)
+        return ret
+
+    return eval_loader(val_ds, args.batch_size, args.workers), eval_fn
+
+
+def train(cfg, args: argparse.Namespace, out_dir: str, device, logger, tb):
+    """The dataset, the loader, the state (resumed or warm-started) and
+    the epochs. Returns the final ``TrainState``."""
+    from ..data.kitti_rcnn_dataset import KittiRCNNDataset
+    from ..data.loader import train_loader
+    from ..train.trainer import Trainer, create_train_state, load_checkpoint, restore_partial
+
+    dataset = KittiRCNNDataset(args.data_root, cfg, npoints=cfg.RPN.NUM_POINTS,
+                               split=cfg.TRAIN.SPLIT, classes=cfg.CLASSES, mode='TRAIN',
+                               max_gt=args.max_gt, seed=args.seed, logger=logger)
+    loader = train_loader(dataset, args.batch_size, args.workers, args.seed)
+    state = create_train_state(cfg, len(loader) * args.epochs, device=device,
+                               generator=torch.Generator(device=device).manual_seed(args.seed))
+    logger.info('model parameters: %.2fM', sum(p.numel() for p in state.model.parameters()) / 1e6)
+
+    start_epoch = 0
+    if args.ckpt:
+        # a checkpoint is written after its epoch: resume at the next one
+        state, saved_epoch = load_checkpoint(args.ckpt, state)
+        start_epoch = saved_epoch + 1
+        logger.info('resumed from %s: epoch %d done, continuing at %d', args.ckpt, saved_epoch,
+                    start_epoch)
+    elif args.rpn_ckpt:
+        state = restore_partial(args.rpn_ckpt, state)
+        logger.info('warm-started rpn weights from %s', args.rpn_ckpt)
+
+    trainer = Trainer(cfg, state, ckpt_dir=os.path.join(out_dir, 'ckpt'),
+                      ckpt_save_interval=args.ckpt_save_interval, logger=logger, tb_log=tb,
+                      seed=args.seed, device=device)
+    val_loader = eval_fn = None
+    if args.train_with_eval:
+        val_loader, eval_fn = make_eval_fn(cfg, args, out_dir, device, logger, tb)
+    try:
+        state = trainer.train(start_epoch, args.epochs, loader, eval_loader=val_loader,
+                              eval_fn=eval_fn)
+    finally:
+        loader.close()
+    logger.info('training finished')
+    return state
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    from ..config import load_config, save_config
+    from ..models.epnet import default_device
+    from ..utils.metrics import SummaryWriter
+
+    args = parse_args(argv)
+    refuse_unported(args)
+    if args.set_cfgs and len(args.set_cfgs) % 2:
+        raise SystemExit('--set takes KEY VALUE pairs')
+    overrides = list(zip(args.set_cfgs[0::2], args.set_cfgs[1::2])) if args.set_cfgs else []
+    if not os.path.isfile(args.cfg_file):
+        raise SystemExit(f'--cfg_file not found: {args.cfg_file}')
+    if not os.path.isdir(args.data_root):
+        raise SystemExit(f'--data_root not found: {args.data_root} (expected a KITTI '
+                         f'object tree: <root>/KITTI/object/training/...)')
+    device = default_device(args.device)
+    cfg = apply_train_mode(load_config(args.cfg_file, overrides), args.train_mode)
+
+    tag = os.path.splitext(os.path.basename(args.cfg_file))[0]
+    out_dir = args.output_dir or os.path.join('output', args.train_mode, tag)
+    os.makedirs(os.path.join(out_dir, 'ckpt'), exist_ok=True)
+    with cli_logger('epnet_tpu_torch.train', os.path.join(out_dir, 'train.log')) as logger:
+        logger.info('device: %s', device)
+        save_config(cfg, logger=logger)
+        backup_source(out_dir)
+        tb = SummaryWriter(os.path.join(out_dir, 'tensorboard'))
+        try:
+            state = train(cfg, args, out_dir, device, logger, tb)
+        finally:
+            tb.close()
+    return state
+
+
+if __name__ == '__main__':
+    main()

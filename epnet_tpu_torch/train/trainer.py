@@ -17,7 +17,7 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -116,20 +116,29 @@ def restore_partial(path: str, state: TrainState) -> TrainState:
 
 class Trainer:
     """Epoch loop with the per-epoch BN momentum, per-step schedules,
-    logging and checkpoints (Trainer, train_utils.py:112-236)."""
+    logging, scalars and checkpoints (Trainer, train_utils.py:112-236)."""
 
     def __init__(self, cfg: Config, state: TrainState, ckpt_dir: str = 'output/ckpt',
                  ckpt_save_interval: int = 5, logger: Optional[logging.Logger] = None,
-                 seed: int = 0, device=None):
+                 tb_log=None, seed: int = 0, device=None):
         self.cfg = cfg
         self.state = state
         self.ckpt_dir = ckpt_dir
         self.ckpt_save_interval = ckpt_save_interval
         self.logger = logger or logging.getLogger('epnet_tpu_torch')
+        self.tb = tb_log
         self.device = device if device is not None else next(state.model.parameters()).device
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
-    def train(self, start_epoch: int, n_epochs: int, loader: Iterable[Dict]) -> TrainState:
+    def train(self, start_epoch: int, n_epochs: int, loader: Iterable[Dict], eval_loader=None,
+              eval_fn: Optional[Callable] = None) -> TrainState:
+        """Epochs ``start_epoch`` to ``n_epochs - 1``. Every tenth step
+        writes the step's ``joint_loss`` entries as ``train/<key>`` scalars
+        to ``tb_log``, at the optimizer's step count (JAX counts the
+        trainer's own steps, from 0 again on a resume; the port's count
+        goes on, as the reference's ``accumulated_iter`` does). A
+        checkpoint goes out every ``ckpt_save_interval`` epochs and after
+        the last one, and then ``eval_fn(state, eval_loader, epoch)`` runs."""
         tb = None
         for epoch in range(start_epoch, n_epochs):
             bnm = bn_momentum_at(self.cfg, epoch)
@@ -138,6 +147,10 @@ class Trainer:
             for batch in loader:
                 tb = train_step(self.state, device_batch(batch, self.device), bnm, self.generator)
                 n_it += 1
+                if self.tb is not None and self.state.step % 10 == 0:
+                    for k, v in tb.items():
+                        if k != 'grad_norm':  # the port's own entry, not a loss term
+                            self.tb.scalar(f'train/{k}', float(v), self.state.step)
             dt = time.time() - t0
             loss = float(tb['loss']) if (n_it and tb is not None) else float('nan')
             self.logger.info('epoch %d: %d it in %.1fs (%.2f it/s), loss %.4f, bnm %.4f',
@@ -145,4 +158,6 @@ class Trainer:
             if epoch % self.ckpt_save_interval == 0 or epoch == n_epochs - 1:
                 path = save_checkpoint(self.ckpt_dir, self.state, epoch)
                 self.logger.info('saved checkpoint %s', path)
+                if eval_fn is not None and eval_loader is not None:
+                    eval_fn(self.state, eval_loader, epoch)
         return self.state

@@ -1,9 +1,9 @@
 """Host-side (numpy) box geometry for the port's labelled test scenes.
 
 The port's own copy of the functions of ``epnet_tpu/data/box_np.py`` that
-the data pipeline, ``eval/kitti_common.py`` and ``utils/testing.py`` need
-(reference ``lib/utils/kitti_utils.py``); ``tests/test_torch_config.py``
-holds them equal to the JAX package's.
+the data pipeline and its augmentation, ``eval/kitti_common.py`` and
+``utils/testing.py`` need (reference ``lib/utils/kitti_utils.py``);
+``tests/test_torch_config.py`` holds them equal to the JAX package's.
 Boxes are ``(7,) = [x, y, z, h, w, l, ry]`` in the rect-camera frame, with
 ``y`` at the bottom face.
 """
@@ -11,6 +11,16 @@ Boxes are ``(7,) = [x, y, z, h, w, l, ry]`` in the rect-camera frame, with
 from __future__ import annotations
 
 import numpy as np
+
+
+def rotate_pc_along_y(pc: np.ndarray, angle: float) -> np.ndarray:
+    """In the camera frame, rotate x/z by ``angle`` (kitti_utils.py:32-42);
+    the copy keeps ``pc``'s dtype."""
+    c, s = np.cos(angle), np.sin(angle)
+    out = pc.copy()
+    out[..., 0] = c * pc[..., 0] - s * pc[..., 2]
+    out[..., 2] = s * pc[..., 0] + c * pc[..., 2]
+    return out
 
 
 def boxes3d_to_corners3d(boxes3d: np.ndarray) -> np.ndarray:

@@ -98,6 +98,9 @@ def test_box_functions_equal(seed):
     assert 0 < sum(tbox.points_in_box3d(pts, b).sum() for b in boxes) < len(pts)
     got, want = tbox.boxes3d_to_corners3d(boxes), jbox.boxes3d_to_corners3d(boxes)
     assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    for angle in (0.3, -1.2):
+        got, want = tbox.rotate_pc_along_y(boxes, angle), jbox.rotate_pc_along_y(boxes, angle)
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
 
 
 def test_tiny_config_equal():

@@ -5,7 +5,8 @@
   pixels identical.
 * ``utils/testing.make_fake_kitti``: the same ``.bin`` and ``.txt`` bytes
   and the same image pixels as the JAX package's.
-* ``KittiRCNNDataset`` items in EVAL and TEST mode, and the batches of
+* ``KittiRCNNDataset`` items in EVAL and TEST mode (TRAIN mode has
+  ``test_torch_train_data.py``), and the batches of
   ``data/loader.eval_loader`` (a partial last batch, 0 and 2 workers),
   array for array equal to the JAX dataset's under the JAX loader's
   per-sample reseed.
@@ -212,8 +213,9 @@ def test_loader_batches_equal_jax(trees, workers):
 
 
 def test_unported_paths_raise(trees):
-    cfg = tiny_config()
-    with pytest.raises(NotImplementedError, match='TRAIN'):
-        TDataset(trees['torch'], cfg, npoints=256, split='val', mode='TRAIN')
-    with pytest.raises(NotImplementedError, match='LiDAR-only'):
-        TDataset(trees['torch'], tiny_config(li_fusion=False), npoints=256, split='val')
+    """TRAIN mode is ported (tests/test_torch_train_data.py); the LiDAR-only
+    sample and the offline RCNN samples still raise, in every mode."""
+    for cfg in (tiny_config(li_fusion=False), tiny_config(RPN={'ENABLED': False})):
+        for mode in ('TRAIN', 'EVAL', 'TEST'):
+            with pytest.raises(NotImplementedError, match='LiDAR-only.*item 14b'):
+                TDataset(trees['torch'], cfg, npoints=256, split='val', mode=mode)
