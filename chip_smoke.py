@@ -181,11 +181,27 @@ first use), then:
    bf16), ``train/*`` and ``val/*`` scalars, checkpoint epochs 0-2, the
    resume at the saved epoch + 1 and step count, and the fixed RPN moved
    by AdamW's decay alone; prints steps/s, each pass's time to its first
-   batch and the wall times.
+   batch and the wall times;
+25. runs the LiDAR-only two-phase flow (``cfgs/default.yaml``, f32, batch
+   4, 2 loader workers in training) on a tree of 20 training and 4 val
+   scenes like phase 24's: the host library (``csrc/host_ops.cpp``) built
+   and loaded; the gt database and one pass of aug scenes; ``rpn
+   --gt_database`` for 100 steps (the items carry pasted boxes); the RPN
+   eval with ``--save_rpn_feature`` on both splits (recall, seg IoU);
+   ``rcnn_offline`` for 2 epochs on the train dumps (every step labelled
+   RoIs, half or more foreground); the offline eval on the val dumps (a
+   txt for every frame, AP); ``--eval_all`` over the offline checkpoints
+   (each once); a ``rcnn_online`` epoch with the paste; a tiny offline step
+   and eval frame, card vs CPU. Each step's, batch's and frame's launches
+   (4 FPS an RPN step or eval batch; 2 FPS, 2 fused-SA forward, 2 backward
+   an offline step; 6, 2, 2 a joint step; 2 FPS, 2 fused-SA an offline
+   eval frame; no D, E or F); prints steps/s, each pass's time to its first
+   batch, the host time of an item with and without the paste and of an
+   offline sample, and every stage's wall time.
 
 Launch counts are read around each main-path phase (3, 6, 9, 11, 14, 15,
-18, 20, 22 and 24) with the counters set to 0 just before it; the kernels
-line sums them. The script leaves TF32 as PyTorch sets it and checks that building
+18, 20, 22, 24 and 25) with the counters set to 0 just before it; the
+kernels line sums them. The script leaves TF32 as PyTorch sets it and checks that building
 the model turns it off, as the f32 recipe needs.
 
 Every kernel's ``bound_ms`` is the least time the card could take for its
@@ -222,6 +238,8 @@ and exits non-zero; without a CUDA device it exits non-zero at once.
 import collections
 import concurrent.futures
 import contextlib
+import inspect
+import io
 import itertools
 import json
 import math
@@ -2856,6 +2874,78 @@ def _train_cli_counters():
             conv2d.conv3x3_s2_fwd_bf16_kernel)
 
 
+def _train_run(name, argv, counters, want, check_rois=True):
+    """One in-process run of the train CLI with ``argv``, each step timed
+    with its launches (of ``counters``, each step's against ``want``), its
+    loss, its RCNN RoI counts (with ``check_rois``: every step labelled,
+    foreground in at least half) and its frames' gt boxes; prints steps/s,
+    each pass's time to its first batch and the run's wall time. Returns
+    the record: ``steps`` (start, end, loss, launches, RoI counts, gt boxes
+    a frame, sample ids), ``starts``, ``start``, ``state``, ``wall``."""
+    from unittest import mock
+
+    from epnet_tpu_torch.tools import train as cli
+    from epnet_tpu_torch.train import trainer as trainer_mod
+
+    real_step, real_train = trainer_mod.train_step, trainer_mod.Trainer.train
+    rec = {'steps': [], 'starts': []}
+
+    def step(state, batch, bnm, gen):
+        before = [c.launches for c in counters]
+        t_start = time.perf_counter()
+        tb = real_step(state, batch, bnm, gen)
+        loss = float(tb['loss'])  # waits for the step
+        gt = batch.get('gt_boxes3d')
+        rec['steps'].append((t_start, time.perf_counter(), loss,
+                             [c.launches - b for c, b in zip(counters, before)],
+                             [int(tb[k]) for k in RCNN_ROI_COUNTS if k in tb],
+                             [] if gt is None else (gt.abs().sum(-1) > 0).sum(-1).tolist(),
+                             batch['sample_id'].tolist()))
+        return tb
+
+    def train(self, start_epoch, n_epochs, loader, **kwargs):
+        rec['start'] = (start_epoch, self.state.step)
+        return real_train(self, start_epoch, n_epochs, _TimedPasses(loader, rec['starts']),
+                          **kwargs)
+
+    t_run = time.perf_counter()
+    with mock.patch.object(trainer_mod, 'train_step', step), \
+            mock.patch.object(trainer_mod.Trainer, 'train', train):
+        rec['state'] = cli.main(argv)
+    rec['wall'] = time.perf_counter() - t_run
+    steps = rec['steps']
+    losses = [s[2] for s in steps]
+    bad = [i for i, s in enumerate(steps) if s[3] != want]
+    if not steps or not all(math.isfinite(v) for v in losses) or bad:
+        raise AssertionError(f'train CLI {name}: losses {losses}, launches '
+                             f'{[s[3] for s in steps]}, expected {want}')
+    rois = [s[4] for s in steps]  # (cls fg, cls bg, reg fg) a step
+    if check_rois and (not all(r[0] + r[1] > 0 for r in rois)
+                       or 2 * sum(r[0] > 0 and r[2] > 0 for r in rois) < len(rois)):
+        raise AssertionError(f'train CLI {name}: the RCNN was sampled (fg, bg, reg fg) '
+                             f'RoIs {rois}: unlabelled, or foreground in under half the '
+                             f'steps')
+    # a pass's first batch waits for its workers to start and draw it
+    firsts = [min(s[0] for s in steps if s[0] >= p) - p for p in rec['starts']]
+    busy = sum(s[1] - s[0] for s in steps)
+    loop = steps[-1][1] - rec['starts'][0]
+    # the wait for each later batch of a pass: the loader's lag behind the steps
+    gaps = [b[0] - a[1] for a, b in zip(steps, steps[1:])
+            if not any(a[1] <= p <= b[0] for p in rec['starts'])]
+    print(f'train CLI {name}: {len(steps)} steps, {len(steps) / busy:.3f} steps/s in the '
+          f'steps, {len(steps) / loop:.3f} steps/s over the loop (loader and checkpoints '
+          f'included); first batch of each pass after '
+          + ', '.join(f'{f:.2f}' for f in firsts) + ' s; a later batch waited '
+          + (f'{statistics.median(gaps) * 1e3:.1f} ms (median), {max(gaps) * 1e3:.1f} ms (max)'
+             if gaps else '-') + '; step ms '
+          + ', '.join(f'{(s[1] - s[0]) * 1e3:.1f}' for s in steps)
+          + f'; losses {", ".join(f"{v:.4f}" for v in losses)}'
+          + ('' if not check_rois else '; RCNN RoIs (fg, bg, reg fg) '
+             + ' '.join(f'({a},{b},{c})' for a, b, c in rois))
+          + f'; main() {rec["wall"]:.2f} s', flush=True)
+    return rec
+
+
 def phase_train_cli(dev):
     """The train CLI (``epnet_tpu_torch.tools.train.main``) on the card at
     the recipe's full width (f32; 16384 points, batch 4, 2 loader workers)
@@ -2873,11 +2963,8 @@ def phase_train_cli(dev):
     the time to each pass's first batch and each run's and the phase's
     wall time."""
     import shutil
-    from unittest import mock
 
     import torch
-    from epnet_tpu_torch.tools import train as cli
-    from epnet_tpu_torch.train import trainer as trainer_mod
     from epnet_tpu_torch.train.schedules import one_cycle_lr
     from epnet_tpu_torch.utils.testing import make_fake_kitti
 
@@ -2893,59 +2980,12 @@ def phase_train_cli(dev):
     counters = _train_cli_counters()
     for c in counters:
         c.launches = 0
-    real_step, real_train = trainer_mod.train_step, trainer_mod.Trainer.train
     base = ['--cfg_file', RECIPE, '--data_root', root, '--batch_size', str(TRAIN_BATCH),
             '--workers', '2', '--device', str(dev)]
 
     def run(name, out, extra):
-        rec = {'steps': [], 'starts': []}
-
-        def step(state, batch, bnm, gen):
-            before = [c.launches for c in counters]
-            t_start = time.perf_counter()
-            tb = real_step(state, batch, bnm, gen)
-            loss = float(tb['loss'])  # waits for the step
-            rec['steps'].append((t_start, time.perf_counter(), loss,
-                                 [c.launches - b for c, b in zip(counters, before)],
-                                 [int(tb[k]) for k in RCNN_ROI_COUNTS if k in tb]))
-            return tb
-
-        def train(self, start_epoch, n_epochs, loader, **kwargs):
-            rec['start'] = (start_epoch, self.state.step)
-            return real_train(self, start_epoch, n_epochs, _TimedPasses(loader, rec['starts']),
-                              **kwargs)
-
-        t_run = time.perf_counter()
-        with mock.patch.object(trainer_mod, 'train_step', step), \
-                mock.patch.object(trainer_mod.Trainer, 'train', train):
-            rec['state'] = cli.main(base + ['--output_dir', out] + extra)
-        rec['wall'] = time.perf_counter() - t_run
-        steps = rec['steps']
-        losses = [s[2] for s in steps]
-        bad = [i for i, s in enumerate(steps) if s[3] != TRAIN_CLI_WANT[name]]
-        if not steps or not all(math.isfinite(v) for v in losses) or bad:
-            raise AssertionError(f'train CLI {name}: losses {losses}, launches '
-                                 f'{[s[3] for s in steps]}, expected {TRAIN_CLI_WANT[name]}')
-        rois = [s[4] for s in steps]  # (cls fg, cls bg, reg fg) a step
-        if name != 'rpn' and (not all(r[0] + r[1] > 0 for r in rois)
-                              or 2 * sum(r[0] > 0 and r[2] > 0 for r in rois) < len(rois)):
-            raise AssertionError(f'train CLI {name}: the RCNN was sampled (fg, bg, reg fg) '
-                                 f'RoIs {rois}: unlabelled, or foreground in under half the '
-                                 f'steps')
-        # a pass's first batch waits for its workers to start and draw it
-        firsts = [min(s[0] for s in steps if s[0] >= p) - p for p in rec['starts']]
-        busy = sum(s[1] - s[0] for s in steps)
-        loop = steps[-1][1] - rec['starts'][0]
-        print(f'train CLI {name}: {len(steps)} steps, {len(steps) / busy:.3f} steps/s in the '
-              f'steps, {len(steps) / loop:.3f} steps/s over the loop (loader and checkpoints '
-              f'included); first batch of each pass after '
-              + ', '.join(f'{f:.2f}' for f in firsts) + ' s; step ms '
-              + ', '.join(f'{(s[1] - s[0]) * 1e3:.1f}' for s in steps)
-              + f'; losses {", ".join(f"{v:.4f}" for v in losses)}'
-              + ('' if name == 'rpn' else '; RCNN RoIs (fg, bg, reg fg) '
-                 + ' '.join(f'({a},{b},{c})' for a, b, c in rois))
-              + f'; main() {rec["wall"]:.2f} s', flush=True)
-        return rec
+        return _train_run(name, base + ['--output_dir', out] + extra, counters,
+                          TRAIN_CLI_WANT[name], check_rois=name != 'rpn')
 
     rpn_out = os.path.join(work, 'rpn')
     run('rpn', rpn_out, ['--epochs', str(TRAIN_CLI_RPN_EPOCHS), '--train_mode', 'rpn'])
@@ -3019,6 +3059,347 @@ def phase_train_cli(dev):
     return dict(zip(TRAIN_CLI_KERNELS, snaps))
 
 
+# the LiDAR-only two-phase flow (phase 25): cfgs/default.yaml on a tree like
+# phase 24's, the RPN trained 100 steps with the gt paste so that its
+# proposals overlap cars (the offline RCNN is sampled foreground RoIs from
+# them); the evals read the tree in the main process (--workers 0: a pass of
+# at most 5 batches would wait ~7 s for spawned workers)
+LIDAR_RECIPE = 'cfgs/default.yaml'
+FLOW_RPN_EPOCHS = 20
+FLOW_OFFLINE_EPOCHS = 2
+NO_IMAGE = [0] * 8  # D, E, F and the bf16 instances: LiDAR only, f32
+FLOW_WANT = {'rpn': [4, 0, 0] + NO_IMAGE, 'rcnn_online': [6, 2, 2] + NO_IMAGE,
+             'rcnn_offline': [2, 2, 2] + NO_IMAGE, 'rpn_eval': [4, 0, 0] + NO_IMAGE,
+             'offline_eval': [2, 2, 0] + NO_IMAGE}
+OFFLINE_TINY = {'RPN': {'ENABLED': False},
+                'RCNN': {'ENABLED': True, 'ROI_SAMPLE_JIT': False, 'SCORE_THRESH': 1e-7}}
+
+
+def _eval_run(name, argv, counters, step_module, step_name):
+    """One in-process run of the eval CLI, each call of ``step_module``'s
+    ``step_name`` (a batch or a frame) checked for ``FLOW_WANT[name]``'s
+    launches. Returns (result, calls, wall seconds)."""
+    from unittest import mock
+
+    from epnet_tpu_torch.tools import eval as eval_cli
+
+    real, calls = getattr(step_module, step_name), []
+
+    def step(*args):
+        before = [c.launches for c in counters]
+        out = real(*args)
+        calls.append([c.launches - b for c, b in zip(counters, before)])
+        return out
+
+    t0 = time.perf_counter()
+    with mock.patch.object(step_module, step_name, step):
+        ret = eval_cli.main(argv)
+    wall = time.perf_counter() - t0
+    bad = [c for c in calls if c != FLOW_WANT[name]]
+    if not calls or bad:
+        raise AssertionError(f'{name}: launches {calls}, expected {FLOW_WANT[name]} each')
+    return ret, calls, wall
+
+
+def _own_cars(root, sid):
+    """The Car and Van lines of a frame's label file."""
+    with open(os.path.join(root, 'KITTI', 'object', 'training', 'label_2',
+                           '%06d.txt' % sid)) as f:
+        return sum(1 for line in f if line.startswith(('Car ', 'Van ')))
+
+
+def _host_item_ms(dataset, n, parts=()):
+    """Median host ms of ``dataset[i]`` over its first ``n`` items, and the
+    mean ms an item of each of ``parts``, (module, function name) pairs
+    timed inside it."""
+    from unittest import mock
+
+    spent = collections.Counter()
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        return run
+
+    times = []
+    with contextlib.ExitStack() as stack:
+        for mod, fn in parts:
+            wrapped = timed(fn, getattr(mod, fn))
+            if isinstance(inspect.getattr_static(mod, fn), staticmethod):
+                wrapped = staticmethod(wrapped)
+            stack.enter_context(mock.patch.object(mod, fn, wrapped))
+        for i in range(n):
+            t0 = time.perf_counter()
+            dataset[i]
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), {k: v * 1e3 / n for k, v in spent.items()}
+
+
+def phase_lidar_flow(dev):
+    """The LiDAR-only two-phase flow on the card (``cfgs/default.yaml``,
+    f32; 16384 points, batch 4, 2 loader workers in training) on a synthetic
+    tree of 20 training and 4 val scenes: the host library built and loaded;
+    ``tools/generate_gt_database.py`` and ``tools/generate_aug_scene.py
+    --aug_times 1``; ``rpn --gt_database`` for 20 epochs (100 steps; the
+    items carry pasted boxes); ``eval --eval_mode rpn --save_rpn_feature``
+    on the train and val splits (recall and seg IoU printed);
+    ``rcnn_offline --set RCNN.ROI_SAMPLE_JIT False`` for 2 epochs from the
+    train dumps (every step labelled RoIs, at least half foreground);
+    ``eval --eval_mode rcnn_offline`` on the val dumps (a txt for every val
+    frame, AP printed); ``eval --eval_all`` over the offline run's
+    checkpoints with a short wait (each once); ``rcnn_online --gt_database``
+    for 1 epoch from the RPN; then a tiny ``rcnn_offline`` step and a tiny
+    offline-eval frame, card against CPU. Checks finite losses and each
+    step's, batch's or frame's launches (``FLOW_WANT``: no D, E or F);
+    prints steps/s, each pass's time to its first batch, the host ms of an
+    item with and without the paste and of an offline sample, and every
+    stage's wall time."""
+    import shutil
+
+    from epnet_tpu_torch.config import load_config
+    from epnet_tpu_torch.data import native, rcnn_offline
+    from epnet_tpu_torch.data.kitti_rcnn_dataset import KittiRCNNDataset
+    from epnet_tpu_torch.eval import rcnn_offline_eval, rpn_eval
+    from epnet_tpu_torch.tools import generate_aug_scene, generate_gt_database
+    from epnet_tpu_torch.tools.train import apply_train_mode
+    from epnet_tpu_torch.utils.testing import make_fake_kitti
+
+    t_phase = time.perf_counter()
+    stages = {}
+    t0 = time.perf_counter()
+    so = native.library_path()
+    built = not so.exists()
+    native.load()
+    if not so.exists():
+        raise AssertionError(f'the host library {so} did not build')
+    stages['host library'] = time.perf_counter() - t0
+    print(f'LiDAR flow: host library {so.name} {"built and " if built else ""}loaded in '
+          f'{stages["host library"]:.2f} s', flush=True)
+
+    work = os.path.join(OUT, 'lidar_flow')
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, 'kitti')
+    t0 = time.perf_counter()
+    make_fake_kitti(root, n_samples=TRAIN_CLI_SCENES, n_val=TRAIN_CLI_VAL,
+                    n_points=TRAIN_CLI_POINTS, seed=13, max_cars=4)
+    stages['tree'] = time.perf_counter() - t0
+    db = os.path.join(work, 'db', 'train_gt_database.pkl')
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        entries = generate_gt_database.main(['--data_root', root, '--save_dir',
+                                             os.path.dirname(db)])
+        aug_ids = generate_aug_scene.main(['--data_root', root, '--gt_database', db,
+                                           '--aug_times', '1'])
+    stages['tools'] = time.perf_counter() - t0
+    hard = sum(len(e['points']) <= 100 for e in entries)
+    if not entries or not aug_ids or min(aug_ids) < 10000:
+        raise AssertionError(f'LiDAR flow tools: {len(entries)} entries, aug ids {aug_ids}')
+    print(f'LiDAR flow: gt database of {len(entries)} objects ({hard} hard) and '
+          f'{len(aug_ids)} aug scenes in {stages["tools"]:.2f} s', flush=True)
+
+    # the loader's host work, one item at a time in this process
+    cfg = apply_train_mode(load_config(LIDAR_RECIPE), 'rpn')
+    kw = dict(npoints=cfg.RPN.NUM_POINTS, split='train', mode='TRAIN')
+    paste_ms, paste_parts = _host_item_ms(
+        KittiRCNNDataset(root, cfg, gt_database_dir=db, **kw), 8,
+        [(KittiRCNNDataset, 'apply_gt_aug_to_one_scene'), (native, 'points_in_boxes3d')])
+    plain_ms, _ = _host_item_ms(KittiRCNNDataset(root, cfg, **kw), 8)
+
+    counters = _train_cli_counters()
+    for c in counters:
+        c.launches = 0
+    base = ['--cfg_file', LIDAR_RECIPE, '--data_root', root, '--batch_size', str(TRAIN_BATCH),
+            '--device', str(dev)]
+    train = base + ['--workers', '2']
+    evals = base + ['--workers', '0']
+
+    rpn = _train_run('rpn', train + ['--output_dir', os.path.join(work, 'rpn'), '--train_mode',
+                                     'rpn', '--epochs', str(FLOW_RPN_EPOCHS),
+                                     '--gt_database', db],
+                     counters, FLOW_WANT['rpn'], check_rois=False)
+    stages['rpn train'] = rpn['wall']
+    frames = [(n, sid) for s in rpn['steps'] for n, sid in zip(s[5], s[6])]
+    pasted = sum(n > _own_cars(root, sid) for n, sid in frames)
+    if 2 * pasted < len(frames):
+        raise AssertionError(f'LiDAR flow rpn: {pasted} of {len(frames)} frames carried '
+                             f'pasted boxes')
+    print(f'LiDAR flow rpn: {pasted} of {len(frames)} training frames carried pasted boxes '
+          f'(gt boxes a frame {min(n for n, _ in frames)}-{max(n for n, _ in frames)})',
+          flush=True)
+
+    rpn_ckpt = os.path.join(work, 'rpn', 'ckpt', f'checkpoint_epoch_{FLOW_RPN_EPOCHS - 1}.pth')
+    dumps = {}
+    for split in ('train', 'val'):
+        out = os.path.join(work, f'rpn_eval_{split}')
+        ret, calls, wall = _eval_run('rpn_eval', evals + [
+            '--eval_mode', 'rpn', '--ckpt', rpn_ckpt, '--save_rpn_feature', '--output_dir',
+            out, '--set', 'TEST.SPLIT', split], counters, rpn_eval, 'rpn_eval_step')
+        stages[f'rpn eval {split}'] = wall
+        dumps[split] = os.path.join(out, f'epoch_{FLOW_RPN_EPOCHS - 1}')
+        if not all(math.isfinite(v) for v in ret.values()):
+            raise AssertionError(f'LiDAR flow rpn eval {split}: {ret}')
+        print(f'LiDAR flow rpn eval ({split}, {len(calls)} batches, {wall:.2f} s): seg IoU '
+              f'{ret["seg_iou"]:.4f}, recall '
+              + ', '.join(f'{t} {ret[f"rpn_recall(thresh={t})"]:.4f}'
+                          for t in ('0.10', '0.30', '0.50', '0.70', '0.90')), flush=True)
+
+    feats = os.path.join(dumps['train'], 'features')
+    rois = os.path.join(dumps['train'], 'roi_result', 'data')
+    ocfg = apply_train_mode(load_config(LIDAR_RECIPE, [('RCNN.ROI_SAMPLE_JIT', 'False')]),
+                            'rcnn_offline')
+    sample_ms, sample_parts = _host_item_ms(
+        KittiRCNNDataset(root, ocfg, split='train', mode='TRAIN', rcnn_training_roi_dir=rois,
+                         rcnn_training_feature_dir=feats), 8,
+        [(rcnn_offline, 'sample_rois_for_rcnn_offline'), (native, 'roipool3d_cpu'),
+         (KittiRCNNDataset, '_load_rpn_features')])
+    print(f'LiDAR flow host ms an item (median of 8, one process): LiDAR-only TRAIN item '
+          f'{plain_ms:.1f}, with the gt paste {paste_ms:.1f} (the paste '
+          f'{paste_parts["apply_gt_aug_to_one_scene"]:.1f}, its point-in-box masks '
+          f'{paste_parts["points_in_boxes3d"]:.1f}, a mean); offline RCNN sample {sample_ms:.1f} '
+          f'(RoI sampling and noise {sample_parts["sample_rois_for_rcnn_offline"]:.1f}, '
+          f'roipool3d_cpu {sample_parts["roipool3d_cpu"]:.1f}, the dumps\' load '
+          f'{sample_parts["_load_rpn_features"]:.1f}, means)', flush=True)
+    offline_dir = os.path.join(work, 'rcnn_offline')
+    offline = _train_run('rcnn_offline', train + [
+        '--output_dir', offline_dir, '--train_mode', 'rcnn_offline', '--epochs',
+        str(FLOW_OFFLINE_EPOCHS), '--rcnn_training_roi_dir', rois,
+        '--rcnn_training_feature_dir', feats, '--set', 'RCNN.ROI_SAMPLE_JIT', 'False'],
+        counters, FLOW_WANT['rcnn_offline'])
+    stages['rcnn_offline train'] = offline['wall']
+
+    val = ['--eval_mode', 'rcnn_offline', '--rcnn_eval_roi_dir',
+           os.path.join(dumps['val'], 'roi_result', 'data'), '--rcnn_eval_feature_dir',
+           os.path.join(dumps['val'], 'features')]
+    ckpt_dir = os.path.join(offline_dir, 'ckpt')
+    last = f'checkpoint_epoch_{FLOW_OFFLINE_EPOCHS - 1}.pth'
+    ret, calls, wall = _eval_run('offline_eval', evals + val + [
+        '--ckpt', os.path.join(ckpt_dir, last), '--output_dir',
+        os.path.join(work, 'offline_eval')], counters, rcnn_offline_eval,
+        'rcnn_offline_eval_step')
+    stages['rcnn_offline eval'] = wall
+    txts = sorted(os.listdir(os.path.join(work, 'offline_eval', f'epoch_{FLOW_OFFLINE_EPOCHS - 1}',
+                                          'final_result', 'data')))
+    want_txts = ['%06d.txt' % i for i in range(TRAIN_CLI_SCENES, TRAIN_CLI_SCENES + TRAIN_CLI_VAL)]
+    ap = ret['ap']['Car']['3d']
+    if txts != want_txts or len(calls) != TRAIN_CLI_VAL or not all(map(math.isfinite, ap)):
+        raise AssertionError(f'LiDAR flow offline eval: files {txts}, {len(calls)} frames, '
+                             f'3d AP {ap}')
+    print(f'LiDAR flow offline eval ({len(calls)} frames, {wall:.2f} s): {ret["rcnn_avg_num"]:.2f} '
+          f'boxes a frame; Car 3d AP {ap}, bev AP {ret["ap"]["Car"]["bev"]}', flush=True)
+
+    ckpts = sorted(os.path.join(ckpt_dir, c) for c in os.listdir(ckpt_dir))
+    evaluated, calls, wall = _eval_run('offline_eval', evals + val + [
+        '--eval_all', '--ckpt_dir', ckpt_dir, '--max_waiting_mins', '0.02', '--output_dir',
+        os.path.join(work, 'eval_all')],
+        counters, rcnn_offline_eval, 'rcnn_offline_eval_step')
+    stages['eval_all'] = wall
+    if evaluated != ckpts or len(ckpts) != 2 or len(calls) != 2 * TRAIN_CLI_VAL:
+        raise AssertionError(f'LiDAR flow --eval_all: evaluated {evaluated} of {ckpts}, '
+                             f'{len(calls)} frames')
+    print(f'LiDAR flow --eval_all: {len(evaluated)} checkpoints, each once, in {wall:.2f} s',
+          flush=True)
+
+    joint = _train_run('rcnn_online', train + [
+        '--output_dir', os.path.join(work, 'rcnn_online'), '--epochs', '1', '--gt_database', db,
+        '--rpn_ckpt', rpn_ckpt], counters, FLOW_WANT['rcnn_online'])
+    stages['rcnn_online train'] = joint['wall']
+    snaps = [c.launches for c in counters]
+
+    t0 = time.perf_counter()
+    _small_offline_reference(dev)
+    stages['tiny card vs CPU'] = time.perf_counter() - t0
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                          capture_output=True, text=True, check=True, timeout=60).stdout
+    print(f'LiDAR flow phase on {card.strip().splitlines()[0]}: '
+          f'{time.perf_counter() - t_phase:.1f} s wall; stages '
+          + ', '.join(f'{k} {v:.2f} s' for k, v in stages.items()) + '; launches '
+          + ' '.join(f'{n} +{d}' for n, d in zip(TRAIN_CLI_KERNELS, snaps) if d), flush=True)
+    return dict(zip(TRAIN_CLI_KERNELS, snaps))
+
+
+def _offline_tiny_batch(cfg, rng, frames=2):
+    """An offline RCNN batch at tiny widths: each RoI's points uniform in a
+    car-sized box of its canonical frame, seg mask, depth and random
+    features, labels in {-1, 0, 1} and targets near the mean size."""
+    import numpy as np
+    from epnet_tpu_torch.models.epnet import offline_rcnn_channels
+
+    R, S = cfg.RCNN.ROI_PER_IMAGE, cfg.RCNN.NUM_POINTS
+    C = offline_rcnn_channels(cfg)
+    xyz = rng.uniform(-1, 1, (frames, R, S, 3)) * np.array([1.9, 0.8, 0.8]) \
+        + np.array([0.0, -0.75, 0.0])
+    seg = (rng.rand(frames, R, S, 1) < 0.6).astype(np.float64)
+    depth = rng.uniform(-0.4, 0.3, (frames, R, S, 1))
+    pts = np.concatenate([xyz, seg, depth, rng.randn(frames, R, S, C - 5)], -1)
+    cls = rng.randint(-1, 2, (frames, R)).astype(np.int32)
+    gt = np.concatenate([rng.uniform(-0.3, 0.3, (frames, R, 3)),
+                         np.array(cfg.CLS_MEAN_SIZE[0]) * rng.uniform(0.9, 1.1, (frames, R, 3)),
+                         rng.uniform(-0.5, 0.5, (frames, R, 1))], -1)
+    return {'pts_input': pts.astype(np.float32), 'cls_label': cls,
+            'reg_valid_mask': (cls == 1).astype(np.int32),
+            'gt_boxes3d_ct': gt.astype(np.float32),
+            'roi_boxes3d': rng.uniform(-5, 5, (frames, R, 7)).astype(np.float32),
+            'mask_score': seg[..., 0].mean(-1).astype(np.float32)}
+
+
+def _small_offline_reference(dev):
+    """A tiny ``rcnn_offline`` step and a tiny offline-eval frame, card
+    (kernels B, C and A) vs CPU (plain versions), identical weights and
+    batch: the loss and every gradient within 1e-3 * (1 + max|x|), then the
+    frame's kept boxes and scores within the same bound and the same count."""
+    import numpy as np
+    import torch
+    from epnet_tpu_torch.eval.rcnn_offline_eval import MAX_ROIS, rcnn_offline_eval_step
+    from epnet_tpu_torch.models.epnet import EPNet
+    from epnet_tpu_torch.train.loss import joint_loss
+    from epnet_tpu_torch.utils.testing import tiny_config
+
+    cfg = tiny_config(li_fusion=False, rcnn=False, EXACT_QUERIES=True).merged(OFFLINE_TINY)
+    cpu = EPNet(cfg, 'TRAIN', device='cpu', generator=torch.Generator().manual_seed(1)).train()
+    card = EPNet(cfg, 'TRAIN', device=dev)
+    card.load_state_dict(cpu.state_dict())
+    card.train()
+    batch = _offline_tiny_batch(cfg, np.random.RandomState(4))
+
+    def step(model, device):
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        loss, _ = joint_loss(cfg, model(b), b)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+    want_loss, want = step(cpu, 'cpu')
+    got_loss, got = step(card, dev)
+    worst = max(float((got[n] - w).abs().max()) / (1e-3 * (1 + float(w.abs().max())))
+                for n, w in want.items())
+    if not (abs(got_loss - want_loss) <= 1e-3 * (1 + abs(want_loss)) and worst <= 1.0):
+        raise AssertionError(f'tiny rcnn_offline step, card vs CPU: loss {got_loss} vs '
+                             f'{want_loss}, worst gradient {worst:.3f} of its bound')
+    frame = _offline_tiny_batch(cfg.merged({'RCNN': {'ROI_PER_IMAGE': MAX_ROIS}}),
+                                np.random.RandomState(5), frames=1)
+    pts = torch.from_numpy(frame['pts_input'][0])
+    rois = torch.from_numpy(np.concatenate([
+        np.random.RandomState(6).uniform(-20, 20, (MAX_ROIS, 3)) * [1, 0, 1] + [0, 1.6, 30],
+        np.tile(cfg.CLS_MEAN_SIZE[0], (MAX_ROIS, 1)),
+        np.random.RandomState(7).uniform(-3, 3, (MAX_ROIS, 1))], -1).astype(np.float32))
+    cpu.eval()
+    card.eval()
+    n = 40
+    wb, ws, wc = rcnn_offline_eval_step(cfg, cpu.rcnn, pts, rois, n)
+    gb, gs, gc = rcnn_offline_eval_step(cfg, card.rcnn, pts.to(dev), rois.to(dev), n)
+    errs = [float((g[:wc].cpu() - w[:wc]).abs().max() / (1e-3 * (1 + float(w[:wc].abs().max()))))
+            for g, w in ((gb, wb), (gs, ws))] if wc else [0.0]
+    if gc != wc or not wc or max(errs) > 1.0:
+        raise AssertionError(f'tiny offline eval frame, card vs CPU: {gc} vs {wc} boxes kept, '
+                             f'worst {max(errs):.3f} of the bound')
+    print(f'tiny rcnn_offline step, card vs CPU: loss {got_loss:.6f} vs {want_loss:.6f}, worst '
+          f'gradient {worst:.3f} of the bound 1e-3 * (1 + max|x|); tiny offline eval frame: '
+          f'{gc} of {n} RoIs kept on both, worst {max(errs):.3f} of the bound', flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3049,7 +3430,7 @@ def main():
             if 'registers' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}')
 
-    # launches on the main paths (phases 3, 6, 9, 11, 14, 15, 18, 20, 22 and 24), by kernel
+    # launches on the main paths (phases 3, 6, 9, 11, 14, 15, 18, 20, 22, 24 and 25), by kernel
     launches = collections.Counter()
     fps_res = phase_fps(dev)
     sa_res = phase_sa(dev)
@@ -3078,6 +3459,7 @@ def main():
     phase_small_bf16_train_reference(dev)
     phase_small_bf16_train_reference(dev, MIXED_BLOCK_LOCAL_TRAIN_TINY)
     launches.update(phase_train_cli(dev))
+    launches.update(phase_lidar_flow(dev))
 
     kernels = [
         {'name': 'fps', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/fps.cu',

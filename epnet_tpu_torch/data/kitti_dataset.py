@@ -3,10 +3,10 @@
 Port of ``epnet_tpu/data/kitti_dataset.py`` (reference
 ``lib/datasets/kitti_dataset.py``): velodyne ``.bin`` as (N, 4) float32
 (:69-72), images RGB, normalized with the ImageNet statistics and
-zero-padded to 384x1280 (:37-57), calib and label parsers (:74-97). Images
+zero-padded to 384x1280 (:37-57), calib and label parsers (:74-97), and
+the road planes of the gt-paste augmentation (``get_road_plane``). Images
 are read by the port's ``data/png.py``, not PIL. The JAX package's
-``EPNET_IMG_CACHE`` (decoded pixels cached as .npy) and the road planes of
-the gt-paste augmentation are not ported.
+``EPNET_IMG_CACHE`` (decoded pixels cached as .npy) is not ported.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ class KittiDataset:
         self.lidar_dir = os.path.join(self.imageset_dir, 'velodyne')
         self.calib_dir = os.path.join(self.imageset_dir, 'calib')
         self.label_dir = os.path.join(self.imageset_dir, 'label_2')
+        self.plane_dir = os.path.join(self.imageset_dir, 'planes')
 
     def get_lidar(self, idx: int) -> np.ndarray:
         path = os.path.join(self.lidar_dir, '%06d.bin' % idx)
@@ -61,3 +62,13 @@ class KittiDataset:
 
     def get_label(self, idx: int):
         return load_label_file(os.path.join(self.label_dir, '%06d.txt' % idx))
+
+    def get_road_plane(self, idx: int) -> np.ndarray:
+        """The plane ``(a, b, c, d)`` of frame ``idx``'s road, its normal
+        pointing up (``b < 0`` in rect coordinates) and of unit length."""
+        with open(os.path.join(self.plane_dir, '%06d.txt' % idx)) as f:
+            lines = f.readlines()
+        plane = np.asarray([float(v) for v in lines[3].split()])
+        if plane[1] > 0:
+            plane = -plane
+        return plane / np.linalg.norm(plane[0:3])

@@ -72,8 +72,10 @@ class EPNet(nn.Module):
     ``epnet_tpu/models/epnet.py:40-49``); the RCNN on a fixed RPN
     (``rcnn``: ``RPN.FIXED``, the RPN in eval mode and under
     ``torch.no_grad()``, its parameters left trainable so that AdamW still
-    decays them, as optax does on their zero gradients). Without the RPN
-    (``rcnn_offline``) it raises.
+    decays them, as optax does on their zero gradients); the RCNN alone
+    (``rcnn_offline``: ``RPN.ENABLED`` false, ``epnet.py:88-103``), on the
+    pooled RoIs of the offline dataset's batch (``batch['pts_input']`` (B,
+    R, S, C) or (B*R, S, C)), whose targets pass through to the outputs.
 
     In training mode (``.train()``) the forward samples RoIs against
     ``batch['gt_boxes3d']``, normalizes with batch statistics, applies
@@ -94,29 +96,29 @@ class EPNet(nn.Module):
         for what, on in unported.items():
             if on:
                 raise NotImplementedError(f'{what} is not ported yet (ROADMAP Queue 1)')
-        if not cfg.RPN.ENABLED:
-            raise NotImplementedError('RPN.ENABLED false (the offline RCNN, train mode '
-                                      'rcnn_offline) is not ported yet (ROADMAP Queue 1, '
-                                      'item 14b)')
+        if not (cfg.RPN.ENABLED or cfg.RCNN.ENABLED):
+            raise ValueError('neither RPN.ENABLED nor RCNN.ENABLED: no model to build')
         device = default_device(device)
         use_f32_math()
         if cfg.MIXED_PRECISION:
             use_bf16_math()
         self.cfg = cfg
         self.mode = mode
-        in_ch = 3 + int(cfg.RPN.USE_INTENSITY)
-        self.rpn = RPN(cfg, in_ch, device=device)
-        if cfg.RCNN.ENABLED:
-            rcnn_in = 3 + 1 + int(cfg.RCNN.USE_DEPTH) + self.rpn.backbone.out_features
-            self.rcnn = RCNNNet(cfg, rcnn_in, device=device)
-            self.proposal = ProposalLayer(cfg, mode)
+        if cfg.RPN.ENABLED:
+            self.rpn = RPN(cfg, 3 + int(cfg.RPN.USE_INTENSITY), device=device)
+            if cfg.RCNN.ENABLED:
+                rcnn_in = 3 + 1 + int(cfg.RCNN.USE_DEPTH) + self.rpn.backbone.out_features
+                self.rcnn = RCNNNet(cfg, rcnn_in, device=device)
+                self.proposal = ProposalLayer(cfg, mode)
+        else:
+            self.rcnn = RCNNNet(cfg, offline_rcnn_channels(cfg), device=device)
         init_parameters(self, generator)
 
     def train(self, mode: bool = True):
         """A fixed RPN (``RPN.FIXED``) stays in eval mode while the RCNN
         trains."""
         super().train(mode)
-        if self.cfg.RPN.FIXED:
+        if self.cfg.RPN.FIXED and self.cfg.RPN.ENABLED:
             self.rpn.eval()
         return self
 
@@ -137,6 +139,8 @@ class EPNet(nn.Module):
 
     def _forward(self, batch, bn_momentum, generator):
         cfg = self.cfg
+        if not cfg.RPN.ENABLED:
+            return self._forward_offline(batch, bn_momentum, generator)
         fixed = torch.no_grad() if cfg.RPN.FIXED else contextlib.nullcontext()
         with fixed:
             out = self.rpn(batch['pts_input'], image=batch.get('img'),
@@ -166,6 +170,33 @@ class EPNet(nn.Module):
                 pts_input = pool_for_eval(cfg, rois, xyz, rpn_features, seg_mask, pts_depth)
         out.update(self.rcnn(pts_input, bn_momentum, generator))
         return out
+
+    def _forward_offline(self, batch, bn_momentum, generator):
+        """The RCNN on the loader's pooled RoIs (point_rcnn.py:70-71,
+        rcnn_net.py:165-173); the sample's targets, flattened over the
+        batch's RoIs, beside its outputs."""
+        pts = batch['pts_input']
+        if pts.dim() == 4:  # (B, R, S, C): one frame's RoIs a row
+            pts = pts.reshape(-1, pts.shape[2], pts.shape[3])
+        out = dict(self.rcnn(pts, bn_momentum, generator))
+        for k in ('cls_label', 'reg_valid_mask', 'gt_iou', 'mask_score'):
+            if k in batch:
+                out[k] = batch[k].reshape(-1)
+        if 'gt_boxes3d_ct' in batch:
+            out['gt_of_rois'] = batch['gt_boxes3d_ct'].reshape(-1, 7)
+        if 'roi_boxes3d' in batch:
+            out['roi_boxes3d'] = batch['roi_boxes3d'].reshape(-1, 7)
+        return out
+
+
+def offline_rcnn_channels(cfg: Config) -> int:
+    """The channels of the offline RCNN's pooled points: xyz, the intensity
+    under ``RCNN.USE_INTENSITY``, the seg mask, the depth under
+    ``RCNN.USE_DEPTH`` and the RPN backbone's features
+    (``data/rcnn_offline.py``, ``get_proposal_from_file``)."""
+    rpn_features = cfg.LI_FUSION.IMG_FEATURES_CHANNEL if cfg.LI_FUSION.ENABLED \
+        else cfg.RPN.FP_MLPS[0][-1]
+    return 3 + int(cfg.RCNN.USE_INTENSITY) + 1 + int(cfg.RCNN.USE_DEPTH) + rpn_features
 
 
 def pool_for_eval(cfg: Config, rois, xyz, rpn_features, seg_mask, pts_depth):

@@ -56,7 +56,7 @@ class ProposalLayer:
             # score-based proposals take the rotated NMS (proposal.py:146)
             raise NotImplementedError(
                 "only distance-based proposals with the axis-aligned 'normal' "
-                'NMS are ported')
+                'NMS are ported (ROADMAP Queue 1, item 14c)')
         self.cfg = cfg
         self.mode = mode
         self.mcfg = cfg.get(mode)

@@ -35,7 +35,7 @@ class RCNNNet(nn.Module):
     def __init__(self, cfg: Config, in_channels: int, device=None):
         super().__init__()
         if cfg.USE_IOU_BRANCH:
-            raise NotImplementedError('the IoU branch is not ported yet')
+            raise NotImplementedError('the IoU branch is not ported yet (ROADMAP Queue 1, item 14c)')
         self.cfg = cfg
         rc = cfg.RCNN
         dt = torch.bfloat16 if cfg.MIXED_PRECISION else None

@@ -1,8 +1,10 @@
 """Training CLI of the port.
 
     python -m epnet_tpu_torch.tools.train --cfg_file cfgs/<recipe>.yaml \\
-        --data_root <root> [--train_mode rcnn_online|rpn|rcnn] [--ckpt <ckpt>]
-        [--rpn_ckpt <ckpt>] [--train_with_eval] [--device cpu] [--set KEY VALUE ...]
+        --data_root <root> [--train_mode rcnn_online|rpn|rcnn|rcnn_offline]
+        [--ckpt <ckpt>] [--rpn_ckpt <ckpt>] [--gt_database <pkl>]
+        [--rcnn_training_roi_dir <dir> --rcnn_training_feature_dir <dir>]
+        [--train_with_eval] [--device cpu] [--set KEY VALUE ...]
 
 Counterpart of ``tools/train.py`` (reference ``train_rcnn.py``: argparse
 :23-53, mode matrix :163-181, logger and config dump :187-206, trainer
@@ -18,20 +20,28 @@ unless ``--device`` names another.
 * ``--train_mode``: ``rcnn_online`` trains RPN and RCNN together; ``rpn``
   the RPN alone; ``rcnn`` the RCNN on a fixed RPN, usually warm-started
   from an ``rpn`` run's checkpoint by ``--rpn_ckpt`` (every tensor the
-  checkpoint shares with the model by name and shape).
+  checkpoint shares with the model by name and shape); ``rcnn_offline``
+  the RCNN alone on RoIs sampled and pooled on the host from an RPN
+  eval's dumps (``--rcnn_training_roi_dir <dir>/roi_result/data``,
+  ``--rcnn_training_feature_dir <dir>/features``; the two-phase flow of
+  README), which needs ``RCNN.ROI_SAMPLE_JIT`` false: the JAX package's
+  sample under that flag carries no pooled points, so the CLI refuses it.
+* ``--gt_database``: the pickle of ``tools/generate_gt_database.py``,
+  pasted into the LiDAR-only RPN's training frames under
+  ``GT_AUG_ENABLED`` (``cfgs/default.yaml``).
 * ``--ckpt`` resumes from a checkpoint of the same mode: the model, the
   optimizer and its step count, at the saved epoch + 1. The loader starts
   again at its first pass, so the run draws pass 1's augmentation again,
   as the JAX CLI does.
 * ``--train_with_eval`` runs the joint eval on ``TRAIN.VAL_SPLIT`` at each
   checkpoint epoch into ``<output_dir>/eval_epoch_<n>``, with ``val/*``
-  scalars; it needs the RCNN, so not under ``--train_mode rpn``.
+  scalars; it needs the RPN and the RCNN of one model, so it raises under
+  ``--train_mode rpn`` and ``rcnn_offline`` (where the JAX CLI fails after
+  the first epoch).
 
-Not ported yet, each raising ``NotImplementedError``: ``--train_mode
-rcnn_offline``, ``--gt_database`` and ``--rcnn_training_{roi,feature}_dir``
-(ROADMAP Queue 1, item 14b); ``--steps_per_call`` above 1 and
-``--n_devices`` above 1 (item 15). ``main(argv)`` runs in-process and
-returns the final ``TrainState``.
+Not ported yet, each raising ``NotImplementedError``: ``--steps_per_call``
+above 1 and ``--n_devices`` above 1 (ROADMAP Queue 1, item 15).
+``main(argv)`` runs in-process and returns the final ``TrainState``.
 """
 
 from __future__ import annotations
@@ -45,7 +55,6 @@ import torch
 
 from . import cli_logger
 
-NOT_PORTED_14B = 'not ported yet (ROADMAP Queue 1, item 14b)'
 NOT_PORTED_15 = 'not ported yet (ROADMAP Queue 1, item 15)'
 SOURCE_DIRS = ('epnet_tpu_torch', 'cfgs', 'tools')
 
@@ -93,18 +102,30 @@ def apply_train_mode(cfg, mode: str):
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
-    if args.train_mode == 'rcnn_offline':
-        raise NotImplementedError(f'--train_mode rcnn_offline: {NOT_PORTED_14B}')
-    for flag in ('gt_database', 'rcnn_training_roi_dir', 'rcnn_training_feature_dir'):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(f'--{flag}: {NOT_PORTED_14B}')
     if args.steps_per_call != 1:
         raise NotImplementedError(f'--steps_per_call {args.steps_per_call}: {NOT_PORTED_15}')
     if args.n_devices not in (None, 1):
         raise NotImplementedError(f'--n_devices {args.n_devices}: {NOT_PORTED_15}')
-    if args.train_with_eval and args.train_mode == 'rpn':
-        raise NotImplementedError(f'--train_with_eval under --train_mode rpn: the RPN eval '
-                                  f'(--eval_mode rpn) is {NOT_PORTED_14B}')
+    if args.train_with_eval and args.train_mode in ('rpn', 'rcnn_offline'):
+        raise ValueError(f'--train_with_eval runs the joint eval, which needs the RPN and the '
+                         f'RCNN of one model; --train_mode {args.train_mode} trains one of '
+                         f'them: evaluate its checkpoints with tools/eval.py --eval_mode '
+                         f'{"rpn" if args.train_mode == "rpn" else "rcnn_offline"}')
+    if args.train_mode == 'rcnn_offline' and not (args.rcnn_training_roi_dir
+                                                  and args.rcnn_training_feature_dir):
+        raise ValueError('--train_mode rcnn_offline reads an RPN eval\'s dumps: pass '
+                         '--rcnn_training_roi_dir <dir>/roi_result/data and '
+                         '--rcnn_training_feature_dir <dir>/features')
+
+
+def refuse_jit_sampling(cfg, mode: str) -> None:
+    """``rcnn_offline`` under ``RCNN.ROI_SAMPLE_JIT`` (``cfgs/default.yaml``
+    sets it): the JAX dataset then gives ``get_rcnn_sample_jit``'s sample,
+    which carries no pooled ``pts_input`` for the offline model."""
+    if mode == 'rcnn_offline' and cfg.RCNN.ROI_SAMPLE_JIT:
+        raise ValueError('--train_mode rcnn_offline trains on RoIs sampled and pooled on the '
+                         'host: set RCNN.ROI_SAMPLE_JIT False (--set RCNN.ROI_SAMPLE_JIT False); '
+                         'its in-graph sampling sample carries no pooled points')
 
 
 def backup_source(out_dir: str) -> None:
@@ -156,7 +177,10 @@ def train(cfg, args: argparse.Namespace, out_dir: str, device, logger, tb):
 
     dataset = KittiRCNNDataset(args.data_root, cfg, npoints=cfg.RPN.NUM_POINTS,
                                split=cfg.TRAIN.SPLIT, classes=cfg.CLASSES, mode='TRAIN',
-                               max_gt=args.max_gt, seed=args.seed, logger=logger)
+                               max_gt=args.max_gt, seed=args.seed, logger=logger,
+                               gt_database_dir=args.gt_database,
+                               rcnn_training_roi_dir=args.rcnn_training_roi_dir,
+                               rcnn_training_feature_dir=args.rcnn_training_feature_dir)
     loader = train_loader(dataset, args.batch_size, args.workers, args.seed)
     state = create_train_state(cfg, len(loader) * args.epochs, device=device,
                                generator=torch.Generator(device=device).manual_seed(args.seed))
@@ -205,6 +229,7 @@ def main(argv: Optional[Sequence[str]] = None):
                          f'object tree: <root>/KITTI/object/training/...)')
     device = default_device(args.device)
     cfg = apply_train_mode(load_config(args.cfg_file, overrides), args.train_mode)
+    refuse_jit_sampling(cfg, args.train_mode)
 
     tag = os.path.splitext(os.path.basename(args.cfg_file))[0]
     out_dir = args.output_dir or os.path.join('output', args.train_mode, tag)

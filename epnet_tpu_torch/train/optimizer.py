@@ -92,4 +92,5 @@ def make_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter],
                    total_steps: int) -> AdamWOneCycle:
     if cfg.TRAIN.OPTIMIZER == 'adam_onecycle':
         return AdamWOneCycle(params, cfg, total_steps)
-    raise NotImplementedError(f'OPTIMIZER {cfg.TRAIN.OPTIMIZER!r}: only adam_onecycle is ported')
+    raise NotImplementedError(f'OPTIMIZER {cfg.TRAIN.OPTIMIZER!r}: only adam_onecycle is ported '
+                              '(ROADMAP Queue 1, item 14c)')

@@ -96,11 +96,18 @@ def load_checkpoint(path: str, state: TrainState):
 
 def restore_variables(path: str, model: EPNet) -> int:
     """Eval restore: the model's parameters and BatchNorm statistics from a
-    checkpoint, the optimizer state ignored. Returns the epoch. The
-    counterpart of ``epnet_tpu/train/trainer.py::restore_variables``, for
-    the port's own ``torch.save`` checkpoints."""
+    checkpoint, the optimizer state ignored; tensors of the checkpoint that
+    the model lacks (a joint model's RCNN, for an RPN eval) are left out,
+    as the JAX package restores the key intersection, and a model tensor
+    the checkpoint lacks raises. Returns the epoch. The counterpart of
+    ``epnet_tpu/train/trainer.py::restore_variables``, for the port's own
+    ``torch.save`` checkpoints."""
     saved = torch.load(path, map_location='cpu', weights_only=True)
-    model.load_state_dict(saved['model'])
+    own = model.state_dict()
+    missing = sorted(set(own) - set(saved['model']))
+    if missing:
+        raise KeyError(f'{path} lacks {len(missing)} tensors of the model: {missing[:5]}')
+    model.load_state_dict({k: saved['model'][k] for k in own})
     return int(saved['epoch'])
 
 

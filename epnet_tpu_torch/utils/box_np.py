@@ -1,9 +1,11 @@
-"""Host-side (numpy) box geometry for the port's labelled test scenes.
+"""Host-side (numpy) box geometry of the data pipeline.
 
 The port's own copy of the functions of ``epnet_tpu/data/box_np.py`` that
-the data pipeline and its augmentation, ``eval/kitti_common.py`` and
+the data pipeline and its augmentations, ``eval/kitti_common.py`` and
 ``utils/testing.py`` need (reference ``lib/utils/kitti_utils.py``);
-``tests/test_torch_config.py`` holds them equal to the JAX package's.
+``tests/test_torch_config.py`` and ``tests/test_torch_host_ops.py`` hold
+them equal to the JAX package's. ``points_in_boxes3d`` runs the host
+library of ``data/native.py`` (no numpy fallback).
 Boxes are ``(7,) = [x, y, z, h, w, l, ry]`` in the rect-camera frame, with
 ``y`` at the bottom face.
 """
@@ -60,3 +62,35 @@ def points_in_box3d(pts: np.ndarray, box3d: np.ndarray) -> np.ndarray:
     x_rot = px * c - pz * s
     z_rot = px * s + pz * c
     return in_y & (np.abs(x_rot) <= l / 2.0) & (np.abs(z_rot) <= w / 2.0)
+
+
+def points_in_boxes3d(pts: np.ndarray, boxes3d: np.ndarray) -> np.ndarray:
+    """(N, 3) x (M, 7) -> (M, N) bool, by the host library (the gt-paste
+    augmentation's carve-out, replacing ``pts_in_boxes3d_cpu``)."""
+    from ..data import native
+
+    return native.points_in_boxes3d(pts, boxes3d)
+
+
+def boxes_iou3d_cpu(boxes_a: np.ndarray, boxes_b: np.ndarray) -> np.ndarray:
+    """(N, 7) x (M, 7) -> (N, M) exact 3D IoU on the host: the rotated BEV
+    overlap by convex polygon clipping (``eval/rotate_iou_np.py``) times the
+    vertical overlap; replaces the shapely ``get_iou3d``
+    (kitti_utils.py:198-238)."""
+    from ..eval.rotate_iou_np import rotate_iou_bev
+
+    if len(boxes_a) == 0 or len(boxes_b) == 0:
+        return np.zeros((len(boxes_a), len(boxes_b)), np.float32)
+    bev_a = np.stack([boxes_a[:, 0], boxes_a[:, 2], boxes_a[:, 5], boxes_a[:, 4],
+                      boxes_a[:, 6]], axis=1)
+    bev_b = np.stack([boxes_b[:, 0], boxes_b[:, 2], boxes_b[:, 5], boxes_b[:, 4],
+                      boxes_b[:, 6]], axis=1)
+    ov = rotate_iou_bev(bev_a, bev_b, criterion=2)  # raw overlap area
+    a_min, a_max = boxes_a[:, 1] - boxes_a[:, 3], boxes_a[:, 1]
+    b_min, b_max = boxes_b[:, 1] - boxes_b[:, 3], boxes_b[:, 1]
+    ov_h = np.clip(np.minimum(a_max[:, None], b_max[None, :])
+                   - np.maximum(a_min[:, None], b_min[None, :]), 0, None)
+    ov3d = ov * ov_h
+    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
+    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    return ov3d / np.clip(vol_a + vol_b - ov3d, 1e-7, None)

@@ -60,8 +60,17 @@ from epnet_tpu_torch.utils.testing import (MIXED_BLOCK_LOCAL_TINY, MIXED_TINY, m
 
 from test_torch_block_local_slice import PATHS as BL_PATHS
 from test_torch_block_local_slice import _eager_three_interp, _spy
-from test_torch_bridge import bridged, randomize_norms, t, to_numpy
+from test_torch_bridge import bridged, one_torch_thread, randomize_norms, t, to_numpy
 from test_torch_train_step import _eager_three_nn
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _torch_on_one_thread():
+    """Every torch step of this file on one thread (``one_torch_thread``):
+    tier-1 runs six test processes on eight cores."""
+    with one_torch_thread():
+        yield
+
 
 BF = jnp.bfloat16
 TBF = torch.bfloat16

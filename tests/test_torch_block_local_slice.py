@@ -43,8 +43,17 @@ from epnet_tpu_torch.ops.morton import morton_argsort_np
 from epnet_tpu_torch.train.loss import joint_loss as t_joint_loss
 from epnet_tpu_torch.utils.testing import BLOCK_LOCAL_TINY, structured_scene, tiny_config
 
-from test_torch_bridge import bridged, randomize_norms, t, to_numpy
+from test_torch_bridge import bridged, one_torch_thread, randomize_norms, t, to_numpy
 from test_torch_train_step import _eager_three_nn, _spy_target_layer
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _torch_on_one_thread():
+    """Every torch step of this file on one thread (``one_torch_thread``):
+    tier-1 runs six test processes on eight cores."""
+    with one_torch_thread():
+        yield
+
 
 PATHS = ('block_local_group_multi', 'block_local_three_interp', 'fused_point_mlp_max_win')
 INPUTS = ('pts_input', 'img', 'pts_origin_xy')

@@ -2,6 +2,8 @@
 port's parity tests share: run a flax module of the JAX package on the CPU
 and carry its variables into the port's counterpart."""
 
+import contextlib
+
 import jax
 import numpy as np
 import pytest
@@ -10,6 +12,20 @@ import torch.nn as nn
 
 from epnet_tpu_torch.bridge import flax_to_state_dict, load_flax_variables
 from epnet_tpu_torch.models.layers import BatchNorm
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """Torch on one thread for a step or a CLI run at tiny widths: six test
+    processes with torch's default thread count each, on eight cores, ran
+    the train CLI's four runs over 20 times slower than with one thread
+    each."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def to_numpy(tree):

@@ -211,11 +211,3 @@ def test_loader_batches_equal_jax(trees, workers):
         _assert_same(g, w)
     assert seed_for(7, 3, 11) == _seed_for(7, 3, 11)
 
-
-def test_unported_paths_raise(trees):
-    """TRAIN mode is ported (tests/test_torch_train_data.py); the LiDAR-only
-    sample and the offline RCNN samples still raise, in every mode."""
-    for cfg in (tiny_config(li_fusion=False), tiny_config(RPN={'ENABLED': False})):
-        for mode in ('TRAIN', 'EVAL', 'TEST'):
-            with pytest.raises(NotImplementedError, match='LiDAR-only.*item 14b'):
-                TDataset(trees['torch'], cfg, npoints=256, split='val', mode=mode)

@@ -359,10 +359,15 @@ def test_cli_test_split_needs_no_labels(runs, tree, tmp_path):
 
 
 def test_cli_needs_a_card_unless_told(tree, monkeypatch, tmp_path):
+    """Every mode, and the ``--eval_all`` daemon, raises without a card
+    unless given ``--device``."""
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     args = ['--data_root', tree, '--output_dir', str(tmp_path)]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tcli.main(args)
-    for extra in (['--eval_mode', 'rpn'], ['--eval_mode', 'rcnn_offline'], ['--eval_all']):
-        with pytest.raises(NotImplementedError, match='not ported yet'):
-            tcli.main(args + extra + ['--device', 'cpu'])
+    for extra in (['--eval_mode', 'rpn', '--save_rpn_feature'],
+                  ['--eval_mode', 'rcnn_offline', '--rcnn_eval_roi_dir', str(tmp_path),
+                   '--rcnn_eval_feature_dir', str(tmp_path)],
+                  ['--eval_all', '--ckpt_dir', str(tmp_path)]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tcli.main(args + extra)

@@ -13,13 +13,12 @@
   ``--train_with_eval``, checkpoint epochs numbered as JAX numbers them,
   ``--ckpt`` resuming at epoch + 1 with the step count and pass 1's draws,
   ``--rpn_ckpt`` loading only the RPN, whose parameters then move only by
-  AdamW's decay; the flags that are not ported raise.
+  AdamW's decay; item 15's flags, which are not ported, raise.
 * ``tools/synthetic_ap_pin.py``: the command lines of the JAX pin (run with
   its subprocesses recorded), the AP line parsed, and one tiny run end to
   end on the CPU.
 """
 
-import contextlib
 import importlib.util
 import json
 import os
@@ -54,7 +53,7 @@ from epnet_tpu_torch.train.schedules import one_cycle_lr
 from epnet_tpu_torch.utils import testing as tt
 from epnet_tpu_torch.utils.metrics import SummaryWriter
 
-from test_torch_bridge import randomize_norms, to_numpy
+from test_torch_bridge import one_torch_thread, randomize_norms, to_numpy
 from test_torch_data import IMG_HW
 from test_torch_train_step import BN_MOMENTUM, OVER, TB_KEYS, _eager_three_nn, _spy_target_layer
 
@@ -65,19 +64,6 @@ MODES = {'rpn': {'RCNN': {'ENABLED': False}},
 
 def _cfg(mode):
     return tt.tiny_config(**OVER).merged(MODES[mode])
-
-
-@contextlib.contextmanager
-def one_torch_thread():
-    """Torch on one thread for a step or a CLI run at tiny widths: six test
-    processes with torch's default thread count each, on eight cores, ran
-    the CLI's four runs over 20 times slower than with one thread each."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
 
 
 def _flax_tree(shapes, sd):
@@ -473,12 +459,18 @@ def test_summary_writer_records_and_mirror(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('extra', [
-    ['--train_mode', 'rcnn_offline'], ['--gt_database', 'db.pkl'],
-    ['--rcnn_training_roi_dir', 'rois'], ['--rcnn_training_feature_dir', 'feats'],
     ['--steps_per_call', '4'], ['--n_devices', '2'],
     ['--train_mode', 'rpn', '--train_with_eval']], ids=lambda e: e[-2].strip('-'))
 def test_cli_unported_flags_raise(extra, tmp_path):
-    with pytest.raises(NotImplementedError, match=r'not ported yet \(ROADMAP Queue 1, item 1'):
+    """Item 15's flags are not ported; ``--train_with_eval`` under ``rpn``
+    is refused, as it fails in the JAX CLI (its joint eval needs the
+    RCNN)."""
+    if '--train_with_eval' in extra:
+        with pytest.raises(ValueError, match='--train_with_eval runs the joint eval.*'
+                                             '--eval_mode rpn'):
+            tcli.main(['--data_root', str(tmp_path), '--device', 'cpu'] + extra)
+        return
+    with pytest.raises(NotImplementedError, match=r'not ported yet \(ROADMAP Queue 1, item 15'):
         tcli.main(['--data_root', str(tmp_path), '--device', 'cpu'] + extra)
 
 
@@ -486,8 +478,8 @@ def test_cli_needs_a_card_unless_told(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tcli.main(['--data_root', str(tmp_path), '--output_dir', str(tmp_path)])
-    with pytest.raises(NotImplementedError, match='item 14b'):
-        tep.EPNet(tt.tiny_config(RPN={'ENABLED': False}), 'TRAIN', device='cpu')
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tep.EPNet(tt.tiny_config(RPN={'ENABLED': False}), 'TRAIN')
 
 
 # ---------------------------------------------------------------------------

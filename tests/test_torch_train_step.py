@@ -54,7 +54,16 @@ from epnet_tpu_torch.train.trainer import (Trainer, create_train_state, load_che
                                            restore_partial, save_checkpoint, train_step)
 from epnet_tpu_torch.utils import testing as tt
 
-from test_torch_bridge import randomize_norms, to_numpy
+from test_torch_bridge import one_torch_thread, randomize_norms, to_numpy
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _torch_on_one_thread():
+    """Every torch step of this file on one thread (``one_torch_thread``):
+    tier-1 runs six test processes on eight cores."""
+    with one_torch_thread():
+        yield
+
 
 BN_MOMENTUM = 0.1
 OVER = dict(EXACT_QUERIES=True, RPN={'DP_RATIO': 0.0}, TRAIN={'OPTIMIZER': 'adam_onecycle'})
