@@ -197,11 +197,35 @@ first use), then:
    an offline step; 6, 2, 2 a joint step; 2 FPS, 2 fused-SA an offline
    eval frame; no D, E or F); prints steps/s, each pass's time to its first
    batch, the host time of an item with and without the paste and of an
-   offline sample, and every stage's wall time.
+   offline sample, and every stage's wall time;
+26. drives the JAX package's headline configuration
+   (``config.headline_config``: the recipe in bf16 with the approximate
+   queries, ``EXACT_QUERIES`` false) at full width: three batch-1 requests
+   under the default ball policy ``first_nested`` in turns with the parity
+   recipe on the same weights and scenes, and under ``first_multi``; 6 FPS,
+   2 B-bf16 and 4 F-bf16 launches a forward. RPN sa0's nested ball, FP
+   level 0's approximate ``three_nn`` and the eval pool's first k are held
+   against the same port functions on the CPU on the card's inputs:
+   identical except where the card's and the CPU's matmul-form distances
+   (or box tests) round to opposite sides, bounded from their arithmetic
+   and counted. Two batch-4 train steps in turns with the parity recipe's
+   f32 step (6 FPS, 2 B-bf16, 2 C-bf16, 4 D-bf16, 3 E-bf16, 4 F-bf16), the
+   wall and device busy time of a forward and a step of each, then the
+   headline configuration with both ``BLOCK_LOCAL`` flags (1 B-bf16 and 1
+   G-bf16 a forward, 1 C-bf16 and 1 H-bf16 a step);
+27. runs the last recipe rows at full width in f32, each step with 6 FPS,
+   2 B, 2 C, 4 D, 3 E and 4 F launches and each forward with 6 FPS, 2 B and
+   4 F: the IoU-branch recipe's train step and joint eval step (the
+   fusion); score-based proposals under ``NMS_TYPE: rotate`` (a forward, a
+   train step, and the proposal layer at TRAIN and TEST budgets on a
+   forward's RPN outputs, its keep list identical to the CPU's, its time
+   printed); People's train step and joint eval step; three steps each of
+   ``adam`` and ``sgd``, the third also from a checkpoint of the second,
+   whose update must match.
 
 Launch counts are read around each main-path phase (3, 6, 9, 11, 14, 15,
-18, 20, 22, 24 and 25) with the counters set to 0 just before it; the
-kernels line sums them. The script leaves TF32 as PyTorch sets it and checks that building
+18, 20, 22, 24, 25, 26 and 27) with the counters set to 0 just before it;
+the kernels line sums them. The script leaves TF32 as PyTorch sets it and checks that building
 the model turns it off, as the f32 recipe needs.
 
 Every kernel's ``bound_ms`` is the least time the card could take for its
@@ -3400,6 +3424,479 @@ def _small_offline_reference(dev):
           f'{gc} of {n} RoIs kept on both, worst {max(errs):.3f} of the bound', flush=True)
 
 
+HEADLINE_WANT = {'forward': [6, 0, 0, 0, 2, 0, 4], 'block-local forward': [6, 0, 0, 0, 1, 1, 4],
+                 'step': [6, 2, 0, 2, 0, 4, 3, 4, 0, 0, 0, 0, 0],
+                 'block-local step': [6, 1, 1, 1, 1, 4, 3, 4, 0, 0, 0, 0, 0]}
+F32_STEP_WANT = [6, 0, 0, 0, 0, 0, 0, 0, 2, 2, 4, 3, 4]  # a parity-width f32 step
+F32_FWD_WANT = FWD_WANT['exact']
+D2_EPS = 8 * 2.0 ** -24  # the roundings of |a|^2 + |b|^2 - 2ab, each at most half an ulp
+
+
+def _d2_bound(a, b):
+    """(..., M, N) bound on the card's and the CPU's difference in
+    ``pointops._pairwise_d2(a, b)`` (f32): a few roundings, each within an
+    ulp of the largest term, |a|^2 + |b|^2 + 2 sum |a_i b_i|."""
+    aa = (a * a).sum(-1)[..., :, None]
+    bb = (b * b).sum(-1)[..., None, :]
+    ab = (a.abs()[..., :, None, :] * b.abs()[..., None, :, :]).sum(-1)
+    return D2_EPS * (aa + bb + 2 * ab)
+
+
+def _check_ball(name, idx_card, xyz, new_xyz, radius, nsample):
+    """The card's first-hit query (``ball_query_approx``'s membership test,
+    ``d2 / r^2 < 1``) against the same function on the CPU on the card's
+    inputs: identical where the masks agree; where they differ, each
+    flipped point within ``_d2_bound`` of the radius. Returns the flips."""
+    import torch
+    from epnet_tpu_torch.ops import pointops
+    xs, cs = pointops._scaled(xyz, radius).cpu(), pointops._scaled(new_xyz, radius).cpu()
+    want = pointops.ball_query_approx(radius, nsample, xyz.cpu(), new_xyz.cpu())
+    got = idx_card.cpu()
+    bad_rows = (got != want).any(-1)
+    flips = 0
+    for b, m in bad_rows.nonzero().tolist():
+        d2_cpu = pointops._pairwise_d2(cs[b:b + 1, m:m + 1], xs[b:b + 1])[0, 0]
+        d2_card = pointops._pairwise_d2(pointops._scaled(new_xyz[b:b + 1, m:m + 1], radius),
+                                        pointops._scaled(xyz[b:b + 1], radius))[0, 0].cpu()
+        flip = (d2_cpu < 1.0) != (d2_card < 1.0)
+        bound = _d2_bound(cs[b:b + 1, m:m + 1], xs[b:b + 1])[0, 0]
+        if not bool(flip.any()) or not bool(((d2_cpu - 1.0).abs() <= bound)[flip].all()):
+            raise AssertionError(f'{name}: centroid ({b}, {m}) differs card vs CPU beyond the '
+                                 f'radius boundary')
+        if not torch.equal(pointops.first_hits(d2_card < 1.0, nsample), got[b, m]):
+            raise AssertionError(f'{name}: centroid ({b}, {m}) is not the first hits of the '
+                                 f'card\'s own membership')
+        flips += int(flip.sum())
+    print(f'  {name}: {int(bad_rows.sum())} of {bad_rows.numel()} balls differ card vs CPU, '
+          f'{flips} points flipped within the d2 rounding bound of the radius', flush=True)
+    return flips
+
+
+def _check_three_nn(dist_card, idx_card, unknown, known):
+    """The card's approximate ``three_nn`` against the CPU's on the card's
+    inputs: identical, except rows whose picks differ only where the two
+    f32 fields round within ``_d2_bound`` plus a bf16 unit of each other."""
+    import torch
+    from epnet_tpu_torch.ops import pointops
+    u, k = unknown.cpu(), known.cpu()
+    dist, idx = pointops.three_nn(u, k, approx=True)
+    got = idx_card.cpu()
+    rows = (got != idx).any(-1)
+    for b, n in rows.nonzero().tolist():
+        d2 = pointops._pairwise_d2(u[b:b + 1, n:n + 1], k[b:b + 1])[0, 0].clamp_min(0.0)
+        bound = _d2_bound(u[b:b + 1, n:n + 1], k[b:b + 1])[0, 0]
+        a, w = d2[got[b, n]], d2[idx[b, n]]
+        ulp = torch.maximum(a, w).to(torch.bfloat16).float() * 2.0 ** -7
+        if not bool(((a - w).abs() <= 2 * torch.maximum(bound[got[b, n]], bound[idx[b, n]])
+                     + ulp).all()):
+            raise AssertionError(f'three_nn: row ({b}, {n}) differs card vs CPU beyond rounding')
+    same = ~rows
+    if not torch.equal(dist_card.cpu()[same], dist[same]):
+        raise AssertionError('three_nn: distances of identical picks differ card vs CPU')
+    print(f'  three_nn: {int(rows.sum())} of {rows.numel()} queries pick other neighbours '
+          f'card vs CPU, each within the d2 rounding bound plus a bf16 unit', flush=True)
+
+
+def _check_roipool(pooled_card, xyz, feats, rois, extra, S):
+    """The card's approximate pool (first k by index, slot-0 pad) against
+    the CPU's on the card's inputs: identical boxes where the in-box masks
+    agree; a differing box only by points within float rounding of its
+    faces."""
+    import torch
+    from epnet_tpu_torch.ops.boxes import enlarge_box3d, points_in_boxes3d
+    from epnet_tpu_torch.ops.roipool3d import roipool3d
+    want = roipool3d(xyz.cpu(), feats.cpu(), rois.cpu(), extra, sampled_pt_num=S, approx=True)
+    got = [t.cpu() for t in pooled_card]
+    B, M = rois.shape[:2]
+    differ = torch.zeros(B, M, dtype=torch.bool)
+    for g, w in zip(got, want):
+        d = g != w
+        differ |= d.reshape(B, M, -1).any(-1) if d.dim() > 2 else d
+    big = enlarge_box3d(rois.reshape(-1, 7), extra).reshape(B, M, 7)
+    for b, m in differ.nonzero().tolist():
+        box = big[b:b + 1, m:m + 1]
+        flip = points_in_boxes3d(xyz[b:b + 1], box)[0, 0].cpu() != \
+            points_in_boxes3d(xyz[b:b + 1].cpu(), box.cpu())[0, 0]
+        box, p = box.cpu()[0, 0], xyz[b].cpu()
+        local = p - box[:3]
+        scale = local.abs().sum(-1) + box[3:6].sum()
+        c, s = torch.cos(box[6]), torch.sin(box[6])
+        margin = torch.minimum(torch.minimum(
+            (box[5] / 2 - (local[:, 0] * c - local[:, 2] * s).abs()).abs(),
+            (box[4] / 2 - (local[:, 0] * s + local[:, 2] * c).abs()).abs()),
+            (box[3] / 2 - (local[:, 1] + box[3] / 2).abs()).abs())
+        if not bool(flip.any()) or not bool((margin <= 16 * 2.0 ** -24 * scale)[flip].all()):
+            raise AssertionError(f'roipool: box ({b}, {m}) differs card vs CPU beyond the '
+                                 f'rounding of its faces')
+    print(f'  roipool first k: {int(differ.sum())} of {B * M} boxes differ card vs CPU '
+          f'(points within rounding of a face)', flush=True)
+
+
+def _captured_queries(model, batch):
+    """One forward of ``model`` with its approximate queries' inputs and
+    outputs recorded: RPN sa0's nested ball, FP level 0's ``three_nn``, the
+    eval pool."""
+    from unittest import mock
+
+    from epnet_tpu_torch.models import epnet as epnet_mod
+    from epnet_tpu_torch.models import pointnet2
+    rec = {}
+
+    def spy(name, real):
+        def wrapped(*args, **kwargs):
+            out = real(*args, **kwargs)
+            rec.setdefault(name, []).append((args, kwargs, out))
+            return out
+        return wrapped
+
+    with mock.patch.object(pointnet2, 'ball_query_nested_first_hit',
+                           spy('ball', pointnet2.ball_query_nested_first_hit)), \
+            mock.patch.object(pointnet2, 'three_nn', spy('three_nn', pointnet2.three_nn)), \
+            mock.patch.object(epnet_mod, 'roipool3d', spy('roipool', epnet_mod.roipool3d)):
+        model(batch)
+    return rec
+
+
+def _timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _check_out(name, out, want_shapes, delta, want_launches):
+    import torch
+    bad = [k for k, v in out.items()
+           if torch.is_tensor(v) and v.is_floating_point() and not bool(torch.isfinite(v).all())]
+    shapes = {k: tuple(out[k].shape) for k in want_shapes}
+    if bad or shapes != want_shapes or (want_launches is not None and delta != want_launches):
+        raise AssertionError(f'{name}: non-finite {bad}, shapes {shapes} (expected '
+                             f'{want_shapes}), launches {delta}, expected {want_launches}')
+
+
+def phase_headline(dev):
+    """Phase 26: the JAX package's headline configuration
+    (``config.headline_config``: the recipe in bf16 with the approximate
+    queries, exact FPS, no block-local path) at full width. Three batch-1
+    requests under the default ball policy ``first_nested`` in turns with
+    the parity recipe (f32, exact queries) on the same weights and scenes,
+    then the same requests under ``first_multi``; each forward's shapes,
+    finiteness and launches (6 FPS, 2 B-bf16, 4 F-bf16). RPN sa0's nested
+    ball, FP level 0's ``three_nn`` and the eval pool's first k, held
+    against the same port functions on the CPU on the card's inputs. Two
+    batch-4 train steps (6 FPS, 2 B-bf16, 2 C-bf16, 4 D-bf16, 3 E-bf16 and
+    4 F-bf16 a step) in turns with the parity recipe's f32 step. Wall and
+    device busy time of one forward and one step of each (``torch.profiler``).
+    Then the headline configuration with both ``BLOCK_LOCAL`` flags, on
+    Morton-sorted scenes: a forward (1 B-bf16, 1 G-bf16: RCNN sa1 takes the
+    bucket select) and a step (1 C-bf16, 1 H-bf16)."""
+    import torch
+    from epnet_tpu_torch.config import headline_config, parity_config
+    from epnet_tpu_torch.models.epnet import EPNet
+    from epnet_tpu_torch.train.trainer import create_train_state, device_batch, train_step
+    from epnet_tpu_torch.utils.profiling import device_breakdown
+    from epnet_tpu_torch.utils.testing import full_batch
+
+    cfgs = {'headline': headline_config(), 'parity': parity_config()}
+    models = {'headline': EPNet(cfgs['headline'], 'TEST', device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(0)).eval()}
+    models['parity'] = EPNet(cfgs['parity'], 'TEST', device=dev).eval()
+    models['first_multi'] = EPNet(cfgs['headline'], 'TEST', device=dev,
+                                  ball_policy='first_multi').eval()
+    for k in ('parity', 'first_multi'):
+        models[k].load_state_dict(models['headline'].state_dict())
+    requests = [_request(seed, cfgs['parity'], dev) for seed in (0, 1, 2)]
+    for m in models.values():  # warm-up
+        m(requests[0])
+    counters = _fwd_counters()
+    total = collections.Counter()
+    R = cfgs['headline'].TEST.RPN_POST_NMS_TOP_N
+    shapes = {'rois': (1, R, 7), 'rcnn_cls': (R, 1),
+              'rcnn_reg': (R, cfgs['parity'].RCNN.reg_channel),
+              'backbone_features': (1, cfgs['parity'].RPN.NUM_POINTS,
+                                    models['parity'].rpn.backbone.out_features)}
+    times = {k: [] for k in models}
+    for i, batch in enumerate(requests):
+        order = ('headline', 'parity') if i % 2 == 0 else ('parity', 'headline')
+        for name in order + ('first_multi',):
+            for c in counters:
+                c.launches = 0
+            out, ms = _timed(lambda: models[name](batch))
+            times[name].append(ms)
+            delta = [c.launches for c in counters]
+            _check_out(f'{name} forward scene {i}', out, shapes, delta,
+                       F32_FWD_WANT if name == 'parity' else HEADLINE_WANT['forward'])
+            if name != 'parity':
+                total.update(dict(zip(FWD_KERNELS, delta)))
+            print(f'{name} forward scene {i}: {ms:.2f} ms, rois {int(out["roi_counts"][0])}, '
+                  f'launches {_fwd_launches(delta)}', flush=True)
+    for name in models:
+        print(f'{name} forward, batch 1: median {statistics.median(times[name]):.2f} ms over '
+              f'{len(times[name])} scenes (headline and parity in turns)', flush=True)
+
+    rec = _captured_queries(models['headline'], requests[1])
+    (args, _, idx), = rec['ball'][:1]
+    radii, nsamples, xyz, new_xyz = args[:4]
+    _check_ball('RPN sa0 nested ball', idx, xyz, new_xyz, float(radii[-1]), int(nsamples[-1]))
+    args, _, (dist, nn_idx) = rec['three_nn'][-1]
+    _check_three_nn(dist, nn_idx, args[0], args[1])
+    args, kwargs, pooled = rec['roipool'][0]
+    _check_roipool(pooled, args[0], args[1], args[2], args[3], kwargs['sampled_pt_num'])
+
+    for name in ('headline', 'parity'):
+        wall, busy, _ = device_breakdown(lambda: models[name](requests[2]), 3)
+        print(f'{name} forward, profiled: wall {wall:.3f} ms, device busy {busy:.3f} ms',
+              flush=True)
+    del models
+
+    counters = _bf16_train_counters()
+    states = {k: create_train_state(c, total_steps=100, device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(0))
+              for k, c in cfgs.items()}
+    states['parity'].model.load_state_dict(states['headline'].model.state_dict())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = {seed: _train_batch(cfgs['parity'], seed, dev) for seed in (3, 0, 1)}
+    for k in states:  # warm-up
+        train_step(states[k], batches[3], 0.1, gen)
+    step_times = {k: [] for k in states}
+    for i, seed in enumerate((0, 1)):
+        for name in (('headline', 'parity') if i % 2 == 0 else ('parity', 'headline')):
+            for c in counters:
+                c.launches = 0
+            tb, ms = _timed(lambda: train_step(states[name], batches[seed], 0.1, gen))
+            step_times[name].append(ms)
+            delta = [c.launches for c in counters]
+            loss = float(tb['loss'])
+            want = F32_STEP_WANT if name == 'parity' else HEADLINE_WANT['step']
+            if not math.isfinite(loss) or delta != want:
+                raise AssertionError(f'{name} train step on scene {seed}: loss {loss}, launches '
+                                     f'{delta}, expected {want}')
+            if name == 'headline':
+                total.update(dict(zip(BF16_TRAIN_KERNELS, delta)))
+            print(f'{name} train step scene {seed}: {ms:.2f} ms, loss {loss:.4f}, rcnn fg '
+                  f'{int(tb["rcnn_cls_fg"])}, launches '
+                  + ' '.join(f'{n} +{d}' for n, d in zip(BF16_TRAIN_KERNELS, delta) if d),
+                  flush=True)
+    for name in states:
+        wall, busy, _ = device_breakdown(lambda: train_step(states[name], batches[0], 0.1, gen), 3)
+        print(f'{name} train step, batch {TRAIN_BATCH}: {step_times[name]} ms in turns; '
+              f'profiled: wall {wall:.3f} ms, device busy {busy:.3f} ms', flush=True)
+    del states, batches
+
+    cfg = cfgs['headline'].with_overrides([('RPN.BLOCK_LOCAL', 'True'),
+                                           ('RCNN.BLOCK_LOCAL', 'True')])
+    model = EPNet(cfg, 'TEST', device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    batch = device_batch(full_batch(cfg, 1, seed=0), dev)
+    model.eval()(batch)  # warm-up
+    counters = _fwd_counters()
+    for c in counters:
+        c.launches = 0
+    out, ms = _timed(lambda: model(batch))
+    delta = [c.launches for c in counters]
+    _check_out('headline block-local forward', out, {'rcnn_cls': (R, 1)}, delta,
+               HEADLINE_WANT['block-local forward'])
+    total.update(dict(zip(FWD_KERNELS, delta)))
+    print(f'headline block-local forward scene 0: {ms:.2f} ms, launches {_fwd_launches(delta)}',
+          flush=True)
+    del model
+    state = create_train_state(cfg, total_steps=100, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+    batch = _train_batch(cfg, 0, dev)
+    train_step(state, batch, 0.1, gen)  # warm-up
+    counters = _bf16_train_counters()
+    for c in counters:
+        c.launches = 0
+    tb, ms = _timed(lambda: train_step(state, batch, 0.1, gen))
+    delta = [c.launches for c in counters]
+    if not math.isfinite(float(tb['loss'])) or delta != HEADLINE_WANT['block-local step']:
+        raise AssertionError(f'headline block-local step: loss {float(tb["loss"])}, launches '
+                             f'{delta}, expected {HEADLINE_WANT["block-local step"]}')
+    total.update(dict(zip(BF16_TRAIN_KERNELS, delta)))
+    print(f'headline block-local train step: {ms:.2f} ms, loss {float(tb["loss"]):.4f}, launches '
+          + ' '.join(f'{n} +{d}' for n, d in zip(BF16_TRAIN_KERNELS, delta) if d), flush=True)
+    return total
+
+
+RECIPE_IOU = 'cfgs/LI_Fusion_with_attention_use_ce_loss_iou_branch.yaml'
+PEOPLE_SET = [('CLASSES', 'People'), ('RCNN.LOSS_CLS', 'CrossEntropy')]
+
+
+def _f32_step(name, state, batch, gen, total):
+    """One full-width f32 step: finite loss, 6 FPS, 2 B, 2 C, 4 D, 3 E and 4
+    F launches; adds them to ``total``."""
+    from epnet_tpu_torch.train.trainer import train_step
+    counters = _bf16_train_counters()
+    for c in counters:
+        c.launches = 0
+    tb, ms = _timed(lambda: train_step(state, batch, 0.1, gen))
+    delta = [c.launches for c in counters]
+    if not math.isfinite(float(tb['loss'])) or delta != F32_STEP_WANT:
+        raise AssertionError(f'{name}: loss {float(tb["loss"])}, launches {delta}, expected '
+                             f'{F32_STEP_WANT}')
+    total.update(dict(zip(BF16_TRAIN_KERNELS, delta)))
+    print(f'{name}: {ms:.2f} ms, loss {float(tb["loss"]):.4f}, rcnn fg '
+          f'{int(tb["rcnn_cls_fg"])}', flush=True)
+    return tb
+
+
+def _near_gt_target_layer():
+    """``proposal_target_layer`` with each image's first RoIs replaced by
+    its gt boxes moved 0.15 m and grown 5% (where the gt is real): with
+    random weights the proposals miss the cars, and the RCNN's foreground
+    terms (the IoU branch's loss, People's car class) need RoIs on them."""
+    import torch
+    from epnet_tpu_torch.models import epnet as epnet_mod
+    real = epnet_mod.proposal_target_layer
+
+    def layer(rois, gt_boxes3d, *args, **kwargs):
+        gt = gt_boxes3d[..., :7]
+        near = torch.cat([gt[..., 0:1] + 0.15, gt[..., 1:3], gt[..., 3:6] * 1.05, gt[..., 6:]], -1)
+        k = min(gt.shape[1], rois.shape[1])
+        rois = rois.clone()
+        rois[:, :k] = torch.where((gt[:, :k] != 0).any(-1, keepdim=True), near[:, :k], rois[:, :k])
+        return real(rois, gt_boxes3d, *args, **kwargs)
+
+    return layer
+
+
+def phase_recipe_rows(dev):
+    """Phase 27: the last recipe rows at full width (f32). The IoU-branch
+    recipe (``cfgs/..._iou_branch.yaml``): a batch-4 train step and a
+    batch-1 joint eval step with the IoU fusion; its step and People's
+    take RoIs moved off the gt boxes (``_near_gt_target_layer``), so the
+    IoU loss and the car class see foreground RoIs. Score-based proposals
+    under ``NMS_TYPE: rotate``: a TEST forward and a train step, and the
+    proposal layer at TRAIN and TEST budgets (9000 candidates, one rotated
+    scan each) on a forward's RPN outputs, its keep list held against the
+    CPU's on the same boxes, the card's time printed. People: a train step
+    and a joint eval step (three logits). ``adam`` and ``sgd``: three steps
+    each, the third also from a checkpoint of the second, whose update must
+    match. Every step 6 FPS, 2 B, 2 C, 4 D, 3 E and 4 F launches, every
+    forward 6 FPS, 2 B and 4 F."""
+    from unittest import mock
+
+    import torch
+    from epnet_tpu_torch.config import load_config, parity_config
+    from epnet_tpu_torch.eval.detect import joint_eval_step
+    from epnet_tpu_torch.models import epnet as epnet_mod
+    from epnet_tpu_torch.models.epnet import EPNet
+    from epnet_tpu_torch.train.trainer import (create_train_state, load_checkpoint,
+                                               save_checkpoint)
+
+    total = collections.Counter()
+    R = parity_config().TEST.RPN_POST_NMS_TOP_N
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = _train_batch(parity_config(), 0, dev)
+    request = _request(1, parity_config(), dev)
+    fwd_counters = _fwd_counters()
+
+    def forward(name, model, fn=None):
+        for c in fwd_counters:
+            c.launches = 0
+        out, ms = _timed(lambda: (fn or model)(request))
+        delta = [c.launches for c in fwd_counters]
+        if delta != F32_FWD_WANT:
+            raise AssertionError(f'{name}: launches {delta}, expected {F32_FWD_WANT}')
+        total.update(dict(zip(FWD_KERNELS, delta)))
+        print(f'{name}: {ms:.2f} ms', flush=True)
+        return out
+
+    cfg = load_config(RECIPE_IOU)
+    state = create_train_state(cfg, 100, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+    with mock.patch.object(epnet_mod, 'proposal_target_layer', _near_gt_target_layer()):
+        tb = _f32_step('IoU-branch recipe train step', state, batch, gen, total)
+    fg = int(tb['rcnn_reg_fg'])
+    grad = float(state.model.rcnn.iou_out.weight.grad.abs().sum())
+    # the loss clips the raw logit to [1e-4, 1 - 1e-4] (losses.py, as the
+    # JAX package), so a freshly drawn head outside that range has no gradient
+    if not (float(tb['iou_branch_loss']) > 0 and fg > 0 and math.isfinite(grad)):
+        raise AssertionError(f'IoU-branch step: IoU-branch loss {float(tb["iou_branch_loss"])}, '
+                             f'iou_out gradient {grad} with {fg} foreground RoIs')
+    print(f'  IoU-branch loss {float(tb["iou_branch_loss"]):.4f} over {fg} foreground RoIs, '
+          f'|iou_out gradient| {grad:.3e}', flush=True)
+    model = EPNet(cfg, 'TEST', device=dev).eval()
+    model.load_state_dict(state.model.state_dict())
+    res = forward('IoU-branch joint eval step (fusion)', model,
+                  lambda b: joint_eval_step(cfg, model, b))
+    _check_out('IoU-branch eval', {k: res[k] for k in ('raw_scores', 'pred_boxes3d')},
+               {'raw_scores': (1, R), 'pred_boxes3d': (1, R, 7)}, None, None)
+    del state, model
+
+    cfg = parity_config().with_overrides([('RPN.NMS_TYPE', 'rotate'),
+                                          ('TRAIN.RPN_DISTANCE_BASED_PROPOSE', 'False'),
+                                          ('TEST.RPN_DISTANCE_BASED_PROPOSE', 'False')])
+    model = EPNet(cfg, 'TEST', device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    model.eval()(request)  # warm-up
+    out = forward('score-based rotated proposals, TEST forward', model)
+    _check_out('score-based forward', out, {'rois': (1, R, 7), 'rcnn_cls': (R, 1)}, None, None)
+    from epnet_tpu_torch.models.proposal import ProposalLayer
+    args = (out['rpn_cls'][..., 0], out['rpn_reg'], out['backbone_xyz'])
+    for mode in ('TRAIN', 'TEST'):
+        layer = ProposalLayer(cfg, mode)
+        layer(*args)  # warm-up
+        (rois, scores, counts), ms = _timed(lambda: layer(*args))
+        want = layer(*(a.cpu() for a in args))
+        if not (torch.equal(counts.cpu(), want[2]) and torch.equal(scores.cpu(), want[1])
+                and torch.allclose(rois.cpu(), want[0], rtol=1e-5, atol=1e-5)):
+            raise AssertionError(f'score-based rotated proposals ({mode}): the card\'s keep '
+                                 f'list differs from the CPU\'s')
+        print(f'score-based rotated proposals, {mode} budget ({cfg.get(mode).RPN_PRE_NMS_TOP_N}'
+              f' -> {cfg.get(mode).RPN_POST_NMS_TOP_N}): {ms:.2f} ms on the card, '
+              f'{int(counts[0])} kept, keep list identical to the CPU\'s', flush=True)
+    del model
+    state = create_train_state(cfg, 100, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+    _f32_step('score-based rotated proposals, train step', state, batch, gen, total)
+    del state
+
+    cfg = parity_config().with_overrides(PEOPLE_SET)
+    state = create_train_state(cfg, 100, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+    with mock.patch.object(epnet_mod, 'proposal_target_layer', _near_gt_target_layer()):
+        tb = _f32_step('People train step', state, batch, gen, total)
+    if state.model.rcnn.cls_out.weight.shape[0] != 3 or not int(tb['rcnn_cls_fg']) > 0:
+        raise AssertionError(f'People: cls head of {state.model.rcnn.cls_out.weight.shape[0]} '
+                             f'logits, {int(tb["rcnn_cls_fg"])} foreground RoIs')
+    model = EPNet(cfg, 'TEST', device=dev).eval()
+    model.load_state_dict(state.model.state_dict())
+    res = forward('People joint eval step', model, lambda b: joint_eval_step(cfg, model, b))
+    s = res['norm_scores']
+    if not bool(((s >= 0) & (s <= 1)).all()):
+        raise AssertionError('People eval: scores outside [0, 1]')
+    del state, model
+
+    ckpt_dir = os.path.join(OUT, 'recipe_rows_ckpt')
+    for name in ('adam', 'sgd'):
+        cfg = parity_config().with_overrides([('TRAIN.OPTIMIZER', name)])
+        state = create_train_state(cfg, 100, device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(0),
+                                   steps_per_epoch=2)
+        for k in range(2):
+            _f32_step(f'{name} step {k + 1}', state, batch,
+                      torch.Generator(device=dev).manual_seed(k), total)
+        path = save_checkpoint(ckpt_dir, state, epoch=0)
+        resumed = create_train_state(cfg, 100, device=dev, steps_per_epoch=2)
+        resumed, _ = load_checkpoint(path, resumed)
+        before = [p.detach().clone() for p in state.model.parameters()]
+        updates = []
+        for st in (state, resumed):
+            _f32_step(f'{name} step 3' + (' from the checkpoint' if st is resumed else ''), st,
+                      batch, torch.Generator(device=dev).manual_seed(2), total)
+            updates.append(torch.cat([(p.detach() - b).flatten()
+                                      for p, b in zip(st.model.parameters(), before)]))
+        gap = float((updates[0] - updates[1]).norm() / updates[0].norm())
+        if not (resumed.optimizer.count == state.optimizer.count == 3 and gap <= 1e-3):
+            raise AssertionError(f'{name}: the resumed step\'s update differs by {gap:.3e} of '
+                                 f'its norm')
+        print(f'{name}: resumed step 3 matches (update gap {gap:.2e} of its norm; the atomic '
+              f'f32 sums of dY make two runs differ in the last bits)', flush=True)
+        del state, resumed
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3430,7 +3927,7 @@ def main():
             if 'registers' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}')
 
-    # launches on the main paths (phases 3, 6, 9, 11, 14, 15, 18, 20, 22, 24 and 25), by kernel
+    # launches on the main paths (phases 3, 6, 9, 11, 14, 15, 18, 20, 22 and 24-27), by kernel
     launches = collections.Counter()
     fps_res = phase_fps(dev)
     sa_res = phase_sa(dev)
@@ -3460,6 +3957,8 @@ def main():
     phase_small_bf16_train_reference(dev, MIXED_BLOCK_LOCAL_TRAIN_TINY)
     launches.update(phase_train_cli(dev))
     launches.update(phase_lidar_flow(dev))
+    launches.update(phase_headline(dev))
+    launches.update(phase_recipe_rows(dev))
 
     kernels = [
         {'name': 'fps', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/fps.cu',

@@ -245,8 +245,7 @@ class Config:
     """Top-level config; defaults of reference ``lib/config.py:8-209``.
     ``MIXED_PRECISION`` (bf16 matmuls) and ``EXACT_QUERIES`` (True, False,
     'residual' or None for the backend's default) are the JAX package's
-    keys; the port runs MIXED_PRECISION true only in TEST mode (the bf16
-    forward), and the exact and 'residual' query policies."""
+    keys; the port runs every value of both."""
 
     TAG: str = 'default'
     CLASSES: str = 'Car'
@@ -548,6 +547,44 @@ def parity_config() -> Config:
     return Config().merged(_PARITY)
 
 
+# ``__graft_entry__._full_config`` at its environment defaults, key for key:
+# the defaults merged with the published recipe's main keys, in bf16, with
+# the approximate queries, exact FPS and neither block-local path.
+_HEADLINE = {
+    'CLASSES': 'Car',
+    'INCLUDE_SIMILAR_TYPE': True,
+    'MIXED_PRECISION': True,
+    'EXACT_QUERIES': False,
+    'CLS_MEAN_SIZE': ((1.52563191462, 1.62856739989, 3.88311640418),),
+    'LI_FUSION': {'ENABLED': True, 'ADD_Image_Attention': True},
+    'RPN': {'USE_INTENSITY': False, 'LOC_XZ_FINE': True,
+            'LOSS_CLS': 'SigmoidFocalLoss', 'SCORE_THRESH': 0.2,
+            'FPS_GROUPS': 1, 'BLOCK_LOCAL': False, 'FP_WINDOW': 0, 'FP_UBLOCK': 256},
+    'RCNN': {'ENABLED': True, 'ROI_SAMPLE_JIT': True,
+             'POOL_EXTRA_WIDTH': 0.2, 'HARD_BG_RATIO': 0.8,
+             'CLS_FC': (512, 512), 'REG_FC': (512, 512),
+             'SCORE_THRESH': 0.2, 'NMS_THRESH': 0.1, 'BLOCK_LOCAL': False},
+    'TRAIN': {'OPTIMIZER': 'adam_onecycle', 'WEIGHT_DECAY': 0.001,
+              'LR_WARMUP': True, 'WARMUP_EPOCH': 1,
+              'BN_MOMENTUM': 0.1, 'BN_DECAY_STEP_LIST': (1000,),
+              'RPN_PRE_NMS_TOP_N': 9000, 'RPN_POST_NMS_TOP_N': 512,
+              'RPN_NMS_THRESH': 0.85,
+              'IOU_LOSS_TYPE': 'cls_mask_with_bin'},
+    'TEST': {'RPN_PRE_NMS_TOP_N': 9000, 'RPN_POST_NMS_TOP_N': 100,
+             'RPN_NMS_THRESH': 0.8},
+}
+
+
+def headline_config() -> Config:
+    """The JAX package's headline configuration, the one ``entry()`` builds
+    and ``bench.py`` times (``__graft_entry__.py:8-87``), at its
+    environment's defaults: the recipe's model in bf16 (``MIXED_PRECISION``)
+    with the approximate queries (``EXACT_QUERIES`` false), exact FPS and
+    no block-local path. Reads no environment variable; the ball policy is
+    ``EPNet``'s argument (JAX's default, ``first_nested``, unless given)."""
+    return Config().merged(_HEADLINE)
+
+
 # The block-local configuration's three overrides, as the CLI's ``--set``
 # takes them: block-local SA/FP and windowed RCNN SA, other queries exact.
 BLOCK_LOCAL_SET = ('EXACT_QUERIES', 'residual', 'RPN.BLOCK_LOCAL', 'True',
@@ -559,4 +596,5 @@ def block_local_config(cfg: Config) -> Config:
     return cfg.with_overrides(list(zip(BLOCK_LOCAL_SET[0::2], BLOCK_LOCAL_SET[1::2])))
 
 
-__all__ = ['Config', 'load_config', 'save_config', 'parity_config', 'PARITY_YAML']
+__all__ = ['Config', 'load_config', 'save_config', 'parity_config', 'headline_config',
+           'PARITY_YAML']

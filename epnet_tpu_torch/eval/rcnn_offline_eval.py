@@ -67,6 +67,8 @@ def rcnn_offline_eval_step(cfg: Config, rcnn, pts_input: torch.Tensor, rois: tor
         else:
             rcnn_cls = out['rcnn_cls'].reshape(-1)
         rcnn_reg = out['rcnn_reg']
+        if cfg.USE_IOU_BRANCH:  # the joint eval's fusion (rcnn_offline_eval.py:53-55)
+            rcnn_cls = torch.clamp(out['rcnn_iou_branch'].reshape(-1), min=1e-4) * rcnn_cls
         mean_size = torch.tensor(cfg.CLS_MEAN_SIZE[0], dtype=rcnn_reg.dtype, device=rois.device)
         pred = decode_bbox_target(
             rois, rcnn_reg, mean_size, loc_scope=cfg.RCNN.LOC_SCOPE,

@@ -11,7 +11,9 @@ the stages whose shapes allow group and interpolate inside block-local
 windows over the loader's Morton-sorted cloud (``backbone.py:58-127``).
 Under ``MIXED_PRECISION`` the SA, FP, image, fusion and head modules run
 in bf16 (``backbone.py:37,78-147``; the tower too: the port reads no
-``EPNET_IMG_F32``) and the features come out f32 (``:149``).
+``EPNET_IMG_F32``) and the features come out f32 (``:149``). Under
+``EXACT_QUERIES`` false the SA and FP stages take the approximate queries,
+with the multi-scale ``ball_policy`` given (see ``pointnet2.py``).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 import torch.nn as nn
 
 from ..config import Config
-from ..ops.pointops import block_local_allowed, gather_points
+from ..ops.pointops import approx_allowed, block_local_allowed, gather_points
 from .fusion import AttenFusionConv, DeconvFusionHead, FusionConv, ImageBlock, feature_gather
 from .pointnet2 import FPModule, SAModuleMSG
 
@@ -31,7 +33,8 @@ class PointBackbone(nn.Module):
     """``forward(pts_input (B, N, 3+C), image (B, H, W, 3), xy (B, N, 2))``
     returns ``(xyz (B, N, 3), features (B, N, F))``."""
 
-    def __init__(self, cfg: Config, in_channels: int, device=None):
+    def __init__(self, cfg: Config, in_channels: int, device=None,
+                 ball_policy: str = 'first_nested'):
         super().__init__()
         self.cfg = cfg
         sa = cfg.RPN.SA_CONFIG
@@ -40,11 +43,13 @@ class PointBackbone(nn.Module):
         dt = torch.bfloat16 if cfg.MIXED_PRECISION else None
         level_ch = [in_channels - 3]
         self.block_local = cfg.RPN.BLOCK_LOCAL and block_local_allowed(cfg.EXACT_QUERIES)
+        approx = approx_allowed(cfg.EXACT_QUERIES, 'ball')
         for i in range(n_sa):
             mod = SAModuleMSG(sa.NPOINTS[i], sa.RADIUS[i], sa.NSAMPLE[i], sa.MLPS[i],
                               in_features=level_ch[i], bn=cfg.RPN.USE_BN,
                               block_local=self.block_local, block_window=cfg.RPN.BLOCK_WINDOW,
-                              block_c=cfg.RPN.BLOCK_C, dtype=dt, device=device)
+                              block_c=cfg.RPN.BLOCK_C, dtype=dt, device=device,
+                              approx=approx, ball_policy=ball_policy)
             self.add_module(f'sa{i}', mod)
             if li.ENABLED:
                 fusion = AttenFusionConv if li.ADD_Image_Attention else FusionConv
@@ -64,7 +69,7 @@ class PointBackbone(nn.Module):
             self.add_module(f'fp{k}', FPModule(known_ch + level_ch[k], cfg.RPN.FP_MLPS[k],
                                                bn=cfg.RPN.USE_BN, block_local=self.block_local,
                                                ublock=512, window=256, dtype=dt,
-                                               device=device))
+                                               device=device, approx=approx))
         self.out_features = cfg.RPN.FP_MLPS[0][-1]
         if li.ENABLED:
             self.deconv_fusion = DeconvFusionHead(

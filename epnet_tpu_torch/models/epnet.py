@@ -17,7 +17,7 @@ import torch.nn as nn
 
 from ..config import Config
 from ..ops.boxes import rotate_points_along_y
-from ..ops.pointops import approx_allowed
+from ..ops.pointops import approx_allowed, check_ball_policy
 from ..ops.roipool3d import roipool3d
 from .layers import init_parameters
 from .proposal import ProposalLayer
@@ -60,6 +60,12 @@ class EPNet(nn.Module):
     'TEST') selects the proposal budgets, as the reference's ``cfg[mode]``
     lookups do. Building it turns TF32 off (``use_f32_math``).
 
+    ``EXACT_QUERIES`` false runs the JAX package's approximate queries
+    (``ops/pointops.py``), the policy of its headline configuration
+    (``config.headline_config``); ``ball_policy`` picks their multi-scale
+    ball policy, 'first_nested' (JAX's default) or 'first_multi' (an
+    argument, where JAX reads ``EPNET_BALL_POLICY``; 'nearest' raises).
+
     ``MIXED_PRECISION`` runs the bf16 forward and train step of the JAX
     package (``epnet.py:74-79,114-123`` and the modules' ``dtype``), with
     f32 parameters, so ``bridge.py`` carries weights across unchanged and
@@ -84,18 +90,19 @@ class EPNet(nn.Module):
     """
 
     def __init__(self, cfg: Config, mode: str = 'TEST', device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 ball_policy: str = 'first_nested'):
         super().__init__()
         if mode not in ('TRAIN', 'TEST'):
             raise ValueError(f'mode {mode!r}: TRAIN or TEST')
-        unported = {'EXACT_QUERIES false (the approximate queries)':
-                        approx_allowed(cfg.EXACT_QUERIES, 'ball'),
-                    'RPN.FP_WINDOW > 0': cfg.RPN.FP_WINDOW > 0,
-                    'RPN.FPS_GROUPS != 1': cfg.RPN.FPS_GROUPS != 1,
-                    "RPN.SAMPLING 'random'": cfg.RPN.SAMPLING != 'fps'}
-        for what, on in unported.items():
+        unported = {'RPN.FPS_GROUPS != 1': (cfg.RPN.FPS_GROUPS != 1, '16.2'),
+                    'RPN.FP_WINDOW > 0': (cfg.RPN.FP_WINDOW > 0, '16.3'),
+                    "RPN.SAMPLING 'random'": (cfg.RPN.SAMPLING != 'fps', '16.2')}
+        for what, (on, item) in unported.items():
             if on:
-                raise NotImplementedError(f'{what} is not ported yet (ROADMAP Queue 1)')
+                raise NotImplementedError(f'{what} is not ported yet (ROADMAP Queue 1, '
+                                          f'item {item})')
+        self.ball_policy = check_ball_policy(ball_policy)
         if not (cfg.RPN.ENABLED or cfg.RCNN.ENABLED):
             raise ValueError('neither RPN.ENABLED nor RCNN.ENABLED: no model to build')
         device = default_device(device)
@@ -105,7 +112,8 @@ class EPNet(nn.Module):
         self.cfg = cfg
         self.mode = mode
         if cfg.RPN.ENABLED:
-            self.rpn = RPN(cfg, 3 + int(cfg.RPN.USE_INTENSITY), device=device)
+            self.rpn = RPN(cfg, 3 + int(cfg.RPN.USE_INTENSITY), device=device,
+                           ball_policy=ball_policy)
             if cfg.RCNN.ENABLED:
                 rcnn_in = 3 + 1 + int(cfg.RCNN.USE_DEPTH) + self.rpn.backbone.out_features
                 self.rcnn = RCNNNet(cfg, rcnn_in, device=device)
@@ -211,7 +219,8 @@ def pool_for_eval(cfg: Config, rois, xyz, rpn_features, seg_mask, pts_depth):
     if cfg.MIXED_PRECISION:
         feats = feats.to(torch.bfloat16)
     pxyz, pfeats, _, _ = roipool3d(xyz, feats, rois, cfg.RCNN.POOL_EXTRA_WIDTH,
-                                   sampled_pt_num=cfg.RCNN.NUM_POINTS)
+                                   sampled_pt_num=cfg.RCNN.NUM_POINTS,
+                                   approx=approx_allowed(cfg.EXACT_QUERIES, 'roipool'))
     local = pxyz - rois[..., None, 0:3]
     local = rotate_points_along_y(local, rois[..., 6, None])
     pooled = torch.cat([local.to(pfeats.dtype), pfeats], -1)

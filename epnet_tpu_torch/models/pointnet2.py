@@ -18,6 +18,18 @@ windowed fused kernel instead; and an FP stage given ``known_idx``
 interpolates inside windows. The gates are the JAX package's
 (``pointnet2.py:42-52,120-150,375-395``).
 
+With ``approx`` (``EXACT_QUERIES`` false, ``pointnet2.py:197-256,397``)
+the queries are the approximate family of ``ops/pointops.py``: under the
+``first_nested`` ball policy a monotone multi-scale stage (the RPN's) takes
+one nested first-hit query of the outer ball, and each scale keeps the
+gathered rows inside its own radius (``nested_radius_select``), so every
+scale's MLP sees ``nsamples[-1]`` rows (the duplicates pad its max, and
+count in its BatchNorm's batch statistics); under ``first_multi`` and in
+single-scale stages each scale takes its own approximate query; a
+single-scale stage over a small spatially ordered table (RCNN sa1 under
+``RCNN.BLOCK_LOCAL``) takes the bucket select; FP takes the approximate
+``three_nn``.
+
 With ``dtype`` (bf16 under ``MIXED_PRECISION``) the stages cast as the JAX
 package's do: SA casts its features to bf16 before grouping
 (``pointnet2.py:169-170``) and the recentred xyz after
@@ -41,8 +53,10 @@ import torch.nn as nn
 from ..ops.block_local import (block_local_available, block_local_fp_available,
                                block_local_group_multi, block_local_three_interp,
                                bucket_ball_query, to_window_relative, window_starts)
-from ..ops.pointops import (ball_query, furthest_point_sample, gather_points,
-                            group_points, three_interpolate, three_nn)
+from ..ops.pointops import (ball_query, ball_query_approx, ball_query_nested_first_hit,
+                            check_ball_policy, furthest_point_sample, gather_points,
+                            group_points, nested_radius_select, sq_dist, three_interpolate,
+                            three_nn)
 from ..ops.sa_fused import fused_point_mlp_max, fused_point_mlp_max_win
 from .layers import SharedMLP
 
@@ -53,15 +67,20 @@ class SAModuleMSG(nn.Module):
     ``forward(xyz (B, N, 3), features (B, N, C) or None)`` returns
     ``(new_xyz (B, M, 3), new_features (B, M, sum(mlp[-1])), fps_idx (B, M))``;
     ``npoint=None`` is group-all (one centroid at the origin, xyz not
-    recentred) and returns ``fps_idx=None``.
+    recentred) and returns ``fps_idx=None``. ``approx`` selects the
+    approximate queries and ``ball_policy`` ('first_nested' or
+    'first_multi') their multi-scale policy.
     """
 
     def __init__(self, npoint: Optional[int], radii: Sequence[float],
                  nsamples: Sequence[int], mlps: Sequence[Sequence[int]],
                  in_features: int, bn: bool = True, block_local: bool = False,
-                 block_window: int = 1024, block_c: int = 128, dtype=None, device=None):
+                 block_window: int = 1024, block_c: int = 128, dtype=None, device=None,
+                 approx: bool = False, ball_policy: str = 'first_nested'):
         super().__init__()
         self.npoint = npoint
+        self.approx = approx
+        self.ball_policy = check_ball_policy(ball_policy)
         self.dtype = dtype
         self.radii = tuple(radii)
         self.nsamples = tuple(nsamples)
@@ -100,6 +119,21 @@ class SAModuleMSG(nn.Module):
                 and list(self.nsamples) == sorted(self.nsamples)
                 and block_local_available(n, self.npoint, self.block_window, self.block_c))
 
+    def uses_nested(self) -> bool:
+        """The nested first-hit query (``pointnet2.py:221-239``): a
+        monotone multi-scale stage under the approximate queries and the
+        ``first_nested`` policy."""
+        return (self.approx and self.ball_policy == 'first_nested' and self.npoint is not None
+                and self.n_scales > 1 and list(self.radii) == sorted(self.radii)
+                and list(self.nsamples) == sorted(self.nsamples))
+
+    def uses_bucket(self, n: int) -> bool:
+        """The bucket select of a single-scale stage over a small spatially
+        ordered table under the approximate queries (``pointnet2.py:
+        240-249``): RCNN sa1 in the block-local configuration."""
+        return (self.block_local and self.approx and self.n_scales == 1
+                and self.npoint is not None and n % self.nsamples[0] == 0)
+
     def uses_window(self, n: int) -> bool:
         """The windowed fused kernel over a table of ``n`` points: JAX's
         ``fused_sa_win_available`` without the TPU's lane and VMEM limits
@@ -128,14 +162,26 @@ class SAModuleMSG(nn.Module):
             idx_rel = to_window_relative(
                 bucket_ball_query(self.radii[0], self.nsamples[0], xyz, new_xyz), starts, w)
             return new_xyz, self._fused(0, xyz, features, new_xyz, idx_rel, starts), fps_idx
+        nested = False
         if use_bl:
             scale_idx = block_local_group_multi(self.radii, self.nsamples, xyz, fps_idx,
                                                 new_xyz, self.block_window, self.block_c)
+        elif self.uses_nested():
+            # each scale's rows are the outer ball's rows inside its radius:
+            # selected here as indices, then gathered once a scale
+            nested = True
+            idx = ball_query_nested_first_hit(self.radii, self.nsamples, xyz, new_xyz)
+            d2 = sq_dist(group_points(xyz.detach(), idx), new_xyz.detach()[:, :, None, :])
+            scale_idx = [nested_radius_select(idx[..., None], d2, r, i == self.n_scales - 1)[..., 0]
+                         for i, r in enumerate(self.radii)]
+        elif self.uses_bucket(n):
+            scale_idx = [bucket_ball_query(self.radii[0], self.nsamples[0], xyz, new_xyz)]
         else:
-            scale_idx = [ball_query(r, s, xyz, new_xyz) for r, s in zip(self.radii, self.nsamples)]
+            query = ball_query_approx if self.approx else ball_query
+            scale_idx = [query(r, s, xyz, new_xyz) for r, s in zip(self.radii, self.nsamples)]
         outs = []
         for i, idx in enumerate(scale_idx):
-            if self.uses_fused(i):
+            if self.uses_fused(i) and not nested:
                 outs.append(self._fused(i, xyz, features, new_xyz, idx))
                 continue
             grouped = group_points(xyz, idx) - new_xyz[:, :, None, :]
@@ -181,13 +227,15 @@ class FPModule(nn.Module):
     (``pointnet2_modules.py:133-173``). With ``block_local`` and the knowns'
     ascending positions ``known_idx`` among the unknowns, the windowed
     interpolation of ``ops/block_local.py`` where the shapes allow
-    (``pointnet2.py:375-395``)."""
+    (``pointnet2.py:375-395``); elsewhere ``three_nn``, approximate with
+    ``approx``."""
 
     def __init__(self, cin: int, mlp: Sequence[int], bn: bool = True,
                  block_local: bool = False, ublock: int = 512, window: int = 256,
-                 dtype=None, device=None):
+                 dtype=None, device=None, approx: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.approx = approx
         self.SharedMLP_0 = SharedMLP(cin, mlp, bn=bn, dtype=dtype, device=device)
         self.block_local = block_local
         self.ublock = ublock
@@ -205,7 +253,7 @@ class FPModule(nn.Module):
             interp = block_local_three_interp(unknown, known, known_feats, known_idx,
                                               self.ublock, self.window)
         else:
-            dist, idx = three_nn(unknown, known)
+            dist, idx = three_nn(unknown, known, approx=self.approx)
             recip = 1.0 / (dist + 1e-8)
             weight = recip / recip.sum(-1, keepdim=True)
             interp = three_interpolate(known_feats, idx, weight.to(known_feats.dtype))

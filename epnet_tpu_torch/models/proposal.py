@@ -1,11 +1,15 @@
-"""Proposal generation: decode per-point boxes, distance-partitioned NMS,
-fixed-size padded RoI output (``TEST.RPN_DISTANCE_BASED_PROPOSE``; the
-score-based variant needs the rotated NMS and is not ported).
+"""Proposal generation: decode per-point boxes, distance-partitioned or
+score-based NMS, fixed-size padded RoI output.
 
 Port of ``epnet_tpu/models/proposal.py`` (reference
 ``lib/rpn/proposal_layer.py``: decode :23-31, distance-based proposals
 :58-119, score-based :121-142). Each batch element goes through a Python
 loop in place of ``lax.map``; every list is a padded tensor plus a count.
+``RPN_DISTANCE_BASED_PROPOSE`` (per mode) takes the two distance ranges,
+each through the axis-aligned NMS under ``RPN.NMS_TYPE: normal`` and the
+rotated one under ``rotate``; the score-based proposals take the
+``RPN_PRE_NMS_TOP_N`` best boxes through one rotated NMS
+(``proposal.py:141-146``).
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ def _first_k_masked(mask: torch.Tensor, k: int):
     return torch.where(torch.arange(k, device=mask.device) < cnt, idx, 0), cnt
 
 
-def _range_nms(props, scores, cand_idx, cand_cnt: int, nms_thresh, post_n):
+def _range_nms(props, scores, cand_idx, cand_cnt: int, nms_thresh, post_n, rotated: bool):
     """NMS over a fixed-size candidate set whose first cand_cnt entries are
     valid. Returns (boxes (post_n, 7), scores (post_n,), count)."""
     k = cand_idx.shape[0]
@@ -42,7 +46,7 @@ def _range_nms(props, scores, cand_idx, cand_cnt: int, nms_thresh, post_n):
     dummy = torch.tensor([1e6, 0, 1e6, 1, 1, 1, 0], dtype=cboxes.dtype, device=dev)
     cboxes = torch.where(valid[:, None], cboxes, dummy)
     keep_idx, keep_cnt = nms_bev(boxes3d_to_bev(cboxes), cscores, nms_thresh,
-                                 max_keep=post_n, num_valid=cand_cnt)
+                                 max_keep=post_n, rotated=rotated, num_valid=cand_cnt)
     slot_ok = torch.arange(post_n, device=dev) < keep_cnt
     return (torch.where(slot_ok[:, None], cboxes[keep_idx], 0.0),
             torch.where(slot_ok, cscores[keep_idx], 0.0), keep_cnt)
@@ -52,11 +56,8 @@ class ProposalLayer:
     """Proposal layer; ``mode`` selects the TRAIN/TEST budgets."""
 
     def __init__(self, cfg: Config, mode: str = 'TEST'):
-        if cfg.RPN.NMS_TYPE != 'normal' or not cfg.get(mode).RPN_DISTANCE_BASED_PROPOSE:
-            # score-based proposals take the rotated NMS (proposal.py:146)
-            raise NotImplementedError(
-                "only distance-based proposals with the axis-aligned 'normal' "
-                'NMS are ported (ROADMAP Queue 1, item 14c)')
+        if cfg.RPN.NMS_TYPE not in ('normal', 'rotate'):
+            raise ValueError(f"RPN.NMS_TYPE {cfg.RPN.NMS_TYPE!r}: 'normal' or 'rotate'")
         self.cfg = cfg
         self.mode = mode
         self.mcfg = cfg.get(mode)
@@ -96,6 +97,12 @@ class ProposalLayer:
         props_o = props[order]
         n = scores.shape[0]
         pre, post = mcfg.RPN_PRE_NMS_TOP_N, mcfg.RPN_POST_NMS_TOP_N
+        thresh = mcfg.RPN_NMS_THRESH
+        if not mcfg.RPN_DISTANCE_BASED_PROPOSE:  # proposal_layer.py:121-142
+            k = min(pre, n)
+            return _range_nms(props_o, scores_o, torch.arange(k, device=dev), k, thresh, post,
+                              rotated=True)
+        rotated = self.cfg.RPN.NMS_TYPE == 'rotate'
         pre_ns = (int(pre * 0.7), pre - int(pre * 0.7))
         post_ns = (int(post * 0.7), post - int(post * 0.7))
         dist = props_o[:, 2]
@@ -103,8 +110,7 @@ class ProposalLayer:
         m2 = (dist > NMS_RANGES[1]) & (dist <= NMS_RANGES[2])
 
         idx1, cnt1 = _first_k_masked(m1, min(pre_ns[0], n))
-        b1, s1, c1 = _range_nms(props_o, scores_o, idx1, cnt1, mcfg.RPN_NMS_THRESH,
-                                post_ns[0])
+        b1, s1, c1 = _range_nms(props_o, scores_o, idx1, cnt1, thresh, post_ns[0], rotated)
 
         # far range; when empty, reuse the near-range candidates ranked
         # [pre_n1 : pre_n1 + pre_n2] (proposal_layer.py:92-100)
@@ -117,8 +123,7 @@ class ProposalLayer:
                 idx1_ext = torch.cat([idx1_ext, idx1_ext.new_zeros(pad)])
             idx2 = idx1_ext[pre_ns[0]:pre_ns[0] + k2]
             cnt2 = min(max(cnt1_ext - pre_ns[0], 0), k2)
-        b2, s2, c2 = _range_nms(props_o, scores_o, idx2, cnt2, mcfg.RPN_NMS_THRESH,
-                                post_ns[1])
+        b2, s2, c2 = _range_nms(props_o, scores_o, idx2, cnt2, thresh, post_ns[1], rotated)
 
         # range 2 starts right after range 1's c1 entries, like torch.cat of
         # the reference's ragged lists

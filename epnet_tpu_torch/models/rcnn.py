@@ -1,14 +1,19 @@
 """Stage-2 RCNN refinement head.
 
 Port of ``epnet_tpu/models/rcnn.py`` (reference ``lib/net/rcnn_net.py``:
-xyz-up/merge layers :21-26, SA tower :28-42, cls/reg heads :44-91).
+xyz-up/merge layers :21-26, SA tower :28-42, cls/reg/iou heads :44-91).
 Operates on (B*R, S, C) pooled canonical-frame points. The recipe's tower
 has no BN and three-layer MLPs, so its two sampled stages run the fused SA
 kernels; under ``RCNN.BLOCK_LOCAL`` (with a query policy that admits it) a
 stage whose table is larger than its window runs the windowed fused kernel
-over the pooled points, which keep the loader's Morton order. Dropout
+over the pooled points, which keep the loader's Morton order. Under
+``EXACT_QUERIES`` false the tower's ball queries are the approximate ones,
+and with ``RCNN.BLOCK_LOCAL`` a stage over a table too small for its window
+(sa1) takes the bucket select (see ``pointnet2.py``). Dropout
 (``RCNN.DP_RATIO``, applied when >= 0) follows the first layer of each
-head.
+head. ``USE_IOU_BRANCH`` adds the IoU head (``rcnn.py:82-91``):
+``iou_fc0``, dropout, ``iou_fc1`` at the widths of ``REG_FC`` and a raw
+``iou_out`` logit; its dropout mask is drawn after cls's and reg's.
 
 Under ``MIXED_PRECISION`` ``xyz_up``, ``merge_down`` and the SA tower run
 in bf16, the final pool goes to f32 and the heads are f32
@@ -26,7 +31,7 @@ import torch
 import torch.nn as nn
 
 from ..config import Config
-from ..ops.pointops import block_local_allowed
+from ..ops.pointops import approx_allowed, block_local_allowed
 from .layers import PointwiseConv, SharedMLP, dense_head
 from .pointnet2 import SAModuleMSG
 
@@ -34,8 +39,6 @@ from .pointnet2 import SAModuleMSG
 class RCNNNet(nn.Module):
     def __init__(self, cfg: Config, in_channels: int, device=None):
         super().__init__()
-        if cfg.USE_IOU_BRANCH:
-            raise NotImplementedError('the IoU branch is not ported yet (ROADMAP Queue 1, item 14c)')
         self.cfg = cfg
         rc = cfg.RCNN
         dt = torch.bfloat16 if cfg.MIXED_PRECISION else None
@@ -55,7 +58,7 @@ class RCNNNet(nn.Module):
                               (rc.SA_CONFIG.NSAMPLE[i],), (rc.SA_CONFIG.MLPS[i],),
                               in_features=feats, bn=rc.USE_BN, block_local=block_local,
                               block_window=rc.BLOCK_WINDOW, block_c=rc.BLOCK_C, dtype=dt,
-                              device=device)
+                              device=device, approx=approx_allowed(cfg.EXACT_QUERIES, 'ball'))
             self.add_module(f'sa{i}', mod)
             feats = mod.out_features
         # binary -> single sigmoid logit; multi-class -> n logits (rcnn_net.py:45)
@@ -70,6 +73,12 @@ class RCNNNet(nn.Module):
             self.add_module(f'reg_fc{k}', PointwiseConv(cin, f, bn=rc.USE_BN, device=device))
             cin = f
         self.reg_out = nn.Linear(cin, rc.reg_channel, device=device)
+        if cfg.USE_IOU_BRANCH:
+            cin = feats
+            for k, f in enumerate(rc.REG_FC[:2]):
+                self.add_module(f'iou_fc{k}', PointwiseConv(cin, f, bn=rc.USE_BN, device=device))
+                cin = f
+            self.iou_out = nn.Linear(cin, 1, device=device)
 
     def init_own_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Regression weights ~ N(0, 0.001)."""
@@ -80,7 +89,8 @@ class RCNNNet(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """:param pts_input: (B*R, S, 3 + C) canonical points + features
         :param generator: draws the dropout masks in training
-        :return: dict rcnn_cls (B*R, cls), rcnn_reg (B*R, C)"""
+        :return: dict rcnn_cls (B*R, cls), rcnn_reg (B*R, C) and, with the
+            IoU branch, rcnn_iou_branch (B*R, 1)"""
         rc = self.cfg.RCNN
         xyz = pts_input[..., 0:3]
         if rc.USE_RPN_FEATURES:
@@ -95,7 +105,11 @@ class RCNNNet(nn.Module):
             l_xyz, l_feats, _ = getattr(self, f'sa{i}')(l_xyz, l_feats, bn_momentum)
         x = l_feats[:, 0, :].float()  # (B*R, C), the final pool
         p = rc.DP_RATIO
-        return {'rcnn_cls': self.cls_out(dense_head(self, 'cls_fc', len(rc.CLS_FC), x, p,
-                                                    bn_momentum, generator)),
-                'rcnn_reg': self.reg_out(dense_head(self, 'reg_fc', len(rc.REG_FC), x, p,
-                                                    bn_momentum, generator))}
+        out = {'rcnn_cls': self.cls_out(dense_head(self, 'cls_fc', len(rc.CLS_FC), x, p,
+                                                   bn_momentum, generator)),
+               'rcnn_reg': self.reg_out(dense_head(self, 'reg_fc', len(rc.REG_FC), x, p,
+                                                   bn_momentum, generator))}
+        if self.cfg.USE_IOU_BRANCH:
+            out['rcnn_iou_branch'] = self.iou_out(dense_head(self, 'iou_fc', 2, x, p,
+                                                             bn_momentum, generator))
+        return out

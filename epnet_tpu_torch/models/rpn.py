@@ -25,10 +25,11 @@ def focal_bias(pi: float = 0.01) -> float:
 
 
 class RPN(nn.Module):
-    def __init__(self, cfg: Config, in_channels: int, device=None):
+    def __init__(self, cfg: Config, in_channels: int, device=None,
+                 ball_policy: str = 'first_nested'):
         super().__init__()
         self.cfg = cfg
-        self.backbone = PointBackbone(cfg, in_channels, device=device)
+        self.backbone = PointBackbone(cfg, in_channels, device=device, ball_policy=ball_policy)
         c = self.backbone.out_features
         cin = c
         for k, f in enumerate(cfg.RPN.CLS_FC):

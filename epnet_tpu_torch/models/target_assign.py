@@ -22,6 +22,7 @@ import torch
 
 from ..config import Config
 from ..ops.boxes import rotate_points_along_y
+from ..ops.pointops import approx_allowed
 from ..ops.roipool3d import roipool3d
 from ..ops.rotated_iou import boxes_iou3d_aligned
 
@@ -277,6 +278,26 @@ def canonical_targets(sampled_pts, rois, gt, iou, empty_flag, cfg: Config):
 
 
 @torch.no_grad()
+def mask_score_of(seg: torch.Tensor, pool_cnt: torch.Tensor, approx: bool) -> torch.Tensor:
+    """The seg channel's mean over the cyclically repeated pool
+    (``proposal_target_layer.py:43``), read in f32 (``target_assign.py:
+    282-298``). The exact pool repeats its points cyclically; the
+    approximate pool holds each found point once in slots [0, c) and pads
+    with slot 0, so slot j < c gets the cyclic multiplicity
+    floor(S / c) + (j < S mod c), c = max(min(cnt, S), 1).
+
+    :param seg: (B, M, S); pool_cnt (B, M) from ``roipool3d``
+    """
+    seg = seg.float()
+    S = seg.shape[-1]
+    if not approx:
+        return seg.sum(-1) / S
+    c = pool_cnt.clamp_max(S).clamp_min(1)[..., None]
+    slot = torch.arange(S, device=seg.device)
+    w = torch.where(slot < c, S // c + (slot < S % c).to(c.dtype), 0).float()
+    return (seg * w).sum(-1) / S
+
+
 def proposal_target_layer(rois, gt_boxes3d, rpn_xyz, rpn_features, seg_mask, pts_depth,
                           cfg: Config, generator: Optional[torch.Generator] = None,
                           draws: Optional[TargetDraws] = None) -> RCNNTargets:
@@ -299,11 +320,10 @@ def proposal_target_layer(rois, gt_boxes3d, rpn_xyz, rpn_features, seg_mask, pts
     feats = torch.cat(extra + [rpn_features], -1)
     if cfg.MIXED_PRECISION:  # pooled in bf16, as at eval (target_assign.py:276-280)
         feats = feats.to(torch.bfloat16)
-    sampled_pts, sampled_feats, empty_flag, _ = roipool3d(
-        rpn_xyz, feats, batch_rois, cfg.RCNN.POOL_EXTRA_WIDTH, sampled_pt_num=S)
-    # the exact pool repeats points cyclically, as the reference's mask_score
-    # (proposal_target_layer.py:43) expects; the seg channel read in f32 (:289)
-    mask_score = sampled_feats[..., 0].float().sum(-1) / S
+    approx = approx_allowed(cfg.EXACT_QUERIES, 'roipool')
+    sampled_pts, sampled_feats, empty_flag, pool_cnt = roipool3d(
+        rpn_xyz, feats, batch_rois, cfg.RCNN.POOL_EXTRA_WIDTH, sampled_pt_num=S, approx=approx)
+    mask_score = mask_score_of(sampled_feats[..., 0], pool_cnt, approx)
 
     if cfg.AUG_DATA:
         sampled_pts, batch_rois, batch_gt = per_roi_augmentation(

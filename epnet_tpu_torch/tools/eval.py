@@ -3,6 +3,7 @@
     python -m epnet_tpu_torch.tools.eval --cfg_file cfgs/<recipe>.yaml \\
         --data_root <root> [--eval_mode rcnn_online|rcnn|rpn|rcnn_offline] \\
         [--ckpt checkpoint_epoch_<n>.pth | --eval_all --ckpt_dir <dir>] [--device cpu]
+        [--ball_policy first_nested|first_multi] [--set KEY VALUE ...]
 
 Counterpart of ``tools/eval.py`` (reference ``tools/eval_rcnn.py``): the
 ``KittiRCNNDataset`` of ``TEST.SPLIT`` in EVAL mode (TEST with ``--test``:
@@ -44,6 +45,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from ..ops.pointops import BALL_POLICIES
 from . import cli_logger
 
 
@@ -70,6 +72,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument('--max_gt', type=int, default=50)
     p.add_argument('--device', type=str, default=None,
                    help='torch device; default the CUDA device (raises without one)')
+    p.add_argument('--ball_policy', type=str, default='first_nested', choices=BALL_POLICIES,
+                   help='multi-scale ball policy of the approximate queries')
     p.add_argument('--set', dest='set_cfgs', default=None, nargs=argparse.REMAINDER)
     return p.parse_args(argv)
 
@@ -102,7 +106,7 @@ def eval_one(cfg, args, ckpt_path: Optional[str], logger) -> Dict:
                                mode='TEST' if args.test else 'EVAL', max_gt=args.max_gt,
                                rcnn_eval_roi_dir=args.rcnn_eval_roi_dir,
                                rcnn_eval_feature_dir=args.rcnn_eval_feature_dir)
-    model = EPNet(cfg, 'TEST', device=device,
+    model = EPNet(cfg, 'TEST', device=device, ball_policy=args.ball_policy,
                   generator=torch.Generator(device=device).manual_seed(0)).eval()
     epoch = 0
     if ckpt_path and offline:

@@ -14,10 +14,13 @@ pins the whole train -> checkpoint -> eval -> AP pipeline at full model
 size, and has to land in the JAX package's band across seeds.
 
 ``--knobs`` applies, on top of the parity recipe, a comma subset of
-``block`` (both ``BLOCK_LOCAL`` flags), ``blockrpn``, ``blockrcnn`` and
+``block`` (both ``BLOCK_LOCAL`` flags), ``blockrpn``, ``blockrcnn``,
+``queries`` (``EXACT_QUERIES False``: the approximate queries, under the
+CLIs' default ball policy ``first_nested``, JAX's default) and
 ``residual`` (``EXACT_QUERIES residual``), with ``MIXED_PRECISION`` true, as
-the JAX pin does. Not ported yet (ROADMAP Queue 1, item 16), each raising:
-the knobs ``fps``, ``queries`` and ``fpwin`` and ``--speed-mode``.
+the JAX pin does. Not ported yet (ROADMAP Queue 1, items 16.2-16.3), each
+raising: the knobs ``fps`` and ``fpwin`` and ``--speed-mode`` (which also
+takes FPS groups).
 ``--device`` is passed on to both CLIs (``cpu`` runs it there, with
 ``RECIPE`` pointed at a tiny config, as its test does). ``main(argv)``
 returns the JSON line's dict.
@@ -36,9 +39,10 @@ RECIPE = os.path.join(REPO, 'cfgs', 'LI_Fusion_with_attention_use_ce_loss.yaml')
 KNOBS = {'block': ['RPN.BLOCK_LOCAL', 'True', 'RCNN.BLOCK_LOCAL', 'True'],
          'blockrpn': ['RPN.BLOCK_LOCAL', 'True'],
          'blockrcnn': ['RCNN.BLOCK_LOCAL', 'True'],
+         'queries': ['EXACT_QUERIES', 'False'],
          'residual': ['EXACT_QUERIES', 'residual']}
-NOT_PORTED_KNOBS = ('fps', 'queries', 'fpwin')
-NOT_PORTED = 'not ported yet (ROADMAP Queue 1, item 16)'
+NOT_PORTED_KNOBS = ('fps', 'fpwin')
+NOT_PORTED = 'not ported yet (ROADMAP Queue 1, item 16.2 or 16.3)'
 AP_LINE = re.compile(r'3d\s+AP:\s*([\d.]+),\s*([\d.]+),\s*([\d.]+)')
 
 
@@ -53,7 +57,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument('--points', type=int, default=14000)
     p.add_argument('--speed-mode', action='store_true')
     p.add_argument('--knobs', type=str, default='',
-                   help='comma subset of {block,blockrpn,blockrcnn,residual} on top of '
+                   help='comma subset of {block,blockrpn,blockrcnn,queries,residual} on top of '
                         'the parity recipe, with MIXED_PRECISION true')
     p.add_argument('--device', type=str, default=None)
     return p.parse_args(argv)

@@ -4,7 +4,8 @@
         --data_root <root> [--train_mode rcnn_online|rpn|rcnn|rcnn_offline]
         [--ckpt <ckpt>] [--rpn_ckpt <ckpt>] [--gt_database <pkl>]
         [--rcnn_training_roi_dir <dir> --rcnn_training_feature_dir <dir>]
-        [--train_with_eval] [--device cpu] [--set KEY VALUE ...]
+        [--train_with_eval] [--ball_policy first_nested|first_multi]
+        [--device cpu] [--set KEY VALUE ...]
 
 Counterpart of ``tools/train.py`` (reference ``train_rcnn.py``: argparse
 :23-53, mode matrix :163-181, logger and config dump :187-206, trainer
@@ -39,6 +40,13 @@ unless ``--device`` names another.
   ``--train_mode rpn`` and ``rcnn_offline`` (where the JAX CLI fails after
   the first epoch).
 
+* ``--ball_policy``: the approximate queries' multi-scale ball policy
+  under ``--set EXACT_QUERIES False`` (``models/epnet.EPNet``), the JAX
+  package's ``EPNET_BALL_POLICY``; ``tools/eval.py`` takes the same flag
+  and default.
+* ``--set TRAIN.OPTIMIZER adam`` or ``sgd``: the epoch-decay optimizers,
+  with epochs of one pass of the loader.
+
 Not ported yet, each raising ``NotImplementedError``: ``--steps_per_call``
 above 1 and ``--n_devices`` above 1 (ROADMAP Queue 1, item 15).
 ``main(argv)`` runs in-process and returns the final ``TrainState``.
@@ -53,6 +61,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..ops.pointops import BALL_POLICIES
 from . import cli_logger
 
 NOT_PORTED_15 = 'not ported yet (ROADMAP Queue 1, item 15)'
@@ -84,6 +93,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help='seeds the model init, the loader shuffle and the draws of training')
     p.add_argument('--device', type=str, default=None,
                    help='torch device; default the CUDA device (raises without one)')
+    p.add_argument('--ball_policy', type=str, default='first_nested', choices=BALL_POLICIES,
+                   help='multi-scale ball policy of the approximate queries')
     p.add_argument('--set', dest='set_cfgs', default=None, nargs=argparse.REMAINDER)
     return p.parse_args(argv)
 
@@ -153,7 +164,7 @@ def make_eval_fn(cfg, args, out_dir: str, device, logger, tb):
     val_ds = KittiRCNNDataset(args.data_root, cfg, npoints=cfg.RPN.NUM_POINTS,
                               split=cfg.TRAIN.VAL_SPLIT, classes=cfg.CLASSES, mode='EVAL',
                               max_gt=args.max_gt, logger=logger)
-    test_model = EPNet(cfg, 'TEST', device=device).eval()
+    test_model = EPNet(cfg, 'TEST', device=device, ball_policy=args.ball_policy).eval()
 
     def eval_fn(state, loader, epoch):
         test_model.load_state_dict(state.model.state_dict())
@@ -183,7 +194,8 @@ def train(cfg, args: argparse.Namespace, out_dir: str, device, logger, tb):
                                rcnn_training_feature_dir=args.rcnn_training_feature_dir)
     loader = train_loader(dataset, args.batch_size, args.workers, args.seed)
     state = create_train_state(cfg, len(loader) * args.epochs, device=device,
-                               generator=torch.Generator(device=device).manual_seed(args.seed))
+                               generator=torch.Generator(device=device).manual_seed(args.seed),
+                               steps_per_epoch=len(loader), ball_policy=args.ball_policy)
     logger.info('model parameters: %.2fM', sum(p.numel() for p in state.model.parameters()) / 1e6)
 
     start_epoch = 0

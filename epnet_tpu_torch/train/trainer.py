@@ -17,7 +17,7 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Union
 
 import numpy as np
 import torch
@@ -25,24 +25,28 @@ import torch
 from ..config import Config
 from ..models.epnet import EPNet
 from .loss import joint_loss
-from .optimizer import AdamWOneCycle, make_optimizer
+from .optimizer import AdamWOneCycle, EpochDecay, make_optimizer
 from .schedules import bn_momentum_at
 
 
 @dataclasses.dataclass
 class TrainState:
     model: EPNet
-    optimizer: AdamWOneCycle
+    optimizer: Union[AdamWOneCycle, EpochDecay]
     step: int = 0
 
 
 def create_train_state(cfg: Config, total_steps: int, device=None,
-                       generator: Optional[torch.Generator] = None) -> TrainState:
+                       generator: Optional[torch.Generator] = None, steps_per_epoch: int = 1,
+                       ball_policy: str = 'first_nested') -> TrainState:
     """``EPNet(cfg, 'TRAIN')`` initialized from ``generator``, in training
-    mode, with its optimizer; on the CUDA device unless ``device`` says
+    mode, with its optimizer (``adam`` and ``sgd`` decay by epochs of
+    ``steps_per_epoch`` steps); on the CUDA device unless ``device`` says
     otherwise (raises without a card, as ``EPNet`` does)."""
-    model = EPNet(cfg, 'TRAIN', device=device, generator=generator).train()
-    return TrainState(model, make_optimizer(cfg, model.parameters(), total_steps))
+    model = EPNet(cfg, 'TRAIN', device=device, generator=generator,
+                  ball_policy=ball_policy).train()
+    return TrainState(model, make_optimizer(cfg, model.parameters(), total_steps,
+                                            steps_per_epoch))
 
 
 def device_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:

@@ -1,15 +1,19 @@
 """Where the eval forward's and the train step's time goes on the card.
 
     python -m epnet_tpu_torch.utils.profiling [--requests 3] [--top 15] [--block_local] [--mixed]
+        [--headline]
     python -m epnet_tpu_torch.utils.profiling --train [--steps 3] [--batch 4] [--block_local]
-        [--mixed]
+        [--mixed] [--headline]
 
 Builds ``EPNet`` at the published recipe's full width (random weights from
 a seeded generator); ``--block_local`` adds the block-local configuration's
 overrides (``EXACT_QUERIES residual``, ``RPN.BLOCK_LOCAL``,
 ``RCNN.BLOCK_LOCAL``) and Morton-sorts the scenes; ``--mixed`` sets
 ``MIXED_PRECISION`` (the bf16 forward, or with ``--train`` the bf16 train
-step). Eval (default): answers batch-1 requests on
+step); ``--headline`` takes the JAX package's headline configuration
+(``config.headline_config``: bf16 with the approximate queries) instead of
+the recipe, ``--block_local`` then adding both ``BLOCK_LOCAL`` flags.
+Eval (default): answers batch-1 requests on
 structured scenes and prints the median wall time of each stage (RPN,
 proposals, RoI pooling, RCNN). ``--train``: takes train steps on labelled
 batch-4 scenes and prints the median of each part of a step (RPN forward,
@@ -154,20 +158,28 @@ def main(argv=None):
                     help='the block-local configuration of the recipe')
     ap.add_argument('--mixed', action='store_true',
                     help='MIXED_PRECISION: the bf16 forward (with --train, the bf16 train step)')
+    ap.add_argument('--headline', action='store_true',
+                    help='the headline configuration: bf16, approximate queries')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profiling needs a CUDA device')
-    from ..config import block_local_config, parity_config
+    from ..config import block_local_config, headline_config, parity_config
     from ..models.epnet import EPNet
     from ..train.trainer import device_batch
     from .testing import full_batch
 
     dev = torch.device('cuda:0')
-    cfg = block_local_config(parity_config()) if args.block_local else parity_config()
+    if args.headline:
+        cfg = headline_config()
+        if args.block_local:
+            cfg = cfg.with_overrides([('RPN.BLOCK_LOCAL', 'True'), ('RCNN.BLOCK_LOCAL', 'True')])
+    else:
+        cfg = block_local_config(parity_config()) if args.block_local else parity_config()
     if args.mixed:
         cfg = cfg.with_overrides([('MIXED_PRECISION', 'True')])
-    print(f'{"block-local" if args.block_local else "exact"} configuration'
-          f'{", bf16" if args.mixed else ""}, {torch.cuda.get_device_name(0)}')
+    print(f'{"headline" if args.headline else "recipe"}, '
+          f'{"block-local" if args.block_local else "dense"} configuration'
+          f'{", bf16" if cfg.MIXED_PRECISION else ""}, {torch.cuda.get_device_name(0)}')
     if args.train:
         profile_train(dev, cfg, args.steps, args.batch, args.top)
         return

@@ -398,5 +398,9 @@ def test_block_local_flags_need_the_residual_policy(exact_queries):
     ({'RPN': {'SAMPLING': 'random'}}, 'SAMPLING'),
 ])
 def test_unported_knobs_raise(over, what):
+    """The knobs of ROADMAP items 16.2-16.3 raise, and under EXACT_QUERIES
+    false the 'nearest' ball policy (item 16.1's third); the knobs before
+    the policy is read."""
     with pytest.raises(NotImplementedError, match=what):
-        tep.EPNet(tiny_config(EXACT_QUERIES=True).merged(over), 'TEST', device='cpu')
+        tep.EPNet(tiny_config(EXACT_QUERIES=True).merged(over), 'TEST', device='cpu',
+                  ball_policy='nearest')

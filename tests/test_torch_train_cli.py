@@ -522,7 +522,8 @@ def _jax_pin_commands(argv, tmp_path, capsys):
     return calls[0], calls[1], printed
 
 
-@pytest.mark.parametrize('knobs', [[], ['--knobs', 'residual,block']], ids=['parity', 'knobs'])
+@pytest.mark.parametrize('knobs', [[], ['--knobs', 'residual,block'], ['--knobs', 'queries']],
+                         ids=['parity', 'knobs', 'queries'])
 def test_pin_builds_jax_command_lines(knobs, tmp_path, capsys):
     jtrain, jeval, jresult = _jax_pin_commands(knobs, tmp_path, capsys)
     args = tpin.parse_args(['--workdir', str(tmp_path)] + knobs)
@@ -531,9 +532,11 @@ def test_pin_builds_jax_command_lines(knobs, tmp_path, capsys):
     assert tpin.train_argv(args, data, out) == jtrain[2:]
     assert tpin.eval_argv(args, data, out, ckpt) == jeval[2:]
     assert jtrain[1].endswith(os.path.join('tools', 'train.py'))
-    if knobs:
+    if knobs[1:] == ['residual,block']:
         assert jtrain[-9:] == ['--set', 'MIXED_PRECISION', 'True', 'RPN.BLOCK_LOCAL', 'True',
                                'RCNN.BLOCK_LOCAL', 'True', 'EXACT_QUERIES', 'residual']
+    if knobs[1:] == ['queries']:
+        assert jtrain[-5:] == ['--set', 'MIXED_PRECISION', 'True', 'EXACT_QUERIES', 'False']
     # the port's pin, its CLIs recorded, prints JAX's line
     calls = []
     with pytest.MonkeyPatch.context() as m:
@@ -547,7 +550,7 @@ def test_pin_builds_jax_command_lines(knobs, tmp_path, capsys):
     assert tpin.parse_ap(AP_REPORT) == (17.2512, 16.3004, 15.9)
 
 
-@pytest.mark.parametrize('argv', [['--speed-mode'], ['--knobs', 'fps'], ['--knobs', 'block,queries'],
+@pytest.mark.parametrize('argv', [['--speed-mode'], ['--knobs', 'fps'], ['--knobs', 'fps,queries'],
                                   ['--knobs', 'fpwin']], ids=lambda a: a[-1])
 def test_pin_unported_knobs_raise(argv, tmp_path):
     with pytest.raises(NotImplementedError, match='item 16'):

@@ -305,8 +305,10 @@ def test_schedules_match_jax():
 
 
 def test_unported_optimizers_raise():
+    """An optimizer neither package has raises, as JAX's ``make_optimizer``
+    does; ``adam`` and ``sgd`` are ported (``test_torch_recipe_rows.py``)."""
     from epnet_tpu_torch.train.optimizer import make_optimizer
-    for name in ('adam', 'sgd'):
+    for name in ('adamw', 'lamb'):
         with pytest.raises(NotImplementedError):
             make_optimizer(tt.tiny_config(TRAIN={'OPTIMIZER': name}), [], 10)
 
