@@ -221,10 +221,27 @@ first use), then:
    forward's RPN outputs, its keep list identical to the CPU's, its time
    printed); People's train step and joint eval step; three steps each of
    ``adam`` and ``sgd``, the third also from a checkpoint of the second,
-   whose update must match.
+   whose update must match;
+28. runs data-parallel training (``epnet_tpu_torch/parallel``): two ranks
+   spawned by ``parallel.mesh.run_ranks`` on this card over gloo (NCCL
+   refuses two ranks on one device), each with 2 rows of a batch-4
+   full-width recipe step (f32, seeded weights, phase 6's scenes), the
+   RCNN's targets pinned to this process's one-process step on the same
+   global batch and seed: the loss and every ``tb`` entry, ``grad_norm``,
+   the BN running statistics, the summed gradients and the parameters after
+   the update against that step (``DP_*`` tolerances), the ranks holding
+   the same ``tb`` and parameters bitwise; then batches 0 and 1 as one
+   ``Trainer`` call of ``steps_per_call`` 2 against two single steps (the
+   call's ``loss`` and ``loss_mean``; the update within 1e-3 of its norm,
+   or twice the gap between two runs of the single steps);
+   6 A, 2 B, 2 C, 4 D, 3 E and 4 F launches a step on each rank; prints a
+   rank's step time against the one-process step's, the all-reduces and
+   their bytes a step, and the phase's wall time, beside the card's name
+   and power limit.
 
 Launch counts are read around each main-path phase (3, 6, 9, 11, 14, 15,
-18, 20, 22, 24, 25, 26 and 27) with the counters set to 0 just before it;
+18, 20, 22, 24, 25, 26, 27 and 28) with the counters set to 0 just before it;
+phase 28 counts in its ranks and in this process, and adds them up;
 the kernels line sums them. The script leaves TF32 as PyTorch sets it and checks that building
 the model turns it off, as the f32 recipe needs.
 
@@ -2914,10 +2931,10 @@ def _train_run(name, argv, counters, want, check_rois=True):
     real_step, real_train = trainer_mod.train_step, trainer_mod.Trainer.train
     rec = {'steps': [], 'starts': []}
 
-    def step(state, batch, bnm, gen):
+    def step(state, batch, bnm, gen, mesh=None):
         before = [c.launches for c in counters]
         t_start = time.perf_counter()
-        tb = real_step(state, batch, bnm, gen)
+        tb = real_step(state, batch, bnm, gen, mesh)
         loss = float(tb['loss'])  # waits for the step
         gt = batch.get('gt_boxes3d')
         rec['steps'].append((t_start, time.perf_counter(), loss,
@@ -3897,6 +3914,286 @@ def phase_recipe_rows(dev):
     return total
 
 
+DP_WORLD = 2
+# world 2 vs world 1: tests/test_torch_data_parallel.py's tolerances against JAX's mesh step
+# (those of tests/test_torch_train_step.py, the RPN heads at 1e-2: JAX's own 2-device step
+# differs from its one-device step by 6.0e-3 there); that file's tiny world-2 step against
+# world 1 holds tighter on the CPU
+DP_TB_RTOL, DP_TB_ATOL = 1e-4, 1e-6
+DP_STATS_RTOL, DP_STATS_ATOL = 1e-4, 1e-5
+DP_HEAD_TOL, DP_RPN_HEAD_TOL, DP_BACKBONE_TOL = 1e-3, 1e-2, 0.25
+DP_BACKBONE_NORM, DP_GRAD_NORM_RTOL = 0.1, 1e-3
+DP_STEP_WANT = [6, 2, 2, 4, 3, 4]  # a rank's step, in TRAIN_NAMES' order, as at world 1
+
+
+def _dp_grad_tol(name):
+    if name.startswith('rpn.backbone.'):
+        return DP_BACKBONE_TOL
+    return DP_RPN_HEAD_TOL if name.startswith(('rpn.cls_', 'rpn.reg_')) else DP_HEAD_TOL
+
+
+def _smi():
+    return subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+
+
+def _pinned(targets, rows):
+    """``proposal_target_layer`` that draws as the real one (so that the
+    generator moves on alike) and returns ``rows`` of the recorded
+    ``targets`` instead of its own."""
+    from epnet_tpu_torch.models import epnet as epnet_mod
+    from epnet_tpu_torch.models.target_assign import RCNNTargets
+    real = epnet_mod.proposal_target_layer
+
+    def layer(*args, **kwargs):
+        real(*args, **kwargs)
+        return RCNNTargets(**{k: v[rows] for k, v in targets.items()})
+
+    return layer
+
+
+def _recording(seen):
+    from epnet_tpu_torch.models import epnet as epnet_mod
+    real = epnet_mod.proposal_target_layer
+
+    def layer(*args, **kwargs):
+        seen.append(real(*args, **kwargs))
+        return seen[-1]
+
+    return layer
+
+
+def _step_record(state):
+    model = state.model
+    return {'grads': {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()
+                      if p.grad is not None},
+            'params': {n: p.detach().cpu().clone() for n, p in model.named_parameters()},
+            'stats': {k: v.cpu().clone() for k, v in model.state_dict().items()
+                      if k.endswith(('running_mean', 'running_var'))}}
+
+
+def _dp_rank(mesh, cfg, targets_path, bnm):
+    """One rank of phase 28 (spawned by ``run_ranks``): step A on its rows
+    of scene 3's batch with the world-1 step's targets pinned; then, from
+    the state after A, batches 0 and 1 as two single steps (their targets
+    recorded) and again as one ``Trainer`` call of ``steps_per_call`` 2
+    with those targets pinned. Returns what the parent compares and the
+    kernels' launches."""
+    import torch
+    from unittest import mock
+    from epnet_tpu_torch.models import epnet as epnet_mod
+    from epnet_tpu_torch.parallel.mesh import shard_batch
+    from epnet_tpu_torch.train.trainer import Trainer, create_train_state, train_step
+
+    dev = mesh.device
+    n = TRAIN_BATCH // mesh.world
+    per_rank = n * cfg.RCNN.ROI_PER_IMAGE
+    rows = slice(mesh.rank * per_rank, (mesh.rank + 1) * per_rank)
+    batches = {s: shard_batch(mesh, _train_batch(cfg, s, dev)) for s in (3,) + TRAIN_SEEDS[:2]}
+    targets = torch.load(targets_path, map_location=dev, weights_only=True)
+    counters = _train_counters()
+    for c in counters:
+        c.launches = 0
+    state = create_train_state(cfg, total_steps=100, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+    with mock.patch.object(epnet_mod, 'proposal_target_layer', _pinned(targets, rows)):
+        tb = train_step(state, batches[3], bnm, torch.Generator(device=dev).manual_seed(1), mesh)
+    out = {'A': {**_step_record(state), 'tb': {k: float(v) for k, v in tb.items()},
+                 'lr': state.optimizer.lr(0)},
+           'launches_A': [c.launches for c in counters]}
+    saved = ({k: v.clone() for k, v in state.model.state_dict().items()},
+             state.optimizer.state_dict())
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    losses, seen, times, reduces = [], [], [], []
+    for s in TRAIN_SEEDS[:2]:
+        count = dict(mesh.stats)
+        with mock.patch.object(epnet_mod, 'proposal_target_layer', _recording(seen)):
+            tb, ms = _timed(lambda: train_step(state, batches[s], bnm, gen, mesh))
+        times.append(ms)
+        reduces.append({k: v - count[k] for k, v in mesh.stats.items()})
+        losses.append(float(tb['loss']))
+    out['singles'] = {'losses': losses, 'ms': times, 'all_reduces': reduces,
+                      'params': _step_record(state)['params']}
+
+    def restore():
+        state.model.load_state_dict(saved[0])
+        state.optimizer.load_state_dict(saved[1])
+        state.step = 1
+
+    recorded = {f: torch.cat([getattr(t, f) for t in seen]) for f in seen[0]._fields}
+    per_step = seen[0].cls_label.shape[0]
+
+    def pinned_steps():
+        layers = iter([_pinned(recorded, slice(0, per_step)),
+                       _pinned(recorded, slice(per_step, 2 * per_step))])
+        return mock.patch.object(epnet_mod, 'proposal_target_layer',
+                                 lambda *a, **k: next(layers)(*a, **k))
+
+    # the two single steps again, on the same targets: the card's run-to-run floor
+    restore()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    with pinned_steps():
+        for s in TRAIN_SEEDS[:2]:
+            train_step(state, batches[s], bnm, gen, mesh)
+    out['singles']['again'] = _step_record(state)['params']
+
+    restore()
+    calls = []
+    trainer = Trainer(cfg, state, ckpt_dir=os.path.join(OUT, 'dp_ckpt'), seed=2, device=dev,
+                      mesh=mesh, steps_per_call=2)
+    dispatch = trainer._dispatch
+
+    def recorded_dispatch(pending, bnm_):
+        tb = dispatch(pending, bnm_)
+        calls.append({k: float(v) for k, v in tb.items()})
+        return tb
+
+    trainer._dispatch = recorded_dispatch
+    with pinned_steps():
+        trainer.train(0, 1, [batches[s] for s in TRAIN_SEEDS[:2]])
+    out['multi'] = {'calls': calls, 'params': _step_record(state)['params'], 'step': state.step}
+    out['launches'] = [c.launches for c in counters]
+    return out
+
+
+def phase_data_parallel(dev):
+    """Phase 28: data-parallel training on the card. Two ranks
+    (``parallel/mesh.run_ranks``, gloo, both on this card: NCCL refuses two
+    ranks on one device) each take 2 rows of a batch-4 full-width recipe
+    step (f32, exact queries, seeded weights, phase 6's structured scenes),
+    against this process's one-process step on the same global batch and
+    seed; the RCNN's targets are the one-process step's, pinned on the
+    ranks (the proposals' order moves with the roundoff of the batch
+    statistics' sums). Then the ranks run batches 0 and 1 as one
+    ``Trainer`` call of ``steps_per_call`` 2 against two single steps.
+    Tolerances are ``tests/test_torch_data_parallel.py``'s against JAX's
+    mesh step (``DP_*``): at full width the RPN cls head's first layer, a
+    BatchNorm and ReLU over 65536 points behind the backbone, moves on the
+    roundoff of the split sums (4.2e-3 of its scale, H100 run DR), as JAX's
+    own 2-device step moves it (6.0e-3 at tiny widths on the CPU)."""
+    import torch
+    from unittest import mock
+    from epnet_tpu_torch.config import parity_config
+    from epnet_tpu_torch.models import epnet as epnet_mod
+    from epnet_tpu_torch.parallel.mesh import run_ranks
+    from epnet_tpu_torch.train.schedules import bn_momentum_at
+    from epnet_tpu_torch.train.trainer import create_train_state, train_step
+    from epnet_tpu_torch.utils.testing import check_adam_step, check_gradients, leaf_errors
+
+    t0 = time.perf_counter()
+    cfg = parity_config()
+    bnm = bn_momentum_at(cfg, 0)
+    state = create_train_state(cfg, total_steps=100, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+    before = {k: p.detach().cpu().clone() for k, p in state.model.named_parameters()}
+    batches = {s: _train_batch(cfg, s, dev) for s in (3,) + TRAIN_SEEDS[:2]}
+    counters = _train_counters()
+    for c in counters:
+        c.launches = 0
+    seen = []
+    with mock.patch.object(epnet_mod, 'proposal_target_layer', _recording(seen)):
+        tb = train_step(state, batches[3], bnm, torch.Generator(device=dev).manual_seed(1))
+    one = {**_step_record(state), 'tb': {k: float(v) for k, v in tb.items()}}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    one_ms = [_timed(lambda: train_step(state, batches[s], bnm, gen))[1] for s in TRAIN_SEEDS[:2]]
+    launches_one = [c.launches for c in counters]
+    path = os.path.join(OUT, 'dp_targets.pt')
+    os.makedirs(OUT, exist_ok=True)
+    torch.save({k: v.cpu() for k, v in seen[0]._asdict().items()}, path)
+    del state, seen
+    torch.cuda.empty_cache()
+
+    ranks = run_ranks(DP_WORLD, _dp_rank, (cfg, path, bnm), device=f'cuda:{dev.index or 0}',
+                      backend='gloo', timeout_s=600)
+    r0 = ranks[0]
+    two = r0['A']
+    smi = _smi()
+    # every rank holds the global tb, statistics and parameters
+    for r in ranks[1:]:
+        if r['A']['tb'] != two['tb'] or any(not torch.equal(r['A']['params'][k], two['params'][k])
+                                            for k in two['params']):
+            raise AssertionError('data parallel: the ranks hold different tb or parameters')
+    tb_err = {k: abs(two['tb'][k] - v) / ((0.0 if k == 'grad_norm' else DP_TB_ATOL)
+                                          + (DP_GRAD_NORM_RTOL if k == 'grad_norm'
+                                             else DP_TB_RTOL) * abs(v))
+              for k, v in one['tb'].items()}
+    stats_err = {k: float(((two['stats'][k] - v).abs() / (DP_STATS_ATOL + DP_STATS_RTOL * v.abs()))
+                          .max()) for k, v in one['stats'].items()}
+    errs, _ = leaf_errors(one['grads'], two['grads'])
+    head_err = {k: e / _dp_grad_tol(k) for k, e in errs.items()
+                if not k.startswith('rpn.backbone.')}
+    backbone_err = {k: e / DP_BACKBONE_TOL for k, e in errs.items()
+                    if k.startswith('rpn.backbone.')}
+    keys = list(backbone_err)
+    norm = sum(float(one['grads'][k].double().square().sum()) for k in keys) ** 0.5
+    diff = sum(float((two['grads'][k] - one['grads'][k]).double().square().sum())
+               for k in keys) ** 0.5
+    for name, err in (('tb', tb_err), ('BN statistics', stats_err),
+                      ('gradients after the backbone', head_err),
+                      ('backbone gradients', backbone_err)):
+        k = max(err, key=err.get)
+        print(f'data parallel: {name}: worst {k} at {err[k]:.4f} of its tolerance', flush=True)
+    print(f'data parallel: the backbone gradient off by {diff / norm:.3e} of its norm '
+          f'({diff / norm / DP_BACKBONE_NORM:.4f} of the tolerance)', flush=True)
+    if set(two['tb']) != set(one['tb']) or max(tb_err.values()) > 1:
+        raise AssertionError(f'data parallel: tb entries world 2 vs world 1 beyond tolerance: '
+                             f'{ {k: (two["tb"][k], one["tb"][k]) for k, e in tb_err.items() if e > 1} }')
+    if max(stats_err.values()) > 1:
+        raise AssertionError(f'data parallel: BN statistics beyond tolerance: '
+                             f'{ {k: e for k, e in stats_err.items() if e > 1} }')
+    worst = check_gradients(one['grads'], two['grads'], _dp_grad_tol, DP_BACKBONE_NORM,
+                            'data parallel: gradients world 2 vs world 1')
+    unsure = check_adam_step(before, one['params'], two['params'], one['grads'], two['lr'],
+                             _dp_grad_tol, 'data parallel: parameters after the update')
+
+    single, multi = r0['singles'], r0['multi']
+    if multi['step'] != 3 or [set(c) for c in multi['calls']] != [{'loss', 'loss_mean'}]:
+        raise AssertionError(f'steps_per_call 2: step {multi["step"]}, calls {multi["calls"]}')
+    call = multi['calls'][0]
+    mean = sum(single['losses']) / 2
+    if not (abs(call['loss'] - single['losses'][1]) <= DP_TB_RTOL * abs(single['losses'][1])
+            and abs(call['loss_mean'] - mean) <= DP_TB_RTOL * abs(mean)):
+        raise AssertionError(f'steps_per_call 2: tb {call}, single steps {single["losses"]}')
+    # the two steps' update: within 1e-3 of its norm, as phase 27 holds a resumed step's,
+    # or within twice the gap between two runs of the same single steps
+    def update(params):
+        return torch.cat([(params[k] - two['params'][k]).flatten() for k in two['params']])
+
+    ref = update(single['params'])
+    gap = float((update(multi['params']) - ref).norm() / ref.norm())
+    floor = float((update(single['again']) - ref).norm() / ref.norm())
+    if not gap <= max(1e-3, 2 * floor):
+        raise AssertionError(f'steps_per_call 2: the update differs from two single steps\' by '
+                             f'{gap:.3e} of its norm (two runs of the single steps {floor:.3e})')
+    for r in ranks:
+        for key, want in (('launches_A', DP_STEP_WANT), ('launches', [7 * w for w in DP_STEP_WANT])):
+            if r[key] != want:
+                raise AssertionError(f'data parallel rank: launches {key} {r[key]}, expected {want}')
+    if launches_one != [3 * w for w in DP_STEP_WANT]:
+        raise AssertionError(f'data parallel world 1: launches {launches_one}')
+    reduces = single['all_reduces'][1]
+    print(f'data parallel ({smi}): world {DP_WORLD} (gloo, both ranks on this card, batch '
+          f'{TRAIN_BATCH // DP_WORLD} each) vs world 1 (batch {TRAIN_BATCH}), one step: loss '
+          f'{two["tb"]["loss"]:.6f} vs {one["tb"]["loss"]:.6f}, grad norm '
+          f'{two["tb"]["grad_norm"]:.4f} vs {one["tb"]["grad_norm"]:.4f}; worst gradient leaf '
+          f'{worst:.3f} of its tolerance; {100 * unsure:.3f}% of the update\'s elements with a '
+          f'sign not sure; steps_per_call 2 over scenes 0 and 1 matches two single steps: '
+          f'losses {call["loss"]:.6f} / {call["loss_mean"]:.6f} (last / mean) vs '
+          f'{single["losses"]}, the update within {gap:.2e} of its norm (the single steps '
+          f'run twice: {floor:.2e})', flush=True)
+    print(f'data parallel ({smi}): a step (scene 1) {single["ms"][1]:.2f} ms a rank at world '
+          f'{DP_WORLD} vs {one_ms[1]:.2f} ms at world 1 (both ranks share the card: the cost '
+          f'of the reductions, not a speed-up); {reduces["all_reduces"]} all-reduces, '
+          f'{reduces["bytes"] / 2 ** 20:.2f} MiB a step a rank; phase wall time '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    total = collections.Counter(dict(zip(TRAIN_NAMES, launches_one)))
+    for r in ranks:
+        total.update(dict(zip(TRAIN_NAMES, r['launches'])))
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3909,10 +4206,7 @@ def main():
     print(f'torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32 as PyTorch sets '
           f'it: matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn '
           f'{torch.backends.cudnn.allow_tf32}', flush=True)
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True, text=True,
-                         check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(_smi(), flush=True)
     dev = torch.device('cuda:0')
     torch.cuda.set_device(dev)
 
@@ -3927,7 +4221,7 @@ def main():
             if 'registers' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}')
 
-    # launches on the main paths (phases 3, 6, 9, 11, 14, 15, 18, 20, 22 and 24-27), by kernel
+    # launches on the main paths (phases 3, 6, 9, 11, 14, 15, 18, 20, 22 and 24-28), by kernel
     launches = collections.Counter()
     fps_res = phase_fps(dev)
     sa_res = phase_sa(dev)
@@ -3959,6 +4253,7 @@ def main():
     launches.update(phase_lidar_flow(dev))
     launches.update(phase_headline(dev))
     launches.update(phase_recipe_rows(dev))
+    launches.update(phase_data_parallel(dev))
 
     kernels = [
         {'name': 'fps', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/fps.cu',

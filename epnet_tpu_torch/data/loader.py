@@ -64,13 +64,22 @@ class TrainLoader:
     draws pass ``p``'s augmentation (with ``dataset.seed = seed``) in
     whichever process fetches it; the workers start once and persist
     between passes. A resumed run starts again at pass 1, as the JAX
-    loader does."""
+    loader does.
 
-    def __init__(self, dataset, batch_size: int, workers: int = 0, seed: int = 0):
+    For data parallelism, rank ``rank`` of ``world`` loads only its rows
+    ``[r b, (r + 1) b)``, b = ``batch_size / world``, of each global batch of
+    ``batch_size`` (its own workers, the same order and draws on every
+    rank, since an item is a function of its pass and index alone)."""
+
+    def __init__(self, dataset, batch_size: int, workers: int = 0, seed: int = 0,
+                 rank: int = 0, world: int = 1):
+        if batch_size % world:
+            raise ValueError(f'batch size {batch_size} does not split over {world} ranks')
         self.dataset = dataset
         self.batch_size = batch_size
         self.workers = workers
         self.seed = seed
+        self.rank, self.world = rank, world
         self.passes = 0
         dataset.seed = seed
         self._batches = _PassBatches()
@@ -88,8 +97,9 @@ class TrainLoader:
 
     def __iter__(self) -> Iterator[dict]:
         self.passes += 1
-        self._batches.batches = [[(self.passes, i) for i in b]
-                                 for b in self.index_batches(self.passes)]
+        b = self.batch_size // self.world
+        self._batches.batches = [[(self.passes, i) for i in g[self.rank * b:(self.rank + 1) * b]]
+                                 for g in self.index_batches(self.passes)]
         return iter(self._loader)
 
     def close(self) -> None:
@@ -98,7 +108,8 @@ class TrainLoader:
         self._loader = None
 
 
-def train_loader(dataset, batch_size: int, workers: int = 0, seed: int = 0) -> TrainLoader:
+def train_loader(dataset, batch_size: int, workers: int = 0, seed: int = 0, rank: int = 0,
+                 world: int = 1) -> TrainLoader:
     """Shuffled whole batches, a new order and new draws each pass (see
-    ``TrainLoader``)."""
-    return TrainLoader(dataset, batch_size, workers, seed)
+    ``TrainLoader``); rank ``rank``'s rows of each under ``world`` ranks."""
+    return TrainLoader(dataset, batch_size, workers, seed, rank, world)

@@ -87,6 +87,12 @@ class EPNet(nn.Module):
     ``batch['gt_boxes3d']``, normalizes with batch statistics, applies
     dropout and records gradients; a TEST model runs only in eval mode
     (``.eval()``), under ``torch.no_grad()``.
+
+    ``set_mesh(mesh)`` makes the training forward one rank's share of a
+    data-parallel step (``parallel/mesh.py``): the batch holds the rank's
+    rows, BatchNorm takes the global batch's statistics, and dropout and
+    the RoI sampling draw the global batch's numbers and keep the rank's.
+    ``set_mesh(None)`` (the default) is one process.
     """
 
     def __init__(self, cfg: Config, mode: str = 'TEST', device=None,
@@ -111,6 +117,7 @@ class EPNet(nn.Module):
             use_bf16_math()
         self.cfg = cfg
         self.mode = mode
+        self.mesh = None
         if cfg.RPN.ENABLED:
             self.rpn = RPN(cfg, 3 + int(cfg.RPN.USE_INTENSITY), device=device,
                            ball_policy=ball_policy)
@@ -121,6 +128,16 @@ class EPNet(nn.Module):
         else:
             self.rcnn = RCNNNet(cfg, offline_rcnn_channels(cfg), device=device)
         init_parameters(self, generator)
+
+    def set_mesh(self, mesh) -> 'EPNet':
+        """Hand ``mesh`` (a ``parallel.mesh.Mesh``, or None) to every module
+        that reduces or draws over the batch: each BatchNorm, the deconv
+        head's through its BatchNorm, the RPN's and the RCNN's dropout, and
+        the target layer."""
+        for m in self.modules():
+            if hasattr(m, 'mesh'):
+                m.mesh = mesh
+        return self
 
     def train(self, mode: bool = True):
         """A fixed RPN (``RPN.FIXED``) stays in eval mode while the RCNN
@@ -170,7 +187,8 @@ class EPNet(nn.Module):
                        roi_counts=roi_counts)
             if self.training:
                 tgt = proposal_target_layer(rois, batch['gt_boxes3d'], xyz, rpn_features,
-                                            seg_mask, pts_depth, cfg, generator)
+                                            seg_mask, pts_depth, cfg, generator,
+                                            mesh=self.mesh)
                 pts_input = torch.cat([tgt.sampled_pts.to(tgt.pts_feature.dtype),
                                        tgt.pts_feature], -1)
                 out.update(tgt._asdict())

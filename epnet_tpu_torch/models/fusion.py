@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.grid_sample import grid_sample_points, grid_sample_points_bwd, grid_sample_points_plain
+from ..parallel.mesh import all_sum, world_of
 from .layers import BatchNorm, Conv2dBlock, dense, kaiming_normal_
 
 
@@ -167,7 +168,8 @@ class DeconvFusionHead(nn.Module):
         bn = self.image_fusion_bn
         if self.training:
             pts, mean, unbiased = DeconvBnReluSample.apply(
-                self.kernels, bn.eps, xy.detach(), bias_fused, bn.weight, bn.bias, *xs, *cws)
+                self.kernels, bn.eps, bn.mesh, xy.detach(), bias_fused, bn.weight, bn.bias,
+                *xs, *cws)
             bn.track(mean, unbiased, bn_momentum)
             return pts
         total = deconv_maps(xs, cws, self.kernels, F_) + bias_fused.to(dt)
@@ -192,7 +194,7 @@ class DeconvBnReluSample(torch.autograd.Function):
     (``ops/deconv_sample.py:161-304``) on the full-resolution map (its
     half-resolution layout holds the same values).
 
-    ``apply(kernels, eps, xy, bias_fused, scale, bias, *xs, *cws)`` returns
+    ``apply(kernels, eps, mesh, xy, bias_fused, scale, bias, *xs, *cws)`` returns
     (the sampled points (B, N, F) in the maps' dtype, the batch mean, the
     unbiased batch variance), the statistics in f32 and not differentiated.
     The forward rounds as ``_fwd`` (``:185-213``): the pre-BN map in the
@@ -205,25 +207,37 @@ class DeconvBnReluSample(torch.autograd.Function):
     (``:281``), each scale's input gradient a product in that dtype
     (``:292``), its folded weight's an f32 product cast to the weight's
     dtype (``:293-295``), the fused bias's the f32 sum of the cast map
-    gradient, and the BN scale's and bias's the f32 sums S2 and S1."""
+    gradient, and the BN scale's and bias's the f32 sums S2 and S1.
+
+    Under a mesh (``mesh``; None is one process) the statistics are the
+    global batch's: the forward sums the mean's and the variance's partial
+    sums over ranks with the global count, and the backward sums S1 and S2
+    over ranks before it forms the map's gradient. The scale's and bias's
+    gradients stay the rank's own S2 and S1, which ``sum_gradients`` then
+    adds over ranks with every other gradient."""
 
     @staticmethod
-    def forward(ctx, kernels, eps, xy, bias_fused, scale, bias, *maps):
+    def forward(ctx, kernels, eps, mesh, xy, bias_fused, scale, bias, *maps):
         n = len(kernels)
         xs, cws = maps[:n], maps[n:]
         F_ = scale.shape[0]
         dt = xs[0].dtype
         ph = deconv_maps(xs, cws, kernels, F_) + bias_fused.to(dt)
         red = (0, 1, 2)
-        mean = ph.float().mean(dim=red)
-        diff = ph - mean.to(dt)
-        var = diff.float().square().mean(dim=red)
-        count = ph.numel() // F_
+        count = ph.numel() // F_ * world_of(mesh)
+        if mesh is None:
+            mean = ph.float().mean(dim=red)
+            diff = ph - mean.to(dt)
+            var = diff.float().square().mean(dim=red)
+        else:
+            mean = all_sum(mesh, ph.float().sum(dim=red)) / count
+            diff = ph - mean.to(dt)
+            var = all_sum(mesh, diff.float().square().sum(dim=red)) / count
         unbiased = var * (count / max(count - 1, 1))
         w_fold = (torch.rsqrt(var + eps) * scale).to(dt)
         pts = grid_sample_points_plain(torch.relu(diff * w_fold + bias.to(dt)), xy)
         ctx.save_for_backward(xy, scale, bias, mean, var, ph, *xs, *cws)
-        ctx.kernels, ctx.eps = kernels, eps
+        ctx.kernels, ctx.eps, ctx.mesh = kernels, eps, mesh
         ctx.mark_non_differentiable(mean, unbiased)
         return pts, mean, unbiased
 
@@ -231,18 +245,19 @@ class DeconvBnReluSample(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g, _mean, _unbiased):
         xy, scale, bias, mean, var, ph, *maps = ctx.saved_tensors
-        kernels = ctx.kernels
+        kernels, mesh = ctx.kernels, ctx.mesh
         n = len(kernels)
         xs, cws = maps[:n], maps[n:]
         B, H, W, F_ = ph.shape
-        count = B * H * W
+        count = B * H * W * world_of(mesh)
         inv = torch.rsqrt(var + ctx.eps)
         gs = scale * inv
         xhat = (ph.float() - mean) * inv
         dpost = grid_sample_points_bwd(g, xy, H, W) * ((xhat * scale + bias) > 0)
         s1 = dpost.sum(dim=(0, 1, 2))
         s2 = (dpost * xhat).sum(dim=(0, 1, 2))
-        dph = (dpost * gs + (-gs * (s1 / count)) + (-gs * (s2 / count)) * xhat).to(ph.dtype)
+        t1, t2 = all_sum(mesh, s1), all_sum(mesh, s2)  # the global sums; s1, s2 stay local
+        dph = (dpost * gs + (-gs * (t1 / count)) + (-gs * (t2 / count)) * xhat).to(ph.dtype)
         dbias_fused = dph.float().sum(dim=(0, 1, 2))
         dxs, dcws = [], []
         for x, cw, k in zip(xs, cws, kernels):
@@ -251,4 +266,4 @@ class DeconvBnReluSample(torch.autograd.Function):
             dxs.append(dy @ cw.t())
             dcws.append((x.float().reshape(-1, C).t() @ dy.float().reshape(-1, k * k * F_))
                         .to(cw.dtype))
-        return (None, None, None, dbias_fused, s2, s1, *dxs, *dcws)
+        return (None, None, None, None, dbias_fused, s2, s1, *dxs, *dcws)

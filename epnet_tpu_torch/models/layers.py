@@ -29,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv2d import conv3x3_same, conv3x3_same_available, same_pads
+from ..parallel.mesh import batch_sum, rank_rows, world_of
 
 # std of a unit normal truncated to [-2, 2] (flax's variance_scaling constant)
 _TRUNC_STD = 0.87962566103423978
@@ -85,11 +86,18 @@ class BatchNorm(nn.Module):
     every axis but the last in f32 (``:121,126-127``): the mean of x widened
     to f32, and a two-pass biased variance over the f32 squares of ``diff``;
     the running statistics then move by ``momentum`` towards the mean and
-    the unbiased variance ``var * n / (n - 1)`` (``track``)."""
+    the unbiased variance ``var * n / (n - 1)`` (``track``).
+
+    Under a mesh (``mesh``, set by ``EPNet.set_mesh``) the statistics are
+    the global batch's, as the JAX package's under its data mesh: the
+    mean is ``batch_sum(sum x) / n`` with n the global count, the variance
+    ``batch_sum(sum diff^2) / n``, still two-pass, and every rank tracks
+    the same running statistics."""
 
     def __init__(self, channels: int, eps: float = 1e-5, device=None):
         super().__init__()
         self.eps = eps
+        self.mesh = None
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
         self.register_buffer('running_mean', torch.zeros(channels, device=device))
@@ -110,7 +118,14 @@ class BatchNorm(nn.Module):
             self.running_var.mul_(1.0 - momentum).add_(momentum * unbiased)
 
     def forward(self, x: torch.Tensor, momentum: float = 0.1) -> torch.Tensor:
-        if self.training:
+        if self.training and self.mesh is not None:
+            red = tuple(range(x.dim() - 1))
+            n = x.numel() // x.shape[-1] * self.mesh.world
+            mean = batch_sum(self.mesh, x.float().sum(dim=red)) / n
+            diff = x - mean.to(x.dtype)
+            var = batch_sum(self.mesh, diff.float().square().sum(dim=red)) / n
+            self.track(mean, var * (n / max(n - 1, 1)), momentum)
+        elif self.training:
             red = tuple(range(x.dim() - 1))
             mean = x.float().mean(dim=red)
             diff = x - mean.to(x.dtype)
@@ -128,24 +143,30 @@ def dense_head(owner: nn.Module, prefix: str, n: int, x: torch.Tensor, p: float,
                bn_momentum: float, generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """The RPN/RCNN head stacks: ``owner.<prefix>0 .. <prefix>{n-1}`` with
     dropout of rate ``p`` after the first layer when ``p >= 0``
-    (``rpn.py:40-41``, ``rcnn.py:66-67``)."""
+    (``rpn.py:40-41``, ``rcnn.py:66-67``), its mask drawn for the global
+    batch under ``owner.mesh``."""
     for k in range(n):
         x = getattr(owner, f'{prefix}{k}')(x, bn_momentum)
         if k == 0 and p >= 0:
-            x = dropout(x, p, owner.training, generator)
+            x = dropout(x, p, owner.training, generator, getattr(owner, 'mesh', None))
     return x
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None, mesh=None) -> torch.Tensor:
     """flax ``nn.Dropout``: in training keep each element with probability
     ``1 - p`` (mask from ``generator``) and scale the kept ones by
-    ``1 / (1 - p)``; the identity at ``p == 0`` and in eval."""
+    ``1 / (1 - p)``; the identity at ``p == 0`` and in eval. Under a mesh
+    the mask is drawn for the global batch (x's rows on every rank, batch
+    major) and the rank keeps its rows, so that it is the one-process
+    step's."""
     if not training or p == 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    shape = (x.shape[0] * world_of(mesh),) + tuple(x.shape[1:])
+    keep = rank_rows(mesh, torch.rand(shape, generator=generator, device=x.device) >= p,
+                     x.shape[0])
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 

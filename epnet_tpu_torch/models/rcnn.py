@@ -40,6 +40,7 @@ class RCNNNet(nn.Module):
     def __init__(self, cfg: Config, in_channels: int, device=None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = None  # a mesh draws the heads' dropout for the global batch (set_mesh)
         rc = cfg.RCNN
         dt = torch.bfloat16 if cfg.MIXED_PRECISION else None
         if rc.USE_RPN_FEATURES:

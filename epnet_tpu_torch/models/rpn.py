@@ -29,6 +29,7 @@ class RPN(nn.Module):
                  ball_policy: str = 'first_nested'):
         super().__init__()
         self.cfg = cfg
+        self.mesh = None  # a mesh draws the heads' dropout for the global batch (set_mesh)
         self.backbone = PointBackbone(cfg, in_channels, device=device, ball_policy=ball_policy)
         c = self.backbone.out_features
         cin = c

@@ -25,6 +25,7 @@ from ..ops.boxes import rotate_points_along_y
 from ..ops.pointops import approx_allowed
 from ..ops.roipool3d import roipool3d
 from ..ops.rotated_iou import boxes_iou3d_aligned
+from ..parallel.mesh import rank_rows, world_of
 
 PI = math.pi
 _RAND_HI = 1 << 30  # the range of the with-replacement integer draws
@@ -65,8 +66,13 @@ class TargetDraws(NamedTuple):
 
 
 def draw_target_noise(cfg: Config, B: int, M: int, generator: Optional[torch.Generator] = None,
-                      device=None) -> TargetDraws:
-    """Every random number of one ``proposal_target_layer`` call."""
+                      device=None, mesh=None) -> TargetDraws:
+    """Every random number of one ``proposal_target_layer`` call. Under a
+    mesh, B is the rank's image count: the numbers are drawn for the global
+    batch of B x world images and the rank keeps its B rows of each, so
+    that they are the one-process step's."""
+    local = B
+    B = B * world_of(mesh)
     R = cfg.RCNN.ROI_PER_IMAGE
     T = max(cfg.RCNN.ROI_FG_AUG_TIMES, 1)
     kw = dict(generator=generator, device=device)
@@ -79,10 +85,13 @@ def draw_target_noise(cfg: Config, B: int, M: int, generator: Optional[torch.Gen
 
     pos = (torch.randn((B, R, T, 6), **kw) if cfg.RCNN.REG_AUG_METHOD == 'normal'
            else u(B, R, T, 3))
-    return TargetDraws(fg_u=u(B, M), fg_wr=ints(_RAND_HI, B, R), hard_r=ints(_RAND_HI, B, R),
-                       easy_r=ints(_RAND_HI, B, R), keep_u=u(B, R, T), pos=pos,
-                       hwl_u=u(B, R, T, 3), ang_u=u(B, R, T, 1), level=ints(5, B, R, T),
-                       rot_u=u(B, R), scale_u=u(B, R), flip_u=u(B, R))
+    draws = TargetDraws(fg_u=u(B, M), fg_wr=ints(_RAND_HI, B, R), hard_r=ints(_RAND_HI, B, R),
+                        easy_r=ints(_RAND_HI, B, R), keep_u=u(B, R, T), pos=pos,
+                        hwl_u=u(B, R, T, 3), ang_u=u(B, R, T, 1), level=ints(5, B, R, T),
+                        rot_u=u(B, R), scale_u=u(B, R), flip_u=u(B, R))
+    if mesh is None:
+        return draws
+    return TargetDraws(*(rank_rows(mesh, d, local) for d in draws))
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -300,17 +309,18 @@ def mask_score_of(seg: torch.Tensor, pool_cnt: torch.Tensor, approx: bool) -> to
 
 def proposal_target_layer(rois, gt_boxes3d, rpn_xyz, rpn_features, seg_mask, pts_depth,
                           cfg: Config, generator: Optional[torch.Generator] = None,
-                          draws: Optional[TargetDraws] = None) -> RCNNTargets:
+                          draws: Optional[TargetDraws] = None, mesh=None) -> RCNNTargets:
     """Train-time target assignment (forward :14-83).
 
     :param rois: (B, M, 7); gt_boxes3d (B, G, 7) zero-padded
     :param rpn_xyz: (B, N, 3); rpn_features (B, N, C); seg_mask, pts_depth (B, N)
     :param generator: draws the random numbers, unless ``draws`` is given
+    :param mesh: the rank's rows of the global batch's draws (``draw_target_noise``)
     """
     B, M = rois.shape[:2]
     R, S = cfg.RCNN.ROI_PER_IMAGE, cfg.RCNN.NUM_POINTS
     if draws is None:
-        draws = draw_target_noise(cfg, B, M, generator, rois.device)
+        draws = draw_target_noise(cfg, B, M, generator, rois.device, mesh)
     gt_valid = (gt_boxes3d != 0).any(-1)  # collate zero-padding
     batch_rois, batch_gt, batch_iou = sample_rois(rois, gt_boxes3d[..., :7], gt_valid, draws, cfg)
 

@@ -5,7 +5,7 @@
         [--ckpt <ckpt>] [--rpn_ckpt <ckpt>] [--gt_database <pkl>]
         [--rcnn_training_roi_dir <dir> --rcnn_training_feature_dir <dir>]
         [--train_with_eval] [--ball_policy first_nested|first_multi]
-        [--device cpu] [--set KEY VALUE ...]
+        [--n_devices N] [--steps_per_call K] [--device cpu] [--set KEY VALUE ...]
 
 Counterpart of ``tools/train.py`` (reference ``train_rcnn.py``: argparse
 :23-53, mode matrix :163-181, logger and config dump :187-206, trainer
@@ -47,14 +47,29 @@ unless ``--device`` names another.
 * ``--set TRAIN.OPTIMIZER adam`` or ``sgd``: the epoch-decay optimizers,
   with epochs of one pass of the loader.
 
-Not ported yet, each raising ``NotImplementedError``: ``--steps_per_call``
-above 1 and ``--n_devices`` above 1 (ROADMAP Queue 1, item 15).
-``main(argv)`` runs in-process and returns the final ``TrainState``.
+* ``--n_devices N``: data-parallel training over N ranks, one process a
+  device (``parallel/mesh.py``), spawned by ``torch.multiprocessing``:
+  one card a rank over NCCL, or with ``--device cpu`` N gloo ranks on the
+  CPU. ``--batch_size`` is the global batch, and each rank loads its
+  ``batch_size / N`` rows of it; a step computes the one-process step on
+  the global batch. Rank 0 alone writes the log, the source backup, the
+  scalars and the checkpoints, and runs the eval. Without the flag the
+  run takes every card there is, as the JAX CLI's mesh takes every
+  device, and one process on the CPU or on the card ``--device`` names. More ranks than cards and a batch
+  that N does not divide raise ``ValueError``.
+* ``--steps_per_call K``: K steps a call with no host read of a loss
+  between them (JAX's ``jit_multi_train_step``); the call writes
+  ``train/loss`` and ``train/loss_mean``.
+
+``main(argv)`` runs in-process and returns the final ``TrainState``; a
+run over more than one rank returns None (rank 0's checkpoints hold its
+state).
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import tarfile
 from typing import Optional, Sequence
@@ -62,9 +77,9 @@ from typing import Optional, Sequence
 import torch
 
 from ..ops.pointops import BALL_POLICIES
+from ..parallel import mesh as pmesh
 from . import cli_logger
 
-NOT_PORTED_15 = 'not ported yet (ROADMAP Queue 1, item 15)'
 SOURCE_DIRS = ('epnet_tpu_torch', 'cfgs', 'tools')
 
 
@@ -112,11 +127,36 @@ def apply_train_mode(cfg, mode: str):
     raise ValueError(mode)
 
 
+def world_size(args: argparse.Namespace) -> int:
+    """The ranks of the run: ``--n_devices``, else every card there is (at
+    least 1) for a run on the card that names no card, and 1 on the CPU or
+    on a named card. Raises ``ValueError`` for more ranks than cards and
+    for ranks on a named card."""
+    device = torch.device(args.device) if args.device is not None else None
+    on_card = device is None or device.type == 'cuda'
+    named = device is not None and device.index is not None
+    cards = torch.cuda.device_count() if on_card and torch.cuda.is_available() else 0
+    n = args.n_devices if args.n_devices is not None else \
+        max(cards, 1) if on_card and not named else 1
+    if n < 1:
+        raise ValueError(f'--n_devices {n}: at least 1')
+    if n > 1 and on_card:
+        if named:
+            raise ValueError(f'--n_devices {n} takes a card a rank: pass --device cuda, not '
+                             f'{args.device}')
+        if n > cards:
+            raise ValueError(f'--n_devices {n}: {cards} cards, one a rank (--device cpu runs '
+                             f'the ranks on the CPU)')
+    return n
+
+
 def refuse_unported(args: argparse.Namespace) -> None:
-    if args.steps_per_call != 1:
-        raise NotImplementedError(f'--steps_per_call {args.steps_per_call}: {NOT_PORTED_15}')
-    if args.n_devices not in (None, 1):
-        raise NotImplementedError(f'--n_devices {args.n_devices}: {NOT_PORTED_15}')
+    if args.steps_per_call < 1:
+        raise ValueError(f'--steps_per_call {args.steps_per_call}: at least 1')
+    n = world_size(args)
+    if args.batch_size % n:
+        raise ValueError(f'--batch_size {args.batch_size} does not split over --n_devices {n} '
+                         f'ranks')
     if args.train_with_eval and args.train_mode in ('rpn', 'rcnn_offline'):
         raise ValueError(f'--train_with_eval runs the joint eval, which needs the RPN and the '
                          f'RCNN of one model; --train_mode {args.train_mode} trains one of '
@@ -179,9 +219,10 @@ def make_eval_fn(cfg, args, out_dir: str, device, logger, tb):
     return eval_loader(val_ds, args.batch_size, args.workers), eval_fn
 
 
-def train(cfg, args: argparse.Namespace, out_dir: str, device, logger, tb):
+def train(cfg, args: argparse.Namespace, out_dir: str, device, logger, tb, mesh=None):
     """The dataset, the loader, the state (resumed or warm-started) and
-    the epochs. Returns the final ``TrainState``."""
+    the epochs, as rank ``mesh.rank`` of a data-parallel run under
+    ``mesh``. Returns the final ``TrainState``."""
     from ..data.kitti_rcnn_dataset import KittiRCNNDataset
     from ..data.loader import train_loader
     from ..train.trainer import Trainer, create_train_state, load_checkpoint, restore_partial
@@ -192,7 +233,8 @@ def train(cfg, args: argparse.Namespace, out_dir: str, device, logger, tb):
                                gt_database_dir=args.gt_database,
                                rcnn_training_roi_dir=args.rcnn_training_roi_dir,
                                rcnn_training_feature_dir=args.rcnn_training_feature_dir)
-    loader = train_loader(dataset, args.batch_size, args.workers, args.seed)
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
+    loader = train_loader(dataset, args.batch_size, args.workers, args.seed, rank, world)
     state = create_train_state(cfg, len(loader) * args.epochs, device=device,
                                generator=torch.Generator(device=device).manual_seed(args.seed),
                                steps_per_epoch=len(loader), ball_policy=args.ball_policy)
@@ -208,12 +250,17 @@ def train(cfg, args: argparse.Namespace, out_dir: str, device, logger, tb):
     elif args.rpn_ckpt:
         state = restore_partial(args.rpn_ckpt, state)
         logger.info('warm-started rpn weights from %s', args.rpn_ckpt)
+    pmesh.replicate_state(mesh, state)
+    if mesh is not None:
+        logger.info('data-parallel over %d ranks (%s): a batch of %d, %d a rank', world,
+                    mesh.backend, args.batch_size, args.batch_size // world)
 
     trainer = Trainer(cfg, state, ckpt_dir=os.path.join(out_dir, 'ckpt'),
                       ckpt_save_interval=args.ckpt_save_interval, logger=logger, tb_log=tb,
-                      seed=args.seed, device=device)
+                      seed=args.seed, device=device, mesh=mesh,
+                      steps_per_call=args.steps_per_call)
     val_loader = eval_fn = None
-    if args.train_with_eval:
+    if args.train_with_eval and rank == 0:
         val_loader, eval_fn = make_eval_fn(cfg, args, out_dir, device, logger, tb)
     try:
         state = trainer.train(start_epoch, args.epochs, loader, eval_loader=val_loader,
@@ -225,12 +272,28 @@ def train(cfg, args: argparse.Namespace, out_dir: str, device, logger, tb):
 
 
 def main(argv: Optional[Sequence[str]] = None):
+    args = parse_args(argv)
+    refuse_unported(args)
+    n = world_size(args)
+    if n == 1:
+        return run(args)
+    on_cpu = args.device is not None and torch.device(args.device).type == 'cpu'
+    pmesh.run_ranks(n, _rank_run, (args,), device='cpu' if on_cpu else 'cuda')
+    return None
+
+
+def _rank_run(mesh, args: argparse.Namespace) -> None:
+    run(args, mesh)
+
+
+def run(args: argparse.Namespace, mesh=None):
+    """One process's run: the whole run, or rank ``mesh.rank``'s share of
+    a data-parallel one (rank 0 alone writes the log, the source backup
+    and the scalars)."""
     from ..config import load_config, save_config
     from ..models.epnet import default_device
     from ..utils.metrics import SummaryWriter
 
-    args = parse_args(argv)
-    refuse_unported(args)
     if args.set_cfgs and len(args.set_cfgs) % 2:
         raise SystemExit('--set takes KEY VALUE pairs')
     overrides = list(zip(args.set_cfgs[0::2], args.set_cfgs[1::2])) if args.set_cfgs else []
@@ -239,12 +302,17 @@ def main(argv: Optional[Sequence[str]] = None):
     if not os.path.isdir(args.data_root):
         raise SystemExit(f'--data_root not found: {args.data_root} (expected a KITTI '
                          f'object tree: <root>/KITTI/object/training/...)')
-    device = default_device(args.device)
+    device = default_device(args.device) if mesh is None else mesh.device
     cfg = apply_train_mode(load_config(args.cfg_file, overrides), args.train_mode)
     refuse_jit_sampling(cfg, args.train_mode)
 
     tag = os.path.splitext(os.path.basename(args.cfg_file))[0]
     out_dir = args.output_dir or os.path.join('output', args.train_mode, tag)
+    if mesh is not None and mesh.rank > 0:
+        quiet = logging.getLogger(f'epnet_tpu_torch.train.rank{mesh.rank}')
+        quiet.propagate = False
+        quiet.addHandler(logging.NullHandler())
+        return train(cfg, args, out_dir, device, quiet, None, mesh)
     os.makedirs(os.path.join(out_dir, 'ckpt'), exist_ok=True)
     with cli_logger('epnet_tpu_torch.train', os.path.join(out_dir, 'train.log')) as logger:
         logger.info('device: %s', device)
@@ -252,7 +320,7 @@ def main(argv: Optional[Sequence[str]] = None):
         backup_source(out_dir)
         tb = SummaryWriter(os.path.join(out_dir, 'tensorboard'))
         try:
-            state = train(cfg, args, out_dir, device, logger, tb)
+            state = train(cfg, args, out_dir, device, logger, tb, mesh)
         finally:
             tb.close()
     return state

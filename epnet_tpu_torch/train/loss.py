@@ -3,6 +3,11 @@
 Port of ``epnet_tpu/train/loss.py`` (reference ``train_functions.py``: rpn
 loss :92-163, rcnn loss :165-284). Every term is a masked mean over fixed
 shapes; the ``tb`` dicts carry the JAX package's keys.
+
+Under a data-parallel ``mesh`` every sum over the batch that forms a term,
+normalizes one or counts rows for ``tb`` is the global batch's
+(``batch_sum``), so every rank holds the global loss and ``tb``, as every
+device does under the JAX package's mesh.
 """
 
 from __future__ import annotations
@@ -12,9 +17,10 @@ import torch.nn.functional as F
 
 from ..config import Config
 from ..losses import dice_loss, get_reg_loss, sigmoid_cross_entropy_with_logits, sigmoid_focal_loss
+from ..parallel.mesh import batch_sum
 
 
-def rpn_loss(cfg: Config, rpn_cls, rpn_reg, cls_label, reg_label):
+def rpn_loss(cfg: Config, rpn_cls, rpn_reg, cls_label, reg_label, mesh=None):
     """
     :param rpn_cls: (B, N, 1) logits; rpn_reg (B, N, C)
     :param cls_label: (B, N) in {1, 0, -1}; reg_label (B, N, 7)
@@ -25,22 +31,23 @@ def rpn_loss(cfg: Config, rpn_cls, rpn_reg, cls_label, reg_label):
     fg_mask = label_flat > 0
 
     if cfg.RPN.LOSS_CLS == 'DiceLoss':
-        loss_cls = dice_loss(cls_flat, label_flat, ignore_target=-1)
+        loss_cls = dice_loss(cls_flat, label_flat, ignore_target=-1, mesh=mesh)
     elif cfg.RPN.LOSS_CLS == 'SigmoidFocalLoss':
         pos = fg_mask.to(torch.float32)
         neg = (label_flat == 0).to(torch.float32)
-        w = (pos + neg) / torch.clamp(pos.sum(), min=1.0)
+        w = (pos + neg) / torch.clamp(batch_sum(mesh, pos.sum()), min=1.0)
         per = sigmoid_focal_loss(cls_flat, pos, w, gamma=cfg.RPN.FOCAL_GAMMA,
                                  alpha=cfg.RPN.FOCAL_ALPHA[0])
-        tb['rpn_loss_cls_pos'] = (per * pos).sum()
-        tb['rpn_loss_cls_neg'] = (per * neg).sum()
-        loss_cls = per.sum()
+        tb['rpn_loss_cls_pos'] = batch_sum(mesh, (per * pos).sum())
+        tb['rpn_loss_cls_neg'] = batch_sum(mesh, (per * neg).sum())
+        loss_cls = batch_sum(mesh, per.sum())
     elif cfg.RPN.LOSS_CLS == 'BinaryCrossEntropy':
         # BCE(sigmoid(x), t) in its logits form, safe when the sigmoid saturates
         w = torch.where(fg_mask, float(cfg.RPN.FG_WEIGHT), 1.0)
         per = sigmoid_cross_entropy_with_logits(cls_flat, fg_mask.to(torch.float32)) * w
         valid = (label_flat >= 0).to(torch.float32)
-        loss_cls = (per * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+        loss_cls = batch_sum(mesh, (per * valid).sum()) / torch.clamp(
+            batch_sum(mesh, valid.sum()), min=1.0)
     else:
         raise NotImplementedError(cfg.RPN.LOSS_CLS)
 
@@ -51,18 +58,18 @@ def rpn_loss(cfg: Config, rpn_cls, rpn_reg, cls_label, reg_label):
         fg_mask.to(torch.float32), loc_scope=cfg.RPN.LOC_SCOPE,
         loc_bin_size=cfg.RPN.LOC_BIN_SIZE, num_head_bin=cfg.RPN.NUM_HEAD_BIN,
         anchor_size=mean_size, get_xz_fine=cfg.RPN.LOC_XZ_FINE, use_cls_score=True,
-        use_mask_score=False, iou_loss_type=cfg.TRAIN.IOU_LOSS_TYPE)
+        use_mask_score=False, iou_loss_type=cfg.TRAIN.IOU_LOSS_TYPE, mesh=mesh)
     size = 3.0 * size  # train_functions.py:147
     iou = cfg.TRAIN.CE_WEIGHT * iou
     loss_reg = loc + angle + size + iou
     loss = loss_cls * cfg.RPN.LOSS_WEIGHT[0] + loss_reg * cfg.RPN.LOSS_WEIGHT[1]
     tb.update(rpn_loss_cls=loss_cls, rpn_loss_reg=loss_reg, rpn_loss=loss,
               rpn_loss_loc=loc, rpn_loss_angle=angle, rpn_loss_size=size,
-              rpn_loss_iou=iou, rpn_fg_sum=fg_mask.sum())
+              rpn_loss_iou=iou, rpn_fg_sum=batch_sum(mesh, fg_mask.sum()))
     return loss, tb
 
 
-def rcnn_loss(cfg: Config, out):
+def rcnn_loss(cfg: Config, out, mesh=None):
     """Takes the model output holding ``rcnn_cls``/``rcnn_reg`` and the
     target fields of the proposal-target layer."""
     tb = {}
@@ -74,14 +81,15 @@ def rcnn_loss(cfg: Config, out):
     if cfg.RCNN.LOSS_CLS == 'SigmoidFocalLoss':
         pos = (cls_label > 0).to(torch.float32)
         neg = (cls_label == 0).to(torch.float32)
-        w = (pos + neg) / torch.clamp(pos.sum(), min=1.0)
+        w = (pos + neg) / torch.clamp(batch_sum(mesh, pos.sum()), min=1.0)
         per = sigmoid_focal_loss(cls_flat, pos, w, gamma=cfg.RCNN.FOCAL_GAMMA,
                                  alpha=cfg.RCNN.FOCAL_ALPHA[0])
-        loss_cls = per.sum()
+        loss_cls = batch_sum(mesh, per.sum())
     elif cfg.RCNN.LOSS_CLS == 'BinaryCrossEntropy':
         valid = (cls_label >= 0).to(torch.float32)
         per = sigmoid_cross_entropy_with_logits(cls_flat, torch.clamp(cls_label, 0.0, 1.0))
-        loss_cls = (per * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+        loss_cls = batch_sum(mesh, (per * valid).sum()) / torch.clamp(
+            batch_sum(mesh, valid.sum()), min=1.0)
     elif cfg.RCNN.LOSS_CLS == 'CrossEntropy':
         # multi-class head: weighted CE with ignore -1
         logits = rcnn_cls.reshape(rcnn_cls.shape[0], -1)
@@ -89,7 +97,8 @@ def rcnn_loss(cfg: Config, out):
         valid = (cls_label >= 0).to(torch.float32)
         weights = torch.tensor(cfg.RCNN.CLS_WEIGHT, dtype=torch.float32, device=logits.device)
         per = -torch.gather(F.log_softmax(logits, -1), -1, target[:, None])[:, 0] * weights[target]
-        loss_cls = (per * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+        loss_cls = batch_sum(mesh, (per * valid).sum()) / torch.clamp(
+            batch_sum(mesh, valid.sum()), min=1.0)
     else:
         raise NotImplementedError(cfg.RCNN.LOSS_CLS)
 
@@ -109,7 +118,8 @@ def rcnn_loss(cfg: Config, out):
         get_y_by_bin=cfg.RCNN.LOC_Y_BY_BIN, loc_y_scope=cfg.RCNN.LOC_Y_SCOPE,
         loc_y_bin_size=cfg.RCNN.LOC_Y_BIN_SIZE, get_ry_fine=True, use_cls_score=True,
         use_mask_score=True, use_iou_branch=cfg.USE_IOU_BRANCH,
-        iou_branch_pred=out.get('rcnn_iou_branch'), iou_loss_type=cfg.TRAIN.IOU_LOSS_TYPE)
+        iou_branch_pred=out.get('rcnn_iou_branch'), iou_loss_type=cfg.TRAIN.IOU_LOSS_TYPE,
+        mesh=mesh)
     size = 3.0 * size
     iou = cfg.TRAIN.CE_WEIGHT * iou
     loss_reg = loc + angle + size + iou
@@ -119,22 +129,25 @@ def rcnn_loss(cfg: Config, out):
     loss = loss_cls + loss_reg
     tb.update(rcnn_loss_cls=loss_cls, rcnn_loss_reg=loss_reg, rcnn_loss=loss,
               rcnn_loss_loc=loc, rcnn_loss_angle=angle, rcnn_loss_size=size,
-              rcnn_loss_iou=iou, rcnn_cls_fg=(cls_label > 0).sum(),
-              rcnn_cls_bg=(cls_label == 0).sum(), rcnn_reg_fg=reg_valid_mask.sum())
+              rcnn_loss_iou=iou, rcnn_cls_fg=batch_sum(mesh, (cls_label > 0).sum()),
+              rcnn_cls_bg=batch_sum(mesh, (cls_label == 0).sum()),
+              rcnn_reg_fg=batch_sum(mesh, reg_valid_mask.sum()))
     return loss, tb
 
 
-def joint_loss(cfg: Config, out, batch):
-    """Total loss (train_functions.py:50-90) and the ``tb`` dict."""
+def joint_loss(cfg: Config, out, batch, mesh=None):
+    """Total loss (train_functions.py:50-90) and the ``tb`` dict; the
+    global batch's under a data-parallel ``mesh``, of which ``out`` and
+    ``batch`` hold the rank's rows."""
     tb = {}
     loss = 0.0
     if cfg.RPN.ENABLED and not cfg.RPN.FIXED:
         part, t = rpn_loss(cfg, out['rpn_cls'], out['rpn_reg'], batch['rpn_cls_label'],
-                           batch['rpn_reg_label'])
+                           batch['rpn_reg_label'], mesh)
         loss = loss + part * cfg.TRAIN.RPN_TRAIN_WEIGHT
         tb.update(t)
     if cfg.RCNN.ENABLED:
-        part, t = rcnn_loss(cfg, out)
+        part, t = rcnn_loss(cfg, out, mesh)
         loss = loss + part * cfg.TRAIN.RCNN_TRAIN_WEIGHT
         tb.update(t)
     tb['loss'] = loss

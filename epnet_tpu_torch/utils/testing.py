@@ -396,3 +396,66 @@ def make_fake_kitti(root, n_samples=4, split='train', img_hw=(370, 1240),
     with open(os.path.join(root, 'KITTI', 'ImageSets', 'val.txt'), 'w') as fo:
         fo.write('\n'.join(val_ids) + '\n')
     return root
+
+
+# ---------------------------------------------------------------------------
+# holding one train step against another (data parallelism's tests and
+# chip_smoke.py's phase 28)
+# ---------------------------------------------------------------------------
+
+def _f64(tree):
+    return {k: np.asarray(v.detach().cpu() if hasattr(v, 'detach') else v, np.float64)
+            for k, v in tree.items()}
+
+
+def leaf_errors(ref, got):
+    """Each leaf's max error over its scale, max(its max, 1e-2 x the global
+    max), and the scales."""
+    ref, got = _f64(ref), _f64(got)
+    gmax = max(float(np.abs(x).max()) for x in ref.values())
+    scale = {k: max(float(np.abs(ref[k]).max()), 1e-2 * gmax) for k in ref}
+    return {k: float(np.abs(got[k] - ref[k]).max()) / scale[k] for k in ref}, scale
+
+
+def check_gradients(ref, got, tol, backbone_norm, where='gradients'):
+    """Every leaf within ``tol(name)`` of its scale (``leaf_errors``) and the
+    RPN backbone's gradient within ``backbone_norm`` of its norm; returns
+    the worst leaf's error over its tolerance. Raises ``AssertionError``."""
+    if set(ref) != set(got):
+        raise AssertionError(f'{where}: leaves differ: {sorted(set(ref) ^ set(got))[:5]}')
+    errs, _ = leaf_errors(ref, got)
+    bad = {k: e for k, e in errs.items() if not e <= tol(k)}
+    if bad:
+        raise AssertionError(f'{where}: leaves beyond their tolerance: {bad}')
+    ref, got = _f64(ref), _f64(got)
+    keys = [k for k in ref if k.startswith('rpn.backbone.')]
+    norm = np.sqrt(sum((ref[k] ** 2).sum() for k in keys))
+    diff = np.sqrt(sum(((got[k] - ref[k]) ** 2).sum() for k in keys))
+    if not diff <= backbone_norm * norm:
+        raise AssertionError(f'{where}: the backbone off by {diff:.3e} of norm {norm:.3e}')
+    return max(e / tol(k) for k, e in errs.items())
+
+
+def check_adam_step(before, ref, got, grads, lr, tol, where='parameters'):
+    """Parameters after one Adam(W) step from ``before``, the reference
+    ``ref`` and ``got``: the first step moves an element by about ``lr *
+    sign(g)``, so where the reference gradient ``grads`` lies beyond its
+    tolerance of 0 (``tol(name)`` of the leaf's scale, as
+    ``check_gradients``) the update's sign is sure and the two must agree
+    within 1e-3 lr, and the reference must have moved; elsewhere the
+    other run may have moved the other way, within 2 lr (1 + 1e-3). Returns
+    the share of elements whose sign is not sure. Raises ``AssertionError``."""
+    _, scale = leaf_errors(grads, grads)
+    grads, before, ref, got = _f64(grads), _f64(before), _f64(ref), _f64(got)
+    unsure = total = 0
+    for k, g in grads.items():
+        sure = np.abs(g) > tol(k) * scale[k]
+        d = np.abs(got[k] - ref[k])
+        moved = np.abs(ref[k] - before[k])
+        if d[sure].max(initial=0.0) > 1e-3 * lr or d.max() > 2 * lr * (1 + 1e-3) \
+                or not (moved[sure] > 0).all():
+            raise AssertionError(f'{where}: {k} off by {d[sure].max(initial=0.0) / lr:.3e} lr '
+                                 f'where the sign is sure, {d.max() / lr:.3e} lr anywhere')
+        unsure += int((~sure).sum())
+        total += sure.size
+    return unsure / total

@@ -13,7 +13,8 @@
   ``--train_with_eval``, checkpoint epochs numbered as JAX numbers them,
   ``--ckpt`` resuming at epoch + 1 with the step count and pass 1's draws,
   ``--rpn_ckpt`` loading only the RPN, whose parameters then move only by
-  AdamW's decay; item 15's flags, which are not ported, raise.
+  AdamW's decay; a ``--steps_per_call`` below 1 and a batch that
+  ``--n_devices`` does not divide raise.
 * ``tools/synthetic_ap_pin.py``: the command lines of the JAX pin (run with
   its subprocesses recorded), the AP line parsed, and one tiny run end to
   end on the CPU.
@@ -458,19 +459,19 @@ def test_summary_writer_records_and_mirror(tmp_path, monkeypatch):
                      for op in ('open', ('train/loss', 1.5, 10), 'close')]
 
 
-@pytest.mark.parametrize('extra', [
-    ['--steps_per_call', '4'], ['--n_devices', '2'],
-    ['--train_mode', 'rpn', '--train_with_eval']], ids=lambda e: e[-2].strip('-'))
-def test_cli_unported_flags_raise(extra, tmp_path):
-    """Item 15's flags are not ported; ``--train_with_eval`` under ``rpn``
-    is refused, as it fails in the JAX CLI (its joint eval needs the
-    RCNN)."""
-    if '--train_with_eval' in extra:
-        with pytest.raises(ValueError, match='--train_with_eval runs the joint eval.*'
-                                             '--eval_mode rpn'):
-            tcli.main(['--data_root', str(tmp_path), '--device', 'cpu'] + extra)
-        return
-    with pytest.raises(NotImplementedError, match=r'not ported yet \(ROADMAP Queue 1, item 15'):
+@pytest.mark.parametrize('extra, match', [
+    pytest.param(['--steps_per_call', '0'], '--steps_per_call 0: at least 1',
+                 id='steps_per_call'),
+    pytest.param(['--batch_size', '3', '--n_devices', '2'],
+                 '--batch_size 3 does not split over --n_devices 2', id='n_devices'),
+    pytest.param(['--train_mode', 'rpn', '--train_with_eval'],
+                 '--train_with_eval runs the joint eval.*--eval_mode rpn', id='rpn')])
+def test_cli_unported_flags_raise(extra, match, tmp_path):
+    """The refused flags: ``--steps_per_call`` below 1, a batch that
+    ``--n_devices`` does not divide (data parallelism runs in
+    ``test_torch_data_parallel.py``), and ``--train_with_eval`` under
+    ``rpn``, as it fails in the JAX CLI (its joint eval needs the RCNN)."""
+    with pytest.raises(ValueError, match=match):
         tcli.main(['--data_root', str(tmp_path), '--device', 'cpu'] + extra)
 
 
