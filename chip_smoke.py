@@ -237,10 +237,26 @@ first use), then:
    6 A, 2 B, 2 C, 4 D, 3 E and 4 F launches a step on each rank; prints a
    rank's step time against the one-process step's, the all-reduces and
    their bytes a step, and the phase's wall time, beside the card's name
-   and power limit.
+   and power limit;
+29. runs the rest of the approximation family at full width, on one set
+   of seeded weights: batch-1 forwards of the pin's ``--speed-mode``
+   configuration (bf16, approximate queries, ``RPN.FPS_GROUPS 8``, both
+   ``BLOCK_LOCAL`` flags; 6 A, 1 B-bf16, 1 G-bf16, 4 F-bf16), of the
+   headline configuration under the ``nearest`` ball policy and under
+   ``RPN.SAMPLING random`` (2 A: the RCNN's alone) and of the pin's
+   ``fpwin`` cell (the ``RPN.FP_WINDOW`` middle mode, windows of 512), each
+   with its wall and device busy time; RPN sa0's nearest-first nested ball
+   held to the CPU on the card's inputs (identical except where the two
+   fields round apart, then the selection of the card's own field); a
+   batch-4 speed-mode train step (the headline block-local step's
+   launches); and kernel A at the partitioned shapes those two gave it (8
+   and 32 sub-clouds of 2048, 512, 128 and 32 points, 512, 128, 32 and 8
+   picks) against its plain version, 0 picks differing, and the whole
+   partitioned call against the CPU, identical; times and bound of each
+   shape (the kernels line's ``fps`` entry lists them as ``partitioned``).
 
 Launch counts are read around each main-path phase (3, 6, 9, 11, 14, 15,
-18, 20, 22, 24, 25, 26, 27 and 28) with the counters set to 0 just before it;
+18, 20, 22 and 24-29) with the counters set to 0 just before it;
 phase 28 counts in its ranks and in this process, and adds them up;
 the kernels line sums them. The script leaves TF32 as PyTorch sets it and checks that building
 the model turns it off, as the f32 recipe needs.
@@ -3736,6 +3752,204 @@ def phase_headline(dev):
     return total
 
 
+# the launches of one batch-1 forward of each approximation-family configuration
+FAMILY_WANT = {'speed': HEADLINE_WANT['block-local forward'], 'nearest': [6, 0, 0, 0, 2, 0, 4],
+               'random': [2, 0, 0, 0, 2, 0, 4], 'fpwin': [6, 0, 0, 0, 2, 0, 4]}
+
+
+def _pairs(kv):
+    return list(zip(kv[0::2], kv[1::2]))
+
+
+def _family_configs():
+    """Phase 29's configurations: the pin's ``--speed-mode`` and ``fpwin``
+    cells on the recipe (their ``--set`` lists), and the headline
+    configuration under ``SAMPLING random``; the ``nearest`` forward is the
+    headline configuration with that ball policy."""
+    from epnet_tpu_torch.config import headline_config, parity_config
+    from epnet_tpu_torch.tools.synthetic_ap_pin import KNOBS, SPEED_MODE
+    return {'speed': parity_config().with_overrides(_pairs(SPEED_MODE)),
+            'nearest': headline_config(),
+            'random': headline_config().with_overrides([('RPN.SAMPLING', 'random')]),
+            'fpwin': parity_config().with_overrides([MIXED_SET] + _pairs(KNOBS['fpwin']))}
+
+
+def _check_nested_nearest(idx_card, cnts_card, radii, nsamples, xyz, new_xyz):
+    """The card's nearest-first nested ball (RPN sa0) against the same
+    function on the CPU on the card's inputs: identical balls and counts,
+    except where the two matmul-form fields differ by their rounding
+    (``_d2_bound``); each such ball is the selection of the card's own
+    field (``nested_nearest_select``). Returns the balls that differ."""
+    import torch
+    from epnet_tpu_torch.ops import pointops
+    r_max, s_max = float(radii[-1]), int(nsamples[-1])
+    want_idx, want_cnts = pointops.ball_query_nested(radii, nsamples, xyz.cpu(), new_xyz.cpu())
+    got_idx, got_cnts = idx_card.cpu(), [c.cpu() for c in cnts_card]
+    bad = (got_idx != want_idx).any(-1)
+    for g, w in zip(got_cnts, want_cnts):
+        bad |= g != w
+    thrs = pointops.nested_thresholds(radii)
+    xs_cpu, cs_cpu = pointops._scaled(xyz, r_max).cpu(), pointops._scaled(new_xyz, r_max).cpu()
+    for b, m in bad.nonzero().tolist():
+        d2_card = pointops._pairwise_d2(pointops._scaled(new_xyz[b:b + 1, m:m + 1], r_max),
+                                        pointops._scaled(xyz[b:b + 1], r_max))[0, 0].cpu()
+        d2_cpu = pointops._pairwise_d2(cs_cpu[b:b + 1, m:m + 1], xs_cpu[b:b + 1])[0, 0]
+        bound = _d2_bound(cs_cpu[b:b + 1, m:m + 1], xs_cpu[b:b + 1])[0, 0]
+        if not bool(((d2_card - d2_cpu).abs() <= bound).all()):
+            raise AssertionError(f'nested nearest ball ({b}, {m}): card and CPU fields differ '
+                                 f'beyond rounding')
+        idx, cnts = pointops.nested_nearest_select(d2_card, s_max, thrs)
+        if not torch.equal(idx, got_idx[b, m]) or \
+                [int(c) for c in cnts] != [int(c[b, m]) for c in got_cnts]:
+            raise AssertionError(f'nested nearest ball ({b}, {m}) is not the selection of the '
+                                 f'card\'s own field')
+    print(f'  RPN sa0 nested nearest ball: {int(bad.sum())} of {bad.numel()} balls differ card vs '
+          f'CPU, each the selection of the card\'s own field within the d2 rounding bound',
+          flush=True)
+    return int(bad.sum())
+
+
+def _partitioned_rows(calls, kind):
+    """Kernel A at the partitioned shapes the main path gave it (``calls``:
+    the RPN's (xyz, npoint, groups, picks)): the B x groups sub-clouds
+    through the kernel and the plain version on the card, index-identical;
+    the whole partitioned call against the CPU on the card's input,
+    identical; times and bound of each shape."""
+    import torch
+    from epnet_tpu_torch.ops import fps
+    rows = []
+    for xyz, npoint, groups, picks in calls:
+        B, N = xyz.shape[:2]
+        sub = xyz.float().reshape(B, N // groups, groups, 3).transpose(1, 2).reshape(
+            B * groups, N // groups, 3).contiguous()
+        n, k = N // groups, npoint // groups
+        got = fps.furthest_point_sample_kernel(sub, k)
+        want = fps.furthest_point_sample_plain(sub, k)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        cpu = fps.furthest_point_sample(xyz.float().cpu(), npoint, groups=groups)
+        if differ or not torch.equal(picks.cpu(), cpu):
+            raise AssertionError(f'partitioned fps at {(B * groups, n, k)}: {differ} picks differ '
+                                 f'kernel vs plain, card vs CPU equal: '
+                                 f'{torch.equal(picks.cpu(), cpu)}')
+        o, m = _bound(10.0 * B * groups * n * (k - 1), 4 * B * groups * n * 3 + 8 * B * groups * k)
+        k_ms = _time_ms(lambda: fps.furthest_point_sample_kernel(sub, k), 20)
+        p_ms = _time_ms(lambda: fps.furthest_point_sample_plain(sub, k), 2)
+        cs, threads = fps.kernel_config(n)
+        row = {'shape': [B * groups, n, 3], 'npoint': k, 'kind': kind, 'cluster': cs,
+               'threads': threads, 'ms': k_ms, 'plain_ms': p_ms, 'bound_ms': max(o, m),
+               'bound_by': 'operations' if o >= m else 'bytes', 'picks_differing': differ}
+        print(f'fps partitioned {(B * groups, n, 3)} -> {k} ({kind}, {B} x {groups} '
+              f'sub-clouds): 0 picks differ, card = CPU; {cs} block(s) of {threads} threads; '
+              f'kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {max(o, m):.6f} ms',
+              flush=True)
+        rows.append(row)
+    return rows
+
+
+def phase_approx_family(dev):
+    """Phase 29: the rest of the approximation family at full width. A
+    batch-1 forward of each configuration (``_family_configs``; the same
+    seeded weights; the speed and fpwin forwards on a Morton-sorted scene):
+    shapes, finiteness, launches (``FAMILY_WANT``), wall and device busy
+    time; the nearest forward's RPN sa0 nested ball held to the CPU
+    (``_check_nested_nearest``). A batch-4 train step of the speed
+    configuration (launches as the headline block-local step's). Kernel A
+    at the partitioned shapes of the speed forward (batch 1) and step
+    (batch 4), against its plain version and the CPU
+    (``_partitioned_rows``)."""
+    import torch
+    from unittest import mock
+
+    from epnet_tpu_torch.models import pointnet2
+    from epnet_tpu_torch.models.epnet import EPNet
+    from epnet_tpu_torch.train.trainer import create_train_state, device_batch, train_step
+    from epnet_tpu_torch.utils.profiling import device_breakdown
+    from epnet_tpu_torch.utils.testing import full_batch
+
+    t0 = time.perf_counter()
+    cfgs = _family_configs()
+    models = {'speed': EPNet(cfgs['speed'], 'TEST', device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(0)).eval()}
+    for name in ('nearest', 'random', 'fpwin'):
+        models[name] = EPNet(cfgs[name], 'TEST', device=dev, ball_policy=(
+            'nearest' if name == 'nearest' else 'first_nested')).eval()
+        models[name].load_state_dict(models['speed'].state_dict())
+    calls, balls = [], []
+    real_fps, real_ball = pointnet2.furthest_point_sample, pointnet2.ball_query_nested
+
+    def fps_spy(xyz, npoint, groups=1):
+        out = real_fps(xyz, npoint, groups=groups)
+        calls.append((xyz, npoint, groups, out))
+        return out
+
+    def ball_spy(*args, **kwargs):
+        out = real_ball(*args, **kwargs)
+        balls.append((args, out))
+        return out
+
+    counters = _fwd_counters()
+    total = collections.Counter()
+    R = cfgs['speed'].TEST.RPN_POST_NMS_TOP_N
+    shapes = {'rois': (1, R, 7), 'rcnn_cls': (R, 1)}
+    fwd_calls = []
+    for name, model in models.items():
+        batch = device_batch(full_batch(cfgs[name], 1, seed=0), dev)
+        model(batch)  # warm-up
+        calls.clear()
+        balls.clear()
+        with mock.patch.object(pointnet2, 'furthest_point_sample', fps_spy), \
+                mock.patch.object(pointnet2, 'ball_query_nested', ball_spy):
+            for c in counters:
+                c.launches = 0
+            out, ms = _timed(lambda: model(batch))
+            delta = [c.launches for c in counters]
+        _check_out(f'{name} forward', out, shapes, delta, FAMILY_WANT[name])
+        total.update(dict(zip(FWD_KERNELS, delta)))
+        wall, busy, _ = device_breakdown(lambda: model(batch), 3)
+        print(f'{name} forward, batch 1: {ms:.2f} ms, rois {int(out["roi_counts"][0])}, launches '
+              f'{_fwd_launches(delta)}; profiled: wall {wall:.3f} ms, device busy {busy:.3f} ms',
+              flush=True)
+        if name == 'speed':
+            fwd_calls = [c for c in calls if c[2] > 1]
+        if name == 'nearest':
+            (radii, nsamples, xyz, new_xyz), (idx, cnts) = balls[0]
+            _check_nested_nearest(idx, cnts, radii, nsamples, xyz, new_xyz)
+    del models
+
+    state = create_train_state(cfgs['speed'], total_steps=100, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = _train_batch(cfgs['speed'], 0, dev)
+    train_step(state, batch, 0.1, gen)  # warm-up
+    counters = _bf16_train_counters()
+    calls.clear()
+    with mock.patch.object(pointnet2, 'furthest_point_sample', fps_spy):
+        for c in counters:
+            c.launches = 0
+        tb, ms = _timed(lambda: train_step(state, batch, 0.1, gen))
+        delta = [c.launches for c in counters]
+    if not math.isfinite(float(tb['loss'])) or delta != HEADLINE_WANT['block-local step']:
+        raise AssertionError(f'speed train step: loss {float(tb["loss"])}, launches {delta}, '
+                             f'expected {HEADLINE_WANT["block-local step"]}')
+    total.update(dict(zip(BF16_TRAIN_KERNELS, delta)))
+    step_calls = [c for c in calls if c[2] > 1]
+    wall, busy, _ = device_breakdown(lambda: train_step(state, batch, 0.1, gen), 3)
+    print(f'speed train step, batch {TRAIN_BATCH}: {ms:.2f} ms, loss {float(tb["loss"]):.4f}, '
+          f'launches ' + ' '.join(f'{n} +{d}' for n, d in zip(BF16_TRAIN_KERNELS, delta) if d)
+          + f'; profiled: wall {wall:.3f} ms, device busy {busy:.3f} ms', flush=True)
+    del state
+
+    if len(fwd_calls) != 4 or len(step_calls) != 4:
+        raise AssertionError(f'partitioned fps calls: {len(fwd_calls)} a forward, '
+                             f'{len(step_calls)} a step; expected 4 (the RPN stages)')
+    rows = _partitioned_rows(fwd_calls, 'speed forward') + \
+        _partitioned_rows(step_calls, 'speed train step')
+    print(f'phase 29 (approximation family): {time.perf_counter() - t0:.1f} s; '
+          f'{_smi()}', flush=True)
+    return total, rows
+
+
 RECIPE_IOU = 'cfgs/LI_Fusion_with_attention_use_ce_loss_iou_branch.yaml'
 PEOPLE_SET = [('CLASSES', 'People'), ('RCNN.LOSS_CLS', 'CrossEntropy')]
 
@@ -4221,7 +4435,7 @@ def main():
             if 'registers' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}')
 
-    # launches on the main paths (phases 3, 6, 9, 11, 14, 15, 18, 20, 22 and 24-28), by kernel
+    # launches on the main paths (phases 3, 6, 9, 11, 14, 15, 18, 20, 22 and 24-29), by kernel
     launches = collections.Counter()
     fps_res = phase_fps(dev)
     sa_res = phase_sa(dev)
@@ -4254,11 +4468,13 @@ def main():
     launches.update(phase_headline(dev))
     launches.update(phase_recipe_rows(dev))
     launches.update(phase_data_parallel(dev))
+    family_launches, partitioned = phase_approx_family(dev)
+    launches.update(family_launches)
 
     kernels = [
         {'name': 'fps', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/fps.cu',
          'replaces': 'epnet_tpu/ops/fps_pallas.py:40, epnet_tpu/ops/fps_pallas.py:80',
-         'design': FPS_DESIGN, **fps_res},
+         'design': FPS_DESIGN, **fps_res, 'partitioned': partitioned},
         {'name': 'sa_fused_fwd', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/sa_fused.cu',
          'replaces': 'epnet_tpu/ops/sa_fused.py:83', 'design': SA_FWD_DESIGN, **sa_res},
         {'name': 'sa_fused_bwd', 'route': 'cuda',

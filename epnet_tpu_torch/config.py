@@ -61,9 +61,10 @@ class SAConfigRPN:
 class RPNConfig:
     """Reference ``lib/config.py:49-93``. ``SAMPLING``, ``FPS_GROUPS``,
     ``BLOCK_*`` and ``FP_*`` are the JAX package's approximation knobs.
-    ``BLOCK_*`` drive the block-local configuration (``BLOCK_LOCAL_SET``);
-    the port keeps the others so that its files load, and ``EPNet`` refuses
-    any value of them but the exact default."""
+    ``BLOCK_*`` drive the block-local configuration (``BLOCK_LOCAL_SET``),
+    ``SAMPLING`` and ``FPS_GROUPS`` the RPN's sampler (``ops/fps.py``,
+    ``models/pointnet2.py``) and ``FP_*`` the windowed FP middle mode
+    (``models/backbone.py``)."""
 
     ENABLED: bool = True
     FIXED: bool = False

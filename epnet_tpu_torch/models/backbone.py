@@ -9,6 +9,12 @@ full resolution, and the deconv image pyramid fused into the final point
 features. Under ``RPN.BLOCK_LOCAL`` (with a query policy that admits it)
 the stages whose shapes allow group and interpolate inside block-local
 windows over the loader's Morton-sorted cloud (``backbone.py:58-127``).
+Under ``RPN.FP_WINDOW > 0`` (the middle mode, ``backbone.py:56-125``) every
+RPN stage sorts its picks, so every level stays Morton-sorted, and the FP
+stages whose shapes allow interpolate in windows of ``FP_WINDOW`` knowns
+for each ``FP_UBLOCK`` unknowns, while SA groups on the dense path; under
+``EXACT_QUERIES`` true the mode only sorts the picks. The RPN's stages take
+``RPN.SAMPLING`` and ``RPN.FPS_GROUPS`` (``ops/fps.py``).
 Under ``MIXED_PRECISION`` the SA, FP, image, fusion and head modules run
 in bf16 (``backbone.py:37,78-147``; the tower too: the port reads no
 ``EPNET_IMG_F32``) and the features come out f32 (``:149``). Under
@@ -43,13 +49,16 @@ class PointBackbone(nn.Module):
         dt = torch.bfloat16 if cfg.MIXED_PRECISION else None
         level_ch = [in_channels - 3]
         self.block_local = cfg.RPN.BLOCK_LOCAL and block_local_allowed(cfg.EXACT_QUERIES)
+        fp_win_mode = cfg.RPN.FP_WINDOW > 0
         approx = approx_allowed(cfg.EXACT_QUERIES, 'ball')
         for i in range(n_sa):
             mod = SAModuleMSG(sa.NPOINTS[i], sa.RADIUS[i], sa.NSAMPLE[i], sa.MLPS[i],
                               in_features=level_ch[i], bn=cfg.RPN.USE_BN,
                               block_local=self.block_local, block_window=cfg.RPN.BLOCK_WINDOW,
                               block_c=cfg.RPN.BLOCK_C, dtype=dt, device=device,
-                              approx=approx, ball_policy=ball_policy)
+                              approx=approx, ball_policy=ball_policy,
+                              sampler=cfg.RPN.SAMPLING, fps_groups=cfg.RPN.FPS_GROUPS,
+                              sort_fps=fp_win_mode)
             self.add_module(f'sa{i}', mod)
             if li.ENABLED:
                 fusion = AttenFusionConv if li.ADD_Image_Attention else FusionConv
@@ -62,13 +71,17 @@ class PointBackbone(nn.Module):
             else:
                 level_ch.append(mod.out_features)
         n_fp = len(cfg.RPN.FP_MLPS)
+        # the windowed FP under either mode (backbone.py:106-118): the middle
+        # mode's FP_WINDOW knowns for each FP_UBLOCK unknowns, the
+        # block-local configuration's 256 for each 512
+        fp_block = (bool(cfg.RPN.BLOCK_LOCAL) or fp_win_mode) and \
+            block_local_allowed(cfg.EXACT_QUERIES)
+        fp_w, fp_u = (cfg.RPN.FP_WINDOW, cfg.RPN.FP_UBLOCK) if fp_win_mode else (256, 512)
         for k in range(n_fp):
             known_ch = cfg.RPN.FP_MLPS[k + 1][-1] if k + 1 < n_fp else level_ch[n_fp]
-            # the block-local configuration's FP geometry: 256 knowns for
-            # each 512 unknowns (backbone.py:113-118)
             self.add_module(f'fp{k}', FPModule(known_ch + level_ch[k], cfg.RPN.FP_MLPS[k],
-                                               bn=cfg.RPN.USE_BN, block_local=self.block_local,
-                                               ublock=512, window=256, dtype=dt,
+                                               bn=cfg.RPN.USE_BN, block_local=fp_block,
+                                               ublock=fp_u, window=fp_w, dtype=dt,
                                                device=device, approx=approx))
         self.out_features = cfg.RPN.FP_MLPS[0][-1]
         if li.ENABLED:
@@ -88,9 +101,11 @@ class PointBackbone(nn.Module):
         feats = pts_input[..., 3:] if pts_input.shape[-1] > 3 else None
         l_xyz, l_feats = [xyz], [feats]
         # each level's FPS picks, and whether the level is Morton-sorted: the
-        # loader sorts level 0 under RPN.BLOCK_LOCAL, and a level stays sorted
-        # while every SA stage below it sorts its picks (the block-local ones)
-        l_idx, sorted_ok = [None], [bool(cfg.RPN.BLOCK_LOCAL)]
+        # loader sorts level 0 under RPN.BLOCK_LOCAL or the middle mode, and a
+        # level stays sorted while every SA stage below it sorts its picks
+        # (the block-local ones, or all of them in the middle mode)
+        fp_win_mode = cfg.RPN.FP_WINDOW > 0
+        l_idx, sorted_ok = [None], [bool(cfg.RPN.BLOCK_LOCAL) or fp_win_mode]
         if li.ENABLED:
             # pixel coords to [-1, 1] against the fixed pad size
             xy_norm = torch.stack([xy[..., 0] / (IMG_SIZE[0] - 1.0) * 2.0 - 1.0,
@@ -110,7 +125,8 @@ class PointBackbone(nn.Module):
             l_xyz.append(li_xyz)
             l_feats.append(li_feats)
             l_idx.append(fps_idx)
-            sorted_ok.append(sorted_ok[i] and sa_i.uses_block_local(l_xyz[i].shape[1]))
+            sorted_ok.append(sorted_ok[i] and (fp_win_mode
+                                               or sa_i.uses_block_local(l_xyz[i].shape[1])))
 
         n_fp = len(cfg.RPN.FP_MLPS)
         for i in range(-1, -(n_fp + 1), -1):

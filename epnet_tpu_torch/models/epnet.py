@@ -63,8 +63,11 @@ class EPNet(nn.Module):
     ``EXACT_QUERIES`` false runs the JAX package's approximate queries
     (``ops/pointops.py``), the policy of its headline configuration
     (``config.headline_config``); ``ball_policy`` picks their multi-scale
-    ball policy, 'first_nested' (JAX's default) or 'first_multi' (an
-    argument, where JAX reads ``EPNET_BALL_POLICY``; 'nearest' raises).
+    ball policy, 'first_nested' (JAX's default), 'first_multi' or
+    'nearest' (an argument, where JAX reads ``EPNET_BALL_POLICY``; see
+    ``ops/pointops.check_ball_policy``). The RPN's approximation knobs
+    ``RPN.SAMPLING``, ``RPN.FPS_GROUPS`` and ``RPN.FP_WINDOW`` run as in the
+    JAX package (``models/pointnet2.py``, ``models/backbone.py``).
 
     ``MIXED_PRECISION`` runs the bf16 forward and train step of the JAX
     package (``epnet.py:74-79,114-123`` and the modules' ``dtype``), with
@@ -101,13 +104,6 @@ class EPNet(nn.Module):
         super().__init__()
         if mode not in ('TRAIN', 'TEST'):
             raise ValueError(f'mode {mode!r}: TRAIN or TEST')
-        unported = {'RPN.FPS_GROUPS != 1': (cfg.RPN.FPS_GROUPS != 1, '16.2'),
-                    'RPN.FP_WINDOW > 0': (cfg.RPN.FP_WINDOW > 0, '16.3'),
-                    "RPN.SAMPLING 'random'": (cfg.RPN.SAMPLING != 'fps', '16.2')}
-        for what, (on, item) in unported.items():
-            if on:
-                raise NotImplementedError(f'{what} is not ported yet (ROADMAP Queue 1, '
-                                          f'item {item})')
         self.ball_policy = check_ball_policy(ball_policy)
         if not (cfg.RPN.ENABLED or cfg.RCNN.ENABLED):
             raise ValueError('neither RPN.ENABLED nor RCNN.ENABLED: no model to build')

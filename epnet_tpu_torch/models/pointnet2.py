@@ -28,7 +28,17 @@ count in its BatchNorm's batch statistics); under ``first_multi`` and in
 single-scale stages each scale takes its own approximate query; a
 single-scale stage over a small spatially ordered table (RCNN sa1 under
 ``RCNN.BLOCK_LOCAL``) takes the bucket select; FP takes the approximate
-``three_nn``.
+``three_nn``. Under the ``nearest`` policy a monotone multi-scale stage
+takes one nearest-first nested query (``ball_query_nested``) and scale i
+its first ``nsamples[i]`` slots, those past its in-radius count replaced
+by slot 0 (``nested_prefix_select``, ``pointnet2.py:70-86,317-331``).
+
+The RPN's stages take the sampler knobs (``pointnet2.py:105-116,135-150``):
+``sampler`` 'random' (``RPN.SAMPLING``) takes the first ``npoint`` points
+of the loader's shuffled cloud instead of FPS; ``fps_groups``
+(``RPN.FPS_GROUPS``) partitions FPS (``ops/fps.py``); ``sort_fps`` (the
+``RPN.FP_WINDOW`` middle mode) sorts the picks ascending on the dense path
+too, so that every level stays Morton-sorted for the windowed FP.
 
 With ``dtype`` (bf16 under ``MIXED_PRECISION``) the stages cast as the JAX
 package's do: SA casts its features to bf16 before grouping
@@ -53,12 +63,28 @@ import torch.nn as nn
 from ..ops.block_local import (block_local_available, block_local_fp_available,
                                block_local_group_multi, block_local_three_interp,
                                bucket_ball_query, to_window_relative, window_starts)
-from ..ops.pointops import (ball_query, ball_query_approx, ball_query_nested_first_hit,
-                            check_ball_policy, furthest_point_sample, gather_points,
-                            group_points, nested_radius_select, sq_dist, three_interpolate,
-                            three_nn)
+from ..ops.pointops import (ball_query, ball_query_approx, ball_query_nested,
+                            ball_query_nested_first_hit, check_ball_policy,
+                            furthest_point_sample, gather_points, group_points,
+                            nested_radius_select, sq_dist, three_interpolate, three_nn)
 from ..ops.sa_fused import fused_point_mlp_max, fused_point_mlp_max_win
 from .layers import SharedMLP
+
+
+def nested_prefix_select(full: torch.Tensor, s_i: int, cnt: torch.Tensor,
+                         outer: bool) -> torch.Tensor:
+    """Scale i's rows from the nearest-first nested query's
+    (``pointnet2.py:70-86``): its first ``s_i`` slots, those at or past
+    ``cnt`` (B, M), the scale's in-radius count, replaced by slot 0; the
+    outer scale's rows as they are.
+
+    :param full: (B, M, s_max, C) rows at ``ball_query_nested``'s indices
+        (the indices themselves, as (B, M, s_max, 1), select the same rows)
+    """
+    if outer:
+        return full
+    keep = (torch.arange(s_i, device=full.device) < cnt[..., None])[..., None]
+    return torch.where(keep, full[:, :, :s_i], full[:, :, 0:1])
 
 
 class SAModuleMSG(nn.Module):
@@ -68,17 +94,23 @@ class SAModuleMSG(nn.Module):
     ``(new_xyz (B, M, 3), new_features (B, M, sum(mlp[-1])), fps_idx (B, M))``;
     ``npoint=None`` is group-all (one centroid at the origin, xyz not
     recentred) and returns ``fps_idx=None``. ``approx`` selects the
-    approximate queries and ``ball_policy`` ('first_nested' or
-    'first_multi') their multi-scale policy.
+    approximate queries and ``ball_policy`` ('first_nested',
+    'first_multi' or 'nearest') their multi-scale policy; ``sampler``
+    ('fps' or 'random'), ``fps_groups`` and ``sort_fps`` the RPN's sampler
+    knobs.
     """
 
     def __init__(self, npoint: Optional[int], radii: Sequence[float],
                  nsamples: Sequence[int], mlps: Sequence[Sequence[int]],
                  in_features: int, bn: bool = True, block_local: bool = False,
                  block_window: int = 1024, block_c: int = 128, dtype=None, device=None,
-                 approx: bool = False, ball_policy: str = 'first_nested'):
+                 approx: bool = False, ball_policy: str = 'first_nested',
+                 sampler: str = 'fps', fps_groups: int = 1, sort_fps: bool = False):
         super().__init__()
         self.npoint = npoint
+        self.sampler = sampler
+        self.fps_groups = fps_groups
+        self.sort_fps = sort_fps
         self.approx = approx
         self.ball_policy = check_ball_policy(ball_policy)
         self.dtype = dtype
@@ -120,10 +152,10 @@ class SAModuleMSG(nn.Module):
                 and block_local_available(n, self.npoint, self.block_window, self.block_c))
 
     def uses_nested(self) -> bool:
-        """The nested first-hit query (``pointnet2.py:221-239``): a
-        monotone multi-scale stage under the approximate queries and the
-        ``first_nested`` policy."""
-        return (self.approx and self.ball_policy == 'first_nested' and self.npoint is not None
+        """A nested query (``pointnet2.py:221-239``): a monotone multi-scale
+        stage under the approximate queries and the ``first_nested`` (first
+        hits) or ``nearest`` (nearest first) policy."""
+        return (self.approx and self.ball_policy != 'first_multi' and self.npoint is not None
                 and self.n_scales > 1 and list(self.radii) == sorted(self.radii)
                 and list(self.nsamples) == sorted(self.nsamples))
 
@@ -151,8 +183,13 @@ class SAModuleMSG(nn.Module):
             return self._group_all(xyz, features, bn_momentum)
         n = xyz.shape[1]
         use_bl, use_win = self.uses_block_local(n), self.uses_window(n)
-        fps_idx = furthest_point_sample(xyz.float(), self.npoint)
-        if use_bl or use_win:
+        if self.sampler == 'random':
+            # the loader's cloud is shuffled: its first npoint points are a
+            # uniform sample
+            fps_idx = torch.arange(self.npoint, device=xyz.device).expand(xyz.shape[0], -1)
+        else:
+            fps_idx = furthest_point_sample(xyz.float(), self.npoint, groups=self.fps_groups)
+        if use_bl or use_win or self.sort_fps:
             # ascending picks keep the subset Morton-sorted for the next stage
             fps_idx = fps_idx.sort(dim=-1).values
         new_xyz = gather_points(xyz, fps_idx)
@@ -166,6 +203,14 @@ class SAModuleMSG(nn.Module):
         if use_bl:
             scale_idx = block_local_group_multi(self.radii, self.nsamples, xyz, fps_idx,
                                                 new_xyz, self.block_window, self.block_c)
+        elif self.uses_nested() and self.ball_policy == 'nearest':
+            # each scale's rows are a prefix of the outer ball's, nearest
+            # first: selected here as indices, then gathered once a scale
+            nested = True
+            idx, cnts = ball_query_nested(self.radii, self.nsamples, xyz, new_xyz)
+            scale_idx = [nested_prefix_select(idx[..., None], s, cnts[i],
+                                              i == self.n_scales - 1)[..., 0]
+                         for i, s in enumerate(self.nsamples)]
         elif self.uses_nested():
             # each scale's rows are the outer ball's rows inside its radius:
             # selected here as indices, then gathered once a scale
@@ -227,8 +272,8 @@ class FPModule(nn.Module):
     (``pointnet2_modules.py:133-173``). With ``block_local`` and the knowns'
     ascending positions ``known_idx`` among the unknowns, the windowed
     interpolation of ``ops/block_local.py`` where the shapes allow
-    (``pointnet2.py:375-395``); elsewhere ``three_nn``, approximate with
-    ``approx``."""
+    (``pointnet2.py:375-395``), ``window`` knowns for each ``ublock``
+    unknowns; elsewhere ``three_nn``, approximate with ``approx``."""
 
     def __init__(self, cin: int, mlp: Sequence[int], bn: bool = True,
                  block_local: bool = False, ublock: int = 512, window: int = 256,

@@ -3,7 +3,8 @@ block-local configuration's neighbour queries.
 
 Port of ``epnet_tpu/ops/block_local.py`` (``block_local_available``,
 ``block_local_fp_available``, ``bucket_ball_query``, ``window_starts``,
-``to_window_relative``, ``block_local_group_multi``,
+``to_window_relative``, ``block_local_window_query``,
+``block_local_group_multi``, ``block_local_group_nested``,
 ``block_local_three_interp``). The JAX package computes all of it in XLA;
 so does the port, in plain PyTorch. With the cloud in Morton order
 (``ops/morton.py``, sorted by the loader) and the FPS picks sorted
@@ -30,18 +31,24 @@ JAX package computes on the CPU. On a TPU JAX's weight matmul
 its f32 operands to bf16, so the same f32 configuration there computes a
 bf16-rounded interpolation; the port does not reproduce that.
 
-``block_local_group_nested`` (the approx_max_k select) and
-``block_local_window_query`` lie off the configuration's path and are not
-ported.
+``block_local_group_nested`` is the nearest-first nested grouping inside
+the same windows (``block_local.py:419-525``): its bf16 keys select through
+``pointops.nested_nearest_select``, the stable top-k, for ``approx`` True
+(JAX's ``approx_max_k``, which off the TPU computes that selection on
+distinct keys) and False (JAX's ``lax.top_k``) alike.
+``block_local_window_query`` is the single-scale window query of the
+windowed fused kernel (``block_local.py:207-283``), returning
+window-relative indices.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
-from .pointops import _pairwise_d2, in_radius, sq_dist
+from .pointops import (_pairwise_d2, _scaled, _sq_norm, gather_points, group_points, in_radius,
+                       nested_nearest_select, nested_thresholds, sq_dist)
 
 
 def block_local_fp_available(n: int, m: int, ublock: int, window: int) -> bool:
@@ -129,6 +136,45 @@ def to_window_relative(idx: torch.Tensor, starts: torch.Tensor, window: int) -> 
     return torch.where(valid, rel, torch.where(pad < 2 * window, pad, 0))
 
 
+def block_local_window_query(radius: float, nsample: int, xyz: torch.Tensor,
+                             parent_idx: torch.Tensor, new_xyz: Optional[torch.Tensor] = None,
+                             window: int = 256, block_c: int = 32, align: int = 8):
+    """Single-scale ball query over each block's window, window-relative
+    (``block_local.py:207-283``): each block of ``block_c`` centroids looks
+    in the ``window`` points from its ``window_starts`` (aligned to
+    ``align``); the field is the exact f32 broadcast-subtract over
+    coordinates scaled by 1 / radius, the membership ``d2n < 1``; slot j
+    keeps the nearest in-radius lane l with l % nsample == j (first on
+    ties), an empty slot the nearest in-radius lane, a ball with none lane
+    0.
+
+    :param xyz: (T, N, 3) spatially ordered; parent_idx: (T, M) ascending
+        centroid positions; new_xyz: (T, M, 3), gathered at parent_idx
+        when None
+    :return: (idx_rel (T, M, nsample) int64 in [0, window), starts (T, M //
+        block_c) int64, cnt (T, M) int64 in-radius slots)
+    """
+    T, N, _ = xyz.shape
+    M = parent_idx.shape[1]
+    NB = M // block_c
+    if window % nsample:
+        raise ValueError(f'block_local_window_query: window {window} does not tile into '
+                         f'{nsample}')
+    starts = window_starts(parent_idx, N, window, block_c, align)
+    if new_xyz is None:
+        new_xyz = gather_points(xyz.detach(), parent_idx.detach())
+    inv = torch.tensor(1.0 / radius, dtype=torch.float32, device=xyz.device)
+    wx = _windows(xyz.detach(), starts, window)                        # (T, NB, W, 3)
+    diff = (new_xyz.detach().reshape(T, NB, block_c, 1, 3) - wx[:, :, None]) * inv
+    d2n = _sq_norm(diff)                                               # (T, NB, bc, W)
+    keys = torch.where(d2n < 1.0, d2n, float('inf'))
+    idx, valid = _bucket_select(keys, nsample)
+    cnt = valid.sum(-1)
+    idx = torch.where(valid, idx, keys.argmin(dim=-1, keepdim=True))
+    idx = torch.where(cnt[..., None] > 0, idx, 0)
+    return idx.reshape(T, M, nsample), starts, cnt.reshape(T, M)
+
+
 def block_local_group_multi(radii: Sequence[float], nsamples: Sequence[int],
                             xyz: torch.Tensor, parent_idx: torch.Tensor,
                             new_xyz: torch.Tensor, window: int = 1024,
@@ -168,6 +214,49 @@ def block_local_group_multi(radii: Sequence[float], nsamples: Sequence[int],
         lane = torch.where(valid.any(dim=-1, keepdim=True), lane, 0)
         out.append((lane + starts[:, :, None, None]).reshape(B, M, ns))
     return out
+
+
+def block_local_group_nested(radii: Sequence[float], nsamples: Sequence[int],
+                             xyz: torch.Tensor, feats: Optional[torch.Tensor],
+                             parent_idx: torch.Tensor, new_xyz: Optional[torch.Tensor] = None,
+                             window: int = 1024, block_c: int = 128, approx: bool = True):
+    """Nested nearest-first grouping over block-local windows
+    (``block_local.py:419-525``): each block of ``block_c`` consecutive
+    (ascending) centroids takes the ``window`` points centred on the
+    midpoint of its first and last centroid position (clipped, not
+    aligned); the field is ``_d2_normalized`` (the |a|^2 + |b|^2 - 2ab form
+    over coordinates scaled by 1 / r_max) and the selection
+    ``nested_nearest_select``'s, the same for ``approx`` True and False.
+    The rows are gathered by index (no gradient reaches ``xyz``, as in
+    JAX).
+
+    :param xyz: (B, N, 3) Morton-sorted; feats: (B, N, Cf) or None;
+        parent_idx: (B, M) ascending centroid positions; new_xyz: (B, M, 3),
+        gathered at parent_idx when None
+    :return: (gx (B, M, s_max, 3), gf (B, M, s_max, Cf) or None, cnts: per
+        scale (B, M) int64, for ``nested_prefix_select``)
+    """
+    del approx  # one stable selection for both (see the module docstring)
+    if list(radii) != sorted(radii) or list(nsamples) != sorted(nsamples):
+        raise ValueError(f'block_local_group_nested: radii {tuple(radii)} and nsamples '
+                         f'{tuple(nsamples)} must ascend')
+    B, N, _ = xyz.shape
+    M = parent_idx.shape[1]
+    NB = M // block_c
+    r_max, s_max = float(radii[-1]), int(nsamples[-1])
+    pb = parent_idx.detach().reshape(B, NB, block_c)
+    starts = ((pb[:, :, 0] + pb[:, :, -1]) // 2 - window // 2).clamp(0, N - window)
+    if new_xyz is None:
+        new_xyz = gather_points(xyz.detach(), parent_idx.detach())
+    wx = _windows(xyz.detach(), starts, window)                        # (B, NB, W, 3)
+    d2n = _pairwise_d2(_scaled(new_xyz, r_max).reshape(B * NB, block_c, 3),
+                       _scaled(wx, r_max).reshape(B * NB, window, 3))
+    loc, cnts = nested_nearest_select(d2n.reshape(B, NB, block_c, window), s_max,
+                                      nested_thresholds(radii))
+    rows = (loc + starts[:, :, None, None]).reshape(B, M, s_max)
+    gx = group_points(xyz.detach(), rows)
+    gf = group_points(feats, rows) if feats is not None else None
+    return gx, gf, [c.reshape(B, M) for c in cnts]
 
 
 def block_local_three_interp(unknown: torch.Tensor, known_xyz: torch.Tensor,

@@ -12,6 +12,9 @@ shared memory with one cluster barrier a step.
 
 ``furthest_point_sample`` launches the kernel for a CUDA tensor and runs the
 plain version only for a CPU tensor; there is no fallback between the two.
+With ``groups`` above 1 it is the JAX package's partitioned FPS
+(``pointops.py:198-232``): exact FPS on each of ``groups`` interleaved
+index slices of every cloud, all sub-clouds in one call.
 """
 
 from __future__ import annotations
@@ -102,9 +105,26 @@ def furthest_point_sample_kernel(xyz: torch.Tensor, npoint: int) -> torch.Tensor
 furthest_point_sample_kernel.launches = 0
 
 
-def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+def furthest_point_sample(xyz: torch.Tensor, npoint: int, groups: int = 1) -> torch.Tensor:
     """(B, N, 3) -> (B, npoint) int64 exact FPS indices: the CUDA kernel for
-    a CUDA tensor, the plain version for a CPU tensor."""
+    a CUDA tensor, the plain version for a CPU tensor.
+
+    ``groups`` above 1 (``RPN.FPS_GROUPS``) is partitioned FPS, where
+    ``N`` and ``npoint`` divide into the groups (else plain FPS over the
+    cloud, as JAX): point ``n`` belongs to group ``n % groups``, each group
+    is a sub-cloud of N / groups points that gives npoint / groups exact
+    FPS picks, and the B x groups sub-clouds go through one call. Local
+    pick ``l`` of group ``g`` is point ``l * groups + g``; the rounds are
+    interleaved (pick ``j * groups + g`` is group g's j-th), so every
+    prefix holds as many picks of each group."""
+    B, N = xyz.shape[0], xyz.shape[1]
+    if groups > 1 and N % groups == 0 and npoint % groups == 0:
+        sub = xyz.reshape(B, N // groups, groups, xyz.shape[-1]).transpose(1, 2)
+        loc = furthest_point_sample(sub.reshape(B * groups, N // groups, xyz.shape[-1]),
+                                    npoint // groups)
+        g = torch.arange(groups, device=loc.device)[None, :, None]
+        glob = loc.reshape(B, groups, npoint // groups) * groups + g
+        return glob.transpose(1, 2).reshape(B, npoint)
     if xyz.is_cuda:
         return furthest_point_sample_kernel(xyz, npoint)
     if xyz.device.type != 'cpu':

@@ -19,6 +19,13 @@ equal keys), which is what they compute off the TPU on distinct keys. Since
 bf16 rounding of ``-index`` keys is monotone, the bf16-key first-hit
 selection is the first-hit selection itself, and the port computes it with
 the exact path's machinery (``first_hits``).
+
+The nearest-first nested query (``ball_query_nested``, the ``nearest``
+ball policy, ``pointops.py:551-626``) keys each outer-ball member by its
+normalized distance rounded to bf16 and takes the largest keys, nearest
+first; the port's selection is the stable top-k over those keys
+(``nested_nearest_select``), which off the TPU is what JAX's
+``approx_max_k`` computes on distinct keys.
 """
 
 from __future__ import annotations
@@ -36,21 +43,18 @@ def _policy(exact_queries):
     return exact_queries
 
 
-# The approximate multi-scale ball policies of ``pointops.py:58-91`` that the
-# port runs; JAX reads the choice from ``EPNET_BALL_POLICY``, the port takes
-# it as an argument (``EPNet(..., ball_policy=...)``).
-BALL_POLICIES = ('first_nested', 'first_multi')
+# The approximate multi-scale ball policies of ``pointops.py:58-91``; JAX
+# reads the choice from ``EPNET_BALL_POLICY``, the port takes it as an
+# argument (``EPNet(..., ball_policy=...)``).
+BALL_POLICIES = ('first_nested', 'first_multi', 'nearest')
 
 
 def check_ball_policy(policy: str) -> str:
-    """``policy`` if the port runs it. 'nearest' (``ball_query_nested`` +
-    ``nested_prefix_select``, the nearest-first query kept in the JAX
-    package for reproduction) raises NotImplementedError; any other value
-    ValueError."""
-    if policy == 'nearest':
-        raise NotImplementedError(
-            "ball_policy 'nearest' (EXACT_QUERIES false with the nearest-first nested query) "
-            'is not ported yet (ROADMAP Queue 1, item 16.1)')
+    """``policy`` if it is one of ``BALL_POLICIES``, else ValueError:
+    'first_nested' (JAX's default: the outer ball's first hits, each scale
+    the rows inside its radius), 'first_multi' (a first-hit query a scale)
+    and 'nearest' (``ball_query_nested`` + ``nested_prefix_select``, the
+    nearest-first query the JAX package keeps for reproduction)."""
     if policy not in BALL_POLICIES:
         raise ValueError(f'ball_policy {policy!r}: one of {BALL_POLICIES}')
     return policy
@@ -225,6 +229,78 @@ def nested_radius_select(full: torch.Tensor, d2: torch.Tensor, radius: float,
     pad = torch.gather(full, 2, first[..., None, None].expand(*first.shape, 1, C))
     sel = torch.where(mask[..., None], full, pad)
     return torch.where(mask.any(dim=-1)[..., None, None], sel, full[:, :, 0:1, :])
+
+
+def _bf16_order(keys: torch.Tensor) -> torch.Tensor:
+    """bf16 ``keys`` as int64 in [0, 2^16) with the same order as their
+    values (-0 and +0 equal): the sign-magnitude bits, negatives
+    complemented."""
+    bits = (keys + 0.0).view(torch.int16).to(torch.int64) & 0xFFFF
+    return torch.where(bits >= 0x8000, 0xFFFF - bits, bits | 0x8000)
+
+
+def nested_nearest_select(d2n: torch.Tensor, s_max: int, thresholds: Sequence[float]):
+    """The nearest-first selection of ``ball_query_nested`` and
+    ``block_local_group_nested`` (``pointops.py:602-614``,
+    ``block_local.py:487-498``) from the field ``d2n`` (..., N) of squared
+    distances over r_max^2: keys ``-d2n`` rounded to bf16 where ``d2n < 1``
+    (exact f32), -4 elsewhere; the ``s_max`` largest keys, descending, the
+    lowest index first among equal keys (``lax.top_k``'s order, through one
+    int64 key of the bf16 order and the index); slots with a key at or
+    below -2 take slot 0 and a ball with none takes index 0; ``cnts[i]``
+    the slots whose key, widened to f32, exceeds ``thresholds[i]`` rounded
+    to f32, and last the outer ball's count.
+
+    :return: (idx (..., s_max) int64, [cnt (...) int64 for each threshold,
+        then the outer count])
+    """
+    N = d2n.shape[-1]
+    keys = torch.where(d2n < 1.0, (-d2n).to(torch.bfloat16),
+                       torch.tensor(-4.0, dtype=torch.bfloat16, device=d2n.device))
+    iota = torch.arange(N, device=d2n.device)
+    packed = _bf16_order(keys) * (1 << 32) + (N - 1 - iota)
+    idx = N - 1 - (torch.topk(packed, s_max, dim=-1, sorted=True).values & 0xFFFFFFFF)
+    vf = torch.gather(keys, -1, idx).float()
+    valid = vf > -2.0
+    cnt = valid.sum(-1)
+    idx = torch.where(valid, idx, idx[..., 0:1])
+    idx = torch.where(cnt[..., None] > 0, idx, 0)
+    cnts = [(vf > torch.tensor(t, dtype=torch.float32, device=vf.device)).sum(-1)
+            for t in thresholds]
+    return idx, cnts + [cnt]
+
+
+def nested_thresholds(radii: Sequence[float]):
+    """The inner scales' thresholds on the keys: -(r_i / r_max)^2."""
+    return [-(float(r) / float(radii[-1])) ** 2 for r in radii[:-1]]
+
+
+def ball_query_nested(radii: Sequence[float], nsamples: Sequence[int], xyz: torch.Tensor,
+                      new_xyz: torch.Tensor, max_block_elems: int = 64 * 1024 * 1024):
+    """The nearest-first nested multi-scale query (``pointops.py:551-626``,
+    the ``nearest`` ball policy): one field of the coordinates scaled by
+    1 / r_max (``_pairwise_d2``), then ``nested_nearest_select``. Scale i
+    takes the first ``nsamples[i]`` slots, those at or past ``cnts[i]``
+    replaced by slot 0 (``nested_prefix_select``). Centroids chunked to a
+    field of ``max_block_elems`` elements (values do not depend on the
+    chunk).
+
+    :return: (idx (B, M, nsamples[-1]) int64, cnts: per scale (B, M) int64)
+    """
+    if list(radii) != sorted(radii) or list(nsamples) != sorted(nsamples) \
+            or len(radii) != len(nsamples):
+        raise ValueError(f'ball_query_nested: radii {tuple(radii)} and nsamples '
+                         f'{tuple(nsamples)} must ascend, one a scale')
+    r_max, s_max = float(radii[-1]), int(nsamples[-1])
+    thrs = nested_thresholds(radii)
+    xs, cs = _scaled(xyz, r_max), _scaled(new_xyz, r_max)
+    B, M = cs.shape[:2]
+    chunk = _chunk_size(M, max_block_elems // max(B * xs.shape[1], 1))
+    parts = [nested_nearest_select(_pairwise_d2(cs[:, c:c + chunk], xs), s_max, thrs)
+             for c in range(0, M, chunk)]
+    idx = torch.cat([p[0] for p in parts], 1)
+    cnts = [torch.cat([p[1][i] for p in parts], 1) for i in range(len(radii))]
+    return idx, cnts
 
 
 def _sq_norm(p: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,7 @@
     python -m epnet_tpu_torch.tools.eval --cfg_file cfgs/<recipe>.yaml \\
         --data_root <root> [--eval_mode rcnn_online|rcnn|rpn|rcnn_offline] \\
         [--ckpt checkpoint_epoch_<n>.pth | --eval_all --ckpt_dir <dir>] [--device cpu]
-        [--ball_policy first_nested|first_multi] [--set KEY VALUE ...]
+        [--ball_policy first_nested|first_multi|nearest] [--set KEY VALUE ...]
 
 Counterpart of ``tools/eval.py`` (reference ``tools/eval_rcnn.py``): the
 ``KittiRCNNDataset`` of ``TEST.SPLIT`` in EVAL mode (TEST with ``--test``:

@@ -4,7 +4,7 @@
         --data_root <root> [--train_mode rcnn_online|rpn|rcnn|rcnn_offline]
         [--ckpt <ckpt>] [--rpn_ckpt <ckpt>] [--gt_database <pkl>]
         [--rcnn_training_roi_dir <dir> --rcnn_training_feature_dir <dir>]
-        [--train_with_eval] [--ball_policy first_nested|first_multi]
+        [--train_with_eval] [--ball_policy first_nested|first_multi|nearest]
         [--n_devices N] [--steps_per_call K] [--device cpu] [--set KEY VALUE ...]
 
 Counterpart of ``tools/train.py`` (reference ``train_rcnn.py``: argparse

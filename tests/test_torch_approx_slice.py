@@ -452,16 +452,24 @@ def test_block_local_forward_float_outputs(block_local_forward, key):
     ({'RPN': {'SAMPLING': 'random'}}, 'item 16.2'),
 ])
 def test_approx_knobs_still_refused(over, what):
-    with pytest.raises(NotImplementedError, match=what):
-        tep.EPNet(tt.tiny_config(**APPROX).merged(over), 'TEST', device='cpu')
-    with pytest.raises(NotImplementedError, match='16.1'):
-        tep.EPNet(tt.tiny_config(**APPROX), 'TEST', device='cpu', ball_policy='nearest')
+    """The knobs that raised until ROADMAP ``what`` was ported build the
+    model now and reach every RPN stage (``test_torch_approx_family_slice.py``
+    holds their forwards to JAX's); so does the 'nearest' ball policy."""
+    model = tep.EPNet(tt.tiny_config(**APPROX).merged(over), 'TEST', device='cpu')
+    rpn = over['RPN']
+    for i in range(4):
+        sa = model.rpn.backbone.get_submodule(f'sa{i}')
+        assert (sa.fps_groups, sa.sampler, sa.sort_fps) == (
+            rpn.get('FPS_GROUPS', 1), rpn.get('SAMPLING', 'fps'), rpn.get('FP_WINDOW', 0) > 0)
+    nearest = tep.EPNet(tt.tiny_config(**APPROX), 'TEST', device='cpu', ball_policy='nearest')
+    assert nearest.rpn.backbone.sa0.uses_nested() and nearest.ball_policy == 'nearest'
 
 
 def test_clis_run_the_approximate_queries(tmp_path, monkeypatch):
     """The train CLI (one step) and the eval CLI on its checkpoint with
     ``--set EXACT_QUERIES False``, both under ``--ball_policy first_multi``
-    (their default is JAX's, ``first_nested``): the queries they ran, a
+    (their default is JAX's, ``first_nested``; ``nearest`` is a choice
+    since its port, an unknown name is refused): the queries they ran, a
     result file a scan and a finite AP dict."""
     import os
 
@@ -471,8 +479,9 @@ def test_clis_run_the_approximate_queries(tmp_path, monkeypatch):
 
     for cli in (train_cli, eval_cli):
         assert cli.parse_args([]).ball_policy == 'first_nested'
+        assert cli.parse_args(['--ball_policy', 'nearest']).ball_policy == 'nearest'
         with pytest.raises(SystemExit):
-            cli.parse_args(['--ball_policy', 'nearest'])
+            cli.parse_args(['--ball_policy', 'nearest_first'])
     cfg = tt.tiny_config(EXACT_QUERIES=True, RCNN={'SCORE_THRESH': 0.01},
                          TRAIN={'OPTIMIZER': 'adam_onecycle'})
     root = str(tmp_path / 'kitti')

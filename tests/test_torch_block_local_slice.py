@@ -398,9 +398,13 @@ def test_block_local_flags_need_the_residual_policy(exact_queries):
     ({'RPN': {'SAMPLING': 'random'}}, 'SAMPLING'),
 ])
 def test_unported_knobs_raise(over, what):
-    """The knobs of ROADMAP items 16.2-16.3 raise, and under EXACT_QUERIES
-    false the 'nearest' ball policy (item 16.1's third); the knobs before
-    the policy is read."""
-    with pytest.raises(NotImplementedError, match=what):
-        tep.EPNet(tiny_config(EXACT_QUERIES=True).merged(over), 'TEST', device='cpu',
-                  ball_policy='nearest')
+    """The knobs that raised until ROADMAP items 16.2-16.3 were ported, and
+    under EXACT_QUERIES false the 'nearest' ball policy (item 16.1's third),
+    build the model now, each reaching the RPN's stages (``what`` names
+    it); ``test_torch_approx_family_slice.py`` holds their forwards to
+    JAX's."""
+    model = tep.EPNet(tiny_config(EXACT_QUERIES=True).merged(over), 'TEST', device='cpu',
+                      ball_policy='nearest')
+    sa0 = model.rpn.backbone.sa0
+    assert {'EXACT_QUERIES false': sa0.uses_nested(), 'FP_WINDOW': sa0.sort_fps,
+            'FPS_GROUPS': sa0.fps_groups == 8, 'SAMPLING': sa0.sampler == 'random'}[what]
