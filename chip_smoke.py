@@ -255,8 +255,34 @@ first use), then:
    partitioned call against the CPU, identical; times and bound of each
    shape (the kernels line's ``fps`` entry lists them as ``partitioned``).
 
+30. runs the JAX package's model and data switches, ported as arguments,
+   and the PointNet++ segmentation harness at full width: (a) the harness
+   (``tools/pointnet2_seg.run``) on a synthetic tree of 8 train and 4 val
+   scenes (16384 points each sample), one epoch at batch 4 and the val
+   fg-IoU, 4 A launches a batch, step times, finite loss and IoU, the
+   trained net's logits on a val scene within 1e-3 (1 + max|x|) of the
+   CPU's; (b) the headline configuration with ``exact_ops`` each of
+   ``ball``, ``three_nn`` and ``roipool`` (the headline forward's
+   launches; that family exact and the others approximate; its indices
+   held to the CPU's on the card's inputs: the exact ball query identical,
+   the 3-NN and the pool identical except within the rounding bounds of
+   phase 26; wall and device busy time); (c) ``img_f32`` under
+   ``MIXED_PRECISION``: a batch-1 forward (6 A, 2 B-bf16, 4 F in f32) and a
+   batch-4 step (6 A, 2 B-bf16, 2 C-bf16, 4 D, 3 E and 4 F in f32), finite
+   outputs and f32 gradients, parameters that moved, the forward's gap to
+   the f32 and bf16 forwards; (d) the block-local configuration with
+   ``fp_block`` False: a full-width forward (SA block-local, the four FP
+   stages on the dense 3-NN; 6 A, 1 B, 1 G, 4 F) and the tiny forward card
+   vs CPU, as phase 16; (e) the ``nearest`` policy with ``ball_f32`` and
+   ``three_nn_f32``: RPN sa0's ball and FP level 0's 3-NN held to the
+   CPU's as phase 29 holds them; (f) the eval CLI twice over the tree's 8
+   train scenes with ``--img_cache`` and the loader in this process: cold,
+   then warm on a copy whose PNGs hold only their header, so every image
+   must come from the cache; a ``.npy`` a scene, the same detections,
+   scans/s of each.
+
 Launch counts are read around each main-path phase (3, 6, 9, 11, 14, 15,
-18, 20, 22 and 24-29) with the counters set to 0 just before it;
+18, 20, 22 and 24-30) with the counters set to 0 just before it;
 phase 28 counts in its ranks and in this process, and adds them up;
 the kernels line sums them. The script leaves TF32 as PyTorch sets it and checks that building
 the model turns it off, as the f32 recipe needs.
@@ -1150,17 +1176,19 @@ def _tiny_batch(cfg):
             'pts_origin_xy': torch.from_numpy(np.stack(xy))}
 
 
-def phase_small_reference(dev, over=None):
+def phase_small_reference(dev, over=None, **switches):
     """The tiny-width model with identical weights: card (kernels) vs CPU
     (plain versions); ``over``: the config's overrides (default the exact
-    queries). Under RPN.BLOCK_LOCAL the scenes are Morton-sorted."""
+    queries); ``switches``: ``EPNet``'s (``fp_block``, ...). Under
+    RPN.BLOCK_LOCAL the scenes are Morton-sorted."""
     import torch
     from epnet_tpu_torch.models.epnet import EPNet
     from epnet_tpu_torch.utils.testing import tiny_config
 
     cfg = tiny_config(**(over or {'EXACT_QUERIES': True}))
-    cpu = EPNet(cfg, 'TEST', device='cpu', generator=torch.Generator().manual_seed(1)).eval()
-    card = EPNet(cfg, 'TEST', device=dev).eval()
+    cpu = EPNet(cfg, 'TEST', device='cpu', generator=torch.Generator().manual_seed(1),
+                **switches).eval()
+    card = EPNet(cfg, 'TEST', device=dev, **switches).eval()
     card.load_state_dict(cpu.state_dict())
     batch = _tiny_batch(cfg)
     want = cpu(batch)
@@ -1174,7 +1202,8 @@ def phase_small_reference(dev, over=None):
             raise AssertionError(f'tiny model on the card vs CPU: {k} off by {err:.3e}')
     if not torch.equal(got['roi_counts'].cpu(), want['roi_counts']):
         raise AssertionError('tiny model on the card vs CPU: roi counts differ')
-    print(f'tiny model{" (block-local)" if cfg.RPN.BLOCK_LOCAL else ""}, card vs CPU plain '
+    print(f'tiny model{" (block-local)" if cfg.RPN.BLOCK_LOCAL else ""}'
+          f'{"".join(f" {k}={v}" for k, v in switches.items())}, card vs CPU plain '
           f'path: agree (worst {worst:.3f} of the bound 1e-3 * (1 + max|x|))', flush=True)
 
 
@@ -2229,6 +2258,25 @@ def phase_block_local(dev):
     return total
 
 
+def _compare_detections(name, got, want):
+    """Two CLI runs' detections (``_parse_results``): the same labels in
+    every file, the numbers within 1e-3 (1 + |x|) + 1e-4 (one unit of the
+    4 printed decimals). Returns (the worst share of that bound, the
+    detections)."""
+    import numpy as np
+    worst, n = 0.0, 0
+    for f, (names, w) in want.items():
+        got_names, g = got[f]
+        if got_names != names or g.shape != w.shape:
+            raise AssertionError(f'{name}: {f}: {len(got_names)} vs {len(names)} detections')
+        if names:
+            worst = max(worst, float((np.abs(g - w) / (1e-3 * (1 + np.abs(w)) + 1e-4)).max()))
+        n += len(names)
+    if worst > 1.0:
+        raise AssertionError(f'{name}: worst {worst:.3f} of the bound')
+    return worst, n
+
+
 def phase_small_cli(dev):
     """The CLI at tiny widths on the card and on the CPU, one checkpoint."""
     import numpy as np
@@ -2257,19 +2305,12 @@ def phase_small_cli(dev):
                                 '--batch_size', '2', '--workers', '0', '--output_dir', out,
                                 '--device', where])
         dets[where] = _parse_results(os.path.join(out, 'epoch_0', 'final_result', 'data'))
-    worst, n = 0.0, 0
-    for f, (names, want) in dets['cpu'].items():
-        got_names, got = dets[str(dev)][f]
-        if got_names != names or got.shape != want.shape or not names:
-            raise AssertionError(f'tiny CLI, card vs CPU: {f}: {len(got_names)} vs '
-                                 f'{len(names)} detections')
-        bound = 1e-3 * (1 + np.abs(want)) + 1e-4  # + one unit of the 4 printed decimals
-        worst = max(worst, float((np.abs(got - want) / bound).max()))
-        n += len(names)
+    if not all(names for names, _ in dets['cpu'].values()):
+        raise AssertionError('tiny CLI on the CPU: a scene without detections')
+    worst, n = _compare_detections('tiny CLI, card vs CPU', dets[str(dev)], dets['cpu'])
     recall = {k: v for k, v in rets['cpu'].items() if 'recall' in k}
-    if worst > 1.0 or any(rets[str(dev)][k] != v for k, v in recall.items()):
-        raise AssertionError(f'tiny CLI, card vs CPU: worst {worst:.3f} of the bound, recall '
-                             f'{recall} vs {rets[str(dev)]}')
+    if any(rets[str(dev)][k] != v for k, v in recall.items()):
+        raise AssertionError(f'tiny CLI, card vs CPU: recall {recall} vs {rets[str(dev)]}')
     print(f'tiny CLI, card vs CPU: {n} detections on 4 scenes agree (worst {worst:.3f} of '
           f'1e-3 x (1 + |x|) + 1e-4), recall equal', flush=True)
 
@@ -3505,40 +3546,54 @@ def _check_ball(name, idx_card, xyz, new_xyz, radius, nsample):
     return flips
 
 
-def _check_three_nn(dist_card, idx_card, unknown, known):
-    """The card's approximate ``three_nn`` against the CPU's on the card's
-    inputs: identical, except rows whose picks differ only where the two
-    f32 fields round within ``_d2_bound`` plus a bf16 unit of each other."""
+def _check_three_nn(dist_card, idx_card, unknown, known, approx=True, f32_keys=False):
+    """The card's ``three_nn`` (approximate by default) against the CPU's on
+    the card's inputs: identical, except rows whose picks differ only where
+    the two f32 fields round within ``_d2_bound`` (plus a bf16 unit of each
+    other when the field is rounded to bf16). Returns the rows that
+    differ."""
     import torch
     from epnet_tpu_torch.ops import pointops
     u, k = unknown.cpu(), known.cpu()
-    dist, idx = pointops.three_nn(u, k, approx=True)
+    dist, idx = pointops.three_nn(u, k, approx=approx, f32_keys=f32_keys)
+    bf16 = approx and not f32_keys
     got = idx_card.cpu()
     rows = (got != idx).any(-1)
     for b, n in rows.nonzero().tolist():
         d2 = pointops._pairwise_d2(u[b:b + 1, n:n + 1], k[b:b + 1])[0, 0].clamp_min(0.0)
         bound = _d2_bound(u[b:b + 1, n:n + 1], k[b:b + 1])[0, 0]
         a, w = d2[got[b, n]], d2[idx[b, n]]
-        ulp = torch.maximum(a, w).to(torch.bfloat16).float() * 2.0 ** -7
+        ulp = torch.maximum(a, w).to(torch.bfloat16).float() * 2.0 ** -7 * bf16
         if not bool(((a - w).abs() <= 2 * torch.maximum(bound[got[b, n]], bound[idx[b, n]])
                      + ulp).all()):
             raise AssertionError(f'three_nn: row ({b}, {n}) differs card vs CPU beyond rounding')
     same = ~rows
-    if not torch.equal(dist_card.cpu()[same], dist[same]):
+    dc = dist_card.cpu()
+    neq = same[..., None] & (dc != dist)
+    if bf16 and bool(neq.any()):
         raise AssertionError('three_nn: distances of identical picks differ card vs CPU')
-    print(f'  three_nn: {int(rows.sum())} of {rows.numel()} queries pick other neighbours '
-          f'card vs CPU, each within the d2 rounding bound plus a bf16 unit', flush=True)
+    b, n, j = neq.nonzero().unbind(1)  # an f32 field: within its rounding
+    up, kp = u[b, n], k[b, idx[b, n, j]]
+    bound = D2_EPS * ((up * up).sum(-1) + (kp * kp).sum(-1) + 2 * (up.abs() * kp.abs()).sum(-1))
+    a2, w2 = dc[b, n, j] ** 2, dist[b, n, j] ** 2
+    if not bool(((a2 - w2).abs() <= 2 * bound + 2.0 ** -22 * torch.maximum(a2, w2)).all()):
+        raise AssertionError('three_nn: distances of identical picks differ card vs CPU beyond '
+                             'the d2 rounding bound')
+    print(f'  three_nn{"" if approx else " (exact)"}{" (f32 field)" if f32_keys else ""}: '
+          f'{int(rows.sum())} of {rows.numel()} queries pick other neighbours card vs CPU, each '
+          f'within the d2 rounding bound{" plus a bf16 unit" if bf16 else ""}', flush=True)
+    return int(rows.sum())
 
 
-def _check_roipool(pooled_card, xyz, feats, rois, extra, S):
-    """The card's approximate pool (first k by index, slot-0 pad) against
-    the CPU's on the card's inputs: identical boxes where the in-box masks
-    agree; a differing box only by points within float rounding of its
-    faces."""
+def _check_roipool(pooled_card, xyz, feats, rois, extra, S, approx=True):
+    """The card's pool (by default the approximate one: first k by index,
+    slot-0 pad) against the CPU's on the card's inputs: identical boxes
+    where the in-box masks agree; a differing box only by points within
+    float rounding of its faces. Returns the boxes that differ."""
     import torch
     from epnet_tpu_torch.ops.boxes import enlarge_box3d, points_in_boxes3d
     from epnet_tpu_torch.ops.roipool3d import roipool3d
-    want = roipool3d(xyz.cpu(), feats.cpu(), rois.cpu(), extra, sampled_pt_num=S, approx=True)
+    want = roipool3d(xyz.cpu(), feats.cpu(), rois.cpu(), extra, sampled_pt_num=S, approx=approx)
     got = [t.cpu() for t in pooled_card]
     B, M = rois.shape[:2]
     differ = torch.zeros(B, M, dtype=torch.bool)
@@ -3561,31 +3616,38 @@ def _check_roipool(pooled_card, xyz, feats, rois, extra, S):
         if not bool(flip.any()) or not bool((margin <= 16 * 2.0 ** -24 * scale)[flip].all()):
             raise AssertionError(f'roipool: box ({b}, {m}) differs card vs CPU beyond the '
                                  f'rounding of its faces')
-    print(f'  roipool first k: {int(differ.sum())} of {B * M} boxes differ card vs CPU '
-          f'(points within rounding of a face)', flush=True)
+    print(f'  roipool {"first k" if approx else "(exact)"}: {int(differ.sum())} of {B * M} '
+          f'boxes differ card vs CPU (points within rounding of a face)', flush=True)
+    return int(differ.sum())
+
+
+@contextlib.contextmanager
+def _spying(module, names, rec):
+    """``module``'s functions ``names`` wrapped to append (args, kwargs,
+    output) to ``rec[name]``."""
+    from unittest import mock
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            real = getattr(module, name)
+
+            def wrapped(*args, _real=real, _name=name, **kwargs):
+                out = _real(*args, **kwargs)
+                rec.setdefault(_name, []).append((args, kwargs, out))
+                return out
+
+            stack.enter_context(mock.patch.object(module, name, wrapped))
+        yield rec
 
 
 def _captured_queries(model, batch):
     """One forward of ``model`` with its approximate queries' inputs and
     outputs recorded: RPN sa0's nested ball, FP level 0's ``three_nn``, the
     eval pool."""
-    from unittest import mock
-
     from epnet_tpu_torch.models import epnet as epnet_mod
     from epnet_tpu_torch.models import pointnet2
     rec = {}
-
-    def spy(name, real):
-        def wrapped(*args, **kwargs):
-            out = real(*args, **kwargs)
-            rec.setdefault(name, []).append((args, kwargs, out))
-            return out
-        return wrapped
-
-    with mock.patch.object(pointnet2, 'ball_query_nested_first_hit',
-                           spy('ball', pointnet2.ball_query_nested_first_hit)), \
-            mock.patch.object(pointnet2, 'three_nn', spy('three_nn', pointnet2.three_nn)), \
-            mock.patch.object(epnet_mod, 'roipool3d', spy('roipool', epnet_mod.roipool3d)):
+    with _spying(pointnet2, ('ball_query_nested_first_hit', 'three_nn'), rec), \
+            _spying(epnet_mod, ('roipool3d',), rec):
         model(batch)
     return rec
 
@@ -3670,12 +3732,12 @@ def phase_headline(dev):
               f'{len(times[name])} scenes (headline and parity in turns)', flush=True)
 
     rec = _captured_queries(models['headline'], requests[1])
-    (args, _, idx), = rec['ball'][:1]
+    (args, _, idx), = rec['ball_query_nested_first_hit'][:1]
     radii, nsamples, xyz, new_xyz = args[:4]
     _check_ball('RPN sa0 nested ball', idx, xyz, new_xyz, float(radii[-1]), int(nsamples[-1]))
     args, _, (dist, nn_idx) = rec['three_nn'][-1]
     _check_three_nn(dist, nn_idx, args[0], args[1])
-    args, kwargs, pooled = rec['roipool'][0]
+    args, kwargs, pooled = rec['roipool3d'][0]
     _check_roipool(pooled, args[0], args[1], args[2], args[3], kwargs['sampled_pt_num'])
 
     for name in ('headline', 'parity'):
@@ -3774,16 +3836,18 @@ def _family_configs():
             'fpwin': parity_config().with_overrides([MIXED_SET] + _pairs(KNOBS['fpwin']))}
 
 
-def _check_nested_nearest(idx_card, cnts_card, radii, nsamples, xyz, new_xyz):
-    """The card's nearest-first nested ball (RPN sa0) against the same
-    function on the CPU on the card's inputs: identical balls and counts,
-    except where the two matmul-form fields differ by their rounding
-    (``_d2_bound``); each such ball is the selection of the card's own
-    field (``nested_nearest_select``). Returns the balls that differ."""
+def _check_nested_nearest(idx_card, cnts_card, radii, nsamples, xyz, new_xyz, f32_keys=False):
+    """The card's nearest-first nested ball (RPN sa0; its keys f32 with
+    ``f32_keys``) against the same function on the CPU on the card's
+    inputs: identical balls and counts, except where the two matmul-form
+    fields differ by their rounding (``_d2_bound``); each such ball is the
+    selection of the card's own field (``nested_nearest_select``). Returns
+    the balls that differ."""
     import torch
     from epnet_tpu_torch.ops import pointops
     r_max, s_max = float(radii[-1]), int(nsamples[-1])
-    want_idx, want_cnts = pointops.ball_query_nested(radii, nsamples, xyz.cpu(), new_xyz.cpu())
+    want_idx, want_cnts = pointops.ball_query_nested(radii, nsamples, xyz.cpu(), new_xyz.cpu(),
+                                                     f32_keys=f32_keys)
     got_idx, got_cnts = idx_card.cpu(), [c.cpu() for c in cnts_card]
     bad = (got_idx != want_idx).any(-1)
     for g, w in zip(got_cnts, want_cnts):
@@ -3798,14 +3862,14 @@ def _check_nested_nearest(idx_card, cnts_card, radii, nsamples, xyz, new_xyz):
         if not bool(((d2_card - d2_cpu).abs() <= bound).all()):
             raise AssertionError(f'nested nearest ball ({b}, {m}): card and CPU fields differ '
                                  f'beyond rounding')
-        idx, cnts = pointops.nested_nearest_select(d2_card, s_max, thrs)
+        idx, cnts = pointops.nested_nearest_select(d2_card, s_max, thrs, f32_keys)
         if not torch.equal(idx, got_idx[b, m]) or \
                 [int(c) for c in cnts] != [int(c[b, m]) for c in got_cnts]:
             raise AssertionError(f'nested nearest ball ({b}, {m}) is not the selection of the '
                                  f'card\'s own field')
-    print(f'  RPN sa0 nested nearest ball: {int(bad.sum())} of {bad.numel()} balls differ card vs '
-          f'CPU, each the selection of the card\'s own field within the d2 rounding bound',
-          flush=True)
+    print(f'  RPN sa0 nested nearest ball{" (f32 keys)" if f32_keys else ""}: {int(bad.sum())} '
+          f'of {bad.numel()} balls differ card vs CPU, each the selection of the card\'s own '
+          f'field within the d2 rounding bound', flush=True)
     return int(bad.sum())
 
 
@@ -3948,6 +4012,337 @@ def phase_approx_family(dev):
     print(f'phase 29 (approximation family): {time.perf_counter() - t0:.1f} s; '
           f'{_smi()}', flush=True)
     return total, rows
+
+
+# phase 30: the launches of a batch-1 forward and a batch-4 step with the
+# image tower in f32 under MIXED_PRECISION (F, D and E in f32), by
+# FWD_KERNELS' and BF16_TRAIN_KERNELS' order; the seg harness's tree
+IMG_F32_WANT = {'forward': [6, 0, 0, 4, 2, 0, 0],
+                'step': [6, 2, 0, 2, 0, 0, 0, 0, 0, 0, 4, 3, 4]}
+SEG_SCENES, SEG_VAL = 8, 4
+
+
+def _phase30_seg(dev, root, total):
+    """(a) The seg harness (``tools/pointnet2_seg.run``) at the RPN's full
+    width: one epoch at batch 4, then the val IoU; 4 A launches a batch;
+    the trained net's logits on a val scene against the CPU's."""
+    import argparse
+
+    import torch
+    from epnet_tpu_torch.data.kitti_rcnn_dataset import KittiRCNNDataset
+    from epnet_tpu_torch.ops import fps
+    from epnet_tpu_torch.tools import pointnet2_seg as seg
+
+    cfg = seg.seg_config()
+    args = argparse.Namespace(data_root=root, epochs=1, batch_size=TRAIN_BATCH, lr=0.002,
+                              device=str(dev))
+    fps.furthest_point_sample_kernel.launches = 0
+    out = seg.run(cfg, args, workers=0)
+    launches = fps.furthest_point_sample_kernel.launches
+    want = 4 * (len(out['steps_ms']) + SEG_VAL // TRAIN_BATCH)
+    if launches != want or len(out['steps_ms']) != SEG_SCENES // TRAIN_BATCH or not all(
+            math.isfinite(v) for v in out['loss'] + out['iou']):
+        raise AssertionError(f'seg harness: {len(out["steps_ms"])} steps, loss {out["loss"]}, '
+                             f'IoU {out["iou"]}, {launches} A launches, expected {want}')
+    total['fps'] += launches
+    model = out['model'].eval()
+    cpu = seg.build_model(cfg, 'cpu').eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    pts = torch.from_numpy(KittiRCNNDataset(root, cfg, split='val', mode='EVAL')[0]['pts_input'])
+    with torch.no_grad():
+        got, ref = model(pts[None].to(dev)).cpu(), cpu(pts[None])
+    err, bound = float((got - ref).abs().max()), 1e-3 * (1.0 + float(ref.abs().max()))
+    if not err <= bound:
+        raise AssertionError(f'seg logits card vs CPU off by {err:.3e} (bound {bound:.3e})')
+    print(f'seg harness, {cfg.RPN.NUM_POINTS} points, batch {TRAIN_BATCH}: steps '
+          + ', '.join(f'{t:.1f}' for t in out['steps_ms']) + f' ms; loss {out["loss"][0]:.4f}, '
+          f'val fg-IoU {out["iou"][0]:.4f}; epoch {out["seconds"][0]:.2f} s; A +{launches}; '
+          f'logits card vs CPU {err:.3e} ({err / bound:.3f} of 1e-3 (1 + max|x|))', flush=True)
+
+
+def _phase30_exact_ops(dev, base, batch, counters, total):
+    """(b) The headline configuration with each query family in turn kept
+    exact (``exact_ops``): the forward's launches, wall and busy time, the
+    exact family's indices held to the CPU's on the card's inputs, the
+    other families still approximate."""
+    import torch
+    from epnet_tpu_torch.config import headline_config
+    from epnet_tpu_torch.models import epnet as epnet_mod
+    from epnet_tpu_torch.models import pointnet2
+    from epnet_tpu_torch.models.epnet import EPNet
+    from epnet_tpu_torch.ops import pointops
+    from epnet_tpu_torch.utils.profiling import device_breakdown
+
+    cfg = headline_config()
+    R = cfg.TEST.RPN_POST_NMS_TOP_N
+    for op in pointops.QUERY_OPS:
+        model = EPNet(cfg, 'TEST', device=dev,
+                      queries=pointops.QueryOptions(exact_ops=(op,))).eval()
+        model.load_state_dict(base.state_dict())
+        model(batch)  # warm-up
+        rec = {}
+        with _spying(pointnet2, ('ball_query', 'ball_query_nested_first_hit', 'three_nn'), rec), \
+                _spying(epnet_mod, ('roipool3d',), rec):
+            for c in counters:
+                c.launches = 0
+            out, ms = _timed(lambda: model(batch))
+            delta = [c.launches for c in counters]
+        _check_out(f'exact_ops {op} forward', out, {'rcnn_cls': (R, 1)}, delta,
+                   HEADLINE_WANT['forward'])
+        total.update(dict(zip(FWD_KERNELS, delta)))
+        paths = {'ball': len(rec.get('ball_query', ())) == 10 and
+                 'ball_query_nested_first_hit' not in rec,
+                 'three_nn': all(not kw.get('approx') for _, kw, _ in rec['three_nn']),
+                 'roipool': not rec['roipool3d'][0][1]['approx']}
+        if {k for k, v in paths.items() if v} != {op}:
+            raise AssertionError(f'exact_ops {op}: exact families {paths}')
+        if op == 'ball':
+            for args, _, idx in (rec['ball_query'][0], rec['ball_query'][-1]):
+                r, s, xyz, new_xyz = args[:4]
+                want = pointops.ball_query(r, s, xyz.cpu(), new_xyz.cpu())
+                if not torch.equal(idx.cpu(), want):
+                    raise AssertionError(f'exact ball query (r {r}, {s} samples, '
+                                         f'{xyz.dtype}): card and CPU differ')
+            differ = 0
+        elif op == 'three_nn':
+            args, _, (dist, idx) = rec['three_nn'][-1]
+            differ = _check_three_nn(dist, idx, args[0], args[1], approx=False)
+        else:
+            args, kwargs, pooled = rec['roipool3d'][0]
+            differ = _check_roipool(pooled, args[0], args[1], args[2], args[3],
+                                    kwargs['sampled_pt_num'], approx=False)
+        wall, busy, _ = device_breakdown(lambda: model(batch), 3)
+        print(f'headline, exact_ops {op}: forward {ms:.2f} ms, launches {_fwd_launches(delta)}, '
+              f'{differ} {op} rows differing card vs CPU; profiled: wall {wall:.3f} ms, device '
+              f'busy {busy:.3f} ms', flush=True)
+        del model
+
+
+def _phase30_img_f32(dev, total):
+    """(c) ``img_f32`` under ``MIXED_PRECISION``: a batch-1 forward and a
+    batch-4 step, their launches (F, D and E in f32), finite outputs and
+    f32 gradients, parameters that moved; the forward's gap to the f32 and
+    to the bf16 forward on the same weights."""
+    import torch
+    from epnet_tpu_torch.config import parity_config
+    from epnet_tpu_torch.models.epnet import EPNet
+    from epnet_tpu_torch.train.trainer import create_train_state, train_step
+
+    cfg = parity_config().with_overrides([MIXED_SET])
+    models = {'img_f32': EPNet(cfg, 'TEST', device=dev, img_f32=True,
+                               generator=torch.Generator(device=dev).manual_seed(0)).eval(),
+              'bf16': EPNet(cfg, 'TEST', device=dev).eval(),
+              'f32': EPNet(parity_config(), 'TEST', device=dev).eval()}
+    for k in ('bf16', 'f32'):
+        models[k].load_state_dict(models['img_f32'].state_dict())
+    if models['img_f32'].rpn.backbone.img_block0.Conv2dBlock_0.dtype is not None:
+        raise AssertionError('img_f32: the image tower is not f32')
+    batch = _request(0, parity_config(), dev)
+    outs = {}
+    counters = _fwd_counters()
+    for name, model in models.items():
+        model(batch)  # warm-up
+        for c in counters:
+            c.launches = 0
+        outs[name], ms = _timed(lambda: model(batch))
+        if name == 'img_f32':
+            delta = [c.launches for c in counters]
+            _check_out('img_f32 forward', outs[name], {'rcnn_cls': (100, 1)}, delta,
+                       IMG_F32_WANT['forward'])
+            total.update(dict(zip(FWD_KERNELS, delta)))
+            fwd = (ms, delta)
+    gaps = {ref: {k: float((outs['img_f32'][k] - outs[ref][k]).abs().max())
+                  / float(outs[ref][k].abs().max()) for k in ('backbone_features', 'rpn_cls')}
+            for ref in ('f32', 'bf16')}
+    print(f'img_f32 forward, batch 1: {fwd[0]:.2f} ms, launches {_fwd_launches(fwd[1])}; of '
+          f'max|x|, against f32 ' + ', '.join(f'{k} {v:.3e}' for k, v in gaps['f32'].items())
+          + ', against bf16 ' + ', '.join(f'{k} {v:.3e}' for k, v in gaps['bf16'].items()),
+          flush=True)
+    del models, outs
+
+    state = create_train_state(cfg, total_steps=100, device=dev, img_f32=True,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    train_step(state, _train_batch(cfg, 3, dev), 0.1, gen)  # warm-up
+    batch = _train_batch(cfg, 0, dev)
+    params = list(state.model.parameters())
+    old = [p.detach().clone() for p in params]
+    counters = _bf16_train_counters()
+    for c in counters:
+        c.launches = 0
+    tb, ms = _timed(lambda: train_step(state, batch, 0.1, gen))
+    delta = [c.launches for c in counters]
+    moved = sum(not torch.equal(a, p) for a, p in zip(old, params))
+    bad = [n for n, p in state.model.named_parameters() if p.grad is not None and
+           (p.grad.dtype != torch.float32 or not bool(torch.isfinite(p.grad).all()))]
+    if (not math.isfinite(float(tb['loss'])) or bad or moved < 0.9 * len(params)
+            or delta != IMG_F32_WANT['step']):
+        raise AssertionError(f'img_f32 train step: loss {float(tb["loss"])}, bad gradients '
+                             f'{bad[:5]}, {moved} of {len(params)} moved, launches {delta}, '
+                             f'expected {IMG_F32_WANT["step"]}')
+    total.update(dict(zip(BF16_TRAIN_KERNELS, delta)))
+    print(f'img_f32 train step, batch {TRAIN_BATCH}: {ms:.2f} ms, loss {float(tb["loss"]):.4f}, '
+          f'launches ' + ' '.join(f'{n} +{d}' for n, d in zip(BF16_TRAIN_KERNELS, delta) if d)
+          + f' (F {delta[-1]}, D {delta[-3]}, E {delta[-2]} in f32)', flush=True)
+
+
+def _phase30_dense_fp(dev, total):
+    """(d) The block-local configuration with ``fp_block`` False: a batch-1
+    full-width forward (SA block-local, every FP stage on the dense 3-NN;
+    the RCNN's G and B as in phase 14), then the tiny forward card vs
+    CPU."""
+    import torch
+    from epnet_tpu_torch.config import block_local_config, parity_config
+    from epnet_tpu_torch.models import pointnet2
+    from epnet_tpu_torch.models.epnet import EPNet
+    from epnet_tpu_torch.train.trainer import device_batch
+    from epnet_tpu_torch.utils.testing import BLOCK_LOCAL_TINY, full_batch
+
+    cfg = block_local_config(parity_config())
+    model = EPNet(cfg, 'TEST', device=dev, fp_block=False,
+                  generator=torch.Generator(device=dev).manual_seed(0)).eval()
+    batch = device_batch(full_batch(cfg, 1, seed=0), dev)
+    model(batch)  # warm-up
+    counters = _fwd_counters()
+    rec = {}
+    with _spying(pointnet2, ('block_local_group_multi', 'block_local_three_interp', 'three_nn'),
+                 rec):
+        for c in counters:
+            c.launches = 0
+        out, ms = _timed(lambda: model(batch))
+        delta = [c.launches for c in counters]
+    _check_out('dense_fp block-local forward', out, {'rcnn_cls': (100, 1)}, delta,
+               FWD_WANT['block-local'])
+    calls = {k: len(v) for k, v in rec.items()}
+    if calls.get('block_local_three_interp') or calls.get('three_nn') != 4 or \
+            not calls.get('block_local_group_multi'):
+        raise AssertionError(f'dense_fp block-local forward: paths {calls}')
+    total.update(dict(zip(FWD_KERNELS, delta)))
+    print(f'dense_fp block-local forward, batch 1: {ms:.2f} ms, launches {_fwd_launches(delta)}, '
+          f'paths {calls}', flush=True)
+    del model
+    phase_small_reference(dev, BLOCK_LOCAL_TINY, fp_block=False)
+
+
+def _phase30_f32_keys(dev, base, batch, counters, total):
+    """(e) The headline configuration under the ``nearest`` policy with
+    ``ball_f32`` and ``three_nn_f32``: RPN sa0's nearest-first ball (f32
+    keys) and FP level 0's approximate 3-NN (f32 field) held to the CPU's
+    on the card's inputs."""
+    from epnet_tpu_torch.config import headline_config
+    from epnet_tpu_torch.models import pointnet2
+    from epnet_tpu_torch.models.epnet import EPNet
+    from epnet_tpu_torch.ops.pointops import QueryOptions
+
+    cfg = headline_config()
+    model = EPNet(cfg, 'TEST', device=dev, queries=QueryOptions(
+        'nearest', ball_f32=True, three_nn_f32=True)).eval()
+    model.load_state_dict(base.state_dict())
+    model(batch)  # warm-up
+    rec = {}
+    with _spying(pointnet2, ('ball_query_nested', 'three_nn'), rec):
+        for c in counters:
+            c.launches = 0
+        out, ms = _timed(lambda: model(batch))
+        delta = [c.launches for c in counters]
+    _check_out('f32 keys forward', out, {'rcnn_cls': (cfg.TEST.RPN_POST_NMS_TOP_N, 1)}, delta,
+               HEADLINE_WANT['forward'])
+    total.update(dict(zip(FWD_KERNELS, delta)))
+    (radii, nsamples, xyz, new_xyz), kw, (idx, cnts) = rec['ball_query_nested'][0]
+    args, nn_kw, (dist, nn_idx) = rec['three_nn'][-1]
+    if not (kw.get('f32_keys') and nn_kw.get('approx') and nn_kw.get('f32_keys')):
+        raise AssertionError(f'f32 keys forward: ball {kw}, three_nn {nn_kw}')
+    balls = _check_nested_nearest(idx, cnts, radii, nsamples, xyz, new_xyz, f32_keys=True)
+    rows = _check_three_nn(dist, nn_idx, args[0], args[1], approx=True, f32_keys=True)
+    print(f'headline, nearest with ball_f32 and three_nn_f32: forward {ms:.2f} ms, launches '
+          f'{_fwd_launches(delta)}; {balls} balls and {rows} 3-NN rows differ card vs CPU',
+          flush=True)
+
+
+def _phase30_img_cache(dev, root, total):
+    """(f) The eval CLI twice over the tree's 8 train scenes with
+    ``--img_cache``, its loader in this process (``--workers 0``: 8 scans
+    are too few to amortize the workers' start, which would hide the
+    decode): cold (decodes, fills the cache: a ``.npy`` a scene, no
+    ``.tmp`` left), then warm on a copy of the tree whose PNGs are cut to
+    their header (the shape is still read; the pixels can come only from
+    the cache); the same detections; scans/s of each."""
+    import shutil
+
+    from epnet_tpu_torch.tools import eval as cli
+
+    cache = os.path.join(OUT, 'img_cache')
+    shutil.rmtree(cache, ignore_errors=True)
+    cut = os.path.join(OUT, 'kitti_headers')
+    shutil.rmtree(cut, ignore_errors=True)
+    shutil.copytree(root, cut)
+    img_dir = os.path.join(cut, 'KITTI', 'object', 'training', 'image_2')
+    for f in os.listdir(img_dir):
+        with open(os.path.join(img_dir, f), 'r+b') as fh:
+            fh.truncate(33)  # the signature and IHDR: png.read_header's bytes
+    counters = _fwd_counters()
+    rates, dets = {}, {}
+    for name, tree in (('cold', root), ('warm', cut)):
+        for c in counters:
+            c.launches = 0
+        record = []
+        out_dir = os.path.join(OUT, f'eval_cache_{name}')
+        with timed_cli_loader(counters, record):
+            cli.main(['--cfg_file', RECIPE, '--data_root', tree, '--batch_size', str(CLI_BATCH),
+                      '--workers', '0', '--output_dir', out_dir, '--device', str(dev),
+                      '--img_cache', cache, '--set', 'TEST.SPLIT', 'train'])
+        timed = record[0]
+        loop = timed.times[-1] - timed.t0
+        rates[name] = timed.scans / loop
+        dets[name] = _parse_results(os.path.join(out_dir, 'no_ckpt', 'final_result', 'data'))
+        delta = [c.launches for c in counters]
+        if timed.scans != SEG_SCENES or delta != [v * (SEG_SCENES // CLI_BATCH)
+                                                  for v in FWD_WANT['exact']]:
+            raise AssertionError(f'img_cache {name} eval: {timed.scans} scans, launches {delta}')
+        total.update(dict(zip(FWD_KERNELS, delta)))
+        files = sorted(os.listdir(cache))
+        if files != ['%06d.npy' % i for i in range(SEG_SCENES)]:
+            raise AssertionError(f'img_cache after the {name} pass: {files}')
+    worst, n = _compare_detections('img_cache, warm vs cold', dets['warm'], dets['cold'])
+    print(f'eval CLI with --img_cache, recipe, batch {CLI_BATCH}, no workers: cold '
+          f'{rates["cold"]:.3f} scans/s, warm {rates["warm"]:.3f} scans/s; {SEG_SCENES} cache '
+          f'hits of {SEG_SCENES} scans in the warm pass (its PNGs hold no pixels); {n} '
+          f'detections agree (worst {worst:.3f} of the bound)', flush=True)
+
+
+def phase_switches(dev):
+    """Phase 30: the JAX package's model and data switches, ported as
+    arguments, and its two user tools' paths, at full width: (a) the seg
+    harness, (b) ``exact_ops``, (c) ``img_f32``, (d) ``fp_block`` False,
+    (e) ``ball_f32`` and ``three_nn_f32``, (f) ``--img_cache`` (see each
+    part). Returns the launches."""
+    import torch
+    from epnet_tpu_torch.config import headline_config, parity_config
+    from epnet_tpu_torch.models.epnet import EPNet
+    from epnet_tpu_torch.utils.testing import make_fake_kitti
+
+    t0 = time.perf_counter()
+    total = collections.Counter()
+    root = os.path.join(OUT, 'kitti_seg')
+    make_fake_kitti(root, n_samples=SEG_SCENES, n_val=SEG_VAL, n_points=30000, seed=12)
+    _phase30_seg(dev, root, total)
+    torch.cuda.empty_cache()
+    base = EPNet(headline_config(), 'TEST', device=dev,
+                 generator=torch.Generator(device=dev).manual_seed(0)).eval()
+    batch = _request(1, parity_config(), dev)
+    counters = _fwd_counters()
+    _phase30_exact_ops(dev, base, batch, counters, total)
+    _phase30_f32_keys(dev, base, batch, counters, total)
+    del base
+    torch.cuda.empty_cache()
+    _phase30_img_f32(dev, total)
+    torch.cuda.empty_cache()
+    _phase30_dense_fp(dev, total)
+    torch.cuda.empty_cache()
+    _phase30_img_cache(dev, root, total)
+    print(f'phase 30 (switches and tools): {time.perf_counter() - t0:.1f} s; {_smi()}',
+          flush=True)
+    return total
 
 
 RECIPE_IOU = 'cfgs/LI_Fusion_with_attention_use_ce_loss_iou_branch.yaml'
@@ -4435,7 +4830,7 @@ def main():
             if 'registers' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}')
 
-    # launches on the main paths (phases 3, 6, 9, 11, 14, 15, 18, 20, 22 and 24-29), by kernel
+    # launches on the main paths (phases 3, 6, 9, 11, 14, 15, 18, 20, 22 and 24-30), by kernel
     launches = collections.Counter()
     fps_res = phase_fps(dev)
     sa_res = phase_sa(dev)
@@ -4470,6 +4865,7 @@ def main():
     launches.update(phase_data_parallel(dev))
     family_launches, partitioned = phase_approx_family(dev)
     launches.update(family_launches)
+    launches.update(phase_switches(dev))
 
     kernels = [
         {'name': 'fps', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/fps.cu',

@@ -10,7 +10,8 @@ onto a ``state_dict`` key by joining with dots and renaming the leaf:
 * every other leaf (``DeconvFusionHead``'s ``fusion_kernel``,
   ``deconv{i}_kernel``, ``deconv{i}_bias``) keeps its name and shape.
 
-Takes nested mappings of numpy-convertible arrays and needs no jax.
+Takes nested mappings of numpy-convertible arrays and needs no jax;
+``state_dict_to_flax`` maps the other way.
 """
 
 from __future__ import annotations
@@ -67,3 +68,28 @@ def load_flax_variables(model: nn.Module, params: Mapping,
             raise ValueError(f'{key}: flax shape {a.shape} -> torch {tuple(t.shape)}')
         state[key] = torch.tensor(np.ascontiguousarray(a), dtype=t.dtype)
     model.load_state_dict(state, strict=True)
+
+
+def state_dict_to_flax(model: nn.Module) -> dict:
+    """The inverse of ``load_flax_variables``: ``model``'s parameters and
+    BatchNorm statistics as the flax variables ``{'params': ...,
+    'batch_stats': ...}`` (nested dicts of numpy arrays), Linear and Conv2d
+    weights back in flax's layouts."""
+    params, stats = {}, {}
+    for name, t in model.state_dict().items():
+        *scope, leaf = name.split('.')
+        mod = model.get_submodule('.'.join(scope))
+        a = t.detach().cpu().numpy()
+        tree = params
+        if leaf in ('running_mean', 'running_var'):
+            tree, leaf = stats, leaf[len('running_'):]
+        elif leaf == 'weight' and isinstance(mod, nn.Linear):
+            leaf, a = 'kernel', a.T
+        elif leaf == 'weight' and isinstance(mod, nn.Conv2d):
+            leaf, a = 'kernel', a.transpose(2, 3, 1, 0)
+        elif leaf == 'weight':
+            leaf = 'scale'
+        for k in scope:
+            tree = tree.setdefault(k, {})
+        tree[leaf] = np.ascontiguousarray(a)
+    return {'params': params, 'batch_stats': stats}

@@ -5,13 +5,16 @@ Port of ``epnet_tpu/data/kitti_dataset.py`` (reference
 (:69-72), images RGB, normalized with the ImageNet statistics and
 zero-padded to 384x1280 (:37-57), calib and label parsers (:74-97), and
 the road planes of the gt-paste augmentation (``get_road_plane``). Images
-are read by the port's ``data/png.py``, not PIL. The JAX package's
-``EPNET_IMG_CACHE`` (decoded pixels cached as .npy) is not ported.
+are read by the port's ``data/png.py``, not PIL. ``img_cache`` (a
+directory; JAX's ``EPNET_IMG_CACHE``, ``kitti_dataset.py:44-79``) caches
+each decoded image's uint8 pixels as ``%06d.npy`` at its first read, in
+the JAX package's format, so one cache serves both packages.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
 
@@ -25,7 +28,7 @@ PAD_H, PAD_W = 384, 1280
 
 
 class KittiDataset:
-    def __init__(self, root_dir: str, split: str = 'train'):
+    def __init__(self, root_dir: str, split: str = 'train', img_cache: Optional[str] = None):
         is_test = split == 'test'
         self.imageset_dir = os.path.join(root_dir, 'KITTI', 'object',
                                          'testing' if is_test else 'training')
@@ -38,6 +41,7 @@ class KittiDataset:
         self.calib_dir = os.path.join(self.imageset_dir, 'calib')
         self.label_dir = os.path.join(self.imageset_dir, 'label_2')
         self.plane_dir = os.path.join(self.imageset_dir, 'planes')
+        self.img_cache = img_cache
 
     def get_lidar(self, idx: int) -> np.ndarray:
         path = os.path.join(self.lidar_dir, '%06d.bin' % idx)
@@ -45,8 +49,23 @@ class KittiDataset:
 
     def get_image_rgb_with_normal(self, idx: int) -> np.ndarray:
         """(384, 1280, 3) float32, ImageNet-normalized, zero-padded (an image
-        larger than that is cropped)."""
-        raw = png.read_rgb(os.path.join(self.image_dir, '%06d.png' % idx))
+        larger than that is cropped). The pixels come from ``img_cache``
+        when it holds them; else they are decoded and, with a cache, saved
+        there (a name carrying the pid, then ``os.replace``, so workers
+        sharing the cache never leave a torn file)."""
+        raw = None
+        if self.img_cache:
+            cpath = os.path.join(self.img_cache, '%06d.npy' % idx)
+            if os.path.exists(cpath):
+                raw = np.load(cpath)
+        if raw is None:
+            raw = png.read_rgb(os.path.join(self.image_dir, '%06d.png' % idx))
+            if self.img_cache:
+                os.makedirs(self.img_cache, exist_ok=True)
+                tmp = cpath + '.tmp.%d' % os.getpid()
+                with open(tmp, 'wb') as f:  # a handle: np.save would append .npy
+                    np.save(f, raw)
+                os.replace(tmp, cpath)
         im = raw.astype(np.float32) / 255.0
         im = (im - IMAGENET_MEAN) / IMAGENET_STD
         out = np.zeros((PAD_H, PAD_W, 3), np.float32)

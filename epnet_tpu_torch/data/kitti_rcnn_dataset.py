@@ -106,7 +106,9 @@ class KittiRCNNDataset(KittiDataset, Dataset):
     ``aug_scene_root_dir`` holds the aug-scene frames (default
     ``<root>/KITTI/aug_scene`` for Car); the ``rcnn_*_dir`` are an RPN
     eval's dumps (``eval/rpn_eval.py``: ``roi_result/data`` and
-    ``features``), read by the offline RCNN samples."""
+    ``features``), read by the offline RCNN samples. ``img_cache`` is the
+    directory of decoded images (``KittiDataset``); the loaders' workers
+    share it."""
 
     def __init__(self, root_dir: str, cfg: Config, npoints: int = 16384, split: str = 'val',
                  classes: str = 'Car', mode: str = 'EVAL', max_gt: int = MAX_GT_DEFAULT,
@@ -116,12 +118,13 @@ class KittiRCNNDataset(KittiDataset, Dataset):
                  rcnn_eval_feature_dir: Optional[str] = None,
                  rcnn_training_roi_dir: Optional[str] = None,
                  rcnn_training_feature_dir: Optional[str] = None,
-                 aug_scene_root_dir: Optional[str] = None):
+                 aug_scene_root_dir: Optional[str] = None,
+                 img_cache: Optional[str] = None):
         if mode not in ('TRAIN', 'EVAL', 'TEST'):
             raise ValueError(f'mode {mode!r}: TRAIN, EVAL or TEST')
         if classes not in _CLASSES:
             raise ValueError(f'invalid classes {classes}')
-        super().__init__(root_dir=root_dir, split=split)
+        super().__init__(root_dir=root_dir, split=split, img_cache=img_cache)
         self.cfg = cfg
         self.classes, scene_sub = _CLASSES[classes]
         self.npoints = npoints

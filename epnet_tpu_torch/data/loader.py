@@ -35,11 +35,14 @@ def _torch_loader(dataset, batches, workers: int, persistent: bool = False) -> D
                       persistent_workers=persistent and workers > 0)
 
 
-def eval_loader(dataset, batch_size: int, workers: int = 0) -> DataLoader:
-    """Batches in dataset order, the last one partial."""
+def eval_loader(dataset, batch_size: int, workers: int = 0,
+                drop_last: bool = False) -> DataLoader:
+    """Batches in dataset order, the last one partial, or left out with
+    ``drop_last`` (the JAX ``DataLoader(shuffle=False)``'s default)."""
     n = len(dataset)
+    stop = n - n % batch_size if drop_last else n
     return _torch_loader(dataset, [list(range(i, min(i + batch_size, n)))
-                                   for i in range(0, n, batch_size)], workers)
+                                   for i in range(0, stop, batch_size)], workers)
 
 
 class _PassBatches:

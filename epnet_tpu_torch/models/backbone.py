@@ -16,19 +16,29 @@ for each ``FP_UBLOCK`` unknowns, while SA groups on the dense path; under
 ``EXACT_QUERIES`` true the mode only sorts the picks. The RPN's stages take
 ``RPN.SAMPLING`` and ``RPN.FPS_GROUPS`` (``ops/fps.py``).
 Under ``MIXED_PRECISION`` the SA, FP, image, fusion and head modules run
-in bf16 (``backbone.py:37,78-147``; the tower too: the port reads no
-``EPNET_IMG_F32``) and the features come out f32 (``:149``). Under
-``EXACT_QUERIES`` false the SA and FP stages take the approximate queries,
-with the multi-scale ``ball_policy`` given (see ``pointnet2.py``).
+in bf16 (``backbone.py:37,78-147``) and the features come out f32
+(``:149``); with ``img_f32`` (JAX's ``EPNET_IMG_F32``, ``:46,56``) the four
+image blocks run in f32 instead, the bilinear gathers read their f32 maps,
+and the fusion layers and the deconv head take those in bf16, where flax
+casts them. Under ``EXACT_QUERIES`` false the SA and FP stages take the
+approximate queries of ``queries`` (``ops/pointops.QueryOptions``: the
+multi-scale ball policy, the families ``exact_ops`` keeps exact, the f32
+keys; see ``pointnet2.py``). ``fp_block`` False (JAX's ``EPNET_FP_BLOCK=0``,
+``:109-114``) keeps the SA stages block-local but routes every FP stage
+through the dense ``three_nn``; in the middle mode only the sorted picks
+remain of it.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
 
 from ..config import Config
-from ..ops.pointops import approx_allowed, block_local_allowed, gather_points
+from ..ops.pointops import (QueryOptions, approx_allowed, block_local_allowed, gather_points,
+                            query_options)
 from .fusion import AttenFusionConv, DeconvFusionHead, FusionConv, ImageBlock, feature_gather
 from .pointnet2 import FPModule, SAModuleMSG
 
@@ -40,30 +50,34 @@ class PointBackbone(nn.Module):
     returns ``(xyz (B, N, 3), features (B, N, F))``."""
 
     def __init__(self, cfg: Config, in_channels: int, device=None,
-                 ball_policy: str = 'first_nested'):
+                 ball_policy: Optional[str] = None, queries: Optional[QueryOptions] = None,
+                 fp_block: bool = True, img_f32: bool = False):
         super().__init__()
         self.cfg = cfg
+        queries = query_options(queries, ball_policy)
         sa = cfg.RPN.SA_CONFIG
         li = cfg.LI_FUSION
         n_sa = len(sa.NPOINTS)
         dt = torch.bfloat16 if cfg.MIXED_PRECISION else None
+        img_dt = None if img_f32 else dt
         level_ch = [in_channels - 3]
         self.block_local = cfg.RPN.BLOCK_LOCAL and block_local_allowed(cfg.EXACT_QUERIES)
         fp_win_mode = cfg.RPN.FP_WINDOW > 0
-        approx = approx_allowed(cfg.EXACT_QUERIES, 'ball')
+        approx = approx_allowed(cfg.EXACT_QUERIES, 'ball', queries.exact_ops)
         for i in range(n_sa):
             mod = SAModuleMSG(sa.NPOINTS[i], sa.RADIUS[i], sa.NSAMPLE[i], sa.MLPS[i],
                               in_features=level_ch[i], bn=cfg.RPN.USE_BN,
                               block_local=self.block_local, block_window=cfg.RPN.BLOCK_WINDOW,
                               block_c=cfg.RPN.BLOCK_C, dtype=dt, device=device,
-                              approx=approx, ball_policy=ball_policy,
+                              approx=approx, queries=queries,
                               sampler=cfg.RPN.SAMPLING, fps_groups=cfg.RPN.FPS_GROUPS,
                               sort_fps=fp_win_mode)
             self.add_module(f'sa{i}', mod)
             if li.ENABLED:
                 fusion = AttenFusionConv if li.ADD_Image_Attention else FusionConv
                 self.add_module(f'img_block{i}', ImageBlock(li.IMG_CHANNELS[i],
-                                                            li.IMG_CHANNELS[i + 1], dt, device))
+                                                            li.IMG_CHANNELS[i + 1], img_dt,
+                                                            device))
                 self.add_module(f'fusion{i}', fusion(mod.out_features, li.IMG_CHANNELS[i + 1],
                                                      li.POINT_CHANNELS[i], dtype=dt,
                                                      device=device))
@@ -73,16 +87,19 @@ class PointBackbone(nn.Module):
         n_fp = len(cfg.RPN.FP_MLPS)
         # the windowed FP under either mode (backbone.py:106-118): the middle
         # mode's FP_WINDOW knowns for each FP_UBLOCK unknowns, the
-        # block-local configuration's 256 for each 512
-        fp_block = (bool(cfg.RPN.BLOCK_LOCAL) or fp_win_mode) and \
+        # block-local configuration's 256 for each 512; fp_block False
+        # keeps the dense three_nn
+        fp_block = (bool(cfg.RPN.BLOCK_LOCAL) or fp_win_mode) and fp_block and \
             block_local_allowed(cfg.EXACT_QUERIES)
+        fp_approx = approx_allowed(cfg.EXACT_QUERIES, 'three_nn', queries.exact_ops)
         fp_w, fp_u = (cfg.RPN.FP_WINDOW, cfg.RPN.FP_UBLOCK) if fp_win_mode else (256, 512)
         for k in range(n_fp):
             known_ch = cfg.RPN.FP_MLPS[k + 1][-1] if k + 1 < n_fp else level_ch[n_fp]
             self.add_module(f'fp{k}', FPModule(known_ch + level_ch[k], cfg.RPN.FP_MLPS[k],
                                                bn=cfg.RPN.USE_BN, block_local=fp_block,
                                                ublock=fp_u, window=fp_w, dtype=dt,
-                                               device=device, approx=approx))
+                                               device=device, approx=fp_approx,
+                                               queries=queries))
         self.out_features = cfg.RPN.FP_MLPS[0][-1]
         if li.ENABLED:
             self.deconv_fusion = DeconvFusionHead(

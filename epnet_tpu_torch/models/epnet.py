@@ -17,7 +17,7 @@ import torch.nn as nn
 
 from ..config import Config
 from ..ops.boxes import rotate_points_along_y
-from ..ops.pointops import approx_allowed, check_ball_policy
+from ..ops.pointops import QueryOptions, approx_allowed, query_options
 from ..ops.roipool3d import roipool3d
 from .layers import init_parameters
 from .proposal import ProposalLayer
@@ -65,7 +65,15 @@ class EPNet(nn.Module):
     (``config.headline_config``); ``ball_policy`` picks their multi-scale
     ball policy, 'first_nested' (JAX's default), 'first_multi' or
     'nearest' (an argument, where JAX reads ``EPNET_BALL_POLICY``; see
-    ``ops/pointops.check_ball_policy``). The RPN's approximation knobs
+    ``ops/pointops.check_ball_policy``). ``queries``
+    (``ops/pointops.QueryOptions``, of which ``ball_policy`` is the
+    shorthand) also carries the families kept exact (``exact_ops``: 'ball',
+    'three_nn', 'roipool'; JAX's ``EPNET_EXACT_OPS``) and the f32 keys
+    (``ball_f32``, ``three_nn_f32``). ``fp_block`` False (JAX's
+    ``EPNET_FP_BLOCK=0``) routes the RPN's FP stages through the dense
+    3-NN while SA stays block-local; ``img_f32`` (``EPNET_IMG_F32``) runs
+    the image tower in f32 under ``MIXED_PRECISION``
+    (``models/backbone.py``). The RPN's approximation knobs
     ``RPN.SAMPLING``, ``RPN.FPS_GROUPS`` and ``RPN.FP_WINDOW`` run as in the
     JAX package (``models/pointnet2.py``, ``models/backbone.py``).
 
@@ -100,11 +108,13 @@ class EPNet(nn.Module):
 
     def __init__(self, cfg: Config, mode: str = 'TEST', device=None,
                  generator: Optional[torch.Generator] = None,
-                 ball_policy: str = 'first_nested'):
+                 ball_policy: Optional[str] = None, queries: Optional[QueryOptions] = None,
+                 fp_block: bool = True, img_f32: bool = False):
         super().__init__()
         if mode not in ('TRAIN', 'TEST'):
             raise ValueError(f'mode {mode!r}: TRAIN or TEST')
-        self.ball_policy = check_ball_policy(ball_policy)
+        self.queries = query_options(queries, ball_policy)
+        self.ball_policy = self.queries.ball_policy
         if not (cfg.RPN.ENABLED or cfg.RCNN.ENABLED):
             raise ValueError('neither RPN.ENABLED nor RCNN.ENABLED: no model to build')
         device = default_device(device)
@@ -116,13 +126,14 @@ class EPNet(nn.Module):
         self.mesh = None
         if cfg.RPN.ENABLED:
             self.rpn = RPN(cfg, 3 + int(cfg.RPN.USE_INTENSITY), device=device,
-                           ball_policy=ball_policy)
+                           queries=self.queries, fp_block=fp_block, img_f32=img_f32)
             if cfg.RCNN.ENABLED:
                 rcnn_in = 3 + 1 + int(cfg.RCNN.USE_DEPTH) + self.rpn.backbone.out_features
-                self.rcnn = RCNNNet(cfg, rcnn_in, device=device)
+                self.rcnn = RCNNNet(cfg, rcnn_in, device=device, queries=self.queries)
                 self.proposal = ProposalLayer(cfg, mode)
         else:
-            self.rcnn = RCNNNet(cfg, offline_rcnn_channels(cfg), device=device)
+            self.rcnn = RCNNNet(cfg, offline_rcnn_channels(cfg), device=device,
+                                queries=self.queries)
         init_parameters(self, generator)
 
     def set_mesh(self, mesh) -> 'EPNet':
@@ -184,12 +195,13 @@ class EPNet(nn.Module):
             if self.training:
                 tgt = proposal_target_layer(rois, batch['gt_boxes3d'], xyz, rpn_features,
                                             seg_mask, pts_depth, cfg, generator,
-                                            mesh=self.mesh)
+                                            mesh=self.mesh, exact_ops=self.queries.exact_ops)
                 pts_input = torch.cat([tgt.sampled_pts.to(tgt.pts_feature.dtype),
                                        tgt.pts_feature], -1)
                 out.update(tgt._asdict())
             else:
-                pts_input = pool_for_eval(cfg, rois, xyz, rpn_features, seg_mask, pts_depth)
+                pts_input = pool_for_eval(cfg, rois, xyz, rpn_features, seg_mask, pts_depth,
+                                          self.queries.exact_ops)
         out.update(self.rcnn(pts_input, bn_momentum, generator))
         return out
 
@@ -221,11 +233,12 @@ def offline_rcnn_channels(cfg: Config) -> int:
     return 3 + int(cfg.RCNN.USE_INTENSITY) + 1 + int(cfg.RCNN.USE_DEPTH) + rpn_features
 
 
-def pool_for_eval(cfg: Config, rois, xyz, rpn_features, seg_mask, pts_depth):
+def pool_for_eval(cfg: Config, rois, xyz, rpn_features, seg_mask, pts_depth, exact_ops=()):
     """Inference pooling + canonical transform (``rcnn_net.py:137-164``,
     ``epnet.py:108-125``): (B*M, S, 3 + C) RoI-local points and features.
     Under ``MIXED_PRECISION`` the features are pooled in bf16 and the
-    local coordinates, transformed in f32, are cast to bf16 beside them."""
+    local coordinates, transformed in f32, are cast to bf16 beside them.
+    The pool is exact when ``exact_ops`` names 'roipool'."""
     extra = [seg_mask[..., None]]
     if cfg.RCNN.USE_DEPTH:
         extra.append((pts_depth / 70.0 - 0.5)[..., None])
@@ -234,7 +247,8 @@ def pool_for_eval(cfg: Config, rois, xyz, rpn_features, seg_mask, pts_depth):
         feats = feats.to(torch.bfloat16)
     pxyz, pfeats, _, _ = roipool3d(xyz, feats, rois, cfg.RCNN.POOL_EXTRA_WIDTH,
                                    sampled_pt_num=cfg.RCNN.NUM_POINTS,
-                                   approx=approx_allowed(cfg.EXACT_QUERIES, 'roipool'))
+                                   approx=approx_allowed(cfg.EXACT_QUERIES, 'roipool',
+                                                         exact_ops))
     local = pxyz - rois[..., None, 0:3]
     local = rotate_points_along_y(local, rois[..., 6, None])
     pooled = torch.cat([local.to(pfeats.dtype), pfeats], -1)

@@ -32,6 +32,12 @@ single-scale stage over a small spatially ordered table (RCNN sa1 under
 takes one nearest-first nested query (``ball_query_nested``) and scale i
 its first ``nsamples[i]`` slots, those past its in-radius count replaced
 by slot 0 (``nested_prefix_select``, ``pointnet2.py:70-86,317-331``).
+The policy and the f32-key switches come in one ``QueryOptions``
+(``queries``; ``ball_policy=`` is its shorthand): ``ball_f32`` keeps the
+nearest-first query's keys in f32, ``three_nn_f32`` FP's approximate
+field. The caller resolves ``approx`` per query family
+(``approx_allowed`` with ``queries.exact_ops``): the ball queries' for SA,
+the 3-NN's for FP.
 
 The RPN's stages take the sampler knobs (``pointnet2.py:105-116,135-150``):
 ``sampler`` 'random' (``RPN.SAMPLING``) takes the first ``npoint`` points
@@ -63,10 +69,10 @@ import torch.nn as nn
 from ..ops.block_local import (block_local_available, block_local_fp_available,
                                block_local_group_multi, block_local_three_interp,
                                bucket_ball_query, to_window_relative, window_starts)
-from ..ops.pointops import (ball_query, ball_query_approx, ball_query_nested,
-                            ball_query_nested_first_hit, check_ball_policy,
-                            furthest_point_sample, gather_points, group_points,
-                            nested_radius_select, sq_dist, three_interpolate, three_nn)
+from ..ops.pointops import (QueryOptions, ball_query, ball_query_approx, ball_query_nested,
+                            ball_query_nested_first_hit, furthest_point_sample,
+                            gather_points, group_points, nested_radius_select,
+                            query_options, sq_dist, three_interpolate, three_nn)
 from ..ops.sa_fused import fused_point_mlp_max, fused_point_mlp_max_win
 from .layers import SharedMLP
 
@@ -94,8 +100,9 @@ class SAModuleMSG(nn.Module):
     ``(new_xyz (B, M, 3), new_features (B, M, sum(mlp[-1])), fps_idx (B, M))``;
     ``npoint=None`` is group-all (one centroid at the origin, xyz not
     recentred) and returns ``fps_idx=None``. ``approx`` selects the
-    approximate queries and ``ball_policy`` ('first_nested',
-    'first_multi' or 'nearest') their multi-scale policy; ``sampler``
+    approximate ball queries and ``queries`` (or its shorthand
+    ``ball_policy``: 'first_nested', 'first_multi' or 'nearest') their
+    multi-scale policy and key dtype; ``sampler``
     ('fps' or 'random'), ``fps_groups`` and ``sort_fps`` the RPN's sampler
     knobs.
     """
@@ -104,15 +111,17 @@ class SAModuleMSG(nn.Module):
                  nsamples: Sequence[int], mlps: Sequence[Sequence[int]],
                  in_features: int, bn: bool = True, block_local: bool = False,
                  block_window: int = 1024, block_c: int = 128, dtype=None, device=None,
-                 approx: bool = False, ball_policy: str = 'first_nested',
-                 sampler: str = 'fps', fps_groups: int = 1, sort_fps: bool = False):
+                 approx: bool = False, ball_policy: Optional[str] = None,
+                 sampler: str = 'fps', fps_groups: int = 1, sort_fps: bool = False,
+                 queries: Optional[QueryOptions] = None):
         super().__init__()
         self.npoint = npoint
         self.sampler = sampler
         self.fps_groups = fps_groups
         self.sort_fps = sort_fps
         self.approx = approx
-        self.ball_policy = check_ball_policy(ball_policy)
+        self.queries = query_options(queries, ball_policy)
+        self.ball_policy = self.queries.ball_policy
         self.dtype = dtype
         self.radii = tuple(radii)
         self.nsamples = tuple(nsamples)
@@ -207,7 +216,8 @@ class SAModuleMSG(nn.Module):
             # each scale's rows are a prefix of the outer ball's, nearest
             # first: selected here as indices, then gathered once a scale
             nested = True
-            idx, cnts = ball_query_nested(self.radii, self.nsamples, xyz, new_xyz)
+            idx, cnts = ball_query_nested(self.radii, self.nsamples, xyz, new_xyz,
+                                          f32_keys=self.queries.ball_f32)
             scale_idx = [nested_prefix_select(idx[..., None], s, cnts[i],
                                               i == self.n_scales - 1)[..., 0]
                          for i, s in enumerate(self.nsamples)]
@@ -273,14 +283,17 @@ class FPModule(nn.Module):
     ascending positions ``known_idx`` among the unknowns, the windowed
     interpolation of ``ops/block_local.py`` where the shapes allow
     (``pointnet2.py:375-395``), ``window`` knowns for each ``ublock``
-    unknowns; elsewhere ``three_nn``, approximate with ``approx``."""
+    unknowns; elsewhere ``three_nn``, approximate with ``approx``, its
+    field f32 with ``queries.three_nn_f32``."""
 
     def __init__(self, cin: int, mlp: Sequence[int], bn: bool = True,
                  block_local: bool = False, ublock: int = 512, window: int = 256,
-                 dtype=None, device=None, approx: bool = False):
+                 dtype=None, device=None, approx: bool = False,
+                 queries: Optional[QueryOptions] = None):
         super().__init__()
         self.dtype = dtype
         self.approx = approx
+        self.queries = query_options(queries)
         self.SharedMLP_0 = SharedMLP(cin, mlp, bn=bn, dtype=dtype, device=device)
         self.block_local = block_local
         self.ublock = ublock
@@ -298,7 +311,8 @@ class FPModule(nn.Module):
             interp = block_local_three_interp(unknown, known, known_feats, known_idx,
                                               self.ublock, self.window)
         else:
-            dist, idx = three_nn(unknown, known, approx=self.approx)
+            dist, idx = three_nn(unknown, known, approx=self.approx,
+                                 f32_keys=self.queries.three_nn_f32)
             recip = 1.0 / (dist + 1e-8)
             weight = recip / recip.sum(-1, keepdim=True)
             interp = three_interpolate(known_feats, idx, weight.to(known_feats.dtype))

@@ -31,14 +31,19 @@ import torch
 import torch.nn as nn
 
 from ..config import Config
-from ..ops.pointops import approx_allowed, block_local_allowed
+from ..ops.pointops import QueryOptions, approx_allowed, block_local_allowed, query_options
 from .layers import PointwiseConv, SharedMLP, dense_head
 from .pointnet2 import SAModuleMSG
 
 
 class RCNNNet(nn.Module):
-    def __init__(self, cfg: Config, in_channels: int, device=None):
+    """``queries`` (``ops/pointops.QueryOptions``): the tower's ball queries
+    are exact when ``exact_ops`` names 'ball'."""
+
+    def __init__(self, cfg: Config, in_channels: int, device=None,
+                 queries: Optional[QueryOptions] = None):
         super().__init__()
+        queries = query_options(queries)
         self.cfg = cfg
         self.mesh = None  # a mesh draws the heads' dropout for the global batch (set_mesh)
         rc = cfg.RCNN
@@ -59,7 +64,9 @@ class RCNNNet(nn.Module):
                               (rc.SA_CONFIG.NSAMPLE[i],), (rc.SA_CONFIG.MLPS[i],),
                               in_features=feats, bn=rc.USE_BN, block_local=block_local,
                               block_window=rc.BLOCK_WINDOW, block_c=rc.BLOCK_C, dtype=dt,
-                              device=device, approx=approx_allowed(cfg.EXACT_QUERIES, 'ball'))
+                              device=device, queries=queries,
+                              approx=approx_allowed(cfg.EXACT_QUERIES, 'ball',
+                                                    queries.exact_ops))
             self.add_module(f'sa{i}', mod)
             feats = mod.out_features
         # binary -> single sigmoid logit; multi-class -> n logits (rcnn_net.py:45)

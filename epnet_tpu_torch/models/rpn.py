@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 
 from ..config import Config
+from ..ops.pointops import QueryOptions
 from .backbone import PointBackbone
 from .layers import PointwiseConv, dense_head
 
@@ -25,12 +26,17 @@ def focal_bias(pi: float = 0.01) -> float:
 
 
 class RPN(nn.Module):
+    """The backbone's switches (``queries`` or its shorthand
+    ``ball_policy``, ``fp_block``, ``img_f32``) pass to ``PointBackbone``."""
+
     def __init__(self, cfg: Config, in_channels: int, device=None,
-                 ball_policy: str = 'first_nested'):
+                 ball_policy: Optional[str] = None, queries: Optional[QueryOptions] = None,
+                 fp_block: bool = True, img_f32: bool = False):
         super().__init__()
         self.cfg = cfg
         self.mesh = None  # a mesh draws the heads' dropout for the global batch (set_mesh)
-        self.backbone = PointBackbone(cfg, in_channels, device=device, ball_policy=ball_policy)
+        self.backbone = PointBackbone(cfg, in_channels, device=device, ball_policy=ball_policy,
+                                      queries=queries, fp_block=fp_block, img_f32=img_f32)
         c = self.backbone.out_features
         cin = c
         for k, f in enumerate(cfg.RPN.CLS_FC):

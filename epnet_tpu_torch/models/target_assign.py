@@ -309,8 +309,13 @@ def mask_score_of(seg: torch.Tensor, pool_cnt: torch.Tensor, approx: bool) -> to
 
 def proposal_target_layer(rois, gt_boxes3d, rpn_xyz, rpn_features, seg_mask, pts_depth,
                           cfg: Config, generator: Optional[torch.Generator] = None,
-                          draws: Optional[TargetDraws] = None, mesh=None) -> RCNNTargets:
-    """Train-time target assignment (forward :14-83).
+                          draws: Optional[TargetDraws] = None, mesh=None,
+                          exact_ops=()) -> RCNNTargets:
+    """Train-time target assignment (forward :14-83). The pool is exact when
+    ``exact_ops`` names 'roipool'; ``mask_score`` reads the pool by the
+    global policy alone, as JAX's ``_resolve_exact(None)`` does
+    (``target_assign.py:290``), so under ``exact_ops`` it weights the exact
+    pool's first c slots by their cyclic multiplicity.
 
     :param rois: (B, M, 7); gt_boxes3d (B, G, 7) zero-padded
     :param rpn_xyz: (B, N, 3); rpn_features (B, N, C); seg_mask, pts_depth (B, N)
@@ -330,10 +335,11 @@ def proposal_target_layer(rois, gt_boxes3d, rpn_xyz, rpn_features, seg_mask, pts
     feats = torch.cat(extra + [rpn_features], -1)
     if cfg.MIXED_PRECISION:  # pooled in bf16, as at eval (target_assign.py:276-280)
         feats = feats.to(torch.bfloat16)
-    approx = approx_allowed(cfg.EXACT_QUERIES, 'roipool')
     sampled_pts, sampled_feats, empty_flag, pool_cnt = roipool3d(
-        rpn_xyz, feats, batch_rois, cfg.RCNN.POOL_EXTRA_WIDTH, sampled_pt_num=S, approx=approx)
-    mask_score = mask_score_of(sampled_feats[..., 0], pool_cnt, approx)
+        rpn_xyz, feats, batch_rois, cfg.RCNN.POOL_EXTRA_WIDTH, sampled_pt_num=S,
+        approx=approx_allowed(cfg.EXACT_QUERIES, 'roipool', exact_ops))
+    mask_score = mask_score_of(sampled_feats[..., 0], pool_cnt,
+                               approx_allowed(cfg.EXACT_QUERIES, 'roipool'))
 
     if cfg.AUG_DATA:
         sampled_pts, batch_rois, batch_gt = per_roi_augmentation(

@@ -26,11 +26,23 @@ normalized distance rounded to bf16 and takes the largest keys, nearest
 first; the port's selection is the stable top-k over those keys
 (``nested_nearest_select``), which off the TPU is what JAX's
 ``approx_max_k`` computes on distinct keys.
+
+The switches the JAX package reads from ``EPNET_EXACT_OPS``,
+``EPNET_BALL_F32`` and ``EPNET_3NN_F32`` (``pointops.py:94-105,133-147,
+669-681``), and the ball policy of ``EPNET_BALL_POLICY``, travel as one
+``QueryOptions`` from ``EPNet`` down to the stages. ``exact_ops`` keeps
+the named query families exact under the approximate policy
+(``approx_allowed``). ``ball_f32`` keeps the nearest-first nested query's
+keys in f32; the first-hit queries' ``-index`` keys order the hits by index
+in either dtype, so under the stable selection it changes nothing there.
+``three_nn_f32`` keeps the approximate 3-NN's field in f32, which under
+the stable selection is the exact ``three_nn``.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -60,6 +72,56 @@ def check_ball_policy(policy: str) -> str:
     return policy
 
 
+# The query families ``exact_ops`` may name (``pointops.py:133-147``).
+QUERY_OPS = ('ball', 'three_nn', 'roipool')
+
+
+def check_exact_ops(ops) -> Tuple[str, ...]:
+    """``ops`` (names, or one comma-separated string) as a tuple of
+    distinct names of ``QUERY_OPS``, else ValueError."""
+    if isinstance(ops, str):
+        ops = [o for o in ops.split(',') if o]
+    ops = tuple(dict.fromkeys(ops))
+    bad = [o for o in ops if o not in QUERY_OPS]
+    if bad:
+        raise ValueError(f'exact_ops {bad}: each one of {QUERY_OPS}')
+    return ops
+
+
+@dataclass(frozen=True)
+class QueryOptions:
+    """The query switches a model is built with (JAX's ``EPNET_*``
+    environment, read at trace time there, an argument here):
+    ``ball_policy`` the approximate multi-scale ball policy
+    (``check_ball_policy``); ``exact_ops`` the families of ``QUERY_OPS``
+    kept exact under the approximate policy; ``ball_f32`` the
+    nearest-first nested query's keys in f32; ``three_nn_f32`` the
+    approximate 3-NN's field in f32. Each acts only where the policy
+    ``cfg.EXACT_QUERIES`` is False."""
+
+    ball_policy: str = 'first_nested'
+    exact_ops: Tuple[str, ...] = ()
+    ball_f32: bool = False
+    three_nn_f32: bool = False
+
+    def __post_init__(self):
+        check_ball_policy(self.ball_policy)
+        object.__setattr__(self, 'exact_ops', check_exact_ops(self.exact_ops))
+
+
+def query_options(queries: Optional[QueryOptions] = None,
+                  ball_policy: Optional[str] = None) -> QueryOptions:
+    """``queries``, or the default options with ``ball_policy`` (the
+    shorthand the model constructors keep); ValueError if both are given
+    and disagree."""
+    if queries is None:
+        return QueryOptions(ball_policy or 'first_nested')
+    if ball_policy is not None and ball_policy != queries.ball_policy:
+        raise ValueError(f'ball_policy {ball_policy!r} against the options\' '
+                         f'{queries.ball_policy!r}')
+    return queries
+
+
 def block_local_allowed(exact_queries) -> bool:
     """Whether the query policy ``cfg.EXACT_QUERIES`` admits the block-local
     paths (``pointops.py:49-55``): yes under 'residual' (block-local
@@ -69,14 +131,14 @@ def block_local_allowed(exact_queries) -> bool:
     return _policy(exact_queries) in ('residual', False)
 
 
-def approx_allowed(exact_queries, op: str) -> bool:
+def approx_allowed(exact_queries, op: str, exact_ops=()) -> bool:
     """Whether the policy admits the approximate query of ``op`` ('ball',
     'three_nn' or 'roipool'; ``pointops.py:108-113,133-152``): only under
-    False. 'residual' keeps every query outside the block-local paths
-    exact, and None is exact off the TPU."""
-    if op not in ('ball', 'three_nn', 'roipool'):
+    False, and not for an op in ``exact_ops``. 'residual' keeps every query
+    outside the block-local paths exact, and None is exact off the TPU."""
+    if op not in QUERY_OPS:
         raise ValueError(f'unknown query op {op!r}')
-    return _policy(exact_queries) is False
+    return _policy(exact_queries) is False and op not in check_exact_ops(exact_ops)
 
 
 def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -231,34 +293,40 @@ def nested_radius_select(full: torch.Tensor, d2: torch.Tensor, radius: float,
     return torch.where(mask.any(dim=-1)[..., None, None], sel, full[:, :, 0:1, :])
 
 
-def _bf16_order(keys: torch.Tensor) -> torch.Tensor:
-    """bf16 ``keys`` as int64 in [0, 2^16) with the same order as their
-    values (-0 and +0 equal): the sign-magnitude bits, negatives
-    complemented."""
-    bits = (keys + 0.0).view(torch.int16).to(torch.int64) & 0xFFFF
-    return torch.where(bits >= 0x8000, 0xFFFF - bits, bits | 0x8000)
+def _key_order(keys: torch.Tensor) -> torch.Tensor:
+    """bf16 or f32 ``keys`` as int64 in (-2^(w-1), 2^(w-1)), w their bit
+    width, with the same order as their values (-0 and +0 equal): the
+    magnitude's bits, negated for a negative key."""
+    w = 16 if keys.dtype == torch.bfloat16 else 32
+    view = torch.int16 if w == 16 else torch.int32
+    bits = (keys + 0.0).view(view).to(torch.int64) & ((1 << w) - 1)
+    half = 1 << (w - 1)
+    return torch.where(bits >= half, half - bits, bits)
 
 
-def nested_nearest_select(d2n: torch.Tensor, s_max: int, thresholds: Sequence[float]):
+def nested_nearest_select(d2n: torch.Tensor, s_max: int, thresholds: Sequence[float],
+                          f32_keys: bool = False):
     """The nearest-first selection of ``ball_query_nested`` and
     ``block_local_group_nested`` (``pointops.py:602-614``,
     ``block_local.py:487-498``) from the field ``d2n`` (..., N) of squared
-    distances over r_max^2: keys ``-d2n`` rounded to bf16 where ``d2n < 1``
-    (exact f32), -4 elsewhere; the ``s_max`` largest keys, descending, the
-    lowest index first among equal keys (``lax.top_k``'s order, through one
-    int64 key of the bf16 order and the index); slots with a key at or
-    below -2 take slot 0 and a ball with none takes index 0; ``cnts[i]``
-    the slots whose key, widened to f32, exceeds ``thresholds[i]`` rounded
-    to f32, and last the outer ball's count.
+    distances over r_max^2: keys ``-d2n`` rounded to bf16 (kept f32 with
+    ``f32_keys``, JAX's ``EPNET_BALL_F32``) where ``d2n < 1`` (exact f32),
+    -4 elsewhere; the ``s_max`` largest keys, descending, the lowest index
+    first among equal keys (``lax.top_k``'s order, through one int64 key of
+    the keys' order and the index); slots with a key at or below -2 take
+    slot 0 and a ball with none takes index 0; ``cnts[i]`` the slots whose
+    key, widened to f32, exceeds ``thresholds[i]`` rounded to f32, and last
+    the outer ball's count.
 
     :return: (idx (..., s_max) int64, [cnt (...) int64 for each threshold,
         then the outer count])
     """
     N = d2n.shape[-1]
-    keys = torch.where(d2n < 1.0, (-d2n).to(torch.bfloat16),
-                       torch.tensor(-4.0, dtype=torch.bfloat16, device=d2n.device))
+    kdt = torch.float32 if f32_keys else torch.bfloat16
+    keys = torch.where(d2n < 1.0, (-d2n).to(kdt),
+                       torch.tensor(-4.0, dtype=kdt, device=d2n.device))
     iota = torch.arange(N, device=d2n.device)
-    packed = _bf16_order(keys) * (1 << 32) + (N - 1 - iota)
+    packed = _key_order(keys) * (1 << 32) + (N - 1 - iota)
     idx = N - 1 - (torch.topk(packed, s_max, dim=-1, sorted=True).values & 0xFFFFFFFF)
     vf = torch.gather(keys, -1, idx).float()
     valid = vf > -2.0
@@ -276,10 +344,12 @@ def nested_thresholds(radii: Sequence[float]):
 
 
 def ball_query_nested(radii: Sequence[float], nsamples: Sequence[int], xyz: torch.Tensor,
-                      new_xyz: torch.Tensor, max_block_elems: int = 64 * 1024 * 1024):
+                      new_xyz: torch.Tensor, max_block_elems: int = 64 * 1024 * 1024,
+                      f32_keys: bool = False):
     """The nearest-first nested multi-scale query (``pointops.py:551-626``,
     the ``nearest`` ball policy): one field of the coordinates scaled by
-    1 / r_max (``_pairwise_d2``), then ``nested_nearest_select``. Scale i
+    1 / r_max (``_pairwise_d2``), then ``nested_nearest_select`` (its keys
+    f32 with ``f32_keys``, ``ball_f32``). Scale i
     takes the first ``nsamples[i]`` slots, those at or past ``cnts[i]``
     replaced by slot 0 (``nested_prefix_select``). Centroids chunked to a
     field of ``max_block_elems`` elements (values do not depend on the
@@ -296,7 +366,7 @@ def ball_query_nested(radii: Sequence[float], nsamples: Sequence[int], xyz: torc
     xs, cs = _scaled(xyz, r_max), _scaled(new_xyz, r_max)
     B, M = cs.shape[:2]
     chunk = _chunk_size(M, max_block_elems // max(B * xs.shape[1], 1))
-    parts = [nested_nearest_select(_pairwise_d2(cs[:, c:c + chunk], xs), s_max, thrs)
+    parts = [nested_nearest_select(_pairwise_d2(cs[:, c:c + chunk], xs), s_max, thrs, f32_keys)
              for c in range(0, M, chunk)]
     idx = torch.cat([p[0] for p in parts], 1)
     cnts = [torch.cat([p[1][i] for p in parts], 1) for i in range(len(radii))]
@@ -325,16 +395,18 @@ def _pairwise_d2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def three_nn(unknown: torch.Tensor, known: torch.Tensor,
-             max_block_elems: int = 64 * 1024 * 1024, approx: bool = False
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             max_block_elems: int = 64 * 1024 * 1024, approx: bool = False,
+             f32_keys: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """3 nearest neighbours (``interpolate_gpu.cu:9-75``): three masked
     argmins over the clipped squared-distance field, queries chunked to
     ``max_block_elems``. With ``approx`` the approximate branch
     (``pointops.py:661-691``): the field rounded to bf16 before the
-    selection, the distances the square roots of the bf16 values in f32,
-    so the interpolation weights see bf16-rounded distances. ``argmin``
-    takes the first minimum, as ``approx_min_k``'s stable form
-    (``lax.top_k``) takes the lowest index among equal keys.
+    selection (kept f32 with ``f32_keys``, JAX's ``EPNET_3NN_F32``), the
+    distances the square roots of the bf16 values in f32, so the
+    interpolation weights see bf16-rounded distances. ``argmin`` takes the
+    first minimum, as ``approx_min_k``'s stable form (``lax.top_k``) takes
+    the lowest index among equal keys, so the f32 branch is the exact
+    one.
 
     :param unknown: (B, N, 3) queries; known: (B, M, 3)
     :return: (dist, idx), both (B, N, 3); dist is euclidean
@@ -347,7 +419,7 @@ def three_nn(unknown: torch.Tensor, known: torch.Tensor,
 
     def block(queries):
         d2 = _pairwise_d2(queries, known).clamp_min(0.0)
-        if approx:
+        if approx and not f32_keys:
             d2 = d2.to(torch.bfloat16)
         d = d2
         ds, ids = [], []

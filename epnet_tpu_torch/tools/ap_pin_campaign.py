@@ -2,7 +2,8 @@
 
     python -m epnet_tpu_torch.tools.ap_pin_campaign [--seeds 0 1 2 3] [--epochs 40]
         [--val 72] [--cells parity block,queries] [--skip parity:0 ...]
-        [--workdir output/ap_pin_campaign]
+        [--workdir output/ap_pin_campaign] [--exact_ops ball] [--ball_f32] [--three_nn_f32]
+        [--dense_fp] [--img_f32] [--img_cache DIR] [--ball_policy nearest]
 
 Counterpart of ``tools/ap_pin_campaign.py``: for each seed, the port's pin
 (``python -m epnet_tpu_torch.tools.synthetic_ap_pin``, one process a run)
@@ -19,7 +20,11 @@ or a comma set of the pin's ``--knobs`` (``block,queries``, ``queries``,
 pin's knobs do. ``--cells`` defaults to JAX's ladder, ``parity`` and
 ``block,queries``. ``--skip`` takes ``cell:seed`` tags already done.
 Each cell's pin works under ``<workdir>/<cell>`` (a comma becomes ``_``);
-a relative ``--workdir`` is taken from the current directory.
+a relative ``--workdir`` is taken from the current directory. The model
+and data flags of ``tools.MODEL_FLAGS`` that are given go to every pin
+run: ``--exact_ops roipool --cells queries`` is the ``queries`` cell with
+the RoI pool exact, the attribution JAX's round 5 made with
+``EPNET_EXACT_OPS``; a second workdir keeps such a ladder's log apart.
 
 No reproduction gate: JAX's campaign first holds parity seed 0 to the
 triple [5.0, 13.0132, 13.0132], a JAX figure that needs its eval and train
@@ -40,6 +45,8 @@ import sys
 import time
 from typing import List, Optional, Sequence
 
+from . import add_model_flags, model_flag_argv
+
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 RESULT = re.compile(r'\{"metric": "synthetic Car 3D AP[^\n]*\}')
 
@@ -54,6 +61,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument('--skip', type=str, nargs='*', default=[],
                    help='"cell:seed" runs to skip (already done)')
     p.add_argument('--workdir', type=str, default='output/ap_pin_campaign')
+    add_model_flags(p)
+    p.set_defaults(ball_policy=None)  # passed on only when given
     return p.parse_args(argv)
 
 
@@ -62,6 +71,7 @@ def pin_command(cell: str, seed: int, args: argparse.Namespace) -> List[str]:
     cmd = [sys.executable, '-m', 'epnet_tpu_torch.tools.synthetic_ap_pin', '--seed', str(seed),
            '--epochs', str(args.epochs), '--val', str(args.val),
            '--workdir', os.path.join(os.path.abspath(args.workdir), cell.replace(',', '_'))]
+    cmd += model_flag_argv(args)
     if cell == 'speed':
         return cmd + ['--speed-mode']
     return cmd if cell == 'parity' else cmd + ['--knobs', cell]

@@ -3,7 +3,9 @@
     python -m epnet_tpu_torch.tools.eval --cfg_file cfgs/<recipe>.yaml \\
         --data_root <root> [--eval_mode rcnn_online|rcnn|rpn|rcnn_offline] \\
         [--ckpt checkpoint_epoch_<n>.pth | --eval_all --ckpt_dir <dir>] [--device cpu]
-        [--ball_policy first_nested|first_multi|nearest] [--set KEY VALUE ...]
+        [--ball_policy first_nested|first_multi|nearest] [--exact_ops ball,three_nn,roipool]
+        [--ball_f32] [--three_nn_f32] [--dense_fp] [--img_f32] [--img_cache DIR]
+        [--set KEY VALUE ...]
 
 Counterpart of ``tools/eval.py`` (reference ``tools/eval_rcnn.py``): the
 ``KittiRCNNDataset`` of ``TEST.SPLIT`` in EVAL mode (TEST with ``--test``:
@@ -33,6 +35,14 @@ every 30 s, as the JAX CLI does, or four times in a shorter wait). It runs
 on the CUDA device, and raises without one, unless ``--device`` names
 another. ``main(argv)`` runs in-process and returns the result dict (the
 daemon's: the list of checkpoints evaluated).
+
+The model and data switches (``tools.MODEL_FLAGS``, shared with the train
+CLI) are the JAX package's ``EPNET_*`` environment switches as flags:
+``--ball_policy`` (``EPNET_BALL_POLICY``), ``--exact_ops``
+(``EPNET_EXACT_OPS``), ``--ball_f32``, ``--three_nn_f32``, ``--dense_fp``
+(``EPNET_FP_BLOCK=0``), ``--img_f32`` and ``--img_cache DIR``
+(``EPNET_IMG_CACHE``: the decoded images cached as ``%06d.npy``, in the JAX
+package's format).
 """
 
 from __future__ import annotations
@@ -45,8 +55,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from ..ops.pointops import BALL_POLICIES
-from . import cli_logger
+from . import add_model_flags, cli_logger, model_switches
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -72,8 +81,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument('--max_gt', type=int, default=50)
     p.add_argument('--device', type=str, default=None,
                    help='torch device; default the CUDA device (raises without one)')
-    p.add_argument('--ball_policy', type=str, default='first_nested', choices=BALL_POLICIES,
-                   help='multi-scale ball policy of the approximate queries')
+    add_model_flags(p)
     p.add_argument('--set', dest='set_cfgs', default=None, nargs=argparse.REMAINDER)
     return p.parse_args(argv)
 
@@ -105,8 +113,9 @@ def eval_one(cfg, args, ckpt_path: Optional[str], logger) -> Dict:
                                split=cfg.TEST.SPLIT, classes=cfg.CLASSES,
                                mode='TEST' if args.test else 'EVAL', max_gt=args.max_gt,
                                rcnn_eval_roi_dir=args.rcnn_eval_roi_dir,
-                               rcnn_eval_feature_dir=args.rcnn_eval_feature_dir)
-    model = EPNet(cfg, 'TEST', device=device, ball_policy=args.ball_policy,
+                               rcnn_eval_feature_dir=args.rcnn_eval_feature_dir,
+                               img_cache=args.img_cache)
+    model = EPNet(cfg, 'TEST', device=device, **model_switches(args),
                   generator=torch.Generator(device=device).manual_seed(0)).eval()
     epoch = 0
     if ckpt_path and offline:

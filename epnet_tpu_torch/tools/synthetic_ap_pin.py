@@ -3,7 +3,8 @@ KITTI tree, evaluate it, and print the Car 3D AP R40 as one JSON line.
 
     python -m epnet_tpu_torch.tools.synthetic_ap_pin --seed 0 [--epochs 40]
         [--scenes 48] [--val 72] [--knobs residual,block | --speed-mode]
-        [--ball_policy nearest] [--device cpu]
+        [--ball_policy nearest] [--exact_ops ball] [--ball_f32] [--three_nn_f32]
+        [--dense_fp] [--img_f32] [--img_cache DIR] [--device cpu]
 
 Counterpart of ``tools/synthetic_ap_pin.py``: the same tree (the port's
 ``make_fake_kitti``, with a disjoint train/val split), the same command
@@ -25,7 +26,11 @@ configuration instead (bf16, the approximate queries, ``RPN.FPS_GROUPS 8``
 and both ``BLOCK_LOCAL`` flags) and ignores ``--knobs``, as the JAX pin
 does. ``--ball_policy`` is passed on to both CLIs when given (the JAX pin's
 subprocesses read ``EPNET_BALL_POLICY`` from its environment; without it
-the CLIs take ``first_nested``, JAX's default).
+the CLIs take ``first_nested``, JAX's default), and so is each other
+model or data switch of ``tools.MODEL_FLAGS`` that is given
+(``--exact_ops``, ``--ball_f32``, ``--three_nn_f32``, ``--dense_fp``,
+``--img_f32``, ``--img_cache``: the JAX pin's subprocesses inherit their
+``EPNET_*`` counterparts the same way).
 ``--device`` is passed on to both CLIs (``cpu`` runs it there, with
 ``RECIPE`` pointed at a tiny config, as its test does). ``main(argv)``
 returns the JSON line's dict.
@@ -39,7 +44,7 @@ import os
 import re
 from typing import List, Optional, Sequence, Tuple
 
-from ..ops.pointops import BALL_POLICIES
+from . import add_model_flags, model_flag_argv
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 RECIPE = os.path.join(REPO, 'cfgs', 'LI_Fusion_with_attention_use_ce_loss.yaml')
@@ -69,8 +74,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument('--knobs', type=str, default='',
                    help='comma subset of {' + ','.join(KNOBS) + '} on top of the parity '
                         'recipe, with MIXED_PRECISION true')
-    p.add_argument('--ball_policy', type=str, default=None, choices=BALL_POLICIES,
-                   help='passed on to both CLIs (their default: first_nested)')
+    add_model_flags(p)
+    p.set_defaults(ball_policy=None)  # passed on only when given
     p.add_argument('--device', type=str, default=None)
     return p.parse_args(argv)
 
@@ -90,7 +95,7 @@ def overrides(args: argparse.Namespace) -> List[str]:
 
 def train_argv(args: argparse.Namespace, data_root: str, out_dir: str) -> List[str]:
     """The train CLI's argv: the JAX pin's train command line after the
-    script, with ``--device`` and ``--ball_policy`` when given."""
+    script, with ``--device`` and the model flags when given."""
     return (['--cfg_file', RECIPE, '--data_root', data_root,
              '--batch_size', str(args.batch_size), '--epochs', str(args.epochs),
              '--ckpt_save_interval', str(args.epochs), '--workers', '2',
@@ -106,9 +111,8 @@ def eval_argv(args: argparse.Namespace, data_root: str, out_dir: str, ckpt: str)
 
 
 def _cli_flags(args: argparse.Namespace) -> List[str]:
-    """``--device`` and ``--ball_policy``, where given."""
-    return (['--device', args.device] if args.device else []) + (
-        ['--ball_policy', args.ball_policy] if args.ball_policy else [])
+    """``--device`` and the model flags, where given."""
+    return (['--device', args.device] if args.device else []) + model_flag_argv(args)
 
 
 def parse_ap(text: str) -> Tuple[float, float, float]:

@@ -5,6 +5,8 @@
         [--ckpt <ckpt>] [--rpn_ckpt <ckpt>] [--gt_database <pkl>]
         [--rcnn_training_roi_dir <dir> --rcnn_training_feature_dir <dir>]
         [--train_with_eval] [--ball_policy first_nested|first_multi|nearest]
+        [--exact_ops ball,three_nn,roipool] [--ball_f32] [--three_nn_f32] [--dense_fp]
+        [--img_f32] [--img_cache DIR]
         [--n_devices N] [--steps_per_call K] [--device cpu] [--set KEY VALUE ...]
 
 Counterpart of ``tools/train.py`` (reference ``train_rcnn.py``: argparse
@@ -43,7 +45,12 @@ unless ``--device`` names another.
 * ``--ball_policy``: the approximate queries' multi-scale ball policy
   under ``--set EXACT_QUERIES False`` (``models/epnet.EPNet``), the JAX
   package's ``EPNET_BALL_POLICY``; ``tools/eval.py`` takes the same flag
-  and default.
+  and default, and the other switches of ``tools.MODEL_FLAGS``:
+  ``--exact_ops`` (the query families kept exact, ``EPNET_EXACT_OPS``),
+  ``--ball_f32`` and ``--three_nn_f32`` (f32 keys), ``--dense_fp`` (SA
+  block-local, FP dense: ``EPNET_FP_BLOCK=0``), ``--img_f32`` (the image
+  tower in f32 under ``MIXED_PRECISION``) and ``--img_cache DIR`` (decoded
+  images cached as ``.npy``, ``EPNET_IMG_CACHE``).
 * ``--set TRAIN.OPTIMIZER adam`` or ``sgd``: the epoch-decay optimizers,
   with epochs of one pass of the loader.
 
@@ -76,9 +83,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..ops.pointops import BALL_POLICIES
 from ..parallel import mesh as pmesh
-from . import cli_logger
+from . import add_model_flags, cli_logger, model_switches
 
 SOURCE_DIRS = ('epnet_tpu_torch', 'cfgs', 'tools')
 
@@ -108,8 +114,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help='seeds the model init, the loader shuffle and the draws of training')
     p.add_argument('--device', type=str, default=None,
                    help='torch device; default the CUDA device (raises without one)')
-    p.add_argument('--ball_policy', type=str, default='first_nested', choices=BALL_POLICIES,
-                   help='multi-scale ball policy of the approximate queries')
+    add_model_flags(p)
     p.add_argument('--set', dest='set_cfgs', default=None, nargs=argparse.REMAINDER)
     return p.parse_args(argv)
 
@@ -203,8 +208,8 @@ def make_eval_fn(cfg, args, out_dir: str, device, logger, tb):
 
     val_ds = KittiRCNNDataset(args.data_root, cfg, npoints=cfg.RPN.NUM_POINTS,
                               split=cfg.TRAIN.VAL_SPLIT, classes=cfg.CLASSES, mode='EVAL',
-                              max_gt=args.max_gt, logger=logger)
-    test_model = EPNet(cfg, 'TEST', device=device, ball_policy=args.ball_policy).eval()
+                              max_gt=args.max_gt, logger=logger, img_cache=args.img_cache)
+    test_model = EPNet(cfg, 'TEST', device=device, **model_switches(args)).eval()
 
     def eval_fn(state, loader, epoch):
         test_model.load_state_dict(state.model.state_dict())
@@ -232,12 +237,13 @@ def train(cfg, args: argparse.Namespace, out_dir: str, device, logger, tb, mesh=
                                max_gt=args.max_gt, seed=args.seed, logger=logger,
                                gt_database_dir=args.gt_database,
                                rcnn_training_roi_dir=args.rcnn_training_roi_dir,
-                               rcnn_training_feature_dir=args.rcnn_training_feature_dir)
+                               rcnn_training_feature_dir=args.rcnn_training_feature_dir,
+                               img_cache=args.img_cache)
     rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
     loader = train_loader(dataset, args.batch_size, args.workers, args.seed, rank, world)
     state = create_train_state(cfg, len(loader) * args.epochs, device=device,
                                generator=torch.Generator(device=device).manual_seed(args.seed),
-                               steps_per_epoch=len(loader), ball_policy=args.ball_policy)
+                               steps_per_epoch=len(loader), **model_switches(args))
     logger.info('model parameters: %.2fM', sum(p.numel() for p in state.model.parameters()) / 1e6)
 
     start_epoch = 0

@@ -46,13 +46,14 @@ class TrainState:
 
 def create_train_state(cfg: Config, total_steps: int, device=None,
                        generator: Optional[torch.Generator] = None, steps_per_epoch: int = 1,
-                       ball_policy: str = 'first_nested') -> TrainState:
+                       **switches) -> TrainState:
     """``EPNet(cfg, 'TRAIN')`` initialized from ``generator``, in training
     mode, with its optimizer (``adam`` and ``sgd`` decay by epochs of
     ``steps_per_epoch`` steps); on the CUDA device unless ``device`` says
-    otherwise (raises without a card, as ``EPNet`` does)."""
-    model = EPNet(cfg, 'TRAIN', device=device, generator=generator,
-                  ball_policy=ball_policy).train()
+    otherwise (raises without a card, as ``EPNet`` does). ``switches`` are
+    ``EPNet``'s: ``ball_policy`` or ``queries``, ``fp_block``,
+    ``img_f32``."""
+    model = EPNet(cfg, 'TRAIN', device=device, generator=generator, **switches).train()
     return TrainState(model, make_optimizer(cfg, model.parameters(), total_steps,
                                             steps_per_epoch))
 
