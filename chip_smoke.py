@@ -279,10 +279,22 @@ first use), then:
    train scenes with ``--img_cache`` and the loader in this process: cold,
    then warm on a copy whose PNGs hold only their header, so every image
    must come from the cache; a ``.npy`` a scene, the same detections,
-   scans/s of each.
+   scans/s of each;
+31. runs the research harnesses (``epnet_tpu_torch/tools``): the sampling
+   ablation and the block-local ablation at their tiny widths for
+   ``ABLATION_STEPS`` steps a cell under ``EXACT_QUERIES`` 'residual' (every
+   query exact but the block-local grouping: the policy of phases 4 and
+   16), each with its launches (``ABLATION_LAUNCHES``: 6 A, 2 B, 2 C, 4 D,
+   2 E and 4 F a tiny step, 2 A under ``SAMPLING random``) and every cell's
+   evaluation, the swaps included, again card vs CPU: every FPS call's
+   picks identical, boxes, scores, RoIs and per-gt IoU within phase 4's
+   bound; then ``block_local_fullscale`` ``dense`` and ``block`` at full
+   width (the headline configuration, bf16, batch 2) for
+   ``ABLATION_STEPS`` steps each: a finite loss, the step time, the per-gt
+   IoU and the bf16 launches of phase 26's step and forward.
 
 Launch counts are read around each main-path phase (3, 6, 9, 11, 14, 15,
-18, 20, 22 and 24-30) with the counters set to 0 just before it;
+18, 20, 22 and 24-31) with the counters set to 0 just before it;
 phase 28 counts in its ranks and in this process, and adds them up;
 the kernels line sums them. The script leaves TF32 as PyTorch sets it and checks that building
 the model turns it off, as the f32 recipe needs.
@@ -4345,6 +4357,191 @@ def phase_switches(dev):
     return total
 
 
+# phase 31: the research harnesses' overfits on the card (the recorded runs
+# take 300 steps; README.md names them)
+ABLATION_STEPS = 10
+FULLSCALE_KINDS = ('dense', 'block')
+# phase 31's launches by path: (a train step's, an evaluation's), with 6
+# FPS stages (2, the RCNN's, under SAMPLING random). The tiny tower runs
+# 4 F and 4 D (blk0-3) and 2 E; the full-scale kinds are the headline
+# configuration's bf16 step and forward.
+ABLATION_LAUNCHES = {
+    'tiny': ({'fps': 6, 'sa_fused_fwd': 2, 'sa_fused_bwd': 2, 'conv3x3_dw_s2': 4,
+              'conv3x3_dw_s1': 2, 'conv3x3_s2_fwd': 4},
+             {'fps': 6, 'sa_fused_fwd': 2, 'conv3x3_s2_fwd': 4}),
+    'dense': ({'fps': 6, 'sa_fused_fwd_bf16': 2, 'sa_fused_bwd_bf16': 2,
+               'conv3x3_dw_s2_bf16': 4, 'conv3x3_dw_s1_bf16': 3, 'conv3x3_s2_fwd_bf16': 4},
+              {'fps': 6, 'sa_fused_fwd_bf16': 2, 'conv3x3_s2_fwd_bf16': 4}),
+    'block': ({'fps': 6, 'sa_fused_fwd_bf16': 1, 'sa_fused_win_fwd_bf16': 1,
+               'sa_fused_bwd_bf16': 1, 'sa_fused_win_bwd_bf16': 1, 'conv3x3_dw_s2_bf16': 4,
+               'conv3x3_dw_s1_bf16': 3, 'conv3x3_s2_fwd_bf16': 4},
+              {'fps': 6, 'sa_fused_fwd_bf16': 1, 'sa_fused_win_fwd_bf16': 1,
+               'conv3x3_s2_fwd_bf16': 4})}
+
+
+def _ablation_want(path, steps, evals, fps=6):
+    """The launches of ``steps`` train steps and ``evals`` evaluations on
+    ``path`` with ``fps`` FPS stages each."""
+    step, ev = ABLATION_LAUNCHES[path]
+    out = collections.Counter({k: v * steps for k, v in step.items()})
+    out.update({k: v * evals for k, v in ev.items()})
+    out['fps'] = fps * (steps + evals)
+    return +out
+
+
+def _all_counters():
+    """Every kernel wrapper's launch counter, by its name in the kernels line."""
+    from epnet_tpu_torch.ops import sa_fused
+    return {**dict(zip(TRAIN_CLI_KERNELS, _train_cli_counters())),
+            **dict(zip(FWD_KERNELS, _fwd_counters())),
+            'sa_fused_win_bwd': sa_fused.fused_point_mlp_max_win_bwd_kernel,
+            'sa_fused_win_bwd_bf16': sa_fused.fused_point_mlp_max_win_bwd_bf16_kernel}
+
+
+def _counted(fn):
+    """(fn(), its launches by kernel): the counters set to 0 just before."""
+    counters = _all_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    return out, collections.Counter({n: c.launches for n, c in counters.items() if c.launches})
+
+
+def _eval_card_vs_cpu(name, cfg, model, batch, dev):
+    """``tools/ablation.evaluate``'s path for ``model``'s weights under
+    ``cfg``, on the card and on the CPU (plain versions): every FPS call's
+    picks identical, ``joint_eval_step``'s boxes, scores and RoIs and the
+    per-gt IoU within phase 4's bound 1e-3 (1 + max|x|). Returns the worst
+    share of the bound."""
+    import torch
+    from epnet_tpu_torch.eval.detect import joint_eval_step
+    from epnet_tpu_torch.models import pointnet2
+    from epnet_tpu_torch.models.epnet import EPNet
+    from epnet_tpu_torch.tools import ablation
+    from epnet_tpu_torch.train.trainer import device_batch
+
+    res, picks = {}, {}
+    for side, where in (('card', dev), ('cpu', torch.device('cpu'))):
+        test = EPNet(cfg, 'TEST', device=where)
+        test.load_state_dict(model.state_dict())
+        test.eval()
+        rec = {}
+        with _spying(pointnet2, ('furthest_point_sample',), rec):
+            res[side] = {k: v.float().cpu() for k, v in joint_eval_step(
+                cfg, test, device_batch(batch, where)).items()
+                if k in ('pred_boxes3d', 'norm_scores', 'rois')}
+        picks[side] = [out.cpu() for _, _, out in rec.get('furthest_point_sample', [])]
+        res[side]['per-gt IoU'] = torch.tensor(ablation.per_gt_iou(res[side], batch))
+    if len(picks['card']) != len(picks['cpu']) or not all(
+            torch.equal(a, b) for a, b in zip(picks['card'], picks['cpu'])):
+        raise AssertionError(f'{name}: FPS picks differ card vs CPU')
+    worst = 0.0
+    for k, want in res['cpu'].items():
+        err = float((res['card'][k] - want).abs().max())
+        bound = 1e-3 * (1.0 + float(want.abs().max()))
+        worst = max(worst, err / bound)
+        if not err <= bound:
+            raise AssertionError(f'{name}: {k} off by {err:.3e} card vs CPU')
+    return worst, len(picks['cpu'])
+
+
+def _phase31_tiny(dev, module, total):
+    """A tiny harness (``sampling_ablation`` or ``block_local_ablation``) for
+    ``ABLATION_STEPS`` steps a cell under ``EXACT_QUERIES`` 'residual' (the
+    policy of phases 4 and 16: block-local grouping where the config asks
+    for it, every other query exact); every cell's evaluation, the swaps
+    included, again card vs CPU."""
+    import numpy as np
+    from epnet_tpu_torch.tools import ablation
+    from epnet_tpu_torch.utils.testing import synthetic_batch
+
+    name = module.__name__.rsplit('.', 1)[-1]
+    args = module.parse_args(['--steps', str(ABLATION_STEPS), '--device', str(dev),
+                              '--exact_queries', 'residual'])
+    t0 = time.perf_counter()
+    out, launches = _counted(lambda: module.run(args))
+    seconds = time.perf_counter() - t0
+    total.update(launches)
+    steps = ABLATION_STEPS
+    if name == 'sampling_ablation':  # fps, fps-G8, random, then the swaps' evaluations
+        want = (_ablation_want('tiny', 2 * steps, 2) + _ablation_want('tiny', steps, 1, fps=2)
+                + _ablation_want('tiny', 0, 1) + _ablation_want('tiny', 0, 1, fps=2))
+    else:  # dense and block-local (its RCNN dense), then the swap's evaluation
+        want = _ablation_want('tiny', 2 * steps, 3)
+    if launches != want:
+        raise AssertionError(f'{name}: launches {dict(launches)}, expected {dict(want)}')
+    for r in out:
+        if 'loss' in r and not math.isfinite(r['loss']):
+            raise AssertionError(f'{name} {r["name"]}: loss {r["loss"]}')
+        if len(r['ious']) != 6:
+            raise AssertionError(f'{name} {r["name"]}: {len(r["ious"])} IoUs for 6 gts')
+    base = ablation.with_queries(module.base_config(), 'residual')
+    models = [r['model'] for r in out if 'model' in r]
+    if name == 'sampling_ablation':  # the three consistent cells, then the swaps
+        cfgs = [base.merged({'RPN': over}) for _, over in module.MODES]
+        cells = list(zip(cfgs, models)) + [(cfgs[0].merged({'RPN': over}), models[0])
+                                           for _, over in module.MODES[1:]]
+    else:  # dense, block-local, then the dense weights block-local
+        cfgs = [base, base.merged({'RPN': {'BLOCK_LOCAL': True}})]
+        cells = list(zip(cfgs, models)) + [(cfgs[1], models[0])]
+    batches = {c.RPN.BLOCK_LOCAL: synthetic_batch(np.random.RandomState(11), c, batch=2,
+                                                  structured=True) for c in cfgs}
+    worst, n_fps = 0.0, 0
+    for r, (cfg, model) in zip(out, cells):
+        w, n = _eval_card_vs_cpu(f'{name} {r["name"]}', cfg, model,
+                                 batches[cfg.RPN.BLOCK_LOCAL], dev)
+        worst, n_fps = max(worst, w), n_fps + n
+    print(f'{name}, {ABLATION_STEPS} steps a cell on the card: {seconds:.1f} s, launches '
+          f'{dict(launches)}; ' + '; '.join(
+              f'{r["name"]}: ' + (f'loss {r["loss"]:.3f}, {r["median_step_ms"]:.1f} ms a step, '
+                                  if 'loss' in r else '') + f'min IoU {r["min"]:.3f}'
+              for r in out), flush=True)
+    print(f'{name}: {len(out)} evaluations card vs CPU, {n_fps} FPS calls with identical '
+          f'picks, worst {worst:.3f} of the bound 1e-3 * (1 + max|x|)', flush=True)
+
+
+def _phase31_fullscale(dev, total):
+    """``block_local_fullscale`` ``dense`` and ``block`` at full width
+    (the headline config in bf16 with the approximate queries, batch 2),
+    ``ABLATION_STEPS`` steps each: finite losses, each kind's kernels."""
+    import torch
+    from epnet_tpu_torch.tools import block_local_fullscale as fs
+
+    for kind in FULLSCALE_KINDS:
+        args = fs.parse_args([kind, '--steps', str(ABLATION_STEPS), '--device', str(dev)])
+        t0 = time.perf_counter()
+        (r,), launches = _counted(lambda: fs.run(args))
+        seconds = time.perf_counter() - t0
+        total.update(launches)
+        want = _ablation_want(kind, ABLATION_STEPS, 1)
+        if not math.isfinite(r['loss']) or launches != want or len(r['ious']) < 6:
+            raise AssertionError(f'full-scale {kind}: loss {r["loss"]}, {len(r["ious"])} IoUs, '
+                                 f'launches {dict(launches)}, expected {dict(want)}')
+        print(f'block_local_fullscale {kind}, {ABLATION_STEPS} steps at full width: '
+              f'{seconds:.1f} s, loss {r["loss"]:.3f}, median step {r["median_step_ms"]:.1f} ms, '
+              f'per-gt IoU {[round(v, 3) for v in r["ious"]]} (min {r["min"]:.3f} mean '
+              f'{r["mean"]:.3f}); launches {dict(launches)}', flush=True)
+        del r
+        torch.cuda.empty_cache()
+
+
+def phase_ablations(dev):
+    """Phase 31: the research harnesses on the card (``epnet_tpu_torch/
+    tools``): the sampling and block-local ablations at tiny widths, their
+    evaluations card vs CPU, and the full-scale block-local overfit's
+    ``dense`` and ``block`` kinds at full width. Returns the launches."""
+    from epnet_tpu_torch.tools import block_local_ablation, sampling_ablation
+
+    t0 = time.perf_counter()
+    total = collections.Counter()
+    _phase31_tiny(dev, sampling_ablation, total)
+    _phase31_tiny(dev, block_local_ablation, total)
+    _phase31_fullscale(dev, total)
+    print(f'phase 31 (research harnesses): {time.perf_counter() - t0:.1f} s; {_smi()}',
+          flush=True)
+    return total
+
+
 RECIPE_IOU = 'cfgs/LI_Fusion_with_attention_use_ce_loss_iou_branch.yaml'
 PEOPLE_SET = [('CLASSES', 'People'), ('RCNN.LOSS_CLS', 'CrossEntropy')]
 
@@ -4830,7 +5027,7 @@ def main():
             if 'registers' in line or 'spill' in line:
                 print(f'  {name}: {line.strip()}')
 
-    # launches on the main paths (phases 3, 6, 9, 11, 14, 15, 18, 20, 22 and 24-30), by kernel
+    # launches on the main paths (phases 3, 6, 9, 11, 14, 15, 18, 20, 22 and 24-31), by kernel
     launches = collections.Counter()
     fps_res = phase_fps(dev)
     sa_res = phase_sa(dev)
@@ -4866,6 +5063,7 @@ def main():
     family_launches, partitioned = phase_approx_family(dev)
     launches.update(family_launches)
     launches.update(phase_switches(dev))
+    launches.update(phase_ablations(dev))
 
     kernels = [
         {'name': 'fps', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/fps.cu',
