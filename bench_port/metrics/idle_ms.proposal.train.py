@@ -1,0 +1,15 @@
+"""Device-idle ms a step inside the program's ``proposal`` span
+(``model.proposal`` at the TRAIN budgets), children included: the
+``epnet::proposal`` ranges of the program pass (``program_spans``: the
+cell's call under ``torch.profiler`` with the tracer recording) less the
+merged device intervals inside them."""
+
+from bench_port import program_spans
+
+UNIT, SOURCE, BETTER = 'ms/step', 'program_span', 'lower'
+LAYER = 'proposal (models/proposal.py, ops/nms.py)'
+MOVES = 'train_scans_per_s'
+
+
+def read(obs):
+    return program_spans.span_idle_ms(obs, 'train', 'proposal')

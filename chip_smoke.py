@@ -291,7 +291,15 @@ first use), then:
    bound; then ``block_local_fullscale`` ``dense`` and ``block`` at full
    width (the headline configuration, bf16, batch 2) for
    ``ABLATION_STEPS`` steps each: a finite loss, the step time, the per-gt
-   IoU and the bf16 launches of phase 26's step and forward.
+   IoU and the bf16 launches of phase 26's step and forward;
+32. holds the port's tracer (``utils/trace.py``) on the card: on two
+   full-width batch-1 eval requests and two batch-4 train steps of the
+   recipe, the ``host_syncs`` it counts against the synchronizing calls
+   that ``torch.cuda.set_sync_debug_mode('warn')`` reports (those made in
+   ``trace.host_int`` must equal the count; every other site is printed
+   with its calls a request or step), and on RCNN sa0's real train tables
+   the distinct rows that kernels B and C count against ``_distinct_rows``'
+   recount of the same indices (equal).
 
 Launch counts are read around each main-path phase (3, 6, 9, 11, 14, 15,
 18, 20, 22 and 24-31) with the counters set to 0 just before it;
@@ -4864,6 +4872,85 @@ def _dp_rank(mesh, cfg, targets_path, bnm):
     return out
 
 
+def _sync_sites(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode('warn')``: its result
+    and the (file, line) of the Python frame of each synchronizing call."""
+    import warnings
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    return out, [(os.path.relpath(w.filename), w.lineno) for w in caught
+                 if 'synchroniz' in str(w.message)]
+
+
+def phase_trace(dev):
+    import torch
+    from epnet_tpu_torch.config import parity_config
+    from epnet_tpu_torch.eval.detect import joint_eval_step
+    from epnet_tpu_torch.models.epnet import EPNet
+    from epnet_tpu_torch.ops import sa_fused
+    from epnet_tpu_torch.train.trainer import create_train_state, train_step
+    from epnet_tpu_torch.utils import trace
+
+    cfg = parity_config()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = EPNet(cfg, 'TEST', device=dev, generator=gen).eval()
+    requests = [_request(seed, cfg, dev) for seed in (0, 1, 2)]
+    state = create_train_state(cfg, total_steps=100, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+    batches = [_train_batch(cfg, seed, dev) for seed in (3, 0, 1)]
+    draws = torch.Generator(device=dev).manual_seed(1)
+    calls = {'eval request, batch 1': [lambda b=b: joint_eval_step(cfg, model, b)
+                                       for b in requests],
+             f'train step, batch {TRAIN_BATCH}': [lambda b=b: train_step(state, b, 0.1, draws)
+                                                   for b in batches]}
+    here = os.path.relpath(trace.__file__)
+    for what, fns in calls.items():
+        fns[0]()  # warm-up
+        torch.cuda.synchronize()
+        counted, made, others = 0, 0, collections.Counter()
+        for fn in fns[1:]:
+            with trace.recording() as rec:
+                _, sites = _sync_sites(fn)
+                torch.cuda.synchronize()
+            counted += sum(v for (_, k), v in rec.snapshot()['counts'].items()
+                           if k == 'host_syncs')
+            made += sum(1 for f, _ in sites if f == here)
+            others.update((f, line) for f, line in sites if f != here)
+        n = len(fns) - 1
+        print(f'tracer, {what}: host_syncs {counted / n:g} a call, synchronizing calls in '
+              f'trace.host_int {made / n:g}, elsewhere {sum(others.values()) / n:g}', flush=True)
+        for (f, line), k in sorted(others.items()):
+            print(f'  not counted: {f}:{line} {k / n:g} a call', flush=True)
+        if counted != made:
+            raise AssertionError(f'{what}: host_syncs {counted}, but {made} synchronizing '
+                                 f'calls in trace.host_int')
+    del model, state, batches
+
+    name, (T, N, M, S, C1, C2, C3), _, args = [c for c in sa_cases(dev, train=True)
+                                               if c[2] == 'real'][0]
+    with trace.recording() as rec:
+        sa_fused.fused_point_mlp_max_kernel(*args[:7])
+        sa_fused.fused_point_mlp_max_bwd_kernel(*args)
+    counts = rec.snapshot()['counts']
+    recount = int(_distinct_rows(args[2])[1].sum())
+    for way in ('fwd', 'bwd'):
+        got = (counts[(None, 'sa_rows_distinct.' + way)],
+               counts[(None, 'sa_rows_gathered.' + way)])
+        print(f'tracer, {name} {way}: distinct rows {got[0]} of {got[1]} gathered '
+              f'({100 * got[0] / got[1]:.2f}%); _distinct_rows {recount} of {T * M * S}',
+              flush=True)
+        if got != (recount, T * M * S):
+            raise AssertionError(f'{name} {way}: the tracer counts {got}, the recount '
+                                 f'{(recount, T * M * S)}')
+
+
 def phase_data_parallel(dev):
     """Phase 28: data-parallel training on the card. Two ranks
     (``parallel/mesh.run_ranks``, gloo, both on this card: NCCL refuses two
@@ -5064,6 +5151,7 @@ def main():
     launches.update(family_launches)
     launches.update(phase_switches(dev))
     launches.update(phase_ablations(dev))
+    phase_trace(dev)
 
     kernels = [
         {'name': 'fps', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/fps.cu',

@@ -24,6 +24,7 @@ from ..ops.bbox_codec import decode_bbox_target
 from ..ops.boxes import boxes3d_to_bev
 from ..ops.nms import nms_bev
 from ..ops.rotated_iou import boxes_iou3d
+from ..utils import trace
 from .kitti_ap import get_official_eval_result
 from .kitti_common import get_label_annos, parse_label_file, save_kitti_format
 
@@ -42,55 +43,56 @@ def joint_eval_step(cfg: Config, model, batch: Dict[str, torch.Tensor]) -> Dict[
         ones after the threshold and NMS (``final_boxes``, ``final_scores``:
         (B, M, ...), valid for the first ``final_counts`` entries)
     """
-    with torch.inference_mode():
+    with torch.inference_mode(), trace.span('request'):
         out = model(batch)
-        B = batch['pts_input'].shape[0]
-        M = cfg.TEST.RPN_POST_NMS_TOP_N
-        rois = out['rois']
-        if out['rcnn_cls'].shape[-1] > 1:
-            # multi-class (People) head: objectness = 1 - P(background),
-            # mapped back to a logit so the sigmoid scoring below holds
-            prob_fg = 1.0 - torch.softmax(out['rcnn_cls'].reshape(B, M, -1), dim=-1)[..., 0]
-            prob_fg = torch.clamp(prob_fg, 1e-7, 1.0 - 1e-7)
-            rcnn_cls = torch.log(prob_fg) - torch.log1p(-prob_fg)
-        else:
-            rcnn_cls = out['rcnn_cls'].reshape(B, M)
-        rcnn_reg = out['rcnn_reg'].reshape(B, M, -1)
-        if cfg.USE_IOU_BRANCH:
-            iou_b = torch.clamp(out['rcnn_iou_branch'].reshape(B, M), min=1e-4)
-            rcnn_cls = iou_b * rcnn_cls  # eval_rcnn.py:558-561
+        with trace.span('detect'):
+            B = batch['pts_input'].shape[0]
+            M = cfg.TEST.RPN_POST_NMS_TOP_N
+            rois = out['rois']
+            if out['rcnn_cls'].shape[-1] > 1:
+                # multi-class (People) head: objectness = 1 - P(background),
+                # mapped back to a logit so the sigmoid scoring below holds
+                prob_fg = 1.0 - torch.softmax(out['rcnn_cls'].reshape(B, M, -1), dim=-1)[..., 0]
+                prob_fg = torch.clamp(prob_fg, 1e-7, 1.0 - 1e-7)
+                rcnn_cls = torch.log(prob_fg) - torch.log1p(-prob_fg)
+            else:
+                rcnn_cls = out['rcnn_cls'].reshape(B, M)
+            rcnn_reg = out['rcnn_reg'].reshape(B, M, -1)
+            if cfg.USE_IOU_BRANCH:
+                iou_b = torch.clamp(out['rcnn_iou_branch'].reshape(B, M), min=1e-4)
+                rcnn_cls = iou_b * rcnn_cls  # eval_rcnn.py:558-561
 
-        mean_size = torch.tensor(cfg.CLS_MEAN_SIZE[0], dtype=rcnn_reg.dtype, device=rois.device)
-        pred = decode_bbox_target(
-            rois.reshape(-1, 7), rcnn_reg.reshape(B * M, -1), mean_size,
-            loc_scope=cfg.RCNN.LOC_SCOPE, loc_bin_size=cfg.RCNN.LOC_BIN_SIZE,
-            num_head_bin=cfg.RCNN.NUM_HEAD_BIN, get_xz_fine=True,
-            get_y_by_bin=cfg.RCNN.LOC_Y_BY_BIN, loc_y_scope=cfg.RCNN.LOC_Y_SCOPE,
-            loc_y_bin_size=cfg.RCNN.LOC_Y_BIN_SIZE, get_ry_fine=True,
-            bbox_avg_by_bin=cfg.TEST.BBOX_AVG_BY_BIN,
-            ry_with_bin=cfg.TEST.RY_WITH_BIN).reshape(B, M, 7)
+            mean_size = torch.tensor(cfg.CLS_MEAN_SIZE[0], dtype=rcnn_reg.dtype, device=rois.device)
+            pred = decode_bbox_target(
+                rois.reshape(-1, 7), rcnn_reg.reshape(B * M, -1), mean_size,
+                loc_scope=cfg.RCNN.LOC_SCOPE, loc_bin_size=cfg.RCNN.LOC_BIN_SIZE,
+                num_head_bin=cfg.RCNN.NUM_HEAD_BIN, get_xz_fine=True,
+                get_y_by_bin=cfg.RCNN.LOC_Y_BY_BIN, loc_y_scope=cfg.RCNN.LOC_Y_SCOPE,
+                loc_y_bin_size=cfg.RCNN.LOC_Y_BIN_SIZE, get_ry_fine=True,
+                bbox_avg_by_bin=cfg.TEST.BBOX_AVG_BY_BIN,
+                ry_with_bin=cfg.TEST.RY_WITH_BIN).reshape(B, M, 7)
 
-        raw_scores = rcnn_cls
-        norm_scores = torch.sigmoid(raw_scores)
-        roi_valid = torch.any(rois != 0, dim=-1)  # zero-padded rois
-        keep_mask = (norm_scores > cfg.RCNN.SCORE_THRESH) & roi_valid
+            raw_scores = rcnn_cls
+            norm_scores = torch.sigmoid(raw_scores)
+            roi_valid = torch.any(rois != 0, dim=-1)  # zero-padded rois
+            keep_mask = (norm_scores > cfg.RCNN.SCORE_THRESH) & roi_valid
 
-        final_boxes, final_scores, final_counts = [], [], []
-        for b in range(B):
-            # nms_bev sorts by score; -inf dummies sort last and num_valid
-            # stops the scan before them
-            scores = torch.where(keep_mask[b], raw_scores[b], float('-inf'))
-            idx, n = nms_bev(boxes3d_to_bev(pred[b]), scores, cfg.RCNN.NMS_THRESH, max_keep=M,
-                             rotated=True, num_valid=int(keep_mask[b].sum()))
-            final_boxes.append(pred[b][idx])
-            final_scores.append(scores[idx])
-            final_counts.append(n)
+            final_boxes, final_scores, final_counts = [], [], []
+            for b in range(B):
+                # nms_bev sorts by score; -inf dummies sort last and num_valid
+                # stops the scan before them
+                scores = torch.where(keep_mask[b], raw_scores[b], float('-inf'))
+                idx, n = nms_bev(boxes3d_to_bev(pred[b]), scores, cfg.RCNN.NMS_THRESH, max_keep=M,
+                                 rotated=True, num_valid=trace.host_int(keep_mask[b].sum()))
+                final_boxes.append(pred[b][idx])
+                final_scores.append(scores[idx])
+                final_counts.append(n)
 
-        res = {'pred_boxes3d': pred, 'raw_scores': raw_scores, 'norm_scores': norm_scores,
-               'rois': rois, 'roi_scores_raw': out['roi_scores_raw'],
-               'seg_result': out['seg_result'], 'final_boxes': torch.stack(final_boxes),
-               'final_scores': torch.stack(final_scores),
-               'final_counts': torch.tensor(final_counts, device=rois.device)}
+            res = {'pred_boxes3d': pred, 'raw_scores': raw_scores, 'norm_scores': norm_scores,
+                   'rois': rois, 'roi_scores_raw': out['roi_scores_raw'],
+                   'seg_result': out['seg_result'], 'final_boxes': torch.stack(final_boxes),
+                   'final_scores': torch.stack(final_scores),
+                   'final_counts': torch.tensor(final_counts, device=rois.device)}
 
         if 'gt_boxes3d' in batch:
             gt = batch['gt_boxes3d']

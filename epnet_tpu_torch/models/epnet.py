@@ -19,6 +19,7 @@ from ..config import Config
 from ..ops.boxes import rotate_points_along_y
 from ..ops.pointops import QueryOptions, approx_allowed, query_options
 from ..ops.roipool3d import roipool3d
+from ..utils import trace
 from .layers import init_parameters
 from .proposal import ProposalLayer
 from .rcnn import RCNNNet
@@ -174,7 +175,7 @@ class EPNet(nn.Module):
         if not cfg.RPN.ENABLED:
             return self._forward_offline(batch, bn_momentum, generator)
         fixed = torch.no_grad() if cfg.RPN.FIXED else contextlib.nullcontext()
-        with fixed:
+        with fixed, trace.span('rpn'):
             out = self.rpn(batch['pts_input'], image=batch.get('img'),
                            xy=batch.get('pts_origin_xy'), bn_momentum=bn_momentum,
                            generator=generator)
@@ -189,20 +190,24 @@ class EPNet(nn.Module):
             rpn_features = out['backbone_features'].detach()
             seg_mask = (torch.sigmoid(rpn_scores_raw) > cfg.RPN.SCORE_THRESH).to(rpn_reg.dtype)
             pts_depth = torch.linalg.norm(xyz, dim=2)
-            rois, roi_scores_raw, roi_counts = self.proposal(rpn_scores_raw, rpn_reg, xyz)
+            with trace.span('proposal'):
+                rois, roi_scores_raw, roi_counts = self.proposal(rpn_scores_raw, rpn_reg, xyz)
             out.update(rois=rois, roi_scores_raw=roi_scores_raw, seg_result=seg_mask,
                        roi_counts=roi_counts)
             if self.training:
-                tgt = proposal_target_layer(rois, batch['gt_boxes3d'], xyz, rpn_features,
-                                            seg_mask, pts_depth, cfg, generator,
-                                            mesh=self.mesh, exact_ops=self.queries.exact_ops)
-                pts_input = torch.cat([tgt.sampled_pts.to(tgt.pts_feature.dtype),
-                                       tgt.pts_feature], -1)
+                with trace.span('target'):
+                    tgt = proposal_target_layer(rois, batch['gt_boxes3d'], xyz, rpn_features,
+                                                seg_mask, pts_depth, cfg, generator,
+                                                mesh=self.mesh, exact_ops=self.queries.exact_ops)
+                    pts_input = torch.cat([tgt.sampled_pts.to(tgt.pts_feature.dtype),
+                                           tgt.pts_feature], -1)
                 out.update(tgt._asdict())
-            else:
-                pts_input = pool_for_eval(cfg, rois, xyz, rpn_features, seg_mask, pts_depth,
-                                          self.queries.exact_ops)
-        out.update(self.rcnn(pts_input, bn_momentum, generator))
+        with trace.span('rcnn'):
+            if not self.training:
+                with torch.no_grad():
+                    pts_input = pool_for_eval(cfg, rois, xyz, rpn_features, seg_mask, pts_depth,
+                                              self.queries.exact_ops)
+            out.update(self.rcnn(pts_input, bn_momentum, generator))
         return out
 
     def _forward_offline(self, batch, bn_momentum, generator):

@@ -20,6 +20,7 @@ from ..config import Config
 from ..ops.bbox_codec import decode_bbox_target
 from ..ops.boxes import boxes3d_to_bev
 from ..ops.nms import nms_bev
+from ..utils import trace
 
 NMS_RANGES = (0.0, 40.0, 80.0)  # proposal_layer.py:65
 
@@ -30,7 +31,7 @@ def _first_k_masked(mask: torch.Tensor, k: int):
     n = mask.shape[0]
     key = torch.where(mask, torch.arange(n, device=mask.device), n)
     idx = torch.topk(key, k, largest=False, sorted=True).values
-    cnt = min(int(mask.sum()), k)
+    cnt = min(trace.host_int(mask.sum()), k)
     return torch.where(torch.arange(k, device=mask.device) < cnt, idx, 0), cnt
 
 

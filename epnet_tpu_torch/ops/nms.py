@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from .rotated_iou import boxes_iou_bev, iou_axis_aligned
 
 _BLOCK = 64
@@ -62,10 +63,10 @@ def nms_bev(boxes_bev: torch.Tensor, scores: torch.Tensor, thresh: float,
             s = s | (~s[i] & blk_mat[i])
         keep_blk = ~s & (start + iota_k < num_valid)
         kept[start:start + _BLOCK] = keep_blk
-        kept_cnt += int(keep_blk.sum())
+        kept_cnt += trace.host_int(keep_blk.sum())
         b += 1
     kept = kept[:N]
-    count = int(kept.sum())
+    count = trace.host_int(kept.sum())
 
     # first max_keep kept ranks, in score order
     k = min(max_keep, N)

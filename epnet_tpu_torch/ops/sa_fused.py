@@ -56,6 +56,7 @@ import ctypes
 
 import torch
 
+from ..utils import trace
 from . import cuda_build
 
 
@@ -277,6 +278,16 @@ def check_bf16_takes(what, T, N, S, C1, C2, C3):
     check_bwd_takes(what, T, N, S, C1, C2, C3)
 
 
+def _count_rows(direction, counts, cents, S):
+    """When tracing: the dedupe's distinct rows (the first ``cents``
+    entries of its ``counts`` scratch, summed at the snapshot) and the rows
+    the balls gather, ``cents * S``, as ``sa_rows_distinct.<direction>``
+    and ``sa_rows_gathered.<direction>``."""
+    if trace.on():
+        trace.count('sa_rows_distinct.' + direction, counts[:cents])
+        trace.count('sa_rows_gathered.' + direction, cents * S)
+
+
 def _launch_rows(wrapper, entry, dims, inputs, extra=()):
     """Kernel B, G, B-bf16 or G-bf16 (C entry point ``entry``) for ``wrapper``,
     whose launch count it keeps: pads C1 and C2 to 128 and W3's columns to a
@@ -308,6 +319,7 @@ def _launch_rows(wrapper, entry, dims, inputs, extra=()):
             T, N, M, S, C3, C3P, *extra, stream)
     cuda_build.check(lib, err, f'{what} launch')
     wrapper.launches += 1
+    _count_rows('fwd', counts, T * M, S)
     return out
 
 
@@ -466,6 +478,7 @@ def _launch_bwd(wrapper, entry, dims, inputs, extra, selections):
             T, N, M, S, C3P, *extra, blocks, stream)
     cuda_build.check(lib, err, f'{what} launch')
     wrapper.launches += 1
+    _count_rows('bwd', counts, cents, S)
     dw2, db2, dw3, db3 = torch.split(grads, [_WIDTH * _WIDTH, _WIDTH, _WIDTH * C3P, C3P])
     out = (dy[..., :C1], do[..., :C1], dw2.view(_WIDTH, _WIDTH)[:C1, :C2], db2[:C2],
            dw3.view(_WIDTH, C3P)[:C2, :C3], db3[:C3])

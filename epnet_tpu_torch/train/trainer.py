@@ -32,6 +32,7 @@ import torch
 from ..config import Config
 from ..models.epnet import EPNet
 from ..parallel.mesh import Mesh, barrier, sum_gradients
+from ..utils import trace
 from .loss import joint_loss
 from .optimizer import AdamWOneCycle, EpochDecay, make_optimizer
 from .schedules import bn_momentum_at
@@ -73,21 +74,25 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], bn_momentum: f
     mesh (``EPNet.set_mesh``), and the gradients are summed over ranks
     before the clip. Returns the detached ``tb`` dict (the global batch's),
     with the gradient norm before the clip as ``grad_norm``."""
-    model = state.model
-    if model.mesh is not mesh:
-        model.set_mesh(mesh)
-    model.train()
-    state.optimizer.zero_grad()
-    out = model(batch, bn_momentum=bn_momentum, generator=generator)
-    loss, tb = joint_loss(model.cfg, out, batch, mesh)
-    if mesh is None:
-        loss.backward()
-    else:
-        (loss / mesh.world).backward()
-        sum_gradients(mesh, model.parameters())
-    tb['grad_norm'] = state.optimizer.step()
-    state.step += 1
-    return {k: torch.as_tensor(v).detach() for k, v in tb.items()}
+    with trace.span('step'):
+        model = state.model
+        if model.mesh is not mesh:
+            model.set_mesh(mesh)
+        model.train()
+        state.optimizer.zero_grad()
+        out = model(batch, bn_momentum=bn_momentum, generator=generator)
+        with trace.span('loss'):
+            loss, tb = joint_loss(model.cfg, out, batch, mesh)
+        with trace.span('backward'):
+            if mesh is None:
+                loss.backward()
+            else:
+                (loss / mesh.world).backward()
+                sum_gradients(mesh, model.parameters())
+        with trace.span('optimizer'):
+            tb['grad_norm'] = state.optimizer.step()
+        state.step += 1
+        return {k: torch.as_tensor(v).detach() for k, v in tb.items()}
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int, keep: int = 30) -> str:

@@ -1,4 +1,5 @@
-"""Where the eval forward's and the train step's time goes on the card.
+"""Where the eval request's and the train step's time goes on the card,
+read from the program's own spans and counters (``utils/trace.py``).
 
     python -m epnet_tpu_torch.utils.profiling [--requests 3] [--top 15] [--block_local] [--mixed]
         [--headline]
@@ -13,85 +14,50 @@ overrides (``EXACT_QUERIES residual``, ``RPN.BLOCK_LOCAL``,
 step); ``--headline`` takes the JAX package's headline configuration
 (``config.headline_config``: bf16 with the approximate queries) instead of
 the recipe, ``--block_local`` then adding both ``BLOCK_LOCAL`` flags.
-Eval (default): answers batch-1 requests on
-structured scenes and prints the median wall time of each stage (RPN,
-proposals, RoI pooling, RCNN). ``--train``: takes train steps on labelled
-batch-4 scenes and prints the median of each part of a step (RPN forward,
-proposals, target layer, RCNN forward, loss, backward, optimizer). Every
-stage is fenced by ``torch.cuda.synchronize()``. Then one
-``torch.profiler`` pass over a whole forward (or step): the device's busy
-share of its wall time and the kernels with the most device time. Needs a
-CUDA device.
+Eval (default): batch-1 requests (``eval.detect.joint_eval_step``) on
+structured scenes; ``--train``: train steps (``train.trainer.train_step``)
+on labelled batch-4 scenes. After a warm-up call, the calls run as they
+are under ``trace.recording()`` and one ``torch.profiler`` pass, and it
+prints for each span (``request`` or ``step`` and the stages inside it)
+the wall ms a call and the device's busy and idle ms inside it, the
+counters a call (host syncs by stage, the fused SA kernels' distinct and
+gathered rows, kernel launches), the device's busy share of the whole,
+and the kernels with the most device time. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
-import statistics
 import time
 
 import torch
 
-
-def _sync_ms(fn):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, (time.perf_counter() - t0) * 1e3
+from . import trace
 
 
-def stage_times(model, batch) -> dict:
-    """Wall ms of each stage of ``EPNet.forward``, run stage by stage."""
-    from ..models.epnet import pool_for_eval
-
-    cfg = model.cfg
-    t = {}
-    with torch.no_grad():
-        out, t['rpn'] = _sync_ms(lambda: model.rpn(batch['pts_input'], image=batch['img'],
-                                                   xy=batch['pts_origin_xy']))
-        scores = out['rpn_cls'][..., 0]
-        xyz = out['backbone_xyz']
-        (rois, _, _), t['proposal'] = _sync_ms(lambda: model.proposal(scores, out['rpn_reg'], xyz))
-        seg = (torch.sigmoid(scores) > cfg.RPN.SCORE_THRESH).to(out['rpn_reg'].dtype)
-        pooled, t['roipool'] = _sync_ms(lambda: pool_for_eval(
-            cfg, rois, xyz, out['backbone_features'], seg, torch.linalg.norm(xyz, dim=2)))
-        _, t['rcnn'] = _sync_ms(lambda: model.rcnn(pooled))
-    return t
+def _merged(intervals):
+    """Sorted (start, end) intervals, overlapping ones merged."""
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
 
 
-def train_stage_times(state, batch, bn_momentum: float, generator) -> dict:
-    """Wall ms of each part of one train step (the steps of
-    ``train.trainer.train_step`` and ``EPNet.forward``, run part by part)."""
-    from ..models.target_assign import proposal_target_layer
-    from ..train.loss import joint_loss
+def _on_device(e) -> bool:
+    """A device event, not the profiler's projection of a span's host
+    range onto the device's timeline (which bears the span's name)."""
+    return e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith(trace.PREFIX)
 
-    model, cfg = state.model, state.model.cfg
-    model.train()
-    state.optimizer.zero_grad()
-    t = {}
-    out, t['rpn_forward'] = _sync_ms(lambda: model.rpn(
-        batch['pts_input'], image=batch['img'], xy=batch['pts_origin_xy'],
-        bn_momentum=bn_momentum, generator=generator))
-    with torch.no_grad():
-        scores = out['rpn_cls'][..., 0].detach()
-        xyz = out['backbone_xyz'].detach()
-        (rois, _, _), t['proposal'] = _sync_ms(lambda: model.proposal(
-            scores, out['rpn_reg'].detach(), xyz))
-        seg = (torch.sigmoid(scores) > cfg.RPN.SCORE_THRESH).to(xyz.dtype)
-        tgt, t['target'] = _sync_ms(lambda: proposal_target_layer(
-            rois, batch['gt_boxes3d'], xyz, out['backbone_features'].detach(), seg,
-            torch.linalg.norm(xyz, dim=2), cfg, generator))
-    out.update(tgt._asdict())
-    rcnn, t['rcnn_forward'] = _sync_ms(lambda: model.rcnn(
-        torch.cat([tgt.sampled_pts.to(tgt.pts_feature.dtype), tgt.pts_feature], -1),
-        bn_momentum, generator))
-    out.update(rcnn)
-    (loss, _), t['loss'] = _sync_ms(lambda: joint_loss(cfg, out, batch))
-    _, t['backward'] = _sync_ms(loss.backward)
-    _, t['optimizer'] = _sync_ms(state.optimizer.step)
-    state.step += 1
-    return t
+
+def _kernel_rows(prof, top):
+    rows = [(k.key, k.device_time_total / 1e3, k.count) for k in prof.key_averages()
+            if k.device_type == torch.autograd.DeviceType.CUDA and k.device_time_total > 0
+            and not k.key.startswith(trace.PREFIX)]
+    rows.sort(key=lambda r: -r[1])
+    return rows[:top]
 
 
 def device_breakdown(fn, top: int = 15):
@@ -106,29 +72,54 @@ def device_breakdown(fn, top: int = 15):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # device intervals, merged so overlapping kernels count once
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, None
-    for s, e in spans:
-        if end is None or s > end:
-            busy += e - s
-            end = e
-        elif e > end:
-            busy += e - end
-            end = e
-    rows = [(k.key, k.device_time_total / 1e3, k.count) for k in prof.key_averages()
-            if k.device_type == torch.autograd.DeviceType.CUDA and k.device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    return wall, busy / 1e3, rows[:top]
+    busy = sum(e - s for s, e in _merged((e.time_range.start, e.time_range.end)
+                                         for e in prof.events() if _on_device(e)))
+    return wall, busy / 1e3, _kernel_rows(prof, top)
 
 
-def _report(per_stage, wall, busy, rows, what):
-    for k in per_stage[0]:
-        print(f'stage {k}: median {statistics.median(s[k] for s in per_stage):.3f} ms')
+def span_breakdown(fn, calls: int, top: int = 15) -> dict:
+    """``fn`` ``calls`` times under ``trace.recording()`` and
+    ``torch.profiler``: ``spans`` {name: (wall, busy, idle) ms a call inside
+    its ``epnet::`` ranges, on the profiler's clock}, ``counts`` {(span,
+    counter): a call}, ``wall_ms`` and ``busy_ms`` of the whole, and
+    ``kernels`` [(kernel, ms, calls)]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with trace.recording() as rec:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    dev = _merged((e.time_range.start, e.time_range.end) for e in events if _on_device(e))
+    spans = {}
+    for e in sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA
+                     and e.name.startswith(trace.PREFIX)), key=lambda e: e.time_range.start):
+        s, t = e.time_range.start, e.time_range.end
+        busy = sum(max(0.0, min(b, t) - max(a, s)) for a, b in dev if a < t and b > s)
+        acc = spans.setdefault(e.name[len(trace.PREFIX):], [0.0, 0.0])
+        acc[0] += (t - s) / 1e3 / calls
+        acc[1] += busy / 1e3 / calls
+    counts = {k: v / calls for k, v in rec.snapshot()['counts'].items() if v}
+    return {'spans': {k: (w, b, w - b) for k, (w, b) in spans.items()}, 'counts': counts,
+            'wall_ms': wall / calls, 'busy_ms': sum(e - s for s, e in dev) / 1e3 / calls,
+            'kernels': _kernel_rows(prof, top)}
+
+
+def _report(res, what, calls):
+    print(f'{calls} {what}s under the tracer, a {what}:')
+    for name, (wall, busy, idle) in res['spans'].items():
+        print(f'  span {name}: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle {idle:.3f} ms')
+    for (span, name), v in sorted(res['counts'].items(), key=lambda kv: (str(kv[0][0]), kv[0][1])):
+        print(f'  counter {name} in {span or "(no span)"}: {v:g}')
+    wall, busy = res['wall_ms'], res['busy_ms']
     print(f'profiled {what}: wall {wall:.3f} ms, device busy {busy:.3f} ms '
           f'({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%')
-    for name, ms, calls in rows:
-        print(f'  {ms:9.3f} ms  {calls:6d} calls  {name[:100]}')
+    for name, ms, n in res['kernels']:
+        print(f'  {ms:9.3f} ms  {n:6d} calls  {name[:100]}')
 
 
 def profile_train(dev, cfg, steps: int, batch_size: int, top: int):
@@ -141,10 +132,10 @@ def profile_train(dev, cfg, steps: int, batch_size: int, top: int):
     batches = [device_batch(full_batch(cfg, batch_size, seed=s, with_labels=True), dev)
                for s in range(steps + 1)]
     train_step(state, batches[-1], 0.1, gen)  # warm-up
-    per_stage = [train_stage_times(state, b, 0.1, gen) for b in batches[:steps]]
-    wall, busy, rows = device_breakdown(lambda: train_step(state, batches[0], 0.1, gen), top)
+    turn = iter(batches[:steps])
+    res = span_breakdown(lambda: train_step(state, next(turn), 0.1, gen), steps, top)
     print(f'train step, batch {batch_size}, {torch.cuda.get_device_name(0)}')
-    _report(per_stage, wall, busy, rows, 'train step')
+    _report(res, 'step', steps)
 
 
 def main(argv=None):
@@ -164,6 +155,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit('profiling needs a CUDA device')
     from ..config import block_local_config, headline_config, parity_config
+    from ..eval.detect import joint_eval_step
     from ..models.epnet import EPNet
     from ..train.trainer import device_batch
     from .testing import full_batch
@@ -186,10 +178,10 @@ def main(argv=None):
     model = EPNet(cfg, 'TEST', device=dev,
                   generator=torch.Generator(device=dev).manual_seed(0)).eval()
     batches = [device_batch(full_batch(cfg, 1, seed=seed), dev) for seed in range(args.requests)]
-    model(batches[0])  # warm-up
-    per_stage = [stage_times(model, b) for b in batches]
-    wall, busy, rows = device_breakdown(lambda: model(batches[0]), args.top)
-    _report(per_stage, wall, busy, rows, 'forward')
+    joint_eval_step(cfg, model, batches[0])  # warm-up
+    turn = iter(batches)
+    res = span_breakdown(lambda: joint_eval_step(cfg, model, next(turn)), args.requests, args.top)
+    _report(res, 'request', args.requests)
 
 
 if __name__ == '__main__':
