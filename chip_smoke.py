@@ -24,7 +24,7 @@ first use), then:
    points, a 384x1280 image, 100 RoIs of 512 points), random weights from a
    seeded generator, answering three batch-1 requests on distinct
    structured scenes; checks shapes, finiteness and the kernels' launch
-   counts (6 FPS, 2 fused-SA and 4 F launches a forward);
+   counts (6 FPS, 2 fused-SA, 4 F and 2 NMS launches a forward);
 4. holds the same model at tiny widths on the card (kernels) against the
    CPU (plain versions) under identical weights;
 5. holds the fused set-abstraction backward kernel (C) against its plain
@@ -39,8 +39,8 @@ first use), then:
    (forward, joint loss, backward, global-norm clip, AdamW under OneCycle)
    on batch-4 labelled structured scenes after a warm-up step; checks a
    finite loss and gradients, that the parameters moved, and 6 FPS, 2
-   fused-SA forward, 2 fused-SA backward, 4 D, 3 E and 4 F launches a
-   step;
+   fused-SA forward, 2 fused-SA backward, 4 D, 3 E, 4 F and 8 NMS (two
+   a scan) launches a step;
 7. holds one tiny-width train step on the card against the CPU under
    identical weights and identical sampled RoIs;
 8. holds the image tower's 3x3 conv weight-gradient kernels (D, stride 2,
@@ -297,12 +297,25 @@ first use), then:
    recipe, the ``host_syncs`` it counts against the synchronizing calls
    that ``torch.cuda.set_sync_debug_mode('warn')`` reports (those made in
    ``trace.host_int`` must equal the count; every other site is printed
-   with its calls a request or step), and on RCNN sa0's real train tables
+   with its calls a request or step), that the NMS kernel launches two a
+   scan inside the ``proposal`` span and nowhere else (none in ``detect``,
+   whose rotated overlap takes the plain loop), and on RCNN sa0's real train tables
    the distinct rows that kernels B and C count against ``_distinct_rows``'
-   recount of the same indices (equal).
+   recount of the same indices (equal);
+33. builds the NMS kernel (``csrc/nms.cu``) and prints ptxas's registers
+   and shared memory; holds it against the plain loop (``nms_bev_plain``),
+   index for index, in every call of the proposal layer at the recipe's
+   TEST and TRAIN budgets (near and far range, batch-2 structured scenes
+   with RPN-like outputs) and on a long walk (18,415 boxes, 1000 kept);
+   times the launch alone, the wrapper (sort, launch, the kept count's
+   read) and the plain loop with CUDA events at those shapes, and prints
+   the bound (the kept boxes' N-wide IoU passes at the f32 peak, the
+   boxes' bytes read once). Its launches on the main path are counted in
+   phases 3, 6 and 32.
 
 Launch counts are read around each main-path phase (3, 6, 9, 11, 14, 15,
-18, 20, 22 and 24-31) with the counters set to 0 just before it;
+18, 20, 22 and 24-31) with the counters set to 0 just before it (the NMS
+kernel's in phases 3 and 6);
 phase 28 counts in its ranks and in this process, and adds them up;
 the kernels line sums them. The script leaves TF32 as PyTorch sets it and checks that building
 the model turns it off, as the f32 recipe needs.
@@ -1126,7 +1139,7 @@ def phase_slice(dev):
     import torch
     from epnet_tpu_torch.config import parity_config
     from epnet_tpu_torch.models.epnet import EPNet
-    from epnet_tpu_torch.ops import conv2d, fps, sa_fused
+    from epnet_tpu_torch.ops import conv2d, fps, nms, sa_fused
 
     cfg = parity_config()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1141,7 +1154,7 @@ def phase_slice(dev):
     torch.cuda.synchronize()
 
     counters = (fps.furthest_point_sample_kernel, sa_fused.fused_point_mlp_max_kernel,
-                conv2d.conv3x3_s2_fwd_kernel)
+                conv2d.conv3x3_s2_fwd_kernel, nms.nms_bev_kernel)
     for c in counters:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1163,11 +1176,12 @@ def phase_slice(dev):
         for k, v in out.items():
             if v.is_floating_point() and not bool(torch.isfinite(v).all()):
                 raise AssertionError(f'request {seed}: non-finite values in {k}')
-        if delta != [6, 2, 4]:
-            raise AssertionError(f'request {seed}: kernel launches {delta}, expected [6, 2, 4]')
+        if delta != [6, 2, 4, 2]:
+            raise AssertionError(f'request {seed}: kernel launches {delta}, expected '
+                                 f'[6, 2, 4, 2]')
         print(f'request scene {seed}: {times[-1]:.2f} ms, rois {int(out["roi_counts"][0])}, '
-              f'launches fps +{delta[0]} sa_fused +{delta[1]} conv3x3_s2_fwd +{delta[2]}',
-              flush=True)
+              f'launches fps +{delta[0]} sa_fused +{delta[1]} conv3x3_s2_fwd +{delta[2]} '
+              f'nms_bev +{delta[3]}', flush=True)
     launches = [c.launches for c in counters]
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     print(f'slice forward, batch 1: median {statistics.median(times):.2f} ms over '
@@ -1244,13 +1258,14 @@ def _train_counters():
             conv2d.dw3x3_s1_kernel, conv2d.conv3x3_s2_fwd_kernel)
 
 
-def _launches(delta):
-    return ' '.join(f'{n} +{d}' for n, d in zip(TRAIN_NAMES, delta))
+def _launches(delta, names=TRAIN_NAMES):
+    return ' '.join(f'{n} +{d}' for n, d in zip(names, delta))
 
 
 def phase_train(dev):
     import torch
     from epnet_tpu_torch.config import parity_config
+    from epnet_tpu_torch.ops import nms
     from epnet_tpu_torch.train.trainer import create_train_state, train_step
 
     cfg = parity_config()
@@ -1267,7 +1282,8 @@ def phase_train(dev):
     torch.cuda.synchronize()
     print(f'warm-up step: loss {float(tb["loss"]):.4f}', flush=True)
 
-    counters = _train_counters()
+    counters = _train_counters() + (nms.nms_bev_kernel,)
+    want = [6, 2, 2, 4, 3, 4, 2 * TRAIN_BATCH]  # the NMS kernel: two walks a scan
     for c in counters:
         c.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1292,12 +1308,13 @@ def phase_train(dev):
         if moved < 0.9 * len(params):
             raise AssertionError(f'train step on scene {seed}: {moved} of {len(params)} '
                                  f'parameters moved')
-        if delta != [6, 2, 2, 4, 3, 4]:
+        if delta != want:
             raise AssertionError(f'train step on scene {seed}: kernel launches {delta}, '
-                                 f'expected [6, 2, 2, 4, 3, 4]')
+                                 f'expected {want}')
         print(f'train step scene {seed}: {times[-1]:.2f} ms, loss {loss:.4f}, grad norm '
               f'{float(tb["grad_norm"]):.3f}, rcnn fg {int(tb["rcnn_cls_fg"])}, '
-              f'{moved}/{len(params)} parameters moved, launches {_launches(delta)}', flush=True)
+              f'{moved}/{len(params)} parameters moved, launches '
+              f'{_launches(delta, TRAIN_NAMES + ("nms_bev",))}', flush=True)
     launches = [c.launches for c in counters]
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     print(f'train step, batch {TRAIN_BATCH}: median {statistics.median(times):.2f} ms over '
@@ -4889,6 +4906,29 @@ def _sync_sites(fn):
                  if 'synchroniz' in str(w.message)]
 
 
+@contextlib.contextmanager
+def _nms_launches_by_span(rec):
+    """Counts the NMS kernel's calls by the innermost open span of the
+    recording ``rec``; the wrapper's own ``.launches`` keeps counting."""
+    from epnet_tpu_torch.ops import nms
+
+    real, where = nms.nms_bev_kernel, collections.Counter()
+
+    def spy(*args, **kw):
+        where[rec.stack[-1] if rec.stack else None] += 1
+        try:
+            return real(*args, **kw)
+        finally:  # the wrapper counted on the module's name, the spy
+            real.launches = spy.launches
+
+    spy.launches = real.launches
+    nms.nms_bev_kernel = spy  # nms_bev looks it up at each call
+    try:
+        yield where
+    finally:
+        nms.nms_bev_kernel = real
+
+
 def phase_trace(dev):
     import torch
     from epnet_tpu_torch.config import parity_config
@@ -4906,26 +4946,32 @@ def phase_trace(dev):
                                generator=torch.Generator(device=dev).manual_seed(0))
     batches = [_train_batch(cfg, seed, dev) for seed in (3, 0, 1)]
     draws = torch.Generator(device=dev).manual_seed(1)
-    calls = {'eval request, batch 1': [lambda b=b: joint_eval_step(cfg, model, b)
-                                       for b in requests],
-             f'train step, batch {TRAIN_BATCH}': [lambda b=b: train_step(state, b, 0.1, draws)
-                                                   for b in batches]}
+    calls = {'eval request, batch 1': (1, [lambda b=b: joint_eval_step(cfg, model, b)
+                                           for b in requests]),
+             f'train step, batch {TRAIN_BATCH}': (TRAIN_BATCH, [
+                 lambda b=b: train_step(state, b, 0.1, draws) for b in batches])}
     here = os.path.relpath(trace.__file__)
-    for what, fns in calls.items():
+    for what, (scans, fns) in calls.items():
         fns[0]()  # warm-up
         torch.cuda.synchronize()
         counted, made, others = 0, 0, collections.Counter()
         for fn in fns[1:]:
-            with trace.recording() as rec:
+            with trace.recording() as rec, _nms_launches_by_span(rec) as nms_where:
                 _, sites = _sync_sites(fn)
                 torch.cuda.synchronize()
-            counted += sum(v for (_, k), v in rec.snapshot()['counts'].items()
-                           if k == 'host_syncs')
+            counts = rec.snapshot()['counts']
+            counted += sum(v for (_, k), v in counts.items() if k == 'host_syncs')
             made += sum(1 for f, _ in sites if f == here)
             others.update((f, line) for f, line in sites if f != here)
+            launched = counts[(None, 'launches.nms_bev_kernel')]
+            if nms_where != {'proposal': 2 * scans} or launched != 2 * scans:
+                raise AssertionError(f'{what}: NMS kernel launches {launched}, by span '
+                                     f'{dict(nms_where)}; want {2 * scans}, all in proposal')
         n = len(fns) - 1
         print(f'tracer, {what}: host_syncs {counted / n:g} a call, synchronizing calls in '
-              f'trace.host_int {made / n:g}, elsewhere {sum(others.values()) / n:g}', flush=True)
+              f'trace.host_int {made / n:g}, elsewhere {sum(others.values()) / n:g}; '
+              f'launches.nms_bev_kernel {2 * scans} a call, all in proposal, none in detect',
+              flush=True)
         for (f, line), k in sorted(others.items()):
             print(f'  not counted: {f}:{line} {k / n:g} a call', flush=True)
         if counted != made:
@@ -4949,6 +4995,86 @@ def phase_trace(dev):
         if got != (recount, T * M * S):
             raise AssertionError(f'{name} {way}: the tracer counts {got}, the recount '
                                  f'{(recount, T * M * S)}')
+
+
+NMS_DESIGN = ('one block of 512 threads a call: the (N, 5) boxes read from device memory '
+              '(L1) at every step, a removed-bitmap of 64-bit words in shared memory; the '
+              'next kept box by warp ballots and __ffsll, then one N-wide IoU pass (ballots, '
+              'atomicOr) and one barrier a kept box')
+# the operations greedy NMS needs: 13 an IoU (4 max/min, 2 differences, 2 clamps, the product,
+# the areas' sum, the difference, the clamp at EPS, the division) beside 3 a box's area
+NMS_IOU_OPS, NMS_AREA_OPS = 13, 3
+
+
+def phase_nms(dev):
+    import numpy as np
+    import torch
+    from epnet_tpu_torch.config import parity_config
+    from epnet_tpu_torch.ops import cuda_build, nms
+    from epnet_tpu_torch.utils.testing import proposal_inputs, proposal_nms_calls
+
+    lib = nms._lib()
+    for line in cuda_build.build_log('nms').splitlines():
+        if 'registers' in line or 'smem' in line or 'spill' in line:
+            print(f'  nms: {line.strip()}')
+    rng = np.random.RandomState(9)
+    n = 18415
+    ctr = rng.uniform(-40, 40, (n, 2))
+    wh = rng.uniform(1.0, 4.0, (n, 2))
+    big = torch.from_numpy(np.concatenate([ctr - wh / 2, ctr + wh / 2, np.zeros((n, 1))],
+                                          1).astype(np.float32)).to(dev)
+    cfg = parity_config()
+    inputs = proposal_inputs(cfg, 5, dev, ties=True)
+    cases = [(f'{mode} {("near", "far")[k % 2]} scan {k // 2}', a, kw)
+             for mode in ('TEST', 'TRAIN')
+             for k, (a, kw) in enumerate(proposal_nms_calls(cfg, mode, inputs)[0])] + [
+        (f'a long walk, {n} boxes',
+         (big, torch.rand(n, device=dev), 0.3), {'max_keep': 1000, 'num_valid': n})]
+    rows, ms, wrap_ms, plain_ms, op_ms, byte_ms = [], 0.0, 0.0, 0.0, [], []
+    for name, args, kw in cases:
+        kw = {k: v for k, v in kw.items() if k != 'rotated'}
+        got, cnt = nms.nms_bev_kernel(*args, **kw)
+        want, want_cnt = nms.nms_bev_plain(*args, **kw)
+        if cnt != want_cnt or not torch.equal(got, want):
+            raise AssertionError(f'nms kernel differs from plain at {name}: count {cnt} vs '
+                                 f'{want_cnt}, {int((got != want).sum())} of {got.numel()} '
+                                 f'indices')
+        boxes, scores, thresh = args
+        N, nv, max_keep = boxes.shape[0], kw['num_valid'], kw['max_keep']
+        order = torch.argsort(-scores, stable=True)
+        sb = boxes[order].contiguous()
+        ranks = torch.empty(max_keep, dtype=torch.int64, device=dev)
+        count = torch.empty(1, dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def launch():
+            lib.epnet_nms_launch(sb.data_ptr(), nv, thresh, max_keep, ranks.data_ptr(),
+                                 count.data_ptr(), stream)
+        k = _time_ms(launch, 50)
+        w = _time_ms(lambda: nms.nms_bev_kernel(*args, **kw), 20)
+        p = _time_ms(lambda: nms.nms_bev_plain(*args, **kw), 3)
+        kept = ranks[:cnt].cpu().numpy()
+        pairs = int(np.sum(nv - 1 - kept[:-1])) if cnt > 1 else 0
+        o, m = _bound(NMS_IOU_OPS * pairs + NMS_AREA_OPS * nv, 20 * nv + 8 * cnt + 4)
+        smem = (nv + 63) // 64 * 8  # the bitmap
+        row = {'name': name, 'boxes': N, 'num_valid': nv, 'max_keep': max_keep,
+               'thresh': thresh, 'kept': cnt, 'smem_bytes': smem, 'ms': k,
+               'us_per_kept': 1e3 * k / max(cnt, 1), 'wrapper_ms': w, 'plain_ms': p,
+               'bound_ms': max(o, m), 'iou_pairs': pairs}
+        print(f'nms {name}: {N} boxes, {nv} valid, thresh {thresh}, kept {cnt} of {max_keep} '
+              f'(identical to plain); {smem} B of shared memory; kernel {k:.4f} ms '
+              f'({row["us_per_kept"]:.3f} us a kept box), wrapper {w:.4f} ms, plain {p:.4f} ms; '
+              f'bound {max(o, m):.6f} ms '
+              f'({pairs} IoUs at the f32 peak {o:.6f}, bytes {m:.6f})', flush=True)
+        rows.append(row)
+        if 'scan' in name:
+            ms, wrap_ms, plain_ms = ms + k, wrap_ms + w, plain_ms + p
+            op_ms.append(o)
+            byte_ms.append(m)
+    print(f'nms: the proposal layer\'s TEST and TRAIN calls on 2 scans: kernel {ms:.4f} ms, '
+          f'wrapper {wrap_ms:.4f} ms, plain {plain_ms:.4f} ms', flush=True)
+    return {'max_abs_err': 0, 'ms': ms, 'wrapper_ms': wrap_ms, 'plain_ms': plain_ms,
+            **_bound_keys(op_ms, byte_ms), 'library_ms': None, 'per_shape': rows}
 
 
 def phase_data_parallel(dev):
@@ -5104,7 +5230,7 @@ def main():
     torch.cuda.set_device(dev)
 
     t0 = time.perf_counter()
-    libs = ('fps', 'sa_fused', 'sa_fused_bwd', 'conv3x3_dw', 'conv3x3_s2_fwd')
+    libs = ('fps', 'sa_fused', 'sa_fused_bwd', 'conv3x3_dw', 'conv3x3_s2_fwd', 'nms')
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:  # one nvcc each, together
         for f in [pool.submit(cuda_build.load_library, name) for name in libs]:
             f.result()
@@ -5118,10 +5244,11 @@ def main():
     launches = collections.Counter()
     fps_res = phase_fps(dev)
     sa_res = phase_sa(dev)
-    launches.update(dict(zip(('fps', 'sa_fused_fwd', 'conv3x3_s2_fwd'), phase_slice(dev))))
+    launches.update(dict(zip(('fps', 'sa_fused_fwd', 'conv3x3_s2_fwd', 'nms_bev'),
+                             phase_slice(dev))))
     phase_small_reference(dev)
     bwd_res = phase_sa_bwd(dev)
-    launches.update(dict(zip(TRAIN_NAMES, phase_train(dev))))
+    launches.update(dict(zip(TRAIN_NAMES + ('nms_bev',), phase_train(dev))))
     phase_small_train_reference(dev)
     dw_res = phase_conv_dw(dev)
     launches.update(dict(zip(TRAIN_NAMES, phase_train_dw(dev))))
@@ -5152,6 +5279,7 @@ def main():
     launches.update(phase_switches(dev))
     launches.update(phase_ablations(dev))
     phase_trace(dev)
+    nms_res = phase_nms(dev)
 
     kernels = [
         {'name': 'fps', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/fps.cu',
@@ -5212,6 +5340,9 @@ def main():
          'source': 'epnet_tpu_torch/csrc/conv3x3_dw.cu',
          'replaces': 'tools/conv_dw_pallas_attic.py:258, tools/conv_dw_pallas_attic.py:67',
          'design': DW_BF16_DESIGN, **bf16_bwd_res['conv3x3_dw_s1']},
+        {'name': 'nms_bev', 'route': 'cuda', 'source': 'epnet_tpu_torch/csrc/nms.cu',
+         'replaces': 'none: no TPU kernel (epnet_tpu/ops/nms.py::nms_bev is a lax.while_loop '
+                     'that XLA compiles)', 'design': NMS_DESIGN, **nms_res},
     ]
     for k in kernels:
         k['launches'] = launches[k['name']]

@@ -1,2 +1,3 @@
 """Point, box and image operators; the hand-written kernels live behind
-``fps.py`` and ``sa_fused.py`` (sources in ``../csrc``)."""
+``fps.py``, ``sa_fused.py``, ``conv2d.py`` and ``nms.py`` (sources in
+``../csrc``)."""

@@ -164,6 +164,44 @@ def structured_scene(rng, n_points, n_cars=8, img_hw=(384, 1280),
     return pts, pts_xy, gt
 
 
+def proposal_inputs(cfg, seed, device, batch=2, n_points=16384, ties=False):
+    """RPN-like outputs over ``batch`` structured scenes of ``n_points``, the
+    ``ProposalLayer``'s inputs on ``device``: logits (B, N), regression
+    (B, N, C) and points (B, N, 3); ``ties`` rounds the logits to a grid of
+    1/4, so that many scores tie."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    xyz = np.stack([structured_scene(rng, n_points)[0] for _ in range(batch)])
+    logits = rng.normal(0, 2, (batch, n_points)).astype(np.float32)
+    if ties:
+        logits = np.round(logits * 4) / 4
+    reg = rng.normal(0, 1, (batch, n_points, cfg.RPN.reg_channel)).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (logits, reg, xyz)]
+
+
+def proposal_nms_calls(cfg, mode, inputs):
+    """The arguments ``(args, kwargs)`` of every ``nms_bev`` call that a
+    ``mode`` ``ProposalLayer`` makes on ``inputs``, in order, and the layer's
+    output with the plain loop (``nms_bev_plain``) in each call."""
+    from epnet_tpu_torch.models import proposal
+    from epnet_tpu_torch.ops import nms
+
+    calls = []
+
+    def plain(*args, **kw):
+        calls.append((args, kw))
+        return nms.nms_bev_plain(*args, **kw)
+
+    real = proposal.nms_bev
+    proposal.nms_bev = plain
+    try:
+        out = proposal.ProposalLayer(cfg, mode)(*inputs)
+    finally:
+        proposal.nms_bev = real
+    return calls, out
+
+
 # The block-local configuration at test widths (``EXACT_QUERIES`` 'residual',
 # both BLOCK_LOCAL flags), each size the least that engages its gate: RPN sa0
 # groups block-locally (2048 > 1024 points, 512 centroids in blocks of 64, a

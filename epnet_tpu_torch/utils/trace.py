@@ -54,10 +54,10 @@ _recorder = None  # the Recorder while recording(), else None
 
 def kernel_wrappers() -> list:
     """The CUDA kernel wrappers that count their launches (``.launches``)."""
-    from ..ops import conv2d, fps, sa_fused
+    from ..ops import conv2d, fps, nms, sa_fused
 
     found = {}
-    for mod in (fps, sa_fused, conv2d):
+    for mod in (fps, sa_fused, conv2d, nms):
         for f in vars(mod).values():
             if callable(f) and hasattr(f, 'launches'):
                 found[f.__name__] = f
